@@ -1,0 +1,53 @@
+"""Flax parameters (nested dicts of numpy arrays) -> the port's state_dict.
+
+The port's modules carry the flax module names, so the mapping is by name:
+`enc_layers_3` becomes `enc_layers.3`; a Dense `kernel` [in, out] becomes
+`weight` [out, in]; an Embed `embedding` and a LayerNorm `scale` become
+`weight`; raw parameters (SplitMessageChain's W_e, W2, b2, W3, b3) keep
+their name and layout. The VQ codebook is a plain array.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_LIST = re.compile(r"^(enc_layers|dec_layers)_(\d+)$")
+_LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict) or hasattr(val, "items"):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def flax_to_state_dict(params):
+    """params: the flax variables ({'params': {...}}) or the inner tree."""
+    if "params" in params:
+        params = params["params"]
+    out = {}
+    for path, val in _flatten(params):
+        arr = np.array(val, dtype=np.float32)
+        names = [_LIST.sub(r"\1.\2", p) for p in path[:-1]]
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr = arr.T
+        names.append(_LEAF.get(leaf, leaf))
+        out[".".join(names)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_flax(module, params):
+    """Load flax params into `module` (every key must match)."""
+    module.load_state_dict(flax_to_state_dict(params), strict=True)
+    return module
+
+
+def codebook_from_flax(codebook, device="cuda"):
+    """The VQ codebook [n_codes, dim] (e.g. `VQState.codebook`)."""
+    return torch.as_tensor(np.asarray(codebook, dtype=np.float32), device=device)

@@ -1,0 +1,234 @@
+"""Gaussian diffusion (iDDPM lineage): schedules, respacing and samplers.
+
+Counterpart of codlad_tpu/gen/diffusion.py for sampling: the schedules are
+computed in float64 numpy and kept as float32 tensors, as the JAX package
+keeps them; the sampling loops are Python loops over the respaced steps.
+Noise comes from an explicit `torch.Generator`, or is injected: `noise` is
+x_T and `noises[i]` the z of the i-th ancestral step, so a test can replay
+another implementation's random stream.
+
+Model signature: model_fn(x, t_base) -> [B, ..., C or 2C], where t_base is
+the base-model timestep (`timestep_map` applied).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def get_named_beta_schedule(name, num_steps):
+    if name == "linear":
+        scale = 1000 / num_steps
+        return np.linspace(scale * 1e-4, scale * 0.02, num_steps, dtype=np.float64)
+    if name == "squaredcos_cap_v2":
+        def alpha_bar(t):
+            return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+        return np.array([min(1 - alpha_bar((i + 1) / num_steps) / alpha_bar(i / num_steps),
+                             0.999) for i in range(num_steps)])
+    raise ValueError(name)
+
+
+def space_timesteps(num_timesteps, section_counts):
+    """Subset of base timesteps to keep ("ddimN" or strided sections)."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            desired = int(section_counts[len("ddim"):])
+            for i in range(1, num_timesteps):
+                if len(range(0, num_timesteps, i)) == desired:
+                    return set(range(0, num_timesteps, i))
+            raise ValueError(f"cannot create exactly {desired} ddim steps")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per = num_timesteps // len(section_counts)
+    extra = num_timesteps % len(section_counts)
+    start_idx, all_steps = 0, []
+    for i, count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < count:
+            raise ValueError(f"cannot divide section of {size} steps into {count}")
+        stride = 1 if count <= 1 else (size - 1) / (count - 1)
+        cur = 0.0
+        for _ in range(count):
+            all_steps.append(start_idx + round(cur))
+            cur += stride
+        start_idx += size
+    return set(all_steps)
+
+
+def _wrap_pm1(x):
+    """Angle wrap into [-1, 1) for 2-channel angle data."""
+    return torch.remainder(x + 1, 2) - 1
+
+
+class GaussianDiffusion:
+    """mean_type: 'epsilon' | 'xstart'; var_type: 'learned_range' |
+    'fixed_small' | 'fixed_large'."""
+
+    def __init__(self, betas, mean_type="epsilon", var_type="learned_range",
+                 timestep_map=None):
+        self.betas = np.asarray(betas, dtype=np.float64)
+        self.mean_type = mean_type
+        self.var_type = var_type
+        betas = self.betas
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
+        acp_prev = np.append(1.0, acp[:-1])
+        post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+        sched = {
+            "betas": betas,
+            "alphas_cumprod": acp,
+            "sqrt_recip_acp": np.sqrt(1.0 / acp),
+            "sqrt_recipm1_acp": np.sqrt(1.0 / acp - 1.0),
+            "posterior_variance": post_var,
+            "posterior_log_var_clipped": np.log(np.append(post_var[1], post_var[1:])),
+            "posterior_mean_c1": betas * np.sqrt(acp_prev) / (1.0 - acp),
+            "posterior_mean_c2": (1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp),
+            "log_betas": np.log(betas),
+            "alphas_cumprod_prev": acp_prev,
+        }
+        if var_type == "fixed_large":
+            sched["fixed_large_log_var"] = np.log(np.append(post_var[1], betas[1:]))
+        self._sched = {k: torch.tensor(v, dtype=torch.float32) for k, v in sched.items()}
+        self.timestep_map = (None if timestep_map is None
+                             else torch.as_tensor(np.asarray(timestep_map), dtype=torch.int64))
+        self._on = {}  # device -> (schedule, timestep map) on that device
+
+    @property
+    def num_timesteps(self):
+        return len(self.betas)
+
+    def _tables(self, device):
+        key = str(device)
+        if key not in self._on:
+            tmap = None if self.timestep_map is None else self.timestep_map.to(device)
+            self._on[key] = ({k: v.to(device) for k, v in self._sched.items()}, tmap)
+        return self._on[key]
+
+    def _extract(self, key, t, ndim):
+        v = self._tables(t.device)[0][key][t]
+        return v.reshape(v.shape + (1,) * (ndim - 1))
+
+    def map_t(self, t):
+        """Respaced index -> base-model timestep."""
+        tmap = self._tables(t.device)[1]
+        return t if tmap is None else tmap[t]
+
+    def q_posterior_mean(self, x_start, x_t, t):
+        nd = x_t.dim()
+        return (self._extract("posterior_mean_c1", t, nd) * x_start
+                + self._extract("posterior_mean_c2", t, nd) * x_t)
+
+    def _predict_xstart_from_eps(self, x_t, t, eps):
+        nd = x_t.dim()
+        return (self._extract("sqrt_recip_acp", t, nd) * x_t
+                - self._extract("sqrt_recipm1_acp", t, nd) * eps)
+
+    def _predict_eps_from_xstart(self, x_t, t, x_start):
+        nd = x_t.dim()
+        return ((self._extract("sqrt_recip_acp", t, nd) * x_t - x_start)
+                / self._extract("sqrt_recipm1_acp", t, nd))
+
+    def p_mean_variance(self, model_output, x, t):
+        """-> dict of mean, log_variance, pred_xstart."""
+        C, nd = x.shape[-1], x.dim()
+        if self.var_type == "learned_range":
+            model_output, var_values = model_output.chunk(2, dim=-1)
+            min_log = self._extract("posterior_log_var_clipped", t, nd)
+            max_log = self._extract("log_betas", t, nd)
+            frac = (var_values + 1) / 2
+            model_log_var = frac * max_log + (1 - frac) * min_log
+        else:
+            key = ("posterior_log_var_clipped" if self.var_type == "fixed_small"
+                   else "fixed_large_log_var")
+            model_log_var = self._extract(key, t, nd).expand(x.shape)
+        if self.mean_type == "xstart":
+            pred_xstart = model_output
+        else:
+            pred_xstart = self._predict_xstart_from_eps(x, t, model_output)
+        if C == 2:
+            pred_xstart = _wrap_pm1(pred_xstart)
+        mean = self.q_posterior_mean(pred_xstart, x, t)
+        return {"mean": mean, "log_variance": model_log_var, "pred_xstart": pred_xstart}
+
+    def _t(self, x, t_idx):
+        return torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
+
+    def p_sample(self, model_fn, x, t_idx, z):
+        """One ancestral step x_t -> x_{t-1} with noise z.
+        Returns (sample, pred_xstart)."""
+        t = self._t(x, t_idx)
+        out = self.p_mean_variance(model_fn(x, self.map_t(t)), x, t)
+        nonzero = float(t_idx != 0)
+        sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * z
+        if x.shape[-1] == 2:
+            sample = _wrap_pm1(sample)
+        return sample, out["pred_xstart"]
+
+    def p_sample_loop(self, model_fn, shape, noise=None, noises=None,
+                      generator=None, device="cuda"):
+        """Ancestral sampling over every (respaced) step."""
+        x = noise if noise is not None else torch.randn(
+            shape, generator=generator, device=device)
+        for i in range(self.num_timesteps):
+            z = noises[i] if noises is not None else torch.randn(
+                x.shape, generator=generator, device=x.device)
+            x, _ = self.p_sample(model_fn, x, self.num_timesteps - 1 - i, z)
+        return x
+
+    def ddim_sample(self, model_fn, x, t_idx, eta=0.0, z=None):
+        """One DDIM step x_t -> x_{t-1}; z is needed only when eta != 0.
+        Returns (sample, pred_xstart)."""
+        nd = x.dim()
+        t = self._t(x, t_idx)
+        out = self.p_mean_variance(model_fn(x, self.map_t(t)), x, t)
+        pred_xstart = out["pred_xstart"]
+        eps = self._predict_eps_from_xstart(x, t, pred_xstart)
+        acp = self._extract("alphas_cumprod", t, nd)
+        acp_prev = self._extract("alphas_cumprod_prev", t, nd)
+        sigma = (eta * torch.sqrt((1.0 - acp_prev) / (1.0 - acp))
+                 * torch.sqrt(1.0 - acp / acp_prev))
+        mean = (torch.sqrt(acp_prev) * pred_xstart
+                + torch.sqrt(torch.clamp(1.0 - acp_prev - sigma ** 2, min=0.0)) * eps)
+        sample = mean if eta == 0.0 else mean + float(t_idx != 0) * sigma * z
+        if x.shape[-1] == 2:
+            sample = _wrap_pm1(sample)
+        return sample, pred_xstart
+
+    def ddim_sample_loop(self, model_fn, shape, noise=None, noises=None, eta=0.0,
+                         generator=None, device="cuda"):
+        x = noise if noise is not None else torch.randn(
+            shape, generator=generator, device=device)
+        for i in range(self.num_timesteps):
+            z = None
+            if eta != 0.0:
+                z = noises[i] if noises is not None else torch.randn(
+                    x.shape, generator=generator, device=x.device)
+            x, _ = self.ddim_sample(model_fn, x, self.num_timesteps - 1 - i, eta, z)
+        return x
+
+
+def create_diffusion(timestep_respacing=None, noise_schedule="linear",
+                     sigma_small=False, predict_xstart=False, learn_sigma=True,
+                     diffusion_steps=1000):
+    """Respaced diffusion with the reference defaults."""
+    betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
+    if timestep_respacing is None or timestep_respacing == "":
+        timestep_respacing = [diffusion_steps]
+    use_steps = space_timesteps(diffusion_steps, timestep_respacing)
+    acp = np.cumprod(1.0 - betas)
+    last = 1.0
+    new_betas, tmap = [], []
+    for i, a in enumerate(acp):
+        if i in use_steps:
+            new_betas.append(1 - a / last)
+            last = a
+            tmap.append(i)
+    return GaussianDiffusion(
+        betas=np.array(new_betas),
+        mean_type="xstart" if predict_xstart else "epsilon",
+        var_type=("learned_range" if learn_sigma
+                  else ("fixed_small" if sigma_small else "fixed_large")),
+        timestep_map=np.array(tmap),
+    )

@@ -1,0 +1,266 @@
+"""ProteinMPNN-style kNN graph blocks with adaLN timestep conditioning.
+
+Counterpart of codlad_tpu/nn/mpnn.py on the sampling path: the C-alpha
+featurizer (`CAProteinFeatures`), the split message chain in its
+`reduce_sum` and `ln_mod` modes, and the trunk-mode encoder and decoder
+layers. Neighbour gathers index the node tables directly (the JAX
+package's one-hot gather operand is a TPU device and has no counterpart).
+Attribute names follow the flax module names, so converted parameters load
+by name (convert/from_flax.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from codlad_tpu_torch.kernels.mpnn_kernels import (fused_message_edge_lnmod,
+                                                   fused_message_sum,
+                                                   gather_rows)
+from codlad_tpu_torch.nn.layers import layer_norm, linear, raw_param
+
+
+def gather_nodes(nodes, idx):
+    """nodes [B, N, C], idx [B, M, K] -> [B, M, K, C]."""
+    return gather_rows(nodes, idx.long())
+
+
+def modulate(x, shift, scale):
+    """x [B, L, ...] modulated by per-sample shift/scale [B, H]."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    return x * (1 + scale.reshape(shape)) + shift.reshape(shape)
+
+
+class PositionWiseFeedForward(nn.Module):
+    def __init__(self, num_in, num_hidden, num_ff, gen):
+        super().__init__()
+        self.Dense_0 = linear(num_in, num_ff, gen)
+        self.Dense_1 = linear(num_ff, num_hidden, gen)
+
+    def forward(self, x):
+        return self.Dense_1(F.gelu(self.Dense_0(x)))  # erf gelu
+
+
+class PositionalEncodings(nn.Module):
+    """Relative sequence-offset one-hot -> linear (clipped at +/-32)."""
+
+    def __init__(self, num_embeddings, gen, max_relative_feature=32):
+        super().__init__()
+        self.m = max_relative_feature
+        self.Dense_0 = linear(2 * self.m + 2, num_embeddings, gen, init="lecun")
+
+    def forward(self, offset, mask):
+        m = self.m
+        d = torch.clamp(offset + m, 0, 2 * m) * mask + (1 - mask) * (2 * m + 1)
+        return self.Dense_0(F.one_hot(d.long(), 2 * m + 2).to(self.Dense_0.weight.dtype))
+
+
+def _normalize(v, eps=1e-8):
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=eps)
+
+
+def _quaternions(Rm):
+    """Rotation matrices [..., 3, 3] -> unit quaternions [..., 4]."""
+    diag = torch.diagonal(Rm, dim1=-2, dim2=-1)
+    Rxx, Ryy, Rzz = diag.unbind(-1)
+    magnitudes = 0.5 * torch.sqrt(torch.abs(1 + torch.stack(
+        [Rxx - Ryy - Rzz, -Rxx + Ryy - Rzz, -Rxx - Ryy + Rzz], dim=-1)))
+    signs = torch.sign(torch.stack([
+        Rm[..., 2, 1] - Rm[..., 1, 2],
+        Rm[..., 0, 2] - Rm[..., 2, 0],
+        Rm[..., 1, 0] - Rm[..., 0, 1],
+    ], dim=-1))
+    xyz = signs * magnitudes
+    w = torch.sqrt(F.relu(1 + diag.sum(-1, keepdim=True))) / 2.0
+    q = torch.cat([xyz, w], dim=-1)
+    # degenerate frames can give q == 0
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+
+
+def _frames(X):
+    """Per-node local frames O [B, L, 9] from the C-alpha chain."""
+    dX = X[:, 1:, :] - X[:, :-1, :]
+    dX_norm = torch.linalg.norm(dX, dim=-1)
+    dX_mask = ((3.6 < dX_norm) & (dX_norm < 4.0)).to(X.dtype)
+    U = _normalize(dX * dX_mask[..., None])
+    u_2, u_1 = U[:, :-2], U[:, 1:-1]
+    n_2 = _normalize(torch.cross(u_2, u_1, dim=-1))
+    o_1 = _normalize(u_2 - u_1)
+    O = torch.stack([o_1, n_2, torch.cross(o_1, n_2, dim=-1)], dim=2)
+    O = O.reshape(O.shape[0], O.shape[1], 9)
+    return F.pad(O, (0, 0, 1, 2))
+
+
+class CAProteinFeatures(nn.Module):
+    """C-alpha-only structure featurizer -> (edge embeddings, kNN indices).
+
+    E_idx comes from a stable ascending sort of the adjusted distances, so
+    ties (every padded column sits at the row's maximum) keep the lower
+    index first, as `jax.lax.top_k` does."""
+
+    def __init__(self, edge_features, gen, num_positional_embeddings=16,
+                 num_rbf=16, top_k=30):
+        super().__init__()
+        self.num_rbf = num_rbf
+        self.top_k = top_k
+        self.PositionalEncodings_0 = PositionalEncodings(num_positional_embeddings, gen)
+        edge_in = num_positional_embeddings + 9 * num_rbf + 7
+        self.Dense_0 = linear(edge_in, edge_features, gen, bias=False, init="lecun")
+        self.LayerNorm_0 = nn.LayerNorm(edge_features, eps=1e-6)
+
+    def _dist(self, X, mask):
+        mask_2d = mask[:, None, :] * mask[:, :, None]
+        dX = X[:, None, :, :] - X[:, :, None, :]
+        D = mask_2d * torch.sqrt(torch.sum(dX ** 2, dim=-1) + 1e-6)
+        D_max = D.max(dim=-1, keepdim=True).values
+        D_adjust = D + (1.0 - mask_2d) * D_max
+        k = min(self.top_k, X.shape[1])
+        vals, E_idx = torch.sort(D_adjust, dim=-1, stable=True)
+        return vals[..., :k], E_idx[..., :k]
+
+    def _rbf(self, D):
+        mu = torch.as_tensor(np.linspace(2.0, 22.0, self.num_rbf), dtype=D.dtype,
+                             device=D.device)
+        sigma = (22.0 - 2.0) / self.num_rbf
+        return torch.exp(-(((D[..., None] - mu) / sigma) ** 2))
+
+    def _get_rbf(self, A, B, idx):
+        Bn = gather_nodes(B, idx)
+        D = torch.sqrt(torch.sum((A[:, :, None, :] - Bn) ** 2, dim=-1) + 1e-6)
+        return self._rbf(D)
+
+    @staticmethod
+    def _orient_edges(X, O, idx):
+        B, L, K = idx.shape
+        On = gather_nodes(O, idx).reshape(B, L, K, 3, 3)
+        dXn = gather_nodes(X, idx) - X[:, :, None, :]
+        Om = O.reshape(B, L, 3, 3)
+        dU = _normalize(torch.einsum("blij,blkj->blki", Om, dXn))
+        Q = _quaternions(torch.einsum("blji,blkjm->blkim", Om, On))
+        return torch.cat([dU, Q], dim=-1)
+
+    def forward(self, Ca, mask, residue_idx, chain_labels):
+        D_neighbors, E_idx = self._dist(Ca, mask)
+        Ca_0 = F.pad(Ca[:, :-1], (0, 0, 1, 0))
+        Ca_1 = Ca
+        Ca_2 = F.pad(Ca[:, 1:], (0, 0, 0, 1))
+        O_features = self._orient_edges(Ca, _frames(Ca), E_idx)
+
+        rbf_all = [self._rbf(D_neighbors)]
+        for A, Bc in [(Ca_0, Ca_0), (Ca_2, Ca_2), (Ca_0, Ca_1), (Ca_0, Ca_2),
+                      (Ca_1, Ca_0), (Ca_1, Ca_2), (Ca_2, Ca_0), (Ca_2, Ca_1)]:
+            rbf_all.append(self._get_rbf(A, Bc, E_idx))
+        rbf_all = torch.cat(rbf_all, dim=-1)
+
+        offset = residue_idx[:, :, None] - gather_nodes(
+            residue_idx[..., None].to(torch.float32), E_idx)[..., 0].to(residue_idx.dtype)
+        E_chains = (gather_nodes(chain_labels[..., None], E_idx)[..., 0]
+                    == chain_labels[:, :, None]).to(torch.int32)
+        E_positional = self.PositionalEncodings_0(offset, E_chains)
+        E = torch.cat([E_positional, rbf_all, O_features], dim=-1).to(Ca.dtype)
+        return self.LayerNorm_0(self.Dense_0(E)), E_idx
+
+
+class SplitMessageChain(nn.Module):
+    """The MPNN message MLP W3(gelu(W2(gelu(W1(cat[self, edge, nbr]))))) with
+    W1 split by input block: the self and neighbour blocks are transformed
+    per node (A = Dense_0(self), Gn = Dense_1(nbr)), the edge block per edge
+    inside the kernel (W_e). reduce_sum=True runs K1 (masked K-sum / scale);
+    otherwise `ln_mod=(sh, sc, g)` runs K2 (residual LayerNorm + adaLN)."""
+
+    def __init__(self, num_hidden, self_dim, nbr_dim, edge_dim, gen,
+                 reduce_sum=False, scale=30.0):
+        super().__init__()
+        H = num_hidden
+        self.reduce_sum = reduce_sum
+        self.scale = scale
+        self.Dense_0 = linear(self_dim, H, gen)
+        self.Dense_1 = linear(nbr_dim, H, gen, bias=False, init="xavier")
+        self.W_e = raw_param((edge_dim, H), gen)
+        self.W2 = raw_param((H, H), gen)
+        self.b2 = raw_param((H,), gen, init="uniform", fan_in=H)
+        self.W3 = raw_param((H, H), gen)
+        self.b3 = raw_param((H,), gen, init="uniform", fan_in=H)
+
+    def components(self, h_self, nbr_node_pre):
+        """(A [B, L, H], Gn [B, N, H], W_e, W2, b2, W3, b3)."""
+        return (self.Dense_0(h_self), self.Dense_1(nbr_node_pre), self.W_e,
+                self.W2, self.b2, self.W3, self.b3)
+
+    def forward(self, h_self, edge_pre, nbr_node_pre, idx, mask_attend=None,
+                ln_mod=None):
+        A, Gn, W_e, W2, b2, W3, b3 = self.components(h_self, nbr_node_pre)
+        if self.reduce_sum:
+            if mask_attend is None:
+                mask_attend = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
+            return fused_message_sum(A, edge_pre, Gn, idx, mask_attend, W_e, W2,
+                                     b2, W3, b3, self.scale)
+        if ln_mod is None:
+            raise NotImplementedError("raw per-edge messages (adaln 'residual') "
+                                      "are not ported")
+        sh, sc, g = ln_mod
+        return fused_message_edge_lnmod(A, edge_pre, Gn, idx, W_e, W2, b2, W3,
+                                        b3, sh, sc, g)
+
+
+def _node_epilogue(layer, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V):
+    """Trunk-mode h_V update from a node-message sum: LN -> modulate/gate
+    -> PFF -> LN -> modulate/gate -> mask."""
+    h_V = layer_norm(h_V + dh.to(h_V.dtype))
+    h_V = g1[:, None, :] * modulate(h_V, sh1, sc1)
+    h_V = layer_norm(h_V + layer.PositionWiseFeedForward_0(h_V))
+    h_V = g2[:, None, :] * modulate(h_V, sh2, sc2)
+    if mask_V is not None:
+        h_V = mask_V[..., None] * h_V
+    return h_V
+
+
+class EncLayerDiffusion(nn.Module):
+    """Encoder layer (trunk adaLN): node update through K1, edge update
+    through K2, with 9-way modulation from the timestep embedding."""
+
+    def __init__(self, num_hidden, gen, scale=30.0):
+        super().__init__()
+        H = num_hidden
+        self.Dense_0 = linear(H, 9 * H, gen, init="zeros")
+        self.SplitMessageChain_0 = SplitMessageChain(H, H, H, H, gen,
+                                                     reduce_sum=True, scale=scale)
+        self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
+        self.SplitMessageChain_1 = SplitMessageChain(H, H, H, H, gen)
+
+    def forward(self, h_V, h_E, idx, mask_V, mask_attend, c):
+        sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3 = self.Dense_0(F.silu(c)).chunk(9, dim=-1)
+        dh = self.SplitMessageChain_0(h_V, h_E, h_V, idx, mask_attend=mask_attend)
+        h_V = _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V)
+        h_E = self.SplitMessageChain_1(h_V, h_E, h_V, idx, ln_mod=(sh3, sc3, g3))
+        return h_V, h_E
+
+
+class DecLayerDiffusion(nn.Module):
+    """Decoder layer (trunk adaLN, no decoder mask): the message input
+    cat[h_V, edge, s_nbr, v_nbr] in split form -- node blocks s_node and
+    v_node are concatenated into one Dense, the edge block (2*h_E) enters
+    through W_e scaled by `edge_scale` -- summed by K1."""
+
+    def __init__(self, num_hidden, gen, scale=30.0):
+        super().__init__()
+        H = num_hidden
+        self.Dense_0 = linear(H, 6 * H, gen, init="zeros")
+        self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
+        self.SplitMessageChain_0 = SplitMessageChain(H, H, 2 * H, H, gen,
+                                                     reduce_sum=True, scale=scale)
+
+    def forward(self, h_V, idx, edge_pre, s_node, v_node, mask_V, c,
+                edge_scale=1.0):
+        sh1, sc1, g1, sh2, sc2, g2 = self.Dense_0(F.silu(c)).chunk(6, dim=-1)
+        chain = self.SplitMessageChain_0
+        A, Gn, W_e, W2, b2, W3, b3 = chain.components(
+            h_V, torch.cat([s_node, v_node], dim=-1))
+        if edge_scale != 1.0:
+            W_e = W_e * edge_scale
+        ones = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
+        dh = fused_message_sum(A, edge_pre, Gn, idx, ones, W_e, W2, b2, W3, b3,
+                               chain.scale)
+        return _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V)

@@ -1,0 +1,64 @@
+"""The port and chip_smoke.py import nothing of JAX or the JAX package.
+
+In a fresh interpreter whose import system refuses jax, jaxlib, flax,
+optax, orbax and codlad_tpu, every module of codlad_tpu_torch and
+chip_smoke import, chip_smoke's slice runs on the CPU at tiny size through
+the plain versions of the kernels, and its reference check runs with the
+CPU standing in for the card."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "codlad_tpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("refused: " + name)
+            return None
+
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED:
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+    try:
+        import codlad_tpu.geometry.residues  # numpy-only, still refused
+        raise SystemExit("the import blocker let codlad_tpu through")
+    except ImportError:
+        pass
+
+    import codlad_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(codlad_tpu_torch.__path__,
+                                                   "codlad_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    pipe = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8,
+                                     codebook_size=64, respacing="ddim5",
+                                     compute_dtype=torch.bfloat16)
+    batch = to_device(synthetic_cg_batch(2, 12, seed=0), "cpu")
+    out = chip_smoke.run_slice(pipe, batch, torch.Generator().manual_seed(0))
+    chip_smoke.check_slice(out, 2, 16)
+    assert out["launches"] == {"fused_message_sum": 0,
+                               "fused_message_edge_lnmod": 0}, out["launches"]
+    chip_smoke.reference_check(0, device="cpu")
+    print("imported", len(names), "modules")
+""")
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout

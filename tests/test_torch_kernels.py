@@ -1,0 +1,68 @@
+"""K1/K2 plain versions (torch port) against the JAX package's reference
+message chains, in f32 on the CPU."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import t
+from codlad_tpu.kernels import mpnn_kernels as JK
+from codlad_tpu_torch.kernels import mpnn_kernels as TK
+
+
+def _inputs(B=2, L=12, N=12, K=8, H=32, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    return dict(A=f(B, L, H), E=f(B, L, K, H), Gn=f(B, N, H),
+                idx=rng.integers(0, N, size=(B, L, K)).astype(np.int32),
+                mask=(rng.random((B, L, K)) > 0.2).astype(np.float32),
+                W_e=f(H, H, sc=0.2), W2=f(H, H, sc=0.2), b2=f(H, sc=0.1),
+                W3=f(H, H, sc=0.2), b3=f(H, sc=0.1),
+                sh=f(B, H, sc=0.3), sc=f(B, H, sc=0.3), g=f(B, H))
+
+
+_CHAIN = ("A", "E", "Gn", "idx")
+_W = ("W_e", "W2", "b2", "W3", "b3")
+
+
+@pytest.mark.parametrize("N", [12, 20])  # N != L: a gather table longer than the rows
+def test_message_sum_plain_matches_jax(N):
+    x = _inputs(N=N)
+    want = JK._ref_message_sum(*(jnp.asarray(x[k]) for k in _CHAIN + ("mask",) + _W), 30.0)
+    got = TK.fused_message_sum(*(t(x[k]) for k in _CHAIN + ("mask",) + _W), 30.0)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", [12, 20])
+def test_message_edge_lnmod_plain_matches_jax(N):
+    x = _inputs(N=N, seed=1)
+    keys = _CHAIN + _W + ("sh", "sc", "g")
+    want = JK._ref_message_edge_lnmod(*(jnp.asarray(x[k]) for k in keys))
+    got = TK.fused_message_edge_lnmod(*(t(x[k]) for k in keys))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_plain_versions_keep_the_edge_dtype_and_count_no_launch():
+    """K1 returns f32 and K2 the dtype of E (mpnn_kernels.py:128,142); the
+    plain path on CPU tensors launches nothing."""
+    x = _inputs(seed=2)
+    TK.reset_launches()
+    E = t(x["E"]).to(torch.bfloat16)
+    s = TK.fused_message_sum(t(x["A"]), E, t(x["Gn"]), t(x["idx"]), t(x["mask"]),
+                             *(t(x[k]) for k in _W), 30.0)
+    e = TK.fused_message_edge_lnmod(t(x["A"]), E, t(x["Gn"]), t(x["idx"]),
+                                    *(t(x[k]) for k in _W + ("sh", "sc", "g")))
+    assert s.dtype == torch.float32 and e.dtype == torch.bfloat16
+    assert TK.LAUNCHES == {"fused_message_sum": 0, "fused_message_edge_lnmod": 0}
+
+
+def test_kernel_wrapper_refuses_tensors_it_cannot_take():
+    """Off the CPU the wrapper launches or raises; here there is no card,
+    so a tensor on the meta device must raise, not fall back."""
+    x = _inputs(seed=3)
+    meta = {k: t(v).to("meta") for k, v in x.items()}
+    with pytest.raises(ValueError):
+        TK.fused_message_sum(*(meta[k] for k in _CHAIN + ("mask",) + _W), 30.0)
