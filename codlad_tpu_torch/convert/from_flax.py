@@ -43,8 +43,15 @@ def flax_to_state_dict(params):
 
 
 def load_flax(module, params):
-    """Load flax params into `module` (every key must match)."""
-    module.load_state_dict(flax_to_state_dict(params), strict=True)
+    """Load flax params into `module`. Raises KeyError naming every flax leaf
+    left unmapped and every torch parameter left unfilled."""
+    sd = flax_to_state_dict(params)
+    own = set(module.state_dict())
+    unmapped, unfilled = sorted(set(sd) - own), sorted(own - set(sd))
+    if unmapped or unfilled:
+        raise KeyError(f"flax leaves with no torch parameter: {unmapped}; "
+                       f"torch parameters with no flax leaf: {unfilled}")
+    module.load_state_dict(sd, strict=True)
     return module
 
 

@@ -3,6 +3,10 @@
 // Replaces the TPU kernels of codlad_tpu/kernels/mpnn_kernels.py:
 //   K1 message_sum_*        <- _sum_kernel / _pallas_message_sum
 //   K2 message_edge_lnmod_* <- _edge_lnmod_kernel / _pallas_message_edge_lnmod
+//   K5 message_edge_lnmod_drop_* (forward) <- _edge_lnmod_kernel with has_keep
+//      (fused_message_edge_lnmod_drop) or drop_p (fused_message_edge_lnmod_pdrop,
+//      mask from _inkernel_keep); here the mask is the counter hash of
+//      chain_common.cuh, a pure function of (seed, sample, element)
 //
 // Per edge (l, k) of a [B, L, K, H] tile:
 //   pre = A[l] + E[l,k] W_e + Gn[idx[l,k]]
@@ -27,104 +31,37 @@
 // microseconds. This version does the products on CUDA cores, so it is bound
 // by f32 FMA issue, not by memory; tensor-core (mma/wgmma) tiles are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "chain_common.cuh"
 
 namespace {
 
-constexpr int H = 128;      // hidden width the kernels are built for
-constexpr int NT = 256;     // threads per block
-constexpr int CG = 16;      // column groups; a thread owns TN columns
-constexpr int TN = 8;       // CG * TN == H
-constexpr int RG = NT / CG; // row groups; a thread owns TM rows
+using namespace chain;
 
 template <typename T> struct Traits;
 
-template <> struct Traits<float> {
+template <> struct Traits<float> : Num<float> {
   static constexpr int TM = 4;    // rows per thread
   static constexpr int XPAD = 4;  // shared-memory row padding (elements)
-  __device__ static float f(float v) { return v; }
-  __device__ static float round(float v) { return v; }
 };
 
-template <> struct Traits<__nv_bfloat16> {
+template <> struct Traits<__nv_bfloat16> : Num<__nv_bfloat16> {
   static constexpr int TM = 8;
   static constexpr int XPAD = 8;
-  __device__ static float f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
 };
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.0f + tanhf(u));
-}
-
-// eight consecutive values <-> f32 registers (16-byte aligned addresses)
-__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    o[2 * j] = f.x;
-    o[2 * j + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-// acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
-// stride XS) and the shared weight W [H][H].
 template <typename T>
-__device__ __forceinline__ void tile_gemm(const T* sX, const T* sW, int r0, int c0,
+__device__ __forceinline__ void fwd_gemm(const T* sX, const T* sW, int r0, int c0,
                                           float (&acc)[Traits<T>::TM][TN]) {
-  constexpr int TM = Traits<T>::TM;
-  constexpr int XS = H + Traits<T>::XPAD;
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) acc[m][n] = 0.0f;
-#pragma unroll 2
-  for (int i0 = 0; i0 < H; i0 += 8) {
-    float x[TM][8];
-#pragma unroll
-    for (int m = 0; m < TM; ++m) load8(sX + (r0 + m) * XS + i0, x[m]);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      float w[8];
-      load8(sW + (i0 + kk) * H + c0, w);
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(x[m][kk], w[n], acc[m][n]);
-    }
-  }
+  chain::tile_gemm<T, Traits<T>::TM, H + Traits<T>::XPAD>(sX, sW, r0, c0, acc);
 }
 
 // EDGE = false: K1 (masked K-sum, f32 [B, L, H] out).
-// EDGE = true:  K2 (per-edge W3, residual LayerNorm and adaLN, [B, L, K, H] out).
-template <typename T, bool EDGE>
+// EDGE = true:  K2 (per-edge W3, residual LayerNorm and adaLN, [B, L, K, H] out),
+//   with dropout on the message before the residual (K5 forward) when
+//   DROP = 1 (keep scales read from `keep`, E's dtype) or DROP = 2 (keep
+//   scales made here from `seeds` by the counter hash; `mask_out`, when not
+//   null, receives them as f32 for validation).
+template <typename T, bool EDGE, int DROP>
 __global__ void __launch_bounds__(NT)
 chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
              const int* __restrict__ idx, const float* __restrict__ mask,
@@ -132,6 +69,8 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
              const float* __restrict__ b2, const T* __restrict__ W3,
              const float* __restrict__ b3, const float* __restrict__ sh,
              const float* __restrict__ sc, const float* __restrict__ gate,
+             const T* __restrict__ keep, const int* __restrict__ seeds,
+             uint32_t thresh, float kscale, float* __restrict__ mask_out,
              void* __restrict__ out, int L, int K, int N, float scale) {
   using Tr = Traits<T>;
   constexpr int TM = Tr::TM;
@@ -169,7 +108,7 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
 
   float acc[TM][TN];
   float y[TM][TN];
-  tile_gemm<T>(sX, sWe, r0, c0, acc);
+  fwd_gemm<T>(sX, sWe, r0, c0, acc);
 
   // pre = A[l] + E W_e + Gn[idx]; keep cast(gelu(pre)) for the next product.
   // Indices come from the kNN builder; they are clamped so that a bad index
@@ -195,7 +134,7 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
   for (int m = 0; m < TM; ++m) store8(sX + (r0 + m) * XS + c0, y[m]);
   __syncthreads();
 
-  tile_gemm<T>(sX, sW2, r0, c0, acc);
+  fwd_gemm<T>(sX, sW2, r0, c0, acc);
   float bias[8];
   load8(b2 + c0, bias);
 #pragma unroll
@@ -254,27 +193,38 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
     for (int m = 0; m < TM; ++m) store8(sX + (r0 + m) * XS + c0, y[m]);
     __syncthreads();
 
-    tile_gemm<T>(sX, sW3, r0, c0, acc);
+    fwd_gemm<T>(sX, sW3, r0, c0, acc);
     float shv[8], scv[8], gv[8];
     load8(b3 + c0, bias);
     load8(sh + (size_t)b * H + c0, shv);
     load8(sc + (size_t)b * H + c0, scv);
     load8(gate + (size_t)b * H + c0, gv);
     T* o = static_cast<T*>(out);
+    uint32_t key = 0;
+    if constexpr (DROP == 2) key = sample_key(seeds[b], b);
 #pragma unroll
     for (int m = 0; m < TM; ++m) {
       const int r = r0 + m;
-      float v[8];
+      float v[8], kp[8];
       if (r < nrows) {
         load8(E + (row0 + r) * H + c0, v);
+        if constexpr (DROP == 1) load8(keep + (row0 + r) * H + c0, kp);
       } else {
 #pragma unroll
-        for (int n = 0; n < TN; ++n) v[n] = 0.0f;
+        for (int n = 0; n < TN; ++n) v[n] = kp[n] = 0.0f;
+      }
+      if constexpr (DROP == 2) {
+        const uint32_t e0 = (uint32_t)(((size_t)l0 * K + r) * H + c0);
+#pragma unroll
+        for (int n = 0; n < TN; ++n) kp[n] = drop_bits(key, e0 + n) >= thresh ? kscale : 0.0f;
+        if (mask_out != nullptr && r < nrows) store8(mask_out + (row0 + r) * H + c0, kp);
       }
       float s = 0.0f;
 #pragma unroll
       for (int n = 0; n < TN; ++n) {
-        v[n] = v[n] + (acc[m][n] + bias[n]);
+        float msg = acc[m][n] + bias[n];
+        if constexpr (DROP != 0) msg *= kp[n];
+        v[n] = v[n] + msg;
         s += v[n];
       }
       // the 16 lanes of a row are 16 consecutive lanes of one warp
@@ -298,12 +248,13 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
   }
 }
 
-template <typename T, bool EDGE>
+template <typename T, bool EDGE, int DROP>
 int launch(const void* A, const void* E, const void* Gn, const void* idx,
            const void* mask, const void* We, const void* W2, const void* b2,
            const void* W3, const void* b3, const void* sh, const void* sc,
-           const void* gate, void* out, int B, int L, int K, int N, float scale,
-           void* stream) {
+           const void* gate, const void* keep, const void* seeds, uint32_t thresh,
+           float kscale, void* mask_out, void* out, int B, int L, int K, int N,
+           float scale, void* stream) {
   constexpr int TM = Traits<T>::TM;
   constexpr int ROWS = RG * TM;
   if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || ROWS % K != 0 || K % TM != 0)
@@ -311,19 +262,20 @@ int launch(const void* A, const void* E, const void* Gn, const void* idx,
   const int TL = ROWS / K;
   const size_t smem = (size_t)(EDGE ? 3 : 2) * H * H * sizeof(T) +
                       (size_t)ROWS * (H + Traits<T>::XPAD) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, EDGE>,
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, EDGE, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + TL - 1) / TL, B);
-  chain_kernel<T, EDGE><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  chain_kernel<T, EDGE, DROP><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
       static_cast<const int*>(idx), static_cast<const float*>(mask),
       static_cast<const T*>(We), static_cast<const T*>(W2),
       static_cast<const float*>(b2), static_cast<const T*>(W3),
       static_cast<const float*>(b3), static_cast<const float*>(sh),
-      static_cast<const float*>(sc), static_cast<const float*>(gate), out, L, K, N,
-      scale);
+      static_cast<const float*>(sc), static_cast<const float*>(gate),
+      static_cast<const T*>(keep), static_cast<const int*>(seeds), thresh, kscale,
+      static_cast<float*>(mask_out), out, L, K, N, scale);
   return (int)cudaGetLastError();
 }
 
@@ -335,17 +287,19 @@ int message_sum_f32(const void* A, const void* E, const void* Gn, const void* id
                     const void* mask, const void* We, const void* W2, const void* b2,
                     const void* W3, const void* b3, void* out, int B, int L, int K,
                     int N, float scale, void* stream) {
-  return launch<float, false>(A, E, Gn, idx, mask, We, W2, b2, W3, b3, nullptr,
-                              nullptr, nullptr, out, B, L, K, N, scale, stream);
+  return launch<float, false, 0>(A, E, Gn, idx, mask, We, W2, b2, W3, b3, nullptr,
+                                 nullptr, nullptr, nullptr, nullptr, 0u, 1.0f, nullptr,
+                                 out, B, L, K, N, scale, stream);
 }
 
 int message_sum_bf16(const void* A, const void* E, const void* Gn, const void* idx,
                      const void* mask, const void* We, const void* W2, const void* b2,
                      const void* W3, const void* b3, void* out, int B, int L, int K,
                      int N, float scale, void* stream) {
-  return launch<__nv_bfloat16, false>(A, E, Gn, idx, mask, We, W2, b2, W3, b3,
-                                      nullptr, nullptr, nullptr, out, B, L, K, N,
-                                      scale, stream);
+  return launch<__nv_bfloat16, false, 0>(A, E, Gn, idx, mask, We, W2, b2, W3, b3,
+                                         nullptr, nullptr, nullptr, nullptr, nullptr,
+                                         0u, 1.0f, nullptr, out, B, L, K, N, scale,
+                                         stream);
 }
 
 int message_edge_lnmod_f32(const void* A, const void* E, const void* Gn,
@@ -353,8 +307,9 @@ int message_edge_lnmod_f32(const void* A, const void* E, const void* Gn,
                            const void* b2, const void* W3, const void* b3,
                            const void* sh, const void* sc, const void* gate, void* out,
                            int B, int L, int K, int N, void* stream) {
-  return launch<float, true>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc, gate,
-                             out, B, L, K, N, 1.0f, stream);
+  return launch<float, true, 0>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
+                                gate, nullptr, nullptr, 0u, 1.0f, nullptr, out, B, L, K,
+                                N, 1.0f, stream);
 }
 
 int message_edge_lnmod_bf16(const void* A, const void* E, const void* Gn,
@@ -362,8 +317,32 @@ int message_edge_lnmod_bf16(const void* A, const void* E, const void* Gn,
                             const void* b2, const void* W3, const void* b3,
                             const void* sh, const void* sc, const void* gate, void* out,
                             int B, int L, int K, int N, void* stream) {
-  return launch<__nv_bfloat16, true>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh,
-                                     sc, gate, out, B, L, K, N, 1.0f, stream);
+  return launch<__nv_bfloat16, true, 0>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh,
+                                        sc, gate, nullptr, nullptr, 0u, 1.0f, nullptr,
+                                        out, B, L, K, N, 1.0f, stream);
 }
+
+// K5 forward: K2 with dropout on the message. Exactly one of `keep` (E's
+// dtype, [B, L, K, H] scales 0 or 1/(1-p)) and `seeds` (int32 [B]) is given;
+// with seeds, `mask_out` (f32 [B, L, K, H]) may receive the generated scales.
+#define EDGE_DROP(SUFFIX, TYPE)                                                        \
+  int message_edge_lnmod_drop_##SUFFIX(                                                \
+      const void* A, const void* E, const void* Gn, const void* idx, const void* We,   \
+      const void* W2, const void* b2, const void* W3, const void* b3, const void* sh,  \
+      const void* sc, const void* gate, const void* keep, const void* seeds,           \
+      void* mask_out, void* out, int B, int L, int K, int N, unsigned thresh,          \
+      float kscale, void* stream) {                                                    \
+    if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;    \
+    if (keep != nullptr)                                                               \
+      return launch<TYPE, true, 1>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc, \
+                                   gate, keep, nullptr, 0u, 1.0f, nullptr, out, B, L,  \
+                                   K, N, 1.0f, stream);                                \
+    return launch<TYPE, true, 2>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,   \
+                                 gate, nullptr, seeds, thresh, kscale, mask_out, out,  \
+                                 B, L, K, N, 1.0f, stream);                            \
+  }
+
+EDGE_DROP(f32, float)
+EDGE_DROP(bf16, __nv_bfloat16)
 
 }  // extern "C"

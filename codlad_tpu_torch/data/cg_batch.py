@@ -93,3 +93,20 @@ def synthetic_cg_batch(n_frames, n_res, seed=0, L=None):
 def to_device(batch, device="cuda"):
     """numpy batch -> dict of tensors on `device`."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def write_synthetic_features(out_dir, n_frames, n_res, seed=0, latent_size=3,
+                             files=1):
+    """Feature files in the extractor's layout (`latents`, `res_type`,
+    `cg_xyz_og`, `res_mask`) for n_frames synthetic proteins of n_res
+    residues, with N(0, 1) latents; split over `files` npz files."""
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    batch = synthetic_cg_batch(n_frames, n_res, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    latents = rng.standard_normal((n_frames, batch["res_type"].shape[1], latent_size))
+    parts = np.array_split(np.arange(n_frames), files)
+    for i, rows in enumerate(parts):
+        np.savez(os.path.join(out_dir, f"features_{i:03d}.npz"),
+                 latents=latents[rows].astype(np.float32), res_type=batch["res_type"][rows],
+                 cg_xyz_og=batch["cg_xyz_og"][rows], res_mask=batch["res_mask"][rows])

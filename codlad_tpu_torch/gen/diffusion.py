@@ -1,11 +1,13 @@
 """Gaussian diffusion (iDDPM lineage): schedules, respacing and samplers.
 
-Counterpart of codlad_tpu/gen/diffusion.py for sampling: the schedules are
-computed in float64 numpy and kept as float32 tensors, as the JAX package
-keeps them; the sampling loops are Python loops over the respaced steps.
-Noise comes from an explicit `torch.Generator`, or is injected: `noise` is
-x_T and `noises[i]` the z of the i-th ancestral step, so a test can replay
-another implementation's random stream.
+Counterpart of codlad_tpu/gen/diffusion.py for sampling and training: the
+schedules are computed in float64 numpy and kept as float32 tensors, as the
+JAX package keeps them; the sampling loops are Python loops over the
+respaced steps; `training_losses` gives the learned-range objective (MSE +
+VB). Noise comes from an explicit `torch.Generator`, or is injected: `noise`
+is x_T (sampling) or the q-sample noise (training) and `noises[i]` the z of
+the i-th ancestral step, so a test can replay another implementation's
+random stream.
 
 Model signature: model_fn(x, t_base) -> [B, ..., C or 2C], where t_base is
 the base-model timestep (`timestep_map` applied).
@@ -17,6 +19,39 @@ import math
 
 import numpy as np
 import torch
+
+
+def mean_flat(x, mask=None):
+    """Mean over the non-batch axes, only where mask is nonzero when given.
+    The divisor is the mask's own sum, unbroadcast (a [B, L, 1] mask counts
+    residues, not residues x channels), as in the JAX package."""
+    axes = tuple(range(1, x.dim()))
+    if mask is None:
+        return x.mean(dim=axes)
+    x = x * mask
+    return x.sum(dim=axes) / torch.clamp(mask.sum(dim=axes), min=1.0)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Discretized Gaussian log-likelihood (1/255 bins, iDDPM convention)."""
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus, log_delta))
 
 
 def get_named_beta_schedule(name, num_steps):
@@ -79,6 +114,8 @@ class GaussianDiffusion:
         sched = {
             "betas": betas,
             "alphas_cumprod": acp,
+            "sqrt_acp": np.sqrt(acp),
+            "sqrt_om_acp": np.sqrt(1.0 - acp),
             "sqrt_recip_acp": np.sqrt(1.0 / acp),
             "sqrt_recipm1_acp": np.sqrt(1.0 / acp - 1.0),
             "posterior_variance": post_var,
@@ -115,10 +152,22 @@ class GaussianDiffusion:
         tmap = self._tables(t.device)[1]
         return t if tmap is None else tmap[t]
 
+    def q_sample(self, x_start, t, noise):
+        nd = x_start.dim()
+        return (self._extract("sqrt_acp", t, nd) * x_start
+                + self._extract("sqrt_om_acp", t, nd) * noise)
+
     def q_posterior_mean(self, x_start, x_t, t):
         nd = x_t.dim()
         return (self._extract("posterior_mean_c1", t, nd) * x_start
                 + self._extract("posterior_mean_c2", t, nd) * x_t)
+
+    def q_posterior(self, x_start, x_t, t):
+        """(mean, variance, clipped log-variance) of q(x_{t-1} | x_t, x_0)."""
+        nd = x_t.dim()
+        return (self.q_posterior_mean(x_start, x_t, t),
+                self._extract("posterior_variance", t, nd),
+                self._extract("posterior_log_var_clipped", t, nd))
 
     def _predict_xstart_from_eps(self, x_t, t, eps):
         nd = x_t.dim()
@@ -151,6 +200,43 @@ class GaussianDiffusion:
             pred_xstart = _wrap_pm1(pred_xstart)
         mean = self.q_posterior_mean(pred_xstart, x, t)
         return {"mean": mean, "log_variance": model_log_var, "pred_xstart": pred_xstart}
+
+    def _vb_terms(self, frozen_out, x_start, x_t, t, mask=None):
+        """Variational bound term in bits: the KL to the posterior, or the
+        decoder NLL at t = 0."""
+        true_mean, _, true_log_var = self.q_posterior(x_start, x_t, t)
+        out = self.p_mean_variance(frozen_out, x_t, t)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = mean_flat(kl, mask) / math.log(2.0)
+        nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        nll = mean_flat(nll, mask) / math.log(2.0)
+        return torch.where(t == 0, nll, kl)
+
+    def training_losses(self, model_fn, x_start, t, noise, mask=None):
+        """The MSE objective (+ the VB term with a learned variance, 'mse'
+        loss type). t: [B] respaced indices; noise: the q-sample noise;
+        mask: [B, L, 1]-broadcastable or None. Returns {'loss', 'mse'} (and
+        'vb' with a learned variance), each [B]."""
+        if x_start.shape[-1] == 2:
+            noise = _wrap_pm1(noise)
+        x_t = self.q_sample(x_start, t, noise)
+        if x_t.shape[-1] == 2:
+            x_t = _wrap_pm1(x_t)
+        model_output = model_fn(x_t, self.map_t(t))
+        terms = {}
+        if self.var_type == "learned_range":
+            mean_out, var_values = model_output.chunk(2, dim=-1)
+            frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
+            terms["vb"] = self._vb_terms(frozen, x_start, x_t, t, mask)
+            model_output = mean_out
+        target = noise if self.mean_type == "epsilon" else x_start
+        diff = target - model_output
+        if target.shape[-1] == 2:
+            diff = _wrap_pm1(diff)
+        terms["mse"] = mean_flat(diff ** 2, mask)
+        terms["loss"] = terms["mse"] + terms.get("vb", 0.0)
+        return terms
 
     def _t(self, x, t_idx):
         return torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
@@ -212,7 +298,8 @@ class GaussianDiffusion:
 def create_diffusion(timestep_respacing=None, noise_schedule="linear",
                      sigma_small=False, predict_xstart=False, learn_sigma=True,
                      diffusion_steps=1000):
-    """Respaced diffusion with the reference defaults."""
+    """Respaced diffusion with the reference defaults (the trainer's
+    process is create_diffusion(None): all 1000 steps, learned range)."""
     betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]

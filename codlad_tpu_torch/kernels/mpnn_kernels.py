@@ -1,17 +1,24 @@
-"""The MPNN message chains: CUDA kernels K1/K2 and their plain versions.
+"""The MPNN message chains: CUDA kernels K1-K5 and their plain versions.
 
-Counterpart of codlad_tpu/kernels/mpnn_kernels.py (forward only):
+Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 
 * `fused_message_sum` (K1): masked, K-summed chain -> f32 [B, L, H];
+  backward K3;
 * `fused_message_edge_lnmod` (K2): per-edge chain + residual LayerNorm +
-  adaLN modulate/gate -> [B, L, K, H] in the dtype of E.
+  adaLN modulate/gate -> [B, L, K, H] in the dtype of E; backward K4;
+* `fused_message_edge_lnmod_drop` / `fused_message_edge_lnmod_pdrop` (K5):
+  K2 with dropout on the message, from an explicit keep mask or from
+  per-sample int32 seeds (the mask is then a counter hash made inside the
+  kernel, forward and backward, see `keep_bits`).
 
-On a CUDA tensor each wrapper launches its kernel from
-`csrc/message_chain.cu` or raises; the plain version runs only for tensors
-that lie on the CPU. The plain versions cast where the kernels cast (A and
-Gn to E's dtype, gelu(pre) before W2, h2 (K2) or the K-sum (K1) before W3)
-and accumulate in f32; in f32 they equal the JAX package's
-`_ref_message_sum` / `_ref_message_edge_lnmod`.
+On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
+launches K1, K2 or K5 (`csrc/message_chain.cu`) and whose backward launches
+K3, K4 or K5's backward (`csrc/message_chain_bwd.cu`), or raises; the plain
+version runs only for tensors that lie on the CPU, and autograd
+differentiates it. The plain versions cast where the kernels cast (A and Gn
+to E's dtype, gelu(pre) before W2, h2 (K2) or the K-sum (K1) before W3) and
+accumulate in f32; in f32 they equal the JAX package's `_ref_message_sum` /
+`_ref_message_edge_lnmod`.
 """
 
 from __future__ import annotations
@@ -24,11 +31,19 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block (16 row groups x rows per thread); K must divide it
+# edge rows per block of the forward kernels (16 row groups x rows per
+# thread); K must divide it. The backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+_BWD_ROWS = 64
+_WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
 
-# kernel launches since the last reset, by wrapper name
-LAUNCHES = {"fused_message_sum": 0, "fused_message_edge_lnmod": 0}
+# kernel launches since the last reset, by kernel
+LAUNCHES = {"fused_message_sum": 0,                  # K1
+            "fused_message_edge_lnmod": 0,           # K2
+            "fused_message_sum_bwd": 0,              # K3
+            "fused_message_edge_lnmod_bwd": 0,       # K4
+            "fused_message_edge_lnmod_drop": 0,      # K5 forward
+            "fused_message_edge_lnmod_drop_bwd": 0}  # K5 backward
 
 
 def reset_launches():
@@ -47,9 +62,17 @@ def gather_rows(table, idx):
     return torch.gather(table, 1, flat).reshape(B, M, K, table.shape[-1])
 
 
+def _acc(E):
+    """The plain versions' accumulation dtype: f32, or f64 for an f64 E (a
+    reference without f32 rounding, for checking the f32 kernels)."""
+    return torch.float64 if E.dtype == torch.float64 else torch.float32
+
+
 def _chain_h2(A, E, Gn, idx, W_e, W2, b2):
-    dt, f32 = E.dtype, torch.float32
-    g = gather_rows(Gn.to(dt), idx.long()).to(f32)
+    dt, f32 = E.dtype, _acc(E)
+    # gathered after the upcast, so that autograd scatter-adds dGn in f32
+    # as the kernel does (the values are those of Gn.to(dt))
+    g = gather_rows(Gn.to(dt).to(f32), idx.long())
     pre = A.to(dt).to(f32)[:, :, None] + E.to(f32) @ W_e.to(dt).to(f32) + g
     x2 = gelu_tanh(pre).to(dt).to(f32) @ W2.to(dt).to(f32) + b2.to(f32)
     return gelu_tanh(x2)
@@ -57,7 +80,7 @@ def _chain_h2(A, E, Gn, idx, W_e, W2, b2):
 
 def ref_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
     """Plain version of K1 -> f32 [B, L, H]."""
-    dt, f32 = E.dtype, torch.float32
+    dt, f32 = E.dtype, _acc(E)
     h2 = _chain_h2(A, E, Gn, idx, W_e, W2, b2)
     maskf = mask.to(f32)
     s = (h2 * maskf[..., None]).sum(dim=2)
@@ -66,11 +89,14 @@ def ref_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
 
 
 def ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
-                           eps=1e-6):
-    """Plain version of K2 -> [B, L, K, H] in the dtype of E."""
-    dt, f32 = E.dtype, torch.float32
+                           eps=1e-6, keep=None):
+    """Plain version of K2 (and, with `keep` [B, L, K, H] scales, of K5's
+    forward) -> [B, L, K, H] in the dtype of E."""
+    dt, f32 = E.dtype, _acc(E)
     h2 = _chain_h2(A, E, Gn, idx, W_e, W2, b2)
     msg = h2.to(dt).to(f32) @ W3.to(dt).to(f32) + b3.to(f32)
+    if keep is not None:
+        msg = msg * keep.to(f32)
     resid = E.to(f32) + msg
     mean = resid.mean(dim=-1, keepdim=True)
     var = ((resid - mean) ** 2).mean(dim=-1, keepdim=True)
@@ -79,18 +105,87 @@ def ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
     return (g * (ln * (1.0 + sc) + sh)).to(dt)
 
 
+
+# ---------------------------------------------------------------------------
+# dropout bits: the counter hash of csrc/chain_common.cuh in int64 torch ops
+# (every value stays in [0, 2^32); a 32 x 32-bit product is taken as two
+# 32 x 16-bit ones so that nothing overflows int64)
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _lowbias32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_bits(seeds, n):
+    """uint32 bits (as int64) [B, n] of element i < n of sample b, from the
+    int32 seeds [B]: a pure function of (seeds[b], b, i), as in the kernels."""
+    dev = seeds.device
+    b = torch.arange(seeds.shape[0], dtype=torch.int64, device=dev)
+    key = _lowbias32((seeds.to(torch.int64) & _M32)
+                     ^ _lowbias32((b + 0x9E3779B9) & _M32))[:, None]
+    i = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    return _lowbias32((_lowbias32(i ^ key) + key) & _M32)
+
+
+def drop_threshold(p):
+    """Keep iff bits >= floor(p * 2^32), as `_inkernel_keep` does."""
+    return min(int(p * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def keep_scale(p):
+    """1 / (1 - p) rounded to f32, the scale of a kept element."""
+    return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+
+
+def keep_scales(seeds, shape, p):
+    """f32 keep scales [B, *shape] (0 or 1/(1-p)) for per-sample seeds."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    kept = keep_bits(seeds, n) >= drop_threshold(p)
+    return (kept.to(torch.float32) * keep_scale(p)).reshape(seeds.shape[0], *shape)
+
+
+def site_seeds(seed, site, batch, device):
+    """Per-sample int32 dropout seeds [batch] in [0, 2^31) for one dropout
+    site of one forward pass: a pure function of (seed, site, sample)."""
+    key = _lowbias32((_lowbias32(int(seed) & _M32) + site) & _M32)  # Python ints
+    b = torch.arange(batch, dtype=torch.int64)
+    return (_lowbias32(key ^ b) & 0x7FFFFFFF).to(torch.int32).to(device)
+
+
+def plain_message_edge_lnmod_pdrop(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc,
+                                   g, seeds, p):
+    """Plain version of K5's seeded forward: K2's plain version with the
+    generator's mask."""
+    keep = keep_scales(seeds, E.shape[1:], p)
+    return ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
+                                  keep=keep)
+
 # ---------------------------------------------------------------------------
 # kernel launch
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
+          "f": ctypes.c_float}
 
 
-def _fn(name, n_ptr, n_int, has_scale):
-    lib = build.load("message_chain")
-    fn = getattr(lib, name)
+def _fn(source, name, spec):
+    """C entry `name` of csrc/<source>.cu; spec: one letter an argument
+    (p pointer, i int, u unsigned, f float), the stream last."""
+    fn = getattr(build.load(source), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + ([ctypes.c_float] if has_scale else []) + [ctypes.c_void_p])
+    fn.argtypes = [_CTYPE[c] for c in spec]
     return fn
 
 
@@ -106,7 +201,9 @@ def _operand(t, dtype, shape, name, device):
     return t
 
 
-def _check_edge(E, Gn):
+def _check_edge(E, Gn, rows=None, per_thread=None):
+    """(B, L, K, H, N) of an edge operand the kernels take; `rows` and
+    `per_thread` give the row tile (default: the forward kernels')."""
     if E.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, not {E.device}")
     if E.dtype not in _SUFFIX:
@@ -114,10 +211,11 @@ def _check_edge(E, Gn):
     if E.dim() != 4 or E.shape[-1] != HIDDEN:
         raise ValueError(f"E must be [B, L, K, {HIDDEN}], got {tuple(E.shape)}")
     B, L, K, H = E.shape
-    rows = _BLOCK_ROWS[E.dtype]
-    if rows % K or K % (rows // 16):
+    rows = rows or _BLOCK_ROWS[E.dtype]
+    per_thread = per_thread or rows // 16
+    if rows % K or K % per_thread:
         raise ValueError(f"K={K} must divide {rows} and be a multiple of "
-                         f"{rows // 16} for {E.dtype}")
+                         f"{per_thread} for {E.dtype}")
     if Gn.dim() != 3 or Gn.shape[0] != B or Gn.shape[2] != H:
         raise ValueError(f"Gn must be [{B}, N, {H}], got {tuple(Gn.shape)}")
     return B, L, K, H, Gn.shape[1]
@@ -129,61 +227,265 @@ def _launch(fn, *args):
         raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims):
+    """The chain's common operands in the kernels' dtypes."""
+    B, L, K, H, N = dims
+    dt, dev = E.dtype, E.device
+    return [_operand(A, dt, (B, L, H), "A", dev),
+            _operand(E, dt, (B, L, K, H), "E", dev),
+            _operand(Gn, dt, (B, N, H), "Gn", dev),
+            _operand(idx, torch.int32, (B, L, K), "idx", dev),
+            _operand(W_e, dt, (H, H), "W_e", dev),
+            _operand(W2, dt, (H, H), "W2", dev),
+            _operand(b2, torch.float32, (H,), "b2", dev)]
+
+
+def _message_sum_fwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
+    dims = _check_edge(E, Gn)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
+    ops = [a, e, gn, ix, _operand(mask, f32, (B, L, K), "mask", dev), we, w2, bb2,
+           _operand(W3, dt, (H, H), "W3", dev), _operand(b3, f32, (H,), "b3", dev)]
+    out = torch.empty((B, L, H), dtype=f32, device=dev)
+    fn = _fn("message_chain", f"message_sum_{_SUFFIX[dt]}", "p" * 11 + "iiii" + "f" + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], out.data_ptr(), B, L, K, N,
+                float(scale), _stream(dev))
+    LAUNCHES["fused_message_sum"] += 1
+    return out
+
+
+def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
+                    seeds=None, p=0.0, mask_out=False):
+    """K2, or K5's forward when `keep` or `seeds` (with p > 0) is given.
+    Returns (out, f32 keep scales or None)."""
+    dims = _check_edge(E, Gn)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [
+        _operand(W3, dt, (H, H), "W3", dev), _operand(b3, f32, (H,), "b3", dev),
+        _operand(sh, f32, (B, H), "sh", dev), _operand(sc, f32, (B, H), "sc", dev),
+        _operand(g, f32, (B, H), "g", dev)]
+    out = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    drop = keep is not None or seeds is not None
+    with torch.cuda.device(dev):
+        if not drop:
+            fn = _fn("message_chain", f"message_edge_lnmod_{_SUFFIX[dt]}",
+                     "p" * 13 + "iiii" + "p")
+            _launch(fn, *[t.data_ptr() for t in ops], out.data_ptr(), B, L, K, N,
+                    _stream(dev))
+            LAUNCHES["fused_message_edge_lnmod"] += 1
+            return out, None
+        if keep is not None:
+            keep = _operand(keep, dt, (B, L, K, H), "keep", dev)
+        if seeds is not None:
+            seeds = _operand(seeds, torch.int32, (B,), "seeds", dev)
+        mo = (torch.empty((B, L, K, H), dtype=f32, device=dev)
+              if mask_out and seeds is not None else None)
+        fn = _fn("message_chain", f"message_edge_lnmod_drop_{_SUFFIX[dt]}",
+                 "p" * 16 + "iiii" + "uf" + "p")
+        _launch(fn, *[t.data_ptr() for t in ops], _ptr(keep), _ptr(seeds), _ptr(mo),
+                out.data_ptr(), B, L, K, N, drop_threshold(p) if seeds is not None else 0,
+                keep_scale(p) if seeds is not None else 1.0, _stream(dev))
+    LAUNCHES["fused_message_edge_lnmod_drop"] += 1
+    return out, mo
+
+
+def _bwd_scratch(B, L, K, H, dt, dev, edge_rows):
+    """Scratch of the backward kernels (see csrc/message_chain_bwd.cu)."""
+    f32 = torch.float32
+    rows = B * L * K
+    TL = _BWD_ROWS // K
+    n_tiles = B * (-(-L // TL))
+    e = lambda m: torch.empty((m, H), dtype=dt, device=dev)
+    return dict(s_h1=e(rows), s_dx2=e(rows), s_dpre=e(rows), s_h2=e(edge_rows),
+                s_dmsg=e(edge_rows),
+                wpart=torch.empty((3, _WGRAD_CHUNKS, H, H), dtype=f32, device=dev),
+                p_db=torch.empty((2, n_tiles, H), dtype=f32, device=dev),
+                p_mod=torch.empty((3, n_tiles, H), dtype=f32, device=dev),
+                n_tiles=n_tiles)
+
+
+def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
+    """K3: the backward of K1 given dout (f32 [B, L, H], already divided by
+    scale). Returns the kernel's outputs, as `_pallas_sum_bwd` does:
+    dA f32 [B, L, H], dE [B, L, K, H] in E's dtype, dGn f32 [B, N, H],
+    dW_e, dW2 f32 [H, H], db2 f32 [H], dW3 f32 [H, H], db3 f32 [H]."""
+    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
+    ops = [a, e, gn, ix, _operand(mask, f32, (B, L, K), "mask", dev), we,
+           we.t().contiguous(), w2, w2.t().contiguous(), bb2,
+           _operand(W3, dt, (H, H), "W3", dev).t().contiguous(),
+           _operand(dout, f32, (B, L, H), "dout", dev)]
+    dA = torch.empty((B, L, H), dtype=f32, device=dev)
+    dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
+    dW = torch.empty((3, H, H), dtype=f32, device=dev)
+    db = torch.empty((2, H), dtype=f32, device=dev)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L)
+    fn = _fn("message_chain_bwd", f"message_sum_bwd_{_SUFFIX[dt]}", "p" * 24 + "i" * 6 + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], dA.data_ptr(), dE.data_ptr(),
+                dGn.data_ptr(), *[s[k].data_ptr() for k in
+                                  ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg", "wpart",
+                                   "p_db")],
+                dW.data_ptr(), db.data_ptr(), B, L, K, N, s["n_tiles"], _WGRAD_CHUNKS,
+                _stream(dev))
+    LAUNCHES["fused_message_sum_bwd"] += 1
+    return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1]
+
+
+def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
+                           keep=None, seeds=None, p=0.0):
+    """K4 (or K5's backward with `keep` or `seeds`): the backward of K2
+    given dout [B, L, K, H]. Returns the kernel's outputs, as
+    `_pallas_edge_lnmod_bwd` does: K3's eight, then dsh, dsc and dgate f32
+    [B, H] (dgate without its sh * sum(dout) term)."""
+    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
+    w3 = _operand(W3, dt, (H, H), "W3", dev)
+    ops = [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2, w3,
+           w3.t().contiguous(), _operand(b3, f32, (H,), "b3", dev),
+           _operand(sc, f32, (B, H), "sc", dev), _operand(g, f32, (B, H), "g", dev)]
+    if keep is not None:
+        keep = _operand(keep, dt, (B, L, K, H), "keep", dev)
+    if seeds is not None:
+        seeds = _operand(seeds, torch.int32, (B,), "seeds", dev)
+    dout = _operand(dout, dt, (B, L, K, H), "dout", dev)
+    dA = torch.empty((B, L, H), dtype=f32, device=dev)
+    dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
+    dW = torch.empty((3, H, H), dtype=f32, device=dev)
+    db = torch.empty((2, H), dtype=f32, device=dev)
+    dmod = torch.empty((3, B, H), dtype=f32, device=dev)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K)
+    fn = _fn("message_chain_bwd", f"message_edge_lnmod_bwd_{_SUFFIX[dt]}",
+             "p" * 31 + "i" * 6 + "uf" + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], _ptr(keep), _ptr(seeds), dout.data_ptr(),
+                dA.data_ptr(), dE.data_ptr(), dGn.data_ptr(),
+                *[s[k].data_ptr() for k in ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg",
+                                            "wpart", "p_db", "p_mod")],
+                dW.data_ptr(), db.data_ptr(), dmod.data_ptr(), B, L, K, N, s["n_tiles"],
+                _WGRAD_CHUNKS, drop_threshold(p) if seeds is not None else 0,
+                keep_scale(p) if seeds is not None else 1.0, _stream(dev))
+    drop = keep is not None or seeds is not None
+    LAUNCHES["fused_message_edge_lnmod_drop_bwd" if drop
+             else "fused_message_edge_lnmod_bwd"] += 1
+    return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1], dmod[0], dmod[1], dmod[2]
+
+
+# ---------------------------------------------------------------------------
+# autograd: forward kernel, backward kernel; grads in the JAX VJP's dtypes
+
+
+def _cast_like(d, x):
+    return None if x is None else d.to(x.dtype)
+
+
+class _MessageSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
+        ctx.save_for_backward(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3)
+        ctx.scale = scale
+        return _message_sum_fwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        A, E, Gn, idx, mask, W_e, W2, b2, W3, b3 = ctx.saved_tensors
+        dA, dE, dGn, dWe, dW2, db2, dW3, db3 = message_sum_bwd(
+            A, E, Gn, idx, mask, W_e, W2, b2, W3, g.to(torch.float32) / ctx.scale)
+        return (_cast_like(dA, A), _cast_like(dE, E), _cast_like(dGn, Gn), None, None,
+                _cast_like(dWe, W_e), _cast_like(dW2, W2), _cast_like(db2, b2),
+                _cast_like(dW3, W3), _cast_like(db3, b3), None)
+
+
+class _EdgeLnmod(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep, seeds, p):
+        ctx.save_for_backward(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep, seeds)
+        ctx.p = p
+        return _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep,
+                               seeds, p)[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep, seeds = ctx.saved_tensors
+        (dA, dE, dGn, dWe, dW2, db2, dW3, db3, dsh, dsc, dg) = message_edge_lnmod_bwd(
+            A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, ct, keep, seeds, ctx.p)
+        # the kernel's dgate lacks sh * sum(dct) (`_edge_lnmod_bwd`, :1186-1187)
+        dg = dg + sh.to(torch.float32) * ct.to(torch.float32).sum(dim=(1, 2))
+        return (_cast_like(dA, A), _cast_like(dE, E), _cast_like(dGn, Gn), None,
+                _cast_like(dWe, W_e), _cast_like(dW2, W2), _cast_like(db2, b2),
+                _cast_like(dW3, W3), _cast_like(db3, b3), _cast_like(dsh, sh),
+                _cast_like(dsc, sc), _cast_like(dg, g), None, None, None)
+
+
 def fused_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
-    """K1: masked, K-summed message chain -> f32 [B, L, H].
+    """K1: masked, K-summed message chain -> f32 [B, L, H]; backward K3.
 
     A [B, L, H], E [B, L, K, H], Gn [B, N, H], idx [B, L, K] (into Gn),
     mask [B, L, K], W_e/W2/W3 [H, H] (in, out), b2/b3 [H]."""
     if E.device.type == "cpu":
         return ref_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale)
-    B, L, K, H, N = _check_edge(E, Gn)
-    dt, dev, f32 = E.dtype, E.device, torch.float32
-    ops = [_operand(A, dt, (B, L, H), "A", dev),
-           _operand(E, dt, (B, L, K, H), "E", dev),
-           _operand(Gn, dt, (B, N, H), "Gn", dev),
-           _operand(idx, torch.int32, (B, L, K), "idx", dev),
-           _operand(mask, f32, (B, L, K), "mask", dev),
-           _operand(W_e, dt, (H, H), "W_e", dev),
-           _operand(W2, dt, (H, H), "W2", dev),
-           _operand(b2, f32, (H,), "b2", dev),
-           _operand(W3, dt, (H, H), "W3", dev),
-           _operand(b3, f32, (H,), "b3", dev)]
-    out = torch.empty((B, L, H), dtype=f32, device=dev)
-    fn = _fn(f"message_sum_{_SUFFIX[dt]}", 11, 4, True)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(fn, *[t.data_ptr() for t in ops], out.data_ptr(),
-                B, L, K, N, float(scale), stream)
-    LAUNCHES["fused_message_sum"] += 1
-    return out
+    return _MessageSum.apply(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale)
 
 
 def fused_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g):
     """K2: edge chain + residual + LayerNorm (eps 1e-6, no affine) +
-    g * (ln * (1 + sc) + sh) -> [B, L, K, H] in the dtype of E.
+    g * (ln * (1 + sc) + sh) -> [B, L, K, H] in the dtype of E; backward K4.
     sh, sc, g: [B, H]."""
     if E.device.type == "cpu":
-        return ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3,
-                                      sh, sc, g)
-    B, L, K, H, N = _check_edge(E, Gn)
-    dt, dev, f32 = E.dtype, E.device, torch.float32
-    ops = [_operand(A, dt, (B, L, H), "A", dev),
-           _operand(E, dt, (B, L, K, H), "E", dev),
-           _operand(Gn, dt, (B, N, H), "Gn", dev),
-           _operand(idx, torch.int32, (B, L, K), "idx", dev),
-           _operand(W_e, dt, (H, H), "W_e", dev),
-           _operand(W2, dt, (H, H), "W2", dev),
-           _operand(b2, f32, (H,), "b2", dev),
-           _operand(W3, dt, (H, H), "W3", dev),
-           _operand(b3, f32, (H,), "b3", dev),
-           _operand(sh, f32, (B, H), "sh", dev),
-           _operand(sc, f32, (B, H), "sc", dev),
-           _operand(g, f32, (B, H), "g", dev)]
-    out = torch.empty((B, L, K, H), dtype=dt, device=dev)
-    fn = _fn(f"message_edge_lnmod_{_SUFFIX[dt]}", 13, 4, False)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(fn, *[t.data_ptr() for t in ops], out.data_ptr(),
-                B, L, K, N, stream)
-    LAUNCHES["fused_message_edge_lnmod"] += 1
-    return out
+        return ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g)
+    return _EdgeLnmod.apply(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, None, None,
+                            0.0)
+
+
+def fused_message_edge_lnmod_drop(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
+                                  keep):
+    """K5 with an explicit mask: g * modulate(LN(E + keep * msg), sh, sc),
+    keep [B, L, K, H] holding 0 / 1/(1-p) scales (used in E's dtype, as on
+    the TPU). keep gets no gradient."""
+    if E.device.type == "cpu":
+        return ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
+                                      keep=keep.to(E.dtype))
+    return _EdgeLnmod.apply(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep, None,
+                            0.0)
+
+
+def fused_message_edge_lnmod_pdrop(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
+                                   seeds, p):
+    """K5 with the mask made from int32 `seeds` [B] and a static rate p
+    (`keep_bits`): no mask exists outside the kernels, and the backward
+    regenerates it. p <= 0 falls through to K2."""
+    p = float(p)
+    if p <= 0.0:
+        return fused_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g)
+    if E.device.type == "cpu":
+        return plain_message_edge_lnmod_pdrop(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh,
+                                              sc, g, seeds, p)
+    return _EdgeLnmod.apply(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, None, seeds, p)
+
+
+def edge_lnmod_pdrop_debug(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, seeds, p):
+    """(out, f32 keep scales) of K5's seeded forward, for validation: on the
+    card the mask the kernel generated, on the CPU the plain generator's."""
+    if E.device.type == "cpu":
+        keep = keep_scales(seeds, E.shape[1:], float(p))
+        return ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
+                                      keep=keep), keep
+    return _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, seeds=seeds,
+                           p=float(p), mask_out=True)

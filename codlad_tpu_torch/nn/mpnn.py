@@ -1,12 +1,18 @@
 """ProteinMPNN-style kNN graph blocks with adaLN timestep conditioning.
 
-Counterpart of codlad_tpu/nn/mpnn.py on the sampling path: the C-alpha
+Counterpart of codlad_tpu/nn/mpnn.py on the Stage-2 paths: the C-alpha
 featurizer (`CAProteinFeatures`), the split message chain in its
-`reduce_sum` and `ln_mod` modes, and the trunk-mode encoder and decoder
-layers. Neighbour gathers index the node tables directly (the JAX
-package's one-hot gather operand is a TPU device and has no counterpart).
-Attribute names follow the flax module names, so converted parameters load
-by name (convert/from_flax.py).
+`reduce_sum` and `ln_mod` modes (with dropout, K5), and the trunk-mode
+encoder and decoder layers. Neighbour gathers index the node tables
+directly (the JAX package's one-hot gather operand is a TPU device and has
+no counterpart). Attribute names follow the flax module names, so
+converted parameters load by name (convert/from_flax.py).
+
+Dropout is on only when a layer is called with deterministic=False, as in
+the JAX package. Every mask is the counter hash of `kernels.mpnn_kernels`
+(`keep_bits`) keyed by an integer dropout seed, the layer's site and the
+sample, never torch's global generator: the same seed gives the same masks
+on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -16,15 +22,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from codlad_tpu_torch.kernels.mpnn_kernels import (fused_message_edge_lnmod,
-                                                   fused_message_sum,
-                                                   gather_rows)
+from codlad_tpu_torch.kernels.mpnn_kernels import (drop_threshold,
+                                                   fused_message_edge_lnmod,
+                                                   fused_message_edge_lnmod_drop,
+                                                   fused_message_edge_lnmod_pdrop,
+                                                   fused_message_sum, gather_rows,
+                                                   keep_bits, site_seeds)
 from codlad_tpu_torch.nn.layers import layer_norm, linear, raw_param
 
 
 def gather_nodes(nodes, idx):
     """nodes [B, N, C], idx [B, M, K] -> [B, M, K, C]."""
     return gather_rows(nodes, idx.long())
+
+
+def dropout(x, p, seeds):
+    """Dropout of x [B, ...] at rate p > 0 with the counter-hash mask of the
+    per-sample seeds: x / (1 - p) where kept, else 0 (flax nn.Dropout)."""
+    keep = keep_bits(seeds, x[0].numel()).reshape(x.shape) >= drop_threshold(p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def modulate(x, shift, scale):
@@ -168,7 +184,9 @@ class SplitMessageChain(nn.Module):
     W1 split by input block: the self and neighbour blocks are transformed
     per node (A = Dense_0(self), Gn = Dense_1(nbr)), the edge block per edge
     inside the kernel (W_e). reduce_sum=True runs K1 (masked K-sum / scale);
-    otherwise `ln_mod=(sh, sc, g)` runs K2 (residual LayerNorm + adaLN)."""
+    otherwise `ln_mod=(sh, sc, g)` runs K2 (residual LayerNorm + adaLN), or
+    K5 with dropout on the message: `keep` [B, L, K, H] scales, or
+    `pdrop=(seeds [B] int32, p)` with the mask made in the kernel."""
 
     def __init__(self, num_hidden, self_dim, nbr_dim, edge_dim, gen,
                  reduce_sum=False, scale=30.0):
@@ -190,7 +208,7 @@ class SplitMessageChain(nn.Module):
                 self.W2, self.b2, self.W3, self.b3)
 
     def forward(self, h_self, edge_pre, nbr_node_pre, idx, mask_attend=None,
-                ln_mod=None):
+                ln_mod=None, keep=None, pdrop=None):
         A, Gn, W_e, W2, b2, W3, b3 = self.components(h_self, nbr_node_pre)
         if self.reduce_sum:
             if mask_attend is None:
@@ -201,28 +219,60 @@ class SplitMessageChain(nn.Module):
             raise NotImplementedError("raw per-edge messages (adaln 'residual') "
                                       "are not ported")
         sh, sc, g = ln_mod
+        if pdrop is not None:
+            seeds, p = pdrop
+            return fused_message_edge_lnmod_pdrop(A, edge_pre, Gn, idx, W_e, W2, b2,
+                                                  W3, b3, sh, sc, g, seeds, p)
+        if keep is not None:
+            return fused_message_edge_lnmod_drop(A, edge_pre, Gn, idx, W_e, W2, b2,
+                                                 W3, b3, sh, sc, g, keep)
         return fused_message_edge_lnmod(A, edge_pre, Gn, idx, W_e, W2, b2, W3,
                                         b3, sh, sc, g)
 
 
-def _node_epilogue(layer, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V):
+class _DropoutLayer(nn.Module):
+    """Dropout rate and seed sites shared by the encoder and decoder layers:
+    site + 0 and + 1 drop the node update's dh and dh2, site + 2 the
+    encoder's edge message."""
+
+    def __init__(self, dropout, site):
+        super().__init__()
+        self.dropout = dropout
+        self.site = site
+
+    def _seeds(self, deterministic, seed, offset, batch, device):
+        """Seeds of one dropout site, or None when dropout is off."""
+        if deterministic or self.dropout <= 0.0:
+            return None
+        if seed is None:
+            raise ValueError("dropout (deterministic=False) needs a dropout seed")
+        return site_seeds(seed, self.site + offset, batch, device)
+
+
+def _node_epilogue(layer, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
+                   deterministic=True, seed=None):
     """Trunk-mode h_V update from a node-message sum: LN -> modulate/gate
-    -> PFF -> LN -> modulate/gate -> mask."""
-    h_V = layer_norm(h_V + dh.to(h_V.dtype))
+    -> PFF -> LN -> modulate/gate -> mask, with dropout on dh and dh2."""
+    B, dev = h_V.shape[0], h_V.device
+    s1 = layer._seeds(deterministic, seed, 0, B, dev)
+    s2 = layer._seeds(deterministic, seed, 1, B, dev)
+    drop = lambda x, s: x if s is None else dropout(x, layer.dropout, s)
+    h_V = layer_norm(h_V + drop(dh.to(h_V.dtype), s1))
     h_V = g1[:, None, :] * modulate(h_V, sh1, sc1)
-    h_V = layer_norm(h_V + layer.PositionWiseFeedForward_0(h_V))
+    h_V = layer_norm(h_V + drop(layer.PositionWiseFeedForward_0(h_V), s2))
     h_V = g2[:, None, :] * modulate(h_V, sh2, sc2)
     if mask_V is not None:
         h_V = mask_V[..., None] * h_V
     return h_V
 
 
-class EncLayerDiffusion(nn.Module):
+class EncLayerDiffusion(_DropoutLayer):
     """Encoder layer (trunk adaLN): node update through K1, edge update
-    through K2, with 9-way modulation from the timestep embedding."""
+    through K2 (K5 when dropout is on), with 9-way modulation from the
+    timestep embedding."""
 
-    def __init__(self, num_hidden, gen, scale=30.0):
-        super().__init__()
+    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0):
+        super().__init__(dropout, site)
         H = num_hidden
         self.Dense_0 = linear(H, 9 * H, gen, init="zeros")
         self.SplitMessageChain_0 = SplitMessageChain(H, H, H, H, gen,
@@ -230,22 +280,27 @@ class EncLayerDiffusion(nn.Module):
         self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
         self.SplitMessageChain_1 = SplitMessageChain(H, H, H, H, gen)
 
-    def forward(self, h_V, h_E, idx, mask_V, mask_attend, c):
+    def forward(self, h_V, h_E, idx, mask_V, mask_attend, c, deterministic=True,
+                seed=None):
         sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3 = self.Dense_0(F.silu(c)).chunk(9, dim=-1)
         dh = self.SplitMessageChain_0(h_V, h_E, h_V, idx, mask_attend=mask_attend)
-        h_V = _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V)
-        h_E = self.SplitMessageChain_1(h_V, h_E, h_V, idx, ln_mod=(sh3, sc3, g3))
+        h_V = _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
+                             deterministic, seed)
+        seeds = self._seeds(deterministic, seed, 2, h_V.shape[0], h_V.device)
+        pdrop = None if seeds is None else (seeds, self.dropout)
+        h_E = self.SplitMessageChain_1(h_V, h_E, h_V, idx, ln_mod=(sh3, sc3, g3),
+                                       pdrop=pdrop)
         return h_V, h_E
 
 
-class DecLayerDiffusion(nn.Module):
+class DecLayerDiffusion(_DropoutLayer):
     """Decoder layer (trunk adaLN, no decoder mask): the message input
     cat[h_V, edge, s_nbr, v_nbr] in split form -- node blocks s_node and
     v_node are concatenated into one Dense, the edge block (2*h_E) enters
     through W_e scaled by `edge_scale` -- summed by K1."""
 
-    def __init__(self, num_hidden, gen, scale=30.0):
-        super().__init__()
+    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0):
+        super().__init__(dropout, site)
         H = num_hidden
         self.Dense_0 = linear(H, 6 * H, gen, init="zeros")
         self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
@@ -253,7 +308,7 @@ class DecLayerDiffusion(nn.Module):
                                                      reduce_sum=True, scale=scale)
 
     def forward(self, h_V, idx, edge_pre, s_node, v_node, mask_V, c,
-                edge_scale=1.0):
+                edge_scale=1.0, deterministic=True, seed=None):
         sh1, sc1, g1, sh2, sc2, g2 = self.Dense_0(F.silu(c)).chunk(6, dim=-1)
         chain = self.SplitMessageChain_0
         A, Gn, W_e, W2, b2, W3, b3 = chain.components(
@@ -263,4 +318,5 @@ class DecLayerDiffusion(nn.Module):
         ones = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
         dh = fused_message_sum(A, edge_pre, Gn, idx, ones, W_e, W2, b2, W3, b3,
                                chain.scale)
-        return _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V)
+        return _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
+                              deterministic, seed)

@@ -1,4 +1,6 @@
-"""K1/K2 CUDA kernels against their plain versions on the card.
+"""K1-K5 CUDA kernels against their plain versions on the card: the
+forwards against the plain versions, the backwards (K3, K4, K5's) against
+torch.autograd of the plain versions on the same inputs and cotangent.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -55,7 +57,9 @@ def test_kernels_match_plain(dev, dtype, atol, rtol, L, N, K):
     s = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
     e = MK.fused_message_edge_lnmod(*(x[k] for k in _EDGE))
     torch.cuda.synchronize()
-    assert MK.LAUNCHES == {"fused_message_sum": 1, "fused_message_edge_lnmod": 1}
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_sum=1,
+                               fused_message_edge_lnmod=1)
+    assert sum(MK.LAUNCHES.values()) == 2
     _close(s, MK.ref_message_sum(*(x[k] for k in _SUM), 30.0), atol, rtol)
     _close(e, MK.ref_message_edge_lnmod(*(x[k] for k in _EDGE)), atol, rtol)
 
@@ -64,3 +68,86 @@ def test_kernel_refuses_a_k_it_cannot_tile(dev):
     x = _inputs(dev, torch.bfloat16, 1, 8, 8, 12)  # 12 does not divide 128
     with pytest.raises(ValueError):
         MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+
+
+# Backwards. f32: atol 2e-4 + rtol 2e-4 elementwise, as the forwards. bf16:
+# |d| <= 2e-2 * max|ref| + 2e-2 * |ref|: the kernels and autograd of the plain
+# versions round to bf16 at different points of the backward chain (the TPU
+# kernel's casts: cast(dx2), cast(dpre); autograd: the gradient at each cast
+# of the forward), and the weight grads sum every edge row.
+_GRAD = ("A", "E", "Gn", "W_e", "W2", "b2", "W3", "b3")
+
+
+def _grad_close(name, got, want, dtype):
+    assert got.dtype == want.dtype, name
+    d = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    if dtype == torch.float32:
+        bound = 2e-4 + 2e-4 * ref
+    else:
+        bound = 2e-2 * ref.max() + 2e-2 * ref
+    assert bool((d <= bound).all()), (name, d.max().item(), ref.max().item())
+
+
+def _grads(fn, x, keys, names, ct):
+    leaves = {k: x[k].detach().clone().requires_grad_(k in names) for k in keys}
+    out = fn(*(leaves[k] for k in keys))
+    gs = torch.autograd.grad(out, [leaves[k] for k in names], ct)
+    return out, dict(zip(names, gs))
+
+
+def _check_bwd(kernel_fn, plain_fn, x, keys, names, ct, dtype):
+    out_k, gk = _grads(kernel_fn, x, keys, names, ct)
+    torch.cuda.synchronize()
+    out_p, gp = _grads(plain_fn, x, keys, names, ct)
+    for n in names:
+        _grad_close(n, gk[n], gp[n], dtype)
+    return out_k, out_p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,N,K", [(37, 50, 32), (9, 9, 16), (20, 20, 64)])
+def test_backward_kernels_match_plain_autograd(dev, dtype, L, N, K):
+    """K3 through fused_message_sum, K4 through fused_message_edge_lnmod."""
+    x = _inputs(dev, dtype, 3, L, N, K, seed=1)
+    g = torch.Generator().manual_seed(2)
+    ct_sum = torch.randn(3, L, H, generator=g).to(dev)
+    ct_edge = torch.randn(3, L, K, H, generator=g).to(dev).to(dtype)
+    MK.reset_launches()
+    _check_bwd(lambda *a: MK.fused_message_sum(*a, 30.0),
+               lambda *a: MK.ref_message_sum(*a, 30.0), x, _SUM, _GRAD, ct_sum, dtype)
+    _check_bwd(MK.fused_message_edge_lnmod, MK.ref_message_edge_lnmod, x, _EDGE,
+               _GRAD + ("sh", "sc", "g"), ct_edge, dtype)
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_sum=1, fused_message_sum_bwd=1,
+                               fused_message_edge_lnmod=1,
+                               fused_message_edge_lnmod_bwd=1)
+    assert sum(MK.LAUNCHES.values()) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernels_match_plain(dev, dtype):
+    """K5: the seeded mask equals the plain generator's bit for bit; both
+    variants' forwards and backwards match the plain versions."""
+    B, L, N, K, p = 3, 21, 30, 32, 0.6
+    x = _inputs(dev, dtype, B, L, N, K, seed=3)
+    seeds = torch.tensor([11, -5, 2 ** 31 - 1], dtype=torch.int32, device=dev)
+    ct = torch.randn(B, L, K, H, generator=torch.Generator().manual_seed(4)).to(dev).to(dtype)
+    names = _GRAD + ("sh", "sc", "g")
+    MK.reset_launches()
+    out, mask = MK.edge_lnmod_pdrop_debug(*(x[k] for k in _EDGE), seeds, p)
+    torch.cuda.synchronize()
+    want = MK.keep_scales(seeds, (L, K, H), p)
+    assert torch.equal(mask, want)
+    atol, rtol = dict((d, (a, r)) for d, a, r in TOLS)[dtype]
+    _close(out, MK.plain_message_edge_lnmod_pdrop(*(x[k] for k in _EDGE), seeds, p),
+           atol, rtol)
+    _check_bwd(lambda *a: MK.fused_message_edge_lnmod_pdrop(*a, seeds, p),
+               lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, p),
+               x, _EDGE, names, ct, dtype)
+    keep = want.to(dtype)
+    _check_bwd(lambda *a: MK.fused_message_edge_lnmod_drop(*a, keep),
+               lambda *a: MK.ref_message_edge_lnmod(*a, keep=keep), x, _EDGE, names, ct,
+               dtype)
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_edge_lnmod_drop=3,
+                               fused_message_edge_lnmod_drop_bwd=2)
+    assert sum(MK.LAUNCHES.values()) == 5

@@ -56,7 +56,8 @@ def test_plain_versions_keep_the_edge_dtype_and_count_no_launch():
     e = TK.fused_message_edge_lnmod(t(x["A"]), E, t(x["Gn"]), t(x["idx"]),
                                     *(t(x[k]) for k in _W + ("sh", "sc", "g")))
     assert s.dtype == torch.float32 and e.dtype == torch.bfloat16
-    assert TK.LAUNCHES == {"fused_message_sum": 0, "fused_message_edge_lnmod": 0}
+    assert {"fused_message_sum", "fused_message_edge_lnmod"} <= set(TK.LAUNCHES)
+    assert TK.LAUNCHES == dict.fromkeys(TK.LAUNCHES, 0)
 
 
 def test_kernel_wrapper_refuses_tensors_it_cannot_take():
