@@ -12,12 +12,23 @@ Phases, each printing its seconds:
                 and the dropout kernel K5 (forward and backward), against
                 torch.autograd of the plain versions on the same inputs and
                 cotangent, K5's mask bit for bit against the plain generator;
+                the same checks at the L = 48 bucket (B96 L48 K48: a block
+                owns a partial tile of residues); then the Stage-1 kernels
+                at the Stage-1 bench shape (4 synthetic frames of 132
+                residues, L 192, 2688 atoms, 65536 directed atom edges a
+                frame), f32 and bf16: K8 (edge_gather) bit for bit, K9
+                (edge_aggregate) and K10 (fused_tp, the three layer
+                signatures on the atom edges and on the cross graph's
+                [B, L, 14, *] operands) within their tolerances, each timed
+                beside its bound, its plain version and the nearest PyTorch
+                call;
   3. slice   -- the Stage-2 inference path at full width: a synthetic CG
                 batch of 96 frames x 128 residues, 100 respaced ancestral
                 steps of the 3+3-layer bf16 denoiser, VQ snap, IC decode
                 and xyz14 in f32, with the kernels' launch counts read
-                around it;
-  4. timing  -- one more 100-step sample_and_decode, timed;
+                around it (the decoder's graph ops are K8/K9);
+  4. timing  -- one more 100-step sample_and_decode, timed; one draw at the
+                L = 48 bucket (96 x 48, K = 48);
   5. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
@@ -35,14 +46,33 @@ Phases, each printing its seconds:
   8. train reference -- one f32 step at dropout 0.6 on a small batch on the
                 card and on the CPU, same weights, t, noise and dropout seed:
                 loss, grad norm, every parameter's grad, updated params
-                and EMA.
+                and EMA;
+  9. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
+                the production VQ-VAE config (results/convergence/vqvae:
+                embed 36, vqdim 3, ns 12, nv 4, 3 encoder and 4 decoder
+                layers, cutoffs 9 and 21 Å, f32, a 512-code codebook) with
+                random weights from --seed, on the Stage-1 bench batch:
+                encode, VQ snap, decode, xyz14, metrics; launches of K8, K9
+                and K10 per encoder forward and per decode asserted; wall
+                time, the encoder's share, peak memory; a small batch card
+                against CPU (latents, VQ codes with near-ties allowed,
+                decode); the bf16 encoder forward timed at the bench batch;
+ 10. recon trained -- the trained VQ-VAE converted from the study's
+                checkpoint (weights/convergence_vqvae.npz) on four frames of
+                its val protein prot_0030, against the JAX outputs stored
+                beside it (weights/convergence_vqvae_fixture.npz): codes,
+                per-frame rmsd_aligned;
+ 11. recon entry -- `python -m codlad_tpu_torch.cli.test --experiment
+                recon` (its main) on a shard directory the port writes,
+                with the trained weights; summary_stats.json.
 
 Sampling weights are the port's init from --seed with the adaLN heads (zero
 at init) drawn small and random, so that every layer reaches the output;
 the training phases start from the plain init, as the trainer does. The line
 before the last is the card's name and power limit from nvidia-smi; the
-last line is {"ok": true, "device": {...}}. Exits non-zero, printing no
-result, without a CUDA device or when any phase fails.
+last line is {"ok": true, "device": {...}}; the line before that one the
+kernels' JSON. Exits non-zero, printing no result, without a CUDA device or
+when any phase fails.
 """
 
 from __future__ import annotations
@@ -54,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 B, L, K, H = 96, 128, 64, 128   # bench shape (bench.py)
 STEPS = "ddim100"                # 100 respaced steps of a 1000-step process
@@ -88,7 +119,29 @@ KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
                                       "message_chain.cu"),
     "fused_message_edge_lnmod_drop_bwd": ("codlad_tpu/kernels/mpnn_kernels.py:1098",
                                           "message_chain_bwd.cu"),
+    "edge_gather": ("codlad_tpu/kernels/edge_kernels.py:119", "edge_ops.cu"),
+    "edge_aggregate": ("codlad_tpu/kernels/edge_kernels.py:140", "edge_ops.cu"),
+    "fused_tp": ("codlad_tpu/kernels/tp_kernels.py:152", "fused_tp.cu"),
 }
+WEIGHTS = Path(__file__).resolve().parent / "weights" / "convergence_vqvae.npz"
+FIXTURE = WEIGHTS.with_name("convergence_vqvae_fixture.npz")
+K48 = (B, 48, 48)               # the L = 48 length bucket: K = min(64, L) = 48
+STAGE1 = (4, 132)               # bench.py:309-327: synthetic_examples(4, 132), quantize_spec
+# K9 in bf16 (kernel vs plain, both f32 sums in different orders, then cast
+# and divided in bf16): a sum that lands on the other side of a rounding
+# boundary is one bf16 ulp (<= 2^-7 of the value) apart, and the division
+# rounds once more: |d| <= 2^-6 |ref| + 1e-4 max|ref|, the last term for
+# sums that cancel to near zero (f32 order error ~1e-7 of the summed terms).
+AGG_TOL_BF16 = (2.0 ** -6, 1e-4)
+# K10 in bf16: the plain version rounds TR to bf16 before w * TR, the kernel
+# (as the Pallas kernel) keeps it in f32, so each of a column's ~14 products
+# differs by up to half a bf16 ulp and the output is rounded once more:
+# |d| <= 2e-2 max|ref|, ~3 bf16 ulps of the largest output.
+TP_TOL_BF16 = 2e-2
+ENC_LAYERS, DEC_LAYERS = 3, 4   # results/convergence/vqvae/modelparams.json
+CODEBOOK = 512
+CODE_MARGIN = 1e-4              # near-tie of the two nearest codes, squared distance
+FLOOR = {"rmsd_aligned": 0.6615, "ged": 0.0165, "clash": 0.0041}  # FLOOR_TABLE.md recon
 
 
 def log(msg):
@@ -132,7 +185,7 @@ def build_pipeline(device, seed, hidden=H, layers=3, k=K, codebook_size=4096,
     return SamplingPipeline(
         denoiser=denoiser.to(device).eval(),
         process=create_diffusion(respacing, diffusion_steps=1000),
-        vae=VAE(gen).to(device).eval(), codebook=codebook.to(device),
+        vae=VAE(gen, encoder=False).to(device).eval(), codebook=codebook.to(device),
         norm_mean=[0.0, 0.0, 0.0], norm_std=[1.0, 1.0, 1.0],
         compute_dtype=compute_dtype)
 
@@ -141,14 +194,14 @@ def run_slice(pipe, batch, generator):
     """Drive the main path once and read the kernels' launch counts around
     it: {latents, ic, xyz14, seconds, launches}."""
     import torch
-    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    from codlad_tpu_torch import kernels
 
     dev = batch["res_type"].device
     extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
               "mask": batch["res_mask"]}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    MK.reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     lat = pipe.sample_latents(extras, generator=generator)
     ic, xyz = pipe.decode(batch, lat)
@@ -156,7 +209,15 @@ def run_slice(pipe, batch, generator):
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     return {"latents": lat, "ic": ic, "xyz14": xyz, "seconds": seconds,
-            "launches": dict(MK.LAUNCHES)}
+            "launches": kernels.launch_counts()}
+
+
+def check_launches(got, expect, where):
+    """Every kernel launched as `expect` says (0 where it says nothing)."""
+    for name, n in got.items():
+        if n != expect.get(name, 0):  # expect > 0: a kernel never launched fails too
+            raise RuntimeError(f"{name} launched {n} times on {where}, "
+                               f"expected {expect.get(name, 0)}")
 
 
 def check_slice(out, n_frames, n_res):
@@ -171,26 +232,28 @@ def check_slice(out, n_frames, n_res):
             raise RuntimeError(f"{key} is not finite")
 
 
-def kernel_inputs(dtype, seed, device):
+def kernel_inputs(dtype, seed, device, dims=(B, L, K)):
     """Full-width K1/K2 operands in the layout the main path gives them."""
     import torch
+    b, l, k = dims
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(device)
     return dict(
-        A=r(B, L, H).to(dtype), E=r(B, L, K, H).to(dtype), Gn=r(B, L, H).to(dtype),
-        idx=torch.randint(0, L, (B, L, K), generator=g, dtype=torch.int32).to(device),
-        mask=(torch.rand(B, L, K, generator=g) > 0.2).float().to(device),
+        A=r(b, l, H).to(dtype), E=r(b, l, k, H).to(dtype), Gn=r(b, l, H).to(dtype),
+        idx=torch.randint(0, l, (b, l, k), generator=g, dtype=torch.int32).to(device),
+        mask=(torch.rand(b, l, k, generator=g) > 0.2).float().to(device),
         W_e=r(H, H, sc=H ** -0.5).to(dtype), W2=r(H, H, sc=H ** -0.5).to(dtype),
         b2=r(H, sc=0.1), W3=r(H, H, sc=H ** -0.5).to(dtype), b3=r(H, sc=0.1),
-        sh=r(B, H, sc=0.3), sc=r(B, H, sc=0.3), g=r(B, H))
+        sh=r(b, H, sc=0.3), sc=r(b, H, sc=0.3), g=r(b, H))
 
 
 def kernel_calls(x):
     """{name: (kernel call, plain call, bytes moved, matmul flops)}."""
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     es = x["E"].element_size()
-    n_edge = B * L * K
-    chain_in = (B * L * H + n_edge * H + B * L * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
+    b, l, k, _ = x["E"].shape
+    n_edge = b * l * k
+    chain_in = (b * l * H + n_edge * H + b * l * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
     s_args = [x[k] for k in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3", "b3")]
     e_args = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3",
                              "sh", "sc", "g")]
@@ -198,41 +261,42 @@ def kernel_calls(x):
         "fused_message_sum": (
             lambda: MK.fused_message_sum(*s_args, 30.0),
             lambda: MK.ref_message_sum(*s_args, 30.0),
-            chain_in + n_edge * 4 + B * L * H * 4,
-            2 * 2 * n_edge * H * H + 2 * B * L * H * H),
+            chain_in + n_edge * 4 + b * l * H * 4,
+            2 * 2 * n_edge * H * H + 2 * b * l * H * H),
         "fused_message_edge_lnmod": (
             lambda: MK.fused_message_edge_lnmod(*e_args),
             lambda: MK.ref_message_edge_lnmod(*e_args),
-            chain_in + 3 * B * H * 4 + n_edge * H * es,
+            chain_in + 3 * b * H * 4 + n_edge * H * es,
             3 * 2 * n_edge * H * H),
     }
 
 
-def time_pair(kernel, plain, reps=10):
-    """Median ms of each, timed with CUDA events in alternating order."""
+def time_calls(*fns, reps=10):
+    """Median ms of each call, timed with CUDA events, the order of the
+    calls reversed every other round."""
     import torch
-    times = {"kernel": [], "plain": []}
+    times = [[] for _ in fns]
     for i in range(reps):
-        order = [("kernel", kernel), ("plain", plain)]
-        for name, fn in (order if i % 2 == 0 else order[::-1]):
+        order = list(enumerate(fns))
+        for j, fn in (order if i % 2 == 0 else order[::-1]):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             fn()
             e1.record()
             torch.cuda.synchronize()
-            times[name].append(e0.elapsed_time(e1))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+            times[j].append(e0.elapsed_time(e1))
+    return tuple(statistics.median(t) for t in times)
 
 
-def check_kernels(device, seed):
+def check_kernels(device, seed, dims=(B, L, K)):
     """Every kernel against its plain version, both dtypes; returns the
     bf16 (main-path dtype) record of each kernel."""
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        x = kernel_inputs(dtype, seed, device)
+        x = kernel_inputs(dtype, seed, device, dims)
         atol, rtol = TOL[dname]
         for name, (kern, plain, nbytes, flops) in kernel_calls(x).items():
             got = kern()
@@ -241,10 +305,11 @@ def check_kernels(device, seed):
             diff = (got.float() - want.float()).abs()
             err = diff.max().item()
             ok = bool((diff <= atol + rtol * want.float().abs()).all())
-            ms, plain_ms = time_pair(kern, plain)
+            ms, plain_ms = time_calls(kern, plain)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname}: max|d|={err:.3g} (atol {atol:g} + rtol {rtol:g}*|ref|) "
+            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g} (atol {atol:g} + "
+                f"rtol {rtol:g}*|ref|) "
                 f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.1f} GFLOP)")
@@ -256,13 +321,14 @@ def check_kernels(device, seed):
     return records
 
 
-def record(name, err, ms, plain_ms, t_bytes, t_ops):
+def record(name, err, ms, plain_ms, t_bytes, t_ops, library_ms=None):
     """One row of the `kernels` JSON line (launches filled in later)."""
     replaces, source = KERNELS[name]
     return {"name": name, "route": "cuda", "source": f"codlad_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 _DIFF = ("A", "E", "Gn", "W_e", "W2", "b2", "W3", "b3")
@@ -312,15 +378,20 @@ def compare_grads(label, got, want, dname):
     return worst
 
 
-def bwd_bytes_flops(es, edge):
+def dims_tag(dims):
+    return "B{} L{} K{}".format(*dims)
+
+
+def bwd_bytes_flops(es, edge, dims=(B, L, K)):
     """Bytes (each input read once, each output written once) and matmul
     flops of K3 (edge=False) or K4 / K5's backward (edge=True)."""
-    n_edge, n_node = B * L * K, B * L
+    b, l, k = dims
+    n_edge, n_node = b * l * k, b * l
     nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
               + n_node * H * 4 + n_edge * H * es + n_node * H * 4      # dA, dE, dGn
               + 3 * H * H * 4 + 2 * H * 4)                              # weight grads
     if edge:   # + sc, g, dout; dsh, dsc, dgate
-        nbytes += 2 * B * H * 4 + n_edge * H * es + 3 * B * H * 4
+        nbytes += 2 * b * H * 4 + n_edge * H * es + 3 * b * H * 4
         flops = 9 * 2 * n_edge * H * H
     else:      # + mask, dout f32 [B, L, H]
         nbytes += n_edge * 4 + n_node * H * 4
@@ -328,7 +399,7 @@ def bwd_bytes_flops(es, edge):
     return nbytes, flops
 
 
-def check_bwd_kernels(device, seed):
+def check_bwd_kernels(device, seed, dims=(B, L, K)):
     """K3, K4 and K5 (forward and backward) at the training shape, f32 and
     bf16, against autograd of the plain versions; K5's mask bit for bit
     against the plain generator. Returns the bf16 record of each.
@@ -342,14 +413,15 @@ def check_bwd_kernels(device, seed):
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
+    b, l, k = dims
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         es = torch.finfo(dtype).bits // 8
-        x = kernel_inputs(dtype, seed, device)
+        x = kernel_inputs(dtype, seed, device, dims)
         g = torch.Generator().manual_seed(seed + 7)
-        ct_sum = torch.randn(B, L, H, generator=g).to(device)
-        ct_edge = torch.randn(B, L, K, H, generator=g).to(device).to(dtype)
-        seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, dtype=torch.int32).to(device)
+        ct_sum = torch.randn(b, l, H, generator=g).to(device)
+        ct_edge = torch.randn(b, l, k, H, generator=g).to(device).to(dtype)
+        seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, dtype=torch.int32).to(device)
         edge_diff = _DIFF + ("sh", "sc", "g")
         args = lambda keys: [x[k] for k in keys]
 
@@ -365,32 +437,34 @@ def check_bwd_kernels(device, seed):
                             ct_sum)
         _, gp, _ = reference(lambda *a: MK.ref_message_sum(*a, 30.0), _SUM_KEYS, _DIFF,
                              ct_sum)
-        err = compare_grads("K3", gk, gp, dname)
+        err = compare_grads(f"K3 {dims_tag(dims)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(lambda *a: MK.ref_message_sum(*a, 30.0), x, _SUM_KEYS,
                                    _DIFF, ct_sum)
         sum_args = args(("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3"))
         dout = ct_sum / 30.0
-        ms, plain_ms = time_pair(lambda: MK.message_sum_bwd(*sum_args, dout), plain_bwd)
-        recs = {"fused_message_sum_bwd": (err, ms, plain_ms, *bwd_bytes_flops(es, False))}
+        ms, plain_ms = time_calls(lambda: MK.message_sum_bwd(*sum_args, dout), plain_bwd)
+        recs = {"fused_message_sum_bwd": (err, ms, plain_ms,
+                                          *bwd_bytes_flops(es, False, dims))}
         del gk, plain_bwd
 
         # K4 through K2's autograd wrapper
         _, gk, _ = grads_of(MK.fused_message_edge_lnmod, x, _EDGE_KEYS, edge_diff, ct_edge)
         _, gp, _ = reference(MK.ref_message_edge_lnmod, _EDGE_KEYS, edge_diff, ct_edge)
-        err = compare_grads("K4", gk, gp, dname)
+        err = compare_grads(f"K4 {dims_tag(dims)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(MK.ref_message_edge_lnmod, x, _EDGE_KEYS, edge_diff,
                                    ct_edge)
         bwd_args = args(("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g"))
-        ms, plain_ms = time_pair(lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge),
+        ms, plain_ms = time_calls(lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge),
                                  plain_bwd)
-        recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms, *bwd_bytes_flops(es, True))
+        recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms,
+                                                *bwd_bytes_flops(es, True, dims))
         del gk, plain_bwd
 
         # K5: the seeded forward's mask, its rate, its output and its backward
         out, mask = MK.edge_lnmod_pdrop_debug(*args(_EDGE_KEYS), seeds, P_DROP)
-        want_mask = MK.keep_scales(seeds, (L, K, H), P_DROP)
+        want_mask = MK.keep_scales(seeds, (l, k, H), P_DROP)
         same = torch.equal(mask, want_mask)
         frac = (mask > 0).double().mean().item()
         want = MK.plain_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP)
@@ -404,24 +478,24 @@ def check_bwd_kernels(device, seed):
             raise RuntimeError(f"K5 ({dname}) forward or mask disagrees with its plain version")
         del out, mask, want
         fwd_err = d.max().item()
-        ms, plain_ms = time_pair(
+        ms, plain_ms = time_calls(
             lambda: MK.fused_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP),
             lambda: MK.plain_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP))
         k2_bytes, k2_flops = kernel_calls(x)["fused_message_edge_lnmod"][2:]
-        recs["fused_message_edge_lnmod_drop"] = (fwd_err, ms, plain_ms, k2_bytes + B * 4,
+        recs["fused_message_edge_lnmod_drop"] = (fwd_err, ms, plain_ms, k2_bytes + b * 4,
                                                  k2_flops)
         pd = lambda *a: MK.fused_message_edge_lnmod_pdrop(*a, seeds, P_DROP)
         plain_pd = lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, P_DROP)
         _, gk, _ = grads_of(pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         _, gp, _ = reference(plain_pd, _EDGE_KEYS, edge_diff, ct_edge)
-        err = compare_grads("K5 seeded", gk, gp, dname)
+        err = compare_grads(f"K5 seeded {dims_tag(dims)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
-        ms, plain_ms = time_pair(
+        ms, plain_ms = time_calls(
             lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP),
             plain_bwd)
-        nbytes, flops = bwd_bytes_flops(es, True)
-        recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + B * 4, flops)
+        nbytes, flops = bwd_bytes_flops(es, True, dims)
+        recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + b * 4, flops)
         del gk, plain_bwd
 
         # K5 with the keep operand: forward and grads
@@ -433,14 +507,15 @@ def check_bwd_kernels(device, seed):
         d = (out_k.float() - out_p.float()).abs()
         if not bool((d <= atol + rtol * out_p.float().abs()).all()):
             raise RuntimeError(f"K5 keep variant ({dname}) forward disagrees")
-        compare_grads("K5 keep", gk, gp, dname)
+        compare_grads(f"K5 keep {dims_tag(dims)}", gk, gp, dname)
         del gk, gp, out_k, out_p, keep, want_mask, x, xr
         torch.cuda.empty_cache()
 
         for name, (err, ms, plain_ms, nbytes, flops) in recs.items():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname}: max|d|={err:.3g}; kernel {ms:.4f} ms, plain "
+            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel {ms:.4f} ms, "
+                f"plain "
                 f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                 f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
             if dtype == torch.bfloat16:
@@ -561,6 +636,7 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials")  # csrc
+STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel")          # csrc
 
 
 def busy_us(intervals):
@@ -573,10 +649,11 @@ def busy_us(intervals):
     return total
 
 
-def trace_summary(prof, wall_ms, n_steps, top=12):
+def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
+                  label="message-chain kernels", unit="step"):
     """Log the device's busy share of the traced wall time (the union of
-    kernel intervals) and the kernels by device time a step, the
-    message-chain kernels (K1-K5) summed apart."""
+    kernel intervals) and the kernels by device time a `unit`, the kernels
+    named in `mine` (default the message chains, K1-K5) summed apart."""
     import torch
     by_name, spans = {}, []
     for e in prof.events():
@@ -590,14 +667,14 @@ def trace_summary(prof, wall_ms, n_steps, top=12):
         return
     busy = busy_us(spans) / (wall_ms * 1e3)
     total = sum(us for us, _ in by_name.values())
-    chain = sum(us for k, (us, _) in by_name.items() if any(c in k for c in CHAIN_KERNELS))
-    log(f"  trace of {n_steps} steps ({wall_ms / n_steps:.2f} ms/step wall): device busy "
-        f"{busy:.3f} (idle {1 - busy:.3f}); kernels {total / 1e3 / n_steps:.2f} ms/step, "
-        f"message-chain kernels {chain / 1e3 / n_steps:.2f} ms ({chain / total:.3f}), other "
+    chain = sum(us for k, (us, _) in by_name.items() if any(c in k for c in mine))
+    log(f"  trace of {n_steps} {unit}s ({wall_ms / n_steps:.2f} ms/{unit} wall): device busy "
+        f"{busy:.3f} (idle {1 - busy:.3f}); kernels {total / 1e3 / n_steps:.2f} ms/{unit}, "
+        f"{label} {chain / 1e3 / n_steps:.2f} ms ({chain / total:.3f}), other "
         f"{(total - chain) / 1e3 / n_steps:.2f} ms; "
-        f"{sum(n for _, n in by_name.values()) // n_steps} launches a step")
+        f"{sum(n for _, n in by_name.values()) // n_steps} launches a {unit}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"  {us / 1e3 / n_steps:9.3f} ms/step {n // n_steps:5d}x  {name[:100]}")
+        log(f"  {us / 1e3 / n_steps:9.3f} ms/{unit} {n // n_steps:5d}x  {name[:100]}")
 
 
 def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
@@ -608,11 +685,11 @@ def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    from codlad_tpu_torch import kernels
     cuda = x1.device.type == "cuda"
     p0 = {k: v.clone() for k, v in state.params.items()}
     e0 = {k: v.clone() for k, v in state.ema_params.items()}
-    totals, times = dict.fromkeys(MK.LAUNCHES, 0), []
+    totals, times = dict.fromkeys(kernels.launch_counts(), 0), []
     with contextlib.ExitStack() as stack:
         for i in range(n_steps):
             if i == n_steps - traced:
@@ -620,13 +697,13 @@ def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
                     activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             if cuda:
                 torch.cuda.synchronize()
-            MK.reset_launches()
+            kernels.reset_launches()
             t0 = time.perf_counter()
             state, metrics = step(state, x1, extras, seed + i)
             if cuda:
                 torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            got = dict(MK.LAUNCHES)
+            got = kernels.launch_counts()
             want = dict(dict.fromkeys(got, 0), **expect)
             if got != want:
                 raise RuntimeError(f"training step {i} launched {got}, expected {want}")
@@ -761,6 +838,337 @@ def train_reference(seed, device="cuda", hidden=H, layers=3):
         raise RuntimeError("the card's training step disagrees with the CPU reference")
 
 
+# ---------------------------------------------------------------------------
+# Stage 1: the recon path and its kernels K8, K9, K10
+
+
+def stage1_batch(seed, device, n_frames=STAGE1[0], n_res=STAGE1[1]):
+    """The Stage-1 bench batch: synthetic all-atom frames, featurized and
+    padded to the bucket lattice (bench.py's stage-1 shape by default)."""
+    from codlad_tpu_torch.data.batch import collate, quantize_spec, spec_for
+    from codlad_tpu_torch.data.cg_batch import to_device
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    ex = synthetic_examples(n_frames, n_res, seed=seed)
+    return to_device(collate(ex, quantize_spec(spec_for(ex))), device)
+
+
+def _bits(t):
+    """t's bit patterns (for bit-for-bit equality)."""
+    import torch
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+def check_stage1_kernels(batch, seed):
+    """K8, K9 and K10 against their plain versions at the recon path's
+    shapes on `batch` (the atom graph, directed), f32 and bf16; timed with
+    CUDA events beside the bound, the plain version and the nearest PyTorch
+    call. Returns the f32 (the recon path's dtype) record of each, at the
+    largest call of the encoder: K8 the layer-2 atom feature gather (F 36),
+    K9 the layer-2 atom mean (F 48), K10 the layer-2 atom TP."""
+    import torch
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.graph import make_directed_batched
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+
+    dev = batch["res_type"].device
+    nb, nl = batch["res_type"].shape
+    na = nl * 14
+    edges, emask = make_directed_batched(batch["atom_edges"], batch["atom_edges_mask"])
+    src = edges[..., 0].to(torch.int32).contiguous()
+    dst = edges[..., 1].to(torch.int32).contiguous()
+    maskf = emask.to(torch.float32)
+    ne = src.shape[1]
+    csr = EK.build_csr(src, maskf, na)
+    n_valid = csr[1].numel()
+    flat_src, flat_dst = EK._flat_index(src, na), EK._flat_index(dst, na)
+    log(f"  stage-1 shape: B{nb} L{nl} atoms {na}, {ne} directed atom edges a frame "
+        f"({n_valid} valid in all)")
+    g = torch.Generator().manual_seed(seed + 11)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    ladder = irrep_ladder(12, 4)
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.finfo(dtype).bits // 8
+
+        def report(name, label, err, ok, limit, kern, plain, library, nbytes, ops):
+            ms, plain_ms, lib_ms = time_calls(kern, plain, library)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dname] * 1e3
+            log(f"kernel {name} {dname} {label}: max|d|={err:.3g} ({limit}) "
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops)")
+            if not ok:
+                raise RuntimeError(f"{name} ({dname}, {label}) disagrees with its plain version")
+            return record(name, err, ms, plain_ms, t_bytes, t_ops, lib_ms)
+
+        # K8: the geometry gather [xyz | z] (F 4) and the layer-2 features (F 36)
+        for F in (4, 36):
+            nodes = rnd(nb, na, F).to(dtype)
+            kern = lambda: EK.edge_gather(dst, maskf, nodes)
+            plain = lambda: EK.ref_gather(dst, maskf, nodes)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            same = torch.equal(_bits(got), _bits(want))
+            err = (got.float() - want.float()).abs().max().item()
+            rec = report("edge_gather", f"F{F}", err, same, "bit for bit", kern, plain,
+                         lambda: nodes.reshape(-1, F).index_select(0, flat_dst),
+                         nb * ne * 8 + nb * na * F * es + nb * ne * F * es, nb * ne * F)
+            if F == 36 and dtype == torch.float32:
+                records["edge_gather"] = rec
+
+        # K9: the layer-0 atom mean (F 12) and the layer-2 one (F 48)
+        for F in (12, 48):
+            msgs = rnd(nb, ne, F).to(dtype)
+            kern = lambda: EK.edge_aggregate(src, maskf, msgs, na, "mean", csr)
+            plain = lambda: EK.ref_aggregate(src, maskf, msgs, na, "mean")
+            got, want = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            d, ref = (got.float() - want.float()).abs(), want.float().abs()
+            if dtype == torch.float32:
+                bound, limit = TOL[dname][0] + TOL[dname][1] * ref, "atol 2e-4 + rtol 2e-4"
+            else:
+                bound = AGG_TOL_BF16[0] * ref + AGG_TOL_BF16[1] * ref.max()
+                limit = "2^-6 |ref| + 1e-4 max|ref|"
+            ok = bool((d <= bound).all()) and torch.equal(_bits(got), _bits(again))
+            lib = lambda: torch.zeros((nb * na, F), dtype=dtype, device=dev).index_add_(
+                0, flat_src, msgs.reshape(-1, F))
+            rec = report("edge_aggregate", f"F{F} mean (run-to-run bit-equal)", d.max().item(),
+                         ok, limit, kern, plain, lib,
+                         nb * ne * 8 + (nb * na + 1 + n_valid) * 4 + n_valid * F * es
+                         + nb * na * F * es, 2 * n_valid * F)
+            if F == 48 and dtype == torch.float32:
+                records["edge_aggregate"] = rec
+            del msgs, got, want, again
+
+        # K10: the three layer signatures on the atom edges, and on the cross
+        # graph's [B, L, 14, *] operands
+        for layer in range(3):
+            tb = fused_tp_tables(tuple(ladder[layer]), tuple(SH_IRREPS),
+                                 tuple(ladder[layer + 1]))
+            din, numel, R = ladder[layer].dim, tb["numel"], tb["R"]
+            dout = tb["SUMR"].shape[1]
+            nnz = TK.sparse_tables(tb)["nnz"]
+            for where, lead in (("edges", (nb, ne)), ("cross", (nb, nl, 14))):
+                x = rnd(*lead, din).to(dtype)
+                sh = sh_l2(rnd(*lead, 3)).to(dtype)
+                w = (rnd(*lead, numel) * din ** -0.5).to(dtype)
+                kern = lambda: TK.fused_tp(x, sh, w, tb)
+                plain = lambda: TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                d, ref = (got.float() - want.float()).abs(), want.float().abs()
+                if dtype == torch.float32:
+                    ok, limit = bool((d <= 2e-4 + 2e-4 * ref).all()), "atol 2e-4 + rtol 2e-4"
+                else:
+                    ok = bool((d <= TP_TOL_BF16 * ref.max()).all())
+                    limit = f"{TP_TOL_BF16:g} max|ref| (max|ref| {ref.max().item():.3g})"
+                tabs = [torch.as_tensor(tb[k], device=dev).to(dtype)
+                        for k in ("CBIG_R", "EXPW", "SUMR")]
+                t = torch.cat([x * sh[..., b:b + 1] for b in range(9)], dim=-1)
+                lib = lambda: ((w @ tabs[1]) * (t @ tabs[0])) @ tabs[2]
+                m = x.numel() // din
+                rec = report("fused_tp", f"layer {layer} {where} {tuple(lead)}", d.max().item(),
+                             ok, limit, kern, plain, lib, m * (din + 9 + numel + dout) * es,
+                             m * (9 * din + 2 * nnz + 2 * R))
+                if layer == 2 and where == "edges" and dtype == torch.float32:
+                    records["fused_tp"] = rec
+                del x, sh, w, got, want, t
+        torch.cuda.empty_cache()
+    return records
+
+
+def encoder_launches(n_layers=ENC_LAYERS):
+    """K8/K9/K10 launches of one encoder forward: 4 geometry gathers, per
+    layer 2 atom gathers, 1 atom mean, the atom TP and the CG->atom TP, and
+    but for the last layer 2 CG gathers, 1 CG mean, the CG TP and the
+    atom->CG TP."""
+    n = n_layers
+    return {"edge_gather": 4 + 2 * n + 2 * (n - 1), "edge_aggregate": n + (n - 1),
+            "fused_tp": 2 * n + 2 * (n - 1)}
+
+
+def decoder_launches(n_conv=DEC_LAYERS):
+    """K8/K9 launches of one IC decode: 2 geometry gathers, and a gather and
+    an aggregate per invariant message layer."""
+    return {"edge_gather": 2 + n_conv, "edge_aggregate": n_conv}
+
+
+def build_recon(device, seed, compute_dtype=None):
+    """The recon pipeline at the production VQ-VAE config, random weights
+    and a random N(0, 1) codebook of CODEBOOK codes from `seed`."""
+    import torch
+    from codlad_tpu_torch.eval.harness import SamplingPipeline
+    from codlad_tpu_torch.models.vae import VAE
+    gen = torch.Generator().manual_seed(seed)
+    vae = VAE(gen, embed_dim=36, vqdim=3, dec_nconv=DEC_LAYERS, enc_nconv=ENC_LAYERS,
+              compute_dtype=compute_dtype or torch.float32)
+    codebook = torch.randn((CODEBOOK, 3), generator=gen)
+    return SamplingPipeline(denoiser=None, process=None, vae=vae.to(device).eval(),
+                            codebook=codebook.to(device), norm_mean=[0.0, 0.0, 0.0],
+                            norm_std=[1.0, 1.0, 1.0])
+
+
+def run_recon(pipe, batch):
+    """Encode -> normalise -> snap -> decode -> metrics once, with the
+    kernels' launches read around the encoder and around the rest:
+    {latents, ic, xyz14, codes, metrics, seconds, encoder_seconds,
+    decode_seconds (snap, decode, xyz14), enc_launches, dec_launches}."""
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.eval.harness import evaluate_structures
+    cuda = batch["res_type"].device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    h = pipe.encode_latents(batch)
+    sync()
+    t_enc = time.perf_counter() - t0
+    enc = kernels.launch_counts()
+    kernels.reset_launches()
+    ic, xyz, codes = pipe.decode(batch, pipe.normalise(h), return_codes=True)
+    sync()
+    t_dec = time.perf_counter() - t0 - t_enc
+    metrics = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz).items()}
+    sync()
+    return {"latents": h, "ic": ic, "xyz14": xyz, "codes": codes, "metrics": metrics,
+            "seconds": time.perf_counter() - t0, "encoder_seconds": t_enc,
+            "decode_seconds": t_dec, "enc_launches": enc,
+            "dec_launches": kernels.launch_counts()}
+
+
+def check_recon(out, batch):
+    """Shapes, finite values and the launches of every kernel."""
+    import torch
+    nb, nl = batch["res_type"].shape
+    shapes = {"latents": (nb, nl, 3), "ic": (nb, nl, 13, 3), "xyz14": (nb, nl, 14, 3)}
+    for key, shape in shapes.items():
+        v = out[key]
+        if tuple(v.shape) != shape or not torch.isfinite(v).all():
+            raise RuntimeError(f"recon {key}: shape {tuple(v.shape)} (expected {shape}) "
+                               f"or not finite")
+    if not all(math.isfinite(v) for v in out["metrics"].values()):
+        raise RuntimeError(f"recon metrics not finite: {out['metrics']}")
+    cuda = batch["res_type"].device.type == "cuda"   # on the CPU no kernel launches
+    for part, want in (("enc_launches", encoder_launches()),
+                       ("dec_launches", decoder_launches())):
+        check_launches(out[part], want if cuda else {}, f"the recon path ({part})")
+
+
+def code_gaps(codebook, z):
+    """Squared distance from each z [..., D] to its second-nearest code minus
+    that to its nearest: how far the snap is from a tie."""
+    import torch
+    d = ((z.reshape(-1, 1, z.shape[-1]) - codebook[None]) ** 2).sum(-1)
+    two = torch.topk(d, 2, dim=-1, largest=False).values
+    return (two[:, 1] - two[:, 0]).reshape(z.shape[:-1])
+
+
+def recon_reference(seed, device="cuda"):
+    """The recon path in f32 on the card (kernels) against the CPU (plain
+    versions), same weights, on a small batch (2 frames of 40 residues):
+    latents atol 1e-4 + rtol 1e-4 (sums in another order); VQ codes equal
+    except where the CPU latent's two nearest codes are within CODE_MARGIN
+    (squared distance) of a tie, and the flips are counted; the CPU's
+    latents decoded on both sides (so that a flip can neither hide nor fake
+    a decode difference) to xyz14 within atol 1e-3 Å."""
+    import torch
+    batches = {dev: stage1_batch(seed + 5, dev, 2, 40) for dev in ("cpu", device)}
+    pipes = {dev: build_recon(dev, seed) for dev in ("cpu", device)}
+    outs = {dev: run_recon(pipes[dev], batches[dev]) for dev in ("cpu", device)}
+    cpu, card = outs["cpu"], outs[device]
+    ref = cpu["latents"]
+    d_lat = (card["latents"].cpu() - ref).abs()
+    lat_ok = bool((d_lat <= 1e-4 + 1e-4 * ref.abs()).all())
+    mask = batches["cpu"]["res_mask"].bool()
+    flip = (card["codes"].cpu() != cpu["codes"]) & mask
+    gaps = code_gaps(pipes["cpu"].codebook, ref)
+    bad_flips = int((flip & (gaps > CODE_MARGIN)).sum())
+    xyz = {dev: pipes[dev].decode(batches[dev], ref.to(dev))[1].cpu() for dev in pipes}
+    d_xyz = (xyz[device] - xyz["cpu"]).abs().max().item()
+    log(f"recon reference (card f32 kernels vs CPU plain versions, 2 x 40): latents "
+        f"max|d|={d_lat.max().item():.3g} (atol 1e-4 + rtol 1e-4); VQ codes flipped "
+        f"{int(flip.sum())} of {int(mask.sum())} residues, {bad_flips} of them not near-tied "
+        f"(gap > {CODE_MARGIN:g}); xyz14 from the CPU latents max|d|={d_xyz:.3g} (atol 1e-3)")
+    if not (lat_ok and bad_flips == 0 and d_xyz <= 1e-3):
+        raise RuntimeError("the card's recon path disagrees with the CPU reference")
+
+
+def recon_trained(device="cuda"):
+    """The converted trained VQ-VAE on the fixture frames against the JAX
+    outputs stored with them: VQ codes equal wherever the JAX latent's two
+    nearest codes differ by more than CODE_MARGIN; per-frame rmsd_aligned
+    within 1e-3 Å of JAX's. Returns the port's batch-mean metrics."""
+    import numpy as np
+    import torch
+    from codlad_tpu_torch.cli.test import load_vae
+    from codlad_tpu_torch.convert.from_flax import read_flax_npz
+    from codlad_tpu_torch.eval.harness import SamplingPipeline, evaluate_structures
+    vae, codebook, _ = load_vae(str(WEIGHTS), device)
+    mean, std = read_flax_npz(str(WEIGHTS))["stats"]
+    pipe = SamplingPipeline(denoiser=None, process=None, vae=vae, codebook=codebook,
+                            norm_mean=mean, norm_std=std)
+    with np.load(FIXTURE) as fx:
+        want = {k: fx[k] for k in fx.files}
+    batch = {k[len("batch/"):]: torch.as_tensor(v, device=device) for k, v in want.items()
+             if k.startswith("batch/")}
+    out = run_recon(pipe, batch)
+    per_frame = evaluate_structures(batch, out["ic"], out["xyz14"], per_frame=True)
+    rmsd = per_frame["rmsd_aligned"].cpu().numpy()
+    d_rmsd = np.abs(rmsd - want["metric/rmsd_aligned"]).max()
+    jlat = torch.as_tensor(want["latents"], device=device)
+    tied = code_gaps(codebook, jlat) <= CODE_MARGIN
+    mask = batch["res_mask"].bool()
+    differ = (out["codes"] != torch.as_tensor(want["codes"], device=device)) & mask
+    d_lat = (out["latents"] - jlat).abs().max().item()
+    m = out["metrics"]
+    log(f"recon trained (weights/convergence_vqvae.npz, prot_0030 x {rmsd.size} frames): "
+        f"latents max|d| vs JAX {d_lat:.3g}; codes differ at {int(differ.sum())} of "
+        f"{int(mask.sum())} residues ({int((differ & ~tied).sum())} not near-tied, gap > "
+        f"{CODE_MARGIN:g}); per-frame rmsd_aligned {np.round(rmsd, 5).tolist()} vs JAX "
+        f"{np.round(want['metric/rmsd_aligned'], 5).tolist()}, max|d| {d_rmsd:.3g} Å (tol "
+        f"1e-3); mean rmsd_aligned {m['rmsd_aligned']:.4f}, ged {m['ged']:.4f}, clash "
+        f"{m['clash']:.4f} (FLOOR_TABLE.md recon over its 4 proteins, for context: "
+        f"{FLOOR['rmsd_aligned']}, {FLOOR['ged']}, {FLOOR['clash']})")
+    if int((differ & ~tied).sum()) or not d_rmsd <= 1e-3:
+        raise RuntimeError("the trained VQ-VAE on the card disagrees with the JAX outputs")
+    return m
+
+
+def run_recon_cli(seed, device="cuda", batch_size=4):
+    """The recon CLI's main on two proteins of 3 frames the port writes as
+    shards, with the trained weights: summary_stats.json with finite
+    per-protein and global metrics."""
+    import json
+    import os
+    import tempfile
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/shards")
+        for i, n_res in enumerate((58, 75)):
+            save_protein_shard(f"{tmp}/shards/prot_{i:04d}.npz",
+                               synthetic_examples(3, n_res, seed=seed + i, prot_idx=i,
+                                                  structured=True))
+        CLI.main(["--experiment", "recon", "--vae_weights", str(WEIGHTS), "--data_dir",
+                  f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--batch_size",
+                  str(batch_size), "--device", str(device)])
+        with open(f"{tmp}/eval/summary_stats.json") as f:
+            summary = json.load(f)
+    glob = summary["__global__"]
+    if set(summary) != {"prot_0000.npz", "prot_0001.npz", "__global__", "__global_stats__"} \
+            or not all(math.isfinite(v) for v in glob.values()):
+        raise RuntimeError(f"recon CLI summary: {summary}")
+    return glob
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -790,6 +1198,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     records = check_kernels(device, args.seed)
     records.update(check_bwd_kernels(device, args.seed))
+    check_kernels(device, args.seed, K48)       # logged; the records keep the bench shape
+    check_bwd_kernels(device, args.seed, K48)
+    s1_batch = stage1_batch(args.seed, device)
+    records.update(check_stage1_kernels(s1_batch, args.seed))
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -804,14 +1216,11 @@ def main(argv=None):
     steps = pipe.process.num_timesteps
     n_enc = len(pipe.denoiser.enc_layers)
     expect = {"fused_message_sum": steps * (n_enc + len(pipe.denoiser.dec_layers)),
-              "fused_message_edge_lnmod": steps * n_enc}
+              "fused_message_edge_lnmod": steps * n_enc, **decoder_launches()}
     log(f"phase slice: {time.perf_counter() - t0:.2f} s; launches {out['launches']} "
         f"(expected {expect}); xyz14 {tuple(out['xyz14'].shape)} finite")
-    for name, n in out["launches"].items():
-        if n != expect.get(name, 0):  # expect > 0: a kernel never launched fails too
-            raise RuntimeError(f"{name} launched {n} times on the main path, "
-                               f"expected {expect.get(name, 0)}")
-    for name in expect:
+    check_launches(out["launches"], expect, "the sampling path")
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
         records[name]["launches"] = out["launches"][name]
 
     t0 = time.perf_counter()
@@ -823,6 +1232,13 @@ def main(argv=None):
         raise RuntimeError("timed run produced non-finite xyz14")
     log(f"phase timing: {dt:.3f} s for {steps} denoise steps + decode "
         f"({steps / dt:.2f} steps/s, batch {B}x{L}, bf16 denoiser)")
+    b48, l48, k48 = K48
+    out = run_slice(pipe, to_device(synthetic_cg_batch(b48, l48, seed=args.seed + 3), device),
+                    gen)
+    check_slice(out, b48, l48)
+    check_launches(out["launches"], expect, "the sampling path at L = 48")
+    log(f"  one draw at the L = 48 bucket ({b48}x{l48}, K {k48}): {out['seconds']:.3f} s "
+        f"({steps / out['seconds']:.2f} steps/s); launches as expected; xyz14 finite")
 
     t0 = time.perf_counter()
     reference_check(args.seed)
@@ -868,6 +1284,58 @@ def main(argv=None):
     t0 = time.perf_counter()
     train_reference(args.seed, device)
     log(f"phase train_reference: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    pipe = build_recon(device, args.seed)
+    run_recon(pipe, s1_batch)                   # first use: tables to the card
+    torch.cuda.reset_peak_memory_stats()
+    out = run_recon(pipe, s1_batch)
+    check_recon(out, s1_batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("edge_gather", "edge_aggregate", "fused_tp"):
+        records[name]["launches"] = out["enc_launches"][name] + out["dec_launches"][name]
+    nb, nl = s1_batch["res_type"].shape
+    sec = out["seconds"]
+    log(f"phase recon: {time.perf_counter() - t0:.2f} s; batch {nb}x{nl} f32: "
+        f"{sec * 1e3:.2f} ms a batch: encoder {out['encoder_seconds'] * 1e3:.2f} ms "
+        f"({out['encoder_seconds'] / sec:.3f}), snap + decode + xyz14 "
+        f"{out['decode_seconds'] * 1e3:.2f} ms ({out['decode_seconds'] / sec:.3f}), metrics "
+        f"{(sec - out['encoder_seconds'] - out['decode_seconds']) * 1e3:.2f} ms; peak memory "
+        f"{peak:.2f} GiB; "
+        f"launches per encoder forward {out['enc_launches']}, per decode "
+        f"{out['dec_launches']}; metrics (random weights) "
+        f"{ {k: round(v, 4) for k, v in out['metrics'].items()} }")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = run_recon(pipe, s1_batch)
+    trace_summary(prof, traced["seconds"] * 1e3, 1, mine=STAGE1_KERNELS,
+                  label="K8/K9/K10", unit="batch")
+    recon_reference(args.seed, device)
+    pipe = build_recon(device, args.seed, compute_dtype=torch.bfloat16)
+    pipe.encode_latents(s1_batch)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = pipe.encode_latents(s1_batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    if not torch.isfinite(h).all():
+        raise RuntimeError("the bf16 encoder gave non-finite latents")
+    log(f"  bf16 encoder forward at {nb}x{nl}: median {statistics.median(times):.2f} ms of 3 "
+        f"(f32 {out['encoder_seconds'] * 1e3:.2f} ms)")
+    log(f"phase recon total: {time.perf_counter() - t0:.2f} s")
+    del pipe, out, s1_batch
+
+    t0 = time.perf_counter()
+    recon_trained(device)
+    log(f"phase recon_trained: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    glob = run_recon_cli(args.seed, device)
+    log(f"phase recon_entry: {time.perf_counter() - t0:.2f} s; cli.test --experiment recon "
+        f"on 2 shards: global rmsd_aligned {glob['rmsd_aligned']:.4f}, ged {glob['ged']:.4f}, "
+        f"clash {glob['clash']:.4f}; summary_stats.json written")
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

@@ -4,11 +4,19 @@ The port's modules carry the flax module names, so the mapping is by name:
 `enc_layers_3` becomes `enc_layers.3`; a Dense `kernel` [in, out] becomes
 `weight` [out, in]; an Embed `embedding` and a LayerNorm `scale` become
 `weight`; raw parameters (SplitMessageChain's W_e, W2, b2, W3, b3) keep
-their name and layout. The VQ codebook is a plain array.
+their name and layout. The encoder's names (`encoder/EdgeEmbed_i`,
+`Embed_i`, `TPConv_i/Dense_j`, the cross graph's `Dense_i`, `map_in`) map
+the same way. The VQ codebook is a plain array.
+
+`read_flax_npz` reads the single-file export of a trained checkpoint
+(scripts/export_flax_npz.py): flax-named leaves under `params/...`, the
+codebook, the model config and the latent stats; nothing on the card reads
+orbax.
 """
 
 from __future__ import annotations
 
+import json
 import re
 
 import numpy as np
@@ -58,3 +66,25 @@ def load_flax(module, params):
 def codebook_from_flax(codebook, device="cuda"):
     """The VQ codebook [n_codes, dim] (e.g. `VQState.codebook`)."""
     return torch.as_tensor(np.asarray(codebook, dtype=np.float32), device=device)
+
+
+def read_flax_npz(path):
+    """-> {"params": nested dict of arrays, "codebook": [n_codes, dim] or
+    None, "config": dict, "stats": (mean, std) or None} from an npz whose
+    keys are `params/<module>/.../<leaf>`, `codebook`, `config` (JSON) and
+    `stats_mean` / `stats_std`."""
+    params = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            if not key.startswith("params/"):
+                continue
+            node = params
+            *mods, leaf = key.split("/")[1:]
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = z[key]
+        get = lambda k: z[k] if k in z.files else None
+        stats = ((get("stats_mean"), get("stats_std")) if "stats_mean" in z.files else None)
+        return {"params": params, "codebook": get("codebook"),
+                "config": json.loads(str(z["config"])) if "config" in z.files else {},
+                "stats": stats}

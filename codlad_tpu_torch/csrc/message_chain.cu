@@ -17,8 +17,9 @@
 // accumulates in f32.
 //
 // Design. One block of 256 threads owns ROWS = 16*TM edge rows (TM = 8 rows per
-// thread in bf16, 4 in f32), i.e. ROWS/K whole residues, so K1's masked K-sum
-// stays inside the block. W_e, W2 (and W3 for K2) are staged once per block in
+// thread in bf16, 4 in f32), i.e. floor(ROWS/K) whole residues, so K1's masked
+// K-sum stays inside the block. Where K does not divide ROWS (K = 48) the rows
+// past the last whole residue stay idle: they load zeros and store nothing. W_e, W2 (and W3 for K2) are staged once per block in
 // shared memory; the edge tile lives in shared memory row-major and is
 // overwritten in place by each activation. Each thread computes a TM x 8 tile
 // of every H x H product on CUDA cores in f32. The neighbour table is read by
@@ -87,7 +88,7 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
   const int r0 = rg * TM, c0 = cg * TN;
-  const int TL = ROWS / K;  // residues per block
+  const int TL = ROWS / K;  // whole residues per block; rows past TL*K idle
   const int b = blockIdx.y;
   const int l0 = blockIdx.x * TL;
   const int nrows = min(TL, L - l0) * K;  // valid edge rows of this tile
@@ -257,7 +258,7 @@ int launch(const void* A, const void* E, const void* Gn, const void* idx,
            float scale, void* stream) {
   constexpr int TM = Traits<T>::TM;
   constexpr int ROWS = RG * TM;
-  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || ROWS % K != 0 || K % TM != 0)
+  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > ROWS || K % TM != 0)
     return (int)cudaErrorInvalidValue;
   const int TL = ROWS / K;
   const size_t smem = (size_t)(EDGE ? 3 : 2) * H * H * sizeof(T) +

@@ -26,8 +26,8 @@
 //
 // Design. The TPU grid runs in order and carries the weight grads and dGn in
 // VMEM from one grid step to the next; Hopper blocks run in parallel. So:
-//  * chain_bwd_kernel: one block of 256 threads per 64-row tile (64/K whole
-//    residues). It recomputes the activations from the inputs (nothing
+//  * chain_bwd_kernel: one block of 256 threads per 64-row tile
+//    (floor(64/K) whole residues; at K = 48 the last 16 rows stay idle). It recomputes the activations from the inputs (nothing
 //    [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as their gelu
 //    derivatives in registers, and does every row-wise product on CUDA cores
 //    through one shared [H, H] weight buffer that is restaged for each product
@@ -246,7 +246,13 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
     for (int m = 0; m < TM; ++m) {
       const int ll = (r0 + m) / K;
       float ds[8];
-      load8(node + ll * H + c0, ds);
+      // idle rows past the tile's whole residues (K = 48) read no node row
+      if (ll < TL) {
+        load8(node + ll * H + c0, ds);
+      } else {
+#pragma unroll
+        for (int n = 0; n < TN; ++n) ds[n] = 0.0f;
+      }
 #pragma unroll
       for (int n = 0; n < TN; ++n) acc[m][n] = ds[n] * mk[m];  // dh2
     }
@@ -553,7 +559,7 @@ int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
                void* s_h2, void* s_dmsg, void* wpart, void* p_db, void* p_mod, void* dW,
                void* db, void* dmod, int B, int L, int K, int N, int n_tiles,
                int n_chunks, void* stream) {
-  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || ROWS % K != 0 || K % TM != 0 ||
+  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > ROWS || K % TM != 0 ||
       n_chunks <= 0)
     return (int)cudaErrorInvalidValue;
   const int TL = ROWS / K;

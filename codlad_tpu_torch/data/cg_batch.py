@@ -1,10 +1,10 @@
 """CG inference batches: synthetic C-alpha traces, the CG radius graph and
 the padding of the keys the sampling path reads.
 
-Copies of `random_ca_trace` (codlad_tpu/data/synthetic.py), the CG edge
-list of `featurize_frame` (codlad_tpu/data/featurize.py) and the padding of
-`pad_example` (codlad_tpu/data/batch.py) for res_type, res_mask,
-cg_xyz_og [B, L+2, 3], cg_edges and cg_edges_mask.
+Copies of the CG edge list of `featurize_frame`
+(codlad_tpu/data/featurize.py) and the padding of `pad_example`
+(codlad_tpu/data/batch.py) for res_type, res_mask, cg_xyz_og [B, L+2, 3],
+cg_edges and cg_edges_mask; the traces are `data.synthetic.random_ca_trace`.
 """
 
 from __future__ import annotations
@@ -14,25 +14,7 @@ import math
 import numpy as np
 import torch
 
-
-def random_ca_trace(rng, n_res, step=3.8):
-    """Self-avoiding C-alpha walk with `step` Å virtual bonds, [n_res, 3]."""
-    xyz = [np.zeros(3), np.array([step, 0.0, 0.0])]
-    direction = np.array([1.0, 0.0, 0.0])
-    for _ in range(n_res - 2):
-        for _ in range(64):
-            new_dir = direction + rng.normal(size=3) * 0.7
-            new_dir /= np.linalg.norm(new_dir)
-            cos = float(np.dot(new_dir, direction))
-            if -0.4 < cos < 0.9:
-                cand = xyz[-1] + step * new_dir
-                # weak self-avoidance against recent history
-                recent = np.stack(xyz[-12:])
-                if np.linalg.norm(recent - cand, axis=-1).min() > 3.4:
-                    break
-        direction = new_dir
-        xyz.append(xyz[-1] + step * new_dir)
-    return np.stack(xyz).astype(np.float64)
+from codlad_tpu_torch.data.synthetic import random_ca_trace
 
 
 def cg_radius_edges(cg_xyz_og, cutoff=21.0):

@@ -32,7 +32,8 @@ from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
 # edge rows per block of the forward kernels (16 row groups x rows per
-# thread); K must divide it. The backward kernels take 64 rows (4 a thread).
+# thread); a block owns floor(rows / K) whole residues, so K may not exceed
+# it. The backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 _BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
@@ -201,6 +202,16 @@ def _operand(t, dtype, shape, name, device):
     return t
 
 
+def check_neighbours(K, rows, per_thread):
+    """Raise unless a block of `rows` edge rows (`per_thread` rows a thread)
+    can take K neighbours a residue: K <= rows (a block owns floor(rows / K)
+    whole residues, the rest of its rows idle) and K a multiple of
+    per_thread (a thread's rows belong to one residue). The featurizer's
+    K = min(64, L), L a multiple of 16, gives K in {16, 32, 48, 64}."""
+    if K < 1 or K > rows or K % per_thread:
+        raise ValueError(f"K={K} must be at most {rows} and a multiple of {per_thread}")
+
+
 def _check_edge(E, Gn, rows=None, per_thread=None):
     """(B, L, K, H, N) of an edge operand the kernels take; `rows` and
     `per_thread` give the row tile (default: the forward kernels')."""
@@ -213,9 +224,7 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
     B, L, K, H = E.shape
     rows = rows or _BLOCK_ROWS[E.dtype]
     per_thread = per_thread or rows // 16
-    if rows % K or K % per_thread:
-        raise ValueError(f"K={K} must divide {rows} and be a multiple of "
-                         f"{per_thread} for {E.dtype}")
+    check_neighbours(K, rows, per_thread)
     if Gn.dim() != 3 or Gn.shape[0] != B or Gn.shape[2] != H:
         raise ValueError(f"Gn must be [{B}, N, {H}], got {tuple(Gn.shape)}")
     return B, L, K, H, Gn.shape[1]

@@ -1,15 +1,19 @@
 """Edge gather/aggregate over per-sample padded edge lists.
 
-Counterpart of codlad_tpu/nn/graph.py for the decoder's CG graph: where
-the JAX package contracts with one-hot selection matrices (a TPU device),
-the port indexes: `index_select` gathers node rows per edge and
-`index_add_` sums per-edge messages into their source nodes. Padded edges
-carry mask 0 and contribute nothing.
+Counterpart of codlad_tpu/nn/graph.py. The JAX package picks between dense
+one-hot contractions and its Pallas kernels by a memory budget, a choice
+about how a TPU's matrix unit should gather. Here every gather is K8
+(`kernels.edge_kernels.edge_gather`) and every aggregate K9
+(`edge_aggregate`): on CUDA tensors the kernels, on CPU tensors their plain
+versions (`index_select`, `index_add_` in f32). Padded edges carry mask 0
+and contribute nothing, and the mean divides by the count of valid edges.
 """
 
 from __future__ import annotations
 
 import torch
+
+from codlad_tpu_torch.kernels.edge_kernels import build_csr, edge_aggregate, edge_gather
 
 
 def make_directed_batched(edges, mask):
@@ -20,32 +24,26 @@ def make_directed_batched(edges, mask):
 
 class EdgeOps:
     """edges [B, E, 2] (src, dst) node indices, mask [B, E], n_nodes per
-    sample."""
+    sample. Messages aggregate to the src nodes; on the card the CSR of the
+    src index is built once, at the first aggregate, and shared by all."""
 
     def __init__(self, edges, mask, n_nodes):
-        B, E, _ = edges.shape
-        offs = (torch.arange(B, device=edges.device) * n_nodes)[:, None]
-        self.src = (edges[..., 0].long() + offs).reshape(-1)
-        self.dst = (edges[..., 1].long() + offs).reshape(-1)
+        self.src = edges[..., 0].to(torch.int32).contiguous()
+        self.dst = edges[..., 1].to(torch.int32).contiguous()
         self.mask = mask.to(torch.float32)
-        self.B, self.E, self.n_nodes = B, E, n_nodes
-
-    def _gather(self, nodes, flat_idx):
-        F = nodes.shape[-1]
-        out = nodes.reshape(-1, F).index_select(0, flat_idx).reshape(self.B, self.E, F)
-        return out * self.mask[..., None].to(nodes.dtype)
+        self.n_nodes = n_nodes
+        self._csr = None
 
     def gather_src(self, nodes):
         """nodes [B, N, F] -> [B, E, F] (0 where masked)."""
-        return self._gather(nodes, self.src)
+        return edge_gather(self.src, self.mask, nodes)
 
     def gather_dst(self, nodes):
-        return self._gather(nodes, self.dst)
+        return edge_gather(self.dst, self.mask, nodes)
 
-    def aggregate_to_src(self, msgs):
-        """msgs [B, E, F] -> [B, N, F], summed over each node's edges."""
-        F = msgs.shape[-1]
-        msgs = msgs * self.mask[..., None].to(msgs.dtype)
-        out = torch.zeros((self.B * self.n_nodes, F), dtype=msgs.dtype, device=msgs.device)
-        out.index_add_(0, self.src, msgs.reshape(-1, F))
-        return out.reshape(self.B, self.n_nodes, F)
+    def aggregate_to_src(self, msgs, reduce="sum"):
+        """msgs [B, E, F] -> [B, N, F], summed (or averaged over the valid
+        degree, reduce="mean") over each node's edges."""
+        if msgs.device.type == "cuda" and self._csr is None:
+            self._csr = build_csr(self.src, self.mask, self.n_nodes)
+        return edge_aggregate(self.src, self.mask, msgs, self.n_nodes, reduce, self._csr)

@@ -1,6 +1,7 @@
-"""K1-K5 CUDA kernels against their plain versions on the card: the
+"""The CUDA kernels against their plain versions on the card: K1-K5's
 forwards against the plain versions, the backwards (K3, K4, K5's) against
-torch.autograd of the plain versions on the same inputs and cotangent.
+torch.autograd of the plain versions on the same inputs and cotangent; K8
+(bit for bit), K9 and K10 against theirs.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -49,9 +50,10 @@ def _close(got, want, atol, rtol):
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
-@pytest.mark.parametrize("L,N,K", [(128, 128, 64), (37, 50, 32), (9, 9, 16)])
+@pytest.mark.parametrize("L,N,K", [(128, 128, 64), (37, 50, 32), (9, 9, 16), (48, 48, 48)])
 def test_kernels_match_plain(dev, dtype, atol, rtol, L, N, K):
-    """Bench shape, a ragged L with a longer gather table, and a tiny K."""
+    """Bench shape, a ragged L with a longer gather table, a tiny K, and the
+    L = 48 bucket (K = 48 does not divide a block's rows: a partial tile)."""
     x = _inputs(dev, dtype, 3, L, N, K)
     MK.reset_launches()
     s = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
@@ -106,7 +108,7 @@ def _check_bwd(kernel_fn, plain_fn, x, keys, names, ct, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,N,K", [(37, 50, 32), (9, 9, 16), (20, 20, 64)])
+@pytest.mark.parametrize("L,N,K", [(37, 50, 32), (9, 9, 16), (20, 20, 64), (48, 48, 48)])
 def test_backward_kernels_match_plain_autograd(dev, dtype, L, N, K):
     """K3 through fused_message_sum, K4 through fused_message_edge_lnmod."""
     x = _inputs(dev, dtype, 3, L, N, K, seed=1)
@@ -151,3 +153,74 @@ def test_dropout_kernels_match_plain(dev, dtype):
     assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_edge_lnmod_drop=3,
                                fused_message_edge_lnmod_drop_bwd=2)
     assert sum(MK.LAUNCHES.values()) == 5
+
+
+# Stage-1 kernels. K8 is an index read: bit for bit. K9 sums in f32 in
+# another order than index_add_: f32 atol 2e-4 + rtol 2e-4; bf16 within
+# 2^-6 |ref| + 1e-4 max|ref| (a sum on the other side of a bf16 rounding
+# boundary, then the division rounds again). K10 f32 atol 2e-4 + rtol 2e-4;
+# bf16 2e-2 max|ref| (the plain version rounds TR to bf16, the kernel does
+# not, as the Pallas kernel does not).
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _edges(dev, B, E, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, N, (B, E), generator=g, dtype=torch.int32)
+    mask = (torch.rand(B, E, generator=g) > 0.3).float()
+    idx[:, E // 2:] = 0            # padding: index 0, mask 0
+    mask[:, E // 2:] = 0.0
+    return idx.to(dev), mask.to(dev), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_kernels_match_plain(dev, dtype):
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    B, E, N = 2, 3000, 300
+    idx, mask, g = _edges(dev, B, E, N, 5)
+    EK.reset_launches()
+    for F in (4, 13, 48):
+        nodes = torch.randn(B, N, F, generator=g).to(dev).to(dtype)
+        got = EK.edge_gather(idx, mask, nodes)
+        want = EK.ref_gather(idx, mask, nodes)
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+        msgs = torch.randn(B, E, F, generator=g).to(dev).to(dtype)
+        csr = EK.build_csr(idx, mask, N)
+        for reduce in ("sum", "mean"):
+            got = EK.edge_aggregate(idx, mask, msgs, N, reduce, csr)
+            assert torch.equal(got, EK.edge_aggregate(idx, mask, msgs, N, reduce, csr))
+            want = EK.ref_aggregate(idx, mask, msgs, N, reduce)
+            d, ref = (got.float() - want.float()).abs(), want.float().abs()
+            if dtype == torch.float32:
+                assert bool((d <= 2e-4 + 2e-4 * ref).all()), d.max().item()
+            else:
+                assert bool((d <= 2 ** -6 * ref + 1e-4 * ref.max()).all()), d.max().item()
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES == {"edge_gather": 3, "edge_aggregate": 12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_fused_tp_matches_plain(dev, dtype, layer):
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[layer]), tuple(SH_IRREPS), tuple(lad[layer + 1]))
+    g = torch.Generator().manual_seed(layer)
+    TK.reset_launches()
+    for lead in ((2, 1000), (2, 9, 14)):       # edge rows (not a multiple of 32), cross graph
+        x = torch.randn(*lead, lad[layer].dim, generator=g).to(dev).to(dtype)
+        sh = sh_l2(torch.randn(*lead, 3, generator=g)).to(dev).to(dtype)
+        w = torch.randn(*lead, tb["numel"], generator=g).to(dev).to(dtype)
+        got = TK.fused_tp(x, sh, w, tb)
+        want = TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+        assert got.dtype == dtype and got.shape == want.shape
+        d, ref = (got.float() - want.float()).abs(), want.float().abs()
+        if dtype == torch.float32:
+            assert bool((d <= 2e-4 + 2e-4 * ref).all()), d.max().item()
+        else:
+            assert bool((d <= 2e-2 * ref.max()).all()), (d.max().item(), ref.max().item())
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES == {"fused_tp": 2}

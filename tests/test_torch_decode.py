@@ -83,7 +83,7 @@ def test_vae_decode_icdecoder_matches_jax():
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     p = random_params(vae, 4, jb, lat, method=JaxVAE.decode)
     want = jax_apply(vae, p, jb, lat, method=JaxVAE.decode)
-    port = load_flax(VAE(torch.Generator().manual_seed(0), embed_dim=8, vqdim=3,
+    port = load_flax(VAE(torch.Generator().manual_seed(0), embed_dim=8, vqdim=3, encoder=False,
                          dec_nconv=2), p)
     with torch.no_grad():
         got = port.decode({k: t(v) for k, v in batch.items()}, t(lat))

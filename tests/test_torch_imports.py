@@ -4,7 +4,9 @@ In a fresh interpreter whose import system refuses jax, jaxlib, flax,
 optax, orbax and codlad_tpu, every module of codlad_tpu_torch and
 chip_smoke import, chip_smoke's slice and training phases run on the CPU
 at tiny size through the plain versions of the kernels, and its reference
-checks run with the CPU standing in for the card."""
+checks run with the CPU standing in for the card; so do its Stage-1 recon
+phases (random weights, the trained weights on their fixture, the recon
+CLI)."""
 
 import os
 import subprocess
@@ -64,6 +66,17 @@ SCRIPT = textwrap.dedent("""
     rows = chip_smoke.run_train_cli(0, "cpu", n_frames=3, n_res=12, batch=2, steps=2)
     assert len(rows) == 2
     chip_smoke.train_reference(0, device="cpu", hidden=32, layers=1)
+
+    # the Stage-1 recon phases, tiny, with the CPU standing in for the card
+    s1 = chip_smoke.stage1_batch(0, "cpu", 2, 20)
+    out = chip_smoke.run_recon(chip_smoke.build_recon("cpu", 0), s1)
+    chip_smoke.check_recon(out, s1)
+    assert not any(out["enc_launches"].values()), out["enc_launches"]
+    assert chip_smoke.encoder_launches() == {"edge_gather": 14, "edge_aggregate": 5,
+                                             "fused_tp": 10}
+    chip_smoke.recon_reference(0, device="cpu")
+    chip_smoke.recon_trained("cpu")
+    chip_smoke.run_recon_cli(0, "cpu")
     print("imported", len(names), "modules")
 """)
 

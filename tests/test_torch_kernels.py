@@ -67,3 +67,19 @@ def test_kernel_wrapper_refuses_tensors_it_cannot_take():
     meta = {k: t(v).to("meta") for k, v in x.items()}
     with pytest.raises(ValueError):
         TK.fused_message_sum(*(meta[k] for k in _CHAIN + ("mask",) + _W), 30.0)
+
+
+@pytest.mark.parametrize("K", [16, 32, 48, 64])
+@pytest.mark.parametrize("rows,per_thread", [(128, 8), (64, 4)],
+                         ids=["fwd-bf16", "fwd-f32-and-bwd"])
+def test_kernels_take_every_k_the_featurizer_gives(K, rows, per_thread):
+    """K = min(64, L) with L a multiple of 16: every such K fits every row
+    tile of the forward and backward kernels, 48 included (a block then
+    owns a partial tile: floor(rows / K) residues, its other rows idle)."""
+    TK.check_neighbours(K, rows, per_thread)
+
+
+@pytest.mark.parametrize("K", [12, 65, 0])
+def test_kernels_refuse_a_k_they_cannot_tile(K):
+    with pytest.raises(ValueError):
+        TK.check_neighbours(K, 64, 4 if K != 12 else 8)
