@@ -21,7 +21,11 @@ Phases, each printing its seconds:
                 signatures on the atom edges and on the cross graph's
                 [B, L, 14, *] operands) within their tolerances, each timed
                 beside its bound, its plain version and the nearest PyTorch
-                call;
+                call; K11 (fused_tp_bwd: dx, dsh, dw) at K10's six shapes
+                against autograd of the plain K10 (float64 for f32), timed
+                beside its bound, the plain backward and the dense form's
+                backward in cuBLAS; the K8/K9 backwards (each the other
+                kernel) against autograd of their plain versions;
   3. slice   -- the Stage-2 inference path at full width: a synthetic CG
                 batch of 96 frames x 128 residues, 100 respaced ancestral
                 steps of the 3+3-layer bf16 denoiser, VQ snap, IC decode
@@ -65,6 +69,20 @@ Phases, each printing its seconds:
  11. recon entry -- `python -m codlad_tpu_torch.cli.test --experiment
                 recon` (its main) on a shard directory the port writes,
                 with the trained weights; summary_stats.json.
+ 12. train_stage1 -- the Stage-1 trainer's step (make_vqvae_step) at the
+                Stage-1 bench batch and the trained run's config (3 + 4
+                layers, 512 codes), random weights from --seed, bf16 feature
+                path: 10 steps, launches of K8-K11 asserted every step,
+                the loss finite and no step skipped, median ms/step, the
+                first step, peak memory, the last step under
+                torch.profiler; then 3 steps in f32;
+ 13. train_stage1_reference -- one f32 step on a small batch (2 x 40) on
+                the card and on the CPU: loss, every parameter's grad, the
+                VQ state;
+ 14. train_stage1_entry -- the chain through its entry points on two
+                synthetic proteins: cli.train_vqvae (-bf16, 2 epochs, then
+                -resume), cli.extract_features, 2 steps of cli.train_latent
+                on those features, cli.test --experiment recon --vae_ckpt.
 
 Sampling weights are the port's init from --seed with the adaLN heads (zero
 at init) drawn small and random, so that every layer reaches the output;
@@ -122,6 +140,7 @@ KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
     "edge_gather": ("codlad_tpu/kernels/edge_kernels.py:119", "edge_ops.cu"),
     "edge_aggregate": ("codlad_tpu/kernels/edge_kernels.py:140", "edge_ops.cu"),
     "fused_tp": ("codlad_tpu/kernels/tp_kernels.py:152", "fused_tp.cu"),
+    "fused_tp_bwd": ("codlad_tpu/kernels/tp_kernels.py:193", "fused_tp_bwd.cu"),
 }
 WEIGHTS = Path(__file__).resolve().parent / "weights" / "convergence_vqvae.npz"
 FIXTURE = WEIGHTS.with_name("convergence_vqvae_fixture.npz")
@@ -636,7 +655,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials")  # csrc
-STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel")          # csrc
+STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
+                  "fused_tp_bwd_kernel")
 
 
 def busy_us(intervals):
@@ -1169,6 +1189,321 @@ def run_recon_cli(seed, device="cuda", batch_size=4):
     return glob
 
 
+# ---------------------------------------------------------------------------
+# Stage 1 training: K11 and the K8/K9 backwards, the trainer's step, its CLI
+
+
+def tp_bwd_cost(m, din, numel, dout, R, nnz, es, dsh=9):
+    """(bytes, operations) of K11 over m rows: x, sh, w and dct read once,
+    dx, dsh and dw written once; 4 nnz + 5 R + 5 dsh din operations a row
+    (TR, dTR and dwR, the two transposed products, dx and dsh)."""
+    return (m * ((din + dsh + numel + dout) + (din + dsh + numel)) * es,
+            m * (4 * nnz + 5 * R + 5 * dsh * din))
+
+
+def check_stage1_bwd_kernels(batch, seed):
+    """K11 against autograd of the plain K10 (float64 for the f32 kernel,
+    bf16 for the bf16 one) at K10's six shapes of the Stage-1 bench batch,
+    dx, dsh and dw, timed beside its bound, the plain backward and the dense
+    form's backward as cuBLAS products; then the K8 / K9 backwards (K9 over
+    the dst CSR for the layer-2 atom feature gather, F 36; K8 of the
+    cotangent over the valid degree for the layer-2 atom mean, F 48)
+    against autograd of their plain versions. Returns the bf16 (the
+    trainer's dtype) record of K11 at the layer-2 atom edges."""
+    import torch
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.graph import make_directed_batched
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+
+    dev = batch["res_type"].device
+    nb, nl = batch["res_type"].shape
+    na = nl * 14
+    edges, emask = make_directed_batched(batch["atom_edges"], batch["atom_edges_mask"])
+    src = edges[..., 0].to(torch.int32).contiguous()
+    dst = edges[..., 1].to(torch.int32).contiguous()
+    maskf = emask.to(torch.float32)
+    ne = src.shape[1]
+    g = torch.Generator().manual_seed(seed + 13)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    ladder = irrep_ladder(12, 4)
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.finfo(dtype).bits // 8
+        ref_dt = torch.float64 if dtype == torch.float32 else dtype
+        for layer in range(3):
+            tb = fused_tp_tables(tuple(ladder[layer]), tuple(SH_IRREPS),
+                                 tuple(ladder[layer + 1]))
+            din, numel, R = ladder[layer].dim, tb["numel"], tb["R"]
+            dout = tb["SUMR"].shape[1]
+            nnz = TK.sparse_tables(tb)["nnz"]
+            for where, lead in (("edges", (nb, ne)), ("cross", (nb, nl, 14))):
+                x = rnd(*lead, din).to(dtype)
+                sh = sh_l2(rnd(*lead, 3)).to(dtype)
+                w = (rnd(*lead, numel) * din ** -0.5).to(dtype)
+                ct = rnd(*lead, dout).to(dtype)
+                got = TK.fused_tp_bwd(x, sh, w, ct, tb)
+                leaves = [t.to(ref_dt).requires_grad_(True) for t in (x, sh, w)]
+                out = TK.ref_fused_tp(*leaves, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+                want = torch.autograd.grad(out, leaves, ct.to(ref_dt))
+                torch.cuda.synchronize()
+                errs, ok = {}, True
+                for name, a, b in zip(("dx", "dsh", "dw"), got, want):
+                    d, ref = (a.double() - b.double()).abs(), b.double().abs()
+                    if dtype == torch.float32:
+                        bound = TOL[dname][0] + TOL[dname][1] * ref + GRAD_SCALE_TOL_F32 * ref.max()
+                    else:
+                        bound = TP_TOL_BF16 * ref.max()
+                    ok = ok and bool((d <= bound).all())
+                    errs[name] = (d.max().item(), ref.max().item())
+                del out, want, leaves
+                limit = ("atol 2e-4 + rtol 2e-4 + 2e-6 max|ref|, ref in float64"
+                         if dtype == torch.float32 else f"{TP_TOL_BF16:g} max|ref|")
+                pl = [t.detach().requires_grad_(True) for t in (x, sh, w)]
+                pout = TK.ref_fused_tp(*pl, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+                plain = lambda: torch.autograd.grad(pout, pl, ct, retain_graph=True)
+                tabs = [torch.as_tensor(tb[k], device=dev).to(dtype)
+                        for k in ("CBIG_R", "EXPW", "SUMR")]
+
+                def library():   # the dense form's backward as cuBLAS products
+                    t = torch.cat([x * sh[..., b:b + 1] for b in range(9)], dim=-1)
+                    dprod = ct @ tabs[2].T
+                    dw = (dprod * (t @ tabs[0])) @ tabs[1].T
+                    db = ((dprod * (w @ tabs[1])) @ tabs[0].T).unflatten(-1, (9, din))
+                    return (db * sh[..., :, None]).sum(-2), (db * x[..., None, :]).sum(-1), dw
+
+                kern = lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)
+                ms, plain_ms, lib_ms = time_calls(kern, plain, library)
+                m = x.numel() // din
+                nbytes, ops = tp_bwd_cost(m, din, numel, dout, R, nnz, es)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS[dname] * 1e3
+                err = max(e for e, _ in errs.values())
+                log(f"kernel fused_tp_bwd {dname} layer {layer} {where} {tuple(lead)}: "
+                    f"max|d|/max|ref| "
+                    f"{', '.join(f'{n} {e:.3g}/{r:.3g}' for n, (e, r) in errs.items())} "
+                    f"({limit}) {'ok' if ok else 'FAIL'}; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                    f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+                    f"{ops / 1e9:.3f} G ops)")
+                if not ok:
+                    raise RuntimeError(f"fused_tp_bwd ({dname}, layer {layer} {where}) "
+                                       "disagrees with plain autograd")
+                if layer == 2 and where == "edges" and dtype == torch.bfloat16:
+                    records["fused_tp_bwd"] = record("fused_tp_bwd", err, ms, plain_ms,
+                                                     t_bytes, t_ops, lib_ms)
+                del x, sh, w, ct, got, pl, pout
+                torch.cuda.empty_cache()
+
+        # K8's backward (K9 over the dst CSR) and K9's (K8 of ct / degree)
+        csr_dst = EK.build_csr(dst, maskf, na)
+        csr_src = EK.build_csr(src, maskf, na)
+        nodes = rnd(nb, na, 36).to(dtype).requires_grad_(True)
+        ct_e = rnd(nb, ne, 36).to(dtype)
+        (got,) = torch.autograd.grad(EK.edge_gather(dst, maskf, nodes, csr_dst), nodes, ct_e)
+        rl = nodes.detach().to(torch.float64 if dtype == torch.float32 else torch.float32)
+        rl.requires_grad_(True)
+        (want,) = torch.autograd.grad(EK.ref_gather(dst, maskf, rl), rl, ct_e.to(rl.dtype))
+        d, ref = (got.double() - want.double()).abs(), want.double().abs()
+        bound = (1e-5 + 1e-5 * ref) if dtype == torch.float32 else (
+            2.0 ** -8 * ref + 1e-5 * ref.max())
+        ok_g = bool((d <= bound).all())
+        msgs = rnd(nb, ne, 48).to(dtype).requires_grad_(True)
+        ct_n = rnd(nb, na, 48).to(dtype)
+        (got_a,) = torch.autograd.grad(EK.edge_aggregate(src, maskf, msgs, na, "mean", csr_src),
+                                       msgs, ct_n)
+        rm = msgs.detach().requires_grad_(True)
+        (want_a,) = torch.autograd.grad(EK.ref_aggregate(src, maskf, rm, na, "mean"), rm, ct_n)
+        torch.cuda.synchronize()
+        ok_a = torch.equal(got_a, want_a)
+        log(f"kernel backwards {dname}: d nodes of K8 (K9 over the dst CSR, F 36) max|d| "
+            f"{d.max().item():.3g} of max|ref| {ref.max().item():.3g} "
+            f"({'atol 1e-5 + rtol 1e-5, ref float64' if dtype == torch.float32 else '2^-8 |ref| + 1e-5 max|ref|, ref float32'}) "
+            f"{'ok' if ok_g else 'FAIL'}; d msgs of K9 mean (K8 of ct / degree, F 48) "
+            f"{'bit for bit' if ok_a else 'DIFFERS'}")
+        if not (ok_g and ok_a):
+            raise RuntimeError(f"the K8/K9 backwards ({dname}) disagree with plain autograd")
+        del nodes, msgs, got, want, got_a, want_a, rl, rm
+        torch.cuda.empty_cache()
+    return records
+
+
+STAGE1_TRAIN_STEPS = 10
+
+
+def stage1_train_launches(n_enc=ENC_LAYERS, n_dec=DEC_LAYERS):
+    """K8-K11 launches of one Stage-1 training step: the encoder forward and
+    the decode, and their backwards: every gather whose input needs a grad
+    (all but the encoder's 4 and the decoder's 2 geometry gathers) costs a
+    K9, every aggregate a K8, every K10 a K11."""
+    enc, dec = encoder_launches(n_enc), decoder_launches(n_dec)
+    grad_gathers = (enc["edge_gather"] - 4) + (dec["edge_gather"] - 2)
+    aggregates = enc["edge_aggregate"] + dec["edge_aggregate"]
+    return {"edge_gather": enc["edge_gather"] + dec["edge_gather"] + aggregates,
+            "edge_aggregate": aggregates + grad_gathers,
+            "fused_tp": enc["fused_tp"], "fused_tp_bwd": enc["fused_tp"]}
+
+
+def build_stage1_trainer(device, seed, compute_dtype=None, n_codes=CODEBOOK,
+                         enc=ENC_LAYERS, dec=DEC_LAYERS):
+    """(VAE, TrainState, train_step) of the Stage-1 trainer
+    (cli/train_vqvae.py `build_trainer`) at the trained config (embed 36,
+    vqdim 3), random weights and a vq_init codebook from `seed`."""
+    import torch
+    from codlad_tpu_torch.cli import train_vqvae
+    args = train_vqvae.build_parser().parse_args(
+        ["-seed", str(seed), "-vqdim", "3", "-codebook_size", str(n_codes), "-enc_nconv",
+         str(enc), "-dec_nconv", str(dec)] + (["-bf16"] if compute_dtype == torch.bfloat16
+                                              else []))
+    vae, state, step, _, _ = train_vqvae.build_trainer(args, device)
+    return vae, state, step
+
+
+def stage1_weights():
+    """LossWeights(zeta=5, omega=3).dynamic(2), as bench.py's Stage-1 step."""
+    from codlad_tpu_torch.train.losses import LossWeights
+    from codlad_tpu_torch.train.steps import weights_to_array
+    return weights_to_array(LossWeights(zeta=5.0, omega=3.0).dynamic(2))
+
+
+def run_stage1_train(state, step, batch, n_steps, expect, traced=0):
+    """n_steps Stage-1 training steps, each step's launches counted and held
+    to `expect`, the loss finite and no step skipped; the last `traced`
+    steps under torch.profiler (summary logged). Returns (ms of the
+    untraced steps, the last metrics, the host-read ms of each step)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from codlad_tpu_torch import kernels
+    cuda = batch["res_type"].device.type == "cuda"
+    w = stage1_weights()
+    p0 = {k: v.clone() for k, v in state.params.items()}
+    times, syncs = [], []
+    with contextlib.ExitStack() as stack:
+        for i in range(n_steps):
+            if i == n_steps - traced:
+                prof = stack.enter_context(profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            if cuda:
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, w)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = kernels.launch_counts()
+            want = dict(dict.fromkeys(got, 0), **expect)
+            if got != want:
+                raise RuntimeError(f"Stage-1 training step {i} launched {got}, expected {want}")
+            loss = float(metrics["loss"])
+            if not math.isfinite(loss) or float(metrics["skipped"]) != 0.0:
+                raise RuntimeError(f"Stage-1 training step {i}: loss {loss}, skipped "
+                                   f"{float(metrics['skipped'])}")
+            syncs.append(float(metrics["sync_ms"]))
+    if traced:
+        trace_summary(prof, sum(times[n_steps - traced:]), traced, mine=STAGE1_KERNELS,
+                      label="K8-K11")
+    if not any(not torch.equal(state.params[k], v) for k, v in p0.items()):
+        raise RuntimeError("the Stage-1 params did not move")
+    return times[:n_steps - traced], metrics, syncs
+
+
+def stage1_train_reference(seed, device="cuda"):
+    """One f32 Stage-1 training step on the card (kernels) and on the CPU
+    (plain versions) from the same weights, VQ state and batch (2 frames of
+    40 residues, 3 + 4 layers): loss within rel 1e-5, each parameter's grad
+    within 1e-3 max|grad|, the VQ state (codebook, cluster_size, embed_avg)
+    within 1e-5 + 1e-5 |ref|, the VQ codes equal."""
+    import torch
+    runs = {}
+    for dev in ("cpu", device):
+        _, state, step = build_stage1_trainer(dev, seed)
+        batch = stage1_batch(seed + 7, dev, 2, 40)
+        state, m = step(state, batch, stage1_weights(), return_grads=True)
+        runs[str(dev)] = (float(m["loss"]), {k: v.cpu() for k, v in m["grads"].items()},
+                          {k: v.cpu() for k, v in state.vq_state.tensors().items()},
+                          float(m["skipped"]))
+    (l_c, g_c, v_c, s_c), (l_d, g_d, v_d, s_d) = runs["cpu"], runs[str(device)]
+    rel = abs(l_d - l_c) / abs(l_c)
+    worst_g = max(((g_d[k] - v).abs().max() / (v.abs().max() + 1e-30)).item()
+                  for k, v in g_c.items())
+    worst_v = max(((v_d[k] - v).abs() - 1e-5 * v.abs()).max().item() for k, v in v_c.items())
+    log(f"train_stage1 reference (card f32 kernels vs CPU plain, 2 x 40): loss {l_d:.7g} vs "
+        f"{l_c:.7g} (rel {rel:.3g}, tol 1e-5); worst max|dgrad|/max|grad| over {len(g_c)} "
+        f"params {worst_g:.3g} (tol 1e-3); VQ state largest |d| - 1e-5 |ref| {worst_v:.3g} "
+        f"(must be <= 1e-5); skipped {s_d:g} / {s_c:g}")
+    if not (rel <= 1e-5 and worst_g <= 1e-3 and worst_v <= 1e-5 and s_c == s_d == 0.0):
+        raise RuntimeError("the card's Stage-1 training step disagrees with the CPU reference")
+
+
+def run_stage1_cli(seed, device="cuda", n_res=(58, 75), n_frames=4, batch=2, enc=ENC_LAYERS,
+                   dec=DEC_LAYERS, codes=CODEBOOK):
+    """The Stage-1 chain through its entry points on two synthetic proteins:
+    train_vqvae (-bf16, 2 epochs, then -resume for a third), extract_features
+    on its checkpoint, 2 steps of train_latent on those features, and the
+    recon CLI on the checkpoint. Returns {name: summary} of each step."""
+    import json
+    import os
+    import tempfile
+    from codlad_tpu_torch.cli import extract_features, train_latent, train_vqvae
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/shards")
+        for i, n in enumerate(n_res):
+            save_protein_shard(f"{tmp}/shards/prot_{i:04d}.npz",
+                               synthetic_examples(n_frames, n, seed=seed + i, prot_idx=i,
+                                                  structured=True))
+        common = ["-data_dir", f"{tmp}/shards", "-logdir", f"{tmp}/vq", "-batch_size",
+                  str(batch), "-vqdim", "3", "-codebook_size", str(codes), "-enc_nconv",
+                  str(enc), "-dec_nconv", str(dec), "-bf16", "-seed", str(seed),
+                  "--device", str(device)]
+        t0 = time.perf_counter()
+        first = train_vqvae.main(common + ["-nepochs", "2"])
+        t1 = time.perf_counter()
+        resumed = train_vqvae.main(common + ["-nepochs", "3", "-resume"])
+        t2 = time.perf_counter()
+        with open(f"{tmp}/vq/train_log.csv") as f:
+            rows = f.read().splitlines()[1:]
+        epochs = [r.split(",")[0] for r in rows]
+        losses = [float(r.split(",")[1]) for r in rows]
+        if epochs != ["0", "1", "2"] or not all(math.isfinite(v) for v in losses) or \
+                resumed.step != first.step * 3 // 2:
+            raise RuntimeError(f"train_vqvae log {rows}, steps {first.step} -> {resumed.step}")
+        out["train_vqvae"] = {"epochs": epochs, "train_loss": losses,
+                              "steps": resumed.step, "seconds": (t1 - t0, t2 - t1)}
+        usage = extract_features.main(["--ckpt", f"{tmp}/vq", "--data_dir", f"{tmp}/shards",
+                                       "--out_dir", f"{tmp}/feat", "--stats_name", "S1",
+                                       "--stats_dir", f"{tmp}/stats", "--batch_size",
+                                       str(batch), "--device", str(device)])
+        out["extract_features"] = {"codes_active": int((usage > 0).sum()),
+                                   "residues": int(usage.sum())}
+        state = train_latent.main(["--feature_dir", f"{tmp}/feat", "--exp", f"{tmp}/latent",
+                                   "--stats_name", "S1", "--stats_dir", f"{tmp}/stats",
+                                   "--batch_size", str(batch), "--max_steps", "2",
+                                   "--log_step", "1", "--save_step", "2", "--bf16",
+                                   "--seed", str(seed), "--device", str(device)])
+        with open(f"{tmp}/latent/metrics.jsonl") as f:
+            lat = [json.loads(r) for r in f]
+        if state.step != 2 or not all(math.isfinite(r["loss"]) for r in lat):
+            raise RuntimeError(f"train_latent on the extracted features: {lat}")
+        out["train_latent"] = {"losses": [r["loss"] for r in lat]}
+        summary = CLI.main(["--experiment", "recon", "--vae_ckpt", f"{tmp}/vq", "--data_dir",
+                            f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--batch_size",
+                            str(n_frames), "--device", str(device)])
+        glob = summary["__global__"]
+        if not all(math.isfinite(v) for v in glob.values()):
+            raise RuntimeError(f"recon CLI on the trained checkpoint: {glob}")
+        out["test_recon"] = glob
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1202,6 +1537,7 @@ def main(argv=None):
     check_bwd_kernels(device, args.seed, K48)
     s1_batch = stage1_batch(args.seed, device)
     records.update(check_stage1_kernels(s1_batch, args.seed))
+    records.update(check_stage1_bwd_kernels(s1_batch, args.seed))
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1336,6 +1672,48 @@ def main(argv=None):
     log(f"phase recon_entry: {time.perf_counter() - t0:.2f} s; cli.test --experiment recon "
         f"on 2 shards: global rmsd_aligned {glob['rmsd_aligned']:.4f}, ged {glob['ged']:.4f}, "
         f"clash {glob['clash']:.4f}; summary_stats.json written")
+
+    t0 = time.perf_counter()
+    s1_batch = stage1_batch(args.seed, device)
+    per_step = stage1_train_launches()
+    for dtype, n_steps, traced in ((torch.bfloat16, STAGE1_TRAIN_STEPS, 1),
+                                   (torch.float32, 3, 0)):
+        dname = str(dtype).split(".")[-1]
+        _, state, step = build_stage1_trainer(device, args.seed, compute_dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics, syncs = run_stage1_train(state, step, s1_batch, n_steps, per_step,
+                                                 traced=traced)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if dtype == torch.bfloat16:
+            records["fused_tp_bwd"]["launches"] = per_step["fused_tp_bwd"] * n_steps
+        nb, nl = s1_batch["res_type"].shape
+        log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
+            f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "
+            f"{len(times)} untraced {statistics.median(times[1:] or times):.2f} ms/step (first "
+            f"{times[0]:.1f} ms), host read of the loss {statistics.median(syncs):.2f} ms a "
+            f"step (median), peak memory {peak:.2f} GiB; launches a step {per_step} "
+            f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
+            f"{float(metrics['recon']):.5g}, vq {float(metrics['vq']):.4g}, perplexity "
+            f"{float(metrics['vq_perplexity']):.4g}; skipped 0 at every step")
+        del state, step
+    log(f"phase train_stage1: {time.perf_counter() - t0:.2f} s")
+    del s1_batch
+
+    t0 = time.perf_counter()
+    stage1_train_reference(args.seed, device)
+    log(f"phase train_stage1_reference: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    chain = run_stage1_cli(args.seed, device)
+    tv = chain["train_vqvae"]
+    log(f"phase train_stage1_entry: {time.perf_counter() - t0:.2f} s; train_vqvae -bf16 "
+        f"epochs {tv['epochs']} (the third after -resume) train loss "
+        f"{[round(v, 4) for v in tv['train_loss']]}, {tv['steps']} steps, "
+        f"{tv['seconds'][0]:.2f} s + {tv['seconds'][1]:.2f} s; extract_features "
+        f"{chain['extract_features']}; train_latent losses "
+        f"{[round(v, 4) for v in chain['train_latent']['losses']]}; test --experiment recon "
+        f"--vae_ckpt rmsd_aligned {chain['test_recon']['rmsd_aligned']:.4f}, ged "
+        f"{chain['test_recon']['ged']:.4f}")
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

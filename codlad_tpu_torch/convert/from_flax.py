@@ -70,9 +70,10 @@ def codebook_from_flax(codebook, device="cuda"):
 
 def read_flax_npz(path):
     """-> {"params": nested dict of arrays, "codebook": [n_codes, dim] or
+    None, "cluster_size" / "embed_avg" (the VQ state's EMA statistics) or
     None, "config": dict, "stats": (mean, std) or None} from an npz whose
-    keys are `params/<module>/.../<leaf>`, `codebook`, `config` (JSON) and
-    `stats_mean` / `stats_std`."""
+    keys are `params/<module>/.../<leaf>`, `codebook`, `cluster_size`,
+    `embed_avg`, `config` (JSON) and `stats_mean` / `stats_std`."""
     params = {}
     with np.load(path, allow_pickle=False) as z:
         for key in z.files:
@@ -86,5 +87,6 @@ def read_flax_npz(path):
         get = lambda k: z[k] if k in z.files else None
         stats = ((get("stats_mean"), get("stats_std")) if "stats_mean" in z.files else None)
         return {"params": params, "codebook": get("codebook"),
+                "cluster_size": get("cluster_size"), "embed_avg": get("embed_avg"),
                 "config": json.loads(str(z["config"])) if "config" in z.files else {},
                 "stats": stats}

@@ -2,7 +2,7 @@
 
 Copy of the npz part of codlad_tpu/data/norm.py: Stage 2 trains on
 standardised latents; the stats are `{name}_stats.npz` files with `mean` and
-`std`.
+`std`, computed by `compute_stats` over the extracted features.
 """
 
 from __future__ import annotations
@@ -10,6 +10,13 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+
+def compute_stats(latents_list, masks_list):
+    """Channel-wise mean/std over all valid residues of all latent arrays."""
+    vals = np.concatenate([np.asarray(x)[np.asarray(m, dtype=bool)]
+                           for x, m in zip(latents_list, masks_list)], axis=0)
+    return vals.mean(0), vals.std(0)
 
 
 def save_stats(path, name, mean, std):

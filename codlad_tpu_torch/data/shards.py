@@ -1,7 +1,7 @@
 """Per-protein `.npz` shards and constant-size batches over them.
 
-Copies of `save_protein_shard`, `load_protein_shard`, `iter_padded_batches`
-and `ShardDataset` from codlad_tpu/data/shards.py: one shard holds every
+Copies of `save_protein_shard`, `load_protein_shard`, `iter_padded_batches`,
+`ShardDataset` and `MixedShardDataset` from codlad_tpu/data/shards.py: one shard holds every
 featurized frame of one protein, padded to a PadSpec snapped onto the
 global bucket lattice, so shards written by the JAX `cli.preprocess` and by
 the port read the same.
@@ -96,3 +96,61 @@ class ShardDataset:
             if self.shuffle:
                 self._rng.shuffle(idx)
             yield from iter_padded_batches(data, self.batch_size, idx)
+
+
+class MixedShardDataset:
+    """Frame batches that mix proteins within a padding bucket (the Stage-1
+    trainer's default, -mix_batches). Shards are grouped by their PadSpec,
+    so their padded arrays concatenate; within a group a bounded pool of
+    frames is filled from shuffled shards, shuffled and drained as full
+    batches. Every frame appears once an epoch; each group's tail batch is
+    mask-padded. The numpy generator is called as the JAX package calls it,
+    so a seed gives its batches in its order."""
+
+    def __init__(self, directory, batch_size, seed=0, shuffle=True, pool_frames=4096):
+        self.directory = directory
+        self.files = sorted(f for f in os.listdir(directory) if f.endswith(".npz"))
+        if not self.files:
+            raise FileNotFoundError(f"no .npz shards in {directory}")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.pool_frames = max(pool_frames, batch_size)
+        self._rng = np.random.default_rng(seed)
+        self._groups = {}
+        for f in self.files:
+            spec, _ = load_protein_shard(os.path.join(directory, f))
+            key = json.dumps(dataclasses.asdict(spec), sort_keys=True)
+            self._groups.setdefault(key, []).append(f)
+
+    def _drain(self, chunks, count, final):
+        """Emit batches from the pooled chunks; return the remainder."""
+        if count == 0:
+            return [], 0
+        data = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        idx = np.arange(count)
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        n_emit = count if final else (count // self.batch_size) * self.batch_size
+        if n_emit:
+            yield from iter_padded_batches(data, self.batch_size, idx[:n_emit])
+        rest = idx[n_emit:]
+        if rest.size:
+            return [{k: v[rest] for k, v in data.items()}], rest.size
+        return [], 0
+
+    def __iter__(self):
+        group_keys = list(self._groups)
+        if self.shuffle:
+            self._rng.shuffle(group_keys)
+        for key in group_keys:
+            files = list(self._groups[key])
+            if self.shuffle:
+                self._rng.shuffle(files)
+            chunks, count = [], 0
+            for fname in files:
+                _, data = load_protein_shard(os.path.join(self.directory, fname))
+                chunks.append(data)
+                count += data["res_type"].shape[0]
+                if count >= self.pool_frames:
+                    chunks, count = yield from self._drain(chunks, count, final=False)
+            yield from self._drain(chunks, count, final=True)

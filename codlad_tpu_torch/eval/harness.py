@@ -27,6 +27,7 @@ import torch
 from codlad_tpu_torch.eval import metrics as M
 from codlad_tpu_torch.geometry.internal import ic_to_xyz14
 from codlad_tpu_torch.models.vq import vq_quantize
+from codlad_tpu_torch.train.losses import ic_terms, xyz_term
 
 
 def rounded_copy(module, dtype):
@@ -142,7 +143,7 @@ def evaluate_structures(batch, ic_recon, xyz14_gen, per_frame=False):
     frames["graph_valid_ratio"], frames["graph_diff_ratio"] = valid, ratio
     if per_frame:
         return frames
-    bond, angle, torsion = _recon_terms(batch, ic_recon)
+    bond, angle, torsion = ic_terms(batch, ic_recon)
     return {
         "rmsd": frames["rmsd"].mean(),
         "rmsd_aligned": frames["rmsd_aligned"].mean(),
@@ -152,25 +153,7 @@ def evaluate_structures(batch, ic_recon, xyz14_gen, per_frame=False):
         "inter": M.interaction_scores(xyz_gen, batch["inter_edges"],
                                       batch["inter_edges_mask"], batch["pipi_pairs"],
                                       batch["pipi_pairs_mask"])[0],
-        "xyz": _xyz_loss(batch, xyz_gen, xyz_ref),
+        "xyz": xyz_term(batch["atom_mask"], xyz_gen, xyz_ref),
         "bond": bond, "angle": angle, "torsion": torsion,
         "graph_valid_ratio": valid.mean(), "graph_diff_ratio": ratio.mean(),
     }
-
-
-def _xyz_loss(batch, xyz_gen, xyz_ref):
-    m = batch["atom_mask"].to(xyz_gen.dtype)
-    sq = ((xyz_gen - xyz_ref) ** 2).sum(-1)
-    return (sq * m).sum() / torch.clamp(m.sum(), min=1.0)
-
-
-def _recon_terms(batch, ic_recon):
-    ic = batch["ic"]
-    m = batch["ic_mask"].to(ic.dtype)
-    n = torch.clamp(m.sum(), min=1.0)
-    eps = 1e-7
-    bond = (((ic_recon[..., 0] - ic[..., 0]) * m) ** 2).sum() / n
-    angle = (torch.sqrt(2 * (1 - torch.cos(ic[..., 1] - ic_recon[..., 1])) + eps) * m).sum() / n
-    torsion = (torch.sqrt(2 * (1 - torch.cos(ic[..., 2] - ic_recon[..., 2])) + eps)
-               * m).sum() / n
-    return bond, angle, torsion

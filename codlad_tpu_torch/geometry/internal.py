@@ -3,8 +3,11 @@
 Counterpart of `ic_to_xyz14` and the helpers it calls in
 codlad_tpu/geometry/internal.py. Each of the 10 side-chain levels places
 one atom slot for every residue of the batch at once; the levels run in
-order because a parent may be placed at an earlier level. The output
-tensor is filled in place.
+order because a parent may be placed at an earlier level. The slots are
+kept as a list of [B, L, 3] tensors and stacked at the end, so autograd can
+differentiate the rebuild (the Stage-1 loss runs it inside the graph); each
+level reads its parents from a stack of the slots placed so far, unplaced
+slots zero.
 """
 
 from __future__ import annotations
@@ -59,17 +62,16 @@ def ic_to_xyz14(cg_xyz_full, ic, res_type):
     o = place_atom(ic[:, :, 2], c, ca_here, n)
 
     B, L = res_type.shape
-    xyz14 = torch.zeros((B, L, R.MAX_ATOMS, 3), dtype=cg_xyz_full.dtype,
-                        device=cg_xyz_full.device)
-    for slot, v in enumerate((o, n, c, ca_here)):
-        xyz14[:, :, slot] = v
+    slots = [o, n, c, ca_here]
+    zero = torch.zeros_like(ca_here)
     parents = torch.as_tensor(R.SC_PARENTS, device=res_type.device)[res_type.long()]
-
-    def take(slot):
-        return torch.gather(xyz14, 2, slot.long()[..., None, None].expand(B, L, 1, 3))[:, :, 0]
-
     for k in range(R.MAX_SC):
+        placed = torch.stack(slots + [zero] * (R.MAX_ATOMS - len(slots)), dim=2)
+
+        def take(slot):
+            return torch.gather(placed, 2, slot.long()[..., None, None].expand(B, L, 1, 3))[:, :, 0]
+
         trip = parents[:, :, k]  # (a, b, c), read right to left
-        xyz14[:, :, R.NUM_BB + k] = place_atom(ic[:, :, 3 + k], take(trip[..., 2]),
-                                               take(trip[..., 1]), take(trip[..., 0]))
-    return xyz14
+        slots.append(place_atom(ic[:, :, 3 + k], take(trip[..., 2]), take(trip[..., 1]),
+                                take(trip[..., 0])))
+    return torch.stack(slots, dim=2)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels: K1-K5 (mpnn_kernels), K8/K9 (edge_kernels) and
-K10 (tp_kernels). Each wrapper counts its launches; these two helpers read
+"""The port's CUDA kernels: K1-K5 (mpnn_kernels), K8/K9 (edge_kernels),
+K10 and K11 (tp_kernels). Each wrapper counts its launches; these two helpers read
 and reset all the counts at once."""
 
 

@@ -20,8 +20,20 @@ codlad_tpu/kernels/edge_kernels.py (Pallas `_pallas_gather`,
   bit (no f32 atomics). The plain version is `index_add_` in f32.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/edge_ops.cu`) or
-raises; the plain versions run only for tensors on the CPU. Forward only:
-the VJP of each is the other, which Stage-1 training will wire up.
+raises; the plain versions run only for tensors on the CPU, where autograd
+differentiates them (`index_select`, `index_add_`). On the card each
+wrapper is a torch.autograd.Function whose backward is the other kernel,
+as the JAX custom VJPs define them (codlad_tpu/kernels/edge_kernels.py
+`_gather_bwd`, `_aggregate_bwd`):
+
+* d nodes of K8 = K9 sum of the cotangent by the same index, summed in f32
+  and cast to the nodes' dtype; it needs a CSR of that index (`csr`, or a
+  function that returns it, built at the first backward if not given);
+* d msgs of K9 = K8 gather of the cotangent by the same index (0 for masked
+  edges); for reduce="mean" the cotangent is first divided by max(valid
+  degree, 1) in the payload dtype (the VJP of the forward's division).
+
+A backward launches nothing when its input needs no grad.
 """
 
 from __future__ import annotations
@@ -111,23 +123,11 @@ def _run(fn, dev, *args):
         raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
 
 
-def _no_grad_needed(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the edge kernels have no autograd yet; call them under "
-                           "torch.no_grad()")
-
-
-def edge_gather(idx, mask, nodes):
-    """K8: nodes [B, N, F] -> per-edge rows [B, E, F] (0 where masked)."""
-    if nodes.device.type == "cpu":
-        return ref_gather(idx, mask, nodes)
-    _no_grad_needed(nodes)
-    dev = _check(nodes.dtype, nodes, idx, mask)
+def _launch_gather(idx, mask, nodes):
+    dev = nodes.device
     B, E = idx.shape
     N, F = nodes.shape[1:]
     nodes = nodes.contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    mask = mask.to(torch.float32).contiguous()
     out = torch.empty((B, E, F), dtype=nodes.dtype, device=dev)
     fn = _lib_fn(f"edge_gather_{_SUFFIX[nodes.dtype]}", 4, 4)
     _run(fn, dev, idx.data_ptr(), mask.data_ptr(), nodes.data_ptr(), out.data_ptr(), B, E,
@@ -136,26 +136,91 @@ def edge_gather(idx, mask, nodes):
     return out
 
 
+def _launch_aggregate(mask, msgs, n_nodes, mean, csr):
+    dev = msgs.device
+    B, E, F = msgs.shape
+    ptr, edges = csr
+    if ptr.numel() != B * n_nodes + 1:
+        raise ValueError(f"the CSR has {ptr.numel() - 1} nodes, not {B * n_nodes}")
+    msgs = msgs.contiguous()
+    out = torch.empty((B, n_nodes, F), dtype=msgs.dtype, device=dev)
+    fn = _lib_fn(f"edge_aggregate_{_SUFFIX[msgs.dtype]}", 5, 3)
+    _run(fn, dev, ptr.data_ptr(), edges.data_ptr(), mask.data_ptr(), msgs.data_ptr(),
+         out.data_ptr(), B * n_nodes, F, int(mean))
+    LAUNCHES["edge_aggregate"] += 1
+    return out
+
+
+def _resolve_csr(csr, idx, mask, n_nodes):
+    if callable(csr):
+        return csr()
+    return csr if csr is not None else build_csr(idx, mask, n_nodes)
+
+
+def _valid_degree(csr, B, n_nodes, dtype):
+    """max(valid degree, 1) [B, n_nodes, 1] in `dtype`, from the CSR (masks
+    are 0 or 1, so the count of a node's listed edges is its degree)."""
+    ptr = csr[0]
+    deg = (ptr[1:] - ptr[:-1]).to(torch.float32).reshape(B, n_nodes, 1)
+    return torch.clamp(deg, min=1.0).to(dtype)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nodes, idx, mask, csr):
+        ctx.save_for_backward(idx, mask)
+        ctx.csr, ctx.n_nodes = csr, nodes.shape[1]
+        return _launch_gather(idx, mask, nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        idx, mask = ctx.saved_tensors
+        csr = _resolve_csr(ctx.csr, idx, mask, ctx.n_nodes)
+        return _launch_aggregate(mask, g, ctx.n_nodes, False, csr), None, None, None
+
+
+class _Aggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, idx, mask, n_nodes, mean, csr):
+        ctx.save_for_backward(idx, mask)
+        ctx.mean, ctx.csr = mean, csr
+        return _launch_aggregate(mask, msgs, n_nodes, mean, csr)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 6
+        idx, mask = ctx.saved_tensors
+        if ctx.mean:
+            g = g / _valid_degree(ctx.csr, g.shape[0], g.shape[1], g.dtype)
+        return _launch_gather(idx, mask, g), None, None, None, None, None
+
+
+def edge_gather(idx, mask, nodes, csr=None):
+    """K8: nodes [B, N, F] -> per-edge rows [B, E, F] (0 where masked).
+    `csr` (build_csr(idx, mask, N), or a function returning it) serves the
+    backward on the card; it is built there when not given."""
+    if nodes.device.type == "cpu":
+        return ref_gather(idx, mask, nodes)
+    _check(nodes.dtype, nodes, idx, mask)
+    idx = idx.to(torch.int32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return _Gather.apply(nodes, idx, mask, csr)
+
+
 def edge_aggregate(idx, mask, msgs, n_nodes, reduce="sum", csr=None):
     """K9: msgs [B, E, F] -> per-node [B, n_nodes, F] in msgs' dtype, summed
     (or averaged over the valid degree, reduce="mean") over each node's
-    edges; masked edges drop. `csr` is build_csr(idx, mask, n_nodes), made
-    here when not given."""
+    edges; masked edges drop. `csr` is build_csr(idx, mask, n_nodes) (or a
+    function returning it), made here when not given."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"reduce must be 'sum' or 'mean', not {reduce!r}")
     if msgs.device.type == "cpu":
         return ref_aggregate(idx, mask, msgs, n_nodes, reduce)
-    _no_grad_needed(msgs)
-    dev = _check(msgs.dtype, msgs, idx, mask)
-    B, E, F = msgs.shape
-    ptr, edges = csr if csr is not None else build_csr(idx, mask, n_nodes)
-    if ptr.numel() != B * n_nodes + 1:
-        raise ValueError(f"the CSR has {ptr.numel() - 1} nodes, not {B * n_nodes}")
-    msgs = msgs.contiguous()
+    _check(msgs.dtype, msgs, idx, mask)
+    idx = idx.to(torch.int32).contiguous()
     mask = mask.to(torch.float32).contiguous()
-    out = torch.empty((B, n_nodes, F), dtype=msgs.dtype, device=dev)
-    fn = _lib_fn(f"edge_aggregate_{_SUFFIX[msgs.dtype]}", 5, 3)
-    _run(fn, dev, ptr.data_ptr(), edges.data_ptr(), mask.data_ptr(), msgs.data_ptr(),
-         out.data_ptr(), B * n_nodes, F, int(reduce == "mean"))
-    LAUNCHES["edge_aggregate"] += 1
-    return out
+    csr = _resolve_csr(csr, idx, mask, n_nodes)
+    return _Aggregate.apply(msgs, idx, mask, n_nodes, reduce == "mean", csr)

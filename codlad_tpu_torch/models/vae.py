@@ -48,3 +48,8 @@ class VAE(nn.Module):
         if self.map_out is not None:
             latents = self.map_out(latents)
         return self.decoder(batch, latents)
+
+    def forward(self, batch, latents=None):
+        """encode(batch) without latents, else decode(batch, latents): one
+        entry point for torch.func.functional_call."""
+        return self.encode(batch) if latents is None else self.decode(batch, latents)

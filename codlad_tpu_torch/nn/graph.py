@@ -24,26 +24,34 @@ def make_directed_batched(edges, mask):
 
 class EdgeOps:
     """edges [B, E, 2] (src, dst) node indices, mask [B, E], n_nodes per
-    sample. Messages aggregate to the src nodes; on the card the CSR of the
-    src index is built once, at the first aggregate, and shared by all."""
+    sample. Messages aggregate to the src nodes. On the card each index's
+    CSR is built once, when a kernel first needs it, and shared by all: the
+    src one by the aggregates and the backward of gather_src, the dst one
+    by the backward of gather_dst only (a K9 over the dst index)."""
 
     def __init__(self, edges, mask, n_nodes):
         self.src = edges[..., 0].to(torch.int32).contiguous()
         self.dst = edges[..., 1].to(torch.int32).contiguous()
         self.mask = mask.to(torch.float32)
         self.n_nodes = n_nodes
-        self._csr = None
+        self._csrs = {}
+
+    def csr(self, which):
+        """build_csr of the "src" or "dst" index, once."""
+        if which not in self._csrs:
+            idx = self.src if which == "src" else self.dst
+            self._csrs[which] = build_csr(idx, self.mask, self.n_nodes)
+        return self._csrs[which]
 
     def gather_src(self, nodes):
         """nodes [B, N, F] -> [B, E, F] (0 where masked)."""
-        return edge_gather(self.src, self.mask, nodes)
+        return edge_gather(self.src, self.mask, nodes, lambda: self.csr("src"))
 
     def gather_dst(self, nodes):
-        return edge_gather(self.dst, self.mask, nodes)
+        return edge_gather(self.dst, self.mask, nodes, lambda: self.csr("dst"))
 
     def aggregate_to_src(self, msgs, reduce="sum"):
         """msgs [B, E, F] -> [B, N, F], summed (or averaged over the valid
         degree, reduce="mean") over each node's edges."""
-        if msgs.device.type == "cuda" and self._csr is None:
-            self._csr = build_csr(self.src, self.mask, self.n_nodes)
-        return edge_aggregate(self.src, self.mask, msgs, self.n_nodes, reduce, self._csr)
+        return edge_aggregate(self.src, self.mask, msgs, self.n_nodes, reduce,
+                              lambda: self.csr("src"))

@@ -74,7 +74,7 @@ def fused_tp_tables(in_irreps, sh_irreps, out_irreps):
     EXPW[np.array(widx), np.arange(R)] = 1.0
     return dict(CBIG=CBIG, widx=np.array(widx, np.int32), tidx=np.array(tidx, np.int32),
                 SUMR=SUMR, CBIG_R=CBIG[:, np.array(tidx)], EXPW=EXPW, numel=numel, KT=KT,
-                R=R, sig=(tuple(in_ir), tuple(sh_ir), tuple(out_ir)))
+                R=R, din=din, dsh=dsh, sig=(tuple(in_ir), tuple(sh_ir), tuple(out_ir)))
 
 
 class FullyConnectedTP(nn.Module):

@@ -10,7 +10,9 @@ Needs JAX, flax, optax and orbax (it reads the checkpoint as
 codlad_tpu/cli/test.py `_load_vae` does); the port never imports this file.
 
 The weights file holds `params/<flax path>` leaves (f32), `codebook`
-[n_codes, vqdim], `config` (the checkpoint's modelparams.json) and
+[n_codes, vqdim] with its EMA statistics `cluster_size` [n_codes] and
+`embed_avg` [n_codes, vqdim] (the rest of the VQ state, for training from
+these weights), `config` (the checkpoint's modelparams.json) and
 `stats_mean` / `stats_std`. The fixture holds the first --frames frames of
 the convergence study's val protein prot_0030, regenerated with the study's
 recipe (results/convergence/README.md: `--synthetic 32 88 1000 --structured
@@ -93,6 +95,8 @@ def main(argv=None):
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     np.savez_compressed(args.out, **dict(_flat(state.params["params"])), codebook=codebook,
+                        cluster_size=np.asarray(state.vq_state.cluster_size, np.float32),
+                        embed_avg=np.asarray(state.vq_state.embed_avg, np.float32),
                         config=np.array(json.dumps(cfg)), stats_mean=mean, stats_std=std)
 
     pipe = SamplingPipeline(denoiser=None, denoiser_params=None, process=None,

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card: K1-K5's
 forwards against the plain versions, the backwards (K3, K4, K5's) against
 torch.autograd of the plain versions on the same inputs and cotangent; K8
-(bit for bit), K9 and K10 against theirs.
+(bit for bit), K9 and K10 against theirs; K11 (K10's backward) and the
+K8/K9 backwards (each the other kernel) against autograd of the plain
+versions.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -223,4 +225,90 @@ def test_fused_tp_matches_plain(dev, dtype, layer):
         else:
             assert bool((d <= 2e-2 * ref.max()).all()), (d.max().item(), ref.max().item())
     torch.cuda.synchronize()
-    assert TK.LAUNCHES == {"fused_tp": 2}
+    assert TK.LAUNCHES == {"fused_tp": 2, "fused_tp_bwd": 0}
+
+
+# K11 (f32 against the plain version's autograd in float64: atol 2e-4 +
+# rtol 2e-4 + 2e-6 max|ref|; bf16 against the bf16 plain version's autograd:
+# 2e-2 max|ref|, a few bf16 ulps of the largest element, as the rounding
+# points differ: the plain forward rounds TR and wR to bf16, the kernel
+# keeps them in f32).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_fused_tp_backward_matches_plain(dev, dtype, layer):
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[layer]), tuple(SH_IRREPS), tuple(lad[layer + 1]))
+    g = torch.Generator().manual_seed(10 + layer)
+    TK.reset_launches()
+    n_bwd = 0
+    for lead in ((2, 1000), (2, 9, 14)):
+        x = torch.randn(*lead, lad[layer].dim, generator=g).to(dev).to(dtype)
+        sh = sh_l2(torch.randn(*lead, 3, generator=g)).to(dev).to(dtype)
+        w = (torch.randn(*lead, tb["numel"], generator=g) * 0.2).to(dev).to(dtype)
+        ct = torch.randn(*lead, tb["SUMR"].shape[1], generator=g).to(dev).to(dtype)
+        ref_dt = torch.float64 if dtype == torch.float32 else dtype
+        for with_sh in (True, False):
+            leaves = [x.clone().requires_grad_(True), sh.clone().requires_grad_(with_sh),
+                      w.clone().requires_grad_(True)]
+            diff = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad(TK.fused_tp(*leaves, tb), diff, ct)
+            n_bwd += 1
+            ref_leaves = [t.detach().to(ref_dt).requires_grad_(t.requires_grad) for t in leaves]
+            out = TK.ref_fused_tp(*ref_leaves, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+            want = torch.autograd.grad(out, [t for t in ref_leaves if t.requires_grad],
+                                       ct.to(ref_dt))
+            for a, b in zip(got, want):
+                assert a.dtype == dtype and a.shape == b.shape
+                d, ref = (a.double() - b.double()).abs(), b.double().abs()
+                if dtype == torch.float32:
+                    bound = 2e-4 + 2e-4 * ref + 2e-6 * ref.max()
+                else:
+                    bound = 2e-2 * ref.max()
+                assert bool((d <= bound).all()), (d.max().item(), ref.max().item())
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES == {"fused_tp": n_bwd, "fused_tp_bwd": n_bwd}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_backwards_launch_each_other(dev, dtype):
+    """d nodes of K8 is K9 over the CSR of its index: f32 within atol 1e-5 +
+    rtol 1e-5 of the plain version's autograd in float64; bf16 (one f32 sum
+    rounded once) within 2^-8 |ref| + 1e-5 max|ref| of the plain version's
+    autograd in float32 on the same bf16 values. d msgs of K9 (sum, and mean
+    over the valid degree) is K8 of the cotangent: bit for bit the plain
+    version's autograd. Padded edges get no gradient."""
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    B, E, N, F = 2, 3000, 300, 13
+    idx, mask, g = _edges(dev, B, E, N, 6)
+    csr = EK.build_csr(idx, mask, N)
+    nodes = torch.randn(B, N, F, generator=g).to(dev).to(dtype)
+    msgs = torch.randn(B, E, F, generator=g).to(dev).to(dtype)
+    ct_e = torch.randn(B, E, F, generator=g).to(dev).to(dtype)
+    ct_n = torch.randn(B, N, F, generator=g).to(dev).to(dtype)
+    EK.reset_launches()
+    leaf = nodes.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(EK.edge_gather(idx, mask, leaf, csr), leaf, ct_e)
+    ref_dt = torch.float64 if dtype == torch.float32 else torch.float32
+    rl = nodes.to(ref_dt).requires_grad_(True)
+    (want,) = torch.autograd.grad(EK.ref_gather(idx.long(), mask, rl), rl, ct_e.to(ref_dt))
+    d, ref = (got.double() - want.double()).abs(), want.double().abs()
+    bound = (1e-5 + 1e-5 * ref if dtype == torch.float32
+             else 2 ** -8 * ref + 1e-5 * ref.max())
+    assert got.dtype == dtype and bool((d <= bound).all()), d.max().item()
+    for reduce in ("sum", "mean"):
+        leaf = msgs.clone().requires_grad_(True)
+        (got,) = torch.autograd.grad(EK.edge_aggregate(idx, mask, leaf, N, reduce, csr), leaf,
+                                     ct_n)
+        rl = msgs.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(EK.ref_aggregate(idx.long(), mask, rl, N, reduce), rl,
+                                      ct_n)
+        assert got.dtype == dtype and torch.equal(got, want), reduce
+        assert bool((got[mask == 0] == 0).all())
+    # no grad needed: no backward launch
+    EK.edge_gather(idx, mask, nodes.clone().requires_grad_(False), csr)
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES == {"edge_gather": 4, "edge_aggregate": 3}

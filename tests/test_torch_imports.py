@@ -6,7 +6,9 @@ chip_smoke import, chip_smoke's slice and training phases run on the CPU
 at tiny size through the plain versions of the kernels, and its reference
 checks run with the CPU standing in for the card; so do its Stage-1 recon
 phases (random weights, the trained weights on their fixture, the recon
-CLI)."""
+CLI) and its Stage-1 training phases (steps of make_vqvae_step, the
+card-vs-CPU step, the chain train_vqvae -> extract_features ->
+train_latent -> test --vae_ckpt), tiny."""
 
 import os
 import subprocess
@@ -77,6 +79,18 @@ SCRIPT = textwrap.dedent("""
     chip_smoke.recon_reference(0, device="cpu")
     chip_smoke.recon_trained("cpu")
     chip_smoke.run_recon_cli(0, "cpu")
+
+    # the Stage-1 training phases, tiny
+    assert chip_smoke.stage1_train_launches() == {"edge_gather": 29, "edge_aggregate": 23,
+                                                  "fused_tp": 10, "fused_tp_bwd": 10}
+    _, state, step = chip_smoke.build_stage1_trainer("cpu", 0, compute_dtype=torch.bfloat16,
+                                                     enc=2, dec=2, n_codes=16)
+    times, metrics, syncs = chip_smoke.run_stage1_train(state, step, s1, 3, {}, traced=1)
+    assert state.step == 3 and len(times) == 2 and len(syncs) == 3
+    chip_smoke.stage1_train_reference(0, device="cpu")
+    chain = chip_smoke.run_stage1_cli(0, "cpu", n_res=(20, 24), n_frames=2, batch=2, enc=2,
+                                      dec=2, codes=16)
+    assert chain["train_vqvae"]["epochs"] == ["0", "1", "2"]
     print("imported", len(names), "modules")
 """)
 
