@@ -26,32 +26,57 @@ Phases, each printing its seconds:
                 beside its bound, the plain backward and the dense form's
                 backward in cuBLAS; the K8/K9 backwards (each the other
                 kernel) against autograd of their plain versions;
-  3. slice   -- the Stage-2 inference path at full width: a synthetic CG
+  3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
+                per-edge messages) at B96 L128 K64 and B96 L48 K48, f32 and
+                bf16, against ref_message_edge, and its backward against
+                autograd of ref_message_edge (float64 for f32), timed beside
+                the bound and the plain version;
+  4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
+                into K1 of the next in one kernel) at the same shapes and
+                dtypes against ref_edge_then_sum and against K2's kernel
+                followed by K1's kernel on the same inputs, timed beside
+                both;
+  5. slice   -- the Stage-2 inference path at full width: a synthetic CG
                 batch of 96 frames x 128 residues, 100 respaced ancestral
                 steps of the 3+3-layer bf16 denoiser, VQ snap, IC decode
                 and xyz14 in f32, with the kernels' launch counts read
                 around it (the decoder's graph ops are K8/K9);
-  4. timing  -- one more 100-step sample_and_decode, timed; one draw at the
+  6. timing  -- one more 100-step sample_and_decode, timed; one draw at the
                 L = 48 bucket (96 x 48, K = 48);
-  5. reference -- a small batch through the same path in f32 on the card
+  7. fused_sampling -- the counterpart of scripts/bench_fuse_ablation.py:
+                100-step bf16 scans of the same denoiser with
+                denoise(fuse_pairs=True) and False from the same noise,
+                timed in turns in one process; launches of a fused scan
+                asserted (300 K7, 300 K1, no K2), the two paths' final
+                latents and first-step outputs held together;
+  8. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
                 decode);
-  6. train   -- the Stage-2 training path: 20 steps of make_latent_step at
+  9. residual_sampling -- the slice with the adaLN residual denoiser (gates
+                open): 100 bf16 steps to xyz14 with launches asserted (600
+                K1, 300 K6, no K2), timed, and its f32 reference (8.);
+ 10. train   -- the Stage-2 training path: 20 steps of make_latent_step at
                 B96 L128 K64 H128, 3+3 layers, bf16, dropout 0.6, with the
                 launches of every step counted (6 K1, 3 K5, 6 K3, 3 K5
                 backward), median ms/step and peak memory, the last 3
                 steps under torch.profiler (the device's busy share and
                 the kernels by device time); then 2 steps at dropout 0
                 (6 K1, 3 K2, 6 K3, 3 K4 a step);
-  7. train entry -- `python -m codlad_tpu_torch.cli.train_latent` (its
+ 11. train entry -- `python -m codlad_tpu_torch.cli.train_latent` (its
                 main) for 5 bf16 steps on a synthetic 96 x 128 feature set;
                 finite logged losses, a `last` checkpoint that restores;
-  8. train reference -- one f32 step at dropout 0.6 on a small batch on the
+ 12. train reference -- one f32 step at dropout 0.6 on a small batch on the
                 card and on the CPU, same weights, t, noise and dropout seed:
                 loss, grad norm, every parameter's grad, updated params
                 and EMA;
-  9. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
+ 13. residual_train -- 10 bf16 steps at dropout 0.6 with the adaLN residual
+                denoiser (gates open), launches asserted every step (6 K1,
+                3 K6, 6 K3, 3 K6 backward), median ms/step, peak memory, the
+                last step under torch.profiler; one f32 step at dropout 0
+                card against CPU (12.); the trainer's main with
+                --adaln_mode residual for 3 steps;
+ 14. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
                 the production VQ-VAE config (results/convergence/vqvae:
                 embed 36, vqdim 3, ns 12, nv 4, 3 encoder and 4 decoder
                 layers, cutoffs 9 and 21 Å, f32, a 512-code codebook) with
@@ -61,36 +86,38 @@ Phases, each printing its seconds:
                 time, the encoder's share, peak memory; a small batch card
                 against CPU (latents, VQ codes with near-ties allowed,
                 decode); the bf16 encoder forward timed at the bench batch;
- 10. recon trained -- the trained VQ-VAE converted from the study's
+ 15. recon trained -- the trained VQ-VAE converted from the study's
                 checkpoint (weights/convergence_vqvae.npz) on four frames of
                 its val protein prot_0030, against the JAX outputs stored
                 beside it (weights/convergence_vqvae_fixture.npz): codes,
                 per-frame rmsd_aligned;
- 11. recon entry -- `python -m codlad_tpu_torch.cli.test --experiment
+ 16. recon entry -- `python -m codlad_tpu_torch.cli.test --experiment
                 recon` (its main) on a shard directory the port writes,
                 with the trained weights; summary_stats.json.
- 12. train_stage1 -- the Stage-1 trainer's step (make_vqvae_step) at the
+ 17. train_stage1 -- the Stage-1 trainer's step (make_vqvae_step) at the
                 Stage-1 bench batch and the trained run's config (3 + 4
                 layers, 512 codes), random weights from --seed, bf16 feature
                 path: 10 steps, launches of K8-K11 asserted every step,
                 the loss finite and no step skipped, median ms/step, the
                 first step, peak memory, the last step under
                 torch.profiler; then 3 steps in f32;
- 13. train_stage1_reference -- one f32 step on a small batch (2 x 40) on
+ 18. train_stage1_reference -- one f32 step on a small batch (2 x 40) on
                 the card and on the CPU: loss, every parameter's grad, the
                 VQ state;
- 14. train_stage1_entry -- the chain through its entry points on two
+ 19. train_stage1_entry -- the chain through its entry points on two
                 synthetic proteins: cli.train_vqvae (-bf16, 2 epochs, then
                 -resume), cli.extract_features, 2 steps of cli.train_latent
                 on those features, cli.test --experiment recon --vae_ckpt.
 
 Sampling weights are the port's init from --seed with the adaLN heads (zero
 at init) drawn small and random, so that every layer reaches the output;
-the training phases start from the plain init, as the trainer does. The line
+the trunk training phases start from the plain init, as the trainer does;
+the residual ones open the gates too (at init a residual layer is the
+identity and K6's backward would receive a zero cotangent). The line
 before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}}; the line before that one the
-kernels' JSON. Exits non-zero, printing no result, without a CUDA device or
-when any phase fails.
+kernels' JSON (K1-K11). Exits non-zero, printing no result, without a CUDA
+device or when any phase fails.
 """
 
 from __future__ import annotations
@@ -141,7 +168,22 @@ KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
     "edge_aggregate": ("codlad_tpu/kernels/edge_kernels.py:140", "edge_ops.cu"),
     "fused_tp": ("codlad_tpu/kernels/tp_kernels.py:152", "fused_tp.cu"),
     "fused_tp_bwd": ("codlad_tpu/kernels/tp_kernels.py:193", "fused_tp_bwd.cu"),
+    "fused_message_edge": ("codlad_tpu/kernels/mpnn_kernels.py:418", "message_chain.cu"),
+    "fused_message_edge_bwd": ("codlad_tpu/kernels/mpnn_kernels.py:833",
+                               "message_chain_bwd.cu"),
+    "fused_edge_then_sum": ("codlad_tpu/kernels/mpnn_kernels.py:436", "message_chain.cu"),
 }
+# K7 in bf16: its edge output is K2's arithmetic, held within the JAX test's
+# atol 5e-2 (tests/test_kernels.py:796) + K2's rtol 2e-2; its node sum and
+# K6's messages within 2e-2 max|ref| (a few bf16 ulps of the largest element:
+# one-ulp flips of cast(gelu(pre)) and of the edge output feed the products).
+K7_EDGE_TOL_BF16 = (5e-2, 2e-2)
+MSG_TOL_BF16 = 2e-2
+# Pair-fused vs unfused sampling (bf16, 100 steps, the same x_T and per-step
+# noise): the denoiser's output at the first step within 2e-2 max|ref| and
+# the final latents within 2e-2 max|latent|: one-ulp bf16 differences between
+# the two paths, carried through 100 ancestral steps.
+FUSE_TOL = 2e-2
 WEIGHTS = Path(__file__).resolve().parent / "weights" / "convergence_vqvae.npz"
 FIXTURE = WEIGHTS.with_name("convergence_vqvae_fixture.npz")
 K48 = (B, 48, 48)               # the L = 48 length bucket: K = min(64, L) = 48
@@ -187,8 +229,9 @@ def open_gates(model, gen, std=0.02):
 
 
 def build_pipeline(device, seed, hidden=H, layers=3, k=K, codebook_size=4096,
-                   respacing=STEPS, compute_dtype=None):
-    """The port's sampling pipeline at the production configuration."""
+                   respacing=STEPS, compute_dtype=None, adaln_mode="trunk"):
+    """The port's sampling pipeline at the production configuration, in the
+    given adaLN mode."""
     import torch
     from codlad_tpu_torch.eval.harness import SamplingPipeline
     from codlad_tpu_torch.gen.diffusion import create_diffusion
@@ -198,7 +241,7 @@ def build_pipeline(device, seed, hidden=H, layers=3, k=K, codebook_size=4096,
     gen = torch.Generator().manual_seed(seed)
     denoiser = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
                             num_encoder_layers=layers, num_decoder_layers=layers,
-                            k_neighbors=k)
+                            k_neighbors=k, adaln_mode=adaln_mode)
     open_gates(denoiser, gen)
     codebook = torch.randn((codebook_size, 3), generator=gen)
     return SamplingPipeline(
@@ -229,6 +272,62 @@ def run_slice(pipe, batch, generator):
     seconds = time.perf_counter() - t0
     return {"latents": lat, "ic": ic, "xyz14": xyz, "seconds": seconds,
             "launches": kernels.launch_counts()}
+
+
+def fused_scans(pipe, batch, seed, rounds=2):
+    """The port's counterpart of scripts/bench_fuse_ablation.py: ancestral
+    scans over every step of the pipeline's process with the pipeline's
+    (bf16) denoiser called with fuse_pairs=True and False, from the same x_T
+    and per-step noise, through `p_sample_loop` with the conditioning
+    computed once. One fused scan with the launches counted, then `rounds`
+    rounds timed in turns (F U, U F, ...). Returns the launches, the seconds
+    of each path's timed scans, the max |d| between the two paths' final
+    latents and between their denoiser outputs at the first step, and the
+    scale (max |.|) of each."""
+    import torch
+    from codlad_tpu_torch import kernels
+
+    extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
+              "mask": batch["res_mask"]}
+    dev = batch["res_type"].device
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    model, cd, proc = pipe._denoise_model, pipe.compute_dtype, pipe.process
+    n = proc.num_timesteps
+    shape = tuple(batch["res_type"].shape) + (pipe.latent_size,)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(shape, generator=g, device=dev)
+    noises = [torch.randn(shape, generator=g, device=dev) for _ in range(n)]
+    with torch.no_grad():
+        cond = pipe.condition(extras)
+
+        def denoise(x, t, fuse):
+            return model.denoise(x if cd is None else x.to(cd), t, cond,
+                                 fuse_pairs=fuse).to(torch.float32)
+
+        def scan(fuse):
+            sync()
+            t0 = time.perf_counter()
+            x = proc.p_sample_loop(lambda x, t: denoise(x, t, fuse), shape, noise=noise,
+                                   noises=noises)
+            sync()
+            return x, time.perf_counter() - t0
+
+        kernels.reset_launches()
+        scan(True)
+        launches = kernels.launch_counts()
+        seconds, final = {True: [], False: []}, {}
+        for i in range(rounds):
+            for fuse in ((True, False) if i % 2 == 0 else (False, True)):
+                final[fuse], sec = scan(fuse)
+                seconds[fuse].append(sec)
+        t_first = proc.map_t(torch.full(shape[:1], n - 1, dtype=torch.long, device=dev))
+        first = {fuse: denoise(noise, t_first, fuse) for fuse in (True, False)}
+    return {"launches": launches, "fused_s": seconds[True], "unfused_s": seconds[False],
+            "latents_d": (final[True] - final[False]).abs().max().item(),
+            "latents_scale": final[False].abs().max().item(),
+            "first_d": (first[True] - first[False]).abs().max().item(),
+            "first_scale": first[False].abs().max().item(), "steps": n}
 
 
 def check_launches(got, expect, where):
@@ -401,15 +500,20 @@ def dims_tag(dims):
     return "B{} L{} K{}".format(*dims)
 
 
-def bwd_bytes_flops(es, edge, dims=(B, L, K)):
+def bwd_bytes_flops(es, edge, dims=(B, L, K), raw=False):
     """Bytes (each input read once, each output written once) and matmul
-    flops of K3 (edge=False) or K4 / K5's backward (edge=True)."""
+    flops of K3 (edge=False), K4 / K5's backward (edge=True) or K6's
+    backward (edge=True, raw=True: no b3, sc, g, dsh, dsc, dgate, and no
+    recomputed W3 product)."""
     b, l, k = dims
     n_edge, n_node = b * l * k, b * l
     nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
               + n_node * H * 4 + n_edge * H * es + n_node * H * 4      # dA, dE, dGn
               + 3 * H * H * 4 + 2 * H * 4)                              # weight grads
-    if edge:   # + sc, g, dout; dsh, dsc, dgate
+    if raw:    # dout; no mask and one bias less
+        nbytes += n_edge * H * es - n_edge * 4 - H * 4
+        flops = 8 * 2 * n_edge * H * H
+    elif edge:   # + sc, g, dout; dsh, dsc, dgate
         nbytes += 2 * b * H * 4 + n_edge * H * es + 3 * b * H * 4
         flops = 9 * 2 * n_edge * H * H
     else:      # + mask, dout f32 [B, L, H]
@@ -542,9 +646,152 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
     return records
 
 
-def reference_check(seed, device="cuda"):
+_MSG_KEYS = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
+
+
+def bf16_close(got, want, tol):
+    """(max|d|, |d| <= tol * max|ref| everywhere)."""
+    d, ref = (got.float() - want.float()).abs(), want.float().abs()
+    return d.max().item(), bool((d <= tol * ref.max()).all())
+
+
+def check_k6_kernels(device, seed, dims=(B, L, K)):
+    """K6 (fused_message_edge) against ref_message_edge, and its backward
+    against autograd of ref_message_edge (float64 for the f32 kernel, as K4),
+    f32 and bf16; timed beside the bound and the plain version. Returns the
+    bf16 record of each."""
+    import torch
+    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    records = {}
+    b, l, k = dims
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.finfo(dtype).bits // 8
+        x = kernel_inputs(dtype, seed, device, dims)
+        args = [x[n] for n in _MSG_KEYS]
+        n_edge = b * l * k
+        chain_in = (2 * b * l * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
+        kern = lambda: MK.fused_message_edge(*args)
+        plain = lambda: MK.ref_message_edge(*args)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            d = (got - want).abs()
+            err, ok = d.max().item(), bool((d <= 2e-4 + 2e-4 * want.abs()).all())
+            limit = "atol 2e-4 + rtol 2e-4*|ref|"
+        else:
+            (err, ok), limit = bf16_close(got, want, MSG_TOL_BF16), f"{MSG_TOL_BF16:g} max|ref|"
+        ms, plain_ms = time_calls(kern, plain)
+        fwd = (err, ms, plain_ms, chain_in + n_edge * H * es, 3 * 2 * n_edge * H * H)
+        log(f"kernel fused_message_edge {dname} {dims_tag(dims)}: max|d|={err:.3g} ({limit}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"K6 ({dname}) disagrees with its plain version")
+        del got, want
+
+        g = torch.Generator().manual_seed(seed + 9)
+        ct = torch.randn(b, l, k, H, generator=g).to(device).to(dtype)
+        _, gk, _ = grads_of(MK.fused_message_edge, x, _MSG_KEYS, _DIFF, ct)
+        if dtype == torch.float32:
+            _, gp, _ = grads_of(MK.ref_message_edge, as_f64(x), _MSG_KEYS, _DIFF, ct.double())
+        else:
+            _, gp, _ = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
+        err = compare_grads(f"K6 bwd {dims_tag(dims)}", gk, gp, dname)
+        del gk, gp
+        _, _, plain_bwd = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
+        bwd_args = [x[n] for n in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+        ms, plain_ms = time_calls(lambda: MK.message_edge_bwd(*bwd_args, ct), plain_bwd)
+        bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True))
+        del plain_bwd, x, args, ct
+        torch.cuda.empty_cache()
+        for name, (err, ms, plain_ms, nbytes, flops) in (("fused_message_edge", fwd),
+                                                         ("fused_message_edge_bwd", bwd)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_OPS[dname] * 1e3
+            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+            if dtype == torch.bfloat16:
+                records[name] = record(name, err, ms, plain_ms, t_bytes, t_ops)
+    return records
+
+
+def k7_args(dtype, seed, device, dims=(B, L, K)):
+    """fused_edge_then_sum's operands: K2's of one layer, K1's of the next
+    (its own A, Gn, weights) and the mask, then the scale."""
+    x = kernel_inputs(dtype, seed, device, dims)
+    y = kernel_inputs(dtype, seed + 1, device, dims)
+    return ([x[n] for n in _EDGE_KEYS] + [y["A"], y["Gn"]]
+            + [y[n] for n in ("W_e", "W2", "b2", "W3", "b3")] + [x["mask"], 30.0])
+
+
+def check_k7_kernels(device, seed, dims=(B, L, K)):
+    """K7 (fused_edge_then_sum) against ref_edge_then_sum, f32 and bf16;
+    timed beside the bound, the plain composition and its yardstick, K2's
+    kernel followed by K1's kernel on the same inputs (whose outputs it is
+    also held against). Returns the bf16 record."""
+    import torch
+    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    records = {}
+    b, l, k = dims
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.finfo(dtype).bits // 8
+        a = k7_args(dtype, seed, device, dims)
+        kern = lambda: MK.fused_edge_then_sum(*a)
+        plain = lambda: MK.ref_edge_then_sum(*a)
+
+        def pair():
+            e2 = MK.fused_message_edge_lnmod(*a[:12])
+            return e2, MK.fused_message_sum(a[12], e2, a[13], a[3], a[19], *a[14:19], a[20])
+
+        (e2, ns), (e2_p, ns_p), (e2_k, ns_k) = kern(), plain(), pair()
+        torch.cuda.synchronize()
+        d_e = (e2.float() - e2_p.float()).abs()
+        d_n = (ns - ns_p).abs()
+        if dtype == torch.float32:
+            ok = (bool((d_e <= 2e-4 + 2e-4 * e2_p.abs()).all())
+                  and bool((d_n <= 2e-4 + 2e-4 * ns_p.abs()).all()))
+            limits = ("atol 2e-4 + rtol 2e-4*|ref|",) * 2
+        else:
+            ae, re = K7_EDGE_TOL_BF16
+            ok = (bool((d_e <= ae + re * e2_p.float().abs()).all())
+                  and bf16_close(ns, ns_p, MSG_TOL_BF16)[1])
+            limits = (f"{ae:g} + {re:g}*|ref|", f"{MSG_TOL_BF16:g} max|ref|")
+        err = max(d_e.max().item(), d_n.max().item())
+        same_e = torch.equal(e2, e2_k)
+        pair_d = (ns - ns_k).abs().max().item()
+        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: edge out max|d|="
+            f"{d_e.max().item():.3g} ({limits[0]}), node sum max|d|={d_n.max().item():.3g} "
+            f"({limits[1]}) {'ok' if ok else 'FAIL'}; against K2 then K1 (kernels): edge out "
+            f"{'bit for bit equal' if same_e else 'DIFFERS'}, node sum max|d|={pair_d:.3g}")
+        if not ok:
+            raise RuntimeError(f"K7 ({dname}) disagrees with its plain version")
+        del e2, ns, e2_p, ns_p, e2_k, ns_k, d_e, d_n
+        ms, plain_ms, pair_ms = time_calls(kern, plain, pair)
+        n_edge, n_node = b * l * k, b * l
+        nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
+                  + 3 * b * H * 4                                # edge chain, sh, sc, g
+                  + 2 * n_node * H * es + 3 * H * H * es + 2 * H * 4 + n_edge * 4  # node chain
+                  + n_edge * H * es + n_node * H * 4)             # e2, node sum
+        flops = 5 * 2 * n_edge * H * H + 2 * n_node * H * H
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_OPS[dname] * 1e3
+        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, K2 then K1 {pair_ms:.4f} ms "
+            f"(K7 / pair {ms / pair_ms:.3f}), bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+        if dtype == torch.bfloat16:
+            records["fused_edge_then_sum"] = record("fused_edge_then_sum", err, ms, plain_ms,
+                                                    t_bytes, t_ops)
+        del a
+        torch.cuda.empty_cache()
+    return records
+
+
+def reference_check(seed, device="cuda", adaln_mode="trunk"):
     """The path in f32 on the card (kernels) against the CPU (plain
-    versions): same weights and inputs, B2 L32.
+    versions): same weights and inputs, B2 L32, in the given adaLN mode.
 
     * condition: each residue's K neighbours must be the same set (their
       order may differ where distances tie up to rounding: consecutive
@@ -562,8 +809,8 @@ def reference_check(seed, device="cuda"):
     import torch
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
 
-    pipes = {"cpu": build_pipeline("cpu", seed, respacing="ddim10"),
-             device: build_pipeline(device, seed, respacing="ddim10")}
+    pipes = {dev: build_pipeline(dev, seed, respacing="ddim10", adaln_mode=adaln_mode)
+             for dev in ("cpu", device)}
     nb = synthetic_cg_batch(2, 32, seed=seed + 1)
     g = torch.Generator().manual_seed(seed)
     noise = torch.randn((2, 32, 3), generator=g)
@@ -592,7 +839,7 @@ def reference_check(seed, device="cuda"):
     xyz = {dev: pipe.decode(batches[dev], lats["cpu"].to(dev))[1].cpu()
            for dev, pipe in pipes.items()}
     d_xyz = (xyz[device] - xyz["cpu"]).abs().max().item()
-    log(f"reference (card f32 kernels vs CPU plain versions): kNN neighbour sets "
+    log(f"reference {adaln_mode} (card f32 kernels vs CPU plain versions): kNN neighbour sets "
         f"{'equal' if idx_same else 'DIFFER'}; denoise max|d|={d_den.max().item():.3g} "
         f"(atol 1e-4 + rtol 1e-4); latents max|d|={d_lat:.3g} (tol {1e-4 * scale:.3g} = "
         f"1e-4 * max|latent| {scale:.3g}); xyz14 max|d|={d_xyz:.3g} (atol 1e-3)")
@@ -602,21 +849,27 @@ def reference_check(seed, device="cuda"):
 
 TRAIN_STEPS = 20
 TRACED_STEPS = 3                 # the last ones, under torch.profiler
+RESID_TRAIN_STEPS = 10           # residual mode: the last one under torch.profiler
 
 
-def train_launches(n_enc, n_dec, dropout):
+def train_launches(n_enc, n_dec, dropout, adaln_mode="trunk"):
     """Kernel launches of one training step: K1 for every node update, the
-    encoder's edge update through K2 (K5 with dropout), and their backwards."""
-    edge = "fused_message_edge_lnmod" + ("_drop" if dropout > 0 else "")
+    encoder's edge update through K2 (K5 with dropout; in residual mode K6,
+    its dropout outside the kernel), and their backwards."""
+    if adaln_mode == "residual":
+        edge = "fused_message_edge"
+    else:
+        edge = "fused_message_edge_lnmod" + ("_drop" if dropout > 0 else "")
     return {"fused_message_sum": n_enc + n_dec, edge: n_enc,
             "fused_message_sum_bwd": n_enc + n_dec, edge + "_bwd": n_enc}
 
 
 def build_trainer(device, seed, hidden=H, layers=3, k=K, dropout=P_DROP,
-                  compute_dtype=None, lr=3e-4, warmup=0, gates=False):
-    """(model, TrainState, train_step) of the production denoiser. gates=True
-    draws the adaLN heads small and random (open_gates), so that every
-    parameter gets a gradient at the first step."""
+                  compute_dtype=None, lr=3e-4, warmup=0, gates=False, adaln_mode="trunk"):
+    """(model, TrainState, train_step) of the production denoiser in the
+    given adaLN mode. gates=True draws the adaLN heads small and random
+    (open_gates), so that every parameter gets a gradient at the first step
+    (in residual mode, that every branch reaches the loss)."""
     import torch
     from codlad_tpu_torch.gen.diffusion import create_diffusion
     from codlad_tpu_torch.models.denoiser import MPNNDenoiser
@@ -626,7 +879,7 @@ def build_trainer(device, seed, hidden=H, layers=3, k=K, dropout=P_DROP,
     gen = torch.Generator().manual_seed(seed)
     model = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
                          num_encoder_layers=layers, num_decoder_layers=layers,
-                         k_neighbors=k, dropout=dropout)
+                         k_neighbors=k, dropout=dropout, adaln_mode=adaln_mode)
     if gates:
         open_gates(model, gen)
     model.to(device)
@@ -654,7 +907,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
             {k: torch.as_tensor(v, device=device) for k, v in extras.items()})
 
 
-CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials")  # csrc
+CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
+                 "edge_then_sum_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
                   "fused_tp_bwd_kernel")
 
@@ -739,10 +993,12 @@ def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
     return times[:n_steps - traced], metrics, totals
 
 
-def run_train_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=5):
+def run_train_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=5,
+                  adaln_mode="trunk"):
     """The trainer's entry point on a synthetic feature set in a temporary
-    directory: finite logged losses, and a `last` checkpoint that restores
-    into a fresh state. Returns the logged rows."""
+    directory, in the given adaLN mode: finite logged losses, the mode in
+    its config, and a `last` checkpoint that restores into a fresh state.
+    Returns the logged rows."""
     import json
     import tempfile
     import numpy as np
@@ -760,9 +1016,13 @@ def run_train_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=5):
                           "--stats_name", "SMOKE", "--stats_dir", f"{tmp}/stats",
                           "--batch_size", str(batch), "--max_steps", str(steps),
                           "--log_step", "1", "--save_step", str(steps), "--warmup", "100",
-                          "--seed", str(seed), "--bf16", "--device", str(device)])
+                          "--seed", str(seed), "--bf16", "--device", str(device),
+                          "--adaln_mode", adaln_mode])
         with open(f"{tmp}/exp/metrics.jsonl") as f:
             rows = [json.loads(r) for r in f]
+        with open(f"{tmp}/exp/config.json") as f:
+            if json.load(f)["adaln_mode"] != adaln_mode:
+                raise RuntimeError("the trainer's config does not record its adaLN mode")
         if [r["step"] for r in rows] != list(range(1, steps + 1)) or not all(
                 math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
             raise RuntimeError(f"trainer log: {rows}")
@@ -781,13 +1041,15 @@ def run_train_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=5):
 MAX_SIGN_FLIPS = 50
 
 
-def train_reference(seed, device="cuda", hidden=H, layers=3):
-    """One f32 training step at dropout 0.6 on a B2 L32 K16 batch, on the
-    card (kernels) and on the CPU (plain versions), from the same weights,
-    t, noise and dropout seed. Tolerances, as tests/test_torch_train_step.py
-    holds the port against JAX: the featurizer's self-edge quaternions
-    carry ~3e-4 of rounding noise on either device, so loss, mse and grad
-    norm rtol 1e-3 and each parameter's grad 1e-3 * max|grad|. Updated
+def train_reference(seed, device="cuda", hidden=H, layers=3, dropout=P_DROP,
+                    adaln_mode="trunk"):
+    """One f32 training step (dropout 0.6 by default) on a B2 L32 K16 batch,
+    on the card (kernels) and on the CPU (plain versions), from the same
+    weights, t, noise and dropout seed, in the given adaLN mode. Tolerances,
+    as tests/test_torch_train_step.py holds the port against JAX: the
+    featurizer's self-edge quaternions carry ~3e-4 of rounding noise on
+    either device, so loss, mse and grad norm rtol 1e-3 and each
+    parameter's grad 1e-3 * max|grad|. Updated
     params: AdamW's first step moves a weight by -lr * u(g), u(g) = g /
     (|g| + 1e-8) of the clipped grad g, which turns a tiny grad difference
     into a large one where g is near zero; so each weight is held at atol
@@ -809,7 +1071,8 @@ def train_reference(seed, device="cuda", hidden=H, layers=3):
     runs = {}
     for dev in ("cpu", device):
         model, state, step = build_trainer(dev, seed, hidden=hidden, layers=layers, k=16,
-                                           lr=lr, gates=True)
+                                           lr=lr, gates=True, dropout=dropout,
+                                           adaln_mode=adaln_mode)
         ex = {k: v.to(dev) for k, v in extras.items()}
         with torch.no_grad():
             idx = model.compute_condition(ex["res_type"], ex["cg_xyz"], ex["mask"])["idx"]
@@ -844,7 +1107,7 @@ def train_reference(seed, device="cuda", hidden=H, layers=3):
         worst_e = max(worst_e, (de - ((1 - decay) * d + 2.0 ** -22 * e_c[k].abs().double()))
                       .max().item())
     rel = {k: abs(m_d[k] - m_c[k]) / abs(m_c[k]) for k in m_c}
-    log(f"train reference (card f32 kernels vs CPU plain, dropout {P_DROP}): loss "
+    log(f"train reference {adaln_mode} (card f32 kernels vs CPU plain, dropout {dropout}): loss "
         f"{m_d['loss']:.6g} vs {m_c['loss']:.6g}, grad_norm {m_d['grad_norm']:.6g} vs "
         f"{m_c['grad_norm']:.6g}; rel |d| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
         f"(rtol 1e-3); worst max|dgrad|/max|grad| over {len(g_c)} params {worst_g:.3g} "
@@ -1541,6 +1804,15 @@ def main(argv=None):
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    records.update(check_k6_kernels(device, args.seed))
+    check_k6_kernels(device, args.seed, K48)     # logged; the records keep the bench shape
+    log(f"phase kernels_k6: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    records.update(check_k7_kernels(device, args.seed))
+    check_k7_kernels(device, args.seed, K48)
+    log(f"phase kernels_k7: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     batch = to_device(synthetic_cg_batch(B, L, seed=args.seed), device)
     pipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -1577,9 +1849,54 @@ def main(argv=None):
         f"({steps / out['seconds']:.2f} steps/s); launches as expected; xyz14 finite")
 
     t0 = time.perf_counter()
+    fs = fused_scans(pipe, batch, args.seed)
+    n_steps = fs["steps"]
+    expect_fused = {"fused_edge_then_sum": n_steps * n_enc,
+                    "fused_message_sum": n_steps * len(pipe.denoiser.dec_layers)}
+    check_launches(fs["launches"], expect_fused, "the pair-fused sampling scan")
+    records["fused_edge_then_sum"]["launches"] = fs["launches"]["fused_edge_then_sum"]
+    rate_f = n_steps / statistics.median(fs["fused_s"])
+    rate_u = n_steps / statistics.median(fs["unfused_s"])
+    log(f"phase fused_sampling: {time.perf_counter() - t0:.2f} s; {n_steps} bf16 steps at "
+        f"B{B} L{L} K{K}, fuse_pairs=True {rate_f:.2f} steps/s, False {rate_u:.2f} steps/s "
+        f"(median of {len(fs['fused_s'])} scans each, timed in turns: fused "
+        f"{[round(x, 4) for x in fs['fused_s']]} s, unfused "
+        f"{[round(x, 4) for x in fs['unfused_s']]} s); fused / unfused rate "
+        f"{rate_f / rate_u:.4f}; launches of a fused scan {fs['launches']} (expected "
+        f"{expect_fused}); first-step denoiser output max|d|={fs['first_d']:.3g} (max|ref| "
+        f"{fs['first_scale']:.3g}), final latents max|d|={fs['latents_d']:.3g} (max|latent| "
+        f"{fs['latents_scale']:.3g}); tolerance {FUSE_TOL:g} of each max|ref|")
+    if not (fs["first_d"] <= FUSE_TOL * fs["first_scale"]
+            and fs["latents_d"] <= FUSE_TOL * fs["latents_scale"]):
+        raise RuntimeError("the pair-fused scan disagrees with the unfused one")
+
+    t0 = time.perf_counter()
     reference_check(args.seed)
     log(f"phase reference: {time.perf_counter() - t0:.2f} s")
     del pipe, out
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
+                          adaln_mode="residual")
+    out = run_slice(pipe, batch, gen)
+    check_slice(out, B, L)
+    expect_res = {"fused_message_sum": steps * (n_enc + len(pipe.denoiser.dec_layers)),
+                  "fused_message_edge": steps * n_enc, **decoder_launches()}
+    check_launches(out["launches"], expect_res, "the residual sampling path")
+    records["fused_message_edge"]["launches"] = out["launches"]["fused_message_edge"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ic, xyz = pipe.sample_and_decode(batch, generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    if not torch.isfinite(xyz).all():
+        raise RuntimeError("the residual sampling run produced non-finite xyz14")
+    reference_check(args.seed, adaln_mode="residual")
+    log(f"phase residual_sampling: {time.perf_counter() - t0:.2f} s; adaLN residual, gates "
+        f"open, bf16, B{B} L{L} K{K}: {dt:.3f} s for {steps} denoise steps + decode "
+        f"({steps / dt:.2f} steps/s; first draw {out['seconds']:.3f} s); launches "
+        f"{out['launches']} (expected {expect_res}); xyz14 finite")
+    del pipe, out, ic, xyz
 
     t0 = time.perf_counter()
     x1, extras = train_batch(B, L, args.seed + 1, device)
@@ -1620,6 +1937,30 @@ def main(argv=None):
     t0 = time.perf_counter()
     train_reference(args.seed, device)
     log(f"phase train_reference: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    x1, extras = train_batch(B, L, args.seed + 1, device)
+    model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16,
+                                       gates=True, adaln_mode="residual")
+    per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP,
+                              "residual")
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, totals = run_train(state, step, x1, extras, args.seed, RESID_TRAIN_STEPS,
+                                       per_step, traced=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records["fused_message_edge_bwd"]["launches"] = totals["fused_message_edge_bwd"]
+    log(f"  residual train: {RESID_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
+        f"{P_DROP}, gates open: median of the {len(times)} untraced "
+        f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
+        f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
+        f"a step {per_step} (asserted); last loss {float(metrics['loss']):.5g}, grad_norm "
+        f"{float(metrics['grad_norm']):.5g}")
+    del model, state, step, x1, extras
+    train_reference(args.seed, device, dropout=0.0, adaln_mode="residual")
+    rows = run_train_cli(args.seed, device, steps=3, adaln_mode="residual")
+    log(f"  train_latent.main --adaln_mode residual --bf16 --batch_size {B} --max_steps "
+        f"{len(rows)}: losses {[round(r['loss'], 4) for r in rows]}; `last` restores")
+    log(f"phase residual_train: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     pipe = build_recon(device, args.seed)

@@ -2,7 +2,8 @@
 
 Counterpart of codlad_tpu/cli/train_latent.py for `--model diffusion`:
 AdamW with warmup -> linear-decay LR, grad clip, EMA, bf16 mixed precision,
-dropout (the encoder's edge dropout runs in the K5 kernels), steps/s logging
+dropout (the encoder's edge dropout runs in the K5 kernels in trunk mode;
+with `--adaln_mode residual` the edge messages come from K6), steps/s logging
 and `last` checkpoints in torch's format. Runs on the card unless
 `--device cpu` is given; without a CUDA device it exits non-zero.
 
@@ -46,6 +47,10 @@ def build_parser():
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dropout", type=float, default=0.6)
+    p.add_argument("--adaln_mode", type=str, default="trunk", choices=["trunk", "residual"],
+                   help="'trunk' reproduces the reference adaLN (the gates scale the "
+                        "whole trunk); 'residual' gates each branch DiT-style, so every "
+                        "layer is the identity at init")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="mixed precision: bf16 network over f32 master params "
                         "(the diffusion math stays f32)")
@@ -119,7 +124,7 @@ def main(argv=None):
 
     model = MPNNDenoiser(torch.Generator().manual_seed(args.seed),
                          input_size=args.latent_size, learn_sigma=True,
-                         dropout=args.dropout).to(dev)
+                         dropout=args.dropout, adaln_mode=args.adaln_mode).to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model parameters: {n_params:,}; device {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))

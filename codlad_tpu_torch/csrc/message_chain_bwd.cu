@@ -6,6 +6,7 @@
 //   K4 message_edge_lnmod_bwd_* <- _edge_lnmod_bwd_kernel / _pallas_edge_lnmod_bwd
 //   K5 (backward) the same entry with `keep` (has_keep) or `seeds` (drop_p):
 //      the dropout mask is regenerated from the counter hash of chain_common.cuh
+//   K6 message_edge_bwd_*       <- _edge_bwd_kernel / _pallas_edge_bwd
 //
 // What each computes (f32 accumulation; cast() rounds to the edge dtype where
 // the TPU kernel does):
@@ -19,6 +20,8 @@
 //       sh * sum dct term is added by the wrapper, as on the TPU);
 //       dresid = LN backward of dct*g*(1+sc); dmsg = dresid * keep;
 //       dh2 = cast(dmsg) W3^T, dW3 = cast(h2)^T cast(dmsg), db3 = sum dmsg
+//   K6: K4 without the LayerNorm: the cotangent [B, L, K, H] (E's dtype) is dmsg
+//       itself, and dE has no dresid term
 //   both: dx2 = dh2 gelu'(x2); dW2 = h1^T cast(dx2), db2 = sum dx2;
 //         dpre = (cast(dx2) W2^T) gelu'(pre);
 //         dE = cast(cast(dpre) W_e^T [+ dresid]), dA = sum_k dpre,
@@ -98,8 +101,9 @@ __device__ __forceinline__ void residue_sum(float* red, const float (&part)[TN],
   __syncthreads();
 }
 
-// EDGE = false: K3. EDGE = true: K4, DROP 0 / 1 (keep) / 2 (seeds).
-template <typename T, bool EDGE, int DROP>
+// EDGE = false: K3. EDGE = true: K4, DROP 0 / 1 (keep) / 2 (seeds); with RAW
+// (DROP 0), K6.
+template <typename T, bool EDGE, int DROP, bool RAW>
 __global__ void __launch_bounds__(NT)
 chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
                  const int* __restrict__ idx, const float* __restrict__ mask,
@@ -193,7 +197,7 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   }
   __syncthreads();
 
-  float dres[TM][TN];  // K4: d resid (goes into dE); K3: unused
+  float dres[TM][TN];  // K4: d resid (goes into dE); K3, K6: unused
   float part[8];
   if constexpr (!EDGE) {
     // s = cast(sum_k mask h2) per residue; W3 acts after the sum
@@ -256,6 +260,34 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
 #pragma unroll
       for (int n = 0; n < TN; ++n) acc[m][n] = ds[n] * mk[m];  // dh2
     }
+  } else if constexpr (RAW) {
+    // ---- dmsg is the cotangent: dW3's operands, db3 and dh2 = cast(dmsg) W3^T
+    const T* dmsg_p = static_cast<const T*>(dout);
+#pragma unroll
+    for (int n = 0; n < TN; ++n) part[n] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+      const int r = r0 + m;
+      float y[8], dm[8];
+#pragma unroll
+      for (int n = 0; n < TN; ++n) y[n] = Nm::round(acc[m][n]);
+      if (r < nrows) {
+        store8(s_h2 + (row0 + r) * H + c0, y);
+        load8(dmsg_p + (row0 + r) * H + c0, dm);
+        store8(s_dmsg + (row0 + r) * H + c0, dm);
+      } else {
+#pragma unroll
+        for (int n = 0; n < TN; ++n) dm[n] = 0.0f;
+      }
+#pragma unroll
+      for (int n = 0; n < TN; ++n) part[n] += dm[n];
+      store8(sX + r * XS + c0, dm);
+    }
+    column_sum(red, part, rg, c0, p_db + ((size_t)n_tiles + tile) * H);  // db3
+    stage_weight(sW, W3T);
+    __syncthreads();
+    tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);  // dh2
+    __syncthreads();
   } else {
     // ---- msg = cast(h2) W3 + b3 (x keep); LayerNorm; adaLN; their backward
 #pragma unroll
@@ -416,7 +448,7 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   for (int m = 0; m < TM; ++m) {
     const int r = r0 + m;
     if (r >= nrows) continue;
-    if constexpr (EDGE) {
+    if constexpr (EDGE && !RAW) {
 #pragma unroll
       for (int n = 0; n < TN; ++n) acc[m][n] += dres[m][n];
     }
@@ -548,8 +580,8 @@ int reduce(const float* part, float* out, int G, int T, int C, cudaStream_t stre
 // p_db f32 [2, n_tiles, H]; p_mod f32 [3, n_tiles, H] (K4).
 // Outputs: dA f32 [B, L, H], dE T [B, L, K, H], dGn f32 [B, N, H] (zeroed by
 // the wrapper), dW f32 [3, H, H] (dW_e, dW2, dW3), db f32 [2, H] (db2, db3),
-// dmod f32 [3, B, H] (dsh, dsc, dgate without its sh term; K4).
-template <typename T, bool EDGE, int DROP>
+// dmod f32 [3, B, H] (dsh, dsc, dgate without its sh term; K4; not K6).
+template <typename T, bool EDGE, int DROP, bool RAW = false>
 int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
                const void* mask, const void* We, const void* WeT, const void* W2,
                const void* W2T, const void* b2, const void* W3, const void* W3T,
@@ -569,7 +601,7 @@ int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
   const size_t smem = (size_t)H * H * sizeof(T) +
                       (size_t)ROWS * (H + Pad<T>::XPAD) * sizeof(T) +
                       ((size_t)RG * H + 2 * (ROWS / TM) * H + (ROWS / TM)) * sizeof(float);
-  auto kern = chain_bwd_kernel<T, EDGE, DROP>;
+  auto kern = chain_bwd_kernel<T, EDGE, DROP, RAW>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -609,7 +641,7 @@ int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
   if (rc != 0) return rc;
   rc = reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
   if (rc != 0) return rc;
-  if (EDGE)
+  if (EDGE && !RAW)
     rc = reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, ntl, H,
                 st);
   return rc;
@@ -667,5 +699,25 @@ SUM_BWD(bf16, __nv_bfloat16)
 
 EDGE_BWD(f32, float)
 EDGE_BWD(bf16, __nv_bfloat16)
+
+// K6's backward: dout [B, L, K, H] in E's dtype; scratch and outputs as K4's,
+// without p_mod and dmod.
+#define MESSAGE_EDGE_BWD(SUFFIX, TYPE)                                                  \
+  int message_edge_bwd_##SUFFIX(                                                        \
+      const void* A, const void* E, const void* Gn, const void* idx, const void* We,    \
+      const void* WeT, const void* W2, const void* W2T, const void* b2,                 \
+      const void* W3T, const void* dout, void* dA, void* dE, void* dGn, void* s_h1,     \
+      void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg, void* wpart, void* p_db,     \
+      void* dW, void* db, int B, int L, int K, int N, int n_tiles, int n_chunks,        \
+      void* stream) {                                                                   \
+    return launch_bwd<TYPE, true, 0, true>(                                             \
+        A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, nullptr, W3T, nullptr, nullptr,   \
+        nullptr, nullptr, nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre,    \
+        s_h2, s_dmsg, wpart, p_db, nullptr, dW, db, nullptr, B, L, K, N, n_tiles,       \
+        n_chunks, stream);                                                              \
+  }
+
+MESSAGE_EDGE_BWD(f32, float)
+MESSAGE_EDGE_BWD(bf16, __nv_bfloat16)
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels: K1-K5 (mpnn_kernels), K8/K9 (edge_kernels),
+"""The port's CUDA kernels: K1-K7 (mpnn_kernels), K8/K9 (edge_kernels),
 K10 and K11 (tp_kernels). Each wrapper counts its launches; these two helpers read
 and reset all the counts at once."""
 

@@ -1,4 +1,4 @@
-"""The MPNN message chains: CUDA kernels K1-K5 and their plain versions.
+"""The MPNN message chains: CUDA kernels K1-K7 and their plain versions.
 
 Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 
@@ -9,16 +9,21 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 * `fused_message_edge_lnmod_drop` / `fused_message_edge_lnmod_pdrop` (K5):
   K2 with dropout on the message, from an explicit keep mask or from
   per-sample int32 seeds (the mask is then a counter hash made inside the
-  kernel, forward and backward, see `keep_bits`).
+  kernel, forward and backward, see `keep_bits`);
+* `fused_message_edge` (K6): the raw per-edge messages h2 W3 + b3 ->
+  [B, L, K, H] in the dtype of E (the adaLN `residual` encoder's edge
+  chain); backward K6's own;
+* `fused_edge_then_sum` (K7, forward only): K2 of one encoder layer chained
+  into K1 of the next inside one kernel (`denoise(fuse_pairs=True)`).
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
-launches K1, K2 or K5 (`csrc/message_chain.cu`) and whose backward launches
-K3, K4 or K5's backward (`csrc/message_chain_bwd.cu`), or raises; the plain
-version runs only for tensors that lie on the CPU, and autograd
-differentiates it. The plain versions cast where the kernels cast (A and Gn
-to E's dtype, gelu(pre) before W2, h2 (K2) or the K-sum (K1) before W3) and
-accumulate in f32; in f32 they equal the JAX package's `_ref_message_sum` /
-`_ref_message_edge_lnmod`.
+launches K1, K2, K5 or K6 (`csrc/message_chain.cu`) and whose backward
+launches K3, K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`), or
+raises; K7 launches or raises. The plain version runs only for tensors that
+lie on the CPU, and autograd differentiates it. The plain versions cast where
+the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
+the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
+package's `_ref_message_sum` / `_ref_message_edge_lnmod` / `_ref_message`.
 """
 
 from __future__ import annotations
@@ -44,7 +49,10 @@ LAUNCHES = {"fused_message_sum": 0,                  # K1
             "fused_message_sum_bwd": 0,              # K3
             "fused_message_edge_lnmod_bwd": 0,       # K4
             "fused_message_edge_lnmod_drop": 0,      # K5 forward
-            "fused_message_edge_lnmod_drop_bwd": 0}  # K5 backward
+            "fused_message_edge_lnmod_drop_bwd": 0,  # K5 backward
+            "fused_message_edge": 0,                 # K6 forward
+            "fused_message_edge_bwd": 0,             # K6 backward
+            "fused_edge_then_sum": 0}                # K7
 
 
 def reset_launches():
@@ -104,6 +112,24 @@ def ref_message_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g,
     ln = (resid - mean) * torch.rsqrt(var + eps)
     sh, sc, g = (v.to(f32)[:, None, None, :] for v in (sh, sc, g))
     return (g * (ln * (1.0 + sc) + sh)).to(dt)
+
+
+def ref_message_edge(A, E, Gn, idx, W_e, W2, b2, W3, b3):
+    """Plain version of K6: gelu(gelu(A + E W_e + Gn[idx]) W2 + b2) W3 + b3
+    -> [B, L, K, H] in the dtype of E."""
+    dt, f32 = E.dtype, _acc(E)
+    h2 = _chain_h2(A, E, Gn, idx, W_e, W2, b2)
+    return (h2.to(dt).to(f32) @ W3.to(dt).to(f32) + b3.to(f32)).to(dt)
+
+
+def ref_edge_then_sum(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, gmod,
+                      A_n, G_n, W_e_n, W2_n, b2_n, W3_n, b3_n, mask, scale):
+    """Plain version of K7: K2's plain version, then K1's on its output ->
+    (e2 [B, L, K, H] in the dtype of E, f32 [B, L, H])."""
+    e2 = ref_message_edge_lnmod(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh,
+                                sc, gmod)
+    return e2, ref_message_sum(A_n, e2, G_n, idx, mask, W_e_n, W2_n, b2_n, W3_n, b3_n,
+                               scale)
 
 
 
@@ -309,6 +335,46 @@ def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
     return out, mo
 
 
+def _message_edge_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3):
+    """K6 -> [B, L, K, H] in the dtype of E."""
+    dims = _check_edge(E, Gn)
+    B, L, K, H, N = dims
+    dt, dev = E.dtype, E.device
+    ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [
+        _operand(W3, dt, (H, H), "W3", dev),
+        _operand(b3, torch.float32, (H,), "b3", dev)]
+    out = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    fn = _fn("message_chain", f"message_edge_{_SUFFIX[dt]}", "p" * 10 + "iiii" + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], out.data_ptr(), B, L, K, N, _stream(dev))
+    LAUNCHES["fused_message_edge"] += 1
+    return out
+
+
+def _edge_then_sum_fwd(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, gmod,
+                       A_n, G_n, W_e_n, W2_n, b2_n, W3_n, b3_n, mask, scale):
+    """K7 -> (e2 [B, L, K, H] in the dtype of E, f32 [B, L, H] / scale)."""
+    dims = _check_edge(E, G_e)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    ops = _chain_ops(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, dims) + [
+        _operand(W3_e, dt, (H, H), "W3_e", dev), _operand(b3_e, f32, (H,), "b3_e", dev),
+        _operand(sh, f32, (B, H), "sh", dev), _operand(sc, f32, (B, H), "sc", dev),
+        _operand(gmod, f32, (B, H), "gmod", dev),
+        _operand(A_n, dt, (B, L, H), "A_n", dev), _operand(G_n, dt, (B, N, H), "G_n", dev),
+        _operand(W_e_n, dt, (H, H), "W_e_n", dev), _operand(W2_n, dt, (H, H), "W2_n", dev),
+        _operand(b2_n, f32, (H,), "b2_n", dev), _operand(W3_n, dt, (H, H), "W3_n", dev),
+        _operand(b3_n, f32, (H,), "b3_n", dev), _operand(mask, f32, (B, L, K), "mask", dev)]
+    e2 = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    ns = torch.empty((B, L, H), dtype=f32, device=dev)
+    fn = _fn("message_chain", f"edge_then_sum_{_SUFFIX[dt]}", "p" * 22 + "iiii" + "f" + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], e2.data_ptr(), ns.data_ptr(), B, L, K, N,
+                float(scale), _stream(dev))
+    LAUNCHES["fused_edge_then_sum"] += 1
+    return e2, ns
+
+
 def _bwd_scratch(B, L, K, H, dt, dev, edge_rows):
     """Scratch of the backward kernels (see csrc/message_chain_bwd.cu)."""
     f32 = torch.float32
@@ -397,6 +463,34 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
     return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1], dmod[0], dmod[1], dmod[2]
 
 
+def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
+    """K6's backward given dout [B, L, K, H] (E's dtype). Returns the
+    kernel's outputs, as `_pallas_edge_bwd` does: K3's eight."""
+    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
+    ops = [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
+           _operand(W3, dt, (H, H), "W3", dev).t().contiguous(),
+           _operand(dout, dt, (B, L, K, H), "dout", dev)]
+    dA = torch.empty((B, L, H), dtype=f32, device=dev)
+    dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
+    dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
+    dW = torch.empty((3, H, H), dtype=f32, device=dev)
+    db = torch.empty((2, H), dtype=f32, device=dev)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K)
+    fn = _fn("message_chain_bwd", f"message_edge_bwd_{_SUFFIX[dt]}", "p" * 23 + "i" * 6 + "p")
+    with torch.cuda.device(dev):
+        _launch(fn, *[t.data_ptr() for t in ops], dA.data_ptr(), dE.data_ptr(),
+                dGn.data_ptr(), *[s[k].data_ptr() for k in
+                                  ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg", "wpart",
+                                   "p_db")],
+                dW.data_ptr(), db.data_ptr(), B, L, K, N, s["n_tiles"], _WGRAD_CHUNKS,
+                _stream(dev))
+    LAUNCHES["fused_message_edge_bwd"] += 1
+    return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1]
+
+
 # ---------------------------------------------------------------------------
 # autograd: forward kernel, backward kernel; grads in the JAX VJP's dtypes
 
@@ -441,6 +535,22 @@ class _EdgeLnmod(torch.autograd.Function):
                 _cast_like(dWe, W_e), _cast_like(dW2, W2), _cast_like(db2, b2),
                 _cast_like(dW3, W3), _cast_like(db3, b3), _cast_like(dsh, sh),
                 _cast_like(dsc, sc), _cast_like(dg, g), None, None, None)
+
+
+class _MessageEdge(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, E, Gn, idx, W_e, W2, b2, W3, b3):
+        ctx.save_for_backward(A, E, Gn, idx, W_e, W2, b2, W3, b3)
+        return _message_edge_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3)
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, E, Gn, idx, W_e, W2, b2, W3, b3 = ctx.saved_tensors
+        dA, dE, dGn, dWe, dW2, db2, dW3, db3 = message_edge_bwd(A, E, Gn, idx, W_e, W2, b2,
+                                                                W3, ct)
+        return (_cast_like(dA, A), _cast_like(dE, E), _cast_like(dGn, Gn), None,
+                _cast_like(dWe, W_e), _cast_like(dW2, W2), _cast_like(db2, b2),
+                _cast_like(dW3, W3), _cast_like(db3, b3))
 
 
 def fused_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
@@ -498,3 +608,31 @@ def edge_lnmod_pdrop_debug(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, seeds,
                                       keep=keep), keep
     return _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, seeds=seeds,
                            p=float(p), mask_out=True)
+
+
+def fused_message_edge(A, E, Gn, idx, W_e, W2, b2, W3, b3):
+    """K6: the raw per-edge messages gelu(gelu(A + E W_e + Gn[idx]) W2 + b2)
+    W3 + b3 -> [B, L, K, H] in the dtype of E, with no sum, residual or
+    LayerNorm; backward K6's own. Grads in the dtypes of their operands, as
+    the JAX VJP's `_cast_like`."""
+    if E.device.type == "cpu":
+        return ref_message_edge(A, E, Gn, idx, W_e, W2, b2, W3, b3)
+    return _MessageEdge.apply(A, E, Gn, idx, W_e, W2, b2, W3, b3)
+
+
+def fused_edge_then_sum(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, gmod,
+                        A_n, G_n, W_e_n, W2_n, b2_n, W3_n, b3_n, mask, scale):
+    """K7, forward only: e2 = K2 of (A_e, E, G_e, the edge weights, sh, sc,
+    gmod), then the masked node sum K1 of (A_n, e2, G_n, the node weights,
+    mask, scale) in one kernel -> (e2 [B, L, K, H] in the dtype of E, f32
+    [B, L, H]). e2 is cast to E's dtype before the node chain reads it, as
+    where it would pass through device memory. There is no backward: raises
+    if any input requires grad (sampling only, as the JAX kernel)."""
+    args = (A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, gmod, A_n, G_n,
+            W_e_n, W2_n, b2_n, W3_n, b3_n, mask)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise RuntimeError("fused_edge_then_sum has no backward; call it under "
+                           "torch.no_grad() or with inputs that need no grad")
+    if E.device.type == "cpu":
+        return ref_edge_then_sum(*args, scale)
+    return _edge_then_sum_fwd(*args, scale)

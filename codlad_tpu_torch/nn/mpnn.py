@@ -2,10 +2,12 @@
 
 Counterpart of codlad_tpu/nn/mpnn.py on the Stage-2 paths: the C-alpha
 featurizer (`CAProteinFeatures`), the split message chain in its
-`reduce_sum` and `ln_mod` modes (with dropout, K5), and the trunk-mode
-encoder and decoder layers. Neighbour gathers index the node tables
-directly (the JAX package's one-hot gather operand is a TPU device and has
-no counterpart). Attribute names follow the flax module names, so
+`reduce_sum` (K1), `ln_mod` (K2, with dropout K5) and raw per-edge (K6)
+modes, and the encoder and decoder layers in both adaLN gate modes:
+'trunk' (the reference: the gates scale the whole trunk) and 'residual'
+(DiT-style: the gates scale each branch, so a layer is the identity at
+init). Neighbour gathers index the node tables directly (the JAX package's
+one-hot gather operand is a TPU device and has no counterpart). Attribute names follow the flax module names, so
 converted parameters load by name (convert/from_flax.py).
 
 Dropout is on only when a layer is called with deterministic=False, as in
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from codlad_tpu_torch.kernels.mpnn_kernels import (drop_threshold,
+from codlad_tpu_torch.kernels.mpnn_kernels import (drop_threshold, fused_message_edge,
                                                    fused_message_edge_lnmod,
                                                    fused_message_edge_lnmod_drop,
                                                    fused_message_edge_lnmod_pdrop,
@@ -186,7 +188,8 @@ class SplitMessageChain(nn.Module):
     inside the kernel (W_e). reduce_sum=True runs K1 (masked K-sum / scale);
     otherwise `ln_mod=(sh, sc, g)` runs K2 (residual LayerNorm + adaLN), or
     K5 with dropout on the message: `keep` [B, L, K, H] scales, or
-    `pdrop=(seeds [B] int32, p)` with the mask made in the kernel."""
+    `pdrop=(seeds [B] int32, p)` with the mask made in the kernel; without
+    `ln_mod`, K6 returns the raw per-edge messages [B, L, K, H]."""
 
     def __init__(self, num_hidden, self_dim, nbr_dim, edge_dim, gen,
                  reduce_sum=False, scale=30.0):
@@ -216,8 +219,7 @@ class SplitMessageChain(nn.Module):
             return fused_message_sum(A, edge_pre, Gn, idx, mask_attend, W_e, W2,
                                      b2, W3, b3, self.scale)
         if ln_mod is None:
-            raise NotImplementedError("raw per-edge messages (adaln 'residual') "
-                                      "are not ported")
+            return fused_message_edge(A, edge_pre, Gn, idx, W_e, W2, b2, W3, b3)
         sh, sc, g = ln_mod
         if pdrop is not None:
             seeds, p = pdrop
@@ -230,15 +232,21 @@ class SplitMessageChain(nn.Module):
                                         b3, sh, sc, g)
 
 
-class _DropoutLayer(nn.Module):
-    """Dropout rate and seed sites shared by the encoder and decoder layers:
-    site + 0 and + 1 drop the node update's dh and dh2, site + 2 the
-    encoder's edge message."""
+GATE_MODES = ("trunk", "residual")
 
-    def __init__(self, dropout, site):
+
+class _DropoutLayer(nn.Module):
+    """Dropout rate, seed sites and adaLN gate mode shared by the encoder and
+    decoder layers: site + 0 and + 1 drop the node update's dh and dh2, site
+    + 2 the encoder's edge message."""
+
+    def __init__(self, dropout, site, gate_mode):
         super().__init__()
+        if gate_mode not in GATE_MODES:
+            raise ValueError(f"gate_mode must be one of {GATE_MODES}, not {gate_mode!r}")
         self.dropout = dropout
         self.site = site
+        self.gate_mode = gate_mode
 
     def _seeds(self, deterministic, seed, offset, batch, device):
         """Seeds of one dropout site, or None when dropout is off."""
@@ -248,31 +256,52 @@ class _DropoutLayer(nn.Module):
             raise ValueError("dropout (deterministic=False) needs a dropout seed")
         return site_seeds(seed, self.site + offset, batch, device)
 
+    def _site_seeds(self, deterministic, seed, n, batch, device):
+        """Seeds of sites + 0 .. n - 1, taken before the layer queues any work:
+        each is copied from host memory, which waits for the device's queue."""
+        return [self._seeds(deterministic, seed, o, batch, device) for o in range(n)]
+
+    def _drop(self, x, seeds):
+        """x through the dropout of one site's seeds (x itself when None)."""
+        return x if seeds is None else dropout(x, self.dropout, seeds)
+
 
 def _node_epilogue(layer, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
                    deterministic=True, seed=None):
     """Trunk-mode h_V update from a node-message sum: LN -> modulate/gate
     -> PFF -> LN -> modulate/gate -> mask, with dropout on dh and dh2."""
-    B, dev = h_V.shape[0], h_V.device
-    s1 = layer._seeds(deterministic, seed, 0, B, dev)
-    s2 = layer._seeds(deterministic, seed, 1, B, dev)
-    drop = lambda x, s: x if s is None else dropout(x, layer.dropout, s)
-    h_V = layer_norm(h_V + drop(dh.to(h_V.dtype), s1))
+    s1, s2 = layer._site_seeds(deterministic, seed, 2, h_V.shape[0], h_V.device)
+    h_V = layer_norm(h_V + layer._drop(dh.to(h_V.dtype), s1))
     h_V = g1[:, None, :] * modulate(h_V, sh1, sc1)
-    h_V = layer_norm(h_V + drop(layer.PositionWiseFeedForward_0(h_V), s2))
+    h_V = layer_norm(h_V + layer._drop(layer.PositionWiseFeedForward_0(h_V), s2))
     h_V = g2[:, None, :] * modulate(h_V, sh2, sc2)
     if mask_V is not None:
         h_V = mask_V[..., None] * h_V
     return h_V
 
 
-class EncLayerDiffusion(_DropoutLayer):
-    """Encoder layer (trunk adaLN): node update through K1, edge update
-    through K2 (K5 when dropout is on), with 9-way modulation from the
-    timestep embedding."""
+def _residual_update(layer, h_V, dh, g1, sh2, sc2, g2, mask_V, s1, s2):
+    """Residual-mode h_V update from a node-message sum: the gates scale the
+    branches, h_V + g1 * dh, then + g2 * PFF(modulate(LN(h_V))) -> mask,
+    with dropout on dh and the PFF output (seeds s1, s2, or None)."""
+    h_V = h_V + g1[:, None, :] * layer._drop(dh.to(h_V.dtype), s1)
+    x = modulate(layer_norm(h_V), sh2, sc2)
+    h_V = h_V + g2[:, None, :] * layer._drop(layer.PositionWiseFeedForward_0(x), s2)
+    if mask_V is not None:
+        h_V = mask_V[..., None] * h_V
+    return h_V
 
-    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0):
-        super().__init__(dropout, site)
+
+class EncLayerDiffusion(_DropoutLayer):
+    """Encoder layer with 9-way adaLN modulation from the timestep embedding.
+    Trunk mode: node update through K1, edge update through K2 (K5 when
+    dropout is on). Residual mode (codlad_tpu/nn/mpnn.py:453-467): node
+    update through K1 on modulate(LN(h_V)), edge update h_E + g3 * dropout(K6
+    of modulate(LN(h_E)))."""
+
+    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0,
+                 gate_mode="trunk"):
+        super().__init__(dropout, site, gate_mode)
         H = num_hidden
         self.Dense_0 = linear(H, 9 * H, gen, init="zeros")
         self.SplitMessageChain_0 = SplitMessageChain(H, H, H, H, gen,
@@ -280,9 +309,22 @@ class EncLayerDiffusion(_DropoutLayer):
         self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
         self.SplitMessageChain_1 = SplitMessageChain(H, H, H, H, gen)
 
+    def mods(self, c):
+        """The 9-way adaLN modulation splits for one conditioning batch."""
+        return self.Dense_0(F.silu(c)).chunk(9, dim=-1)
+
     def forward(self, h_V, h_E, idx, mask_V, mask_attend, c, deterministic=True,
                 seed=None):
-        sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3 = self.Dense_0(F.silu(c)).chunk(9, dim=-1)
+        sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3 = self.mods(c)
+        if self.gate_mode == "residual":
+            s1, s2, s3 = self._site_seeds(deterministic, seed, 3, h_V.shape[0], h_V.device)
+            x = modulate(layer_norm(h_V), sh1, sc1)
+            dh = self.SplitMessageChain_0(x, h_E, x, idx, mask_attend=mask_attend)
+            h_V = _residual_update(self, h_V, dh, g1, sh2, sc2, g2, mask_V, s1, s2)
+            xe = modulate(layer_norm(h_E), sh3, sc3)
+            msg = self.SplitMessageChain_1(h_V, xe, h_V, idx)
+            h_E = h_E + g3[:, None, None, :] * self._drop(msg.to(h_E.dtype), s3)
+            return h_V, h_E
         dh = self.SplitMessageChain_0(h_V, h_E, h_V, idx, mask_attend=mask_attend)
         h_V = _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
                              deterministic, seed)
@@ -294,29 +336,47 @@ class EncLayerDiffusion(_DropoutLayer):
 
 
 class DecLayerDiffusion(_DropoutLayer):
-    """Decoder layer (trunk adaLN, no decoder mask): the message input
-    cat[h_V, edge, s_nbr, v_nbr] in split form -- node blocks s_node and
-    v_node are concatenated into one Dense, the edge block (2*h_E) enters
-    through W_e scaled by `edge_scale` -- summed by K1."""
+    """Decoder layer (no decoder mask) with 6-way adaLN modulation: the
+    message input cat[h_V, edge, s_nbr, v_nbr] in split form -- node blocks
+    s_node and v_node are concatenated into one Dense, the edge block (2*h_E)
+    enters through W_e scaled by `edge_scale` -- summed by K1. In residual
+    mode (codlad_tpu/nn/mpnn.py:559-595) the chain's self input is
+    modulate(LN(h_V)); s_node and v_node come as the caller gives them."""
 
-    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0):
-        super().__init__(dropout, site)
+    def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0,
+                 gate_mode="trunk"):
+        super().__init__(dropout, site, gate_mode)
         H = num_hidden
         self.Dense_0 = linear(H, 6 * H, gen, init="zeros")
         self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
         self.SplitMessageChain_0 = SplitMessageChain(H, H, 2 * H, H, gen,
                                                      reduce_sum=True, scale=scale)
 
-    def forward(self, h_V, idx, edge_pre, s_node, v_node, mask_V, c,
-                edge_scale=1.0, deterministic=True, seed=None):
-        sh1, sc1, g1, sh2, sc2, g2 = self.Dense_0(F.silu(c)).chunk(6, dim=-1)
-        chain = self.SplitMessageChain_0
-        A, Gn, W_e, W2, b2, W3, b3 = chain.components(
-            h_V, torch.cat([s_node, v_node], dim=-1))
+    def mods(self, c):
+        """The 6-way adaLN modulation splits for one conditioning batch."""
+        return self.Dense_0(F.silu(c)).chunk(6, dim=-1)
+
+    def chain_operands(self, h_self, s_node, v_node, edge_scale=1.0):
+        """K1's operands (A, Gn, W_e, W2, b2, W3, b3) with the node blocks
+        concatenated and `edge_scale` folded into W_e."""
+        A, Gn, W_e, W2, b2, W3, b3 = self.SplitMessageChain_0.components(
+            h_self, torch.cat([s_node, v_node], dim=-1))
         if edge_scale != 1.0:
             W_e = W_e * edge_scale
+        return A, Gn, W_e, W2, b2, W3, b3
+
+    def forward(self, h_V, idx, edge_pre, s_node, v_node, mask_V, c,
+                edge_scale=1.0, deterministic=True, seed=None):
+        sh1, sc1, g1, sh2, sc2, g2 = self.mods(c)
+        residual = self.gate_mode == "residual"
+        if residual:
+            s1, s2 = self._site_seeds(deterministic, seed, 2, h_V.shape[0], h_V.device)
+        x = modulate(layer_norm(h_V), sh1, sc1) if residual else h_V
+        A, Gn, W_e, W2, b2, W3, b3 = self.chain_operands(x, s_node, v_node, edge_scale)
         ones = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
         dh = fused_message_sum(A, edge_pre, Gn, idx, ones, W_e, W2, b2, W3, b3,
-                               chain.scale)
+                               self.SplitMessageChain_0.scale)
+        if residual:
+            return _residual_update(self, h_V, dh, g1, sh2, sc2, g2, mask_V, s1, s2)
         return _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
                               deterministic, seed)

@@ -13,26 +13,30 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from codlad_tpu.data.batch import collate, quantize_spec, spec_for
 from codlad_tpu.data.synthetic import synthetic_examples
+from codlad_tpu.gen import diffusion as JD
 from codlad_tpu.models import denoiser as jax_denoiser_mod
 from codlad_tpu.models import vq as JVQ
 from codlad_tpu.models.vae import VAE as JaxVAE
 from codlad_tpu.nn import mpnn as jax_mpnn
 from codlad_tpu.train import losses as JL
 from codlad_tpu.train.state import create_train_state
+from codlad_tpu.train.steps import make_latent_step as jax_make_latent_step
 from codlad_tpu.train.steps import make_vqvae_step as jax_make_vqvae_step
 from codlad_tpu.train.steps import weights_to_array as jax_weights_to_array
 from codlad_tpu_torch.convert.from_flax import flax_to_state_dict, load_flax
 from codlad_tpu_torch.data.cg_batch import random_ca_trace
+from codlad_tpu_torch.gen import diffusion as TD
 from codlad_tpu_torch.models.denoiser import MPNNDenoiser
 from codlad_tpu_torch.models.vae import VAE
 from codlad_tpu_torch.models.vq import VQState
 from codlad_tpu_torch.train import losses as TL
 from codlad_tpu_torch.train.state import TrainState
-from codlad_tpu_torch.train.steps import make_vqvae_step, weights_to_array
+from codlad_tpu_torch.train.steps import make_latent_step, make_vqvae_step, weights_to_array
 
 SMALL = dict(hidden_dim=32, edge_features=32, num_encoder_layers=2,
              num_decoder_layers=1, k_neighbors=16)
@@ -113,6 +117,55 @@ def replay_ancestral_noises(rng, n_steps, shape):
         _, k_noise = jax.random.split(sub)
         zs.append(np.asarray(jax.random.normal(k_noise, shape)))
     return zs
+
+
+def latent_step_pair(cfg, lr, clip, ema):
+    """One f32 Stage-2 `make_latent_step` at dropout 0 in both packages, from
+    the same `random_params` of the denoiser of config `cfg`, batch (B2 L16,
+    one frame of 11 valid residues), t and noise: (JAX's loss, mse,
+    grad_norm, grads, updated params and EMA; the port's state and metrics).
+
+    The JAX optimizer chain starts with a link that records the incoming
+    grads in its state, so one run gives all of them. The t and the noise are
+    JAX's own draws (the split chain of codlad_tpu/train/steps.py:301-306 and
+    gen/diffusion.py:339-341), replayed here and handed to the port."""
+    B, L = 2, 16
+    res_type, cg, mask = ca_inputs(4, B, L, n_valid=[16, 11])
+    x1 = np.random.default_rng(5).normal(size=(B, L, 3)).astype(np.float32)
+    model = jax_denoiser_mod.mpnn_diffusion(input_size=3, learn_sigma=True, dropout=0.0,
+                                            **cfg)
+    params = random_params(model, 6, jnp.zeros((B, L, 3)), jnp.zeros((B,), jnp.int32),
+                           res_type, cg, mask)
+    process = JD.create_diffusion(None, diffusion_steps=1000, learn_sigma=True)
+    tx = optax.chain(record_grads(), optax.clip_by_global_norm(clip),
+                     optax.adamw(lr, weight_decay=0.0))
+    # the port's copy first: the JAX step donates (deletes) the state's arrays
+    port = load_flax(MPNNDenoiser(torch.Generator().manual_seed(0), **cfg), params)
+    state = create_train_state(params, tx, with_ema=True)
+    extras = {"res_type": jnp.asarray(res_type), "cg_xyz": jnp.asarray(cg),
+              "mask": jnp.asarray(mask)}
+    rng = jax.random.PRNGKey(3)
+    k_t, k_loss = jax.random.split(rng)
+    t_j = jax.random.randint(k_t, (B,), 0, process.num_timesteps)
+    noise = jax.random.normal(jax.random.split(k_loss)[1], (B, L, 3))
+    with pytest.MonkeyPatch.context() as mp:
+        exact_gathers(mp)
+        step, _ = jax_make_latent_step(model, process, process_kind="diffusion",
+                                       ema_decay=ema, dropout=False)
+        new, metrics = step(state, jnp.asarray(x1), extras, rng)
+        jax_out = {"loss": float(metrics["loss"]), "mse": float(metrics["mse"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "grads": flax_to_state_dict(jax.device_get(new.opt_state[0])),
+                   "params": flax_to_state_dict(jax.device_get(new.params)),
+                   "ema": flax_to_state_dict(jax.device_get(new.ema_params))}
+
+    tstate = TrainState(dict(port.named_parameters()), lambda s: lr, grad_clip=clip)
+    tstep, _ = make_latent_step(port, TD.create_diffusion(None, diffusion_steps=1000),
+                                ema_decay=ema, dropout=False)
+    tstate, tm = tstep(tstate, t(x1), {"res_type": t(res_type), "cg_xyz": t(cg),
+                                       "mask": t(mask)}, 0,
+                       t=t(t_j).long(), noise=t(noise))
+    return jax_out, tstate, tm
 
 
 # ---------------------------------------------------------------------------

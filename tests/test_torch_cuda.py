@@ -1,9 +1,9 @@
-"""The CUDA kernels against their plain versions on the card: K1-K5's
-forwards against the plain versions, the backwards (K3, K4, K5's) against
-torch.autograd of the plain versions on the same inputs and cotangent; K8
-(bit for bit), K9 and K10 against theirs; K11 (K10's backward) and the
-K8/K9 backwards (each the other kernel) against autograd of the plain
-versions.
+"""The CUDA kernels against their plain versions on the card: K1-K7's
+forwards against the plain versions, the backwards (K3, K4, K5's, K6's)
+against torch.autograd of the plain versions on the same inputs and
+cotangent; K8 (bit for bit), K9 and K10 against theirs; K11 (K10's
+backward) and the K8/K9 backwards (each the other kernel) against autograd
+of the plain versions.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -156,6 +156,65 @@ def test_dropout_kernels_match_plain(dev, dtype):
                                fused_message_edge_lnmod_drop_bwd=2)
     assert sum(MK.LAUNCHES.values()) == 5
 
+
+
+# K6 (the raw per-edge messages) and K7 (K2 chained into K1), at L = K = 48 and
+# 64 and a ragged L with a longer gather table. Forwards: f32 atol 2e-4 + rtol
+# 2e-4; bf16 2e-2 max|ref| (K6's messages and K7's node sum), and K7's edge
+# output, K2's arithmetic, within the JAX test's 5e-2 (tests/test_kernels.py:
+# 796) + K2's rtol 2e-2. K6's backward as K4's (`_grad_close`).
+_MSG = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
+_SHAPES_67 = [(48, 48, 48), (64, 64, 64), (37, 50, 32)]
+
+
+def _fwd_close(got, want, dtype, atol_bf16=0.0, rtol_bf16=0.0):
+    assert got.dtype == want.dtype
+    d, ref = (got.float() - want.float()).abs(), want.float().abs()
+    if dtype == torch.float32:
+        bound = 2e-4 + 2e-4 * ref
+    elif atol_bf16:
+        bound = atol_bf16 + rtol_bf16 * ref
+    else:
+        bound = 2e-2 * ref.max()
+    assert bool((d <= bound).all()), (d.max().item(), ref.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,N,K", _SHAPES_67)
+def test_message_edge_kernels_match_plain(dev, dtype, L, N, K):
+    """K6's forward against ref_message_edge, its backward against autograd
+    of ref_message_edge, one launch of each."""
+    x = _inputs(dev, dtype, 3, L, N, K, seed=5)
+    ct = torch.randn(3, L, K, H, generator=torch.Generator().manual_seed(6)).to(dev).to(dtype)
+    MK.reset_launches()
+    out_k, out_p = _check_bwd(MK.fused_message_edge, MK.ref_message_edge, x, _MSG, _GRAD, ct,
+                              dtype)
+    _fwd_close(out_k.detach(), out_p.detach(), dtype)
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_edge=1, fused_message_edge_bwd=1)
+    assert sum(MK.LAUNCHES.values()) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,N,K", _SHAPES_67)
+def test_edge_then_sum_kernel_matches_plain(dev, dtype, L, N, K):
+    """K7 against ref_edge_then_sum (K2's plain version, then K1's on its
+    output), one launch; it refuses inputs that require grad."""
+    x = _inputs(dev, dtype, 3, L, N, K, seed=7)
+    y = _inputs(dev, dtype, 3, L, N, K, seed=8)  # the next layer's node chain
+    args = ([x[k] for k in _EDGE] + [y["A"], y["Gn"]]
+            + [y[k] for k in ("W_e", "W2", "b2", "W3", "b3")] + [x["mask"], 30.0])
+    MK.reset_launches()
+    e2, ns = MK.fused_edge_then_sum(*args)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_edge_then_sum=1)
+    assert sum(MK.LAUNCHES.values()) == 1
+    e2_p, ns_p = MK.ref_edge_then_sum(*args)
+    assert ns.dtype == torch.float32 and e2.shape == x["E"].shape
+    _fwd_close(e2, e2_p, dtype, atol_bf16=5e-2, rtol_bf16=2e-2)
+    _fwd_close(ns, ns_p, dtype)
+    args[0] = args[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError):
+        MK.fused_edge_then_sum(*args)
 
 # Stage-1 kernels. K8 is an index read: bit for bit. K9 sums in f32 in
 # another order than index_add_: f32 atol 2e-4 + rtol 2e-4; bf16 within

@@ -4,7 +4,8 @@ In a fresh interpreter whose import system refuses jax, jaxlib, flax,
 optax, orbax and codlad_tpu, every module of codlad_tpu_torch and
 chip_smoke import, chip_smoke's slice and training phases run on the CPU
 at tiny size through the plain versions of the kernels, and its reference
-checks run with the CPU standing in for the card; so do its Stage-1 recon
+checks run with the CPU standing in for the card (both adaLN modes, and the
+pair-fused scans); so do its Stage-1 recon
 phases (random weights, the trained weights on their fixture, the recon
 CLI) and its Stage-1 training phases (steps of make_vqvae_step, the
 card-vs-CPU step, the chain train_vqvae -> extract_features ->
@@ -57,6 +58,19 @@ SCRIPT = textwrap.dedent("""
     assert not any(out["launches"].values()), out["launches"]
     chip_smoke.reference_check(0, device="cpu")
 
+    # the pair-fused scans and the residual sampling path, tiny
+    fs = chip_smoke.fused_scans(pipe, batch, 0, rounds=2)
+    assert fs["launches"] == dict.fromkeys(fs["launches"], 0), fs["launches"]
+    assert len(fs["fused_s"]) == len(fs["unfused_s"]) == 2 and fs["steps"] == 5
+    assert fs["latents_d"] <= chip_smoke.FUSE_TOL * fs["latents_scale"], fs
+    assert fs["first_d"] <= chip_smoke.FUSE_TOL * fs["first_scale"], fs
+    res = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8, codebook_size=64,
+                                    respacing="ddim5", compute_dtype=torch.bfloat16,
+                                    adaln_mode="residual")
+    out = chip_smoke.run_slice(res, batch, torch.Generator().manual_seed(0))
+    chip_smoke.check_slice(out, 2, 16)
+    chip_smoke.reference_check(0, device="cpu", adaln_mode="residual")
+
     # the training phases, tiny, with the CPU standing in for the card
     x1, extras = chip_smoke.train_batch(2, 12, 1, "cpu")
     model, state, step = chip_smoke.build_trainer("cpu", 0, hidden=32, layers=1, k=8,
@@ -68,6 +82,20 @@ SCRIPT = textwrap.dedent("""
     rows = chip_smoke.run_train_cli(0, "cpu", n_frames=3, n_res=12, batch=2, steps=2)
     assert len(rows) == 2
     chip_smoke.train_reference(0, device="cpu", hidden=32, layers=1)
+    assert chip_smoke.train_launches(3, 3, 0.6, "residual") == {
+        "fused_message_sum": 6, "fused_message_edge": 3, "fused_message_sum_bwd": 6,
+        "fused_message_edge_bwd": 3}
+    model, state, step = chip_smoke.build_trainer("cpu", 0, hidden=32, layers=1, k=8,
+                                                  compute_dtype=torch.bfloat16, gates=True,
+                                                  adaln_mode="residual")
+    times, metrics, totals = chip_smoke.run_train(state, step, x1, extras, 0, 2, {},
+                                                  traced=1)
+    assert state.step == 2 and not any(totals.values()), totals
+    chip_smoke.train_reference(0, device="cpu", hidden=32, layers=1, dropout=0.0,
+                               adaln_mode="residual")
+    rows = chip_smoke.run_train_cli(0, "cpu", n_frames=3, n_res=12, batch=2, steps=2,
+                                    adaln_mode="residual")
+    assert len(rows) == 2
 
     # the Stage-1 recon phases, tiny, with the CPU standing in for the card
     s1 = chip_smoke.stage1_batch(0, "cpu", 2, 20)

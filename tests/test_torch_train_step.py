@@ -18,23 +18,11 @@ first AdamW step moves a weight by lr * g / (|g| + 1e-8) with g the clipped
 grad, so where g is within a few 1e-8 of zero a grad difference far inside
 the grad tolerance moves the weight by up to a few percent of lr (1e-3)."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from _torch_parity import ca_inputs, exact_gathers, random_params, t
-from codlad_tpu.gen import diffusion as JD
-from codlad_tpu.models import denoiser as JDN
-from codlad_tpu.train.state import create_train_state
-from codlad_tpu.train.steps import make_latent_step as jax_make_latent_step
-from codlad_tpu_torch.convert.from_flax import flax_to_state_dict, load_flax
-from codlad_tpu_torch.gen import diffusion as TD
-from codlad_tpu_torch.models.denoiser import MPNNDenoiser
-from codlad_tpu_torch.train.state import TrainState
-from codlad_tpu_torch.train.steps import make_latent_step
+from _torch_parity import latent_step_pair
 
 CFG = dict(hidden_dim=32, edge_features=32, num_encoder_layers=1,
            num_decoder_layers=1, k_neighbors=8)
@@ -43,44 +31,7 @@ LR, CLIP, EMA = 1e-3, 1.0, 0.99
 
 @pytest.fixture(scope="module")
 def runs():
-    B, L = 2, 16
-    res_type, cg, mask = ca_inputs(4, B, L, n_valid=[16, 11])
-    x1 = np.random.default_rng(5).normal(size=(B, L, 3)).astype(np.float32)
-    model = JDN.mpnn_diffusion(input_size=3, learn_sigma=True, dropout=0.0, **CFG)
-    params = random_params(model, 6, jnp.zeros((B, L, 3)), jnp.zeros((B,), jnp.int32),
-                           res_type, cg, mask)
-    process = JD.create_diffusion(None, diffusion_steps=1000, learn_sigma=True)
-    record = optax.GradientTransformation(
-        lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
-    tx = optax.chain(record, optax.clip_by_global_norm(CLIP),
-                     optax.adamw(LR, weight_decay=0.0))
-    # the port's copy first: the JAX step donates (deletes) the state's arrays
-    port = load_flax(MPNNDenoiser(torch.Generator().manual_seed(0), **CFG), params)
-    state = create_train_state(params, tx, with_ema=True)
-    extras = {"res_type": jnp.asarray(res_type), "cg_xyz": jnp.asarray(cg),
-              "mask": jnp.asarray(mask)}
-    rng = jax.random.PRNGKey(3)
-    k_t, k_loss = jax.random.split(rng)
-    t_j = jax.random.randint(k_t, (B,), 0, process.num_timesteps)
-    noise = jax.random.normal(jax.random.split(k_loss)[1], (B, L, 3))
-    with pytest.MonkeyPatch.context() as mp:
-        exact_gathers(mp)
-        step, _ = jax_make_latent_step(model, process, process_kind="diffusion",
-                                       ema_decay=EMA, dropout=False)
-        new, metrics = step(state, jnp.asarray(x1), extras, rng)
-        jax_out = {"loss": float(metrics["loss"]), "mse": float(metrics["mse"]),
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "grads": flax_to_state_dict(jax.device_get(new.opt_state[0])),
-                   "params": flax_to_state_dict(jax.device_get(new.params)),
-                   "ema": flax_to_state_dict(jax.device_get(new.ema_params))}
-
-    tstate = TrainState(dict(port.named_parameters()), lambda s: LR, grad_clip=CLIP)
-    tstep, _ = make_latent_step(port, TD.create_diffusion(None, diffusion_steps=1000),
-                                ema_decay=EMA, dropout=False)
-    tstate, tm = tstep(tstate, t(x1), {"res_type": t(res_type), "cg_xyz": t(cg),
-                                       "mask": t(mask)}, 0,
-                       t=t(t_j).long(), noise=t(noise))
-    return jax_out, tstate, tm
+    return latent_step_pair(CFG, LR, CLIP, EMA)
 
 
 def test_loss_mse_and_grad_norm(runs):
