@@ -5,6 +5,8 @@
 
 Phases, each printing its seconds:
   1. build   -- compile csrc/*.cu with plain nvcc (one process per source);
+                each kernel's name, registers, static shared memory and
+                spills from `-Xptxas -v`;
   2. kernels -- K1 (fused_message_sum) and K2 (fused_message_edge_lnmod) at
                 the bench shape (B96 L128 K64 H128), bf16 and f32, against
                 their plain PyTorch versions on the same inputs, timed with
@@ -16,13 +18,16 @@ Phases, each printing its seconds:
                 owns a partial tile of residues); then the Stage-1 kernels
                 at the Stage-1 bench shape (4 synthetic frames of 132
                 residues, L 192, 2688 atoms, 65536 directed atom edges a
-                frame), f32 and bf16: K8 (edge_gather) bit for bit, K9
+                frame), f32 and bf16: K8 (edge_gather; vector or scalar
+                path by width and alignment) bit for bit, K9
                 (edge_aggregate) and K10 (fused_tp, the three layer
                 signatures on the atom edges and on the cross graph's
-                [B, L, 14, *] operands) within their tolerances, each timed
-                beside its bound, its plain version and the nearest PyTorch
-                call; K11 (fused_tp_bwd: dx, dsh, dw) at K10's six shapes
-                against autograd of the plain K10 (float64 for f32), timed
+                [B, L, 14, *] operands; bf16 on the tensor cores) within
+                their tolerances, each timed beside its bound, its plain
+                version and the nearest PyTorch call (the kernel and that
+                call also by CUDA graph replay: the device's time); K11
+                (fused_tp_bwd: dx, dsh, dw) at K10's six shapes against
+                autograd of the plain K10 (float64 for f32), timed
                 beside its bound, the plain backward and the dense form's
                 backward in cuBLAS; the K8/K9 backwards (each the other
                 kernel) against autograd of their plain versions;
@@ -116,8 +121,12 @@ the residual ones open the gates too (at init a residual layer is the
 identity and K6's backward would receive a zero cotangent). The line
 before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}}; the line before that one the
-kernels' JSON (K1-K11). Exits non-zero, printing no result, without a CUDA
-device or when any phase fails.
+kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
+K8 and K10 both the f32 record of recon and the bf16 one of the Stage-1
+trainer, whose launches are those of the bf16 training steps; every ms
+one call timed with CUDA events, and the K8-K10 records' device_ms and
+library_device_ms the device's time by graph replay). Exits
+non-zero, printing no result, without a CUDA device or when any phase fails.
 """
 
 from __future__ import annotations
@@ -407,6 +416,54 @@ def time_calls(*fns, reps=10):
     return tuple(statistics.median(t) for t in times)
 
 
+_REPLAY_STREAM = []  # the one side stream every capture uses
+
+
+def replay_ms(*fns, n=20, reps=5):
+    """Device ms of one call of each fn, without the host's time: n calls
+    captured in one CUDA graph (after three warm-up calls on the capture
+    stream), the graph replayed `reps` times in turns with the others',
+    timed with CUDA events; the median over n. A call whose device work
+    is shorter than its Python wrapper's host time reads as the host's
+    time under `time_calls`; here it does not. Every capture runs on one
+    side stream; the graphs and the cuBLAS workspaces (one a stream) are
+    freed before returning, so later phases' peak memory excludes them."""
+    import gc
+    import torch
+    if not _REPLAY_STREAM:
+        _REPLAY_STREAM.append(torch.cuda.Stream())
+    side = _REPLAY_STREAM[0]
+    graphs = []
+    for fn in fns:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1], stream=side):
+            for _ in range(n):
+                fn()
+    times = [[] for _ in fns]
+    for i in range(reps + 1):
+        for j, g in (list(enumerate(graphs)) if i % 2 == 0 else list(enumerate(graphs))[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            if i:                                   # the first replay warms up
+                times[j].append(e0.elapsed_time(e1) / n)
+    for g in graphs:
+        g.reset()
+    del graphs
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return tuple(statistics.median(t) for t in times)
+
+
 def check_kernels(device, seed, dims=(B, L, K)):
     """Every kernel against its plain version, both dtypes; returns the
     bf16 (main-path dtype) record of each kernel."""
@@ -434,15 +491,17 @@ def check_kernels(device, seed, dims=(B, L, K)):
             if not ok:
                 raise RuntimeError(f"{name} ({dname}) disagrees with its plain version")
             if dtype == torch.bfloat16:
-                records[name] = record(name, err, ms, plain_ms, t_bytes, t_ops)
+                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
         del x
     return records
 
 
-def record(name, err, ms, plain_ms, t_bytes, t_ops, library_ms=None):
-    """One row of the `kernels` JSON line (launches filled in later)."""
+def record(name, dname, err, ms, plain_ms, t_bytes, t_ops, library_ms=None):
+    """One row of the `kernels` JSON line, for the kernel's `dname`
+    (bfloat16 or float32) launch (launches filled in later)."""
     replaces, source = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": f"codlad_tpu_torch/csrc/{source}",
+    return {"name": name, "dtype": dname, "route": "cuda",
+            "source": f"codlad_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -642,7 +701,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
                 f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                 f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
             if dtype == torch.bfloat16:
-                records[name] = record(name, err, ms, plain_ms, t_bytes, t_ops)
+                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
     return records
 
 
@@ -712,7 +771,7 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
                 f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                 f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
             if dtype == torch.bfloat16:
-                records[name] = record(name, err, ms, plain_ms, t_bytes, t_ops)
+                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
     return records
 
 
@@ -782,8 +841,8 @@ def check_k7_kernels(device, seed, dims=(B, L, K)):
             f"(K7 / pair {ms / pair_ms:.3f}), bound {max(t_bytes, t_ops):.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
         if dtype == torch.bfloat16:
-            records["fused_edge_then_sum"] = record("fused_edge_then_sum", err, ms, plain_ms,
-                                                    t_bytes, t_ops)
+            records["fused_edge_then_sum"] = record("fused_edge_then_sum", dname, err, ms,
+                                                    plain_ms, t_bytes, t_ops)
         del a
         torch.cuda.empty_cache()
     return records
@@ -910,7 +969,7 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
                  "edge_then_sum_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
-                  "fused_tp_bwd_kernel")
+                  "fused_tp_mma_kernel", "fused_tp_bwd_kernel")
 
 
 def busy_us(intervals):
@@ -926,8 +985,9 @@ def busy_us(intervals):
 def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
                   label="message-chain kernels", unit="step"):
     """Log the device's busy share of the traced wall time (the union of
-    kernel intervals) and the kernels by device time a `unit`, the kernels
-    named in `mine` (default the message chains, K1-K5) summed apart."""
+    kernel intervals) and the kernels by device time a `unit` (the `top`
+    and every kernel named in `mine`), those of `mine` (default the message
+    chains, K1-K5) also summed apart."""
     import torch
     by_name, spans = {}, []
     for e in prof.events():
@@ -947,7 +1007,9 @@ def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
         f"{label} {chain / 1e3 / n_steps:.2f} ms ({chain / total:.3f}), other "
         f"{(total - chain) / 1e3 / n_steps:.2f} ms; "
         f"{sum(n for _, n in by_name.values()) // n_steps} launches a {unit}")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+    for i, (name, (us, n)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])):
+        if i >= top and not any(c in name for c in mine):
+            continue
         log(f"  {us / 1e3 / n_steps:9.3f} ms/{unit} {n // n_steps:5d}x  {name[:100]}")
 
 
@@ -1145,9 +1207,14 @@ def check_stage1_kernels(batch, seed):
     """K8, K9 and K10 against their plain versions at the recon path's
     shapes on `batch` (the atom graph, directed), f32 and bf16; timed with
     CUDA events beside the bound, the plain version and the nearest PyTorch
-    call. Returns the f32 (the recon path's dtype) record of each, at the
-    largest call of the encoder: K8 the layer-2 atom feature gather (F 36),
-    K9 the layer-2 atom mean (F 48), K10 the layer-2 atom TP."""
+    call (the records' ms, plain_ms and library_ms, a call each as every
+    record has them), the kernel and that call also by graph replay
+    (`replay_ms`: the device's time alone, device_ms and library_device_ms
+    in the records). Returns the f32 (the recon path's dtype) record of
+    each, at the largest call of the encoder: K8 the layer-2 atom feature gather (F 36),
+    K9 the layer-2 atom mean (F 48), K10 the layer-2 atom TP; and the bf16
+    (the Stage-1 trainer's dtype) records of K8 at F 36 and K10 at the
+    layer-2 atom edges, keyed edge_gather_bf16 and fused_tp_bf16."""
     import torch
     from codlad_tpu_torch.kernels import edge_kernels as EK
     from codlad_tpu_torch.kernels import tp_kernels as TK
@@ -1178,16 +1245,19 @@ def check_stage1_kernels(batch, seed):
         es = torch.finfo(dtype).bits // 8
 
         def report(name, label, err, ok, limit, kern, plain, library, nbytes, ops):
-            ms, plain_ms, lib_ms = time_calls(kern, plain, library)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname} {label}: max|d|={err:.3g} ({limit}) "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"library {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops)")
             if not ok:
                 raise RuntimeError(f"{name} ({dname}, {label}) disagrees with its plain version")
-            return record(name, err, ms, plain_ms, t_bytes, t_ops, lib_ms)
+            ms, plain_ms, lib_ms = time_calls(kern, plain, library)
+            dev_ms, lib_dev_ms = replay_ms(kern, library)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dname] * 1e3
+            log(f"kernel {name} {dname} {label}: max|d|={err:.3g} ({limit}) ok; a call "
+                f"(events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms, library "
+                f"{lib_dev_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops)")
+            return dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops, lib_ms),
+                        device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
         # K8: the geometry gather [xyz | z] (F 4) and the layer-2 features (F 36)
         for F in (4, 36):
@@ -1201,8 +1271,8 @@ def check_stage1_kernels(batch, seed):
             rec = report("edge_gather", f"F{F}", err, same, "bit for bit", kern, plain,
                          lambda: nodes.reshape(-1, F).index_select(0, flat_dst),
                          nb * ne * 8 + nb * na * F * es + nb * ne * F * es, nb * ne * F)
-            if F == 36 and dtype == torch.float32:
-                records["edge_gather"] = rec
+            if F == 36:
+                records["edge_gather" + ("" if dtype == torch.float32 else "_bf16")] = rec
 
         # K9: the layer-0 atom mean (F 12) and the layer-2 one (F 48)
         for F in (12, 48):
@@ -1259,8 +1329,8 @@ def check_stage1_kernels(batch, seed):
                 rec = report("fused_tp", f"layer {layer} {where} {tuple(lead)}", d.max().item(),
                              ok, limit, kern, plain, lib, m * (din + 9 + numel + dout) * es,
                              m * (9 * din + 2 * nnz + 2 * R))
-                if layer == 2 and where == "edges" and dtype == torch.float32:
-                    records["fused_tp"] = rec
+                if layer == 2 and where == "edges":
+                    records["fused_tp" + ("" if dtype == torch.float32 else "_bf16")] = rec
                 del x, sh, w, got, want, t
         torch.cuda.empty_cache()
     return records
@@ -1556,7 +1626,7 @@ def check_stage1_bwd_kernels(batch, seed):
                     raise RuntimeError(f"fused_tp_bwd ({dname}, layer {layer} {where}) "
                                        "disagrees with plain autograd")
                 if layer == 2 and where == "edges" and dtype == torch.bfloat16:
-                    records["fused_tp_bwd"] = record("fused_tp_bwd", err, ms, plain_ms,
+                    records["fused_tp_bwd"] = record("fused_tp_bwd", dname, err, ms, plain_ms,
                                                      t_bytes, t_ops, lib_ms)
                 del x, sh, w, ct, got, pl, pout
                 torch.cuda.empty_cache()
@@ -1789,7 +1859,8 @@ def main(argv=None):
     seconds, logs = build.timed_build()
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("entry function", "registers", "spill")) or (
+                    "error" in line.lower()):
                 log(f"  {name}: {line.strip()}")
     log(f"phase build: {seconds:.2f} s")
 
@@ -2026,7 +2097,9 @@ def main(argv=None):
                                                  traced=traced)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if dtype == torch.bfloat16:
-            records["fused_tp_bwd"]["launches"] = per_step["fused_tp_bwd"] * n_steps
+            for key, name in (("fused_tp_bwd", "fused_tp_bwd"), ("fused_tp_bf16", "fused_tp"),
+                              ("edge_gather_bf16", "edge_gather")):
+                records[key]["launches"] = per_step[name] * n_steps
         nb, nl = s1_batch["res_type"].shape
         log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
             f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "

@@ -5,11 +5,22 @@
 //   K8 edge_gather_*    <- _gather_kernel / _pallas_gather
 //   K9 edge_aggregate_* <- _aggregate_kernel / _pallas_aggregate
 //
-// K8: out[b, e, f] = nodes[b, idx[b, e], f] * cast(mask[b, e]), one thread an
-//   output element. The TPU builds a one-hot in VMEM and splits f32 payloads
-//   hi/lo because its matrix unit rounds; an index read is exact, so this
-//   equals the plain version (index_select, then the mask in the payload
-//   dtype) bit for bit.
+// K8: out[b, e, f] = nodes[b, idx[b, e], f] * cast(mask[b, e]). The TPU
+//   builds a one-hot in VMEM and splits f32 payloads hi/lo because its
+//   matrix unit rounds; an index read is exact, so this equals the plain
+//   version (index_select, then the mask in the payload dtype) bit for bit.
+//   Bound: memory. At the Stage-1 bench shape (B4, 65536 directed edges a
+//   sample, 2688 atoms, F 36 bf16) it moves 21.7 MB (18.9 MB of rows out,
+//   the 0.77 MB node table, 2 MB of indices and masks): ~6.5 us at 3.35 TB/s.
+//   Design: a thread owns a chunk of V elements of one row (V = 4: 8 bytes
+//   in bf16, 16 in f32) with all index math in 32 bits; the sample is the
+//   grid's y axis and the row one 32-bit division of the chunk index, so
+//   no 64-bit division (a software routine on the GPU) is left. The lanes
+//   of a row read its index and mask at one address (one transaction a
+//   warp), and a warp's vector stores cover one contiguous range. Where F %
+//   4 != 0 or a pointer is not aligned to the vector (a contiguous view
+//   with a storage offset), the same kernel runs its scalar path (V = 1).
+//   The host refuses B*E*F or B*N*F at or above 2^31 (int32 offsets).
 // K9: out[n, f] = cast(sum over node n's valid edges e of mask[e] * msgs[e, f])
 //   (f32 sum, payload-dtype result); with `mean`, then divided by
 //   max(cast(sum of those masks), 1) and cast again, as DenseEdgeOps rounds
@@ -18,11 +29,8 @@
 //   a CSR (ptr, edge list: built once per batch by a stable sort outside the
 //   kernel) and one warp owns a node: its lanes take the features, and each
 //   lane adds the node's edges in list order. No atomics, so a run repeats
-//   bit for bit.
-//
-// Bound at the Stage-1 bench shape (B4, 2688 atoms, 65536 directed edges a
-// sample, F 12..48): both move B*E*F payload elements once plus the indices;
-// memory-bound, tens of microseconds.
+//   bit for bit. Bound: memory, as K8 (B*E*F payload elements once plus the
+//   indices).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,21 +52,70 @@ template <> struct Num<__nv_bfloat16> {
 
 constexpr int NT = 256;
 
+// V consecutive elements of T, to and from f32
+template <typename T, int V> struct Chunk;
+template <typename T> struct Chunk<T, 1> {
+  __device__ static void load(const T* p, float* v) { v[0] = Num<T>::f(*p); }
+  __device__ static void store(T* p, const float* v) { *p = Num<T>::cast(v[0]); }
+};
+template <> struct Chunk<float, 4> {
+  __device__ static void load(const float* p, float* v) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  }
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Chunk<__nv_bfloat16, 4> {
+  __device__ static void load(const __nv_bfloat16* p, float* v) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const unsigned*>(&lo);
+    t.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  }
+};
+
+// chunk i (of E * F / V) of sample b
+template <typename T, int V>
+__device__ __forceinline__ void gather_chunk(const int* __restrict__ idx,
+                                             const float* __restrict__ mask,
+                                             const T* __restrict__ nodes, T* __restrict__ out,
+                                             int b, int i, int E, int N, int F) {
+  const int per_row = F / V;
+  const int e = i / per_row;
+  const int c = (i - e * per_row) * V;
+  const int row = b * E + e;
+  // indices come from the featurizer; clamped so a bad one cannot read
+  // outside the sample's node table
+  const int j = min(max(__ldg(idx + row), 0), N - 1);
+  const float m = Num<T>::round(__ldg(mask + row));
+  float v[V];
+  Chunk<T, V>::load(nodes + (b * N + j) * F + c, v);
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] *= m;
+  Chunk<T, V>::store(out + row * F + c, v);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gather_kernel(const int* __restrict__ idx, const float* __restrict__ mask,
               const T* __restrict__ nodes, T* __restrict__ out, int E, int N, int F,
-              long long total) {
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < total;
-       i += (long long)gridDim.x * NT) {
-    const long long row = i / F;  // b * E + e
-    const int f = (int)(i - row * F);
-    const long long b = row / E;
-    // indices come from the featurizer; clamped so a bad one cannot read
-    // outside the sample's node table
-    const int j = min(max(idx[row], 0), N - 1);
-    const float m = Num<T>::round(mask[row]);
-    out[i] = Num<T>::cast(Num<T>::f(nodes[(b * N + j) * F + f]) * m);
+              int vec) {
+  const int b = blockIdx.y;
+  const unsigned i = blockIdx.x * NT + threadIdx.x;  // < 2^31 + NT
+  if (vec) {
+    if (i < (unsigned)(E * (F / 4))) gather_chunk<T, 4>(idx, mask, nodes, out, b, i, E, N, F);
+  } else if (i < (unsigned)(E * F)) {
+    gather_chunk<T, 1>(idx, mask, nodes, out, b, i, E, N, F);
   }
 }
 
@@ -90,13 +147,18 @@ aggregate_kernel(const int* __restrict__ ptr, const int* __restrict__ edges,
 template <typename T>
 int gather(const void* idx, const void* mask, const void* nodes, void* out, int B, int E,
            int N, int F, void* stream) {
-  if (B <= 0 || E <= 0 || N <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * E * F;
-  const long long want = (total + NT - 1) / NT;
-  const int blocks = (int)(want < 1048576 ? want : 1048576);
-  gather_kernel<T><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr long long kMax = 2147483647LL;
+  if (B <= 0 || E <= 0 || N <= 0 || F <= 0 || B > 65535 || (long long)B * E * F > kMax ||
+      (long long)B * N * F > kMax)
+    return (int)cudaErrorInvalidValue;
+  constexpr uintptr_t align = 4 * sizeof(T);
+  const int vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(nodes) % align == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % align == 0;
+  const int chunks = vec ? E * (F / 4) : E * F;
+  const dim3 grid((unsigned)(((long long)chunks + NT - 1) / NT), B);
+  gather_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(mask),
-      static_cast<const T*>(nodes), static_cast<T*>(out), E, N, F, total);
+      static_cast<const T*>(nodes), static_cast<T*>(out), E, N, F, vec);
   return (int)cudaGetLastError();
 }
 

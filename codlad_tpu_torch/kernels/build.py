@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("message_chain", "message_chain_bwd", "edge_ops", "fused_tp", "fused_tp_bwd")
@@ -24,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}
 
 
 def nvcc_path() -> str:
@@ -82,6 +85,29 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def entry(source: str, name: str, argtypes):
+    """C entry point `name` of csrc/<source>.cu, typed once (a launch pays no
+    lookup): `argtypes`, then the stream; returns a cudaError code."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = _ENTRIES[(source, name)] = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+    return fn
+
+
+def launch(fn, dev: torch.device, *args) -> None:
+    """fn(*args, stream) on `dev` and its current stream; raise on an error."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
 
 
 def timed_build(names=SOURCES) -> tuple[float, dict[str, str]]:

@@ -9,7 +9,9 @@ codlad_tpu/kernels/edge_kernels.py (Pallas `_pallas_gather`,
   in the nodes' dtype. An index gather is exact, so the kernel equals the
   plain version (`index_select`, then the mask in the nodes' dtype) bit for
   bit in both dtypes; the TPU's one-hot and hi/lo split are not carried
-  over.
+  over. The kernel moves 4-element vectors where F % 4 == 0 and the nodes'
+  storage is aligned to them, single elements otherwise; it takes B*E*F and
+  B*N*F below 2^31 (int32 offsets) and raises beyond.
 * K9 `edge_aggregate(idx, mask, msgs, n_nodes, reduce, csr)`: out[b, n] =
   sum_e mask[b, e] * msgs[b, e] [idx[b, e] == n], summed in f32 and cast to
   the msgs' dtype; reduce="mean" then divides by max(valid degree, 1) in
@@ -46,6 +48,9 @@ from codlad_tpu_torch.kernels import build
 
 LAUNCHES = {"edge_gather": 0, "edge_aggregate": 0}   # K8, K9
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GATHER_ARGS = [_P] * 4 + [_I] * 4       # idx, mask, nodes, out; B, E, N, F
+_AGGREGATE_ARGS = [_P] * 5 + [_I] * 3    # ptr, edges, mask, msgs, out; n_nodes, F, mean
 
 
 def reset_launches():
@@ -98,14 +103,6 @@ def build_csr(idx, mask, n_nodes):
     return ptr, order[:int(counts.sum())].to(torch.int32).contiguous()
 
 
-def _lib_fn(name, nargs_ptr, nargs_int):
-    fn = getattr(build.load("edge_ops"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * nargs_ptr + [ctypes.c_int] * nargs_int + [
-        ctypes.c_void_p]
-    return fn
-
-
 def _check(dtype, *tensors):
     if dtype not in _SUFFIX:
         raise ValueError(f"the payload must be bfloat16 or float32, not {dtype}")
@@ -116,22 +113,19 @@ def _check(dtype, *tensors):
     return dev
 
 
-def _run(fn, dev, *args):
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
-
-
 def _launch_gather(idx, mask, nodes):
     dev = nodes.device
     B, E = idx.shape
     N, F = nodes.shape[1:]
-    nodes = nodes.contiguous()
+    if max(B * E * F, B * N * F) >= 2 ** 31 or B > 65535:
+        raise ValueError(f"edge_gather takes B*E*F and B*N*F below 2^31 and B <= 65535 "
+                         f"(int32 offsets, the sample on the grid's y axis), not B {B} "
+                         f"E {E} N {N} F {F}")
+    nodes = nodes.contiguous()   # a view keeps its offset; the kernel checks the alignment
     out = torch.empty((B, E, F), dtype=nodes.dtype, device=dev)
-    fn = _lib_fn(f"edge_gather_{_SUFFIX[nodes.dtype]}", 4, 4)
-    _run(fn, dev, idx.data_ptr(), mask.data_ptr(), nodes.data_ptr(), out.data_ptr(), B, E,
-         N, F)
+    fn = build.entry("edge_ops", f"edge_gather_{_SUFFIX[nodes.dtype]}", _GATHER_ARGS)
+    build.launch(fn, dev, idx.data_ptr(), mask.data_ptr(), nodes.data_ptr(), out.data_ptr(),
+                 B, E, N, F)
     LAUNCHES["edge_gather"] += 1
     return out
 
@@ -144,9 +138,9 @@ def _launch_aggregate(mask, msgs, n_nodes, mean, csr):
         raise ValueError(f"the CSR has {ptr.numel() - 1} nodes, not {B * n_nodes}")
     msgs = msgs.contiguous()
     out = torch.empty((B, n_nodes, F), dtype=msgs.dtype, device=dev)
-    fn = _lib_fn(f"edge_aggregate_{_SUFFIX[msgs.dtype]}", 5, 3)
-    _run(fn, dev, ptr.data_ptr(), edges.data_ptr(), mask.data_ptr(), msgs.data_ptr(),
-         out.data_ptr(), B * n_nodes, F, int(mean))
+    fn = build.entry("edge_ops", f"edge_aggregate_{_SUFFIX[msgs.dtype]}", _AGGREGATE_ARGS)
+    build.launch(fn, dev, ptr.data_ptr(), edges.data_ptr(), mask.data_ptr(), msgs.data_ptr(),
+                 out.data_ptr(), B * n_nodes, F, int(mean))
     LAUNCHES["edge_aggregate"] += 1
     return out
 
@@ -207,6 +201,8 @@ def edge_gather(idx, mask, nodes, csr=None):
     _check(nodes.dtype, nodes, idx, mask)
     idx = idx.to(torch.int32).contiguous()
     mask = mask.to(torch.float32).contiguous()
+    if not (nodes.requires_grad and torch.is_grad_enabled()):
+        return _launch_gather(idx, mask, nodes)   # no graph to record
     return _Gather.apply(nodes, idx, mask, csr)
 
 
@@ -223,4 +219,6 @@ def edge_aggregate(idx, mask, msgs, n_nodes, reduce="sum", csr=None):
     idx = idx.to(torch.int32).contiguous()
     mask = mask.to(torch.float32).contiguous()
     csr = _resolve_csr(csr, idx, mask, n_nodes)
+    if not (msgs.requires_grad and torch.is_grad_enabled()):
+        return _launch_aggregate(mask, msgs, n_nodes, reduce == "mean", csr)
     return _Aggregate.apply(msgs, idx, mask, n_nodes, reduce == "mean", csr)

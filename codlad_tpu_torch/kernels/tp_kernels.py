@@ -18,7 +18,9 @@ the CPU. The kernel computes the same function from the tables' nonzeros
 memory; EXPW and SUMR are 0/1 selections) and rounds as the Pallas kernel
 does: x * sh[b] and CBIG_R in x's dtype, TR and wR in f32, their product
 cast to x's dtype, the output summed in f32 and cast. So in bf16 it differs
-from the plain version by the rounding of TR.
+from the plain version by the rounding of TR. In f32 it runs on CUDA cores
+from the lists of `sparse_tables`; in bf16 on the tensor cores, from the
+nonzero 16 x 8 tiles of CBIG_R and SUMR that `mma_tables` packs.
 
 On a CUDA tensor `fused_tp` is a torch.autograd.Function whose backward is
 K11 (`csrc/fused_tp_bwd.cu`, counterpart of `_pallas_fused_tp_bwd`): dx,
@@ -39,7 +41,6 @@ import torch
 from codlad_tpu_torch.kernels import build
 
 LAUNCHES = {"fused_tp": 0, "fused_tp_bwd": 0}   # K10, K11 launches since the last reset
-_TE = 32                     # edge rows per block (one a lane)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -100,12 +101,85 @@ def sparse_tables(tb):
             "tq": i32(qz[tord]), "tcoef": f32(coef[tord]), "nnz": int(rows.size)}
 
 
+def _pack_tiles(dense, by):
+    """The nonzero k16 x n8 tiles of `dense` [K, N] (K % 16 == N % 8 == 0)
+    as the B operand of mma.m16n8k16: (ptr, other, frags), the tiles grouped
+    by column tile (by="n": tiles ptr[n] .. ptr[n+1]-1, `other` their k
+    tiles, ascending) or by k tile (by="k", `other` the column tiles).
+    frags [T, 32, 4]: lane l of tile t holds rows 2(l%4) + (0, 1, 8, 9) of
+    column l//4, in the order its two registers take them."""
+    K, N = dense.shape
+    blocks = dense.reshape(K // 16, 16, N // 8, 8).transpose(0, 2, 1, 3)   # [kt, nt, 16, 8]
+    nz = np.any(blocks != 0, axis=(2, 3))
+    if by == "n":
+        grp, other = np.nonzero(nz.T)
+        sel = blocks[other, grp]
+    else:
+        grp, other = np.nonzero(nz)
+        sel = blocks[grp, other]
+    lane = np.arange(32)
+    rows = 2 * (lane % 4)[:, None] + np.array([0, 1, 8, 9])
+    frags = sel[:, rows, (lane // 4)[:, None]]
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(grp, minlength=nz.shape[1 if by == "n"
+                                                                           else 0]))])
+    return ptr, other, frags
+
+
+def mma_tables(tb):
+    """The bf16 kernel's tables: CBIG_R and SUMR with the R columns in
+    `sparse_tables`' order (grouped by output column), padded to 16-wide k
+    steps, cut into k16 x n8 tiles, the nonzero ones packed by `_pack_tiles`.
+    CBIG_R's tiles by pair p of column tiles (2p, 2p+1): tiles cptr[p] ..
+    cptr[p+1]-1, first cboth[p] steps of one tile of 2p then one of 2p+1,
+    then cxa[p] more of 2p, then the rest of 2p+1, k tiles ascending within
+    a column tile; ctile = 2 * k tile + (1 for 2p+1), fragments cfrag;
+    maxpair, the most tiles of a pair. SUMR's by k16 step (snptr, stile,
+    sfrag). widx: the weight of each reordered column, padded with 0.
+    npairs = the k16 steps of R. Fragments in f32 (the caller rounds)."""
+    cbig_r, sumr = tb["CBIG_R"], tb["SUMR"]
+    order = np.argsort(sumr.argmax(axis=1), kind="stable")
+    (K, R), dout = cbig_r.shape, sumr.shape[1]
+    kp, rp, op = -(-K // 16) * 16, -(-R // 16) * 16, -(-dout // 8) * 8
+    cb = np.zeros((kp, rp), np.float32)
+    cb[:K, :R] = cbig_r[:, order]
+    sr = np.zeros((rp, op), np.float32)
+    sr[:R, :dout] = sumr[order]
+    widx = np.zeros(rp, np.int64)
+    widx[:R] = tb["EXPW"].argmax(axis=0)[order]
+    nptr, kt, frags = _pack_tiles(cb, "n")
+    seq, code, both, xa = [], [], [], []
+    for p in range(rp // 16):
+        a, b = (list(range(nptr[2 * p + h], nptr[2 * p + h + 1])) for h in (0, 1))
+        nb = min(len(a), len(b))
+        run = [t for pair in zip(a[:nb], b[:nb]) for t in pair] + a[nb:] + b[nb:]
+        seq += run
+        code += [2 * kt[t] + int(t >= nptr[2 * p + 1]) for t in run]
+        both.append(nb)
+        xa.append(len(a) - nb)
+    snptr, stile, sfrag = _pack_tiles(sr, "k")
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return {"cptr": i32(nptr[::2]), "cboth": i32(both), "cxa": i32(xa), "ctile": i32(code),
+            "cfrag": np.float32(frags[seq]), "maxpair": int(np.diff(nptr[::2]).max()),
+            "snptr": i32(snptr), "stile": i32(stile), "sfrag": np.float32(sfrag),
+            "widx": i32(widx), "npairs": rp // 16}
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {  # the pointers, then M and the ints, of each entry point
+    "fused_tp_f32": [_P] * 9 + [_LL] + [_I] * 4,
+    "fused_tp_bf16": [_P] * 13 + [_LL] + [_I] * 6,
+    "fused_tp_bwd_f32": [_P] * 18 + [_LL] + [_I] * 4,
+    "fused_tp_bwd_bf16": [_P] * 18 + [_LL] + [_I] * 4,
+}
+
+
 _DEVICE_TABLES: dict = {}
 
 
 def _device_tables(tb, device, dtype):
     """The sparse lists on `device`, coefficients rounded to `dtype` (as the
-    Pallas kernel casts CBIG_R to x's dtype), cached by signature."""
+    Pallas kernel casts CBIG_R to x's dtype), cached by signature; for bf16
+    also the packed tiles of `mma_tables` (key "mma")."""
     key = (tb["sig"], str(device), dtype)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
@@ -113,6 +187,12 @@ def _device_tables(tb, device, dtype):
         hit = {k: torch.as_tensor(v, device=device) for k, v in sp.items() if k != "nnz"}
         for k in ("coef", "tcoef"):
             hit[k] = hit[k].to(dtype).to(torch.float32)
+        if dtype == torch.bfloat16:
+            mt = mma_tables(tb)
+            hit["mma"] = {k: v if isinstance(v, int) else torch.as_tensor(v, device=device)
+                          for k, v in mt.items()}
+            for k in ("cfrag", "sfrag"):
+                hit["mma"][k] = hit["mma"][k].to(dtype).contiguous()
         _DEVICE_TABLES[key] = hit
     return hit
 
@@ -140,17 +220,20 @@ def _launch_fused_tp(x, sh, w, tb):
     M = x.numel() // din
     out = torch.empty(x.shape[:-1] + (dout,), dtype=dt, device=dev)
     tabs = _device_tables(tb, dev, dt)
-    fn = getattr(build.load("fused_tp"), f"fused_tp_{_SUFFIX[dt]}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), sh.data_ptr(), w.data_ptr(), tabs["cptr"].data_ptr(),
-                tabs["widx"].data_ptr(), tabs["rptr"].data_ptr(), tabs["rows"].data_ptr(),
-                tabs["coef"].data_ptr(), out.data_ptr(), M, din, dsh, numel, dout,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_tp_{_SUFFIX[dt]} failed: cudaError {rc}")
+    if dt == torch.bfloat16:
+        if dout > 64:
+            raise ValueError(f"the bf16 kernel takes dout <= 64, not {dout}")
+        mt = tabs["mma"]
+        args = [*(t.data_ptr() for t in (x, sh, w)),
+                *(mt[k].data_ptr() for k in ("cptr", "cboth", "cxa", "ctile", "cfrag",
+                                             "snptr", "stile", "sfrag", "widx")),
+                out.data_ptr(), M, din, dsh, numel, dout, mt["npairs"], mt["maxpair"]]
+    else:
+        args = [*(t.data_ptr() for t in (x, sh, w)),
+                *(tabs[k].data_ptr() for k in ("cptr", "widx", "rptr", "rows", "coef")),
+                out.data_ptr(), M, din, dsh, numel, dout]
+    name = f"fused_tp_{_SUFFIX[dt]}"
+    build.launch(build.entry("fused_tp", name, _ARGTYPES[name]), dev, *args)
     LAUNCHES["fused_tp"] += 1
     return out
 
@@ -177,17 +260,12 @@ def fused_tp_bwd(x, sh, w, dct, tb, want_dsh=True):
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     dsh_out = torch.empty_like(sh) if want_dsh else None
     tabs = _device_tables(tb, dev, dt)
-    fn = getattr(build.load("fused_tp_bwd"), f"fused_tp_bwd_{_SUFFIX[dt]}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), sh.data_ptr(), w.data_ptr(), dct.data_ptr(),
-                *(tabs[k].data_ptr() for k in _BWD_TABLES), dx.data_ptr(),
-                None if dsh_out is None else dsh_out.data_ptr(), dw.data_ptr(), M, din, dsh,
-                numel, dout, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_tp_bwd_{_SUFFIX[dt]} failed: cudaError {rc}")
+    name = f"fused_tp_bwd_{_SUFFIX[dt]}"
+    build.launch(build.entry("fused_tp_bwd", name, _ARGTYPES[name]), dev, x.data_ptr(),
+                 sh.data_ptr(), w.data_ptr(), dct.data_ptr(),
+                 *(tabs[k].data_ptr() for k in _BWD_TABLES), dx.data_ptr(),
+                 None if dsh_out is None else dsh_out.data_ptr(), dw.data_ptr(), M, din, dsh,
+                 numel, dout)
     LAUNCHES["fused_tp_bwd"] += 1
     return dx, dsh_out, dw
 

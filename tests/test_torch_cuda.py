@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: K1-K7's
 forwards against the plain versions, the backwards (K3, K4, K5's, K6's)
 against torch.autograd of the plain versions on the same inputs and
-cotangent; K8 (bit for bit), K9 and K10 against theirs; K11 (K10's
+cotangent; K8 (bit for bit, every width, aligned and offset views), K9 and
+K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward) and the K8/K9 backwards (each the other kernel) against autograd
 of the plain versions.
 
@@ -258,6 +259,71 @@ def test_edge_kernels_match_plain(dev, dtype):
                 assert bool((d <= 2 ** -6 * ref + 1e-4 * ref.max()).all()), d.max().item()
     torch.cuda.synchronize()
     assert EK.LAUNCHES == {"edge_gather": 3, "edge_aggregate": 12}
+
+
+def _offset_view(t, elems):
+    """t's values in a contiguous view that starts `elems` elements into
+    its storage (so its data_ptr() is off the 8- and 16-byte grid)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.contiguous().data_ptr() == view.data_ptr()
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 3, 4, 12, 36, 37, 48])
+def test_edge_gather_bit_for_bit(dev, dtype, F):
+    """K8 equals ref_gather bit for bit at every width, on aligned nodes (the
+    vector path where F % 4 == 0) and on a view whose data_ptr() is not 8-
+    or 16-byte aligned (the scalar path), with B*E (2 x 1001) not a multiple
+    of a block's 256 threads."""
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    B, E, N = 2, 1001, 77
+    idx, mask, g = _edges(dev, B, E, N, 7 + F)
+    nodes = torch.randn(B, N, F, generator=g).to(dev).to(dtype)
+    EK.reset_launches()
+    for view in (nodes, _offset_view(nodes, 1), _offset_view(nodes, 3)):
+        got = EK.edge_gather(idx, mask, view)
+        want = EK.ref_gather(idx, mask, view)
+        assert got.dtype == dtype and got.shape == (B, E, F)
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+    torch.cuda.synchronize()
+    assert EK.LAUNCHES["edge_gather"] == 3
+
+
+def test_edge_gather_refuses_int32_overflow(dev):
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    idx = torch.zeros((1, 2 ** 16), dtype=torch.int32, device=dev)
+    nodes = torch.empty((1, 1, 2 ** 15), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        EK.edge_gather(idx, torch.ones(idx.shape, device=dev), nodes)
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_fused_tp_bf16_unaligned_views(dev, layer):
+    """The bf16 (tensor-core) K10 on operands that start off the 16-byte
+    grid (its 2-byte staging path) and on one row, as on aligned ones,
+    within 2e-2 max|ref| of the plain version."""
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[layer]), tuple(SH_IRREPS), tuple(lad[layer + 1]))
+    g = torch.Generator().manual_seed(30 + layer)
+    bf = torch.bfloat16
+    for m in (77, 1):
+        x = torch.randn(m, lad[layer].dim, generator=g).to(dev).to(bf)
+        sh = sh_l2(torch.randn(m, 3, generator=g)).to(dev).to(bf)
+        w = torch.randn(m, tb["numel"], generator=g).to(dev).to(bf)
+        want = TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+        aligned = TK.fused_tp(x, sh, w, tb)
+        shifted = TK.fused_tp(_offset_view(x, 1), _offset_view(sh, 3), _offset_view(w, 5), tb)
+        torch.cuda.synchronize()
+        assert torch.equal(aligned, shifted)
+        d, ref = (aligned.float() - want.float()).abs(), want.float().abs()
+        assert bool((d <= 2e-2 * ref.max()).all()), (d.max().item(), ref.max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
