@@ -7,10 +7,11 @@ Phases, each printing its seconds:
   1. build   -- compile csrc/*.cu with plain nvcc (one process per source);
                 each kernel's name, registers, static shared memory and
                 spills from `-Xptxas -v`;
-  2. kernels -- K1 (fused_message_sum) and K2 (fused_message_edge_lnmod) at
-                the bench shape (B96 L128 K64 H128), bf16 and f32, against
-                their plain PyTorch versions on the same inputs, timed with
-                CUDA events beside their bound; then the backwards K3 and K4
+  2. kernels -- K1 (fused_message_sum; bf16 on the tensor cores) and K2
+                (fused_message_edge_lnmod) at the bench shape (B96 L128 K64
+                H128), bf16 and f32, against their plain PyTorch versions
+                on the same inputs, timed with CUDA events and by CUDA
+                graph replay beside their bound; then the backwards K3 and K4
                 and the dropout kernel K5 (forward and backward), against
                 torch.autograd of the plain versions on the same inputs and
                 cotangent, K5's mask bit for bit against the plain generator;
@@ -26,10 +27,11 @@ Phases, each printing its seconds:
                 their tolerances, each timed beside its bound, its plain
                 version and the nearest PyTorch call (the kernel and that
                 call also by CUDA graph replay: the device's time); K11
-                (fused_tp_bwd: dx, dsh, dw) at K10's six shapes against
-                autograd of the plain K10 (float64 for f32), timed
-                beside its bound, the plain backward and the dense form's
-                backward in cuBLAS; the K8/K9 backwards (each the other
+                (fused_tp_bwd: dx, dsh, dw; bf16 on the tensor cores) at
+                K10's six shapes against autograd of the plain K10 (float64
+                for f32), timed beside its bound, the plain backward and
+                the dense form's backward in cuBLAS (both also by graph
+                replay); the K8/K9 backwards (each the other
                 kernel) against autograd of their plain versions;
   3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
                 per-edge messages) at B96 L128 K64 and B96 L48 K48, f32 and
@@ -123,9 +125,12 @@ before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}}; the line before that one the
 kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
 K8 and K10 both the f32 record of recon and the bf16 one of the Stage-1
-trainer, whose launches are those of the bf16 training steps; every ms
-one call timed with CUDA events, and the K8-K10 records' device_ms and
-library_device_ms the device's time by graph replay). Exits
+trainer, whose launches are those of the bf16 training steps, and for
+K1 the bench shape's record and the L = 48 bucket's, keyed
+fused_message_sum_k48, whose launches are the L = 48 draw's; every ms
+one call timed with CUDA events, and the K1, K2 and K8-K11 records'
+device_ms (K8-K11 also library_device_ms) the device's time by graph
+replay). Exits
 non-zero, printing no result, without a CUDA device or when any phase fails.
 """
 
@@ -465,8 +470,10 @@ def replay_ms(*fns, n=20, reps=5):
 
 
 def check_kernels(device, seed, dims=(B, L, K)):
-    """Every kernel against its plain version, both dtypes; returns the
-    bf16 (main-path dtype) record of each kernel."""
+    """Every kernel against its plain version, both dtypes, timed a call
+    (CUDA events) and on the device (`replay_ms`, the records'
+    device_ms); returns the bf16 (main-path dtype) record of each kernel,
+    with its shape."""
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -481,17 +488,20 @@ def check_kernels(device, seed, dims=(B, L, K)):
             err = diff.max().item()
             ok = bool((diff <= atol + rtol * want.float().abs()).all())
             ms, plain_ms = time_calls(kern, plain)
+            (dev_ms,) = replay_ms(kern)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_OPS[dname] * 1e3
             log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g} (atol {atol:g} + "
                 f"rtol {rtol:g}*|ref|) "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"{'ok' if ok else 'FAIL'}; a call (events) kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms; "
                 f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.1f} GFLOP)")
             if not ok:
                 raise RuntimeError(f"{name} ({dname}) disagrees with its plain version")
             if dtype == torch.bfloat16:
-                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
+                records[name] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
+                                     shape=dims_tag(dims), device_ms=dev_ms)
         del x
     return records
 
@@ -967,9 +977,9 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
-                 "edge_then_sum_kernel")
+                 "edge_then_sum_kernel", "message_sum_mma_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
-                  "fused_tp_mma_kernel", "fused_tp_bwd_kernel")
+                  "fused_tp_mma_kernel", "fused_tp_bwd_kernel", "fused_tp_bwd_mma_kernel")
 
 
 def busy_us(intervals):
@@ -1610,6 +1620,7 @@ def check_stage1_bwd_kernels(batch, seed):
 
                 kern = lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)
                 ms, plain_ms, lib_ms = time_calls(kern, plain, library)
+                dev_ms, lib_dev_ms = replay_ms(kern, library)
                 m = x.numel() // din
                 nbytes, ops = tp_bwd_cost(m, din, numel, dout, R, nnz, es)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1619,15 +1630,17 @@ def check_stage1_bwd_kernels(batch, seed):
                     f"max|d|/max|ref| "
                     f"{', '.join(f'{n} {e:.3g}/{r:.3g}' for n, (e, r) in errs.items())} "
                     f"({limit}) {'ok' if ok else 'FAIL'}; "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-                    f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-                    f"{ops / 1e9:.3f} G ops)")
+                    f"a call (events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                    f"{lib_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms, library "
+                    f"{lib_dev_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+                    f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops)")
                 if not ok:
                     raise RuntimeError(f"fused_tp_bwd ({dname}, layer {layer} {where}) "
                                        "disagrees with plain autograd")
                 if layer == 2 and where == "edges" and dtype == torch.bfloat16:
-                    records["fused_tp_bwd"] = record("fused_tp_bwd", dname, err, ms, plain_ms,
-                                                     t_bytes, t_ops, lib_ms)
+                    records["fused_tp_bwd"] = dict(
+                        record("fused_tp_bwd", dname, err, ms, plain_ms, t_bytes, t_ops, lib_ms),
+                        device_ms=dev_ms, library_device_ms=lib_dev_ms)
                 del x, sh, w, ct, got, pl, pout
                 torch.cuda.empty_cache()
 
@@ -1867,7 +1880,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     records = check_kernels(device, args.seed)
     records.update(check_bwd_kernels(device, args.seed))
-    check_kernels(device, args.seed, K48)       # logged; the records keep the bench shape
+    # K1's record at the L = 48 bucket beside the bench shape's (K2's is logged)
+    records["fused_message_sum_k48"] = check_kernels(device, args.seed, K48)["fused_message_sum"]
     check_bwd_kernels(device, args.seed, K48)
     s1_batch = stage1_batch(args.seed, device)
     records.update(check_stage1_kernels(s1_batch, args.seed))
@@ -1916,6 +1930,7 @@ def main(argv=None):
                     gen)
     check_slice(out, b48, l48)
     check_launches(out["launches"], expect, "the sampling path at L = 48")
+    records["fused_message_sum_k48"]["launches"] = out["launches"]["fused_message_sum"]
     log(f"  one draw at the L = 48 bucket ({b48}x{l48}, K {k48}): {out['seconds']:.3f} s "
         f"({steps / out['seconds']:.2f} steps/s); launches as expected; xyz14 finite")
 

@@ -45,11 +45,40 @@
 // Bound on an H100 at the bench shape (B96 L128 K64 H128, bf16): the two
 // per-edge H x H products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for
 // K7); the bytes moved (the E tile read once, plus the edge output's write) put
-// the floor at tens of microseconds. This version does the products on CUDA
-// cores, so it is bound by the f32 FMA rate, not by memory; tensor-core
-// (mma/wgmma) tiles are later work.
+// the floor at tens of microseconds. The design above does the products on
+// CUDA cores, so it is bound by the f32 FMA rate, not by memory: f32 K1-K7 and
+// bf16 K2, K5, K6 and K7 (whose node half keeps this body, so its node sums
+// differ from K2's kernel then K1's by rounding).
+//
+// K1 in bf16 (`message_sum_mma_kernel`) runs on the tensor cores, on the TPU
+// kernel's own arithmetic: a block of 8 warps owns 128 edge rows (whole
+// residues, K a multiple of 16), a warp a 16-row slab of one residue x all
+// 128 columns (16 n8 accumulator tiles, 64 registers).
+//   1. pre = A[l] + Gn[idx] + E W_e with mma.m16n8k16 (bf16 in, f32 sums):
+//      the accumulators start as A + Gn, read as 16-byte loads because the
+//      first product's columns are permuted (`unit`: a lane's 32 columns are
+//      32 consecutive hidden units; W_e is staged with its columns in that
+//      order, 4-byte cp.async copies); E rows (cp.async) and both weights
+//      sit in shared memory at a 272-byte row stride, A by ldmatrix, B by
+//      ldmatrix.trans.
+//   2. y = cast(gelu(pre)) stays in registers: two adjacent n8 accumulator
+//      tiles are the A fragment of one k16 step of the W2 product, whose
+//      rows are staged in the same unit order.
+//   3. h2 = gelu(y W2 + b2), in two halves of 64 columns (registers: 128 a
+//      thread, no spills, two blocks an SM at 104 960 B of shared memory).
+//   4. The masked K-sum: mask * h2 summed over the slab's 16 rows by a
+//      butterfly of warp shuffles, then the residue's K / 16 slabs in slab
+//      order through shared memory (a run repeats bit for bit), rounded to
+//      bf16; the per-residue epilogue (cast(s) W3 + msum b3) / scale, K-fold
+//      fewer rows, on CUDA cores as before.
+// The gelu is tanh gelu computed as x / (1 + exp(-2u)) (ex2 and rcp, relative
+// error ~1e-6); tanh.approx.f32 is not used. Its 2 x 100.7 M evaluations a
+// call, two MUFU operations each (~0.22 ms at 16 a clock an SM), bound this
+// kernel on the H100 more than the products (52 GFLOP: 0.053 ms at the
+// tensor cores' peak) or the bytes (0.066 ms); PERF.md has the times.
 
 #include "chain_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -476,22 +505,266 @@ int launch_edge_then_sum(const void* Ae, const void* E, const void* Ge, const vo
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K1 in bf16 on the tensor cores (`message_sum_mma_kernel`)
+
+using mma::cp_async16;
+using mma::cp_async4;
+using mma::ldmatrix_x4;
+using mma::ldmatrix_x4_trans;
+using mma::mma_bf16;
+using mma::pack_bf16;
+using mma::round_bf16;
+using mma::smem_addr;
+
+constexpr int MW = 8;             // warps a block
+constexpr int MNT = 32 * MW;
+constexpr int MROWS = 16 * MW;    // edge rows a block, 16 a warp (the mma's m)
+constexpr int MRS = 2 * H + 16;   // bytes a row of the E tile and of the weights
+constexpr int MSMEM = 2 * H * MRS + MROWS * MRS + H * 4;
+
+// The first product's column n is hidden unit unit(n): lane t4's columns
+// 8 nt + 2 t4 + e (n tile nt < 16, e < 2) are units 32 t4 + 2 nt + e, so a
+// lane's part of a row of A, Gn and of pre is 32 consecutive units.
+__device__ __forceinline__ int unit(int n) { return 32 * ((n >> 1) & 3) + 2 * (n >> 3) + (n & 1); }
+
+// tanh gelu as x sigmoid(2u) = x / (1 + exp(-2u)), u = sqrt(2/pi) (x + 0.044715 x^3):
+// two MUFU operations (ex2, rcp), relative error ~1e-6, against tanhf's ~20
+// instructions (tanh.approx.f32, one MUFU but ~5e-4 relative error, is not used)
+__device__ __forceinline__ float gelu_exp(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.0f + __expf(-2.0f * u));
+}
+
+// sum v over the 8 lanes of one t4 (lane bits 2, 3, 4 = b0, b1, b2) in
+// three butterfly steps, each exchanging half of what is left: v[i], i <
+// N2 / 8, ends as the sum of the original v[i + (N2 / 8) (4 b0 + 2 b1 + b2)]
+template <int N2>
+__device__ __forceinline__ void reduce_rows(float (&v)[N2], int lane) {
+  constexpr int HALF = N2 / 2;
+#pragma unroll
+  for (int st = 0; st < 3; ++st) {
+    const int half = HALF >> st;
+    const bool hi = (lane >> (2 + st)) & 1;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      if (i < half) {
+        const float send = hi ? v[i] : v[half + i];
+        const float keep = hi ? v[half + i] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << st);
+      }
+    }
+  }
+}
+
+// K1 for bf16 E (module note): a block of MW warps owns MROWS edge rows,
+// floor(MROWS / K) whole residues (K a multiple of 16; the rows past the
+// last whole residue idle), a warp a 16-row slab of one residue.
+__global__ void __launch_bounds__(MNT, 2)
+message_sum_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ E,
+                       const __nv_bfloat16* __restrict__ Gn, const int* __restrict__ idx,
+                       const float* __restrict__ mask, const __nv_bfloat16* __restrict__ We,
+                       const __nv_bfloat16* __restrict__ W2, const float* __restrict__ b2,
+                       const __nv_bfloat16* __restrict__ W3, const float* __restrict__ b3,
+                       float* __restrict__ out, int L, int K, int N, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sWe = smem;              // [H][MRS] W_e, columns in unit order
+  unsigned char* sW2 = sWe + H * MRS;     // [H][MRS] W2, rows in unit order
+  unsigned char* sE = sW2 + H * MRS;      // [MROWS][MRS] the edge tile
+  float* sb2 = reinterpret_cast<float*>(sE + MROWS * MRS);
+  const int tid = threadIdx.x;
+  const int TL = MROWS / K;
+  const int b = blockIdx.y, l0 = blockIdx.x * TL;
+  const int nrows = min(TL, L - l0) * K;
+  const size_t row0 = ((size_t)b * L + l0) * K;
+
+  for (int i = tid; i < H * H / 2; i += MNT) {  // W_e by column pairs, 4-byte copies
+    const int k = i / (H / 2), n = 2 * (i - k * (H / 2));
+    cp_async4(sWe + k * MRS + 2 * n, We + k * H + unit(n));
+  }
+  for (int i = tid; i < H * H / 8; i += MNT) {  // W2 by rows, 16-byte copies
+    const int n = i / (H / 8), c = i - n * (H / 8);
+    cp_async16(sW2 + n * MRS + 16 * c, W2 + unit(n) * H + 8 * c);
+  }
+  for (int i = tid; i < MROWS * H / 8; i += MNT) {
+    const int r = i / (H / 8), c = i - r * (H / 8);
+    unsigned char* d = sE + r * MRS + 16 * c;
+    if (r < nrows) cp_async16(d, E + (row0 + r) * H + 8 * c);
+    else *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+  }
+  for (int i = tid; i < H; i += MNT) sb2[i] = b2[i];
+  mma::cp_async_commit();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp;
+  const bool active = r0 < nrows;
+  float acc[16][4];
+  // pre starts as A[l] + Gn[idx] (index clamped into Gn) of rows r0 + g and
+  // r0 + g + 8, units 32 t4 .. 32 t4 + 31
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (active && r < nrows) {
+      const int l = l0 + r / K;
+      const int j = min(max(idx[row0 + r], 0), N - 1);
+      const uint4* ap = reinterpret_cast<const uint4*>(A + ((size_t)b * L + l) * H + 32 * t4);
+      const uint4* gp = reinterpret_cast<const uint4*>(Gn + ((size_t)b * N + j) * H + 32 * t4);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const uint4 au = __ldg(ap + v), gu = __ldg(gp + v);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&au);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gu);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float2 fa = __bfloat1622float2(a2[m]), fg = __bfloat1622float2(g2[m]);
+          acc[4 * v + m][2 * h] = fa.x + fg.x;
+          acc[4 * v + m][2 * h + 1] = fa.y + fg.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) acc[nt][2 * h] = acc[nt][2 * h + 1] = 0.0f;
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // lanes 8i .. 8i + 7 address matrix i of an ldmatrix.x4: for the weights,
+  // k rows 8 (i & 1) + 0..7 of a k16 step at n tile 2 np + (i >> 1)
+  const int mi = lane >> 3;
+  const unsigned wrow = (8 * (mi & 1) + (lane & 7)) * MRS + (mi >> 1) * 16;
+  if (active) {
+    // pre += E W_e; then y = cast(gelu(pre)), the A fragments of W2's product
+    const unsigned e_addr = smem_addr(sE) + (r0 + (lane & 15)) * MRS + (lane >> 4) * 16;
+    const unsigned we_addr = smem_addr(sWe) + wrow;
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, e_addr + 32 * kk);
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        unsigned bb[4];
+        ldmatrix_x4_trans(bb, we_addr + 16 * kk * MRS + 32 * np);
+        mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    unsigned y[16][2];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      y[nt][0] = pack_bf16(gelu_exp(acc[nt][0]), gelu_exp(acc[nt][1]));
+      y[nt][1] = pack_bf16(gelu_exp(acc[nt][2]), gelu_exp(acc[nt][3]));
+    }
+    const float m0 = r0 + g < nrows ? mask[row0 + r0 + g] : 0.0f;
+    const float m8 = r0 + g + 8 < nrows ? mask[row0 + r0 + g + 8] : 0.0f;
+    // the slab's masked row sums, columns 0..63 then 64..127, into the
+    // warp's own (no longer read) E rows
+    float* red = reinterpret_cast<float*>(sE + r0 * MRS);
+    const unsigned w2_addr = smem_addr(sW2) + wrow;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float c2[8][4];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) c2[o][0] = c2[o][1] = c2[o][2] = c2[o][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned bb[4];
+          ldmatrix_x4_trans(bb, w2_addr + 16 * kk * MRS + 32 * (4 * hf + np));
+          mma_bf16(c2[2 * np], a, bb[0], bb[1]);
+          mma_bf16(c2[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      // h2 = gelu(x2 + b2); part[2 o + e] = mask h2 of column 8 (8 hf + o) + 2 t4 + e
+      float part[16];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const float2 bias = *reinterpret_cast<const float2*>(sb2 + 8 * (8 * hf + o) + 2 * t4);
+        part[2 * o] = m0 * gelu_exp(c2[o][0] + bias.x) + m8 * gelu_exp(c2[o][2] + bias.x);
+        part[2 * o + 1] = m0 * gelu_exp(c2[o][1] + bias.y) + m8 * gelu_exp(c2[o][3] + bias.y);
+      }
+      reduce_rows(part, lane);
+      // part[0], part[1]: the sums of original index 2 (4 b0 + 2 b1 + b2) + (0, 1)
+      const int o = 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
+      *reinterpret_cast<float2*>(red + 8 * (8 * hf + o) + 2 * t4) = make_float2(part[0], part[1]);
+    }
+  }
+  __syncthreads();
+
+  // the residues' sums over their K / 16 slabs in slab order, rounded to
+  // bf16; the mask counts; W_e's buffer (no longer read) holds them
+  float* ssum = reinterpret_cast<float*>(sWe);   // [TL][H]
+  float* msum = ssum + TL * H;                    // [TL]
+  const int spr = K / 16;
+  for (int i = tid; i < TL * H; i += MNT) {
+    const int ll = i / H, c = i - ll * H;
+    float s = 0.0f;
+    for (int q = 0; q < spr; ++q)
+      s += reinterpret_cast<const float*>(sE + 16 * (ll * spr + q) * MRS)[c];
+    ssum[i] = round_bf16(s);
+  }
+  for (int ll = tid; ll < TL; ll += MNT) {
+    float s = 0.0f;
+    if (l0 + ll < L)
+      for (int k = 0; k < K; ++k) s += mask[row0 + (size_t)ll * K + k];
+    msum[ll] = s;
+  }
+  __syncthreads();
+  // out = (ssum W3 + msum b3) / scale: K-fold fewer rows, on CUDA cores
+  for (int i = tid; i < TL * H; i += MNT) {
+    const int ll = i / H, c = i - ll * H;
+    if (l0 + ll >= L) continue;
+    float s = 0.0f;
+    for (int j = 0; j < H; ++j) s = fmaf(ssum[ll * H + j], __bfloat162float(W3[j * H + c]), s);
+    s += msum[ll] * b3[c];
+    out[((size_t)b * L + l0 + ll) * H + c] = s / scale;
+  }
+}
+
+int launch_sum_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                   const void* mask, const void* We, const void* W2, const void* b2,
+                   const void* W3, const void* b3, void* out, int B, int L, int K, int N,
+                   float scale, void* stream) {
+  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(message_sum_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MSMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int TL = MROWS / K;
+  message_sum_mma_kernel<<<dim3((L + TL - 1) / TL, B), MNT, MSMEM,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(E),
+      static_cast<const __nv_bfloat16*>(Gn), static_cast<const int*>(idx),
+      static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(We),
+      static_cast<const __nv_bfloat16*>(W2), static_cast<const float*>(b2),
+      static_cast<const __nv_bfloat16*>(W3), static_cast<const float*>(b3),
+      static_cast<float*>(out), L, K, N, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-#define MESSAGE_SUM(SUFFIX, TYPE)                                                        \
-  int message_sum_##SUFFIX(const void* A, const void* E, const void* Gn, const void* idx, \
-                           const void* mask, const void* We, const void* W2,             \
-                           const void* b2, const void* W3, const void* b3, void* out,    \
-                           int B, int L, int K, int N, float scale, void* stream) {      \
-    return launch<TYPE, false, 0, false>(A, E, Gn, idx, mask, We, W2, b2, W3, b3,        \
-                                         nullptr, nullptr, nullptr, nullptr, nullptr, 0u, \
-                                         1.0f, nullptr, out, B, L, K, N, scale, stream); \
-  }
+int message_sum_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                    const void* mask, const void* We, const void* W2, const void* b2,
+                    const void* W3, const void* b3, void* out, int B, int L, int K, int N,
+                    float scale, void* stream) {
+  return launch<float, false, 0, false>(A, E, Gn, idx, mask, We, W2, b2, W3, b3, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr, 0u, 1.0f, nullptr,
+                                        out, B, L, K, N, scale, stream);
+}
 
-MESSAGE_SUM(f32, float)
-MESSAGE_SUM(bf16, __nv_bfloat16)
+// bf16 on the tensor cores: K a multiple of 16, at most 128
+int message_sum_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                     const void* mask, const void* We, const void* W2, const void* b2,
+                     const void* W3, const void* b3, void* out, int B, int L, int K, int N,
+                     float scale, void* stream) {
+  return launch_sum_mma(A, E, Gn, idx, mask, We, W2, b2, W3, b3, out, B, L, K, N, scale,
+                        stream);
+}
 
 #define EDGE_LNMOD(SUFFIX, TYPE)                                                         \
   int message_edge_lnmod_##SUFFIX(const void* A, const void* E, const void* Gn,          \

@@ -17,7 +17,8 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
   into K1 of the next inside one kernel (`denoise(fuse_pairs=True)`).
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
-launches K1, K2, K5 or K6 (`csrc/message_chain.cu`) and whose backward
+launches K1 (in bf16 on the tensor cores, K a multiple of 16), K2, K5 or K6
+(`csrc/message_chain.cu`) and whose backward
 launches K3, K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`), or
 raises; K7 launches or raises. The plain version runs only for tensors that
 lie on the CPU, and autograd differentiates it. The plain versions cast where
@@ -40,6 +41,9 @@ HIDDEN = 128  # the width the kernels are compiled for
 # thread); a block owns floor(rows / K) whole residues, so K may not exceed
 # it. The backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+# K1 in bf16 runs on the tensor cores: 128 rows a block, a warp a 16-row
+# slab of one residue, so K is a multiple of 16
+_SUM_MMA_ROWS, _SUM_MMA_SLAB = 128, 16
 _BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
 
@@ -229,10 +233,11 @@ def _operand(t, dtype, shape, name, device):
 
 
 def check_neighbours(K, rows, per_thread):
-    """Raise unless a block of `rows` edge rows (`per_thread` rows a thread)
-    can take K neighbours a residue: K <= rows (a block owns floor(rows / K)
-    whole residues, the rest of its rows idle) and K a multiple of
-    per_thread (a thread's rows belong to one residue). The featurizer's
+    """Raise unless a block of `rows` edge rows (`per_thread` rows a thread,
+    or a warp for the tensor-core K1) can take K neighbours a residue: K <=
+    rows (a block owns floor(rows / K) whole residues, the rest of its rows
+    idle) and K a multiple of per_thread (a thread's, or warp's, rows
+    belong to one residue). The featurizer's
     K = min(64, L), L a multiple of 16, gives K in {16, 32, 48, 64}."""
     if K < 1 or K > rows or K % per_thread:
         raise ValueError(f"K={K} must be at most {rows} and a multiple of {per_thread}")
@@ -284,7 +289,8 @@ def _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims):
 
 
 def _message_sum_fwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
-    dims = _check_edge(E, Gn)
+    dims = (_check_edge(E, Gn, _SUM_MMA_ROWS, _SUM_MMA_SLAB) if E.dtype == torch.bfloat16
+            else _check_edge(E, Gn))
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)

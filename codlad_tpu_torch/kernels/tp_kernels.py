@@ -24,11 +24,13 @@ nonzero 16 x 8 tiles of CBIG_R and SUMR that `mma_tables` packs.
 
 On a CUDA tensor `fused_tp` is a torch.autograd.Function whose backward is
 K11 (`csrc/fused_tp_bwd.cu`, counterpart of `_pallas_fused_tp_bwd`): dx,
-dsh and dw of every row from the same lists and two transposed ones (the q
-of each weight, the nonzeros of each CBIG_R row), rounded as the Pallas
-backward rounds (module docstring of the .cu file). The dsh store is
-skipped when sh needs no grad (the encoder's sh come from coordinates). On
-the CPU autograd differentiates the plain version.
+dsh and dw of every row, rounded as the Pallas backward rounds (the note
+at the top of the .cu file). In f32 from the same lists and two transposed
+ones (the q of each weight, the nonzeros of each CBIG_R row); in bf16 on
+the tensor cores from `mma_tables`' CBIG_R tiles and `mma_bwd_tables`'
+CBIG_R^T tiles, gathers and dw codes. The dsh store is skipped when sh
+needs no grad (the encoder's sh come from coordinates). On the CPU
+autograd differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -164,12 +166,101 @@ def mma_tables(tb):
             "widx": i32(widx), "npairs": rp // 16}
 
 
+DW_STORE, DW_STASH, DW_ADD = 0, 1, 2   # kinds of `mma_bwd_tables`' dwcode
+_SLOT_TILES = 32   # the bf16 K11's ring slot, in k16 x n8 tiles (8 KB of fragments)
+
+
+def mma_bwd_tables(tb):
+    """The bf16 K11's tables beside `mma_tables`, in its column order q
+    (grouped by output column, padded to 16 * npairs):
+
+    * qcol: the output column of q (0 in the padding), the gather dct SUMR^T;
+    * dwcode: how cast(dwR[q]) enters dw = cast(dwR) EXPW^T, whose weight k
+      has 1 or 3 columns q: k | kind << 12 | slot << 16, the kind DW_STORE
+      (a weight's first q: into the dw tile), DW_STASH (the middle one of
+      three: into stash slot `slot`) or DW_ADD (the last of three: dw =
+      cast((first + stash) + it)); -1 in the padding; ntri weights have
+      three;
+    * CBIG_R^T in q order, [16 npairs, 8 ceil(K / 8)], cut into k16 x n8
+      (q x j) tiles by `_pack_tiles`, the nonzero ones in two chunks of nj =
+      ceil(K / 16) column tiles: groups [0, split) hold chunk 0, the rest
+      chunk 1, each group one k step gks[g] with tiles gptr[g] ..
+      gptr[g + 1] - 1, column tiles ascending, gcode the column tile within
+      its chunk (gmask, the kernel's form: a group's codes as bits),
+      fragments gfrag (f32; the caller rounds);
+    * the ring's slots of at most `cap` tiles: runs of whole pairs of
+      `mma_tables` (aslot: their first pairs, then npairs) and of whole
+      groups (cslot, then ngroups; the first csplit slots hold chunk 0)."""
+    cbig_r, sumr, expw = tb["CBIG_R"], tb["SUMR"], tb["EXPW"]
+    order = np.argsort(sumr.argmax(axis=1), kind="stable")
+    (K, R), numel = cbig_r.shape, tb["numel"]
+    if numel >= 4096:
+        raise ValueError(f"dwcode takes fewer than 4096 weights, not {numel}")
+    rp = -(-R // 16) * 16
+    njt = -(-K // 8)
+    nj = -(-njt // 2)
+    qcol = np.zeros(rp, np.int64)
+    qcol[:R] = sumr.argmax(axis=1)[order]
+    widx = expw.argmax(axis=0)[order]
+    dwcode = np.full(rp, -1, np.int64)
+    ntri = 0
+    for k in range(numel):
+        qs = np.nonzero(widx == k)[0]
+        if len(qs) == 1:
+            kinds = [DW_STORE]
+        elif len(qs) == 3:
+            kinds = [DW_STORE, DW_STASH, DW_ADD]
+        else:
+            raise ValueError(f"weight {k} has {len(qs)} expansion columns, not 1 or 3")
+        for q, kind in zip(qs, kinds):
+            dwcode[q] = k | kind << 12 | (ntri << 16 if len(qs) == 3 else 0)
+        ntri += len(qs) == 3
+    ct = np.zeros((rp, 8 * njt), np.float32)
+    ct[:R, :K] = cbig_r[:, order].T
+    kptr, jt, frags = _pack_tiles(ct, "k")
+    gks, gptr, gcode, seq, split = [], [0], [], [], 0
+    for c in range(2):
+        for s in range(rp // 16):
+            run = [t for t in range(kptr[s], kptr[s + 1]) if jt[t] // nj == c]
+            if run:
+                gks.append(s)
+                seq += run
+                gcode += [int(jt[t]) - c * nj for t in run]
+                gptr.append(len(seq))
+        if c == 0:
+            split = len(gks)
+    gmask = [sum(1 << c for c in gcode[a:b]) for a, b in zip(gptr[:-1], gptr[1:])]
+    mt = mma_tables(tb)
+    cap = max(_SLOT_TILES, mt["maxpair"], int(np.diff(gptr).max(initial=0)))
+    aslot = _slots(mt["cptr"], [], cap)
+    cslot = _slots(np.asarray(gptr), [split], cap)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return {"qcol": i32(qcol), "dwcode": i32(dwcode), "ntri": ntri, "gks": i32(gks),
+            "gptr": i32(gptr), "gcode": i32(gcode), "gmask": np.asarray(gmask, np.uint32),
+            "gfrag": np.float32(frags[seq]), "split": split, "nj": nj,
+            "aslot": i32(aslot), "cslot": i32(cslot), "csplit": cslot.index(split),
+            "cap": cap}
+
+
+def _slots(ptr, cuts, cap):
+    """Runs of consecutive units (pairs or groups; unit u holds tiles ptr[u]
+    .. ptr[u + 1] - 1) of at most `cap` tiles in all, none crossing a unit
+    index in `cuts`: their boundaries, from 0 to the number of units."""
+    out, n = [0], len(ptr) - 1
+    for u in range(n):
+        if u > out[-1] and (u in cuts or ptr[u + 1] - ptr[out[-1]] > cap):
+            out.append(u)
+    if out[-1] != n:
+        out.append(n)
+    return out
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {  # the pointers, then M and the ints, of each entry point
     "fused_tp_f32": [_P] * 9 + [_LL] + [_I] * 4,
     "fused_tp_bf16": [_P] * 13 + [_LL] + [_I] * 6,
     "fused_tp_bwd_f32": [_P] * 18 + [_LL] + [_I] * 4,
-    "fused_tp_bwd_bf16": [_P] * 18 + [_LL] + [_I] * 4,
+    "fused_tp_bwd_bf16": [_P] * 21 + [_LL] + [_I] * 12,
 }
 
 
@@ -179,7 +270,8 @@ _DEVICE_TABLES: dict = {}
 def _device_tables(tb, device, dtype):
     """The sparse lists on `device`, coefficients rounded to `dtype` (as the
     Pallas kernel casts CBIG_R to x's dtype), cached by signature; for bf16
-    also the packed tiles of `mma_tables` (key "mma")."""
+    also the packed tiles of `mma_tables` (key "mma") and of
+    `mma_bwd_tables` (key "mma_bwd")."""
     key = (tb["sig"], str(device), dtype)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
@@ -193,6 +285,11 @@ def _device_tables(tb, device, dtype):
                           for k, v in mt.items()}
             for k in ("cfrag", "sfrag"):
                 hit["mma"][k] = hit["mma"][k].to(dtype).contiguous()
+            mb = mma_bwd_tables(tb)
+            hit["mma_bwd"] = {k: v if isinstance(v, int) else torch.as_tensor(
+                v.view(np.int32) if v.dtype == np.uint32 else v, device=device)
+                for k, v in mb.items()}
+            hit["mma_bwd"]["gfrag"] = hit["mma_bwd"]["gfrag"].to(dtype).contiguous()
         _DEVICE_TABLES[key] = hit
     return hit
 
@@ -261,11 +358,20 @@ def fused_tp_bwd(x, sh, w, dct, tb, want_dsh=True):
     dsh_out = torch.empty_like(sh) if want_dsh else None
     tabs = _device_tables(tb, dev, dt)
     name = f"fused_tp_bwd_{_SUFFIX[dt]}"
-    build.launch(build.entry("fused_tp_bwd", name, _ARGTYPES[name]), dev, x.data_ptr(),
-                 sh.data_ptr(), w.data_ptr(), dct.data_ptr(),
-                 *(tabs[k].data_ptr() for k in _BWD_TABLES), dx.data_ptr(),
-                 None if dsh_out is None else dsh_out.data_ptr(), dw.data_ptr(), M, din, dsh,
-                 numel, dout)
+    outs = [dx.data_ptr(), None if dsh_out is None else dsh_out.data_ptr(), dw.data_ptr()]
+    ptrs = [t.data_ptr() for t in (x, sh, w, dct)]
+    if dt == torch.bfloat16:
+        mt, mb = tabs["mma"], tabs["mma_bwd"]
+        args = [*ptrs, *(mt[k].data_ptr() for k in ("cptr", "cboth", "cxa", "ctile", "cfrag")),
+                mb["qcol"].data_ptr(), mb["dwcode"].data_ptr(), mt["widx"].data_ptr(),
+                *(mb[k].data_ptr() for k in ("gks", "gptr", "gmask", "gfrag", "aslot", "cslot")),
+                *outs,
+                M, din, dsh, numel, dout, mt["npairs"], mb["ntri"], len(mb["gks"]),
+                mb["nj"], len(mb["aslot"]) - 1, len(mb["cslot"]) - 1, mb["csplit"], mb["cap"]]
+    else:
+        args = [*ptrs, *(tabs[k].data_ptr() for k in _BWD_TABLES), *outs, M, din, dsh,
+                numel, dout]
+    build.launch(build.entry("fused_tp_bwd", name, _ARGTYPES[name]), dev, *args)
     LAUNCHES["fused_tp_bwd"] += 1
     return dx, dsh_out, dw
 

@@ -3,8 +3,9 @@ forwards against the plain versions, the backwards (K3, K4, K5's, K6's)
 against torch.autograd of the plain versions on the same inputs and
 cotangent; K8 (bit for bit, every width, aligned and offset views), K9 and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
-backward) and the K8/K9 backwards (each the other kernel) against autograd
-of the plain versions.
+backward; in bf16 also on offset views) and the K8/K9 backwards (each the
+other kernel) against autograd of the plain versions; the tensor-core K1
+at every K the featurizer gives.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -71,6 +72,28 @@ def test_kernels_match_plain(dev, dtype, atol, rtol, L, N, K):
 
 def test_kernel_refuses_a_k_it_cannot_tile(dev):
     x = _inputs(dev, torch.bfloat16, 1, 8, 8, 12)  # 12 does not divide 128
+    with pytest.raises(ValueError):
+        MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+
+
+@pytest.mark.parametrize("K", [16, 32, 48, 64])
+def test_message_sum_bf16_tensor_cores_every_k(dev, K):
+    """The tensor-core K1 at every K the featurizer gives, with L not a
+    multiple of a block's residues and a gather table longer than L: within
+    TOLS' bf16 limits of the plain version, and bit for bit from run to run
+    (the K-sum is taken in a fixed order)."""
+    x = _inputs(dev, torch.bfloat16, 2, 37, 50, K, seed=K)
+    MK.reset_launches()
+    s = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+    again = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_sum"] == 2 and s.dtype == torch.float32
+    assert torch.equal(s, again)
+    _close(s, MK.ref_message_sum(*(x[k] for k in _SUM), 30.0), 2e-2, 2e-2)
+
+
+def test_message_sum_bf16_refuses_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
     with pytest.raises(ValueError):
         MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
 
@@ -396,6 +419,45 @@ def test_fused_tp_backward_matches_plain(dev, dtype, layer):
                 assert bool((d <= bound).all()), (d.max().item(), ref.max().item())
     torch.cuda.synchronize()
     assert TK.LAUNCHES == {"fused_tp": n_bwd, "fused_tp_bwd": n_bwd}
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+def test_fused_tp_bwd_bf16_unaligned_views(dev, layer):
+    """The tensor-core K11 on operands that start off the 16-byte grid (its
+    2-byte staging paths), on one row and on 77 (not a multiple of a
+    block's 48): the same bits as on aligned copies and from run to run,
+    with and without dsh, within 2e-2 max|ref| of the plain version's
+    autograd."""
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[layer]), tuple(SH_IRREPS), tuple(lad[layer + 1]))
+    g = torch.Generator().manual_seed(50 + layer)
+    bf = torch.bfloat16
+    for m in (77, 1):
+        x = torch.randn(m, lad[layer].dim, generator=g).to(dev).to(bf)
+        sh = sh_l2(torch.randn(m, 3, generator=g)).to(dev).to(bf)
+        w = (torch.randn(m, tb["numel"], generator=g) * 0.2).to(dev).to(bf)
+        ct = torch.randn(m, tb["SUMR"].shape[1], generator=g).to(dev).to(bf)
+        TK.reset_launches()
+        aligned = TK.fused_tp_bwd(x, sh, w, ct, tb)
+        again = TK.fused_tp_bwd(x, sh, w, ct, tb)
+        shifted = TK.fused_tp_bwd(_offset_view(x, 1), _offset_view(sh, 3), _offset_view(w, 5),
+                                  _offset_view(ct, 7), tb)
+        no_dsh = TK.fused_tp_bwd(x, sh, w, ct, tb, want_dsh=False)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["fused_tp_bwd"] == 4 and no_dsh[1] is None
+        for a, b, c, name in zip(aligned, again, shifted, ("dx", "dsh", "dw")):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        assert torch.equal(no_dsh[0], aligned[0]) and torch.equal(no_dsh[2], aligned[2])
+        leaves = [t.clone().requires_grad_(True) for t in (x, sh, w)]
+        out = TK.ref_fused_tp(*leaves, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+        want = torch.autograd.grad(out, leaves, ct)
+        for a, b, name in zip(aligned, want, ("dx", "dsh", "dw")):
+            d, ref = (a.float() - b.float()).abs(), b.float().abs()
+            assert bool((d <= 2e-2 * ref.max()).all()), (name, d.max().item(), ref.max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -70,12 +70,13 @@ def test_kernel_wrapper_refuses_tensors_it_cannot_take():
 
 
 @pytest.mark.parametrize("K", [16, 32, 48, 64])
-@pytest.mark.parametrize("rows,per_thread", [(128, 8), (64, 4)],
-                         ids=["fwd-bf16", "fwd-f32-and-bwd"])
+@pytest.mark.parametrize("rows,per_thread", [(128, 8), (64, 4), (128, 16)],
+                         ids=["fwd-bf16", "fwd-f32-and-bwd", "k1-bf16-tensor-cores"])
 def test_kernels_take_every_k_the_featurizer_gives(K, rows, per_thread):
     """K = min(64, L) with L a multiple of 16: every such K fits every row
     tile of the forward and backward kernels, 48 included (a block then
-    owns a partial tile: floor(rows / K) residues, its other rows idle)."""
+    owns a partial tile: floor(rows / K) residues, its other rows idle),
+    and the 16-row warp slabs of the tensor-core K1."""
     TK.check_neighbours(K, rows, per_thread)
 
 
