@@ -7,11 +7,13 @@ Phases, each printing its seconds:
   1. build   -- compile csrc/*.cu with plain nvcc (one process per source);
                 each kernel's name, registers, static shared memory and
                 spills from `-Xptxas -v`;
-  2. kernels -- K1 (fused_message_sum; bf16 on the tensor cores) and K2
-                (fused_message_edge_lnmod) at the bench shape (B96 L128 K64
-                H128), bf16 and f32, against their plain PyTorch versions
-                on the same inputs, timed with CUDA events and by CUDA
-                graph replay beside their bound; then the backwards K3 and K4
+  2. kernels -- K1 (fused_message_sum; bf16 on the tensor cores,
+                message_sum_mma_kernel) and K2 (fused_message_edge_lnmod;
+                bf16 on the tensor cores, message_edge_lnmod_mma_kernel) at
+                the bench shape (B96 L128 K64 H128), bf16 and f32, against
+                their plain PyTorch versions on the same inputs, timed with
+                CUDA events and by CUDA graph replay beside their bound; then
+                the backwards K3 and K4
                 and the dropout kernel K5 (forward and backward), against
                 torch.autograd of the plain versions on the same inputs and
                 cotangent, K5's mask bit for bit against the plain generator;
@@ -39,10 +41,12 @@ Phases, each printing its seconds:
                 autograd of ref_message_edge (float64 for f32), timed beside
                 the bound and the plain version;
   4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
-                into K1 of the next in one kernel) at the same shapes and
-                dtypes against ref_edge_then_sum and against K2's kernel
-                followed by K1's kernel on the same inputs, timed beside
-                both;
+                into K1 of the next in one kernel; bf16 on the tensor cores,
+                edge_then_sum_mma_kernel) at the same shapes and dtypes
+                against ref_edge_then_sum, and against K2's kernel followed
+                by K1's kernel on the same inputs, which it must equal bit
+                for bit; timed a call beside both and on the device (graph
+                replay) beside the pair;
   5. slice   -- the Stage-2 inference path at full width: a synthetic CG
                 batch of 96 frames x 128 residues, 100 respaced ancestral
                 steps of the 3+3-layer bf16 denoiser, VQ snap, IC decode
@@ -55,7 +59,8 @@ Phases, each printing its seconds:
                 denoise(fuse_pairs=True) and False from the same noise,
                 timed in turns in one process; launches of a fused scan
                 asserted (300 K7, 300 K1, no K2), the two paths' final
-                latents and first-step outputs held together;
+                latents and first-step outputs bit for bit equal (and
+                within FUSE_TOL);
   8. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
@@ -63,6 +68,15 @@ Phases, each printing its seconds:
   9. residual_sampling -- the slice with the adaLN residual denoiser (gates
                 open): 100 bf16 steps to xyz14 with launches asserted (600
                 K1, 300 K6, no K2), timed, and its f32 reference (8.);
+ 9b. trace_sampling -- at B96 L128 K64 and at B96 L48 K48, one draw of
+                the bf16 sampling path (5.) through `sample_latents` with a
+                step hook: 3 steps' untraced wall time, 3 steps' device
+                time (queued behind a sleep kernel: the untraced step's
+                device busy share), and 3 steps under torch.profiler: the
+                device's busy share of the traced wall and the kernels by
+                device time; K2 must run as message_edge_lnmod_mma_kernel
+                and no chain_kernel may run (after the sampling phases,
+                which thus run before any profiler session);
  10. train   -- the Stage-2 training path: 20 steps of make_latent_step at
                 B96 L128 K64 H128, 3+3 layers, bf16, dropout 0.6, with the
                 launches of every step counted (6 K1, 3 K5, 6 K3, 3 K5
@@ -194,9 +208,10 @@ KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
 K7_EDGE_TOL_BF16 = (5e-2, 2e-2)
 MSG_TOL_BF16 = 2e-2
 # Pair-fused vs unfused sampling (bf16, 100 steps, the same x_T and per-step
-# noise): the denoiser's output at the first step within 2e-2 max|ref| and
-# the final latents within 2e-2 max|latent|: one-ulp bf16 differences between
-# the two paths, carried through 100 ancestral steps.
+# noise): on the card the two must be bit for bit equal (K7 runs K2's and K1's
+# instructions); FUSE_TOL, the denoiser's output at the first step within
+# 2e-2 max|ref| and the final latents within 2e-2 max|latent|, is checked
+# too, and is what the CPU rehearsal (plain versions) holds.
 FUSE_TOL = 2e-2
 WEIGHTS = Path(__file__).resolve().parent / "weights" / "convergence_vqvae.npz"
 FIXTURE = WEIGHTS.with_name("convergence_vqvae_fixture.npz")
@@ -296,8 +311,8 @@ def fused_scans(pipe, batch, seed, rounds=2):
     computed once. One fused scan with the launches counted, then `rounds`
     rounds timed in turns (F U, U F, ...). Returns the launches, the seconds
     of each path's timed scans, the max |d| between the two paths' final
-    latents and between their denoiser outputs at the first step, and the
-    scale (max |.|) of each."""
+    latents and between their denoiser outputs at the first step, the scale
+    (max |.|) of each, and whether each pair is bit for bit equal."""
     import torch
     from codlad_tpu_torch import kernels
 
@@ -341,7 +356,81 @@ def fused_scans(pipe, batch, seed, rounds=2):
             "latents_d": (final[True] - final[False]).abs().max().item(),
             "latents_scale": final[False].abs().max().item(),
             "first_d": (first[True] - first[False]).abs().max().item(),
-            "first_scale": first[False].abs().max().item(), "steps": n}
+            "first_scale": first[False].abs().max().item(), "steps": n,
+            "latents_equal": torch.equal(final[True], final[False]),
+            "first_equal": torch.equal(first[True], first[False])}
+
+
+def trace_sampling(pipe, batch, seed, n=3, sleep_cycles=400_000_000):
+    """One draw of the pipeline's (bf16) sampling path through its entry
+    point, `sample_latents`, with a step hook that reads three windows of n
+    steps after the first step:
+      1. untraced: the host's wall time a step (synchronised at both ends);
+      2. the device's own time a step: the n steps queued behind a sleep
+         kernel of `sleep_cycles`, so that the host has queued them all
+         before the device reaches them (held: the host's queueing time is
+         below the sleep's), timed by CUDA events; its share of (1.) is the
+         untraced step's device busy share;
+      3. under torch.profiler: the busy share of the traced wall time and
+         the kernels by device time a step (`trace_summary`).
+    On the CPU (a rehearsal) (2.) is left out. Returns the names of the
+    kernels that ran on the device in (3.)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
+              "mask": batch["res_mask"]}
+    dev = batch["res_type"].device
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else []
+    got = {"queue_ms": math.inf}
+
+    def untraced_start():
+        sync()
+        got["t"] = time.perf_counter()
+
+    def queued_start():
+        sync()
+        got["wall_ms"] = (time.perf_counter() - got["t"]) * 1e3 / n
+        if cuda:
+            ev[0].record()
+            torch.cuda._sleep(sleep_cycles)
+            ev[1].record()
+            got["t"] = time.perf_counter()
+
+    def traced_start():
+        if cuda:
+            ev[2].record()
+            got["queue_ms"] = (time.perf_counter() - got["t"]) * 1e3
+        sync()
+        prof.start()
+        got["t"] = time.perf_counter()
+
+    def traced_stop():
+        sync()
+        got["traced_ms"] = (time.perf_counter() - got["t"]) * 1e3
+        prof.stop()
+
+    marks = {1: untraced_start, 1 + n: queued_start, 1 + 2 * n: traced_start,
+             1 + 3 * n: traced_stop}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pipe.sample_latents(extras, generator=g, step_hook=lambda i: marks.get(i, lambda: None)())
+    sleep_ms, dev_ms = ((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / n) if cuda
+                        else (0.0, 0.0))
+    if got["queue_ms"] < sleep_ms:
+        log(f"  untraced sampling step: wall {got['wall_ms']:.3f} ms, device "
+            f"{dev_ms:.3f} ms (the {n} steps queued in {got['queue_ms']:.1f} ms behind "
+            f"a {sleep_ms:.1f} ms sleep): device busy {dev_ms / got['wall_ms']:.3f} of the "
+            f"untraced wall")
+    else:
+        log(f"  untraced sampling step: wall {got['wall_ms']:.3f} ms; device time not "
+            f"measured (queueing the {n} steps took {got['queue_ms']:.1f} ms, longer than "
+            f"the {sleep_ms:.1f} ms sleep)")
+    trace_summary(prof, got["traced_ms"], n)
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def check_launches(got, expect, where):
@@ -795,10 +884,11 @@ def k7_args(dtype, seed, device, dims=(B, L, K)):
 
 
 def check_k7_kernels(device, seed, dims=(B, L, K)):
-    """K7 (fused_edge_then_sum) against ref_edge_then_sum, f32 and bf16;
-    timed beside the bound, the plain composition and its yardstick, K2's
-    kernel followed by K1's kernel on the same inputs (whose outputs it is
-    also held against). Returns the bf16 record."""
+    """K7 (fused_edge_then_sum) against ref_edge_then_sum, f32 and bf16, and
+    against K2's kernel followed by K1's kernel on the same inputs, whose
+    outputs it must equal bit for bit (raises otherwise); timed a call beside
+    the bound, the plain composition and that pair, and on the device (graph
+    replay) beside the pair. Returns the bf16 record."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
@@ -828,16 +918,20 @@ def check_k7_kernels(device, seed, dims=(B, L, K)):
                   and bf16_close(ns, ns_p, MSG_TOL_BF16)[1])
             limits = (f"{ae:g} + {re:g}*|ref|", f"{MSG_TOL_BF16:g} max|ref|")
         err = max(d_e.max().item(), d_n.max().item())
-        same_e = torch.equal(e2, e2_k)
+        same_e, same_n = torch.equal(e2, e2_k), torch.equal(ns, ns_k)
         pair_d = (ns - ns_k).abs().max().item()
         log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: edge out max|d|="
             f"{d_e.max().item():.3g} ({limits[0]}), node sum max|d|={d_n.max().item():.3g} "
             f"({limits[1]}) {'ok' if ok else 'FAIL'}; against K2 then K1 (kernels): edge out "
-            f"{'bit for bit equal' if same_e else 'DIFFERS'}, node sum max|d|={pair_d:.3g}")
+            f"{'bit for bit equal' if same_e else 'DIFFERS'}, node sum "
+            f"{'bit for bit equal' if same_n else f'DIFFERS (max|d|={pair_d:.3g})'}")
         if not ok:
             raise RuntimeError(f"K7 ({dname}) disagrees with its plain version")
+        if not (same_e and same_n):
+            raise RuntimeError(f"K7 ({dname}) is not K2's kernel then K1's, bit for bit")
         del e2, ns, e2_p, ns_p, e2_k, ns_k, d_e, d_n
         ms, plain_ms, pair_ms = time_calls(kern, plain, pair)
+        dev_ms, pair_dev_ms = replay_ms(kern, pair)
         n_edge, n_node = b * l * k, b * l
         nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
                   + 3 * b * H * 4                                # edge chain, sh, sc, g
@@ -846,13 +940,15 @@ def check_k7_kernels(device, seed, dims=(B, L, K)):
         flops = 5 * 2 * n_edge * H * H + 2 * n_node * H * H
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_OPS[dname] * 1e3
-        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, K2 then K1 {pair_ms:.4f} ms "
-            f"(K7 / pair {ms / pair_ms:.3f}), bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: max|d|={err:.3g}; a call "
+            f"(events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 then K1 {pair_ms:.4f} ms "
+            f"(K7 / pair {ms / pair_ms:.3f}); device (graph replay) kernel {dev_ms:.4f} ms, "
+            f"K2 then K1 {pair_dev_ms:.4f} ms (K7 / pair {dev_ms / pair_dev_ms:.3f}); bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
         if dtype == torch.bfloat16:
-            records["fused_edge_then_sum"] = record("fused_edge_then_sum", dname, err, ms,
-                                                    plain_ms, t_bytes, t_ops)
+            records["fused_edge_then_sum"] = dict(
+                record("fused_edge_then_sum", dname, err, ms, plain_ms, t_bytes, t_ops),
+                device_ms=dev_ms, pair_device_ms=pair_dev_ms)
         del a
         torch.cuda.empty_cache()
     return records
@@ -977,7 +1073,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
-                 "edge_then_sum_kernel", "message_sum_mma_kernel")
+                 "edge_then_sum_kernel", "message_sum_mma_kernel",
+                 "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
                   "fused_tp_mma_kernel", "fused_tp_bwd_kernel", "fused_tp_bwd_mma_kernel")
 
@@ -1955,24 +2052,28 @@ def main(argv=None):
     if not (fs["first_d"] <= FUSE_TOL * fs["first_scale"]
             and fs["latents_d"] <= FUSE_TOL * fs["latents_scale"]):
         raise RuntimeError("the pair-fused scan disagrees with the unfused one")
+    log(f"  fused against unfused, bit for bit: first-step output "
+        f"{'equal' if fs['first_equal'] else 'DIFFERS'}, final latents "
+        f"{'equal' if fs['latents_equal'] else 'DIFFERS'}")
+    if not (fs["first_equal"] and fs["latents_equal"]):
+        raise RuntimeError("the pair-fused scan is not bit for bit the unfused one")
 
     t0 = time.perf_counter()
     reference_check(args.seed)
     log(f"phase reference: {time.perf_counter() - t0:.2f} s")
-    del pipe, out
 
     t0 = time.perf_counter()
-    pipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
-                          adaln_mode="residual")
-    out = run_slice(pipe, batch, gen)
+    rpipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
+                           adaln_mode="residual")
+    out = run_slice(rpipe, batch, gen)
     check_slice(out, B, L)
-    expect_res = {"fused_message_sum": steps * (n_enc + len(pipe.denoiser.dec_layers)),
+    expect_res = {"fused_message_sum": steps * (n_enc + len(rpipe.denoiser.dec_layers)),
                   "fused_message_edge": steps * n_enc, **decoder_launches()}
     check_launches(out["launches"], expect_res, "the residual sampling path")
     records["fused_message_edge"]["launches"] = out["launches"]["fused_message_edge"]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    ic, xyz = pipe.sample_and_decode(batch, generator=gen)
+    ic, xyz = rpipe.sample_and_decode(batch, generator=gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
     if not torch.isfinite(xyz).all():
@@ -1982,7 +2083,26 @@ def main(argv=None):
         f"open, bf16, B{B} L{L} K{K}: {dt:.3f} s for {steps} denoise steps + decode "
         f"({steps / dt:.2f} steps/s; first draw {out['seconds']:.3f} s); launches "
         f"{out['launches']} (expected {expect_res}); xyz14 finite")
-    del pipe, out, ic, xyz
+    del rpipe, out, ic, xyz
+
+    # after every sampling phase, so that they all run before the first
+    # profiler session, as the phases of earlier versions of this script did
+    # (run right after the timing phase, the session was followed by slower
+    # host-bound draws)
+    t0 = time.perf_counter()
+    for (b, l, k), seed in (((B, L, K), args.seed), (K48, args.seed + 3)):
+        log(f"  sampling at B{b} L{l} K{k}:")
+        names = trace_sampling(pipe, to_device(synthetic_cg_batch(b, l, seed=seed), device),
+                               args.seed)
+        # bf16 K2 runs on the tensor cores: no CUDA-core chain kernel in a step
+        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                "chain_kernel" in n for n in names):
+            raise RuntimeError("the traced sampling steps did not run K2 on its tensor-core "
+                               f"kernel: {sorted(names)}")
+    log(f"phase trace_sampling: {time.perf_counter() - t0:.2f} s; 3 bf16 sampling steps at "
+        f"B{B} L{L} K{K} and at B{K48[0]} L{K48[1]} K{K48[2]} traced; K2 ran as "
+        f"message_edge_lnmod_mma_kernel, no chain_kernel")
+    del pipe
 
     t0 = time.perf_counter()
     x1, extras = train_batch(B, L, args.seed + 1, device)

@@ -36,8 +36,7 @@
 // the shared edge tile, and the node half runs K1's chain on that tile. Three
 // H x H matrices and the tile already fill a block's shared memory in f32 (226
 // of 227 KB), so the two weight sets are never resident together. K7 holds two
-// weight buffers only, K1's footprint (98 KB in bf16: two blocks an SM, where
-// K2's three matrices allow one): each buffer is restaged as soon as every
+// weight buffers only, K1's footprint: each buffer is restaged as soon as every
 // thread is done with its product, buffer 0 W_e -> W3 -> node W2, buffer 1
 // W2 -> node W_e; K1's W3 acts per residue and is read from global memory, as
 // in K1.
@@ -45,37 +44,51 @@
 // Bound on an H100 at the bench shape (B96 L128 K64 H128, bf16): the two
 // per-edge H x H products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for
 // K7); the bytes moved (the E tile read once, plus the edge output's write) put
-// the floor at tens of microseconds. The design above does the products on
-// CUDA cores, so it is bound by the f32 FMA rate, not by memory: f32 K1-K7 and
-// bf16 K2, K5, K6 and K7 (whose node half keeps this body, so its node sums
-// differ from K2's kernel then K1's by rounding).
+// the floor at 0.07-0.13 ms. The CUDA-core design above (`chain_kernel`,
+// `edge_then_sum_kernel`) is bound by the f32 FMA rate, not by memory: it now
+// serves f32 K1-K7 and bf16 K5's forward and K6.
 //
-// K1 in bf16 (`message_sum_mma_kernel`) runs on the tensor cores, on the TPU
-// kernel's own arithmetic: a block of 8 warps owns 128 edge rows (whole
+// In bf16, K1 (`message_sum_mma_kernel`), K2 (`message_edge_lnmod_mma_kernel`)
+// and K7 (`edge_then_sum_mma_kernel`) run on the tensor cores, on the TPU
+// kernel's own rounding points: a block of 8 warps owns 128 edge rows (whole
 // residues, K a multiple of 16), a warp a 16-row slab of one residue x all
 // 128 columns (16 n8 accumulator tiles, 64 registers).
 //   1. pre = A[l] + Gn[idx] + E W_e with mma.m16n8k16 (bf16 in, f32 sums):
 //      the accumulators start as A + Gn, read as 16-byte loads because the
 //      first product's columns are permuted (`unit`: a lane's 32 columns are
 //      32 consecutive hidden units; W_e is staged with its columns in that
-//      order, 4-byte cp.async copies); E rows (cp.async) and both weights
+//      order, 4-byte cp.async copies); E rows (cp.async) and the weights
 //      sit in shared memory at a 272-byte row stride, A by ldmatrix, B by
 //      ldmatrix.trans.
 //   2. y = cast(gelu(pre)) stays in registers: two adjacent n8 accumulator
 //      tiles are the A fragment of one k16 step of the W2 product, whose
 //      rows are staged in the same unit order.
-//   3. h2 = gelu(y W2 + b2), in two halves of 64 columns (registers: 128 a
-//      thread, no spills, two blocks an SM at 104 960 B of shared memory).
-//   4. The masked K-sum: mask * h2 summed over the slab's 16 rows by a
-//      butterfly of warp shuffles, then the residue's K / 16 slabs in slab
-//      order through shared memory (a run repeats bit for bit), rounded to
-//      bf16; the per-residue epilogue (cast(s) W3 + msum b3) / scale, K-fold
-//      fewer rows, on CUDA cores as before.
+//   3. x2 = y W2 in two halves of 64 columns (registers: 128 a thread, no
+//      spills, two blocks an SM).
+//   K1: mask * gelu(x2 + b2) summed over the slab's 16 rows by a butterfly
+//      of warp shuffles, then the residue's K / 16 slabs in slab order
+//      through shared memory (a run repeats bit for bit), rounded to bf16;
+//      the per-residue epilogue (cast(s) W3 + msum b3) / scale, K-fold
+//      fewer rows, on CUDA cores.
+//   K2: h2 = gelu(x2 + b2) packed to bf16 is, by the same fragment trick,
+//      the A operand of msg = cast(h2) W3 (W3's rows are W2's columns, in
+//      order), so h2 never leaves registers; W3 is restaged into W_e's
+//      buffer by cp.async once every warp is done with product 1,
+//      overlapping product 2 (two blocks an SM). The LayerNorm and adaLN
+//      epilogue runs in registers: a row's 128 columns lie in the 4 lanes of
+//      a quad (two shuffles a pass); E for the residual comes from the
+//      block's tile; the bf16 rows are staged in the warp's own tile rows
+//      and leave in 16-byte stores.
+//   K7: K2's functions with the edge weights, e2 kept in the warp's own
+//      slab rows, then K1's functions with the node weights on those rows:
+//      the same instructions as K2's kernel followed by K1's, so the same
+//      bits (the pair-fused denoiser equals the unfused one).
 // The gelu is tanh gelu computed as x / (1 + exp(-2u)) (ex2 and rcp, relative
 // error ~1e-6); tanh.approx.f32 is not used. Its 2 x 100.7 M evaluations a
-// call, two MUFU operations each (~0.22 ms at 16 a clock an SM), bound this
-// kernel on the H100 more than the products (52 GFLOP: 0.053 ms at the
-// tensor cores' peak) or the bytes (0.066 ms); PERF.md has the times.
+// call, two MUFU operations each (~0.22 ms at 16 a clock an SM), bound K1
+// and K2 on the H100 more than the products (52 / 77 GFLOP: 0.053 / 0.078 ms
+// at the tensor cores' peak) or the bytes (0.066 / 0.123 ms); PERF.md has
+// the times.
 
 #include "chain_common.cuh"
 #include "mma_common.cuh"
@@ -506,8 +519,12 @@ int launch_edge_then_sum(const void* Ae, const void* E, const void* Ge, const vo
 }
 
 // ---------------------------------------------------------------------------
-// K1 in bf16 on the tensor cores (`message_sum_mma_kernel`)
+// bf16 on the tensor cores: K1 (`message_sum_mma_kernel`), K2
+// (`message_edge_lnmod_mma_kernel`) and K7 (`edge_then_sum_mma_kernel`),
+// built from the slab functions below. K7 runs K2's functions and then K1's,
+// so its outputs are K2's kernel followed by K1's kernel, bit for bit.
 
+using bf16 = __nv_bfloat16;
 using mma::cp_async16;
 using mma::cp_async4;
 using mma::ldmatrix_x4;
@@ -521,7 +538,11 @@ constexpr int MW = 8;             // warps a block
 constexpr int MNT = 32 * MW;
 constexpr int MROWS = 16 * MW;    // edge rows a block, 16 a warp (the mma's m)
 constexpr int MRS = 2 * H + 16;   // bytes a row of the E tile and of the weights
-constexpr int MSMEM = 2 * H * MRS + MROWS * MRS + H * 4;
+constexpr int WBYTES = H * MRS;   // one staged weight
+constexpr int TBYTES = MROWS * MRS;
+constexpr int MSMEM = 2 * WBYTES + TBYTES + H * 4;          // K1: W_e, W2, E; b2
+constexpr int ESMEM = 2 * WBYTES + TBYTES + 5 * H * 4;      // K2: W3 restaged; b2 b3 sh sc g
+constexpr int PSMEM = 2 * WBYTES + TBYTES + 6 * H * 4;      // K7; and the node b2
 
 // The first product's column n is hidden unit unit(n): lane t4's columns
 // 8 nt + 2 t4 + e (n tile nt < 16, e < 2) are units 32 t4 + 2 nt + e, so a
@@ -557,58 +578,79 @@ __device__ __forceinline__ void reduce_rows(float (&v)[N2], int lane) {
   }
 }
 
-// K1 for bf16 E (module note): a block of MW warps owns MROWS edge rows,
-// floor(MROWS / K) whole residues (K a multiple of 16; the rows past the
-// last whole residue idle), a warp a 16-row slab of one residue.
-__global__ void __launch_bounds__(MNT, 2)
-message_sum_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ E,
-                       const __nv_bfloat16* __restrict__ Gn, const int* __restrict__ idx,
-                       const float* __restrict__ mask, const __nv_bfloat16* __restrict__ We,
-                       const __nv_bfloat16* __restrict__ W2, const float* __restrict__ b2,
-                       const __nv_bfloat16* __restrict__ W3, const float* __restrict__ b3,
-                       float* __restrict__ out, int L, int K, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* sWe = smem;              // [H][MRS] W_e, columns in unit order
-  unsigned char* sW2 = sWe + H * MRS;     // [H][MRS] W2, rows in unit order
-  unsigned char* sE = sW2 + H * MRS;      // [MROWS][MRS] the edge tile
-  float* sb2 = reinterpret_cast<float*>(sE + MROWS * MRS);
-  const int tid = threadIdx.x;
-  const int TL = MROWS / K;
-  const int b = blockIdx.y, l0 = blockIdx.x * TL;
-  const int nrows = min(TL, L - l0) * K;
-  const size_t row0 = ((size_t)b * L + l0) * K;
+// A block's tile: TL = MROWS / K whole residues of sample b from residue l0
+// (K a multiple of 16; the rows past the last whole residue idle), nrows of
+// them in the input; this warp's 16-row slab r0 .. r0 + 15 of one residue,
+// `active` where it holds edge rows (nrows is a multiple of 16).
+struct Slab {
+  int b, l0, TL, nrows, r0, lane;
+  size_t row0;  // first edge row of the tile in [B * L * K]
+  bool active;
+};
 
-  for (int i = tid; i < H * H / 2; i += MNT) {  // W_e by column pairs, 4-byte copies
+__device__ __forceinline__ Slab make_slab(int L, int K) {
+  Slab s;
+  s.TL = MROWS / K;
+  s.b = blockIdx.y;
+  s.l0 = blockIdx.x * s.TL;
+  s.nrows = min(s.TL, L - s.l0) * K;
+  s.row0 = ((size_t)s.b * L + s.l0) * K;
+  s.lane = threadIdx.x & 31;
+  s.r0 = 16 * (threadIdx.x >> 5);
+  s.active = s.r0 < s.nrows;
+  return s;
+}
+
+// Staging (every thread of the block; cp.async, committed by the caller).
+// W_e with its columns in unit order, by column pairs (4-byte copies)
+__device__ __forceinline__ void stage_we(unsigned char* dst, const bf16* __restrict__ We) {
+  for (int i = threadIdx.x; i < H * H / 2; i += MNT) {
     const int k = i / (H / 2), n = 2 * (i - k * (H / 2));
-    cp_async4(sWe + k * MRS + 2 * n, We + k * H + unit(n));
+    cp_async4(dst + k * MRS + 2 * n, We + k * H + unit(n));
   }
-  for (int i = tid; i < H * H / 8; i += MNT) {  // W2 by rows, 16-byte copies
+}
+
+// W by rows, 16-byte copies: in unit order (W2, whose rows are the first
+// product's columns) or as it is (W3, whose rows are W2's columns)
+template <bool UNIT_ROWS>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const bf16* __restrict__ W) {
+  for (int i = threadIdx.x; i < H * H / 8; i += MNT) {
     const int n = i / (H / 8), c = i - n * (H / 8);
-    cp_async16(sW2 + n * MRS + 16 * c, W2 + unit(n) * H + 8 * c);
+    cp_async16(dst + n * MRS + 16 * c, W + (UNIT_ROWS ? unit(n) : n) * H + 8 * c);
   }
-  for (int i = tid; i < MROWS * H / 8; i += MNT) {
+}
+
+// the tile's E rows, zeros past nrows
+__device__ __forceinline__ void stage_edges(unsigned char* sE, const bf16* __restrict__ E,
+                                            const Slab& s) {
+  for (int i = threadIdx.x; i < MROWS * H / 8; i += MNT) {
     const int r = i / (H / 8), c = i - r * (H / 8);
     unsigned char* d = sE + r * MRS + 16 * c;
-    if (r < nrows) cp_async16(d, E + (row0 + r) * H + 8 * c);
+    if (r < s.nrows) cp_async16(d, E + (s.row0 + r) * H + 8 * c);
     else *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
   }
-  for (int i = tid; i < H; i += MNT) sb2[i] = b2[i];
-  mma::cp_async_commit();
+}
 
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int r0 = 16 * warp;
-  const bool active = r0 < nrows;
-  float acc[16][4];
-  // pre starts as A[l] + Gn[idx] (index clamped into Gn) of rows r0 + g and
-  // r0 + g + 8, units 32 t4 .. 32 t4 + 31
+// dst[0:H] = src[0:H] (plain loads; visible after the next barrier)
+__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < H; i += MNT) dst[i] = src[i];
+}
+
+// pre starts as A[l] + Gn[idx] (index clamped into Gn) of rows r0 + g and
+// r0 + g + 8, units 32 t4 .. 32 t4 + 31, in 16-byte loads
+__device__ __forceinline__ void preset_pre(float (&acc)[16][4], const bf16* __restrict__ A,
+                                           const bf16* __restrict__ Gn,
+                                           const int* __restrict__ idx, int L, int K, int N,
+                                           const Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    if (active && r < nrows) {
-      const int l = l0 + r / K;
-      const int j = min(max(idx[row0 + r], 0), N - 1);
-      const uint4* ap = reinterpret_cast<const uint4*>(A + ((size_t)b * L + l) * H + 32 * t4);
-      const uint4* gp = reinterpret_cast<const uint4*>(Gn + ((size_t)b * N + j) * H + 32 * t4);
+    const int r = s.r0 + g + 8 * h;
+    if (s.active && r < s.nrows) {
+      const int l = s.l0 + r / K;
+      const int j = min(max(idx[s.row0 + r], 0), N - 1);
+      const uint4* ap = reinterpret_cast<const uint4*>(A + ((size_t)s.b * L + l) * H + 32 * t4);
+      const uint4* gp = reinterpret_cast<const uint4*>(Gn + ((size_t)s.b * N + j) * H + 32 * t4);
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
         const uint4 au = __ldg(ap + v), gu = __ldg(gp + v);
@@ -626,121 +668,478 @@ message_sum_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16*
       for (int nt = 0; nt < 16; ++nt) acc[nt][2 * h] = acc[nt][2 * h + 1] = 0.0f;
     }
   }
-  mma::cp_async_wait<0>();
-  __syncthreads();
+}
 
-  // lanes 8i .. 8i + 7 address matrix i of an ldmatrix.x4: for the weights,
-  // k rows 8 (i & 1) + 0..7 of a k16 step at n tile 2 np + (i >> 1)
+// lanes 8i .. 8i + 7 address matrix i of an ldmatrix.x4: for a weight, k
+// rows 8 (i & 1) + 0..7 of a k16 step at n tile 2 np + (i >> 1)
+__device__ __forceinline__ unsigned weight_addr(const unsigned char* sW, int lane) {
   const int mi = lane >> 3;
-  const unsigned wrow = (8 * (mi & 1) + (lane & 7)) * MRS + (mi >> 1) * 16;
-  if (active) {
-    // pre += E W_e; then y = cast(gelu(pre)), the A fragments of W2's product
-    const unsigned e_addr = smem_addr(sE) + (r0 + (lane & 15)) * MRS + (lane >> 4) * 16;
-    const unsigned we_addr = smem_addr(sWe) + wrow;
+  return smem_addr(sW) + (8 * (mi & 1) + (lane & 7)) * MRS + (mi >> 1) * 16;
+}
+
+// c[2 np + j] += a (k16 step kk of the slab's rows) times the weight's k
+// rows 16 kk .. 16 kk + 15 at n tile 2 (np0 + np) + j, np < NP, j < 2
+template <int NP>
+__device__ __forceinline__ void mma_step(float (&c)[2 * NP][4], const unsigned (&a)[4],
+                                         unsigned w_addr, int kk, int np0) {
 #pragma unroll
-    for (int kk = 0; kk < H / 16; ++kk) {
-      unsigned a[4];
-      ldmatrix_x4(a, e_addr + 32 * kk);
+  for (int np = 0; np < NP; ++np) {
+    unsigned bb[4];
+    ldmatrix_x4_trans(bb, w_addr + 16 * kk * MRS + 32 * (np0 + np));
+    mma_bf16(c[2 * np], a, bb[0], bb[1]);
+    mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
+  }
+}
+
+// product 1: acc += E W_e of the slab's rows of sE (A fragments by
+// ldmatrix), W_e staged by stage_we in sWe
+__device__ __forceinline__ void mma_edge_we(float (&acc)[16][4], const unsigned char* sE,
+                                            const unsigned char* sWe, const Slab& s) {
+  const unsigned e_addr = smem_addr(sE) + (s.r0 + (s.lane & 15)) * MRS + (s.lane >> 4) * 16;
+  const unsigned we_addr = weight_addr(sWe, s.lane);
 #pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        unsigned bb[4];
-        ldmatrix_x4_trans(bb, we_addr + 16 * kk * MRS + 32 * np);
-        mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-    unsigned y[16][2];
+  for (int kk = 0; kk < H / 16; ++kk) {
+    unsigned a[4];
+    ldmatrix_x4(a, e_addr + 32 * kk);
+    mma_step<8>(acc, a, we_addr, kk, 0);
+  }
+}
+
+// y = cast(gelu(pre)) stays in registers: n tiles 2 kk and 2 kk + 1 of an
+// accumulator are the A fragment of k16 step kk of the next product
+__device__ __forceinline__ void gelu_pack(unsigned (&y)[16][2], const float (&acc)[16][4]) {
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      y[nt][0] = pack_bf16(gelu_exp(acc[nt][0]), gelu_exp(acc[nt][1]));
-      y[nt][1] = pack_bf16(gelu_exp(acc[nt][2]), gelu_exp(acc[nt][3]));
-    }
-    const float m0 = r0 + g < nrows ? mask[row0 + r0 + g] : 0.0f;
-    const float m8 = r0 + g + 8 < nrows ? mask[row0 + r0 + g + 8] : 0.0f;
-    // the slab's masked row sums, columns 0..63 then 64..127, into the
-    // warp's own (no longer read) E rows
-    float* red = reinterpret_cast<float*>(sE + r0 * MRS);
-    const unsigned w2_addr = smem_addr(sW2) + wrow;
+  for (int nt = 0; nt < 16; ++nt) {
+    y[nt][0] = pack_bf16(gelu_exp(acc[nt][0]), gelu_exp(acc[nt][1]));
+    y[nt][1] = pack_bf16(gelu_exp(acc[nt][2]), gelu_exp(acc[nt][3]));
+  }
+}
+
+// product 2, half hf: c2 = y W2 at columns 64 hf .. 64 hf + 63 (n tiles
+// 8 hf .. 8 hf + 7), W2 staged by stage_rows<true> in sW2
+__device__ __forceinline__ void mma_w2_half(float (&c2)[8][4], const unsigned (&y)[16][2],
+                                            const unsigned char* sW2, int hf, int lane) {
+  const unsigned w2_addr = weight_addr(sW2, lane);
+#pragma unroll
+  for (int o = 0; o < 8; ++o) c2[o][0] = c2[o][1] = c2[o][2] = c2[o][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
+    mma_step<4>(c2, a, w2_addr, kk, 4 * hf);
+  }
+}
+
+// K1: h2 = gelu(x2 + b2) of half hf times the rows' masks (m0: row g, m8:
+// row g + 8), summed over the slab's 16 rows, into red[64 hf .. 64 hf + 63]
+__device__ __forceinline__ void masked_row_sums(const float (&c2)[8][4], const float* sb2,
+                                                float m0, float m8, int hf, float* red,
+                                                int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  // part[2 o + e] = mask h2 of column 8 (8 hf + o) + 2 t4 + e
+  float part[16];
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    const float2 bias = *reinterpret_cast<const float2*>(sb2 + 8 * (8 * hf + o) + 2 * t4);
+    part[2 * o] = m0 * gelu_exp(c2[o][0] + bias.x) + m8 * gelu_exp(c2[o][2] + bias.x);
+    part[2 * o + 1] = m0 * gelu_exp(c2[o][1] + bias.y) + m8 * gelu_exp(c2[o][3] + bias.y);
+  }
+  reduce_rows(part, lane);
+  // part[0], part[1]: the sums of original index 2 (4 b0 + 2 b1 + b2) + (0, 1)
+  const int o = 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
+  *reinterpret_cast<float2*>(red + 8 * (8 * hf + o) + 2 * t4) = make_float2(part[0], part[1]);
+}
+
+// K1's chain from the preset accumulators: products 1 and 2 (WAIT_W2: W2
+// is still arriving, its cp.async group the last committed), the slab's
+// masked row sums into its own (no longer read) rows of sE, the residues'
+// sums over their K / 16 slabs in slab order (a run repeats bit for bit),
+// rounded to bf16, into W_e's buffer (free by then) with the mask counts,
+// and the per-residue epilogue out = (ssum W3 + msum b3) / scale: K-fold
+// fewer rows, on CUDA cores, W3 from device memory.
+template <bool WAIT_W2>
+__device__ __forceinline__ void message_sum_chain(float (&acc)[16][4], unsigned char* sWe,
+                                                  const unsigned char* sW2, unsigned char* sE,
+                                                  const float* sb2,
+                                                  const float* __restrict__ mask,
+                                                  const bf16* __restrict__ W3,
+                                                  const float* __restrict__ b3,
+                                                  float* __restrict__ out, int L, int K,
+                                                  float scale, const Slab& s) {
+  unsigned y[16][2];
+  if (s.active) {
+    mma_edge_we(acc, sE, sWe, s);
+    gelu_pack(y, acc);
+  }
+  if constexpr (WAIT_W2) {
+    mma::cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (s.active) {
+    const int g = s.lane >> 2;
+    const float m0 = s.r0 + g < s.nrows ? mask[s.row0 + s.r0 + g] : 0.0f;
+    const float m8 = s.r0 + g + 8 < s.nrows ? mask[s.row0 + s.r0 + g + 8] : 0.0f;
+    float* red = reinterpret_cast<float*>(sE + s.r0 * MRS);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float c2[8][4];
-#pragma unroll
-      for (int o = 0; o < 8; ++o) c2[o][0] = c2[o][1] = c2[o][2] = c2[o][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < H / 16; ++kk) {
-        const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          unsigned bb[4];
-          ldmatrix_x4_trans(bb, w2_addr + 16 * kk * MRS + 32 * (4 * hf + np));
-          mma_bf16(c2[2 * np], a, bb[0], bb[1]);
-          mma_bf16(c2[2 * np + 1], a, bb[2], bb[3]);
-        }
-      }
-      // h2 = gelu(x2 + b2); part[2 o + e] = mask h2 of column 8 (8 hf + o) + 2 t4 + e
-      float part[16];
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const float2 bias = *reinterpret_cast<const float2*>(sb2 + 8 * (8 * hf + o) + 2 * t4);
-        part[2 * o] = m0 * gelu_exp(c2[o][0] + bias.x) + m8 * gelu_exp(c2[o][2] + bias.x);
-        part[2 * o + 1] = m0 * gelu_exp(c2[o][1] + bias.y) + m8 * gelu_exp(c2[o][3] + bias.y);
-      }
-      reduce_rows(part, lane);
-      // part[0], part[1]: the sums of original index 2 (4 b0 + 2 b1 + b2) + (0, 1)
-      const int o = 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
-      *reinterpret_cast<float2*>(red + 8 * (8 * hf + o) + 2 * t4) = make_float2(part[0], part[1]);
+      mma_w2_half(c2, y, sW2, hf, s.lane);
+      masked_row_sums(c2, sb2, m0, m8, hf, red, s.lane);
     }
   }
   __syncthreads();
 
-  // the residues' sums over their K / 16 slabs in slab order, rounded to
-  // bf16; the mask counts; W_e's buffer (no longer read) holds them
-  float* ssum = reinterpret_cast<float*>(sWe);   // [TL][H]
-  float* msum = ssum + TL * H;                    // [TL]
+  float* ssum = reinterpret_cast<float*>(sWe);  // [TL][H]
+  float* msum = ssum + s.TL * H;                // [TL]
   const int spr = K / 16;
-  for (int i = tid; i < TL * H; i += MNT) {
+  for (int i = threadIdx.x; i < s.TL * H; i += MNT) {
     const int ll = i / H, c = i - ll * H;
-    float s = 0.0f;
+    float v = 0.0f;
     for (int q = 0; q < spr; ++q)
-      s += reinterpret_cast<const float*>(sE + 16 * (ll * spr + q) * MRS)[c];
-    ssum[i] = round_bf16(s);
+      v += reinterpret_cast<const float*>(sE + 16 * (ll * spr + q) * MRS)[c];
+    ssum[i] = round_bf16(v);
   }
-  for (int ll = tid; ll < TL; ll += MNT) {
-    float s = 0.0f;
-    if (l0 + ll < L)
-      for (int k = 0; k < K; ++k) s += mask[row0 + (size_t)ll * K + k];
-    msum[ll] = s;
+  for (int ll = threadIdx.x; ll < s.TL; ll += MNT) {
+    float v = 0.0f;
+    if (s.l0 + ll < L)
+      for (int k = 0; k < K; ++k) v += mask[s.row0 + (size_t)ll * K + k];
+    msum[ll] = v;
   }
   __syncthreads();
-  // out = (ssum W3 + msum b3) / scale: K-fold fewer rows, on CUDA cores
-  for (int i = tid; i < TL * H; i += MNT) {
+  for (int i = threadIdx.x; i < s.TL * H; i += MNT) {
     const int ll = i / H, c = i - ll * H;
-    if (l0 + ll >= L) continue;
-    float s = 0.0f;
-    for (int j = 0; j < H; ++j) s = fmaf(ssum[ll * H + j], __bfloat162float(W3[j * H + c]), s);
-    s += msum[ll] * b3[c];
-    out[((size_t)b * L + l0 + ll) * H + c] = s / scale;
+    if (s.l0 + ll >= L) continue;
+    float v = 0.0f;
+    for (int j = 0; j < H; ++j) v = fmaf(ssum[ll * H + j], __bfloat162float(W3[j * H + c]), v);
+    v += msum[ll] * b3[c];
+    out[((size_t)s.b * L + s.l0 + ll) * H + c] = v / scale;
   }
+}
+
+// K2: h2 = gelu(x2 + b2) of half hf, cast to bf16 and packed as the A
+// fragments of the W3 product (the same fragment trick as y)
+__device__ __forceinline__ void h2_pack(unsigned (&h2)[16][2], const float (&c2)[8][4],
+                                        const float* sb2, int hf, int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    const int nt = 8 * hf + o;
+    const float2 bias = *reinterpret_cast<const float2*>(sb2 + 8 * nt + 2 * t4);
+    h2[nt][0] = pack_bf16(gelu_exp(c2[o][0] + bias.x), gelu_exp(c2[o][1] + bias.y));
+    h2[nt][1] = pack_bf16(gelu_exp(c2[o][2] + bias.x), gelu_exp(c2[o][3] + bias.y));
+  }
+}
+
+// product 3: acc = cast(h2) W3, W3 staged by stage_rows<false> in sW3
+__device__ __forceinline__ void mma_w3(float (&acc)[16][4], const unsigned (&h2)[16][2],
+                                       const unsigned char* sW3, int lane) {
+  const unsigned w3_addr = weight_addr(sW3, lane);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const unsigned a[4] = {h2[2 * kk][0], h2[2 * kk][1], h2[2 * kk + 1][0], h2[2 * kk + 1][1]};
+    mma_step<8>(acc, a, w3_addr, kk, 0);
+  }
+}
+
+// K2's epilogue in registers: resid = E + (msg + b3) with E read from the
+// slab's rows of sE at the accumulator positions (conflict-free at the
+// 272-byte stride); a row's 128 columns lie in the 4 lanes of a quad, so the
+// LayerNorm's two passes (the mean, then the mean of squared deviations;
+// eps 1e-6, no affine) are local sums and two shuffles each; out = g
+// (LN (1 + sc) + sh), cast to bf16 into the slab's own rows of sE, then
+// written to `out` in 16-byte stores. vec holds b2, b3, sh, sc, g of
+// sample b ([5][H] f32).
+__device__ __forceinline__ void lnmod_out(float (&acc)[16][4], unsigned char* sE,
+                                          const float* vec, bf16* __restrict__ out,
+                                          const Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+  const float *sb3 = vec + H, *ssh = vec + 2 * H, *ssc = vec + 3 * H, *sg = vec + 4 * H;
+  unsigned char* rows = sE + s.r0 * MRS;
+  float mean[2] = {0.0f, 0.0f}, rstd[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int c = 8 * nt + 2 * t4;
+    const float2 bias = *reinterpret_cast<const float2*>(sb3 + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(rows + (g + 8 * h) * MRS + 2 * c));
+      acc[nt][2 * h] = e.x + (acc[nt][2 * h] + bias.x);
+      acc[nt][2 * h + 1] = e.y + (acc[nt][2 * h + 1] + bias.y);
+      mean[h] += acc[nt][2 * h];
+      mean[h] += acc[nt][2 * h + 1];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 1);
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 2);
+    mean[h] = mean[h] / H;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = acc[nt][2 * h + e] - mean[h];
+        rstd[h] += d * d;
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rstd[h] += __shfl_xor_sync(0xffffffffu, rstd[h], 1);
+    rstd[h] += __shfl_xor_sync(0xffffffffu, rstd[h], 2);
+    rstd[h] = rsqrtf(rstd[h] / H + 1e-6f);
+  }
+  __syncwarp();  // every lane has read its E
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int c = 8 * nt + 2 * t4;
+    const float2 shv = *reinterpret_cast<const float2*>(ssh + c);
+    const float2 scv = *reinterpret_cast<const float2*>(ssc + c);
+    const float2 gv = *reinterpret_cast<const float2*>(sg + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float o0 = gv.x * (((acc[nt][2 * h] - mean[h]) * rstd[h]) * (1.0f + scv.x) + shv.x);
+      const float o1 =
+          gv.y * (((acc[nt][2 * h + 1] - mean[h]) * rstd[h]) * (1.0f + scv.y) + shv.y);
+      *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * c) = pack_bf16(o0, o1);
+    }
+  }
+  __syncwarp();
+  bf16* dst = out + (s.row0 + s.r0) * H;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {  // 16 rows x 16 chunks of 16 bytes
+    const int i = s.lane + 32 * j, r = i >> 4, c = i & 15;
+    *reinterpret_cast<uint4*>(dst + r * H + 8 * c) =
+        *reinterpret_cast<const uint4*>(rows + r * MRS + 16 * c);
+  }
+}
+
+// K2's chain from the preset accumulators: products 1 and 2, h2 in
+// registers, product 3 and the LayerNorm epilogue into the slab's rows of sE
+// and `out`. W_e sits in sW0 and W2 in sW2; W3 is copied into sW0 once every
+// warp is done with product 1, overlapping product 2. `w2_free()` runs in
+// every thread once W3 is in place and no warp reads sW2 any more (K7
+// restages there).
+template <typename F>
+__device__ __forceinline__ void edge_lnmod_chain(float (&acc)[16][4], unsigned char* sW0,
+                                                 const unsigned char* sW2,
+                                                 const bf16* __restrict__ W3,
+                                                 unsigned char* sE, const float* vec,
+                                                 bf16* __restrict__ out, const Slab& s,
+                                                 F&& w2_free) {
+  unsigned y[16][2];
+  if (s.active) {
+    mma_edge_we(acc, sE, sW0, s);
+    gelu_pack(y, acc);
+  }
+  __syncthreads();  // every warp is done with W_e
+  stage_rows<false>(sW0, W3);
+  mma::cp_async_commit();
+  unsigned h2[16][2];
+  if (s.active) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float c2[8][4];
+      mma_w2_half(c2, y, sW2, hf, s.lane);
+      h2_pack(h2, c2, vec, hf, s.lane);
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // W3 in place; every warp is done with W2
+  w2_free();
+  if (s.active) {
+    mma_w3(acc, h2, sW0, s.lane);
+    lnmod_out(acc, sE, vec, out, s);
+  }
+}
+
+// K1 for bf16 E (module note): a block of MW warps owns MROWS edge rows,
+// floor(MROWS / K) whole residues (K a multiple of 16; the rows past the
+// last whole residue idle), a warp a 16-row slab of one residue.
+__global__ void __launch_bounds__(MNT, 2)
+message_sum_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
+                       const bf16* __restrict__ Gn, const int* __restrict__ idx,
+                       const float* __restrict__ mask, const bf16* __restrict__ We,
+                       const bf16* __restrict__ W2, const float* __restrict__ b2,
+                       const bf16* __restrict__ W3, const float* __restrict__ b3,
+                       float* __restrict__ out, int L, int K, int N, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sWe = smem;             // [H][MRS] W_e, columns in unit order
+  unsigned char* sW2 = sWe + WBYTES;     // [H][MRS] W2, rows in unit order
+  unsigned char* sE = sW2 + WBYTES;      // [MROWS][MRS] the edge tile
+  float* sb2 = reinterpret_cast<float*>(sE + TBYTES);
+  const Slab s = make_slab(L, K);
+  stage_we(sWe, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  load_vec(sb2, b2);
+  mma::cp_async_commit();
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  message_sum_chain<false>(acc, sWe, sW2, sE, sb2, mask, W3, b3, out, L, K, scale, s);
+}
+
+// K2 for bf16 E: K1's block and slabs; W3 is restaged into W_e's buffer
+// (ESMEM: two blocks an SM).
+__global__ void __launch_bounds__(MNT, 2)
+message_edge_lnmod_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
+                              const bf16* __restrict__ Gn, const int* __restrict__ idx,
+                              const bf16* __restrict__ We, const bf16* __restrict__ W2,
+                              const float* __restrict__ b2, const bf16* __restrict__ W3,
+                              const float* __restrict__ b3, const float* __restrict__ sh,
+                              const float* __restrict__ sc, const float* __restrict__ gate,
+                              bf16* __restrict__ out, int L, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sW0 = smem;             // W_e, then W3
+  unsigned char* sW2 = sW0 + WBYTES;
+  unsigned char* sE = sW2 + WBYTES;
+  float* vec = reinterpret_cast<float*>(sE + TBYTES);  // b2, b3, sh, sc, g
+  const Slab s = make_slab(L, K);
+  stage_we(sW0, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  load_vec(vec, b2);
+  load_vec(vec + H, b3);
+  load_vec(vec + 2 * H, sh + (size_t)s.b * H);
+  load_vec(vec + 3 * H, sc + (size_t)s.b * H);
+  load_vec(vec + 4 * H, gate + (size_t)s.b * H);
+  mma::cp_async_commit();
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  edge_lnmod_chain(acc, sW0, sW2, W3, sE, vec, out, s, [] {});
+}
+
+// K7 for bf16 E: K2's chain with the edge weights, then K1's with the node
+// weights on e2, which each warp keeps in its own slab rows (a warp only
+// reads its own rows: no block barrier for e2). Two weight buffers, each
+// restaged as soon as the last warp is done with it: b0 W_e -> W3 -> node
+// W2, b1 W2 -> node W_e; the node W3 is read per residue from device memory.
+__global__ void __launch_bounds__(MNT, 2)
+edge_then_sum_mma_kernel(const bf16* __restrict__ Ae, const bf16* __restrict__ E,
+                         const bf16* __restrict__ Ge, const int* __restrict__ idx,
+                         const bf16* __restrict__ Wee, const bf16* __restrict__ W2e,
+                         const float* __restrict__ b2e, const bf16* __restrict__ W3e,
+                         const float* __restrict__ b3e, const float* __restrict__ sh,
+                         const float* __restrict__ sc, const float* __restrict__ gmod,
+                         const bf16* __restrict__ An, const bf16* __restrict__ Gnn,
+                         const bf16* __restrict__ Wen, const bf16* __restrict__ W2n,
+                         const float* __restrict__ b2n, const bf16* __restrict__ W3n,
+                         const float* __restrict__ b3n, const float* __restrict__ mask,
+                         bf16* __restrict__ e_out, float* __restrict__ n_out, int L, int K,
+                         int N, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* b0 = smem;             // W_e, then W3, then the node W2
+  unsigned char* b1 = b0 + WBYTES;      // W2, then the node W_e
+  unsigned char* sE = b1 + WBYTES;      // E, then e2 (each warp its own slab)
+  float* vec = reinterpret_cast<float*>(sE + TBYTES);  // b2, b3, sh, sc, g; node b2
+  const Slab s = make_slab(L, K);
+  stage_we(b0, Wee);
+  stage_rows<true>(b1, W2e);
+  stage_edges(sE, E, s);
+  load_vec(vec, b2e);
+  load_vec(vec + H, b3e);
+  load_vec(vec + 2 * H, sh + (size_t)s.b * H);
+  load_vec(vec + 3 * H, sc + (size_t)s.b * H);
+  load_vec(vec + 4 * H, gmod + (size_t)s.b * H);
+  load_vec(vec + 5 * H, b2n);
+  mma::cp_async_commit();
+  float acc[16][4];
+  preset_pre(acc, Ae, Ge, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  edge_lnmod_chain(acc, b0, b1, W3e, sE, vec, e_out, s, [b1, Wen] {
+    stage_we(b1, Wen);
+    mma::cp_async_commit();
+  });
+  __syncthreads();  // every warp is done with W3
+  stage_rows<true>(b0, W2n);
+  mma::cp_async_commit();
+  preset_pre(acc, An, Gnn, idx, L, K, N, s);
+  mma::cp_async_wait<1>();
+  __syncthreads();  // the node W_e in place (the node W2 may still be arriving)
+  message_sum_chain<true>(acc, b1, b0, sE, vec + 5 * H, mask, W3n, b3n, n_out, L, K, scale, s);
+}
+
+bool bad_mma_dims(int B, int L, int K, int N) {
+  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0;
+}
+
+dim3 mma_grid(int B, int L, int K) {
+  const int TL = MROWS / K;
+  return dim3((L + TL - 1) / TL, B);
+}
+
+template <typename KernelT>
+cudaError_t set_smem(KernelT kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 int launch_sum_mma(const void* A, const void* E, const void* Gn, const void* idx,
                    const void* mask, const void* We, const void* W2, const void* b2,
                    const void* W3, const void* b3, void* out, int B, int L, int K, int N,
                    float scale, void* stream) {
-  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(message_sum_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MSMEM);
+  if (bad_mma_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(message_sum_mma_kernel, MSMEM);
   if (err != cudaSuccess) return (int)err;
-  const int TL = MROWS / K;
-  message_sum_mma_kernel<<<dim3((L + TL - 1) / TL, B), MNT, MSMEM,
+  message_sum_mma_kernel<<<mma_grid(B, L, K), MNT, MSMEM,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(E),
-      static_cast<const __nv_bfloat16*>(Gn), static_cast<const int*>(idx),
-      static_cast<const float*>(mask), static_cast<const __nv_bfloat16*>(We),
-      static_cast<const __nv_bfloat16*>(W2), static_cast<const float*>(b2),
-      static_cast<const __nv_bfloat16*>(W3), static_cast<const float*>(b3),
-      static_cast<float*>(out), L, K, N, scale);
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const bf16*>(We), static_cast<const bf16*>(W2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(W3),
+      static_cast<const float*>(b3), static_cast<float*>(out), L, K, N, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_edge_lnmod_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                          const void* We, const void* W2, const void* b2, const void* W3,
+                          const void* b3, const void* sh, const void* sc, const void* gate,
+                          void* out, int B, int L, int K, int N, void* stream) {
+  if (bad_mma_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(message_edge_lnmod_mma_kernel, ESMEM);
+  if (err != cudaSuccess) return (int)err;
+  message_edge_lnmod_mma_kernel<<<mma_grid(B, L, K), MNT, ESMEM,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const bf16*>(We),
+      static_cast<const bf16*>(W2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(W3), static_cast<const float*>(b3),
+      static_cast<const float*>(sh), static_cast<const float*>(sc),
+      static_cast<const float*>(gate), static_cast<bf16*>(out), L, K, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_edge_then_sum_mma(const void* Ae, const void* E, const void* Ge, const void* idx,
+                             const void* Wee, const void* W2e, const void* b2e,
+                             const void* W3e, const void* b3e, const void* sh,
+                             const void* sc, const void* gmod, const void* An,
+                             const void* Gnn, const void* Wen, const void* W2n,
+                             const void* b2n, const void* W3n, const void* b3n,
+                             const void* mask, void* e_out, void* n_out, int B, int L, int K,
+                             int N, float scale, void* stream) {
+  if (bad_mma_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(edge_then_sum_mma_kernel, PSMEM);
+  if (err != cudaSuccess) return (int)err;
+  edge_then_sum_mma_kernel<<<mma_grid(B, L, K), MNT, PSMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(Ae), static_cast<const bf16*>(E), static_cast<const bf16*>(Ge),
+      static_cast<const int*>(idx), static_cast<const bf16*>(Wee),
+      static_cast<const bf16*>(W2e), static_cast<const float*>(b2e),
+      static_cast<const bf16*>(W3e), static_cast<const float*>(b3e),
+      static_cast<const float*>(sh), static_cast<const float*>(sc),
+      static_cast<const float*>(gmod), static_cast<const bf16*>(An),
+      static_cast<const bf16*>(Gnn), static_cast<const bf16*>(Wen),
+      static_cast<const bf16*>(W2n), static_cast<const float*>(b2n),
+      static_cast<const bf16*>(W3n), static_cast<const float*>(b3n),
+      static_cast<const float*>(mask), static_cast<bf16*>(e_out), static_cast<float*>(n_out),
+      L, K, N, scale);
   return (int)cudaGetLastError();
 }
 
@@ -766,19 +1165,23 @@ int message_sum_bf16(const void* A, const void* E, const void* Gn, const void* i
                         stream);
 }
 
-#define EDGE_LNMOD(SUFFIX, TYPE)                                                         \
-  int message_edge_lnmod_##SUFFIX(const void* A, const void* E, const void* Gn,          \
-                                  const void* idx, const void* We, const void* W2,       \
-                                  const void* b2, const void* W3, const void* b3,        \
-                                  const void* sh, const void* sc, const void* gate,      \
-                                  void* out, int B, int L, int K, int N, void* stream) { \
-    return launch<TYPE, true, 0, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh,  \
-                                        sc, gate, nullptr, nullptr, 0u, 1.0f, nullptr,   \
-                                        out, B, L, K, N, 1.0f, stream);                  \
-  }
+int message_edge_lnmod_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                           const void* We, const void* W2, const void* b2, const void* W3,
+                           const void* b3, const void* sh, const void* sc, const void* gate,
+                           void* out, int B, int L, int K, int N, void* stream) {
+  return launch<float, true, 0, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
+                                       gate, nullptr, nullptr, 0u, 1.0f, nullptr, out, B, L,
+                                       K, N, 1.0f, stream);
+}
 
-EDGE_LNMOD(f32, float)
-EDGE_LNMOD(bf16, __nv_bfloat16)
+// bf16 on the tensor cores: K a multiple of 16, at most 128
+int message_edge_lnmod_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                            const void* We, const void* W2, const void* b2, const void* W3,
+                            const void* b3, const void* sh, const void* sc, const void* gate,
+                            void* out, int B, int L, int K, int N, void* stream) {
+  return launch_edge_lnmod_mma(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, out, B, L, K,
+                               N, stream);
+}
 
 // K5 forward: K2 with dropout on the message. Exactly one of `keep` (E's
 // dtype, [B, L, K, H] scales 0 or 1/(1-p)) and `seeds` (int32 [B]) is given;
@@ -820,7 +1223,7 @@ MESSAGE_EDGE(bf16, __nv_bfloat16)
 // K7: e_out [B, L, K, H] (E's dtype) = K2 of (Ae, E, Ge, the edge weights, sh, sc,
 // gmod); n_out f32 [B, L, H] = K1 of (An, e_out, Gnn, the node weights, mask,
 // scale). Ge and Gnn are [B, N, H] tables indexed by the same idx.
-#define EDGE_THEN_SUM(SUFFIX, TYPE)                                                      \
+#define EDGE_THEN_SUM(SUFFIX, LAUNCH)                                                    \
   int edge_then_sum_##SUFFIX(                                                            \
       const void* Ae, const void* E, const void* Ge, const void* idx, const void* Wee,   \
       const void* W2e, const void* b2e, const void* W3e, const void* b3e,                \
@@ -828,12 +1231,12 @@ MESSAGE_EDGE(bf16, __nv_bfloat16)
       const void* Wen, const void* W2n, const void* b2n, const void* W3n,                \
       const void* b3n, const void* mask, void* e_out, void* n_out, int B, int L, int K,  \
       int N, float scale, void* stream) {                                                \
-    return launch_edge_then_sum<TYPE>(Ae, E, Ge, idx, Wee, W2e, b2e, W3e, b3e, sh, sc,   \
-                                      gmod, An, Gnn, Wen, W2n, b2n, W3n, b3n, mask,      \
-                                      e_out, n_out, B, L, K, N, scale, stream);          \
+    return LAUNCH(Ae, E, Ge, idx, Wee, W2e, b2e, W3e, b3e, sh, sc, gmod, An, Gnn, Wen,   \
+                  W2n, b2n, W3n, b3n, mask, e_out, n_out, B, L, K, N, scale, stream);    \
   }
 
-EDGE_THEN_SUM(f32, float)
-EDGE_THEN_SUM(bf16, __nv_bfloat16)
+EDGE_THEN_SUM(f32, launch_edge_then_sum<float>)
+// bf16 on the tensor cores: K a multiple of 16, at most 128
+EDGE_THEN_SUM(bf16, launch_edge_then_sum_mma)
 
 }  // extern "C"

@@ -69,11 +69,12 @@ class SamplingPipeline:
         return cond
 
     @torch.no_grad()
-    def sample_latents(self, extras, generator=None, noise=None, noises=None):
+    def sample_latents(self, extras, generator=None, noise=None, noises=None,
+                       step_hook=None):
         """Normalised latents [B, L, latent_size] given the CG conditioning
         (res_type, cg_xyz [B, L, 3], mask). `noise` is x_T; `noises` the
         per-step z of the ancestral sampler (both drawn from `generator`
-        when not given)."""
+        when not given); `step_hook` goes to `p_sample_loop`."""
         res_type = extras["res_type"]
         B, L = res_type.shape
         dev = res_type.device
@@ -87,7 +88,8 @@ class SamplingPipeline:
             return model.denoise(x if cd is None else x.to(cd), t, cond).to(torch.float32)
 
         return self.process.p_sample_loop(model_fn, noise.shape, noise=noise,
-                                          noises=noises, generator=generator)
+                                          noises=noises, generator=generator,
+                                          step_hook=step_hook)
 
     @torch.no_grad()
     def encode_latents(self, batch):

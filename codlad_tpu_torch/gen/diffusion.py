@@ -253,11 +253,14 @@ class GaussianDiffusion:
         return sample, out["pred_xstart"]
 
     def p_sample_loop(self, model_fn, shape, noise=None, noises=None,
-                      generator=None, device="cuda"):
-        """Ancestral sampling over every (respaced) step."""
+                      generator=None, device="cuda", step_hook=None):
+        """Ancestral sampling over every (respaced) step; `step_hook(i)`, if
+        given, runs on the host before step i (i = 0 first)."""
         x = noise if noise is not None else torch.randn(
             shape, generator=generator, device=device)
         for i in range(self.num_timesteps):
+            if step_hook is not None:
+                step_hook(i)
             z = noises[i] if noises is not None else torch.randn(
                 x.shape, generator=generator, device=x.device)
             x, _ = self.p_sample(model_fn, x, self.num_timesteps - 1 - i, z)

@@ -17,11 +17,12 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
   into K1 of the next inside one kernel (`denoise(fuse_pairs=True)`).
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
-launches K1 (in bf16 on the tensor cores, K a multiple of 16), K2, K5 or K6
-(`csrc/message_chain.cu`) and whose backward
+launches K1 or K2 (both in bf16 on the tensor cores, K a multiple of 16), K5
+or K6 (`csrc/message_chain.cu`) and whose backward
 launches K3, K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`), or
-raises; K7 launches or raises. The plain version runs only for tensors that
-lie on the CPU, and autograd differentiates it. The plain versions cast where
+raises; K7 (in bf16 on K2's and K1's tensor-core bodies, so its outputs are
+K2's kernel then K1's, bit for bit) launches or raises. The plain version
+runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
 the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
 package's `_ref_message_sum` / `_ref_message_edge_lnmod` / `_ref_message`.
@@ -41,9 +42,9 @@ HIDDEN = 128  # the width the kernels are compiled for
 # thread); a block owns floor(rows / K) whole residues, so K may not exceed
 # it. The backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
-# K1 in bf16 runs on the tensor cores: 128 rows a block, a warp a 16-row
-# slab of one residue, so K is a multiple of 16
-_SUM_MMA_ROWS, _SUM_MMA_SLAB = 128, 16
+# K1, K2 and K7 in bf16 run on the tensor cores: 128 rows a block, a warp a
+# 16-row slab of one residue, so K is a multiple of 16
+_MMA_ROWS, _MMA_SLAB = 128, 16
 _BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
 
@@ -261,6 +262,14 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
     return B, L, K, H, Gn.shape[1]
 
 
+def _check_mma_edge(E, Gn):
+    """_check_edge for the kernels that run on the tensor cores in bf16 (K1,
+    K2, K7): K a multiple of 16 there."""
+    if E.dtype == torch.bfloat16:
+        return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
+    return _check_edge(E, Gn)
+
+
 def _launch(fn, *args):
     rc = fn(*args)
     if rc != 0:
@@ -289,8 +298,7 @@ def _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims):
 
 
 def _message_sum_fwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
-    dims = (_check_edge(E, Gn, _SUM_MMA_ROWS, _SUM_MMA_SLAB) if E.dtype == torch.bfloat16
-            else _check_edge(E, Gn))
+    dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
@@ -308,8 +316,14 @@ def _message_sum_fwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale):
 def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
                     seeds=None, p=0.0, mask_out=False):
     """K2, or K5's forward when `keep` or `seeds` (with p > 0) is given.
-    Returns (out, f32 keep scales or None)."""
-    dims = _check_edge(E, Gn)
+    Returns (out, f32 keep scales or None).
+
+    sh, sc and g go to the kernel in f32, as given; the Pallas wrapper
+    rounds them to E's dtype first. The bf16 callers (`nn/mpnn.py`: the
+    adaLN heads of a model cast to bf16, for sampling and for training)
+    hand over bf16 tensors, so the two agree there."""
+    drop = keep is not None or seeds is not None
+    dims = _check_edge(E, Gn) if drop else _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [
@@ -317,7 +331,6 @@ def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
         _operand(sh, f32, (B, H), "sh", dev), _operand(sc, f32, (B, H), "sc", dev),
         _operand(g, f32, (B, H), "g", dev)]
     out = torch.empty((B, L, K, H), dtype=dt, device=dev)
-    drop = keep is not None or seeds is not None
     with torch.cuda.device(dev):
         if not drop:
             fn = _fn("message_chain", f"message_edge_lnmod_{_SUFFIX[dt]}",
@@ -360,7 +373,7 @@ def _message_edge_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3):
 def _edge_then_sum_fwd(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, gmod,
                        A_n, G_n, W_e_n, W2_n, b2_n, W3_n, b3_n, mask, scale):
     """K7 -> (e2 [B, L, K, H] in the dtype of E, f32 [B, L, H] / scale)."""
-    dims = _check_edge(E, G_e)
+    dims = _check_mma_edge(E, G_e)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     ops = _chain_ops(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, dims) + [

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Warm sampling rates of the PyTorch port (codlad_tpu_torch) on one GPU.
+
+    python3 scripts/torch_sampling_rates.py [--draws 9] [--seed 0]
+
+Drives the bf16 sampling path through `chip_smoke.build_pipeline` and
+`chip_smoke.run_slice` (100 denoise steps and the decode, random weights
+from the seed) at the bench shape, B96 L128 K64, and at the L = 48 bucket,
+B96 L48 K48: one untimed draw at each shape first (it builds the kernels and
+pays every first-call cost), then `--draws` timed draws at each, the two
+shapes in turns. Prints each draw's seconds, the median and the best rate
+of each shape in denoise steps/s (the host's noise only slows a draw), and
+the card's name and power limit, as one JSON line.
+
+It imports chip_smoke.py and codlad_tpu_torch from the checkout that holds
+it, so two commits compare on one card by running each checkout's copy from
+its own root, in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--draws", type=int, default=9)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_sampling_rates: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as S
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+
+    device = torch.device("cuda", 0)
+    pipe = S.build_pipeline(device, args.seed, compute_dtype=torch.bfloat16)
+    shapes = {"l128": (S.B, S.L), "l48": S.K48[:2]}
+    batches = {name: to_device(synthetic_cg_batch(b, l, seed=args.seed + i), device)
+               for i, (name, (b, l)) in enumerate(shapes.items())}
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    for batch in batches.values():
+        S.run_slice(pipe, batch, gen)
+    seconds = {name: [] for name in shapes}
+    for _ in range(args.draws):
+        for name, batch in batches.items():
+            out = S.run_slice(pipe, batch, gen)
+            S.check_slice(out, *shapes[name])
+            seconds[name].append(out["seconds"])
+    steps = pipe.process.num_timesteps
+    result = {"card": S.gpu_line(), "steps": steps,
+              **{f"{name}_s": s for name, s in seconds.items()},
+              **{f"{name}_steps_per_s": steps / statistics.median(s)
+                 for name, s in seconds.items()},
+              **{f"{name}_best_steps_per_s": steps / min(s) for name, s in seconds.items()}}
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,8 @@ cotangent; K8 (bit for bit, every width, aligned and offset views), K9 and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
-at every K the featurizer gives.
+and K2 at every K the featurizer gives; K7 against K2's kernel then K1's,
+bit for bit.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -96,6 +97,29 @@ def test_message_sum_bf16_refuses_k_off_the_warp_slab(dev):
     x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
     with pytest.raises(ValueError):
         MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+
+
+@pytest.mark.parametrize("L,N,K", [(16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
+                                   (37, 50, 32)])
+def test_edge_lnmod_bf16_tensor_cores_every_k(dev, L, N, K):
+    """The tensor-core K2 at every K the featurizer gives and at a ragged L
+    with a longer gather table: within TOLS' bf16 limits of the plain
+    version and bit for bit from run to run."""
+    x = _inputs(dev, torch.bfloat16, 3, L, N, K, seed=20 + K)
+    args = [x[k] for k in _EDGE]
+    MK.reset_launches()
+    e = MK.fused_message_edge_lnmod(*args)
+    again = MK.fused_message_edge_lnmod(*args)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge_lnmod"] == 2 and e.dtype == torch.bfloat16
+    assert torch.equal(e, again)
+    _close(e, MK.ref_message_edge_lnmod(*args), 2e-2, 2e-2)
+
+
+def test_edge_lnmod_bf16_refuses_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    with pytest.raises(ValueError):
+        MK.fused_message_edge_lnmod(*(x[k] for k in _EDGE))
 
 
 # Backwards. f32: atol 2e-4 + rtol 2e-4 elementwise, as the forwards. bf16:
@@ -239,6 +263,25 @@ def test_edge_then_sum_kernel_matches_plain(dev, dtype, L, N, K):
     args[0] = args[0].clone().requires_grad_(True)
     with pytest.raises(RuntimeError):
         MK.fused_edge_then_sum(*args)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,N,K", [(48, 48, 48), (64, 64, 64), (128, 128, 64), (37, 50, 32)])
+def test_edge_then_sum_is_k2_then_k1_bit_for_bit(dev, dtype, L, N, K):
+    """K7's edge output is K2's kernel's and its node sum is K1's kernel's
+    run on that edge output, bit for bit (in bf16 all three share the
+    tensor-core slab functions), so the pair-fused denoiser equals the
+    unfused one."""
+    x = _inputs(dev, dtype, 3, L, N, K, seed=9)
+    y = _inputs(dev, dtype, 3, L, N, K, seed=10)
+    args = ([x[k] for k in _EDGE] + [y["A"], y["Gn"]]
+            + [y[k] for k in ("W_e", "W2", "b2", "W3", "b3")] + [x["mask"], 30.0])
+    e2, ns = MK.fused_edge_then_sum(*args)
+    e2_k = MK.fused_message_edge_lnmod(*args[:12])
+    ns_k = MK.fused_message_sum(args[12], e2, args[13], args[3], args[19], *args[14:19],
+                                args[20])
+    torch.cuda.synchronize()
+    assert torch.equal(e2, e2_k)
+    assert torch.equal(ns, ns_k), (ns - ns_k).abs().max().item()
 
 # Stage-1 kernels. K8 is an index read: bit for bit. K9 sums in f32 in
 # another order than index_add_: f32 atol 2e-4 + rtol 2e-4; bf16 within

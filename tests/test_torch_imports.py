@@ -64,6 +64,8 @@ SCRIPT = textwrap.dedent("""
     assert len(fs["fused_s"]) == len(fs["unfused_s"]) == 2 and fs["steps"] == 5
     assert fs["latents_d"] <= chip_smoke.FUSE_TOL * fs["latents_scale"], fs
     assert fs["first_d"] <= chip_smoke.FUSE_TOL * fs["first_scale"], fs
+    assert fs["first_equal"] and fs["latents_equal"], fs
+    assert chip_smoke.trace_sampling(pipe, batch, 0, n=1) == set()  # no device here
     res = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8, codebook_size=64,
                                     respacing="ddim5", compute_dtype=torch.bfloat16,
                                     adaln_mode="residual")
