@@ -13,10 +13,15 @@ Phases, each printing its seconds:
                 the bench shape (B96 L128 K64 H128), bf16 and f32, against
                 their plain PyTorch versions on the same inputs, timed with
                 CUDA events and by CUDA graph replay beside their bound; then
-                the backwards K3 and K4
-                and the dropout kernel K5 (forward and backward), against
-                torch.autograd of the plain versions on the same inputs and
-                cotangent, K5's mask bit for bit against the plain generator;
+                the backwards K3 (bf16 on the tensor cores,
+                message_sum_bwd_mma_kernel; every bf16 weight-grad pass,
+                wgrad_mma_kernel) and K4 and the dropout kernel K5 (forward
+                and backward), against torch.autograd of the plain versions
+                on the same inputs and cotangent, K5's mask bit for bit
+                against the plain generator, K3 twice bit for bit but dGn,
+                each timed a call and by graph replay, K3's weight-grad
+                pass's yardstick beside it (its three X^T Y as torch.mm on
+                operands of the scratch's shapes);
                 the same checks at the L = 48 bucket (B96 L48 K48: a block
                 owns a partial tile of residues); then the Stage-1 kernels
                 at the Stage-1 bench shape (4 synthetic frames of 132
@@ -36,10 +41,11 @@ Phases, each printing its seconds:
                 replay); the K8/K9 backwards (each the other
                 kernel) against autograd of their plain versions;
   3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
-                per-edge messages) at B96 L128 K64 and B96 L48 K48, f32 and
-                bf16, against ref_message_edge, and its backward against
-                autograd of ref_message_edge (float64 for f32), timed beside
-                the bound and the plain version;
+                per-edge messages; bf16 on the tensor cores,
+                message_edge_mma_kernel) at B96 L128 K64 and B96 L48 K48, f32
+                and bf16, against ref_message_edge, and its backward against
+                autograd of ref_message_edge (float64 for f32), timed a call
+                and by graph replay beside the bound and the plain version;
   4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
                 into K1 of the next in one kernel; bf16 on the tensor cores,
                 edge_then_sum_mma_kernel) at the same shapes and dtypes
@@ -82,7 +88,9 @@ Phases, each printing its seconds:
                 launches of every step counted (6 K1, 3 K5, 6 K3, 3 K5
                 backward), median ms/step and peak memory, the last 3
                 steps under torch.profiler (the device's busy share and
-                the kernels by device time); then 2 steps at dropout 0
+                the kernels by device time; K3 must run as
+                message_sum_bwd_mma_kernel and the weight grads as
+                wgrad_mma_kernel); then 2 steps at dropout 0
                 (6 K1, 3 K2, 6 K3, 3 K4 a step);
  11. train entry -- `python -m codlad_tpu_torch.cli.train_latent` (its
                 main) for 5 bf16 steps on a synthetic 96 x 128 feature set;
@@ -94,7 +102,8 @@ Phases, each printing its seconds:
  13. residual_train -- 10 bf16 steps at dropout 0.6 with the adaLN residual
                 denoiser (gates open), launches asserted every step (6 K1,
                 3 K6, 6 K3, 3 K6 backward), median ms/step, peak memory, the
-                last step under torch.profiler; one f32 step at dropout 0
+                last step under torch.profiler (K6 must run as
+                message_edge_mma_kernel, no chain_kernel); one f32 step at dropout 0
                 card against CPU (12.); the trainer's main with
                 --adaln_mode residual for 3 steps;
  14. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
@@ -142,9 +151,10 @@ K8 and K10 both the f32 record of recon and the bf16 one of the Stage-1
 trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
 fused_message_sum_k48, whose launches are the L = 48 draw's; every ms
-one call timed with CUDA events, and the K1, K2 and K8-K11 records'
-device_ms (K8-K11 also library_device_ms) the device's time by graph
-replay). Exits
+one call timed with CUDA events, and the K1-K11 records' device_ms
+(K8-K11 also library_device_ms; K3 wgrad_library_ms and
+wgrad_library_device_ms, the torch.mm yardstick of its weight-grad pass)
+the device's time by graph replay). Exits
 non-zero, printing no result, without a CUDA device or when any phase fails.
 """
 
@@ -724,9 +734,33 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
                                    _DIFF, ct_sum)
         sum_args = args(("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3"))
         dout = ct_sum / 30.0
-        ms, plain_ms = time_calls(lambda: MK.message_sum_bwd(*sum_args, dout), plain_bwd)
+        k3 = lambda: MK.message_sum_bwd(*sum_args, dout)
+        first, again = k3(), k3()
+        torch.cuda.synchronize()
+        moved = [n for n, u, v in zip(("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3"),
+                                      first, again) if n != "dGn" and not torch.equal(u, v)]
+        log(f"  K3 {dname} {dims_tag(dims)}: two calls on the same inputs "
+            f"{'bit for bit equal' if not moved else f'DIFFER in {moved}'} in every output but "
+            f"dGn (f32 atomics)")
+        if moved:
+            raise RuntimeError(f"K3 ({dname}) does not repeat bit for bit: {moved}")
+        del first, again
+        ms, plain_ms = time_calls(k3, plain_bwd)
+        # the yardstick of K3's weight-grad pass alone: its three products
+        # X^T Y as torch.mm (cuBLAS) on operands of the scratch's shapes and
+        # dtype ([B L K, H] twice, [B L, H]), a call and on the device
+        gw = torch.Generator(device=device).manual_seed(seed + 11)
+        mats = [(torch.randn(m, H, generator=gw, device=device).to(dtype),
+                 torch.randn(m, H, generator=gw, device=device).to(dtype))
+                for m in (b * l * k, b * l * k, b * l)]
+        wgrad_lib = lambda: [torch.mm(xm.t(), ym) for xm, ym in mats]
+        (lib_ms,) = time_calls(wgrad_lib)
+        dev_ms, lib_dev_ms = replay_ms(k3, wgrad_lib)
+        del mats
         recs = {"fused_message_sum_bwd": (err, ms, plain_ms,
-                                          *bwd_bytes_flops(es, False, dims))}
+                                          *bwd_bytes_flops(es, False, dims),
+                                          dict(device_ms=dev_ms, wgrad_library_ms=lib_ms,
+                                               wgrad_library_device_ms=lib_dev_ms))}
         del gk, plain_bwd
 
         # K4 through K2's autograd wrapper
@@ -737,10 +771,12 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         _, _, plain_bwd = grads_of(MK.ref_message_edge_lnmod, x, _EDGE_KEYS, edge_diff,
                                    ct_edge)
         bwd_args = args(("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g"))
-        ms, plain_ms = time_calls(lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge),
-                                 plain_bwd)
+        k4 = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge)
+        ms, plain_ms = time_calls(k4, plain_bwd)
+        (dev_ms,) = replay_ms(k4)
         recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms,
-                                                *bwd_bytes_flops(es, True, dims))
+                                                *bwd_bytes_flops(es, True, dims),
+                                                dict(device_ms=dev_ms))
         del gk, plain_bwd
 
         # K5: the seeded forward's mask, its rate, its output and its backward
@@ -759,12 +795,13 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
             raise RuntimeError(f"K5 ({dname}) forward or mask disagrees with its plain version")
         del out, mask, want
         fwd_err = d.max().item()
+        k5 = lambda: MK.fused_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP)
         ms, plain_ms = time_calls(
-            lambda: MK.fused_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP),
-            lambda: MK.plain_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP))
+            k5, lambda: MK.plain_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP))
+        (dev_ms,) = replay_ms(k5)
         k2_bytes, k2_flops = kernel_calls(x)["fused_message_edge_lnmod"][2:]
         recs["fused_message_edge_lnmod_drop"] = (fwd_err, ms, plain_ms, k2_bytes + b * 4,
-                                                 k2_flops)
+                                                 k2_flops, dict(device_ms=dev_ms))
         pd = lambda *a: MK.fused_message_edge_lnmod_pdrop(*a, seeds, P_DROP)
         plain_pd = lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, P_DROP)
         _, gk, _ = grads_of(pd, x, _EDGE_KEYS, edge_diff, ct_edge)
@@ -772,11 +809,12 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         err = compare_grads(f"K5 seeded {dims_tag(dims)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
-        ms, plain_ms = time_calls(
-            lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP),
-            plain_bwd)
+        k5b = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP)
+        ms, plain_ms = time_calls(k5b, plain_bwd)
+        (dev_ms,) = replay_ms(k5b)
         nbytes, flops = bwd_bytes_flops(es, True, dims)
-        recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + b * 4, flops)
+        recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + b * 4, flops,
+                                                     dict(device_ms=dev_ms))
         del gk, plain_bwd
 
         # K5 with the keep operand: forward and grads
@@ -792,16 +830,25 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         del gk, gp, out_k, out_p, keep, want_mask, x, xr
         torch.cuda.empty_cache()
 
-        for name, (err, ms, plain_ms, nbytes, flops) in recs.items():
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel {ms:.4f} ms, "
-                f"plain "
-                f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
-            if dtype == torch.bfloat16:
-                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
+        for name, rec in recs.items():
+            records_bwd(records, name, dname, dims, *rec)
     return records
+
+
+def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra):
+    """Log one kernel's timing line (a call by CUDA events, the device by
+    graph replay, `extra`'s other times) beside its bound; keep the bf16
+    record, with `extra`, in `records`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS[dname] * 1e3
+    more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items() if k != "device_ms")
+    log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; a call (events) kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device (graph replay) kernel "
+        f"{extra['device_ms']:.4f} ms{more}; bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    if dname == "bfloat16":
+        records[name] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
+                             shape=dims_tag(dims), **extra)
 
 
 _MSG_KEYS = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
@@ -840,7 +887,9 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         else:
             (err, ok), limit = bf16_close(got, want, MSG_TOL_BF16), f"{MSG_TOL_BF16:g} max|ref|"
         ms, plain_ms = time_calls(kern, plain)
-        fwd = (err, ms, plain_ms, chain_in + n_edge * H * es, 3 * 2 * n_edge * H * H)
+        (dev_ms,) = replay_ms(kern)
+        fwd = (err, ms, plain_ms, chain_in + n_edge * H * es, 3 * 2 * n_edge * H * H,
+               dict(device_ms=dev_ms))
         log(f"kernel fused_message_edge {dname} {dims_tag(dims)}: max|d|={err:.3g} ({limit}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -858,19 +907,15 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         del gk, gp
         _, _, plain_bwd = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
         bwd_args = [x[n] for n in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
-        ms, plain_ms = time_calls(lambda: MK.message_edge_bwd(*bwd_args, ct), plain_bwd)
-        bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True))
+        k6b = lambda: MK.message_edge_bwd(*bwd_args, ct)
+        ms, plain_ms = time_calls(k6b, plain_bwd)
+        (dev_ms,) = replay_ms(k6b)
+        bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True),
+               dict(device_ms=dev_ms))
         del plain_bwd, x, args, ct
         torch.cuda.empty_cache()
-        for name, (err, ms, plain_ms, nbytes, flops) in (("fused_message_edge", fwd),
-                                                         ("fused_message_edge_bwd", bwd)):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
-            if dtype == torch.bfloat16:
-                records[name] = record(name, dname, err, ms, plain_ms, t_bytes, t_ops)
+        for name, rec in (("fused_message_edge", fwd), ("fused_message_edge_bwd", bwd)):
+            records_bwd(records, name, dname, dims, *rec)
     return records
 
 
@@ -1074,7 +1119,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
                  "edge_then_sum_kernel", "message_sum_mma_kernel",
-                 "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel")
+                 "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
+                 "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
                   "fused_tp_mma_kernel", "fused_tp_bwd_kernel", "fused_tp_bwd_mma_kernel")
 
@@ -1105,7 +1151,7 @@ def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
         spans.append((e.time_range.start, e.time_range.end))
     if not by_name:
         log("  trace: no device events; device time not measured")
-        return
+        return set()
     busy = busy_us(spans) / (wall_ms * 1e3)
     total = sum(us for us, _ in by_name.values())
     chain = sum(us for k, (us, _) in by_name.items() if any(c in k for c in mine))
@@ -1118,13 +1164,16 @@ def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
         if i >= top and not any(c in name for c in mine):
             continue
         log(f"  {us / 1e3 / n_steps:9.3f} ms/{unit} {n // n_steps:5d}x  {name[:100]}")
+    return set(by_name)
 
 
-def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
+def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0, names=None):
     """n_steps training steps with every step's launches counted and held
     to `expect` (zero for any kernel it does not name); the last `traced`
-    of them run under torch.profiler, whose summary is logged. Returns the
-    ms of the untraced steps, the last metrics and the launch totals."""
+    of them run under torch.profiler, whose summary is logged (and the
+    names of the kernels that ran on the device added to the set `names`).
+    Returns the ms of the untraced steps, the last metrics and the launch
+    totals."""
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1155,7 +1204,9 @@ def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0):
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise RuntimeError(f"training step {i}: loss {loss}, grad_norm {gnorm}")
     if traced:
-        trace_summary(prof, sum(times[n_steps - traced:]), traced)
+        ran = trace_summary(prof, sum(times[n_steps - traced:]), traced)
+        if names is not None:
+            names |= ran
     moved = lambda a, b: any(not torch.equal(a[k], b[k]) for k in a)
     if not (moved(state.params, p0) and moved(state.ema_params, e0)):
         raise RuntimeError("the params or the EMA did not move")
@@ -2109,9 +2160,16 @@ def main(argv=None):
     model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16)
     per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP)
     torch.cuda.reset_peak_memory_stats()
+    ran = set()
     times, metrics, totals = run_train(state, step, x1, extras, args.seed, TRAIN_STEPS,
-                                       per_step, traced=TRACED_STEPS)
+                                       per_step, traced=TRACED_STEPS, names=ran)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # bf16 K3 and every weight-grad pass run on the tensor cores
+    if not all(any(k in n for n in ran) for k in ("message_sum_bwd_mma_kernel",
+                                                  "wgrad_mma_kernel")) or any(
+            "wgrad_kernel<" in n for n in ran):
+        raise RuntimeError("the traced training steps did not run K3 and the weight grads "
+                           f"on their tensor-core kernels: {sorted(ran)}")
     for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
                  "fused_message_edge_lnmod_drop_bwd"):  # K1's count is the sampling path's
         records[name]["launches"] = totals[name]
@@ -2119,7 +2177,8 @@ def main(argv=None):
         f"H{H} bf16 dropout {P_DROP}: median of the {len(times)} untraced "
         f"{statistics.median(times):.2f} ms/step "
         f"(first {times[0]:.1f} ms), {1e3 / statistics.median(times):.2f} steps/s, peak "
-        f"memory {peak:.2f} GiB; launches a step {per_step}; last loss "
+        f"memory {peak:.2f} GiB; launches a step {per_step}; K3 ran as "
+        f"message_sum_bwd_mma_kernel, the weight grads as wgrad_mma_kernel; last loss "
         f"{float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step
 
@@ -2151,16 +2210,22 @@ def main(argv=None):
     per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP,
                               "residual")
     torch.cuda.reset_peak_memory_stats()
+    ran = set()
     times, metrics, totals = run_train(state, step, x1, extras, args.seed, RESID_TRAIN_STEPS,
-                                       per_step, traced=1)
+                                       per_step, traced=1, names=ran)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # bf16 K6 runs on the tensor cores: no CUDA-core chain kernel in the step
+    if not any("message_edge_mma_kernel" in n for n in ran) or any(
+            "chain_kernel" in n for n in ran):
+        raise RuntimeError("the traced residual training step did not run K6 on its "
+                           f"tensor-core kernel: {sorted(ran)}")
     records["fused_message_edge_bwd"]["launches"] = totals["fused_message_edge_bwd"]
     log(f"  residual train: {RESID_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
         f"{P_DROP}, gates open: median of the {len(times)} untraced "
         f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
         f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
-        f"a step {per_step} (asserted); last loss {float(metrics['loss']):.5g}, grad_norm "
-        f"{float(metrics['grad_norm']):.5g}")
+        f"a step {per_step} (asserted); K6 ran as message_edge_mma_kernel, no chain_kernel; "
+        f"last loss {float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step, x1, extras
     train_reference(args.seed, device, dropout=0.0, adaln_mode="residual")
     rows = run_train_cli(args.seed, device, steps=3, adaln_mode="residual")

@@ -79,9 +79,10 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
 // acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
 // stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It now
 // serves the f32 kernels and the bf16 kernels not yet redesigned (K5's
-// forward, K6 and the backwards); the bf16 K1, K2 and K7 run their products
-// on the tensor cores (message_chain.cu `message_sum_mma_kernel`,
-// `message_edge_lnmod_mma_kernel`, `edge_then_sum_mma_kernel`).
+// forward and the main passes of K4's, K5's and K6's backwards); the bf16
+// K1, K2, K6, K7 and K3 run their products on the tensor cores
+// (chain_mma.cuh's slab functions in message_chain.cu and
+// message_chain_bwd.cu).
 template <typename T, int TM, int XS>
 __device__ __forceinline__ void tile_gemm(const T* sX, const T* sW, int r0, int c0,
                                           float (&acc)[TM][TN]) {

@@ -46,10 +46,11 @@
 // K7); the bytes moved (the E tile read once, plus the edge output's write) put
 // the floor at 0.07-0.13 ms. The CUDA-core design above (`chain_kernel`,
 // `edge_then_sum_kernel`) is bound by the f32 FMA rate, not by memory: it now
-// serves f32 K1-K7 and bf16 K5's forward and K6.
+// serves f32 K1-K7 and bf16 K5's forward.
 //
-// In bf16, K1 (`message_sum_mma_kernel`), K2 (`message_edge_lnmod_mma_kernel`)
-// and K7 (`edge_then_sum_mma_kernel`) run on the tensor cores, on the TPU
+// In bf16, K1 (`message_sum_mma_kernel`), K2 (`message_edge_lnmod_mma_kernel`),
+// K6 (`message_edge_mma_kernel`) and K7 (`edge_then_sum_mma_kernel`) run on
+// the tensor cores (the slab functions of chain_mma.cuh), on the TPU
 // kernel's own rounding points: a block of 8 warps owns 128 edge rows (whole
 // residues, K a multiple of 16), a warp a 16-row slab of one residue x all
 // 128 columns (16 n8 accumulator tiles, 64 registers).
@@ -79,6 +80,9 @@
 //      a quad (two shuffles a pass); E for the residual comes from the
 //      block's tile; the bf16 rows are staged in the warp's own tile rows
 //      and leave in 16-byte stores.
+//   K6: K2's chain (`edge_chain`, the same function) with another epilogue
+//      (`raw_out`): msg + b3 cast to bf16, staged and stored as K2's rows,
+//      no residual and no LayerNorm; b2 and b3 the only vectors.
 //   K7: K2's functions with the edge weights, e2 kept in the warp's own
 //      slab rows, then K1's functions with the node weights on those rows:
 //      the same instructions as K2's kernel followed by K1's, so the same
@@ -91,6 +95,7 @@
 // the times.
 
 #include "chain_common.cuh"
+#include "chain_mma.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -522,212 +527,15 @@ int launch_edge_then_sum(const void* Ae, const void* E, const void* Ge, const vo
 // bf16 on the tensor cores: K1 (`message_sum_mma_kernel`), K2
 // (`message_edge_lnmod_mma_kernel`) and K7 (`edge_then_sum_mma_kernel`),
 // built from the slab functions below. K7 runs K2's functions and then K1's,
-// so its outputs are K2's kernel followed by K1's kernel, bit for bit.
+// so its outputs are K2's kernel followed by K1's kernel, bit for bit; K6
+// (`message_edge_mma_kernel`) runs K2's chain with its own epilogue.
 
-using bf16 = __nv_bfloat16;
-using mma::cp_async16;
-using mma::cp_async4;
-using mma::ldmatrix_x4;
-using mma::ldmatrix_x4_trans;
-using mma::mma_bf16;
-using mma::pack_bf16;
-using mma::round_bf16;
-using mma::smem_addr;
+using namespace chain_mma;
 
-constexpr int MW = 8;             // warps a block
-constexpr int MNT = 32 * MW;
-constexpr int MROWS = 16 * MW;    // edge rows a block, 16 a warp (the mma's m)
-constexpr int MRS = 2 * H + 16;   // bytes a row of the E tile and of the weights
-constexpr int WBYTES = H * MRS;   // one staged weight
-constexpr int TBYTES = MROWS * MRS;
 constexpr int MSMEM = 2 * WBYTES + TBYTES + H * 4;          // K1: W_e, W2, E; b2
 constexpr int ESMEM = 2 * WBYTES + TBYTES + 5 * H * 4;      // K2: W3 restaged; b2 b3 sh sc g
+constexpr int RSMEM = 2 * WBYTES + TBYTES + 2 * H * 4;      // K6: W3 restaged; b2 b3
 constexpr int PSMEM = 2 * WBYTES + TBYTES + 6 * H * 4;      // K7; and the node b2
-
-// The first product's column n is hidden unit unit(n): lane t4's columns
-// 8 nt + 2 t4 + e (n tile nt < 16, e < 2) are units 32 t4 + 2 nt + e, so a
-// lane's part of a row of A, Gn and of pre is 32 consecutive units.
-__device__ __forceinline__ int unit(int n) { return 32 * ((n >> 1) & 3) + 2 * (n >> 3) + (n & 1); }
-
-// tanh gelu as x sigmoid(2u) = x / (1 + exp(-2u)), u = sqrt(2/pi) (x + 0.044715 x^3):
-// two MUFU operations (ex2, rcp), relative error ~1e-6, against tanhf's ~20
-// instructions (tanh.approx.f32, one MUFU but ~5e-4 relative error, is not used)
-__device__ __forceinline__ float gelu_exp(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return __fdividef(x, 1.0f + __expf(-2.0f * u));
-}
-
-// sum v over the 8 lanes of one t4 (lane bits 2, 3, 4 = b0, b1, b2) in
-// three butterfly steps, each exchanging half of what is left: v[i], i <
-// N2 / 8, ends as the sum of the original v[i + (N2 / 8) (4 b0 + 2 b1 + b2)]
-template <int N2>
-__device__ __forceinline__ void reduce_rows(float (&v)[N2], int lane) {
-  constexpr int HALF = N2 / 2;
-#pragma unroll
-  for (int st = 0; st < 3; ++st) {
-    const int half = HALF >> st;
-    const bool hi = (lane >> (2 + st)) & 1;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      if (i < half) {
-        const float send = hi ? v[i] : v[half + i];
-        const float keep = hi ? v[half + i] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << st);
-      }
-    }
-  }
-}
-
-// A block's tile: TL = MROWS / K whole residues of sample b from residue l0
-// (K a multiple of 16; the rows past the last whole residue idle), nrows of
-// them in the input; this warp's 16-row slab r0 .. r0 + 15 of one residue,
-// `active` where it holds edge rows (nrows is a multiple of 16).
-struct Slab {
-  int b, l0, TL, nrows, r0, lane;
-  size_t row0;  // first edge row of the tile in [B * L * K]
-  bool active;
-};
-
-__device__ __forceinline__ Slab make_slab(int L, int K) {
-  Slab s;
-  s.TL = MROWS / K;
-  s.b = blockIdx.y;
-  s.l0 = blockIdx.x * s.TL;
-  s.nrows = min(s.TL, L - s.l0) * K;
-  s.row0 = ((size_t)s.b * L + s.l0) * K;
-  s.lane = threadIdx.x & 31;
-  s.r0 = 16 * (threadIdx.x >> 5);
-  s.active = s.r0 < s.nrows;
-  return s;
-}
-
-// Staging (every thread of the block; cp.async, committed by the caller).
-// W_e with its columns in unit order, by column pairs (4-byte copies)
-__device__ __forceinline__ void stage_we(unsigned char* dst, const bf16* __restrict__ We) {
-  for (int i = threadIdx.x; i < H * H / 2; i += MNT) {
-    const int k = i / (H / 2), n = 2 * (i - k * (H / 2));
-    cp_async4(dst + k * MRS + 2 * n, We + k * H + unit(n));
-  }
-}
-
-// W by rows, 16-byte copies: in unit order (W2, whose rows are the first
-// product's columns) or as it is (W3, whose rows are W2's columns)
-template <bool UNIT_ROWS>
-__device__ __forceinline__ void stage_rows(unsigned char* dst, const bf16* __restrict__ W) {
-  for (int i = threadIdx.x; i < H * H / 8; i += MNT) {
-    const int n = i / (H / 8), c = i - n * (H / 8);
-    cp_async16(dst + n * MRS + 16 * c, W + (UNIT_ROWS ? unit(n) : n) * H + 8 * c);
-  }
-}
-
-// the tile's E rows, zeros past nrows
-__device__ __forceinline__ void stage_edges(unsigned char* sE, const bf16* __restrict__ E,
-                                            const Slab& s) {
-  for (int i = threadIdx.x; i < MROWS * H / 8; i += MNT) {
-    const int r = i / (H / 8), c = i - r * (H / 8);
-    unsigned char* d = sE + r * MRS + 16 * c;
-    if (r < s.nrows) cp_async16(d, E + (s.row0 + r) * H + 8 * c);
-    else *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
-  }
-}
-
-// dst[0:H] = src[0:H] (plain loads; visible after the next barrier)
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src) {
-  for (int i = threadIdx.x; i < H; i += MNT) dst[i] = src[i];
-}
-
-// pre starts as A[l] + Gn[idx] (index clamped into Gn) of rows r0 + g and
-// r0 + g + 8, units 32 t4 .. 32 t4 + 31, in 16-byte loads
-__device__ __forceinline__ void preset_pre(float (&acc)[16][4], const bf16* __restrict__ A,
-                                           const bf16* __restrict__ Gn,
-                                           const int* __restrict__ idx, int L, int K, int N,
-                                           const Slab& s) {
-  const int g = s.lane >> 2, t4 = s.lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = s.r0 + g + 8 * h;
-    if (s.active && r < s.nrows) {
-      const int l = s.l0 + r / K;
-      const int j = min(max(idx[s.row0 + r], 0), N - 1);
-      const uint4* ap = reinterpret_cast<const uint4*>(A + ((size_t)s.b * L + l) * H + 32 * t4);
-      const uint4* gp = reinterpret_cast<const uint4*>(Gn + ((size_t)s.b * N + j) * H + 32 * t4);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const uint4 au = __ldg(ap + v), gu = __ldg(gp + v);
-        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&au);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gu);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float2 fa = __bfloat1622float2(a2[m]), fg = __bfloat1622float2(g2[m]);
-          acc[4 * v + m][2 * h] = fa.x + fg.x;
-          acc[4 * v + m][2 * h + 1] = fa.y + fg.y;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) acc[nt][2 * h] = acc[nt][2 * h + 1] = 0.0f;
-    }
-  }
-}
-
-// lanes 8i .. 8i + 7 address matrix i of an ldmatrix.x4: for a weight, k
-// rows 8 (i & 1) + 0..7 of a k16 step at n tile 2 np + (i >> 1)
-__device__ __forceinline__ unsigned weight_addr(const unsigned char* sW, int lane) {
-  const int mi = lane >> 3;
-  return smem_addr(sW) + (8 * (mi & 1) + (lane & 7)) * MRS + (mi >> 1) * 16;
-}
-
-// c[2 np + j] += a (k16 step kk of the slab's rows) times the weight's k
-// rows 16 kk .. 16 kk + 15 at n tile 2 (np0 + np) + j, np < NP, j < 2
-template <int NP>
-__device__ __forceinline__ void mma_step(float (&c)[2 * NP][4], const unsigned (&a)[4],
-                                         unsigned w_addr, int kk, int np0) {
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    unsigned bb[4];
-    ldmatrix_x4_trans(bb, w_addr + 16 * kk * MRS + 32 * (np0 + np));
-    mma_bf16(c[2 * np], a, bb[0], bb[1]);
-    mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
-  }
-}
-
-// product 1: acc += E W_e of the slab's rows of sE (A fragments by
-// ldmatrix), W_e staged by stage_we in sWe
-__device__ __forceinline__ void mma_edge_we(float (&acc)[16][4], const unsigned char* sE,
-                                            const unsigned char* sWe, const Slab& s) {
-  const unsigned e_addr = smem_addr(sE) + (s.r0 + (s.lane & 15)) * MRS + (s.lane >> 4) * 16;
-  const unsigned we_addr = weight_addr(sWe, s.lane);
-#pragma unroll
-  for (int kk = 0; kk < H / 16; ++kk) {
-    unsigned a[4];
-    ldmatrix_x4(a, e_addr + 32 * kk);
-    mma_step<8>(acc, a, we_addr, kk, 0);
-  }
-}
-
-// y = cast(gelu(pre)) stays in registers: n tiles 2 kk and 2 kk + 1 of an
-// accumulator are the A fragment of k16 step kk of the next product
-__device__ __forceinline__ void gelu_pack(unsigned (&y)[16][2], const float (&acc)[16][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    y[nt][0] = pack_bf16(gelu_exp(acc[nt][0]), gelu_exp(acc[nt][1]));
-    y[nt][1] = pack_bf16(gelu_exp(acc[nt][2]), gelu_exp(acc[nt][3]));
-  }
-}
-
-// product 2, half hf: c2 = y W2 at columns 64 hf .. 64 hf + 63 (n tiles
-// 8 hf .. 8 hf + 7), W2 staged by stage_rows<true> in sW2
-__device__ __forceinline__ void mma_w2_half(float (&c2)[8][4], const unsigned (&y)[16][2],
-                                            const unsigned char* sW2, int hf, int lane) {
-  const unsigned w2_addr = weight_addr(sW2, lane);
-#pragma unroll
-  for (int o = 0; o < 8; ++o) c2[o][0] = c2[o][1] = c2[o][2] = c2[o][3] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < H / 16; ++kk) {
-    const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
-    mma_step<4>(c2, a, w2_addr, kk, 4 * hf);
-  }
-}
 
 // K1: h2 = gelu(x2 + b2) of half hf times the rows' masks (m0: row g, m8:
 // row g + 8), summed over the slab's 16 rows, into red[64 hf .. 64 hf + 63]
@@ -908,28 +716,44 @@ __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], unsigned char* sE
     }
   }
   __syncwarp();
-  bf16* dst = out + (s.row0 + s.r0) * H;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {  // 16 rows x 16 chunks of 16 bytes
-    const int i = s.lane + 32 * j, r = i >> 4, c = i & 15;
-    *reinterpret_cast<uint4*>(dst + r * H + 8 * c) =
-        *reinterpret_cast<const uint4*>(rows + r * MRS + 16 * c);
-  }
+  write_slab(rows, out + (s.row0 + s.r0) * H, s.lane);
 }
 
-// K2's chain from the preset accumulators: products 1 and 2, h2 in
-// registers, product 3 and the LayerNorm epilogue into the slab's rows of sE
-// and `out`. W_e sits in sW0 and W2 in sW2; W3 is copied into sW0 once every
-// warp is done with product 1, overlapping product 2. `w2_free()` runs in
-// every thread once W3 is in place and no warp reads sW2 any more (K7
-// restages there).
-template <typename F>
-__device__ __forceinline__ void edge_lnmod_chain(float (&acc)[16][4], unsigned char* sW0,
-                                                 const unsigned char* sW2,
-                                                 const bf16* __restrict__ W3,
-                                                 unsigned char* sE, const float* vec,
-                                                 bf16* __restrict__ out, const Slab& s,
-                                                 F&& w2_free) {
+// K6's epilogue: out = cast(acc + b3), staged as bf16 in the slab's own rows
+// of sE (no longer read: product 1 was this warp's last use of its E rows)
+// and written in 16-byte stores; lnmod_out without the residual and the
+// LayerNorm.
+__device__ __forceinline__ void raw_out(const float (&acc)[16][4], unsigned char* sE,
+                                        const float* sb3, bf16* __restrict__ out,
+                                        const Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+  unsigned char* rows = sE + s.r0 * MRS;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int c = 8 * nt + 2 * t4;
+    const float2 bias = *reinterpret_cast<const float2*>(sb3 + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * c) =
+          pack_bf16(acc[nt][2 * h] + bias.x, acc[nt][2 * h + 1] + bias.y);
+  }
+  __syncwarp();
+  write_slab(rows, out + (s.row0 + s.r0) * H, s.lane);
+}
+
+// The per-edge chain (K2, K6, K7's edge half) from the preset accumulators:
+// products 1 and 2, h2 in registers, product 3 into acc, then `epilogue(acc)`
+// in the warps that hold edge rows (K2 and K7: lnmod_out; K6: raw_out). W_e
+// sits in sW0 and W2 in sW2; W3 is copied into sW0 once every warp is done
+// with product 1, overlapping product 2. `w2_free()` runs in every thread
+// once W3 is in place and no warp reads sW2 any more (K7 restages there).
+// sb2 holds b2.
+template <typename F, typename G>
+__device__ __forceinline__ void edge_chain(float (&acc)[16][4], unsigned char* sW0,
+                                           const unsigned char* sW2,
+                                           const bf16* __restrict__ W3, unsigned char* sE,
+                                           const float* sb2, const Slab& s, F&& w2_free,
+                                           G&& epilogue) {
   unsigned y[16][2];
   if (s.active) {
     mma_edge_we(acc, sE, sW0, s);
@@ -944,7 +768,7 @@ __device__ __forceinline__ void edge_lnmod_chain(float (&acc)[16][4], unsigned c
     for (int hf = 0; hf < 2; ++hf) {
       float c2[8][4];
       mma_w2_half(c2, y, sW2, hf, s.lane);
-      h2_pack(h2, c2, vec, hf, s.lane);
+      h2_pack(h2, c2, sb2, hf, s.lane);
     }
   }
   mma::cp_async_wait<0>();
@@ -952,7 +776,7 @@ __device__ __forceinline__ void edge_lnmod_chain(float (&acc)[16][4], unsigned c
   w2_free();
   if (s.active) {
     mma_w3(acc, h2, sW0, s.lane);
-    lnmod_out(acc, sE, vec, out, s);
+    epilogue(acc);
   }
 }
 
@@ -1013,7 +837,37 @@ message_edge_lnmod_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict
   preset_pre(acc, A, Gn, idx, L, K, N, s);
   mma::cp_async_wait<0>();
   __syncthreads();
-  edge_lnmod_chain(acc, sW0, sW2, W3, sE, vec, out, s, [] {});
+  edge_chain(acc, sW0, sW2, W3, sE, vec, s, [] {},
+             [&](float (&a)[16][4]) { lnmod_out(a, sE, vec, out, s); });
+}
+
+// K6 for bf16 E: K2's kernel with raw_out for its epilogue (RSMEM: b2 and b3
+// only; two blocks an SM).
+__global__ void __launch_bounds__(MNT, 2)
+message_edge_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
+                        const bf16* __restrict__ Gn, const int* __restrict__ idx,
+                        const bf16* __restrict__ We, const bf16* __restrict__ W2,
+                        const float* __restrict__ b2, const bf16* __restrict__ W3,
+                        const float* __restrict__ b3, bf16* __restrict__ out, int L, int K,
+                        int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sW0 = smem;             // W_e, then W3
+  unsigned char* sW2 = sW0 + WBYTES;
+  unsigned char* sE = sW2 + WBYTES;
+  float* vec = reinterpret_cast<float*>(sE + TBYTES);  // b2, b3
+  const Slab s = make_slab(L, K);
+  stage_we(sW0, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  load_vec(vec, b2);
+  load_vec(vec + H, b3);
+  mma::cp_async_commit();
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  edge_chain(acc, sW0, sW2, W3, sE, vec, s, [] {},
+             [&](float (&a)[16][4]) { raw_out(a, sE, vec + H, out, s); });
 }
 
 // K7 for bf16 E: K2's chain with the edge weights, then K1's with the node
@@ -1054,10 +908,12 @@ edge_then_sum_mma_kernel(const bf16* __restrict__ Ae, const bf16* __restrict__ E
   preset_pre(acc, Ae, Ge, idx, L, K, N, s);
   mma::cp_async_wait<0>();
   __syncthreads();
-  edge_lnmod_chain(acc, b0, b1, W3e, sE, vec, e_out, s, [b1, Wen] {
-    stage_we(b1, Wen);
-    mma::cp_async_commit();
-  });
+  edge_chain(acc, b0, b1, W3e, sE, vec, s,
+             [b1, Wen] {
+               stage_we(b1, Wen);
+               mma::cp_async_commit();
+             },
+             [&](float (&a)[16][4]) { lnmod_out(a, sE, vec, e_out, s); });
   __syncthreads();  // every warp is done with W3
   stage_rows<true>(b0, W2n);
   mma::cp_async_commit();
@@ -1113,6 +969,21 @@ int launch_edge_lnmod_mma(const void* A, const void* E, const void* Gn, const vo
       static_cast<const bf16*>(W3), static_cast<const float*>(b3),
       static_cast<const float*>(sh), static_cast<const float*>(sc),
       static_cast<const float*>(gate), static_cast<bf16*>(out), L, K, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_edge_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                    const void* We, const void* W2, const void* b2, const void* W3,
+                    const void* b3, void* out, int B, int L, int K, int N, void* stream) {
+  if (bad_mma_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(message_edge_mma_kernel, RSMEM);
+  if (err != cudaSuccess) return (int)err;
+  message_edge_mma_kernel<<<mma_grid(B, L, K), MNT, RSMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const bf16*>(We),
+      static_cast<const bf16*>(W2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(W3), static_cast<const float*>(b3), static_cast<bf16*>(out),
+      L, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -1207,18 +1078,20 @@ EDGE_DROP(f32, float)
 EDGE_DROP(bf16, __nv_bfloat16)
 
 // K6: the raw per-edge messages cast(h2) W3 + b3, [B, L, K, H] in E's dtype.
-#define MESSAGE_EDGE(SUFFIX, TYPE)                                                      \
-  int message_edge_##SUFFIX(const void* A, const void* E, const void* Gn,               \
-                            const void* idx, const void* We, const void* W2,            \
-                            const void* b2, const void* W3, const void* b3, void* out,  \
-                            int B, int L, int K, int N, void* stream) {                 \
-    return launch<TYPE, true, 0, true>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3,      \
-                                       nullptr, nullptr, nullptr, nullptr, nullptr, 0u, \
-                                       1.0f, nullptr, out, B, L, K, N, 1.0f, stream);   \
-  }
+int message_edge_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                     const void* We, const void* W2, const void* b2, const void* W3,
+                     const void* b3, void* out, int B, int L, int K, int N, void* stream) {
+  return launch<float, true, 0, true>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, 0u, 1.0f, nullptr,
+                                      out, B, L, K, N, 1.0f, stream);
+}
 
-MESSAGE_EDGE(f32, float)
-MESSAGE_EDGE(bf16, __nv_bfloat16)
+// bf16 on the tensor cores: K a multiple of 16, at most 128
+int message_edge_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                      const void* We, const void* W2, const void* b2, const void* W3,
+                      const void* b3, void* out, int B, int L, int K, int N, void* stream) {
+  return launch_edge_mma(A, E, Gn, idx, We, W2, b2, W3, b3, out, B, L, K, N, stream);
+}
 
 // K7: e_out [B, L, K, H] (E's dtype) = K2 of (Ae, E, Ge, the edge weights, sh, sc,
 // gmod); n_out f32 [B, L, H] = K1 of (An, e_out, Gnn, the node weights, mask,

@@ -29,8 +29,9 @@
 //
 // Design. The TPU grid runs in order and carries the weight grads and dGn in
 // VMEM from one grid step to the next; Hopper blocks run in parallel. So:
-//  * chain_bwd_kernel: one block of 256 threads per 64-row tile
-//    (floor(64/K) whole residues; at K = 48 the last 16 rows stay idle). It recomputes the activations from the inputs (nothing
+//  * chain_bwd_kernel (f32 K3-K6; bf16 K4-K6): one block of 256 threads per
+//    64-row tile (floor(64/K) whole residues; at K = 48 the last 16 rows stay
+//    idle). It recomputes the activations from the inputs (nothing
 //    [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as their gelu
 //    derivatives in registers, and does every row-wise product on CUDA cores
 //    through one shared [H, H] weight buffer that is restaged for each product
@@ -39,18 +40,56 @@
 //    run-to-run differences: the order of f32 additions), and writes per-tile
 //    column sums (db2, db3, dsh, dsc, dgate) and the product operands of the
 //    weight grads (h1, cast(dx2), cast(dpre), cast(h2) or s, cast(dmsg) or
-//    cast(dout)) in the edge dtype to scratch.
-//  * wgrad_kernel: dW = X^T Y for the three operand pairs, each block summing
-//    one chunk of rows into an [H, H] partial in registers (8 x 8 a thread).
+//    cast(dout)) in the edge dtype to scratch, in natural column order.
+//  * message_sum_bwd_mma_kernel (bf16 K3) on the tensor cores: K1's block
+//    (8 warps, 128 edge rows of whole residues, K a multiple of 16) and
+//    slabs (a warp 16 rows of one residue), with K1's slab functions
+//    (chain_mma.cuh), so pre and x2 are recomputed as the forward computes them:
+//      0. cast(dout) of the block's residues (-> s_dout), db3's tile part,
+//         and ds = cast(dout) W3^T per residue on CUDA cores (W3's rows read
+//         as 8-byte loads, a butterfly over the warp) while the tile arrives;
+//      A. pre = A + Gn + E W_e; from one exp and one rcp an element, y =
+//         cast(gelu(pre)) (gelu_exp's expression; -> s_h1)
+//         and gelu'(pre) in f32, parked in f32 scratch (s_dg1, in fragment
+//         order: 512 contiguous bytes a tile and warp) until phase C;
+//      B. x2 = y W2 in halves; from one exp each: h2 = gelu(x2 + b2) for
+//         s's masked row sums (butterflies, then the residue's slabs in slab
+//         order, cast -> s_s) and dx2 = (ds mask) gelu'(x2) (f32), its
+//         slab column sums (db2), cast into the warp's own tile rows (E is
+//         read no more) and from there to s_dx2 in 16-byte stores;
+//      C. by quarters of pre's columns: dh1 = cast(dx2) W2^T (A fragments
+//         by ldmatrix from those rows), dpre = dh1 gelu'(pre) in f32 (gelu'
+//         back from s_dg1, the next quarter's loads in flight): its slab row
+//         sums (dA), cast -> float4 atomicAdd into dGn, -> s_dpre, packed as
+//         the A fragments of dE = cast(dpre) W_e^T, cast and stored from
+//         the warp's own tile rows.
+//    ldmatrix without .trans reads W2^T and W_e^T from W2's and W_e's own
+//    staging, whose unit order (message_chain.cu) then gives dh1 pre's
+//    column order and dE the natural one: no weight is restaged or
+//    transposed. gelu' is f32 throughout, as JAX keeps dg1 and dg2. Parking
+//    gelu'(pre) (instead of holding it, or recomputing pre, beside dh1 and
+//    cast(dpre)) keeps the kernel within 128 registers without spills (two
+//    blocks an SM): spilled registers go to local memory, which the L1 left
+//    beside two blocks' shared memory cannot hold.
+//  * wgrad_kernel (f32) / wgrad_mma_kernel (bf16, every backward): dW = X^T Y
+//    for the three operand pairs, each block summing one chunk of rows into
+//    an [H, H] partial (f32: 8 x 8 a thread on CUDA cores, Kahan-compensated;
+//    bf16: mma.m16n8k16 with ldmatrix.trans for X^T, a warp 32 x 64).
 //  * sum_partials: a second pass that adds the partials in a fixed order
 //    (compensated), so the weight and per-sample grads are deterministic.
 //
 // Bound on an H100 at the training shape (B96 L128 K64 H128, bf16): K3 does
 // about 6 B*L*K x H x H products (2 recomputed, dh1, dE, dW2, dW_e), K4 about 9,
 // 25.8 GFLOP each; the bytes (E and dout read, dE written) put the floor at
-// ~0.1-0.2 ms. On CUDA cores in f32 the kernels are bound by the FMA rate.
+// ~0.1-0.2 ms. On CUDA cores in f32 the kernels are bound by the FMA rate. The
+// bf16 K3's scratch (three [B*L*K, H] bf16 arrays written, then read by the
+// weight-grad pass with E; gelu'(pre) in f32 written and read back) moves ~2.2
+// GB, ~0.65 ms at 3.35 TB/s; its four per-edge products and gelu' are about
+// twice K1's work, and it runs at about K1's rate (PERF.md).
 
 #include "chain_common.cuh"
+#include "chain_mma.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -575,6 +614,513 @@ int reduce(const float* part, float* out, int G, int T, int C, cudaStream_t stre
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: K3's main pass (`message_sum_bwd_mma_kernel`) and
+// the weight-grad pass of every bf16 backward (`wgrad_mma_kernel`; K3, K4, K5's
+// and K6's), mma.m16n8k16 with bf16 operands and f32 sums.
+
+using namespace chain_mma;
+
+// K3: W_e, W2 and the E tile as K1 stages them, then f32 b2 [H], sdo [8][H]
+// (the residues' cast(dout), then s's slab parts, then dA's), sds [8][H] (ds,
+// then db2's slab parts) and the mask counts [8]: two blocks an SM
+constexpr int S3SMEM = 2 * WBYTES + TBYTES + (H + 8 * H + 8 * H + 8) * 4;
+
+// gelu_exp's sigmoid sg = 1 / (1 + exp(-2u)) (gelu = x sg): one ex2 and one
+// rcp, as gelu_exp
+__device__ __forceinline__ float sigmoid_2u(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return __fdividef(1.0f, 1.0f + __expf(-2.0f * u));
+}
+
+// d gelu / dx from sg: JAX's _gelu_and_grad with tanh u = 2 sg - 1,
+// 0.5 (1 + t) + 0.5 x (1 - t^2) u' = sg + 2 x sg (1 - sg) u', in f32
+__device__ __forceinline__ float gelu_grad_of(float x, float sg) {
+  return sg + 2.0f * x * sg * (1.0f - sg) *
+                  (0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x));
+}
+
+// the lane's column of a slab sum after reduce_rows<8> over four n tiles:
+// original index 4 b0 + 2 b1 + b2 (lane bits 2, 3, 4) = 2 o + e, o < 4, e < 2
+__device__ __forceinline__ int reduced_index(int lane) {
+  const int g = lane >> 2;
+  return 4 * (g & 1) + 2 * ((g >> 1) & 1) + (g >> 2);
+}
+
+// rows g and g + 8 of the slab from v, whose registers v[nt][h] hold units
+// 32 t4 + 2 nt, + 1 of row g + 8 h (pre's unit order: 32 consecutive units a
+// lane), to dst in natural column order, 16-byte stores
+__device__ __forceinline__ void store_units(bf16* __restrict__ dst, const unsigned (&v)[16][2],
+                                            const Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint4* p = reinterpret_cast<uint4*>(dst + (s.row0 + s.r0 + g + 8 * h) * H + 32 * t4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      p[q] = make_uint4(v[4 * q][h], v[4 * q + 1][h], v[4 * q + 2][h], v[4 * q + 3][h]);
+  }
+}
+
+// K3 on half hf of x2's columns (n tiles 8 hf .. 8 hf + 7, natural order),
+// from c2 = y W2 of that half, in two groups of four n tiles: h2 = gelu(x2 +
+// b2) times the rows' masks (m0: row g, m8: row g + 8) summed over the slab
+// into red (K1's masked row sums); dx2 = (ds mask) gelu'(x2), cast to bf16
+// into the slab's 16 tile rows (`rows`, MRS bytes a row); dx2 summed over
+// the slab into dbk[2 hf + q] (db2's slab part of the lane's reduced
+// column). ds is the residue's row [H].
+__device__ __forceinline__ void sum_bwd_half(const float (&c2)[8][4], const float* sb2,
+                                             const float* ds, float m0, float m8, int hf,
+                                             float* red, float (&dbk)[4], unsigned char* rows,
+                                             int lane) {
+  const int g = lane >> 2, t4 = lane & 3, ri = reduced_index(lane);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    float sp[8], dp[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 8 * hf + 4 * q + o, c = 8 * nt + 2 * t4;
+      const float2 bias = *reinterpret_cast<const float2*>(sb2 + c);
+      const float2 dsv = *reinterpret_cast<const float2*>(ds + c);
+      float dx[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = e ? bias.y : bias.x, d = e ? dsv.y : dsv.x;
+        const float x0 = c2[4 * q + o][e] + b, x8 = c2[4 * q + o][2 + e] + b;
+        const float s0 = sigmoid_2u(x0), s8 = sigmoid_2u(x8);
+        sp[2 * o + e] = m0 * (x0 * s0) + m8 * (x8 * s8);
+        dx[0][e] = (d * m0) * gelu_grad_of(x0, s0);
+        dx[1][e] = (d * m8) * gelu_grad_of(x8, s8);
+        dp[2 * o + e] = dx[0][e] + dx[1][e];
+      }
+      *reinterpret_cast<unsigned*>(rows + g * MRS + 2 * c) = pack_bf16(dx[0][0], dx[0][1]);
+      *reinterpret_cast<unsigned*>(rows + (g + 8) * MRS + 2 * c) = pack_bf16(dx[1][0], dx[1][1]);
+    }
+    reduce_rows(sp, lane);
+    reduce_rows(dp, lane);
+    red[8 * (8 * hf + 4 * q + (ri >> 1)) + 2 * t4 + (ri & 1)] = sp[0];
+    dbk[2 * hf + q] = dp[0];
+  }
+}
+
+// c = a W^T at n tiles 2 np0 .. 2 (np0 + NP) - 1. W^T's column n is sW's row n, so
+// ldmatrix without .trans reads the B fragments from W's own staging. dh1 =
+// cast(dx2) W2^T from W2's rows in unit order has pre's (unit) column order;
+// dE = cast(dpre) W_e^T from W_e's columns in unit order (the order of dpre,
+// the k index) has natural column order. A tile's sums do not depend on NP.
+// `a(kk, af)` gives k16 step kk's A fragment.
+template <int NP, typename F>
+__device__ __forceinline__ void mma_wt(float (&c)[2 * NP][4], F&& a, const unsigned char* sW,
+                                       int lane, int np0) {
+  const int mi = lane >> 3;
+  const unsigned base = smem_addr(sW) + (8 * (mi >> 1) + (lane & 7)) * MRS + (mi & 1) * 16;
+#pragma unroll
+  for (int nt = 0; nt < 2 * NP; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    unsigned af[4];
+    a(kk, af);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, base + 16 * (np0 + np) * MRS + 32 * kk);
+      mma_bf16(c[2 * np], af, bb[0], bb[1]);
+      mma_bf16(c[2 * np + 1], af, bb[2], bb[3]);
+    }
+  }
+}
+
+// K3 for bf16 E (module note): K1's block and slabs; after product 1 each
+// warp's tile rows hold its cast(dx2), then its dE. W3's rows for ds and the
+// next quarter's gelu' are loaded ahead of the work that waits for them.
+__global__ void __launch_bounds__(MNT, 2)
+message_sum_bwd_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
+                           const bf16* __restrict__ Gn, const int* __restrict__ idx,
+                           const float* __restrict__ mask, const bf16* __restrict__ We,
+                           const bf16* __restrict__ W2, const float* __restrict__ b2,
+                           const bf16* __restrict__ W3, const float* __restrict__ dout,
+                           float* __restrict__ dA, bf16* __restrict__ dE,
+                           float* __restrict__ dGn, bf16* __restrict__ s_h1,
+                           bf16* __restrict__ s_dx2, bf16* __restrict__ s_dpre,
+                           float* __restrict__ s_dg1, bf16* __restrict__ s_s,
+                           bf16* __restrict__ s_dout, float* __restrict__ p_db, int L, int K,
+                           int N, int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sWe = smem;             // [H][MRS] W_e, columns in unit order
+  unsigned char* sW2 = sWe + WBYTES;     // [H][MRS] W2, rows in unit order
+  unsigned char* sE = sW2 + WBYTES;      // [MROWS][MRS] the edge tile
+  float* sb2 = reinterpret_cast<float*>(sE + TBYTES);
+  float* sdo = sb2 + H;
+  float* sds = sdo + 8 * H;
+  float* msum = sds + 8 * H;
+  const Slab s = make_slab(L, K);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = s.lane;
+  const int g = lane >> 2, t4 = lane & 3, ri = reduced_index(lane);
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int spr = K / 16;  // slabs a residue
+  stage_we(sWe, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  mma::cp_async_commit();
+  load_vec(sb2, b2);
+  // W3's rows 16 w .. 16 w + 15 for ds below (warp w), four columns a lane:
+  // all sixteen 8-byte loads in flight through the prologue
+  uint2 wv[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    wv[i] = __ldg(reinterpret_cast<const uint2*>(W3 + (size_t)(16 * warp + i) * H + 4 * lane));
+
+  // ---- the residues' cast(dout) (to s_dout: dW3's Y), mask counts, db3
+  for (int i = tid; i < s.TL * H; i += MNT) {
+    const int ll = i / H;
+    float d = 0.0f;
+    if (s.l0 + ll < L) {
+      const size_t o = ((size_t)s.b * L + s.l0) * H + i;
+      const bf16 v = __float2bfloat16(dout[o]);
+      s_dout[o] = v;
+      d = __bfloat162float(v);
+    }
+    sdo[i] = d;
+  }
+  if (warp < s.TL) {  // residue `warp`'s mask count: a sum of 0/1 values, exact in any order
+    float v = 0.0f;
+    if (s.l0 + warp < L)
+      for (int k = lane; k < K; k += 32) v += mask[s.row0 + (size_t)warp * K + k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) msum[warp] = v;
+  }
+  __syncthreads();
+  if (tid < H) {  // db3's tile part: sum_l (sum_k mask) dout, in f32 as on the TPU
+    float v = 0.0f;
+    for (int ll = 0; ll < s.TL; ++ll)
+      if (s.l0 + ll < L) v += msum[ll] * dout[((size_t)s.b * L + s.l0 + ll) * H + tid];
+    p_db[((size_t)n_tiles + tile) * H + tid] = v;
+  }
+  // ds = cast(dout) W3^T per residue (-> sds), while the tile arrives: warp
+  // w takes the columns c = 16 w .. 16 w + 15, a lane four j of W3's row c,
+  // summed over the warp by a butterfly
+  {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 w01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv[i].x));
+      const float2 w23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv[i].y));
+      for (int ll = 0; ll < s.TL; ++ll) {
+        const float4 d = *reinterpret_cast<const float4*>(sdo + ll * H + 4 * lane);
+        float v = d.x * w01.x;
+        v = fmaf(d.y, w01.y, v);
+        v = fmaf(d.z, w23.x, v);
+        v = fmaf(d.w, w23.y, v);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) sds[ll * H + 16 * warp + i] = v;
+      }
+    }
+  }
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the tile and ds are in place; every warp is done with cast(dout)
+
+  // ---- A: pre = A + Gn + E W_e and y = h1 = cast(gelu(pre)) (-> s_h1);
+  // gelu'(pre) in f32 -> s_dg1, the slab's 2048 values in fragment order (n
+  // tile nt's float4 of lane i at 32 nt + i: 512 contiguous bytes a tile)
+  unsigned y[16][2];
+  unsigned char* rows = sE + s.r0 * MRS;                        // the slab's tile rows
+  float4* dg1 = reinterpret_cast<float4*>(s_dg1 + (s.row0 + s.r0) * H) + lane;
+  if (s.active) {
+    mma_edge_we(acc, sE, sWe, s);
+    // tile by tile, from one exp and one rcp an element: y as gelu_pack packs
+    // it (gelu_exp's expression) and gelu'(pre)
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      float gl[4], dg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = acc[nt][i];
+        const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+        const float den = 1.0f + __expf(-2.0f * u);
+        gl[i] = __fdividef(x, den);
+        dg[i] = gelu_grad_of(x, __fdividef(1.0f, den));
+      }
+      y[nt][0] = pack_bf16(gl[0], gl[1]);
+      y[nt][1] = pack_bf16(gl[2], gl[3]);
+      dg1[32 * nt] = make_float4(dg[0], dg[1], dg[2], dg[3]);
+    }
+    store_units(s_h1, y, s);
+  }
+
+  // ---- B: x2 = y W2 in halves; s's slab parts, cast(dx2) into the slab's tile
+  // rows (E is read no more) and from there to s_dx2, db2's slab parts
+  float dbk[4];
+  if (s.active) {
+    const float m0 = mask[s.row0 + s.r0 + g], m8 = mask[s.row0 + s.r0 + g + 8];
+    const float* ds = sds + (s.r0 / K) * H;
+    __syncwarp();  // every lane's ldmatrix of its E rows is done
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float c2[8][4];
+      mma_w2_half(c2, y, sW2, hf, lane);
+      sum_bwd_half(c2, sb2, ds, m0, m8, hf, sdo + warp * H, dbk, rows, lane);
+    }
+    __syncwarp();
+    write_slab(rows, s_dx2 + (s.row0 + s.r0) * H, lane);
+  }
+  __syncthreads();  // s's slab parts in sdo; every warp is done with ds
+  // s = cast(the residue's slab parts summed in slab order) -> s_s (dW3's X)
+  for (int i = tid; i < s.TL * H; i += MNT) {
+    const int ll = i / H, c = i - ll * H;
+    if (s.l0 + ll >= L) continue;
+    float v = 0.0f;
+    for (int q = 0; q < spr; ++q) v += sdo[(ll * spr + q) * H + c];
+    s_s[((size_t)s.b * L + s.l0) * H + i] = __float2bfloat16(v);
+  }
+  if (s.active) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sds[warp * H + 8 * (4 * j + (ri >> 1)) + 2 * t4 + (ri & 1)] = dbk[j];
+  }
+  __syncthreads();
+  if (tid < H) {  // db2's tile part: the active slabs in order
+    float v = 0.0f;
+    for (int q = 0; q < s.nrows / 16; ++q) v += sds[q * H + tid];
+    p_db[(size_t)tile * H + tid] = v;
+  }
+
+  // ---- C: by quarters of pre's columns, dh1 = cast(dx2) W2^T (cast(dx2)'s A
+  // fragments from the slab's tile rows) and dpre = dh1 gelu'(pre) (gelu'
+  // back from s_dg1, the next quarter's in flight): dA's slab parts, dGn
+  // (float4 atomics), s_dpre; then dE = cast(cast(dpre) W_e^T)
+  if (s.active) {
+    const unsigned x_addr = smem_addr(rows) + (lane & 15) * MRS + (lane >> 4) * 16;
+    float* red_w = sdo + warp * H;
+    float* gd[2];  // dGn's rows j of rows g and g + 8, at unit 32 t4
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      gd[h] = dGn + ((size_t)s.b * N + min(max(idx[s.row0 + s.r0 + g + 8 * h], 0), N - 1)) * H +
+              32 * t4;
+    float4 nxt[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) nxt[o] = dg1[32 * o];
+    unsigned dp[16][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4 cur[4];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        cur[o] = nxt[o];
+        if (q < 3) nxt[o] = dg1[32 * (4 * q + 4 + o)];
+      }
+      float dh[4][4];  // dh1 of n tiles 4 q .. 4 q + 3
+      mma_wt<2>(dh, [&](int kk, unsigned (&af)[4]) { ldmatrix_x4(af, x_addr + 32 * kk); }, sW2,
+                lane, 2 * q);
+      float part[8];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const float dg[4] = {cur[o].x, cur[o].y, cur[o].z, cur[o].w};
+        float d[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[i] = dh[o][i] * dg[i];
+        part[2 * o] = d[0] + d[2];
+        part[2 * o + 1] = d[1] + d[3];
+        dp[4 * q + o][0] = pack_bf16(d[0], d[1]);
+        dp[4 * q + o][1] = pack_bf16(d[2], d[3]);
+      }
+      // cast(dpre) of units 32 t4 + 8 q .. + 7 (n tiles 4 q .. 4 q + 3) of
+      // rows g and g + 8: two float4 atomics a row
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int o = 0; o < 4; o += 2) {
+          const float2 lo = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o][h]));
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o + 1][h]));
+          atomicAdd(reinterpret_cast<float4*>(gd[h] + 8 * q + 2 * o),
+                    make_float4(lo.x, lo.y, hi.x, hi.y));
+        }
+      reduce_rows(part, lane);
+      red_w[32 * t4 + 8 * q + ri] = part[0];
+    }
+    store_units(s_dpre, dp, s);
+    mma_wt<8>(acc, [&](int kk, unsigned (&af)[4]) {
+      af[0] = dp[2 * kk][0];
+      af[1] = dp[2 * kk][1];
+      af[2] = dp[2 * kk + 1][0];
+      af[3] = dp[2 * kk + 1][1];
+    }, sWe, lane, 0);
+    __syncwarp();  // every lane's ldmatrix of the dx2 rows is done
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * (8 * nt + 2 * t4)) =
+            pack_bf16(acc[nt][2 * h], acc[nt][2 * h + 1]);
+    __syncwarp();
+    write_slab(rows, dE + (s.row0 + s.r0) * H, lane);
+  }
+  __syncthreads();  // dA's slab parts in sdo
+  for (int i = tid; i < s.TL * H; i += MNT) {
+    const int ll = i / H, c = i - ll * H;
+    if (s.l0 + ll >= L) continue;
+    float v = 0.0f;
+    for (int q = 0; q < spr; ++q) v += sdo[(ll * spr + q) * H + c];
+    dA[((size_t)s.b * L + s.l0) * H + i] = v;
+  }
+}
+
+// The weight-grad pass of every bf16 backward: part[z][chunk] = X_z^T Y_z over
+// the chunk's rows, mma.m16n8k16 from a ring of GSTAGES stages of GROWS rows of
+// X and Y (cp.async, rows past the chunk zero); a warp owns a 32 x 64 block of
+// the [H, H] partial (Xᵀ's A fragments by ldmatrix.trans from X's rows, Y's B
+// fragments by ldmatrix.trans), f32 sums in the rows' order. sum_partials then
+// adds the chunks in a fixed order, so the weight grads repeat bit for bit.
+constexpr int GROWS = 32;
+constexpr int GSTAGES = 4;
+constexpr int GSTAGE = 2 * GROWS * MRS;
+constexpr int GSMEM = GSTAGES * GSTAGE;
+
+__global__ void __launch_bounds__(MNT, 2)
+wgrad_mma_kernel(Pairs<bf16> p, int n_chunks, float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int z = blockIdx.y, chunk = blockIdx.x;
+  const bf16* X = p.X[z];
+  const bf16* Y = p.Y[z];
+  const long long M = p.M[z];
+  const long long per = ((M + n_chunks - 1) / n_chunks + GROWS - 1) / GROWS * GROWS;
+  const long long m_begin = min(M, chunk * per);
+  const long long m_end = min(M, m_begin + per);
+  const int n_steps = (int)((m_end - m_begin + GROWS - 1) / GROWS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = 32 * (warp & 3), j0 = 64 * (warp >> 2);
+  auto issue = [&](int st) {
+    if (st < n_steps) {
+      unsigned char* buf = smem + (st % GSTAGES) * GSTAGE;
+      const long long m0 = m_begin + (long long)st * GROWS;
+      for (int i = tid; i < 2 * GROWS * (H / 8); i += MNT) {
+        const int w = i / (GROWS * (H / 8)), rr = (i / (H / 8)) % GROWS, c = i % (H / 8);
+        unsigned char* d = buf + (w * GROWS + rr) * MRS + 16 * c;
+        if (m0 + rr < m_end) cp_async16(d, (w ? Y : X) + (m0 + rr) * H + 8 * c);
+        else *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  float acc[2][8][4];
+#pragma unroll
+  for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) acc[ti][nt][0] = acc[ti][nt][1] = acc[ti][nt][2] = acc[ti][nt][3] = 0.0f;
+  for (int st = 0; st < GSTAGES - 1; ++st) issue(st);
+  const int mi = lane >> 3;
+  // A (X^T) fragment of i tile ti: X rows 8 (mi >> 1) + 0..7, columns i0 + 16 ti
+  // + 8 (mi & 1); B (Y) fragments of n tiles 2 np, 2 np + 1: Y rows 8 (mi & 1) +
+  // 0..7, columns j0 + 16 np + 8 (mi >> 1)
+  const unsigned a_off = (8 * (mi >> 1) + (lane & 7)) * MRS + 2 * (i0 + 8 * (mi & 1));
+  const unsigned b_off = (8 * (mi & 1) + (lane & 7)) * MRS + 2 * (j0 + 8 * (mi >> 1));
+  for (int st = 0; st < n_steps; ++st) {
+    mma::cp_async_wait<GSTAGES - 2>();
+    __syncthreads();  // stage st in place; every warp is done with stage st - 1
+    issue(st + GSTAGES - 1);
+    const unsigned sx = smem_addr(smem + (st % GSTAGES) * GSTAGE), sy = sx + GROWS * MRS;
+#pragma unroll
+    for (int ks = 0; ks < GROWS / 16; ++ks) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int ti = 0; ti < 2; ++ti) ldmatrix_x4_trans(a[ti], sx + a_off + 16 * ks * MRS + 32 * ti);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bb[4];
+        ldmatrix_x4_trans(bb, sy + b_off + 16 * ks * MRS + 32 * np);
+#pragma unroll
+        for (int ti = 0; ti < 2; ++ti) {
+          mma_bf16(acc[ti][2 * np], a[ti], bb[0], bb[1]);
+          mma_bf16(acc[ti][2 * np + 1], a[ti], bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  const int g = lane >> 2, t4 = lane & 3;
+  float* dst = part + ((size_t)z * n_chunks + chunk) * H * H;
+#pragma unroll
+  for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int r = i0 + 16 * ti + g, c = j0 + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(dst + r * H + c) = make_float2(acc[ti][nt][0], acc[ti][nt][1]);
+      *reinterpret_cast<float2*>(dst + (r + 8) * H + c) =
+          make_float2(acc[ti][nt][2], acc[ti][nt][3]);
+    }
+}
+
+// The weight-grad pass: f32 on CUDA cores (Kahan), bf16 on the tensor cores.
+cudaError_t launch_wgrad(const Pairs<float>& pairs, int n_chunks, float* wpart,
+                         cudaStream_t st) {
+  wgrad_kernel<float><<<dim3(n_chunks, 3), NT, 0, st>>>(pairs, n_chunks, wpart);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgrad(const Pairs<bf16>& pairs, int n_chunks, float* wpart,
+                         cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(wgrad_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (err != cudaSuccess) return err;
+  wgrad_mma_kernel<<<dim3(n_chunks, 3), MNT, GSMEM, st>>>(pairs, n_chunks, wpart);
+  return cudaGetLastError();
+}
+
+// K3 in bf16: the main pass, the tensor-core weight grads, then the partial
+// sums. Scratch: s_h1, s_dx2, s_dpre [B*L*K, H], s_s, s_dout [B*L, H] in bf16;
+// s_dg1 [B*L*K, H] f32 (gelu'(pre) between the main pass's phases A and C);
+// wpart f32 [3, n_chunks, H, H]; p_db f32 [2, n_tiles, H], n_tiles = B *
+// ceil(L / (128 / K)). Outputs as launch_bwd's.
+int launch_sum_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                       const void* mask, const void* We, const void* W2, const void* b2,
+                       const void* W3, const void* dout, void* dA, void* dE, void* dGn,
+                       void* s_h1, void* s_dx2, void* s_dpre, void* s_dg1, void* s_s,
+                       void* s_dout,
+                       void* wpart, void* p_db, void* dW, void* db, int B, int L, int K,
+                       int N, int n_tiles, int n_chunks, void* stream) {
+  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0 || n_chunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int TL = MROWS / K;
+  const int ntl = (L + TL - 1) / TL;
+  if (n_tiles != B * ntl) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(message_sum_bwd_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S3SMEM);
+  if (err != cudaSuccess) return (int)err;
+  message_sum_bwd_mma_kernel<<<dim3(ntl, B), MNT, S3SMEM, st>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const bf16*>(We), static_cast<const bf16*>(W2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(W3),
+      static_cast<const float*>(dout), static_cast<float*>(dA), static_cast<bf16*>(dE),
+      static_cast<float*>(dGn), static_cast<bf16*>(s_h1), static_cast<bf16*>(s_dx2),
+      static_cast<bf16*>(s_dpre), static_cast<float*>(s_dg1), static_cast<bf16*>(s_s),
+      static_cast<bf16*>(s_dout),
+      static_cast<float*>(p_db), L, K, N, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * L * K;
+  Pairs<bf16> pairs;
+  pairs.X[0] = static_cast<const bf16*>(E);
+  pairs.Y[0] = static_cast<const bf16*>(s_dpre);
+  pairs.M[0] = rows;
+  pairs.X[1] = static_cast<const bf16*>(s_h1);
+  pairs.Y[1] = static_cast<const bf16*>(s_dx2);
+  pairs.M[1] = rows;
+  pairs.X[2] = static_cast<const bf16*>(s_s);
+  pairs.Y[2] = static_cast<const bf16*>(s_dout);
+  pairs.M[2] = (long long)B * L;
+  err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
+                        H * H, st);
+  if (rc != 0) return rc;
+  return reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
+}
+
 // Scratch (from the wrapper): s_h1, s_dx2, s_dpre [B*L*K, H] and s_h2, s_dmsg
 // ([B*L*K, H] for K4, [B*L, H] for K3) in T; wpart f32 [3, n_chunks, H, H];
 // p_db f32 [2, n_tiles, H]; p_mod f32 [3, n_tiles, H] (K4).
@@ -631,9 +1177,7 @@ int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
   pairs.X[2] = static_cast<const T*>(s_h2);
   pairs.Y[2] = static_cast<const T*>(s_dmsg);
   pairs.M[2] = EDGE ? rows : (long long)B * L;
-  wgrad_kernel<T><<<dim3(n_chunks, 3), NT, 0, st>>>(pairs, n_chunks,
-                                                    static_cast<float*>(wpart));
-  err = cudaGetLastError();
+  err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
   if (err != cudaSuccess) return (int)err;
 
   int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
@@ -651,23 +1195,31 @@ int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
 
 extern "C" {
 
-#define SUM_BWD(SUFFIX, TYPE)                                                           \
-  int message_sum_bwd_##SUFFIX(                                                         \
-      const void* A, const void* E, const void* Gn, const void* idx, const void* mask,  \
-      const void* We, const void* WeT, const void* W2, const void* W2T, const void* b2, \
-      const void* W3T, const void* dout, void* dA, void* dE, void* dGn, void* s_h1,     \
-      void* s_dx2, void* s_dpre, void* s_s, void* s_dout, void* wpart, void* p_db,      \
-      void* dW, void* db, int B, int L, int K, int N, int n_tiles, int n_chunks,        \
-      void* stream) {                                                                   \
-    return launch_bwd<TYPE, false, 0>(                                                  \
-        A, E, Gn, idx, mask, We, WeT, W2, W2T, b2, nullptr, W3T, nullptr, nullptr,      \
-        nullptr, nullptr, nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre,    \
-        s_s, s_dout, wpart, p_db, nullptr, dW, db, nullptr, B, L, K, N, n_tiles,        \
-        n_chunks, stream);                                                              \
-  }
+int message_sum_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                        const void* mask, const void* We, const void* WeT, const void* W2,
+                        const void* W2T, const void* b2, const void* W3T, const void* dout,
+                        void* dA, void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
+                        void* s_s, void* s_dout, void* wpart, void* p_db, void* dW, void* db,
+                        int B, int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
+  return launch_bwd<float, false, 0>(A, E, Gn, idx, mask, We, WeT, W2, W2T, b2, nullptr, W3T,
+                                     nullptr, nullptr, nullptr, nullptr, nullptr, 0u, 1.0f,
+                                     dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_s, s_dout, wpart,
+                                     p_db, nullptr, dW, db, nullptr, B, L, K, N, n_tiles,
+                                     n_chunks, stream);
+}
 
-SUM_BWD(f32, float)
-SUM_BWD(bf16, __nv_bfloat16)
+// bf16 on the tensor cores, W_e, W2 and W3 as they are (no transposes): K a
+// multiple of 16, at most 128; n_tiles counts blocks of 128 edge rows
+int message_sum_bwd_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                         const void* mask, const void* We, const void* W2, const void* b2,
+                         const void* W3, const void* dout, void* dA, void* dE, void* dGn,
+                         void* s_h1, void* s_dx2, void* s_dpre, void* s_dg1, void* s_s,
+                         void* s_dout, void* wpart, void* p_db, void* dW, void* db, int B,
+                         int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
+  return launch_sum_bwd_mma(A, E, Gn, idx, mask, We, W2, b2, W3, dout, dA, dE, dGn, s_h1,
+                            s_dx2, s_dpre, s_dg1, s_s, s_dout, wpart, p_db, dW, db, B, L, K,
+                            N, n_tiles, n_chunks, stream);
+}
 
 // K4, and K5's backward when `keep` (E's dtype) or `seeds` (int32 [B]) is given.
 #define EDGE_BWD(SUFFIX, TYPE)                                                          \

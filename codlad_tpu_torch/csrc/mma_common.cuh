@@ -1,5 +1,6 @@
 // PTX helpers of the tensor-core kernels (fused_tp_bwd.cu: K11 in bf16;
-// message_chain.cu: K1, K2 and K7 in bf16): cp.async copies into shared memory,
+// message_chain.cu: K1, K2, K6 and K7 in bf16; message_chain_bwd.cu: K3 and
+// the weight-grad pass in bf16): cp.async copies into shared memory,
 // ldmatrix, mma.sync m16n8k16 (bf16 in, f32 sums) and bf16 packing. The
 // bf16 K10 (fused_tp.cu) keeps its own copies of the same wrappers.
 #pragma once

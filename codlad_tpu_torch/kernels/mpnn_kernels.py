@@ -17,11 +17,12 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
   into K1 of the next inside one kernel (`denoise(fuse_pairs=True)`).
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
-launches K1 or K2 (both in bf16 on the tensor cores, K a multiple of 16), K5
-or K6 (`csrc/message_chain.cu`) and whose backward
-launches K3, K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`), or
-raises; K7 (in bf16 on K2's and K1's tensor-core bodies, so its outputs are
-K2's kernel then K1's, bit for bit) launches or raises. The plain version
+launches K1, K2 or K6 (in bf16 on the tensor cores, K a multiple of 16) or
+K5 (`csrc/message_chain.cu`) and whose backward launches K3 (in bf16 on the
+tensor cores, K a multiple of 16), K4, K5's or K6's backward
+(`csrc/message_chain_bwd.cu`; every bf16 weight-grad pass on the tensor
+cores), or raises; K7 (in bf16 on K2's and K1's tensor-core bodies, so its
+outputs are K2's kernel then K1's, bit for bit) launches or raises. The plain version
 runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
 the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
@@ -40,10 +41,10 @@ from codlad_tpu_torch.kernels import build
 HIDDEN = 128  # the width the kernels are compiled for
 # edge rows per block of the forward kernels (16 row groups x rows per
 # thread); a block owns floor(rows / K) whole residues, so K may not exceed
-# it. The backward kernels take 64 rows (4 a thread).
+# it. The CUDA-core backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
-# K1, K2 and K7 in bf16 run on the tensor cores: 128 rows a block, a warp a
-# 16-row slab of one residue, so K is a multiple of 16
+# K1, K2, K6, K7 and K3 in bf16 run on the tensor cores: 128 rows a block, a
+# warp a 16-row slab of one residue, so K is a multiple of 16
 _MMA_ROWS, _MMA_SLAB = 128, 16
 _BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
@@ -264,7 +265,7 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
 
 def _check_mma_edge(E, Gn):
     """_check_edge for the kernels that run on the tensor cores in bf16 (K1,
-    K2, K7): K a multiple of 16 there."""
+    K2, K3, K6, K7): K a multiple of 16 there."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)
@@ -356,7 +357,7 @@ def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
 
 def _message_edge_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3):
     """K6 -> [B, L, K, H] in the dtype of E."""
-    dims = _check_edge(E, Gn)
+    dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev = E.dtype, E.device
     ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [
@@ -394,11 +395,12 @@ def _edge_then_sum_fwd(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, 
     return e2, ns
 
 
-def _bwd_scratch(B, L, K, H, dt, dev, edge_rows):
-    """Scratch of the backward kernels (see csrc/message_chain_bwd.cu)."""
+def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_BWD_ROWS):
+    """Scratch of the backward kernels (see csrc/message_chain_bwd.cu);
+    `tile_rows` edge rows a block of the main pass."""
     f32 = torch.float32
     rows = B * L * K
-    TL = _BWD_ROWS // K
+    TL = tile_rows // K
     n_tiles = B * (-(-L // TL))
     e = lambda m: torch.empty((m, H), dtype=dt, device=dev)
     return dict(s_h1=e(rows), s_dx2=e(rows), s_dpre=e(rows), s_h2=e(edge_rows),
@@ -413,27 +415,35 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     """K3: the backward of K1 given dout (f32 [B, L, H], already divided by
     scale). Returns the kernel's outputs, as `_pallas_sum_bwd` does:
     dA f32 [B, L, H], dE [B, L, K, H] in E's dtype, dGn f32 [B, N, H],
-    dW_e, dW2 f32 [H, H], db2 f32 [H], dW3 f32 [H, H], db3 f32 [H]."""
-    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    dW_e, dW2 f32 [H, H], db2 f32 [H], dW3 f32 [H, H], db3 f32 [H]. In bf16
+    on the tensor cores (K a multiple of 16), with W_e, W2 and W3 as they
+    are; in f32 on CUDA cores, with their transposes."""
+    bf = E.dtype == torch.bfloat16
+    dims = _check_mma_edge(E, Gn) if bf else _check_edge(E, Gn, _BWD_ROWS, 4)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
-    ops = [a, e, gn, ix, _operand(mask, f32, (B, L, K), "mask", dev), we,
-           we.t().contiguous(), w2, w2.t().contiguous(), bb2,
-           _operand(W3, dt, (H, H), "W3", dev).t().contiguous(),
-           _operand(dout, f32, (B, L, H), "dout", dev)]
+    w3 = _operand(W3, dt, (H, H), "W3", dev)
+    mk = _operand(mask, f32, (B, L, K), "mask", dev)
+    ops = ([a, e, gn, ix, mk, we, w2, bb2, w3] if bf else
+           [a, e, gn, ix, mk, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
+            w3.t().contiguous()])
+    ops.append(_operand(dout, f32, (B, L, H), "dout", dev))
     dA = torch.empty((B, L, H), dtype=f32, device=dev)
     dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
     dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
     dW = torch.empty((3, H, H), dtype=f32, device=dev)
     db = torch.empty((2, H), dtype=f32, device=dev)
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L)
-    fn = _fn("message_chain_bwd", f"message_sum_bwd_{_SUFFIX[dt]}", "p" * 24 + "i" * 6 + "p")
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else _BWD_ROWS)
+    # the bf16 kernel parks gelu'(pre) in f32 between its phases
+    dg1 = [torch.empty((B * L * K, H), dtype=f32, device=dev)] if bf else []
+    scratch = ([s["s_h1"], s["s_dx2"], s["s_dpre"]] + dg1
+               + [s[k] for k in ("s_h2", "s_dmsg", "wpart", "p_db")])
+    fn = _fn("message_chain_bwd", f"message_sum_bwd_{_SUFFIX[dt]}",
+             "p" * (len(ops) + len(scratch) + 5) + "i" * 6 + "p")
     with torch.cuda.device(dev):
         _launch(fn, *[t.data_ptr() for t in ops], dA.data_ptr(), dE.data_ptr(),
-                dGn.data_ptr(), *[s[k].data_ptr() for k in
-                                  ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg", "wpart",
-                                   "p_db")],
+                dGn.data_ptr(), *[t.data_ptr() for t in scratch],
                 dW.data_ptr(), db.data_ptr(), B, L, K, N, s["n_tiles"], _WGRAD_CHUNKS,
                 _stream(dev))
     LAUNCHES["fused_message_sum_bwd"] += 1

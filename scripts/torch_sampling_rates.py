@@ -2,6 +2,7 @@
 """Warm sampling rates of the PyTorch port (codlad_tpu_torch) on one GPU.
 
     python3 scripts/torch_sampling_rates.py [--draws 9] [--seed 0]
+        [--adaln_mode trunk|residual]
 
 Drives the bf16 sampling path through `chip_smoke.build_pipeline` and
 `chip_smoke.run_slice` (100 denoise steps and the decode, random weights
@@ -10,7 +11,9 @@ B96 L48 K48: one untimed draw at each shape first (it builds the kernels and
 pays every first-call cost), then `--draws` timed draws at each, the two
 shapes in turns. Prints each draw's seconds, the median and the best rate
 of each shape in denoise steps/s (the host's noise only slows a draw), and
-the card's name and power limit, as one JSON line.
+the card's name and power limit, as one JSON line. `--adaln_mode residual`
+drives the adaLN residual denoiser (gates open; its encoder's edge chain is
+K6) instead of the trunk one (K2).
 
 It imports chip_smoke.py and codlad_tpu_torch from the checkout that holds
 it, so two commits compare on one card by running each checkout's copy from
@@ -32,6 +35,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--draws", type=int, default=9)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--adaln_mode", choices=("trunk", "residual"), default="trunk")
     args = ap.parse_args(argv)
 
     import torch
@@ -42,7 +46,8 @@ def main(argv=None):
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
 
     device = torch.device("cuda", 0)
-    pipe = S.build_pipeline(device, args.seed, compute_dtype=torch.bfloat16)
+    pipe = S.build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
+                            adaln_mode=args.adaln_mode)
     shapes = {"l128": (S.B, S.L), "l48": S.K48[:2]}
     batches = {name: to_device(synthetic_cg_batch(b, l, seed=args.seed + i), device)
                for i, (name, (b, l)) in enumerate(shapes.items())}
@@ -56,7 +61,7 @@ def main(argv=None):
             S.check_slice(out, *shapes[name])
             seconds[name].append(out["seconds"])
     steps = pipe.process.num_timesteps
-    result = {"card": S.gpu_line(), "steps": steps,
+    result = {"card": S.gpu_line(), "adaln_mode": args.adaln_mode, "steps": steps,
               **{f"{name}_s": s for name, s in seconds.items()},
               **{f"{name}_steps_per_s": steps / statistics.median(s)
                  for name, s in seconds.items()},

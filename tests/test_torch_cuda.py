@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card: K1-K7's
 forwards against the plain versions, the backwards (K3, K4, K5's, K6's)
 against torch.autograd of the plain versions on the same inputs and
-cotangent; K8 (bit for bit, every width, aligned and offset views), K9 and
+cotangent (the bf16 K3 and K6 on the tensor cores at every K the featurizer
+gives, bit for bit from run to run but K3's dGn; every bf16 backward's
+weight grads bit for bit from run to run); K8 (bit for bit, every width, aligned and offset views), K9 and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
@@ -282,6 +284,81 @@ def test_edge_then_sum_is_k2_then_k1_bit_for_bit(dev, dtype, L, N, K):
     torch.cuda.synchronize()
     assert torch.equal(e2, e2_k)
     assert torch.equal(ns, ns_k), (ns - ns_k).abs().max().item()
+
+@pytest.mark.parametrize("L,N,K", [(16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
+                                   (37, 50, 32)])
+def test_message_edge_bf16_tensor_cores_every_k(dev, L, N, K):
+    """The tensor-core K6 (K2's chain with the raw epilogue) at every K the
+    featurizer gives and at a ragged L with a longer gather table: within
+    2e-2 max|ref| of the plain version (chip_smoke.py's MSG_TOL_BF16) and
+    bit for bit from run to run."""
+    x = _inputs(dev, torch.bfloat16, 3, L, N, K, seed=40 + K)
+    args = [x[k] for k in _MSG]
+    MK.reset_launches()
+    e = MK.fused_message_edge(*args)
+    again = MK.fused_message_edge(*args)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge"] == 2 and e.dtype == torch.bfloat16
+    assert torch.equal(e, again)
+    _fwd_close(e, MK.ref_message_edge(*args), torch.bfloat16)
+
+
+def test_message_edge_bf16_refuses_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    with pytest.raises(ValueError):
+        MK.fused_message_edge(*(x[k] for k in _MSG))
+
+
+@pytest.mark.parametrize("L,N,K", [(16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64),
+                                   (37, 50, 32)])
+def test_message_sum_bwd_bf16_tensor_cores_every_k(dev, L, N, K):
+    """The tensor-core K3 (main pass and the weight-grad pass) at every K the
+    featurizer gives and at a ragged L with a longer gather table: within
+    the bf16 limits of test_backward_kernels_match_plain_autograd of plain
+    autograd, and every output but dGn (f32 atomics) bit for bit from run to
+    run."""
+    x = _inputs(dev, torch.bfloat16, 3, L, N, K, seed=60 + K)
+    ct = torch.randn(3, L, H, generator=torch.Generator().manual_seed(61)).to(dev)
+    MK.reset_launches()
+    _check_bwd(lambda *a: MK.fused_message_sum(*a, 30.0),
+               lambda *a: MK.ref_message_sum(*a, 30.0), x, _SUM, _GRAD, ct, torch.bfloat16)
+    args = [x[k] for k in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3")]
+    first = MK.message_sum_bwd(*args, ct / 30.0)
+    again = MK.message_sum_bwd(*args, ct / 30.0)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_sum_bwd"] == 3
+    for name, a, b in zip(("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3"), first, again):
+        if name != "dGn":
+            assert torch.equal(a, b), name
+
+
+def test_message_sum_bwd_bf16_refuses_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    args = [x[k] for k in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3")]
+    with pytest.raises(ValueError):
+        MK.message_sum_bwd(*args, torch.zeros(1, 8, H, device=dev))
+
+
+@pytest.mark.parametrize("L,N,K", [(37, 50, 32), (48, 48, 48)])
+def test_edge_backwards_bf16_weight_grads_repeat(dev, L, N, K):
+    """K4's, K5's and K6's backwards in bf16 share the tensor-core weight-grad
+    pass with K3: their weight and bias grads repeat bit for bit from run to
+    run (their limits against plain autograd are the tests above)."""
+    x = _inputs(dev, torch.bfloat16, 3, L, N, K, seed=70 + K)
+    g = torch.Generator().manual_seed(71)
+    ct = torch.randn(3, L, K, H, generator=g).to(dev).to(torch.bfloat16)
+    seeds = torch.tensor([3, 4, 5], dtype=torch.int32, device=dev)
+    base = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+    edge = base + [x["b3"], x["sc"], x["g"], ct]
+    calls = [lambda: MK.message_edge_lnmod_bwd(*edge),
+             lambda: MK.message_edge_lnmod_bwd(*edge, seeds=seeds, p=0.6),
+             lambda: MK.message_edge_bwd(*base, ct)]
+    for call in calls:
+        first, again = call(), call()
+        torch.cuda.synchronize()
+        for i in (3, 4, 5, 6, 7):          # dW_e, dW2, db2, dW3, db3
+            assert torch.equal(first[i], again[i]), i
+
 
 # Stage-1 kernels. K8 is an index read: bit for bit. K9 sums in f32 in
 # another order than index_add_: f32 atol 2e-4 + rtol 2e-4; bf16 within
