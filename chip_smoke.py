@@ -16,10 +16,15 @@ Phases, each printing its seconds:
                 the backwards K3 (bf16 on the tensor cores,
                 message_sum_bwd_mma_kernel; every bf16 weight-grad pass,
                 wgrad_mma_kernel) and K4 and the dropout kernel K5 (forward
-                and backward), against torch.autograd of the plain versions
-                on the same inputs and cotangent, K5's mask bit for bit
-                against the plain generator, K3 twice bit for bit but dGn,
-                each timed a call and by graph replay, K3's weight-grad
+                and backward; bf16 K4 and K5's backward on the tensor cores,
+                message_edge_lnmod_bwd_mma_kernel), against torch.autograd
+                of the plain versions on the same inputs and cotangent, K5's
+                mask bit for bit against the plain generator, the bf16 K3,
+                K4 and K5's backward twice bit for bit but dGn, K5's seeded
+                backward bit for bit (but dGn) its keep-tensor backward
+                given the forward's own mask, each timed a call and by graph
+                replay (K4's and K5's backward beside the CUDA-core body's
+                device time they replaced), K3's weight-grad
                 pass's yardstick beside it (its three X^T Y as torch.mm on
                 operands of the scratch's shapes);
                 the same checks at the L = 48 bucket (B96 L48 K48: a block
@@ -43,9 +48,11 @@ Phases, each printing its seconds:
   3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
                 per-edge messages; bf16 on the tensor cores,
                 message_edge_mma_kernel) at B96 L128 K64 and B96 L48 K48, f32
-                and bf16, against ref_message_edge, and its backward against
-                autograd of ref_message_edge (float64 for f32), timed a call
-                and by graph replay beside the bound and the plain version;
+                and bf16, against ref_message_edge, and its backward (bf16 on
+                the tensor cores, message_edge_bwd_mma_kernel, twice bit for
+                bit but dGn) against autograd of ref_message_edge (float64
+                for f32), timed a call and by graph replay beside the bound,
+                the plain version and the CUDA-core body's device time;
   4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
                 into K1 of the next in one kernel; bf16 on the tensor cores,
                 edge_then_sum_mma_kernel) at the same shapes and dtypes
@@ -89,8 +96,10 @@ Phases, each printing its seconds:
                 backward), median ms/step and peak memory, the last 3
                 steps under torch.profiler (the device's busy share and
                 the kernels by device time; K3 must run as
-                message_sum_bwd_mma_kernel and the weight grads as
-                wgrad_mma_kernel); then 2 steps at dropout 0
+                message_sum_bwd_mma_kernel, K5's backward as
+                message_edge_lnmod_bwd_mma_kernel and the weight grads as
+                wgrad_mma_kernel, no chain_bwd_kernel); then 2 steps at
+                dropout 0
                 (6 K1, 3 K2, 6 K3, 3 K4 a step);
  11. train entry -- `python -m codlad_tpu_torch.cli.train_latent` (its
                 main) for 5 bf16 steps on a synthetic 96 x 128 feature set;
@@ -103,7 +112,9 @@ Phases, each printing its seconds:
                 denoiser (gates open), launches asserted every step (6 K1,
                 3 K6, 6 K3, 3 K6 backward), median ms/step, peak memory, the
                 last step under torch.profiler (K6 must run as
-                message_edge_mma_kernel, no chain_kernel); one f32 step at dropout 0
+                message_edge_mma_kernel, its backward as
+                message_edge_bwd_mma_kernel, no chain_kernel or
+                chain_bwd_kernel); one f32 step at dropout 0
                 card against CPU (12.); the trainer's main with
                 --adaln_mode residual for 3 steps;
  14. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
@@ -190,6 +201,13 @@ GRAD_SCALE_TOL_F32 = 2e-6
 GRAD_TOL_BF16 = dict(dict.fromkeys(("A", "E", "Gn", "W_e", "W2", "b2", "W3"), 2e-2),
                      **dict.fromkeys(("b3", "sh", "sc", "g"), 2e-4))
 P_DROP = 0.6                     # the trainer's default dropout
+# The CUDA-core main passes that the bf16 K4, K5's and K6's backwards ran on
+# before their tensor-core kernels: device ms by graph replay, (B96 L128 K64,
+# B96 L48 K48), this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's
+# kernel table). Logged beside the new times.
+CUDA_CORE_BWD_MS = {"fused_message_edge_lnmod_bwd": (9.0936, 3.2978),
+                    "fused_message_edge_lnmod_drop_bwd": (9.4042, 3.3845),
+                    "fused_message_edge_bwd": (7.0483, 2.6091)}
 KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
     "fused_message_sum": ("codlad_tpu/kernels/mpnn_kernels.py:395", "message_chain.cu"),
     "fused_message_edge_lnmod": ("codlad_tpu/kernels/mpnn_kernels.py:519",
@@ -198,9 +216,11 @@ KERNELS = {  # name -> (TPU kernel it replaces, CUDA source)
                               "message_chain_bwd.cu"),
     "fused_message_edge_lnmod_bwd": ("codlad_tpu/kernels/mpnn_kernels.py:854",
                                      "message_chain_bwd.cu"),
-    "fused_message_edge_lnmod_drop": ("codlad_tpu/kernels/mpnn_kernels.py:1137",
+    # K5: K2's and K4's TPU kernels in their seeds mode (reached from
+    # fused_message_edge_lnmod_pdrop :1137 and _pdrop_bwd :1098)
+    "fused_message_edge_lnmod_drop": ("codlad_tpu/kernels/mpnn_kernels.py:519",
                                       "message_chain.cu"),
-    "fused_message_edge_lnmod_drop_bwd": ("codlad_tpu/kernels/mpnn_kernels.py:1098",
+    "fused_message_edge_lnmod_drop_bwd": ("codlad_tpu/kernels/mpnn_kernels.py:854",
                                           "message_chain_bwd.cu"),
     "edge_gather": ("codlad_tpu/kernels/edge_kernels.py:119", "edge_ops.cu"),
     "edge_aggregate": ("codlad_tpu/kernels/edge_kernels.py:140", "edge_ops.cu"),
@@ -690,6 +710,26 @@ def bwd_bytes_flops(es, edge, dims=(B, L, K), raw=False):
     return nbytes, flops
 
 
+_BWD_OUTS = ("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3", "dsh", "dsc", "dgate")
+
+
+def check_same_bits(label, first, again, what):
+    """Every output of two backward calls (`what` says which) but dGn (f32
+    atomics) bit for bit equal, or raise."""
+    import torch
+    torch.cuda.synchronize()
+    moved = [n for n, u, v in zip(_BWD_OUTS, first, again)
+             if n != "dGn" and not torch.equal(u, v)]
+    log(f"  {label}: {what} {'bit for bit equal' if not moved else f'DIFFER in {moved}'} "
+        f"in every output but dGn (f32 atomics)")
+    if moved:
+        raise RuntimeError(f"{label}: {what} differ in {moved}")
+
+
+def check_repeats(label, call):
+    check_same_bits(label, call(), call(), "two calls on the same inputs:")
+
+
 def check_bwd_kernels(device, seed, dims=(B, L, K)):
     """K3, K4 and K5 (forward and backward) at the training shape, f32 and
     bf16, against autograd of the plain versions; K5's mask bit for bit
@@ -735,16 +775,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         sum_args = args(("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3"))
         dout = ct_sum / 30.0
         k3 = lambda: MK.message_sum_bwd(*sum_args, dout)
-        first, again = k3(), k3()
-        torch.cuda.synchronize()
-        moved = [n for n, u, v in zip(("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3"),
-                                      first, again) if n != "dGn" and not torch.equal(u, v)]
-        log(f"  K3 {dname} {dims_tag(dims)}: two calls on the same inputs "
-            f"{'bit for bit equal' if not moved else f'DIFFER in {moved}'} in every output but "
-            f"dGn (f32 atomics)")
-        if moved:
-            raise RuntimeError(f"K3 ({dname}) does not repeat bit for bit: {moved}")
-        del first, again
+        check_repeats(f"K3 {dname} {dims_tag(dims)}", k3)
         ms, plain_ms = time_calls(k3, plain_bwd)
         # the yardstick of K3's weight-grad pass alone: its three products
         # X^T Y as torch.mm (cuBLAS) on operands of the scratch's shapes and
@@ -772,6 +803,8 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
                                    ct_edge)
         bwd_args = args(("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g"))
         k4 = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge)
+        if dtype == torch.bfloat16:
+            check_repeats(f"K4 {dname} {dims_tag(dims)}", k4)
         ms, plain_ms = time_calls(k4, plain_bwd)
         (dev_ms,) = replay_ms(k4)
         recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms,
@@ -810,6 +843,18 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         del gp
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         k5b = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP)
+        if dtype == torch.bfloat16:
+            check_repeats(f"K5 backward {dname} {dims_tag(dims)}", k5b)
+            # the mask the seeded backward regenerates is the forward's: the
+            # keep-tensor backward given the forward's own mask (2.5 and 0,
+            # exact in bf16) gives the same bits but dGn's
+            _, fwd_mask = MK.edge_lnmod_pdrop_debug(*args(_EDGE_KEYS), seeds, P_DROP)
+            check_same_bits(f"K5 backward {dname} {dims_tag(dims)}", k5b(),
+                            MK.message_edge_lnmod_bwd(*bwd_args, ct_edge,
+                                                      keep=fwd_mask.to(dtype)),
+                            "seeded and given the forward's own mask as keep (the mask it "
+                            "regenerates is the forward's):")
+            del fwd_mask
         ms, plain_ms = time_calls(k5b, plain_bwd)
         (dev_ms,) = replay_ms(k5b)
         nbytes, flops = bwd_bytes_flops(es, True, dims)
@@ -842,6 +887,9 @@ def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, ex
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[dname] * 1e3
     more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items() if k != "device_ms")
+    if dname == "bfloat16" and name in CUDA_CORE_BWD_MS and dims[2] in (K, K48[2]):
+        was = CUDA_CORE_BWD_MS[name][0 if dims[2] == K else 1]
+        more += f" (the CUDA-core body's device {was:.4f} ms, {was / extra['device_ms']:.2f}x)"
     log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; a call (events) kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device (graph replay) kernel "
         f"{extra['device_ms']:.4f} ms{more}; bound {max(t_bytes, t_ops):.4f} ms "
@@ -908,6 +956,8 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         _, _, plain_bwd = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
         bwd_args = [x[n] for n in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
         k6b = lambda: MK.message_edge_bwd(*bwd_args, ct)
+        if dtype == torch.bfloat16:
+            check_repeats(f"K6 backward {dname} {dims_tag(dims)}", k6b)
         ms, plain_ms = time_calls(k6b, plain_bwd)
         (dev_ms,) = replay_ms(k6b)
         bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True),
@@ -1120,7 +1170,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
                  "edge_then_sum_kernel", "message_sum_mma_kernel",
                  "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
-                 "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel")
+                 "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
+                 "message_edge_lnmod_bwd_mma_kernel", "message_edge_bwd_mma_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
                   "fused_tp_mma_kernel", "fused_tp_bwd_kernel", "fused_tp_bwd_mma_kernel")
 
@@ -2164,12 +2215,13 @@ def main(argv=None):
     times, metrics, totals = run_train(state, step, x1, extras, args.seed, TRAIN_STEPS,
                                        per_step, traced=TRACED_STEPS, names=ran)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # bf16 K3 and every weight-grad pass run on the tensor cores
+    # bf16 K3, K5's backward and every weight-grad pass run on the tensor cores
     if not all(any(k in n for n in ran) for k in ("message_sum_bwd_mma_kernel",
+                                                  "message_edge_lnmod_bwd_mma_kernel",
                                                   "wgrad_mma_kernel")) or any(
-            "wgrad_kernel<" in n for n in ran):
-        raise RuntimeError("the traced training steps did not run K3 and the weight grads "
-                           f"on their tensor-core kernels: {sorted(ran)}")
+            "wgrad_kernel<" in n or "chain_bwd_kernel" in n for n in ran):
+        raise RuntimeError("the traced training steps did not run K3, K5's backward and the "
+                           f"weight grads on their tensor-core kernels: {sorted(ran)}")
     for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
                  "fused_message_edge_lnmod_drop_bwd"):  # K1's count is the sampling path's
         records[name]["launches"] = totals[name]
@@ -2178,7 +2230,8 @@ def main(argv=None):
         f"{statistics.median(times):.2f} ms/step "
         f"(first {times[0]:.1f} ms), {1e3 / statistics.median(times):.2f} steps/s, peak "
         f"memory {peak:.2f} GiB; launches a step {per_step}; K3 ran as "
-        f"message_sum_bwd_mma_kernel, the weight grads as wgrad_mma_kernel; last loss "
+        f"message_sum_bwd_mma_kernel, K5's backward as message_edge_lnmod_bwd_mma_kernel, "
+        f"the weight grads as wgrad_mma_kernel, no chain_bwd_kernel; last loss "
         f"{float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step
 
@@ -2214,17 +2267,20 @@ def main(argv=None):
     times, metrics, totals = run_train(state, step, x1, extras, args.seed, RESID_TRAIN_STEPS,
                                        per_step, traced=1, names=ran)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # bf16 K6 runs on the tensor cores: no CUDA-core chain kernel in the step
-    if not any("message_edge_mma_kernel" in n for n in ran) or any(
-            "chain_kernel" in n for n in ran):
-        raise RuntimeError("the traced residual training step did not run K6 on its "
-                           f"tensor-core kernel: {sorted(ran)}")
+    # bf16 K6 and its backward run on the tensor cores: no CUDA-core chain
+    # kernel in the step
+    if not all(any(k in n for n in ran) for k in ("message_edge_mma_kernel",
+                                                  "message_edge_bwd_mma_kernel")) or any(
+            "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
+        raise RuntimeError("the traced residual training step did not run K6 and its "
+                           f"backward on their tensor-core kernels: {sorted(ran)}")
     records["fused_message_edge_bwd"]["launches"] = totals["fused_message_edge_bwd"]
     log(f"  residual train: {RESID_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
         f"{P_DROP}, gates open: median of the {len(times)} untraced "
         f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
         f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
-        f"a step {per_step} (asserted); K6 ran as message_edge_mma_kernel, no chain_kernel; "
+        f"a step {per_step} (asserted); K6 ran as message_edge_mma_kernel, its backward as "
+        f"message_edge_bwd_mma_kernel, no chain_kernel or chain_bwd_kernel; "
         f"last loss {float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step, x1, extras
     train_reference(args.seed, device, dropout=0.0, adaln_mode="residual")

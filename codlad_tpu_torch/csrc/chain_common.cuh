@@ -78,9 +78,8 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
 
 // acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
 // stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It now
-// serves the f32 kernels and the bf16 kernels not yet redesigned (K5's
-// forward and the main passes of K4's, K5's and K6's backwards); the bf16
-// K1, K2, K6, K7 and K3 run their products on the tensor cores
+// serves the f32 kernels and the one bf16 kernel not yet redesigned (K5's
+// forward); the other bf16 kernels run their products on the tensor cores
 // (chain_mma.cuh's slab functions in message_chain.cu and
 // message_chain_bwd.cu).
 template <typename T, int TM, int XS>

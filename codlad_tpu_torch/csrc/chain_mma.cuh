@@ -1,7 +1,7 @@
 // The slab functions of the bf16 tensor-core message chains, shared by the
-// forwards (message_chain.cu: K1, K2, K6 and K7) and K3's backward
-// (message_chain_bwd.cu), so that K3 recomputes pre and x2 with K1's own
-// instructions. A block of MW warps owns MROWS edge rows (whole residues, K
+// forwards (message_chain.cu: K1, K2, K6 and K7) and the backwards
+// (message_chain_bwd.cu: K3, K4, K5's and K6's), so that the backwards
+// recompute pre, x2 and msg with the forwards' own instructions. A block of MW warps owns MROWS edge rows (whole residues, K
 // a multiple of 16), a warp a 16-row slab of one residue x all 128 columns.
 #pragma once
 
@@ -210,6 +210,19 @@ __device__ __forceinline__ void mma_w2_half(float (&c2)[8][4], const unsigned (&
   for (int kk = 0; kk < H / 16; ++kk) {
     const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
     mma_step<4>(c2, a, w2_addr, kk, 4 * hf);
+  }
+}
+
+// product 3: acc = cast(h2) W3, W3 staged by stage_rows<false> in sW3
+__device__ __forceinline__ void mma_w3(float (&acc)[16][4], const unsigned (&h2)[16][2],
+                                       const unsigned char* sW3, int lane) {
+  const unsigned w3_addr = weight_addr(sW3, lane);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const unsigned a[4] = {h2[2 * kk][0], h2[2 * kk][1], h2[2 * kk + 1][0], h2[2 * kk + 1][1]};
+    mma_step<8>(acc, a, w3_addr, kk, 0);
   }
 }
 

@@ -637,19 +637,6 @@ __device__ __forceinline__ void h2_pack(unsigned (&h2)[16][2], const float (&c2)
   }
 }
 
-// product 3: acc = cast(h2) W3, W3 staged by stage_rows<false> in sW3
-__device__ __forceinline__ void mma_w3(float (&acc)[16][4], const unsigned (&h2)[16][2],
-                                       const unsigned char* sW3, int lane) {
-  const unsigned w3_addr = weight_addr(sW3, lane);
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < H / 16; ++kk) {
-    const unsigned a[4] = {h2[2 * kk][0], h2[2 * kk][1], h2[2 * kk + 1][0], h2[2 * kk + 1][1]};
-    mma_step<8>(acc, a, w3_addr, kk, 0);
-  }
-}
-
 // K2's epilogue in registers: resid = E + (msg + b3) with E read from the
 // slab's rows of sE at the accumulator positions (conflict-free at the
 // 272-byte stride); a row's 128 columns lie in the 4 lanes of a quad, so the

@@ -29,7 +29,7 @@
 //
 // Design. The TPU grid runs in order and carries the weight grads and dGn in
 // VMEM from one grid step to the next; Hopper blocks run in parallel. So:
-//  * chain_bwd_kernel (f32 K3-K6; bf16 K4-K6): one block of 256 threads per
+//  * chain_bwd_kernel (f32 K3-K6): one block of 256 threads per
 //    64-row tile (floor(64/K) whole residues; at K = 48 the last 16 rows stay
 //    idle). It recomputes the activations from the inputs (nothing
 //    [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as their gelu
@@ -71,6 +71,45 @@
 //    cast(dpre)) keeps the kernel within 128 registers without spills (two
 //    blocks an SM): spilled registers go to local memory, which the L1 left
 //    beside two blocks' shared memory cannot hold.
+//  * message_edge_bwd_mma_kernel (bf16 K6's backward) and
+//    message_edge_lnmod_bwd_mma_kernel<DROP> (bf16 K4 at DROP 0, K5's
+//    backward at DROP 1, `keep`, and DROP 2, `seeds`): K3's block, slabs and
+//    phases A and C (the same device functions), around the backward of
+//    the per-edge W3 product. Two weight buffers: W2 stays resident, the
+//    other cycles W_e -> W3 -> W_e (cp.async, each restaging overlapped with
+//    work that does not read the buffer: product 2, then phase C's dh1).
+//    Column sums (db2, db3, dsh, dsc, dgate, and dA's slab parts) go
+//    through [2][8][H] f32 slab parts in shared memory: each tile sums its
+//    slabs in slab order, then sum_partials the tiles, so every output but
+//    dGn repeats bit for bit.
+//      K6: once product 1 has read a warp's E rows, the warp stages its 16
+//         rows of the cotangent dmsg there (cp.async), sums them for db3,
+//         and runs x2 = y W2 + b2 and dh2 = dmsg W3^T (A fragments by
+//         ldmatrix from those rows, W3^T by ldmatrix from W3's own staging)
+//         quarter by quarter: h2 = cast(gelu(x2)) -> s_h2 (4-byte stores, a
+//         quad's fill 16 bytes), gelu'(x2) from the same exp, dx2 = dh2
+//         gelu'(x2) (db2's slab parts), cast(dx2) held packed until the
+//         last quarter, then staged in the rows for phase C. dW3's operands
+//         are cast(h2) and the cotangent itself.
+//      K4 / K5: x2 in halves, h2 = cast(gelu(x2)) packed as the A
+//         fragments of msg = cast(h2) W3 (K2's fragment trick) and stored
+//         to s_h2, gelu'(x2) parked in f32 scratch (s_dg2) in fragment
+//         order; then the LayerNorm and its backward in fragment layout (a
+//         row's 128 columns in the 4 lanes of a quad, row sums over the
+//         lane's columns in order, then the quad, as K2's lnmod_out): pass
+//         1, resid = E (the warp's tile rows) + (msg + b3) x keep, LN, the
+//         slab parts of dsh and dsc, m1 and m2; pass 2, dgate's and db3's
+//         slab parts, dresid in f32 (parked in s_dres for dE), cast(dmsg) =
+//         cast(dresid x keep) into the tile rows (-> s_dmsg, and the A
+//         fragments of dh2 = cast(dmsg) W3^T). K6's dh2 quarters follow,
+//         gelu'(x2) read back, and phase C with dE = cast(f32(cast(dpre)
+//         W_e^T) + dresid), dresid added before the cast as
+//         _chain_bwd_common adds it. DROP 2 regenerates the forward's mask
+//         (message_chain.cu: drop_bits of the natural column index, whatever
+//         order the fragment holds) in pass 1 and keeps it as 64 bits a
+//         lane for pass 2. Holding gelu'(x2) and dresid (64 f32 a lane
+//         each) beside the LayerNorm's acc would pass 128 registers: they
+//         are parked, 0.8 GB written and read a call at the training shape.
 //  * wgrad_kernel (f32) / wgrad_mma_kernel (bf16, every backward): dW = X^T Y
 //    for the three operand pairs, each block summing one chunk of rows into
 //    an [H, H] partial (f32: 8 x 8 a thread on CUDA cores, Kahan-compensated;
@@ -79,13 +118,16 @@
 //    (compensated), so the weight and per-sample grads are deterministic.
 //
 // Bound on an H100 at the training shape (B96 L128 K64 H128, bf16): K3 does
-// about 6 B*L*K x H x H products (2 recomputed, dh1, dE, dW2, dW_e), K4 about 9,
-// 25.8 GFLOP each; the bytes (E and dout read, dE written) put the floor at
-// ~0.1-0.2 ms. On CUDA cores in f32 the kernels are bound by the FMA rate. The
-// bf16 K3's scratch (three [B*L*K, H] bf16 arrays written, then read by the
-// weight-grad pass with E; gelu'(pre) in f32 written and read back) moves ~2.2
-// GB, ~0.65 ms at 3.35 TB/s; its four per-edge products and gelu' are about
-// twice K1's work, and it runs at about K1's rate (PERF.md).
+// about 6 B*L*K x H x H products (2 recomputed, dh1, dE, dW2, dW_e), K4 about 9
+// and K6's backward 8, 25.8 GFLOP each; the bytes (E and dout read, dE
+// written) put the floor at ~0.1-0.2 ms. On CUDA cores in f32 the kernels are
+// bound by the FMA rate. The bf16 K3's scratch (three [B*L*K, H] bf16 arrays
+// written, then read by the weight-grad pass with E; gelu'(pre) in f32
+// written and read back) moves ~2.2 GB, ~0.65 ms at 3.35 TB/s; its four
+// per-edge products and gelu' are about twice K1's work, and it runs at
+// about K1's rate. K6's backward adds s_h2 (bf16) to that traffic, K4's s_h2,
+// s_dmsg and the two parked f32 arrays: ~3.0 and ~4.2 GB (PERF.md has the
+// times).
 
 #include "chain_common.cuh"
 #include "chain_mma.cuh"
@@ -101,7 +143,6 @@ constexpr int WROWS = 32;      // rows per staging step of wgrad_kernel
 
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int XPAD = 4; };
-template <> struct Pad<__nv_bfloat16> { static constexpr int XPAD = 8; };
 
 template <typename T>
 __device__ __forceinline__ void stage_weight(T* sW, const T* W) {
@@ -625,6 +666,11 @@ using namespace chain_mma;
 // (the residues' cast(dout), then s's slab parts, then dA's), sds [8][H] (ds,
 // then db2's slab parts) and the mask counts [8]: two blocks an SM
 constexpr int S3SMEM = 2 * WBYTES + TBYTES + (H + 8 * H + 8 * H + 8) * 4;
+// K6's and K4's backwards: W_e / W3, W2 and the edge tile, then f32 vectors
+// (K6: b2; K4: b2, b3, sc, g) and [2][MW][H] slab parts of column sums: two
+// blocks an SM
+constexpr int S6SMEM = 2 * WBYTES + TBYTES + (H + 2 * MW * H) * 4;
+constexpr int S4SMEM = 2 * WBYTES + TBYTES + (4 * H + 2 * MW * H) * 4;
 
 // gelu_exp's sigmoid sg = 1 / (1 + exp(-2u)) (gelu = x sg): one ex2 and one
 // rcp, as gelu_exp
@@ -730,6 +776,175 @@ __device__ __forceinline__ void mma_wt(float (&c)[2 * NP][4], F&& a, const unsig
   }
 }
 
+// gelu(x) as gelu_exp computes it, and gelu'(x) in f32, from one exp
+__device__ __forceinline__ float gelu_and_grad(float x, float& dg) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  const float den = 1.0f + __expf(-2.0f * u);
+  dg = gelu_grad_of(x, __fdividef(1.0f, den));
+  return __fdividef(x, den);
+}
+
+// the column of a lane's slab sum after reduce_rows<8> over quarter j's values
+// (n tiles 4 j + o, o < 4; natural columns 8 nt + 2 t4 + e)
+__device__ __forceinline__ int quarter_col(int j, int lane) {
+  const int ri = reduced_index(lane);
+  return 8 * (4 * j + (ri >> 1)) + 2 * (lane & 3) + (ri & 1);
+}
+
+// dst[c] = the tile's nslab slab parts part[q][c] summed in slab order (threads c < H)
+__device__ __forceinline__ void slab_order_sum(const float* part, int nslab,
+                                               float* __restrict__ dst) {
+  if (threadIdx.x < H) {
+    float v = 0.0f;
+    for (int q = 0; q < nslab; ++q) v += part[q * H + threadIdx.x];
+    dst[threadIdx.x] = v;
+  }
+}
+
+// dA[l] = residue l's slab parts (part: a row a slab) summed in slab order
+__device__ __forceinline__ void residue_sums(const float* part, float* __restrict__ dA, int L,
+                                             int spr, const Slab& s) {
+  for (int i = threadIdx.x; i < s.TL * H; i += MNT) {
+    const int ll = i / H, c = i - ll * H;
+    if (s.l0 + ll >= L) continue;
+    float v = 0.0f;
+    for (int q = 0; q < spr; ++q) v += part[(ll * spr + q) * H + c];
+    dA[((size_t)s.b * L + s.l0) * H + i] = v;
+  }
+}
+
+// the slab's 16 rows of src (row stride H) into `rows` (MRS bytes a row) by
+// cp.async, eight 16-byte copies a lane (committed by the caller)
+__device__ __forceinline__ void stage_slab(unsigned char* rows, const bf16* __restrict__ src,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int i = lane + 32 * j, r = i >> 4, c = i & 15;
+    cp_async16(rows + r * MRS + 16 * c, src + r * H + 8 * c);
+  }
+}
+
+// Phase A of every bf16 backward: pre = acc (preset: A + Gn) + E W_e; y =
+// cast(gelu(pre)), packed as gelu_pack packs it (gelu_exp's expression), ->
+// s_h1; gelu'(pre) in f32 -> dg1, the slab's 2048 values in fragment order (n
+// tile nt's float4 of a lane at dg1[32 nt]: 512 contiguous bytes a tile)
+__device__ __forceinline__ void recompute_pre(float (&acc)[16][4], unsigned (&y)[16][2],
+                                              const unsigned char* sE, const unsigned char* sWe,
+                                              float4* dg1, bf16* __restrict__ s_h1,
+                                              const Slab& s) {
+  mma_edge_we(acc, sE, sWe, s);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    float gl[4], dg[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gl[i] = gelu_and_grad(acc[nt][i], dg[i]);
+    y[nt][0] = pack_bf16(gl[0], gl[1]);
+    y[nt][1] = pack_bf16(gl[2], gl[3]);
+    dg1[32 * nt] = make_float4(dg[0], dg[1], dg[2], dg[3]);
+  }
+  store_units(s_h1, y, s);
+}
+
+// Phase C of every bf16 backward, by quarters of pre's columns: dh1 = cast(dx2)
+// W2^T (cast(dx2)'s A fragments from the slab's tile rows, W2^T from W2's own
+// staging) and dpre = dh1 gelu'(pre) in f32 (gelu' back from dg1, the next
+// quarter's loads in flight): dA's slab parts (red_w, by unit), dGn (two
+// float4 atomics a row and quarter), s_dpre; dp <- cast(dpre), the A fragments
+// of the dE product
+__device__ __forceinline__ void dpre_quarters(unsigned (&dp)[16][2], const unsigned char* rows,
+                                              const unsigned char* sW2, const float4* dg1,
+                                              float* __restrict__ dGn,
+                                              const int* __restrict__ idx, float* red_w,
+                                              bf16* __restrict__ s_dpre, int N, const Slab& s) {
+  const int lane = s.lane, g = lane >> 2, t4 = lane & 3, ri = reduced_index(lane);
+  const unsigned x_addr = smem_addr(rows) + (lane & 15) * MRS + (lane >> 4) * 16;
+  float* gd[2];  // dGn's rows j of rows g and g + 8, at unit 32 t4
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    gd[h] = dGn + ((size_t)s.b * N + min(max(idx[s.row0 + s.r0 + g + 8 * h], 0), N - 1)) * H +
+            32 * t4;
+  float4 nxt[4];
+#pragma unroll
+  for (int o = 0; o < 4; ++o) nxt[o] = dg1[32 * o];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float4 cur[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      cur[o] = nxt[o];
+      if (q < 3) nxt[o] = dg1[32 * (4 * q + 4 + o)];
+    }
+    float dh[4][4];  // dh1 of n tiles 4 q .. 4 q + 3
+    mma_wt<2>(dh, [&](int kk, unsigned (&af)[4]) { ldmatrix_x4(af, x_addr + 32 * kk); }, sW2,
+              lane, 2 * q);
+    float part[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const float dg[4] = {cur[o].x, cur[o].y, cur[o].z, cur[o].w};
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = dh[o][i] * dg[i];
+      part[2 * o] = d[0] + d[2];
+      part[2 * o + 1] = d[1] + d[3];
+      dp[4 * q + o][0] = pack_bf16(d[0], d[1]);
+      dp[4 * q + o][1] = pack_bf16(d[2], d[3]);
+    }
+    // cast(dpre) of units 32 t4 + 8 q .. + 7 (n tiles 4 q .. 4 q + 3) of
+    // rows g and g + 8: two float4 atomics a row
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 0; o < 4; o += 2) {
+        const float2 lo =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o][h]));
+        const float2 hi =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o + 1][h]));
+        atomicAdd(reinterpret_cast<float4*>(gd[h] + 8 * q + 2 * o),
+                  make_float4(lo.x, lo.y, hi.x, hi.y));
+      }
+    reduce_rows(part, lane);
+    red_w[32 * t4 + 8 * q + ri] = part[0];
+  }
+  store_units(s_dpre, dp, s);
+}
+
+// dE = cast(cast(dpre) W_e^T [+ dres]): W_e^T from W_e's own staging; with
+// RES, dres (f32, fragment order, dres[32 nt]) added before the cast, as
+// _chain_bwd_common adds de_extra. Staged in the slab's tile rows, then
+// written in 16-byte stores.
+template <bool RES>
+__device__ __forceinline__ void edge_grad(const unsigned (&dp)[16][2], const unsigned char* sWe,
+                                          unsigned char* rows, const float4* dres,
+                                          bf16* __restrict__ dE, const Slab& s) {
+  const int lane = s.lane, g = lane >> 2, t4 = lane & 3;
+  float acc[16][4];
+  mma_wt<8>(acc, [&](int kk, unsigned (&af)[4]) {
+    af[0] = dp[2 * kk][0];
+    af[1] = dp[2 * kk][1];
+    af[2] = dp[2 * kk + 1][0];
+    af[3] = dp[2 * kk + 1][1];
+  }, sWe, lane, 0);
+  if constexpr (RES) {
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const float4 r = dres[32 * nt];
+      acc[nt][0] += r.x;
+      acc[nt][1] += r.y;
+      acc[nt][2] += r.z;
+      acc[nt][3] += r.w;
+    }
+  }
+  __syncwarp();  // every lane's ldmatrix of the dx2 rows is done
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * (8 * nt + 2 * t4)) =
+          pack_bf16(acc[nt][2 * h], acc[nt][2 * h + 1]);
+  __syncwarp();
+  write_slab(rows, dE + (s.row0 + s.r0) * H, lane);
+}
+
 // K3 for bf16 E (module note): K1's block and slabs; after product 1 each
 // warp's tile rows hold its cast(dx2), then its dE. W3's rows for ds and the
 // next quarter's gelu' are loaded ahead of the work that waits for them.
@@ -755,7 +970,7 @@ message_sum_bwd_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ 
   float* msum = sds + 8 * H;
   const Slab s = make_slab(L, K);
   const int tid = threadIdx.x, warp = tid >> 5, lane = s.lane;
-  const int g = lane >> 2, t4 = lane & 3, ri = reduced_index(lane);
+  const int g = lane >> 2;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const int spr = K / 16;  // slabs a residue
   stage_we(sWe, We);
@@ -822,33 +1037,11 @@ message_sum_bwd_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ 
   mma::cp_async_wait<0>();
   __syncthreads();  // the tile and ds are in place; every warp is done with cast(dout)
 
-  // ---- A: pre = A + Gn + E W_e and y = h1 = cast(gelu(pre)) (-> s_h1);
-  // gelu'(pre) in f32 -> s_dg1, the slab's 2048 values in fragment order (n
-  // tile nt's float4 of lane i at 32 nt + i: 512 contiguous bytes a tile)
+  // ---- A: pre, y = h1 (-> s_h1), gelu'(pre) (-> s_dg1)
   unsigned y[16][2];
   unsigned char* rows = sE + s.r0 * MRS;                        // the slab's tile rows
   float4* dg1 = reinterpret_cast<float4*>(s_dg1 + (s.row0 + s.r0) * H) + lane;
-  if (s.active) {
-    mma_edge_we(acc, sE, sWe, s);
-    // tile by tile, from one exp and one rcp an element: y as gelu_pack packs
-    // it (gelu_exp's expression) and gelu'(pre)
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      float gl[4], dg[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = acc[nt][i];
-        const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-        const float den = 1.0f + __expf(-2.0f * u);
-        gl[i] = __fdividef(x, den);
-        dg[i] = gelu_grad_of(x, __fdividef(1.0f, den));
-      }
-      y[nt][0] = pack_bf16(gl[0], gl[1]);
-      y[nt][1] = pack_bf16(gl[2], gl[3]);
-      dg1[32 * nt] = make_float4(dg[0], dg[1], dg[2], dg[3]);
-    }
-    store_units(s_h1, y, s);
-  }
+  if (s.active) recompute_pre(acc, y, sE, sWe, dg1, s_h1, s);
 
   // ---- B: x2 = y W2 in halves; s's slab parts, cast(dx2) into the slab's tile
   // rows (E is read no more) and from there to s_dx2, db2's slab parts
@@ -877,96 +1070,543 @@ message_sum_bwd_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ 
   }
   if (s.active) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sds[warp * H + 8 * (4 * j + (ri >> 1)) + 2 * t4 + (ri & 1)] = dbk[j];
+    for (int j = 0; j < 4; ++j) sds[warp * H + quarter_col(j, lane)] = dbk[j];
   }
   __syncthreads();
-  if (tid < H) {  // db2's tile part: the active slabs in order
-    float v = 0.0f;
-    for (int q = 0; q < s.nrows / 16; ++q) v += sds[q * H + tid];
-    p_db[(size_t)tile * H + tid] = v;
-  }
+  slab_order_sum(sds, s.nrows / 16, p_db + (size_t)tile * H);  // db2's tile part
 
-  // ---- C: by quarters of pre's columns, dh1 = cast(dx2) W2^T (cast(dx2)'s A
-  // fragments from the slab's tile rows) and dpre = dh1 gelu'(pre) (gelu'
-  // back from s_dg1, the next quarter's in flight): dA's slab parts, dGn
-  // (float4 atomics), s_dpre; then dE = cast(cast(dpre) W_e^T)
+  // ---- C: dh1, dpre (dA's slab parts -> sdo, dGn, s_dpre), then dE =
+  // cast(cast(dpre) W_e^T)
   if (s.active) {
-    const unsigned x_addr = smem_addr(rows) + (lane & 15) * MRS + (lane >> 4) * 16;
-    float* red_w = sdo + warp * H;
-    float* gd[2];  // dGn's rows j of rows g and g + 8, at unit 32 t4
+    unsigned dp[16][2];
+    dpre_quarters(dp, rows, sW2, dg1, dGn, idx, sdo + warp * H, s_dpre, N, s);
+    edge_grad<false>(dp, sWe, rows, nullptr, dE, s);
+  }
+  __syncthreads();  // dA's slab parts in sdo
+  residue_sums(sdo, dA, L, spr, s);
+}
+
+// ---------------------------------------------------------------------------
+// K6's backward and K4 / K5's backward in bf16 (module note): K3's block, slabs
+// and phases A and C around the backward of the per-edge W3 product.
+
+// product 2 at quarter q of x2's columns: c = y W2 at n tiles 4 q .. 4 q + 3
+__device__ __forceinline__ void mma_w2_quarter(float (&c)[4][4], const unsigned (&y)[16][2],
+                                               const unsigned char* sW2, int q, int lane) {
+  const unsigned w2_addr = weight_addr(sW2, lane);
+#pragma unroll
+  for (int o = 0; o < 4; ++o) c[o][0] = c[o][1] = c[o][2] = c[o][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const unsigned a[4] = {y[2 * kk][0], y[2 * kk][1], y[2 * kk + 1][0], y[2 * kk + 1][1]};
+    mma_step<2>(c, a, w2_addr, kk, 2 * q);
+  }
+}
+
+// the packed bf16 pair v to row r, columns c and c + 1 of a [16][H] slab of
+// device memory (a quad's four stores fill 16 contiguous bytes)
+__device__ __forceinline__ void store_pair(bf16* __restrict__ slab, int r, int c, unsigned v) {
+  *reinterpret_cast<unsigned*>(slab + r * H + c) = v;
+}
+
+__device__ __forceinline__ float2 bf16_pair(const void* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// K6: db3's slab parts, the cotangent dmsg (bf16, in the slab's tile rows)
+// summed over rows g and g + 8, then the butterfly, as dx2's
+__device__ __forceinline__ void dmsg_sums(const unsigned char* rows, float* dst, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float p[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int c = 8 * (4 * j + o) + 2 * t4;
+      const float2 r0 = bf16_pair(rows + g * MRS + 2 * c);
+      const float2 r8 = bf16_pair(rows + (g + 8) * MRS + 2 * c);
+      p[2 * o] = r0.x + r8.x;
+      p[2 * o + 1] = r0.y + r8.y;
+    }
+    reduce_rows(p, lane);
+    dst[quarter_col(j, lane)] = p[0];
+  }
+}
+
+// K4 / K5: x2 = y W2 + b2 in halves; h2 = cast(gelu(x2)), packed as the A
+// fragments of the W3 product (h2_pack's arithmetic) and stored to the slab's
+// s_h2 rows, and gelu'(x2) in f32 parked in dg2 in fragment order
+__device__ __forceinline__ void x2_halves(unsigned (&h2)[16][2], const unsigned (&y)[16][2],
+                                          const unsigned char* sW2, const float* sb2,
+                                          float4* dg2, bf16* __restrict__ h2_slab, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float c2[8][4];
+    mma_w2_half(c2, y, sW2, hf, lane);
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const int nt = 8 * hf + o, c = 8 * nt + 2 * t4;
+      const float2 bias = *reinterpret_cast<const float2*>(sb2 + c);
+      float h[4], dg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        h[i] = gelu_and_grad(c2[o][i] + (i & 1 ? bias.y : bias.x), dg[i]);
+      h2[nt][0] = pack_bf16(h[0], h[1]);
+      h2[nt][1] = pack_bf16(h[2], h[3]);
+      dg2[32 * nt] = make_float4(dg[0], dg[1], dg[2], dg[3]);
+      store_pair(h2_slab, g, c, h2[nt][0]);
+      store_pair(h2_slab, g + 8, c, h2[nt][1]);
+    }
+  }
+}
+
+// The keep scales of K5's backward at n tile nt, row g + 8 h of the slab,
+// natural columns c and c + 1: DROP 1 reads them from `keep`; DROP 2
+// regenerates the forward's mask, drop_bits(sample_key(seeds[b], b), ((l K) +
+// k) H + c) >= thresh (message_chain.cu's), and records it in km[h] (bit
+// 2 nt + e) for the second pass
+template <int DROP>
+__device__ __forceinline__ float2 keep_pair(const bf16* __restrict__ keep, uint32_t key,
+                                            uint32_t thresh, float kscale, unsigned (&km)[2],
+                                            int K, int nt, int h, int c, const Slab& s) {
+  const int r = s.r0 + (s.lane >> 2) + 8 * h;  // the row in the tile
+  if constexpr (DROP == 1) {
+    return bf16_pair(keep + (s.row0 + r) * H + c);
+  } else {
+    const uint32_t i0 = (uint32_t)(((size_t)s.l0 * K + r) * H + c);
+    const bool k0 = drop_bits(key, i0) >= thresh, k1 = drop_bits(key, i0 + 1) >= thresh;
+    km[h] |= (k0 ? 1u : 0u) << (2 * nt) | (k1 ? 1u : 0u) << (2 * nt + 1);
+    return make_float2(k0 ? kscale : 0.0f, k1 ? kscale : 0.0f);
+  }
+}
+
+// K4 / K5, first pass over acc = cast(h2) W3: msg = (acc + b3) x keep, resid =
+// E + msg (E from the slab's tile rows), ln = LN(resid) (eps 1e-6) into acc,
+// with rstd; then with dct = dout: dsh's (dct g) and dsc's (dct g ln) slab
+// parts into psh, psc, and the row means m1 of dln = dct g (1 + sc) and m2 of
+// dln ln. Row sums: the lane's 32 columns in order, then the quad (K2's
+// lnmod_out). vec holds b2, b3, sc, g.
+template <int DROP>
+__device__ __forceinline__ void ln_pass1(float (&acc)[16][4], float (&rstd)[2], float (&m1)[2],
+                                         float (&m2)[2], unsigned (&km)[2],
+                                         const unsigned char* rows, const float* vec,
+                                         const bf16* __restrict__ keep, uint32_t key,
+                                         uint32_t thresh, float kscale,
+                                         const bf16* __restrict__ dct_slab, float* psh,
+                                         float* psc, int K, const Slab& s) {
+  const int lane = s.lane, g = lane >> 2, t4 = lane & 3;
+  const float *sb3 = vec + H, *ssc = vec + 2 * H, *sg = vec + 3 * H;
+  float mean[2] = {0.0f, 0.0f};
+  km[0] = km[1] = 0u;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int c = 8 * nt + 2 * t4;
+    const float2 bias = *reinterpret_cast<const float2*>(sb3 + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 e = bf16_pair(rows + (g + 8 * h) * MRS + 2 * c);
+      float x0 = acc[nt][2 * h] + bias.x, x1 = acc[nt][2 * h + 1] + bias.y;
+      if constexpr (DROP != 0) {
+        const float2 kp = keep_pair<DROP>(keep, key, thresh, kscale, km, K, nt, h, c, s);
+        x0 *= kp.x;
+        x1 *= kp.y;
+      }
+      acc[nt][2 * h] = e.x + x0;
+      acc[nt][2 * h + 1] = e.y + x1;
+      mean[h] += acc[nt][2 * h];
+      mean[h] += acc[nt][2 * h + 1];
+    }
+  }
+  float var[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 1);
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 2);
+    mean[h] = mean[h] / H;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      gd[h] = dGn + ((size_t)s.b * N + min(max(idx[s.row0 + s.r0 + g + 8 * h], 0), N - 1)) * H +
-              32 * t4;
-    float4 nxt[4];
 #pragma unroll
-    for (int o = 0; o < 4; ++o) nxt[o] = dg1[32 * o];
-    unsigned dp[16][2];
+      for (int e = 0; e < 2; ++e) {
+        const float d = acc[nt][2 * h + e] - mean[h];
+        var[h] += d * d;
+      }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float4 cur[4];
+  for (int h = 0; h < 2; ++h) {
+    var[h] += __shfl_xor_sync(0xffffffffu, var[h], 1);
+    var[h] += __shfl_xor_sync(0xffffffffu, var[h], 2);
+    rstd[h] = rsqrtf(var[h] / H + 1e-6f);
+  }
+  __syncwarp();  // every lane has read its E
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = (acc[nt][i] - mean[i >> 1]) * rstd[i >> 1];
+  float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float ph[8], pc[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
+      const float2 gv = *reinterpret_cast<const float2*>(sg + c);
+      const float2 scv = *reinterpret_cast<const float2*>(ssc + c);
+      const float2 d0 = bf16_pair(dct_slab + g * H + c);
+      const float2 d8 = bf16_pair(dct_slab + (g + 8) * H + c);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float gg = e ? gv.y : gv.x, sc1 = 1.0f + (e ? scv.y : scv.x);
+        const float ln0 = acc[nt][e], ln8 = acc[nt][2 + e];
+        const float dgo0 = (e ? d0.y : d0.x) * gg, dgo8 = (e ? d8.y : d8.x) * gg;
+        ph[2 * o + e] = dgo0 + dgo8;
+        pc[2 * o + e] = dgo0 * ln0 + dgo8 * ln8;
+        const float dln0 = dgo0 * sc1, dln8 = dgo8 * sc1;
+        s1[0] += dln0;
+        s2[0] += dln0 * ln0;
+        s1[1] += dln8;
+        s2[1] += dln8 * ln8;
+      }
+    }
+    reduce_rows(ph, lane);
+    reduce_rows(pc, lane);
+    psh[quarter_col(j, lane)] = ph[0];
+    psc[quarter_col(j, lane)] = pc[0];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], 1);
+    s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], 2);
+    s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], 1);
+    s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], 2);
+    m1[h] = s1[h] / H;
+    m2[h] = s2[h] / H;
+  }
+}
+
+// K4 / K5, second pass over acc = ln: dgate's slab parts (dct ln (1 + sc))
+// into pdg; dresid = rstd (dln - m1 - ln m2) in f32 into acc and parked in
+// dres (fragment order) for dE; dmsg = dresid x keep: db3's slab parts (f32)
+// into pdb, and cast(dmsg) into the slab's tile rows and from there to the
+// slab's s_dmsg rows (dW3's Y)
+template <int DROP>
+__device__ __forceinline__ void ln_pass2(float (&acc)[16][4], const float (&rstd)[2],
+                                         const float (&m1)[2], const float (&m2)[2],
+                                         const unsigned (&km)[2], unsigned char* rows,
+                                         const float* vec, const bf16* __restrict__ keep,
+                                         float kscale, const bf16* __restrict__ dct_slab,
+                                         float4* dres, float* pdg, float* pdb,
+                                         bf16* __restrict__ dmsg_slab, const Slab& s) {
+  const int lane = s.lane, g = lane >> 2, t4 = lane & 3;
+  const float *ssc = vec + 2 * H, *sg = vec + 3 * H;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float pg[8], pb[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
+      const float2 gv = *reinterpret_cast<const float2*>(sg + c);
+      const float2 scv = *reinterpret_cast<const float2*>(ssc + c);
+      float dm[2][2], dgt[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 d = bf16_pair(dct_slab + (g + 8 * h) * H + c);
+        float2 kp = make_float2(1.0f, 1.0f);
+        if constexpr (DROP == 1) kp = bf16_pair(keep + (s.row0 + s.r0 + g + 8 * h) * H + c);
+        if constexpr (DROP == 2)
+          kp = make_float2((km[h] >> (2 * nt)) & 1u ? kscale : 0.0f,
+                           (km[h] >> (2 * nt + 1)) & 1u ? kscale : 0.0f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dct = e ? d.y : d.x, sc1 = 1.0f + (e ? scv.y : scv.x);
+          const float ln = acc[nt][2 * h + e];
+          const float dln = (dct * (e ? gv.y : gv.x)) * sc1;
+          const float dr = rstd[h] * ((dln - m1[h]) - ln * m2[h]);
+          dgt[h][e] = dct * (ln * sc1);
+          acc[nt][2 * h + e] = dr;
+          dm[h][e] = DROP != 0 ? dr * (e ? kp.y : kp.x) : dr;
+        }
+        *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * c) =
+            pack_bf16(dm[h][0], dm[h][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        pg[2 * o + e] = dgt[0][e] + dgt[1][e];
+        pb[2 * o + e] = dm[0][e] + dm[1][e];
+      }
+      dres[32 * nt] = make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+    }
+    reduce_rows(pg, lane);
+    reduce_rows(pb, lane);
+    pdg[quarter_col(j, lane)] = pg[0];
+    pdb[quarter_col(j, lane)] = pb[0];
+  }
+  __syncwarp();
+  write_slab(rows, dmsg_slab, lane);
+}
+
+// dh2 = cast(dmsg) W3^T by quarters of x2's columns (cast(dmsg)'s A fragments
+// from the slab's tile rows; W3^T from W3's own staging, rows as they are, so
+// dh2 has x2's natural column order) and dx2 = dh2 gelu'(x2) in f32: its slab
+// column sums (db2's parts, dbk[q]) and cast(dx2), staged in the tile rows once
+// the last quarter's dh2 is done and written to the slab's s_dx2 rows. RAW
+// (K6): x2 = y W2 + b2 of each quarter here (c2 holds quarter 0's on entry),
+// h2 = cast(gelu(x2)) to the slab's s_h2 rows and gelu'(x2) from the same exp;
+// else (K4 / K5) gelu'(x2) comes back from dg2, the next quarter's in flight
+// (y, c2, sb2 and h2_slab are not read).
+template <bool RAW>
+__device__ __forceinline__ void dx2_quarters(float (&dbk)[4], float (&c2)[4][4],
+                                             const unsigned (&y)[16][2],
+                                             const unsigned char* sW2, const float* sb2,
+                                             unsigned char* rows, const unsigned char* sW3,
+                                             const float4* dg2, bf16* __restrict__ h2_slab,
+                                             bf16* __restrict__ dx2_slab, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const unsigned x_addr = smem_addr(rows) + (lane & 15) * MRS + (lane >> 4) * 16;
+  unsigned dxp[16][2];
+  float4 nxt[4];
+  if constexpr (!RAW) {
+#pragma unroll
+    for (int o = 0; o < 4; ++o) nxt[o] = dg2[32 * o];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float4 cur[4];
+    if constexpr (RAW) {
+      if (q > 0) mma_w2_quarter(c2, y, sW2, q, lane);
+    } else {
 #pragma unroll
       for (int o = 0; o < 4; ++o) {
         cur[o] = nxt[o];
-        if (q < 3) nxt[o] = dg1[32 * (4 * q + 4 + o)];
+        if (q < 3) nxt[o] = dg2[32 * (4 * q + 4 + o)];
       }
-      float dh[4][4];  // dh1 of n tiles 4 q .. 4 q + 3
-      mma_wt<2>(dh, [&](int kk, unsigned (&af)[4]) { ldmatrix_x4(af, x_addr + 32 * kk); }, sW2,
-                lane, 2 * q);
-      float part[8];
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        const float dg[4] = {cur[o].x, cur[o].y, cur[o].z, cur[o].w};
-        float d[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) d[i] = dh[o][i] * dg[i];
-        part[2 * o] = d[0] + d[2];
-        part[2 * o + 1] = d[1] + d[3];
-        dp[4 * q + o][0] = pack_bf16(d[0], d[1]);
-        dp[4 * q + o][1] = pack_bf16(d[2], d[3]);
-      }
-      // cast(dpre) of units 32 t4 + 8 q .. + 7 (n tiles 4 q .. 4 q + 3) of
-      // rows g and g + 8: two float4 atomics a row
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int o = 0; o < 4; o += 2) {
-          const float2 lo = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o][h]));
-          const float2 hi = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&dp[4 * q + o + 1][h]));
-          atomicAdd(reinterpret_cast<float4*>(gd[h] + 8 * q + 2 * o),
-                    make_float4(lo.x, lo.y, hi.x, hi.y));
-        }
-      reduce_rows(part, lane);
-      red_w[32 * t4 + 8 * q + ri] = part[0];
     }
-    store_units(s_dpre, dp, s);
-    mma_wt<8>(acc, [&](int kk, unsigned (&af)[4]) {
-      af[0] = dp[2 * kk][0];
-      af[1] = dp[2 * kk][1];
-      af[2] = dp[2 * kk + 1][0];
-      af[3] = dp[2 * kk + 1][1];
-    }, sWe, lane, 0);
-    __syncwarp();  // every lane's ldmatrix of the dx2 rows is done
+    float dh[4][4];  // dh2 of n tiles 4 q .. 4 q + 3
+    mma_wt<2>(dh, [&](int kk, unsigned (&af)[4]) { ldmatrix_x4(af, x_addr + 32 * kk); }, sW3,
+              lane, 2 * q);
+    float dp[8];
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 4 * q + o, c = 8 * nt + 2 * t4;
+      float dg[4];
+      if constexpr (RAW) {
+        const float2 bias = *reinterpret_cast<const float2*>(sb2 + c);
+        float h[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * (8 * nt + 2 * t4)) =
-            pack_bf16(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    __syncwarp();
-    write_slab(rows, dE + (s.row0 + s.r0) * H, lane);
+        for (int i = 0; i < 4; ++i)
+          h[i] = gelu_and_grad(c2[o][i] + (i & 1 ? bias.y : bias.x), dg[i]);
+        store_pair(h2_slab, g, c, pack_bf16(h[0], h[1]));
+        store_pair(h2_slab, g + 8, c, pack_bf16(h[2], h[3]));
+      } else {
+        dg[0] = cur[o].x;
+        dg[1] = cur[o].y;
+        dg[2] = cur[o].z;
+        dg[3] = cur[o].w;
+      }
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = dh[o][i] * dg[i];
+      dp[2 * o] = d[0] + d[2];
+      dp[2 * o + 1] = d[1] + d[3];
+      dxp[nt][0] = pack_bf16(d[0], d[1]);
+      dxp[nt][1] = pack_bf16(d[2], d[3]);
+    }
+    reduce_rows(dp, lane);
+    dbk[q] = dp[0];
   }
-  __syncthreads();  // dA's slab parts in sdo
-  for (int i = tid; i < s.TL * H; i += MNT) {
-    const int ll = i / H, c = i - ll * H;
-    if (s.l0 + ll >= L) continue;
-    float v = 0.0f;
-    for (int q = 0; q < spr; ++q) v += sdo[(ll * spr + q) * H + c];
-    dA[((size_t)s.b * L + s.l0) * H + i] = v;
+  __syncwarp();  // every lane's ldmatrix of the dmsg rows is done
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned*>(rows + (g + 8 * h) * MRS + 2 * (8 * nt + 2 * t4)) = dxp[nt][h];
+  __syncwarp();
+  write_slab(rows, dx2_slab, lane);
+}
+
+// The edge backwards' tail, in every thread of the block, once cast(dx2) is
+// in each slab's tile rows and db2's slab parts in dbk: W_e restaged into sW0
+// (W3's buffer) while phase C's dh1 quarters run (dA's slab parts to
+// part[1]); then dE = cast(cast(dpre) W_e^T [+ dres]); db2's tile part (to
+// db2_tile) and dA. part is [2][MW][H] f32, free on entry.
+template <bool RES>
+__device__ __forceinline__ void edge_bwd_tail(const float (&dbk)[4], unsigned char* sW0,
+                                              const unsigned char* sW2,
+                                              const bf16* __restrict__ We, unsigned char* rows,
+                                              float* part, const float4* dg1, const float4* dres,
+                                              const int* __restrict__ idx,
+                                              float* __restrict__ dA, bf16* __restrict__ dE,
+                                              float* __restrict__ dGn,
+                                              bf16* __restrict__ s_dpre,
+                                              float* __restrict__ db2_tile, int L, int K, int N,
+                                              const Slab& s) {
+  const int warp = threadIdx.x >> 5, lane = s.lane;
+  __syncthreads();  // every warp is done with W3
+  stage_we(sW0, We);
+  mma::cp_async_commit();
+  unsigned dp[16][2];
+  if (s.active) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[warp * H + quarter_col(j, lane)] = dbk[j];
+    dpre_quarters(dp, rows, sW2, dg1, dGn, idx, part + (MW + warp) * H, s_dpre, N, s);
   }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // W_e in place; db2's slab parts in part[0]
+  slab_order_sum(part, s.nrows / 16, db2_tile);
+  if (s.active) edge_grad<RES>(dp, sW0, rows, dres, dE, s);
+  __syncthreads();  // dA's slab parts in part[1]
+  residue_sums(part + MW * H, dA, L, K / 16, s);
+}
+
+// K6's backward for bf16 E: dmsg is the cotangent, staged into each warp's own
+// tile rows once product 1 has read its E rows; product 2 and dh2 run
+// quarter by quarter, so gelu'(x2) never leaves registers. dW3's Y is the
+// cotangent itself.
+__global__ void __launch_bounds__(MNT, 2)
+message_edge_bwd_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
+                            const bf16* __restrict__ Gn, const int* __restrict__ idx,
+                            const bf16* __restrict__ We, const bf16* __restrict__ W2,
+                            const float* __restrict__ b2, const bf16* __restrict__ W3,
+                            const bf16* __restrict__ dout, float* __restrict__ dA,
+                            bf16* __restrict__ dE, float* __restrict__ dGn,
+                            bf16* __restrict__ s_h1, bf16* __restrict__ s_dx2,
+                            bf16* __restrict__ s_dpre, bf16* __restrict__ s_h2,
+                            float* __restrict__ s_dg1, float* __restrict__ p_db, int L, int K,
+                            int N, int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sW0 = smem;             // W_e (columns in unit order), W3, W_e again
+  unsigned char* sW2 = sW0 + WBYTES;     // W2, rows in unit order
+  unsigned char* sE = sW2 + WBYTES;      // E; then each warp's dmsg, cast(dx2), dE
+  float* sb2 = reinterpret_cast<float*>(sE + TBYTES);
+  float* part = sb2 + H;                 // [2][MW][H] slab parts of column sums
+  const Slab s = make_slab(L, K);
+  const int warp = threadIdx.x >> 5, lane = s.lane;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t srow = s.row0 + s.r0;     // the slab's first edge row
+  stage_we(sW0, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  mma::cp_async_commit();
+  load_vec(sb2, b2);
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned y[16][2];
+  unsigned char* rows = sE + s.r0 * MRS;
+  float4* dg1 = reinterpret_cast<float4*>(s_dg1 + srow * H) + lane;
+  if (s.active) {
+    recompute_pre(acc, y, sE, sW0, dg1, s_h1, s);
+    __syncwarp();  // every lane's ldmatrix of its E rows is done
+    stage_slab(rows, dout + srow * H, lane);
+  }
+  mma::cp_async_commit();
+  __syncthreads();  // every warp is done with W_e
+  stage_rows<false>(sW0, W3);
+  mma::cp_async_commit();
+  float c2[4][4];
+  if (s.active) {
+    mma::cp_async_wait<1>();
+    __syncwarp();  // the warp's dmsg rows are in place
+    dmsg_sums(rows, part + (MW + warp) * H, lane);
+    mma_w2_quarter(c2, y, sW2, 0, lane);
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // W3 in place; db3's slab parts in part[1]
+  slab_order_sum(part + MW * H, s.nrows / 16, p_db + ((size_t)n_tiles + tile) * H);
+  float dbk[4];
+  if (s.active)
+    dx2_quarters<true>(dbk, c2, y, sW2, sb2, rows, sW0, nullptr, s_h2 + srow * H,
+                       s_dx2 + srow * H, lane);
+  edge_bwd_tail<false>(dbk, sW0, sW2, We, rows, part, dg1, nullptr, idx, dA, dE, dGn, s_dpre,
+                       p_db + (size_t)tile * H, L, K, N, s);
+}
+
+// K4 (DROP 0) and K5's backward (DROP 1: `keep`; DROP 2: the mask from `seeds`)
+// for bf16 E: the W3 product recomputed on h2 in registers, the LayerNorm and
+// its backward in fragment layout (a row's columns in the 4 lanes of a quad),
+// gelu'(x2) and dresid parked in f32 scratch in fragment order.
+template <int DROP>
+__global__ void __launch_bounds__(MNT, 2)
+message_edge_lnmod_bwd_mma_kernel(
+    const bf16* __restrict__ A, const bf16* __restrict__ E, const bf16* __restrict__ Gn,
+    const int* __restrict__ idx, const bf16* __restrict__ We, const bf16* __restrict__ W2,
+    const float* __restrict__ b2, const bf16* __restrict__ W3, const float* __restrict__ b3,
+    const float* __restrict__ sc, const float* __restrict__ gate,
+    const bf16* __restrict__ keep, const int* __restrict__ seeds, uint32_t thresh,
+    float kscale, const bf16* __restrict__ dout, float* __restrict__ dA,
+    bf16* __restrict__ dE, float* __restrict__ dGn, bf16* __restrict__ s_h1,
+    bf16* __restrict__ s_dx2, bf16* __restrict__ s_dpre, bf16* __restrict__ s_h2,
+    bf16* __restrict__ s_dmsg, float* __restrict__ s_dg1, float* __restrict__ s_dg2,
+    float* __restrict__ s_dres, float* __restrict__ p_db, float* __restrict__ p_mod, int L,
+    int K, int N, int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sW0 = smem;             // W_e (columns in unit order), W3, W_e again
+  unsigned char* sW2 = sW0 + WBYTES;     // W2, rows in unit order
+  unsigned char* sE = sW2 + WBYTES;      // E; then each warp's cast(dmsg), cast(dx2), dE
+  float* vec = reinterpret_cast<float*>(sE + TBYTES);  // b2, b3, sc, g of sample b
+  float* part = vec + 4 * H;             // [2][MW][H] slab parts of column sums
+  const Slab s = make_slab(L, K);
+  const int warp = threadIdx.x >> 5, lane = s.lane;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int nslab = s.nrows / 16;
+  const size_t srow = s.row0 + s.r0;     // the slab's first edge row
+  stage_we(sW0, We);
+  stage_rows<true>(sW2, W2);
+  stage_edges(sE, E, s);
+  mma::cp_async_commit();
+  load_vec(vec, b2);
+  load_vec(vec + H, b3);
+  load_vec(vec + 2 * H, sc + (size_t)s.b * H);
+  load_vec(vec + 3 * H, gate + (size_t)s.b * H);
+  float acc[16][4];
+  preset_pre(acc, A, Gn, idx, L, K, N, s);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned y[16][2];
+  unsigned char* rows = sE + s.r0 * MRS;
+  float4* dg1 = reinterpret_cast<float4*>(s_dg1 + srow * H) + lane;
+  float4* dg2 = reinterpret_cast<float4*>(s_dg2 + srow * H) + lane;
+  float4* dres = reinterpret_cast<float4*>(s_dres + srow * H) + lane;
+  if (s.active) recompute_pre(acc, y, sE, sW0, dg1, s_h1, s);
+  __syncthreads();  // every warp is done with W_e
+  stage_rows<false>(sW0, W3);
+  mma::cp_async_commit();
+  unsigned h2[16][2];
+  if (s.active) x2_halves(h2, y, sW2, vec, dg2, s_h2 + srow * H, lane);
+  mma::cp_async_wait<0>();
+  __syncthreads();  // W3 in place
+
+  float rstd[2], m1[2], m2[2];
+  unsigned km[2];
+  const uint32_t key = DROP == 2 ? sample_key(seeds[s.b], s.b) : 0u;
+  const bf16* dct_slab = dout + srow * H;
+  if (s.active) {
+    mma_w3(acc, h2, sW0, lane);
+    ln_pass1<DROP>(acc, rstd, m1, m2, km, rows, vec, keep, key, thresh, kscale, dct_slab,
+                   part + warp * H, part + (MW + warp) * H, K, s);
+  }
+  __syncthreads();  // dsh's and dsc's slab parts in part
+  float* pm = p_mod + (size_t)tile * H;
+  slab_order_sum(part, nslab, pm);
+  slab_order_sum(part + MW * H, nslab, pm + (size_t)n_tiles * H);
+  __syncthreads();  // part is free
+  if (s.active)
+    ln_pass2<DROP>(acc, rstd, m1, m2, km, rows, vec, keep, kscale, dct_slab, dres,
+                   part + warp * H, part + (MW + warp) * H, s_dmsg + srow * H, s);
+  __syncthreads();  // dgate's and db3's slab parts in part
+  slab_order_sum(part, nslab, pm + (size_t)2 * n_tiles * H);
+  slab_order_sum(part + MW * H, nslab, p_db + ((size_t)n_tiles + tile) * H);
+  __syncthreads();  // part is free
+  float dbk[4], c2[4][4];  // c2: K6's (not read here)
+  if (s.active)
+    dx2_quarters<false>(dbk, c2, y, sW2, vec, rows, sW0, dg2, nullptr, s_dx2 + srow * H, lane);
+  edge_bwd_tail<true>(dbk, sW0, sW2, We, rows, part, dg1, dres, idx, dA, dE, dGn, s_dpre,
+                      p_db + (size_t)tile * H, L, K, N, s);
 }
 
 // The weight-grad pass of every bf16 backward: part[z][chunk] = X_z^T Y_z over
@@ -1069,6 +1709,41 @@ cudaError_t launch_wgrad(const Pairs<bf16>& pairs, int n_chunks, float* wpart,
   return cudaGetLastError();
 }
 
+// The weight grads of a bf16 backward from its main pass's scratch, dW =
+// (E^T cast(dpre), h1^T cast(dx2), X3^T Y3) with the rows of X3 and Y3 (m3:
+// the edge rows, or K3's residue rows), on the tensor cores, then the
+// partial sums of dW and of db (p_db's [2, n_tiles, H] tile parts)
+int bf16_grads(const void* E, const void* s_dpre, const void* s_h1, const void* s_dx2,
+               const void* X3, const void* Y3, long long rows, long long m3, void* wpart,
+               void* p_db, void* dW, void* db, int n_tiles, int n_chunks, cudaStream_t st) {
+  Pairs<bf16> pairs;
+  pairs.X[0] = static_cast<const bf16*>(E);
+  pairs.Y[0] = static_cast<const bf16*>(s_dpre);
+  pairs.M[0] = rows;
+  pairs.X[1] = static_cast<const bf16*>(s_h1);
+  pairs.Y[1] = static_cast<const bf16*>(s_dx2);
+  pairs.M[1] = rows;
+  pairs.X[2] = static_cast<const bf16*>(X3);
+  pairs.Y[2] = static_cast<const bf16*>(Y3);
+  pairs.M[2] = m3;
+  const cudaError_t err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
+                        H * H, st);
+  if (rc != 0) return rc;
+  return reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
+}
+
+// the tensor-core main passes' checks: K a multiple of 16, at most 128;
+// n_tiles counts blocks of 128 edge rows; returns the L-tiles a sample (0: bad)
+int mma_tiles(int B, int L, int K, int N, int n_tiles, int n_chunks) {
+  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0 || n_chunks <= 0)
+    return 0;
+  const int TL = MROWS / K;
+  const int ntl = (L + TL - 1) / TL;
+  return n_tiles == B * ntl ? ntl : 0;
+}
+
 // K3 in bf16: the main pass, the tensor-core weight grads, then the partial
 // sums. Scratch: s_h1, s_dx2, s_dpre [B*L*K, H], s_s, s_dout [B*L, H] in bf16;
 // s_dg1 [B*L*K, H] f32 (gelu'(pre) between the main pass's phases A and C);
@@ -1081,11 +1756,8 @@ int launch_sum_bwd_mma(const void* A, const void* E, const void* Gn, const void*
                        void* s_dout,
                        void* wpart, void* p_db, void* dW, void* db, int B, int L, int K,
                        int N, int n_tiles, int n_chunks, void* stream) {
-  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > MROWS || K % 16 != 0 || n_chunks <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int TL = MROWS / K;
-  const int ntl = (L + TL - 1) / TL;
-  if (n_tiles != B * ntl) return (int)cudaErrorInvalidValue;
+  const int ntl = mma_tiles(B, L, K, N, n_tiles, n_chunks);
+  if (ntl == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(message_sum_bwd_mma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, S3SMEM);
@@ -1102,27 +1774,84 @@ int launch_sum_bwd_mma(const void* A, const void* E, const void* Gn, const void*
       static_cast<float*>(p_db), L, K, N, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * L * K;
-  Pairs<bf16> pairs;
-  pairs.X[0] = static_cast<const bf16*>(E);
-  pairs.Y[0] = static_cast<const bf16*>(s_dpre);
-  pairs.M[0] = rows;
-  pairs.X[1] = static_cast<const bf16*>(s_h1);
-  pairs.Y[1] = static_cast<const bf16*>(s_dx2);
-  pairs.M[1] = rows;
-  pairs.X[2] = static_cast<const bf16*>(s_s);
-  pairs.Y[2] = static_cast<const bf16*>(s_dout);
-  pairs.M[2] = (long long)B * L;
-  err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
-  if (err != cudaSuccess) return (int)err;
-  const int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
-                        H * H, st);
-  if (rc != 0) return rc;
-  return reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
+  return bf16_grads(E, s_dpre, s_h1, s_dx2, s_s, s_dout, (long long)B * L * K, (long long)B * L,
+                    wpart, p_db, dW, db, n_tiles, n_chunks, st);
 }
 
-// Scratch (from the wrapper): s_h1, s_dx2, s_dpre [B*L*K, H] and s_h2, s_dmsg
-// ([B*L*K, H] for K4, [B*L, H] for K3) in T; wpart f32 [3, n_chunks, H, H];
+// K6's backward in bf16: the main pass, then bf16_grads with dW3 = cast(h2)^T
+// dout. Scratch: s_h1, s_dx2, s_dpre, s_h2 [B*L*K, H] bf16, s_dg1 [B*L*K, H]
+// f32, wpart, p_db as K3's. Outputs as launch_bwd's.
+int launch_edge_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                        const void* We, const void* W2, const void* b2, const void* W3,
+                        const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
+                        void* s_dx2, void* s_dpre, void* s_h2, void* s_dg1, void* wpart,
+                        void* p_db, void* dW, void* db, int B, int L, int K, int N,
+                        int n_tiles, int n_chunks, void* stream) {
+  const int ntl = mma_tiles(B, L, K, N, n_tiles, n_chunks);
+  if (ntl == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(message_edge_bwd_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S6SMEM);
+  if (err != cudaSuccess) return (int)err;
+  message_edge_bwd_mma_kernel<<<dim3(ntl, B), MNT, S6SMEM, st>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const bf16*>(We),
+      static_cast<const bf16*>(W2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(W3), static_cast<const bf16*>(dout), static_cast<float*>(dA),
+      static_cast<bf16*>(dE), static_cast<float*>(dGn), static_cast<bf16*>(s_h1),
+      static_cast<bf16*>(s_dx2), static_cast<bf16*>(s_dpre), static_cast<bf16*>(s_h2),
+      static_cast<float*>(s_dg1), static_cast<float*>(p_db), L, K, N, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * L * K;
+  return bf16_grads(E, s_dpre, s_h1, s_dx2, s_h2, dout, rows, rows, wpart, p_db, dW, db,
+                    n_tiles, n_chunks, st);
+}
+
+// K4 / K5's backward in bf16 (DROP 0, 1: keep, 2: seeds): the main pass, then
+// bf16_grads with dW3 = cast(h2)^T cast(dmsg), then dmod's partial sums.
+// Scratch: K6's and s_dmsg [B*L*K, H] bf16, s_dg2, s_dres [B*L*K, H] f32,
+// p_mod f32 [3, n_tiles, H]. Outputs as launch_bwd's.
+template <int DROP>
+int launch_edge_lnmod_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                              const void* We, const void* W2, const void* b2, const void* W3,
+                              const void* b3, const void* sc, const void* gate,
+                              const void* keep, const void* seeds, uint32_t thresh,
+                              float kscale, const void* dout, void* dA, void* dE, void* dGn,
+                              void* s_h1, void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg,
+                              void* s_dg1, void* s_dg2, void* s_dres, void* wpart, void* p_db,
+                              void* p_mod, void* dW, void* db, void* dmod, int B, int L, int K,
+                              int N, int n_tiles, int n_chunks, cudaStream_t st) {
+  const int ntl = mma_tiles(B, L, K, N, n_tiles, n_chunks);
+  if (ntl == 0) return (int)cudaErrorInvalidValue;
+  auto kern = message_edge_lnmod_bwd_mma_kernel<DROP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S4SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(ntl, B), MNT, S4SMEM, st>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
+      static_cast<const int*>(idx), static_cast<const bf16*>(We),
+      static_cast<const bf16*>(W2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(W3), static_cast<const float*>(b3),
+      static_cast<const float*>(sc), static_cast<const float*>(gate),
+      static_cast<const bf16*>(keep), static_cast<const int*>(seeds), thresh, kscale,
+      static_cast<const bf16*>(dout), static_cast<float*>(dA), static_cast<bf16*>(dE),
+      static_cast<float*>(dGn), static_cast<bf16*>(s_h1), static_cast<bf16*>(s_dx2),
+      static_cast<bf16*>(s_dpre), static_cast<bf16*>(s_h2), static_cast<bf16*>(s_dmsg),
+      static_cast<float*>(s_dg1), static_cast<float*>(s_dg2), static_cast<float*>(s_dres),
+      static_cast<float*>(p_db), static_cast<float*>(p_mod), L, K, N, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * L * K;
+  const int rc = bf16_grads(E, s_dpre, s_h1, s_dx2, s_h2, s_dmsg, rows, rows, wpart, p_db, dW,
+                            db, n_tiles, n_chunks, st);
+  if (rc != 0) return rc;
+  return reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, ntl, H, st);
+}
+
+// The f32 backwards on CUDA cores. Scratch (from the wrapper): s_h1, s_dx2,
+// s_dpre [B*L*K, H] and s_h2, s_dmsg ([B*L*K, H] for K4, [B*L, H] for K3) in T;
+// wpart f32 [3, n_chunks, H, H];
 // p_db f32 [2, n_tiles, H]; p_mod f32 [3, n_tiles, H] (K4).
 // Outputs: dA f32 [B, L, H], dE T [B, L, K, H], dGn f32 [B, N, H] (zeroed by
 // the wrapper), dW f32 [3, H, H] (dW_e, dW2, dW3), db f32 [2, H] (db2, db3),
@@ -1221,55 +1950,91 @@ int message_sum_bwd_bf16(const void* A, const void* E, const void* Gn, const voi
                             N, n_tiles, n_chunks, stream);
 }
 
-// K4, and K5's backward when `keep` (E's dtype) or `seeds` (int32 [B]) is given.
-#define EDGE_BWD(SUFFIX, TYPE)                                                          \
-  int message_edge_lnmod_bwd_##SUFFIX(                                                  \
-      const void* A, const void* E, const void* Gn, const void* idx, const void* We,    \
-      const void* WeT, const void* W2, const void* W2T, const void* b2, const void* W3, \
-      const void* W3T, const void* b3, const void* sc, const void* gate,                \
-      const void* keep, const void* seeds, const void* dout, void* dA, void* dE,        \
-      void* dGn, void* s_h1, void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg,       \
-      void* wpart, void* p_db, void* p_mod, void* dW, void* db, void* dmod, int B,      \
-      int L, int K, int N, int n_tiles, int n_chunks, unsigned thresh, float kscale,    \
-      void* stream) {                                                                   \
-    if (keep != nullptr && seeds != nullptr) return (int)cudaErrorInvalidValue;         \
-    if (keep != nullptr)                                                                \
-      return launch_bwd<TYPE, true, 1>(                                                 \
-          A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, keep,    \
-          nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg,      \
-          wpart, p_db, p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, stream);     \
-    if (seeds != nullptr)                                                               \
-      return launch_bwd<TYPE, true, 2>(                                                 \
-          A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, nullptr, \
-          seeds, thresh, kscale, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg,  \
-          wpart, p_db, p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, stream);     \
-    return launch_bwd<TYPE, true, 0>(                                                   \
-        A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, nullptr,   \
-        nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, \
-        p_db, p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, stream);              \
-  }
+// K4, and K5's backward when `keep` (E's dtype) or `seeds` (int32 [B]) is given:
+// f32 on CUDA cores, with W_e, W2, W3 and their transposes
+int message_edge_lnmod_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                               const void* We, const void* WeT, const void* W2,
+                               const void* W2T, const void* b2, const void* W3,
+                               const void* W3T, const void* b3, const void* sc,
+                               const void* gate, const void* keep, const void* seeds,
+                               const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
+                               void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg,
+                               void* wpart, void* p_db, void* p_mod, void* dW, void* db,
+                               void* dmod, int B, int L, int K, int N, int n_tiles,
+                               int n_chunks, unsigned thresh, float kscale, void* stream) {
+  if (keep != nullptr && seeds != nullptr) return (int)cudaErrorInvalidValue;
+  if (keep != nullptr)
+    return launch_bwd<float, true, 1>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T,
+                                      b3, sc, gate, keep, nullptr, 0u, 1.0f, dout, dA, dE, dGn,
+                                      s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db, p_mod,
+                                      dW, db, dmod, B, L, K, N, n_tiles, n_chunks, stream);
+  if (seeds != nullptr)
+    return launch_bwd<float, true, 2>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T,
+                                      b3, sc, gate, nullptr, seeds, thresh, kscale, dout, dA,
+                                      dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db,
+                                      p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks,
+                                      stream);
+  return launch_bwd<float, true, 0>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T, b3,
+                                    sc, gate, nullptr, nullptr, 0u, 1.0f, dout, dA, dE, dGn,
+                                    s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db, p_mod, dW,
+                                    db, dmod, B, L, K, N, n_tiles, n_chunks, stream);
+}
 
-EDGE_BWD(f32, float)
-EDGE_BWD(bf16, __nv_bfloat16)
+// the same in bf16 on the tensor cores, W_e, W2 and W3 as they are: K a
+// multiple of 16, at most 128; n_tiles counts blocks of 128 edge rows
+int message_edge_lnmod_bwd_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                                const void* We, const void* W2, const void* b2,
+                                const void* W3, const void* b3, const void* sc,
+                                const void* gate, const void* keep, const void* seeds,
+                                const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
+                                void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg,
+                                void* s_dg1, void* s_dg2, void* s_dres, void* wpart,
+                                void* p_db, void* p_mod, void* dW, void* db, void* dmod, int B,
+                                int L, int K, int N, int n_tiles, int n_chunks,
+                                unsigned thresh, float kscale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (keep != nullptr && seeds != nullptr) return (int)cudaErrorInvalidValue;
+  if (keep != nullptr)
+    return launch_edge_lnmod_bwd_mma<1>(A, E, Gn, idx, We, W2, b2, W3, b3, sc, gate, keep,
+                                        nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2,
+                                        s_dpre, s_h2, s_dmsg, s_dg1, s_dg2, s_dres, wpart, p_db,
+                                        p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, st);
+  if (seeds != nullptr)
+    return launch_edge_lnmod_bwd_mma<2>(A, E, Gn, idx, We, W2, b2, W3, b3, sc, gate, nullptr,
+                                        seeds, thresh, kscale, dout, dA, dE, dGn, s_h1, s_dx2,
+                                        s_dpre, s_h2, s_dmsg, s_dg1, s_dg2, s_dres, wpart, p_db,
+                                        p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, st);
+  return launch_edge_lnmod_bwd_mma<0>(A, E, Gn, idx, We, W2, b2, W3, b3, sc, gate, nullptr,
+                                      nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre,
+                                      s_h2, s_dmsg, s_dg1, s_dg2, s_dres, wpart, p_db, p_mod, dW,
+                                      db, dmod, B, L, K, N, n_tiles, n_chunks, st);
+}
 
 // K6's backward: dout [B, L, K, H] in E's dtype; scratch and outputs as K4's,
-// without p_mod and dmod.
-#define MESSAGE_EDGE_BWD(SUFFIX, TYPE)                                                  \
-  int message_edge_bwd_##SUFFIX(                                                        \
-      const void* A, const void* E, const void* Gn, const void* idx, const void* We,    \
-      const void* WeT, const void* W2, const void* W2T, const void* b2,                 \
-      const void* W3T, const void* dout, void* dA, void* dE, void* dGn, void* s_h1,     \
-      void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg, void* wpart, void* p_db,     \
-      void* dW, void* db, int B, int L, int K, int N, int n_tiles, int n_chunks,        \
-      void* stream) {                                                                   \
-    return launch_bwd<TYPE, true, 0, true>(                                             \
-        A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, nullptr, W3T, nullptr, nullptr,   \
-        nullptr, nullptr, nullptr, 0u, 1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre,    \
-        s_h2, s_dmsg, wpart, p_db, nullptr, dW, db, nullptr, B, L, K, N, n_tiles,       \
-        n_chunks, stream);                                                              \
-  }
+// without p_mod and dmod. f32 on CUDA cores with the transposes:
+int message_edge_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                         const void* We, const void* WeT, const void* W2, const void* W2T,
+                         const void* b2, const void* W3T, const void* dout, void* dA,
+                         void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
+                         void* s_h2, void* s_dmsg, void* wpart, void* p_db, void* dW, void* db,
+                         int B, int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
+  return launch_bwd<float, true, 0, true>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, nullptr,
+                                          W3T, nullptr, nullptr, nullptr, nullptr, nullptr, 0u,
+                                          1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2,
+                                          s_dmsg, wpart, p_db, nullptr, dW, db, nullptr, B, L, K,
+                                          N, n_tiles, n_chunks, stream);
+}
 
-MESSAGE_EDGE_BWD(f32, float)
-MESSAGE_EDGE_BWD(bf16, __nv_bfloat16)
+// bf16 on the tensor cores, as message_edge_lnmod_bwd_bf16 (dout is dW3's Y)
+int message_edge_bwd_bf16(const void* A, const void* E, const void* Gn, const void* idx,
+                          const void* We, const void* W2, const void* b2, const void* W3,
+                          const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
+                          void* s_dx2, void* s_dpre, void* s_h2, void* s_dg1, void* wpart,
+                          void* p_db, void* dW, void* db, int B, int L, int K, int N,
+                          int n_tiles, int n_chunks, void* stream) {
+  return launch_edge_bwd_mma(A, E, Gn, idx, We, W2, b2, W3, dout, dA, dE, dGn, s_h1, s_dx2,
+                             s_dpre, s_h2, s_dg1, wpart, p_db, dW, db, B, L, K, N, n_tiles,
+                             n_chunks, stream);
+}
 
 }  // extern "C"

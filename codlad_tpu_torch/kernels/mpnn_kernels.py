@@ -18,11 +18,12 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
 launches K1, K2 or K6 (in bf16 on the tensor cores, K a multiple of 16) or
-K5 (`csrc/message_chain.cu`) and whose backward launches K3 (in bf16 on the
-tensor cores, K a multiple of 16), K4, K5's or K6's backward
-(`csrc/message_chain_bwd.cu`; every bf16 weight-grad pass on the tensor
-cores), or raises; K7 (in bf16 on K2's and K1's tensor-core bodies, so its
-outputs are K2's kernel then K1's, bit for bit) launches or raises. The plain version
+K5 (`csrc/message_chain.cu`) and whose backward launches K3, K4, K5's or K6's
+backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores, main
+pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
+`message_edge_lnmod_bwd_mma_kernel`, `message_edge_bwd_mma_kernel`; in f32
+on CUDA cores), or raises; K7 (in bf16 on K2's and K1's tensor-core bodies,
+so its outputs are K2's kernel then K1's, bit for bit) launches or raises. The plain version
 runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
 the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
@@ -39,12 +40,13 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block of the forward kernels (16 row groups x rows per
-# thread); a block owns floor(rows / K) whole residues, so K may not exceed
-# it. The CUDA-core backward kernels take 64 rows (4 a thread).
+# edge rows per block of the CUDA-core forward kernels (16 row groups x rows
+# per thread); a block owns floor(rows / K) whole residues, so K may not
+# exceed it. The f32 backward kernels take 64 rows (4 a thread).
 _BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
-# K1, K2, K6, K7 and K3 in bf16 run on the tensor cores: 128 rows a block, a
-# warp a 16-row slab of one residue, so K is a multiple of 16
+# K1, K2, K6, K7 and every backward in bf16 (K5's forward aside) run on the
+# tensor cores: 128 rows a block, a warp a 16-row slab of one residue, so K
+# is a multiple of 16
 _MMA_ROWS, _MMA_SLAB = 128, 16
 _BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
@@ -265,7 +267,8 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
 
 def _check_mma_edge(E, Gn):
     """_check_edge for the kernels that run on the tensor cores in bf16 (K1,
-    K2, K3, K6, K7): K a multiple of 16 there."""
+    K2, K6, K7 and the backwards K3, K4, K5's, K6's): K a multiple of 16
+    there."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)
@@ -411,6 +414,12 @@ def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_BWD_ROWS):
                 n_tiles=n_tiles)
 
 
+def _f32_rows(dims, dev):
+    """An f32 [B L K, H] array: scratch of the bf16 backwards' parked values."""
+    B, L, K, H, _ = dims
+    return torch.empty((B * L * K, H), dtype=torch.float32, device=dev)
+
+
 def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     """K3: the backward of K1 given dout (f32 [B, L, H], already divided by
     scale). Returns the kernel's outputs, as `_pallas_sum_bwd` does:
@@ -436,7 +445,7 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     db = torch.empty((2, H), dtype=f32, device=dev)
     s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else _BWD_ROWS)
     # the bf16 kernel parks gelu'(pre) in f32 between its phases
-    dg1 = [torch.empty((B * L * K, H), dtype=f32, device=dev)] if bf else []
+    dg1 = [_f32_rows(dims, dev)] if bf else []
     scratch = ([s["s_h1"], s["s_dx2"], s["s_dpre"]] + dg1
                + [s[k] for k in ("s_h2", "s_dmsg", "wpart", "p_db")])
     fn = _fn("message_chain_bwd", f"message_sum_bwd_{_SUFFIX[dt]}",
@@ -450,39 +459,59 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1]
 
 
+def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
+    """(dims, the chain's operands and W3 in the kernels' dtypes, whether
+    bf16, the outputs dA, dE, dGn, dW, db, the scratch) of K4's, K5's and
+    K6's backwards: in bf16 on the tensor cores (K a multiple of 16, blocks
+    of 128 edge rows), in f32 on CUDA cores (blocks of 64)."""
+    bf = E.dtype == torch.bfloat16
+    dims = _check_mma_edge(E, Gn) if bf else _check_edge(E, Gn, _BWD_ROWS, 4)
+    B, L, K, H, N = dims
+    dt, dev, f32 = E.dtype, E.device, torch.float32
+    ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [_operand(W3, dt, (H, H), "W3", dev)]
+    outs = (torch.empty((B, L, H), dtype=f32, device=dev),
+            torch.empty((B, L, K, H), dtype=dt, device=dev),
+            torch.zeros((B, N, H), dtype=f32, device=dev),
+            torch.empty((3, H, H), dtype=f32, device=dev),
+            torch.empty((2, H), dtype=f32, device=dev))
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K, _MMA_ROWS if bf else _BWD_ROWS)
+    return dims, ops, bf, outs, s
+
+
 def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
                            keep=None, seeds=None, p=0.0):
     """K4 (or K5's backward with `keep` or `seeds`): the backward of K2
     given dout [B, L, K, H]. Returns the kernel's outputs, as
     `_pallas_edge_lnmod_bwd` does: K3's eight, then dsh, dsc and dgate f32
-    [B, H] (dgate without its sh * sum(dout) term)."""
-    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    [B, H] (dgate without its sh * sum(dout) term). In bf16 on the tensor
+    cores (`message_edge_lnmod_bwd_mma_kernel`, K a multiple of 16), with
+    W_e, W2 and W3 as they are; in f32 on CUDA cores, with their
+    transposes."""
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
-    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
-    w3 = _operand(W3, dt, (H, H), "W3", dev)
-    ops = [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2, w3,
-           w3.t().contiguous(), _operand(b3, f32, (H,), "b3", dev),
-           _operand(sc, f32, (B, H), "sc", dev), _operand(g, f32, (B, H), "g", dev)]
+    a, e, gn, ix, we, w2, bb2, w3 = ops
+    mod = [_operand(b3, f32, (H,), "b3", dev), _operand(sc, f32, (B, H), "sc", dev),
+           _operand(g, f32, (B, H), "g", dev)]
+    ops = ([a, e, gn, ix, we, w2, bb2, w3] if bf else
+           [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2, w3,
+            w3.t().contiguous()]) + mod
     if keep is not None:
         keep = _operand(keep, dt, (B, L, K, H), "keep", dev)
     if seeds is not None:
         seeds = _operand(seeds, torch.int32, (B,), "seeds", dev)
     dout = _operand(dout, dt, (B, L, K, H), "dout", dev)
-    dA = torch.empty((B, L, H), dtype=f32, device=dev)
-    dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
-    dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
-    dW = torch.empty((3, H, H), dtype=f32, device=dev)
-    db = torch.empty((2, H), dtype=f32, device=dev)
     dmod = torch.empty((3, B, H), dtype=f32, device=dev)
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K)
+    # the bf16 kernel parks gelu'(pre), gelu'(x2) and dresid in f32
+    parked = [_f32_rows(dims, dev) for _ in range(3)] if bf else []
+    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg")] + parked
+               + [s[k] for k in ("wpart", "p_db", "p_mod")])
     fn = _fn("message_chain_bwd", f"message_edge_lnmod_bwd_{_SUFFIX[dt]}",
-             "p" * 31 + "i" * 6 + "uf" + "p")
+             "p" * (len(ops) + len(scratch) + 9) + "i" * 6 + "uf" + "p")
     with torch.cuda.device(dev):
         _launch(fn, *[t.data_ptr() for t in ops], _ptr(keep), _ptr(seeds), dout.data_ptr(),
                 dA.data_ptr(), dE.data_ptr(), dGn.data_ptr(),
-                *[s[k].data_ptr() for k in ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg",
-                                            "wpart", "p_db", "p_mod")],
+                *[t.data_ptr() for t in scratch],
                 dW.data_ptr(), db.data_ptr(), dmod.data_ptr(), B, L, K, N, s["n_tiles"],
                 _WGRAD_CHUNKS, drop_threshold(p) if seeds is not None else 0,
                 keep_scale(p) if seeds is not None else 1.0, _stream(dev))
@@ -494,26 +523,25 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
 
 def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
     """K6's backward given dout [B, L, K, H] (E's dtype). Returns the
-    kernel's outputs, as `_pallas_edge_bwd` does: K3's eight."""
-    dims = _check_edge(E, Gn, _BWD_ROWS, 4)
+    kernel's outputs, as `_pallas_edge_bwd` does: K3's eight. In bf16 on the
+    tensor cores (`message_edge_bwd_mma_kernel`, K a multiple of 16; dout
+    itself is dW3's operand), in f32 on CUDA cores."""
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
     B, L, K, H, N = dims
-    dt, dev, f32 = E.dtype, E.device, torch.float32
-    a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
-    ops = [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
-           _operand(W3, dt, (H, H), "W3", dev).t().contiguous(),
-           _operand(dout, dt, (B, L, K, H), "dout", dev)]
-    dA = torch.empty((B, L, H), dtype=f32, device=dev)
-    dE = torch.empty((B, L, K, H), dtype=dt, device=dev)
-    dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
-    dW = torch.empty((3, H, H), dtype=f32, device=dev)
-    db = torch.empty((2, H), dtype=f32, device=dev)
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K)
-    fn = _fn("message_chain_bwd", f"message_edge_bwd_{_SUFFIX[dt]}", "p" * 23 + "i" * 6 + "p")
+    dt, dev = E.dtype, E.device
+    a, e, gn, ix, we, w2, bb2, w3 = ops
+    ops = ([a, e, gn, ix, we, w2, bb2, w3] if bf else
+           [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
+            w3.t().contiguous()])
+    ops.append(_operand(dout, dt, (B, L, K, H), "dout", dev))
+    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2")]
+               + ([_f32_rows(dims, dev)] if bf else [s["s_dmsg"]])
+               + [s["wpart"], s["p_db"]])
+    fn = _fn("message_chain_bwd", f"message_edge_bwd_{_SUFFIX[dt]}",
+             "p" * (len(ops) + len(scratch) + 5) + "i" * 6 + "p")
     with torch.cuda.device(dev):
         _launch(fn, *[t.data_ptr() for t in ops], dA.data_ptr(), dE.data_ptr(),
-                dGn.data_ptr(), *[s[k].data_ptr() for k in
-                                  ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg", "wpart",
-                                   "p_db")],
+                dGn.data_ptr(), *[t.data_ptr() for t in scratch],
                 dW.data_ptr(), db.data_ptr(), B, L, K, N, s["n_tiles"], _WGRAD_CHUNKS,
                 _stream(dev))
     LAUNCHES["fused_message_edge_bwd"] += 1

@@ -2,8 +2,9 @@
 forwards against the plain versions, the backwards (K3, K4, K5's, K6's)
 against torch.autograd of the plain versions on the same inputs and
 cotangent (the bf16 K3 and K6 on the tensor cores at every K the featurizer
-gives, bit for bit from run to run but K3's dGn; every bf16 backward's
-weight grads bit for bit from run to run); K8 (bit for bit, every width, aligned and offset views), K9 and
+gives, bit for bit from run to run but K3's dGn; the bf16 K4, K5's and K6's
+backwards on the tensor cores at the training shapes, K5's regenerated
+mask the forward's, every output but dGn bit for bit from run to run); K8 (bit for bit, every width, aligned and offset views), K9 and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
@@ -341,9 +342,10 @@ def test_message_sum_bwd_bf16_refuses_k_off_the_warp_slab(dev):
 
 @pytest.mark.parametrize("L,N,K", [(37, 50, 32), (48, 48, 48)])
 def test_edge_backwards_bf16_weight_grads_repeat(dev, L, N, K):
-    """K4's, K5's and K6's backwards in bf16 share the tensor-core weight-grad
-    pass with K3: their weight and bias grads repeat bit for bit from run to
-    run (their limits against plain autograd are the tests above)."""
+    """K4's, K5's and K6's backwards in bf16 (tensor-core main passes and
+    the weight-grad pass they share with K3): every output but dGn (f32
+    atomics) repeats bit for bit from run to run (their limits against
+    plain autograd are the tests above and below)."""
     x = _inputs(dev, torch.bfloat16, 3, L, N, K, seed=70 + K)
     g = torch.Generator().manual_seed(71)
     ct = torch.randn(3, L, K, H, generator=g).to(dev).to(torch.bfloat16)
@@ -356,8 +358,53 @@ def test_edge_backwards_bf16_weight_grads_repeat(dev, L, N, K):
     for call in calls:
         first, again = call(), call()
         torch.cuda.synchronize()
-        for i in (3, 4, 5, 6, 7):          # dW_e, dW2, db2, dW3, db3
-            assert torch.equal(first[i], again[i]), i
+        for i, (a, b) in enumerate(zip(first, again)):
+            if i != 2:                      # dGn
+                assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("B,L,N,K", [(96, 128, 128, 64), (96, 48, 48, 48), (3, 37, 50, 32)])
+def test_edge_backwards_bf16_tensor_cores(dev, B, L, N, K):
+    """The tensor-core K4, K5's backward (seeds) and K6's backward at the
+    training shapes (B96 L128 K64, the L = 48 bucket) and a ragged L with a
+    longer gather table: against plain autograd within the bf16 limits of
+    test_backward_kernels_match_plain_autograd; the seeded backward equals
+    the keep-tensor backward given the forward's own mask
+    (edge_lnmod_pdrop_debug) bit for bit but dGn, so the mask it regenerates
+    is the forward's."""
+    bf, p = torch.bfloat16, 0.6
+    x = _inputs(dev, bf, B, L, N, K, seed=80 + K)
+    g = torch.Generator().manual_seed(81)
+    ct = torch.randn(B, L, K, H, generator=g).to(dev).to(bf)
+    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=g, dtype=torch.int32).to(dev)
+    names = _GRAD + ("sh", "sc", "g")
+    MK.reset_launches()
+    _check_bwd(MK.fused_message_edge_lnmod, MK.ref_message_edge_lnmod, x, _EDGE, names, ct, bf)
+    _check_bwd(lambda *a: MK.fused_message_edge_lnmod_pdrop(*a, seeds, p),
+               lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, p), x, _EDGE, names,
+               ct, bf)
+    _check_bwd(MK.fused_message_edge, MK.ref_message_edge, x, _MSG, _GRAD, ct, bf)
+    assert MK.LAUNCHES == dict(MK.LAUNCHES, fused_message_edge_lnmod_bwd=1,
+                               fused_message_edge_lnmod_drop_bwd=1, fused_message_edge_bwd=1)
+    _, mask = MK.edge_lnmod_pdrop_debug(*(x[k] for k in _EDGE), seeds, p)
+    base = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+    edge = base + [x["b3"], x["sc"], x["g"], ct]
+    seeded = MK.message_edge_lnmod_bwd(*edge, seeds=seeds, p=p)
+    kept = MK.message_edge_lnmod_bwd(*edge, keep=mask.to(bf))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(seeded, kept)):
+        if i != 2:                          # dGn
+            assert torch.equal(a, b), i
+
+
+def test_edge_backwards_bf16_refuse_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    base = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+    ct = torch.zeros(1, 8, 24, H, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        MK.message_edge_lnmod_bwd(*base, x["b3"], x["sc"], x["g"], ct)
+    with pytest.raises(ValueError):
+        MK.message_edge_bwd(*base, ct)
 
 
 # Stage-1 kernels. K8 is an index read: bit for bit. K9 sums in f32 in
