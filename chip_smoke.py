@@ -17,7 +17,12 @@ Phases, each printing its seconds:
                 message_sum_bwd_mma_kernel; every bf16 weight-grad pass,
                 wgrad_mma_kernel) and K4 and the dropout kernel K5 (forward
                 and backward; bf16 K4 and K5's backward on the tensor cores,
-                message_edge_lnmod_bwd_mma_kernel), against torch.autograd
+                message_edge_lnmod_bwd_mma_kernel; the bf16 K5 forward on
+                K2's tensor-core kernel, message_edge_lnmod_mma_kernel at
+                DROP 1 or 2: its seeded forward bit for bit the debug
+                forward's and the keep-tensor forward given that mask, a
+                keep of ones bit for bit K2, each forward twice bit for
+                bit), against torch.autograd
                 of the plain versions on the same inputs and cotangent, K5's
                 mask bit for bit against the plain generator, the bf16 K3,
                 K4 and K5's backward twice bit for bit but dGn, K5's seeded
@@ -33,7 +38,11 @@ Phases, each printing its seconds:
                 residues, L 192, 2688 atoms, 65536 directed atom edges a
                 frame), f32 and bf16: K8 (edge_gather; vector or scalar
                 path by width and alignment) bit for bit, K9
-                (edge_aggregate) and K10 (fused_tp, the three layer
+                (edge_aggregate: F 12 and 48 means, the F 36 sum of K8's
+                backward, and a graph with nodes of 200+ edges; twice bit
+                for bit, and bit for bit csr_order_aggregate of
+                tests/_torch_aggregate_order.py, the order the CPU tests
+                hold against the TPU kernel) and K10 (fused_tp, the three layer
                 signatures on the atom edges and on the cross graph's
                 [B, L, 14, *] operands; bf16 on the tensor cores) within
                 their tolerances, each timed beside its bound, its plain
@@ -95,10 +104,12 @@ Phases, each printing its seconds:
                 launches of every step counted (6 K1, 3 K5, 6 K3, 3 K5
                 backward), median ms/step and peak memory, the last 3
                 steps under torch.profiler (the device's busy share and
-                the kernels by device time; K3 must run as
+                the kernels by device time; K5's forward must run as
+                message_edge_lnmod_mma_kernel, K3 as
                 message_sum_bwd_mma_kernel, K5's backward as
                 message_edge_lnmod_bwd_mma_kernel and the weight grads as
-                wgrad_mma_kernel, no chain_bwd_kernel); then 2 steps at
+                wgrad_mma_kernel, no chain_kernel or chain_bwd_kernel);
+                then 2 steps at
                 dropout 0
                 (6 K1, 3 K2, 6 K3, 3 K4 a step);
  11. train entry -- `python -m codlad_tpu_torch.cli.train_latent` (its
@@ -158,7 +169,7 @@ identity and K6's backward would receive a zero cotangent). The line
 before the last is the card's name and power limit from nvidia-smi; the
 last line is {"ok": true, "device": {...}}; the line before that one the
 kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
-K8 and K10 both the f32 record of recon and the bf16 one of the Stage-1
+K8, K9 and K10 both the f32 record of recon and the bf16 one of the Stage-1
 trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
 fused_message_sum_k48, whose launches are the L = 48 draw's; every ms
@@ -823,9 +834,13 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         fwd_ok = bool((d <= atol + rtol * want.float().abs()).all())
         log(f"  K5 {dname}: mask {'equals' if same else 'DIFFERS FROM'} the plain generator's "
             f"({mask.numel()} elements); keep fraction {frac:.6f} (1-p = {1 - P_DROP:g} "
-            f"+/- 0.002); forward max|d|={d.max().item():.3g} {'ok' if fwd_ok else 'FAIL'}")
+            f"+/- 0.002); forward max|d|={d.max().item():.3g} (max|d| / max|ref| "
+            f"{d.max().item() / want.float().abs().max().item():.3g}) "
+            f"{'ok' if fwd_ok else 'FAIL'}")
         if not (same and abs(frac - (1 - P_DROP)) <= 0.002 and fwd_ok):
             raise RuntimeError(f"K5 ({dname}) forward or mask disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            check_k5_forward_bits(args(_EDGE_KEYS), seeds, out, mask, dims)
         del out, mask, want
         fwd_err = d.max().item()
         k5 = lambda: MK.fused_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP)
@@ -878,6 +893,38 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         for name, rec in recs.items():
             records_bwd(records, name, dname, dims, *rec)
     return records
+
+
+def check_k5_forward_bits(x, seeds, out, mask, dims):
+    """The bf16 K5 forward runs K2's tensor-core kernel: given the debug
+    forward's (out, mask), the seeded forward equals it and the keep-tensor
+    forward given that mask (2.5 and 0, exact in bf16), a keep of ones
+    equals K2, each bit for bit, and every forward repeats bit for bit;
+    raise otherwise."""
+    import torch
+    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    seeded = lambda: MK.fused_message_edge_lnmod_pdrop(*x, seeds, P_DROP)
+    kept = lambda: MK.fused_message_edge_lnmod_drop(*x, mask.to(torch.bfloat16))
+    ones = torch.ones_like(out)
+    checks = {
+        "the seeded forward equals the debug forward": (seeded(), out),
+        "the keep-tensor forward given that mask equals the seeded one": (kept(), seeded()),
+        "a keep of ones equals K2": (MK.fused_message_edge_lnmod_drop(*x, ones),
+                                     MK.fused_message_edge_lnmod(*x)),
+        "the seeded forward repeats": (seeded(), seeded()),
+        "the keep-tensor forward repeats": (kept(), kept()),
+        "the debug forward repeats (out, mask)": (
+            torch.cat([v.float().reshape(-1) for v in
+                       MK.edge_lnmod_pdrop_debug(*x, seeds, P_DROP)]),
+            torch.cat([out.float().reshape(-1), mask.reshape(-1)])),
+    }
+    torch.cuda.synchronize()
+    bad = [k for k, (a, b) in checks.items() if not torch.equal(a, b)]
+    log(f"  K5 forward bfloat16 {dims_tag(dims)} (K2's tensor-core kernel): "
+        f"{'; '.join(k for k in checks if k not in bad)}: bit for bit"
+        + (f"; FAILED: {bad}" if bad else ""))
+    if bad:
+        raise RuntimeError(f"K5 forward bfloat16 {dims_tag(dims)}: {bad}")
 
 
 def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra):
@@ -1412,6 +1459,40 @@ def _bits(t):
     return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
 
 
+def _aggregate_order():
+    """tests/_torch_aggregate_order.py, K9's summation order in torch (torch
+    only; the CPU tests hold it against the TPU kernel)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tests" / "_torch_aggregate_order.py"
+    spec = importlib.util.spec_from_file_location("_torch_aggregate_order", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_aggregate(kern, plain, csr, mask, msgs, n_nodes, reduce):
+    """(ok, max|d|, limit) of one K9 call: within its limit of the plain
+    version, bit for bit on a second call, and bit for bit the kernel's
+    order emulated in torch (csr_order_aggregate); logs which failed."""
+    import torch
+    got, want, again = kern(), plain(), kern()
+    emu = _aggregate_order().csr_order_aggregate(csr, mask, msgs, n_nodes, reduce)
+    torch.cuda.synchronize()
+    d, ref = (got.float() - want.float()).abs(), want.float().abs()
+    if msgs.dtype == torch.float32:
+        bound, limit = TOL["float32"][0] + TOL["float32"][1] * ref, "atol 2e-4 + rtol 2e-4"
+    else:
+        bound = AGG_TOL_BF16[0] * ref + AGG_TOL_BF16[1] * ref.max()
+        limit = "2^-6 |ref| + 1e-4 max|ref|"
+    checks = {"tolerance": bool((d <= bound).all()),
+              "repeat": torch.equal(_bits(got), _bits(again)),
+              "emulated order": torch.equal(_bits(got), _bits(emu))}
+    if not all(checks.values()):
+        log(f"  edge_aggregate F{msgs.shape[-1]} {reduce}: FAILED "
+            f"{[k for k, v in checks.items() if not v]}")
+    return all(checks.values()), d.max().item(), limit
+
+
 def check_stage1_kernels(batch, seed):
     """K8, K9 and K10 against their plain versions at the recon path's
     shapes on `batch` (the atom graph, directed), f32 and bf16; timed with
@@ -1483,30 +1564,41 @@ def check_stage1_kernels(batch, seed):
             if F == 36:
                 records["edge_gather" + ("" if dtype == torch.float32 else "_bf16")] = rec
 
-        # K9: the layer-0 atom mean (F 12) and the layer-2 one (F 48)
-        for F in (12, 48):
+        # K9: the layer-0 atom mean (F 12), K8's backward at the layer-2
+        # features (F 36, a sum) and the layer-2 atom mean (F 48); then a
+        # graph with nodes of more than 32 edges. Bytes: the CSR (ptr and
+        # the listed edge ids), the listed edges' masks and payload rows,
+        # the output; idx is not read
+        for F, reduce in ((12, "mean"), (36, "sum"), (48, "mean")):
             msgs = rnd(nb, ne, F).to(dtype)
-            kern = lambda: EK.edge_aggregate(src, maskf, msgs, na, "mean", csr)
-            plain = lambda: EK.ref_aggregate(src, maskf, msgs, na, "mean")
-            got, want = kern(), plain()
-            again = kern()
-            torch.cuda.synchronize()
-            d, ref = (got.float() - want.float()).abs(), want.float().abs()
-            if dtype == torch.float32:
-                bound, limit = TOL[dname][0] + TOL[dname][1] * ref, "atol 2e-4 + rtol 2e-4"
-            else:
-                bound = AGG_TOL_BF16[0] * ref + AGG_TOL_BF16[1] * ref.max()
-                limit = "2^-6 |ref| + 1e-4 max|ref|"
-            ok = bool((d <= bound).all()) and torch.equal(_bits(got), _bits(again))
+            kern = lambda: EK.edge_aggregate(src, maskf, msgs, na, reduce, csr)
+            plain = lambda: EK.ref_aggregate(src, maskf, msgs, na, reduce)
+            ok, err, limit = check_aggregate(kern, plain, csr, maskf, msgs, na, reduce)
             lib = lambda: torch.zeros((nb * na, F), dtype=dtype, device=dev).index_add_(
                 0, flat_src, msgs.reshape(-1, F))
-            rec = report("edge_aggregate", f"F{F} mean (run-to-run bit-equal)", d.max().item(),
-                         ok, limit, kern, plain, lib,
-                         nb * ne * 8 + (nb * na + 1 + n_valid) * 4 + n_valid * F * es
+            rec = report("edge_aggregate", f"F{F} {reduce} (run-to-run bit-equal, and to "
+                         f"csr_order_aggregate)", err, ok, limit, kern, plain, lib,
+                         (nb * na + 1 + n_valid) * 4 + n_valid * 4 + n_valid * F * es
                          + nb * na * F * es, 2 * n_valid * F)
-            if F == 48 and dtype == torch.float32:
-                records["edge_aggregate"] = rec
-            del msgs, got, want, again
+            if F == 48:
+                records["edge_aggregate" + ("" if dtype == torch.float32 else "_bf16")] = rec
+            del msgs
+        hub, hmask = src.clone(), maskf.clone()
+        hub[:, :600:3], hmask[:, :600:3] = 7, 1.0        # atom 7 of each frame: 200+ edges
+        hub[:, 1:600:3], hmask[:, 1:600:3] = 11, 1.0     # atom 11: 200+
+        hcsr = EK.build_csr(hub, hmask, na)
+        top = int((hcsr[0][1:] - hcsr[0][:-1]).max())
+        msgs = rnd(nb, ne, 48).to(dtype)
+        ok, err, limit = check_aggregate(
+            lambda: EK.edge_aggregate(hub, hmask, msgs, na, "mean", hcsr),
+            lambda: EK.ref_aggregate(hub, hmask, msgs, na, "mean"), hcsr, hmask, msgs, na,
+            "mean")
+        log(f"kernel edge_aggregate {dname} F48 mean, nodes of up to {top} edges: "
+            f"max|d|={err:.3g} ({limit}), run-to-run and csr_order_aggregate bit-equal "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok or top <= 64:
+            raise RuntimeError(f"edge_aggregate ({dname}) at high degree disagrees")
+        del msgs, hub, hmask, hcsr
 
         # K10: the three layer signatures on the atom edges, and on the cross
         # graph's [B, L, 14, *] operands
@@ -2215,13 +2307,17 @@ def main(argv=None):
     times, metrics, totals = run_train(state, step, x1, extras, args.seed, TRAIN_STEPS,
                                        per_step, traced=TRACED_STEPS, names=ran)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # bf16 K3, K5's backward and every weight-grad pass run on the tensor cores
-    if not all(any(k in n for n in ran) for k in ("message_sum_bwd_mma_kernel",
+    # bf16 K5's forward, K3, K5's backward and every weight-grad pass run on
+    # the tensor cores
+    if not all(any(k in n for n in ran) for k in ("message_edge_lnmod_mma_kernel",
+                                                  "message_sum_bwd_mma_kernel",
                                                   "message_edge_lnmod_bwd_mma_kernel",
                                                   "wgrad_mma_kernel")) or any(
-            "wgrad_kernel<" in n or "chain_bwd_kernel" in n for n in ran):
-        raise RuntimeError("the traced training steps did not run K3, K5's backward and the "
-                           f"weight grads on their tensor-core kernels: {sorted(ran)}")
+            "wgrad_kernel<" in n or "chain_bwd_kernel" in n or "chain_kernel" in n
+            for n in ran):
+        raise RuntimeError("the traced training steps did not run K5's forward, K3, K5's "
+                           "backward and the weight grads on their tensor-core kernels: "
+                           f"{sorted(ran)}")
     for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
                  "fused_message_edge_lnmod_drop_bwd"):  # K1's count is the sampling path's
         records[name]["launches"] = totals[name]
@@ -2229,9 +2325,10 @@ def main(argv=None):
         f"H{H} bf16 dropout {P_DROP}: median of the {len(times)} untraced "
         f"{statistics.median(times):.2f} ms/step "
         f"(first {times[0]:.1f} ms), {1e3 / statistics.median(times):.2f} steps/s, peak "
-        f"memory {peak:.2f} GiB; launches a step {per_step}; K3 ran as "
-        f"message_sum_bwd_mma_kernel, K5's backward as message_edge_lnmod_bwd_mma_kernel, "
-        f"the weight grads as wgrad_mma_kernel, no chain_bwd_kernel; last loss "
+        f"memory {peak:.2f} GiB; launches a step {per_step}; K5's forward ran as "
+        f"message_edge_lnmod_mma_kernel, K3 as message_sum_bwd_mma_kernel, K5's backward "
+        f"as message_edge_lnmod_bwd_mma_kernel, the weight grads as wgrad_mma_kernel, no "
+        f"chain_kernel or chain_bwd_kernel; last loss "
         f"{float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step
 
@@ -2354,7 +2451,8 @@ def main(argv=None):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if dtype == torch.bfloat16:
             for key, name in (("fused_tp_bwd", "fused_tp_bwd"), ("fused_tp_bf16", "fused_tp"),
-                              ("edge_gather_bf16", "edge_gather")):
+                              ("edge_gather_bf16", "edge_gather"),
+                              ("edge_aggregate_bf16", "edge_aggregate")):
                 records[key]["launches"] = per_step[name] * n_steps
         nb, nl = s1_batch["res_type"].shape
         log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "

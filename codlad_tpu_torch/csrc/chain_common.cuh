@@ -23,14 +23,6 @@ template <> struct Num<float> {
   __device__ static float round(float v) { return v; }
 };
 
-template <> struct Num<__nv_bfloat16> {
-  __device__ static float f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 cast(float v) { return __float2bfloat16(v); }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
   return 0.5f * x * (1.0f + tanhf(u));
@@ -44,7 +36,7 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
          0.5f * x * (1.0f - t * t) * 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x);
 }
 
-// eight consecutive values <-> f32 registers (16-byte aligned addresses)
+// eight consecutive f32 values <-> registers (16-byte aligned addresses)
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -52,35 +44,15 @@ __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    o[2 * j] = f.x;
-    o[2 * j + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
 // acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
-// stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It now
-// serves the f32 kernels and the one bf16 kernel not yet redesigned (K5's
-// forward); the other bf16 kernels run their products on the tensor cores
-// (chain_mma.cuh's slab functions in message_chain.cu and
+// stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It
+// serves the f32 kernels only: every bf16 kernel runs its products on the
+// tensor cores (chain_mma.cuh's slab functions in message_chain.cu and
 // message_chain_bwd.cu).
 template <typename T, int TM, int XS>
 __device__ __forceinline__ void tile_gemm(const T* sX, const T* sW, int r0, int c0,

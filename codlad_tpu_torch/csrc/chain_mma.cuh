@@ -1,5 +1,5 @@
 // The slab functions of the bf16 tensor-core message chains, shared by the
-// forwards (message_chain.cu: K1, K2, K6 and K7) and the backwards
+// forwards (message_chain.cu: K1, K2 and K5's, K6 and K7) and the backwards
 // (message_chain_bwd.cu: K3, K4, K5's and K6's), so that the backwards
 // recompute pre, x2 and msg with the forwards' own instructions. A block of MW warps owns MROWS edge rows (whole residues, K
 // a multiple of 16), a warp a 16-row slab of one residue x all 128 columns.
@@ -223,6 +223,30 @@ __device__ __forceinline__ void mma_w3(float (&acc)[16][4], const unsigned (&h2)
   for (int kk = 0; kk < H / 16; ++kk) {
     const unsigned a[4] = {h2[2 * kk][0], h2[2 * kk][1], h2[2 * kk + 1][0], h2[2 * kk + 1][1]};
     mma_step<8>(acc, a, w3_addr, kk, 0);
+  }
+}
+
+// K5's keep scales at row g + 8 h of the slab, natural columns c and c + 1
+// of n tile nt, for the forward (message_chain.cu: lnmod_out) and the
+// backward (message_chain_bwd.cu: ln_pass1), so that both read one mask.
+// DROP 1 reads them from `keep` (E's dtype, [B, L, K, H]); DROP 2 makes
+// them from the counter hash, drop_bits(key, ((l0 K) + r) H + c) >= thresh
+// with key = sample_key(seeds[b], b) (chain_common.cuh), and records them
+// in km[h] (bits 2 nt and 2 nt + 1; the backward's second pass reads them).
+template <int DROP>
+__device__ __forceinline__ float2 keep_pair(const bf16* __restrict__ keep, uint32_t key,
+                                            uint32_t thresh, float kscale, unsigned (&km)[2],
+                                            int K, int nt, int h, int c, const Slab& s) {
+  const int r = s.r0 + (s.lane >> 2) + 8 * h;  // the row in the tile
+  if constexpr (DROP == 1) {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(keep + (s.row0 + r) * H + c));
+  } else {
+    const uint32_t i0 = (uint32_t)(((size_t)s.l0 * K + r) * H + c);
+    const bool k0 = chain::drop_bits(key, i0) >= thresh;
+    const bool k1 = chain::drop_bits(key, i0 + 1) >= thresh;
+    km[h] |= (k0 ? 1u : 0u) << (2 * nt) | (k1 ? 1u : 0u) << (2 * nt + 1);
+    return make_float2(k0 ? kscale : 0.0f, k1 ? kscale : 0.0f);
   }
 }
 

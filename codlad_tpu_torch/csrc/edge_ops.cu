@@ -27,10 +27,29 @@
 //   (codlad_tpu/nn/graph.py). The TPU accumulates across an in-order grid in
 //   VMEM; Hopper blocks run in parallel, so the edges come grouped by node in
 //   a CSR (ptr, edge list: built once per batch by a stable sort outside the
-//   kernel) and one warp owns a node: its lanes take the features, and each
-//   lane adds the node's edges in list order. No atomics, so a run repeats
-//   bit for bit. Bound: memory, as K8 (B*E*F payload elements once plus the
-//   indices).
+//   kernel). No atomics. Bound: memory, as K8 (the listed edges' payload rows
+//   once, the CSR, their masks, the output). At the Stage-1 shape (~24 edges
+//   a node, F 12-48) a lane that walks its node's list alone waits on two
+//   dependent loads an edge (the id, then the row) with 2- or 4-byte loads;
+//   the design keeps several rows in flight instead:
+//   * A node's group of W lanes (W = 32, or 16, 8, 4 where F is small: a
+//     warp then serves 32 / W nodes) reads up to W of its edge ids and their
+//     masks in one coalesced load (then the next W), and hands them out by
+//     __shfl_sync: the only load left in the edge loop is the payload row.
+//   * The group's lanes are S sub-slots x C chunks of V elements (C = F / V;
+//     V = 16, 8 or 4 bytes, the widest that divides F, loaded as one vector;
+//     the host refuses msgs or out off a 16-byte boundary, and the wrapper
+//     copies an offset view of msgs to a fresh buffer): sub-slot s takes the
+//     entries j = s, s + S, ... of each W-id chunk, U = 4 rows at a time, all
+//     loaded before any is summed.
+//   * The sub-slots' partial sums meet through a fixed tree of
+//     __shfl_down_sync (P / 2, ..., 1 sub-slots apart, P the power of two at
+//     or above S); the degree sums the same broadcast masks (one lane each,
+//     then a tree over the group). Every order is a pure function of the CSR
+//     and of F: a run repeats bit for bit. `aggregate` and `layout` below
+//     pick V, S and W; tests/_torch_aggregate_order.py repeats them and the
+//     order in torch, and the tests hold that emulation against the TPU
+//     kernel on the CPU and against this kernel on the card.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,47 +59,83 @@ namespace {
 
 template <typename T> struct Num;
 template <> struct Num<float> {
-  __device__ static float f(float v) { return v; }
   __device__ static float cast(float v) { return v; }
   __device__ static float round(float v) { return v; }
 };
 template <> struct Num<__nv_bfloat16> {
-  __device__ static float f(__nv_bfloat16 v) { return __bfloat162float(v); }
   __device__ static __nv_bfloat16 cast(float v) { return __float2bfloat16(v); }
   __device__ static float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 };
 
 constexpr int NT = 256;
 
-// V consecutive elements of T, to and from f32
-template <typename T, int V> struct Chunk;
-template <typename T> struct Chunk<T, 1> {
-  __device__ static void load(const T* p, float* v) { v[0] = Num<T>::f(*p); }
-  __device__ static void store(T* p, const float* v) { *p = Num<T>::cast(v[0]); }
-};
-template <> struct Chunk<float, 4> {
-  __device__ static void load(const float* p, float* v) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// V consecutive elements of T (K8's and K9's chunks) held as NW 32-bit
+// words (bf16: two a word, the lower element in the low half), loaded as
+// one 16-, 8- or 4-byte access (p on a V * sizeof(T) boundary), element by
+// element where V is a single bf16. Every word stays a register (no local
+// memory, which reinterpreting a vector register's address can cost).
+__device__ __forceinline__ unsigned bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+template <typename T, int V>
+struct Vec {
+  static constexpr int PER = 4 / sizeof(T);  // elements a word
+  static constexpr int NW = (V + PER - 1) / PER;
+  struct Words {
+    unsigned w[NW];
+  };
+  __device__ static Words zero() {
+    Words r;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) r.w[i] = 0u;
+    return r;
   }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  __device__ static Words load(const T* p) {
+    Words r;
+    if constexpr (NW == 4) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      r.w[0] = u.x;
+      r.w[1] = u.y;
+      r.w[2] = u.z;
+      r.w[3] = u.w;
+    } else if constexpr (NW == 2) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      r.w[0] = u.x;
+      r.w[1] = u.y;
+    } else if constexpr (V == PER) {
+      r.w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    } else {
+      r = zero();
+#pragma unroll
+      for (int k = 0; k < V; ++k) r.w[k / PER] |= bits_of(p[k]) << (32 / PER * (k % PER));
+    }
+    return r;
   }
-};
-template <> struct Chunk<__nv_bfloat16, 4> {
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  __device__ static void to_f32(const Words& r, float* v) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const unsigned w = r.w[k / PER];
+      v[k] = __uint_as_float(PER == 1 ? w : (k % PER ? w & 0xffff0000u : w << 16));
+    }
   }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&lo);
-    t.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = t;
+  __device__ static void store(T* p, const float* v) {
+    if constexpr (V >= PER) {
+      unsigned w[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[i] = 0u;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        w[k / PER] |= bits_of(Num<T>::cast(v[k])) << (32 / PER * (k % PER));
+      if constexpr (NW == 4)
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+      else if constexpr (NW == 2)
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<unsigned*>(p) = w[0];
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) p[k] = Num<T>::cast(v[k]);
+    }
   }
 };
 
@@ -99,10 +154,10 @@ __device__ __forceinline__ void gather_chunk(const int* __restrict__ idx,
   const int j = min(max(__ldg(idx + row), 0), N - 1);
   const float m = Num<T>::round(__ldg(mask + row));
   float v[V];
-  Chunk<T, V>::load(nodes + (b * N + j) * F + c, v);
+  Vec<T, V>::to_f32(Vec<T, V>::load(nodes + (b * N + j) * F + c), v);
 #pragma unroll
   for (int k = 0; k < V; ++k) v[k] *= m;
-  Chunk<T, V>::store(out + row * F + c, v);
+  Vec<T, V>::store(out + row * F + c, v);
 }
 
 template <typename T>
@@ -119,29 +174,111 @@ gather_kernel(const int* __restrict__ idx, const float* __restrict__ mask,
   }
 }
 
-template <typename T>
+constexpr int U = 4;  // payload rows a sub-slot has in flight
+
+// One node a group of W lanes (a power of two; the warp's 32 / W groups
+// take consecutive nodes). Lane gl of the group is sub-slot gl / CL, chunk
+// gl % CL (+ CL a pass: more than one pass only where C > 32), CL = min(C,
+// W); the lanes past S sub-slots only pass ids along.
+template <typename T, int V>
 __global__ void __launch_bounds__(NT)
 aggregate_kernel(const int* __restrict__ ptr, const int* __restrict__ edges,
                  const float* __restrict__ mask, const T* __restrict__ msgs,
-                 T* __restrict__ out, int n_nodes, int F, int mean) {
+                 T* __restrict__ out, int n_nodes, int F, int mean, int C, int S, int W) {
   const int lane = threadIdx.x & 31;
-  const long long node = ((long long)blockIdx.x * NT + threadIdx.x) >> 5;
-  if (node >= n_nodes) return;
-  const int begin = ptr[node], end = ptr[node + 1];
+  const int gl = lane & (W - 1);
+  const unsigned gmask = W == 32 ? 0xffffffffu : ((1u << W) - 1u) << (lane & ~(W - 1));
+  const long long node = (((long long)blockIdx.x * NT + threadIdx.x) >> 5) * (32 / W) + lane / W;
+  if (node >= n_nodes) return;  // the whole group leaves
+  const int CL = min(C, W);
+  const int sub = gl / CL, c0 = gl - sub * CL;
+  int P = 1;
+  while (P < S) P <<= 1;
+  const int begin = __ldg(ptr + node), end = __ldg(ptr + node + 1);
   float deg = 0.0f;
-  if (mean)
-    for (int j = begin; j < end; ++j) deg += mask[edges[j]];
-  const float denom = fmaxf(Num<T>::round(deg), 1.0f);
-  for (int f = lane; f < F; f += 32) {
-    float s = 0.0f;
-    for (int j = begin; j < end; ++j) {
-      const long long e = edges[j];
-      s = fmaf(mask[e], Num<T>::f(msgs[e * F + f]), s);
+  for (int pass = 0; pass * CL < C; ++pass) {
+    const int chunk = c0 + pass * CL;
+    const bool act = sub < S && chunk < C;
+    const T* col = msgs + (size_t)chunk * V;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+    for (int base = begin; base < end; base += W) {
+      const int n = min(W, end - base);
+      int eid = 0;
+      float m = 0.0f;
+      if (gl < n) {
+        eid = __ldg(edges + base + gl);
+        m = __ldg(mask + eid);
+      }
+      if (pass == 0) deg += m;
+      const int rounds = (n + S - 1) / S;
+      for (int t0 = 0; t0 < rounds; t0 += U) {
+        typename Vec<T, V>::Words raw[U];
+        float mu[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = (t0 + u) * S + sub;
+          const int e = __shfl_sync(gmask, eid, min(j, n - 1), W);
+          mu[u] = __shfl_sync(gmask, m, min(j, n - 1), W);
+          if (act && j < n) {
+            raw[u] = Vec<T, V>::load(col + (size_t)e * F);
+          } else {
+            raw[u] = Vec<T, V>::zero();
+            mu[u] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float v[V];
+          Vec<T, V>::to_f32(raw[u], v);
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[k] = fmaf(mu[u], v[k], acc[k]);
+        }
+      }
     }
-    float v = Num<T>::round(s);
-    if (mean) v = v / denom;
-    out[node * F + f] = Num<T>::cast(v);
+    // sub-slot s + off's sum into s's, off = P / 2, ..., 1
+    for (int off = P >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float o = __shfl_down_sync(gmask, acc[k], off * CL, W);
+        if (sub + off < S) acc[k] += o;
+      }
+    }
+    if (pass == 0 && mean) {  // the group's masks, lane gl + off's into gl's
+      for (int off = W >> 1; off > 0; off >>= 1) deg += __shfl_down_sync(gmask, deg, off, W);
+      deg = __shfl_sync(gmask, deg, 0, W);
+    }
+    if (act && sub == 0) {
+      const float denom = fmaxf(Num<T>::round(deg), 1.0f);
+      float v[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        v[k] = Num<T>::round(acc[k]);
+        if (mean) v[k] = v[k] / denom;
+      }
+      Vec<T, V>::store(out + node * F + (size_t)chunk * V, v);
+    }
   }
+}
+
+// K9's lane layout from F and the elements a lane loads at once, V (the
+// widest of 16, 8 and 4 bytes that divides a row, else 1), so that the
+// summation order depends on F and the CSR only: C = F / V chunks a row; a
+// group of W lanes a node, W halved from 32 while half of it still holds 4
+// sub-slots; S = W / C sub-slots (1 where C >= W).
+// tests/_torch_aggregate_order.py `aggregate_layout` repeats it.
+struct Layout {
+  int C, S, W;
+};
+
+inline Layout layout(int F, int V) {
+  Layout l;
+  l.C = F / V;
+  l.W = 32;
+  while (l.W / 2 >= 4 * l.C) l.W /= 2;
+  l.S = l.C >= l.W ? 1 : l.W / l.C;
+  return l;
 }
 
 template <typename T>
@@ -162,16 +299,38 @@ int gather(const void* idx, const void* mask, const void* nodes, void* out, int 
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V>
+cudaError_t launch_aggregate(const void* ptr, const void* edges, const void* mask,
+                             const void* msgs, void* out, int n_nodes, int F, int mean,
+                             cudaStream_t stream) {
+  const Layout l = layout(F, V);
+  const long long warps = ((long long)n_nodes * l.W + 31) / 32;
+  const long long blocks = (warps * 32 + NT - 1) / NT;
+  aggregate_kernel<T, V><<<(unsigned)blocks, NT, 0, stream>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(edges),
+      static_cast<const float*>(mask), static_cast<const T*>(msgs), static_cast<T*>(out),
+      n_nodes, F, mean, l.C, l.S, l.W);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int aggregate(const void* ptr, const void* edges, const void* mask, const void* msgs,
               void* out, int n_nodes, int F, int mean, void* stream) {
   if (n_nodes <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = ((long long)n_nodes * 32 + NT - 1) / NT;
-  aggregate_kernel<T><<<(unsigned)blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(edges),
-      static_cast<const float*>(mask), static_cast<const T*>(msgs), static_cast<T*>(out),
-      n_nodes, F, mean);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(msgs) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int V16 = 16 / sizeof(T), V8 = 8 / sizeof(T), V4 = 4 / sizeof(T);
+  cudaError_t err;
+  if (F % V16 == 0)
+    err = launch_aggregate<T, V16>(ptr, edges, mask, msgs, out, n_nodes, F, mean, st);
+  else if (F % V8 == 0)
+    err = launch_aggregate<T, V8>(ptr, edges, mask, msgs, out, n_nodes, F, mean, st);
+  else if (F % V4 == 0)
+    err = launch_aggregate<T, V4>(ptr, edges, mask, msgs, out, n_nodes, F, mean, st);
+  else
+    err = launch_aggregate<T, 1>(ptr, edges, mask, msgs, out, n_nodes, F, mean, st);
+  return (int)err;
 }
 
 }  // namespace

@@ -6,7 +6,8 @@
 //   K5 message_edge_lnmod_drop_* (forward) <- _edge_lnmod_kernel with has_keep
 //      (fused_message_edge_lnmod_drop) or drop_p (fused_message_edge_lnmod_pdrop,
 //      mask from _inkernel_keep); here the mask is the counter hash of
-//      chain_common.cuh, a pure function of (seed, sample, element)
+//      chain_common.cuh, a pure function of (seed, sample, element); in bf16
+//      K2's tensor-core kernel at DROP 1 (keep) or 2 (seeds)
 //   K6 message_edge_*       <- _edge_kernel / _pallas_message_edge
 //   K7 edge_then_sum_*      <- _edge_then_sum_kernel / _pallas_edge_then_sum
 //
@@ -15,6 +16,7 @@
 //   h2  = gelu(cast(gelu(pre)) W2 + b2)                    (tanh gelu)
 // K1:  out[l] = (cast(sum_k mask*h2) W3 + (sum_k mask) b3) / scale   -> f32
 // K2:  out[l,k] = g * (LN(E + cast(h2) W3 + b3) * (1 + sc) + sh)      -> dtype of E
+// K5:  K2 with (cast(h2) W3 + b3) x keep (0 or 1 / (1 - p)) in the LN
 // K6:  out[l,k] = cast(h2) W3 + b3                                    -> dtype of E
 // K7:  e2 = K2 of the first weight set (cast to E's dtype), then K1 of the
 //      second weight set and the mask with e2 as its edge operand -> (e2, f32 sum)
@@ -45,12 +47,13 @@
 // per-edge H x H products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for
 // K7); the bytes moved (the E tile read once, plus the edge output's write) put
 // the floor at 0.07-0.13 ms. The CUDA-core design above (`chain_kernel`,
-// `edge_then_sum_kernel`) is bound by the f32 FMA rate, not by memory: it now
-// serves f32 K1-K7 and bf16 K5's forward.
+// `edge_then_sum_kernel`) is bound by the f32 FMA rate, not by memory: it
+// serves f32 K1-K7 only.
 //
-// In bf16, K1 (`message_sum_mma_kernel`), K2 (`message_edge_lnmod_mma_kernel`),
-// K6 (`message_edge_mma_kernel`) and K7 (`edge_then_sum_mma_kernel`) run on
-// the tensor cores (the slab functions of chain_mma.cuh), on the TPU
+// In bf16, K1 (`message_sum_mma_kernel`), K2 and K5's forward
+// (`message_edge_lnmod_mma_kernel<DROP, MASK_OUT>`), K6
+// (`message_edge_mma_kernel`) and K7 (`edge_then_sum_mma_kernel`) run on the
+// tensor cores (the slab functions of chain_mma.cuh), on the TPU
 // kernel's own rounding points: a block of 8 warps owns 128 edge rows (whole
 // residues, K a multiple of 16), a warp a 16-row slab of one residue x all
 // 128 columns (16 n8 accumulator tiles, 64 registers).
@@ -80,6 +83,13 @@
 //      a quad (two shuffles a pass); E for the residual comes from the
 //      block's tile; the bf16 rows are staged in the warp's own tile rows
 //      and leave in 16-byte stores.
+//   K5's forward: K2's kernel at DROP 1 or 2, the keep scales applied to
+//      msg + b3 in lnmod_out's first pass, at the accumulator positions:
+//      DROP 1 reads `keep` there as bf16 pairs, DROP 2 hashes each element
+//      there (chain_mma.cuh's keep_pair, the function K5's backward
+//      regenerates the mask with), computed where it is used, so nothing is
+//      held beside acc; MASK_OUT (edge_lnmod_pdrop_debug's instantiation
+//      only) writes the scales as f32 pairs. At DROP 0 lnmod_out is K2's.
 //   K6: K2's chain (`edge_chain`, the same function) with another epilogue
 //      (`raw_out`): msg + b3 cast to bf16, staged and stored as K2's rows,
 //      no residual and no LayerNorm; b2 and b3 the only vectors.
@@ -107,11 +117,6 @@ template <typename T> struct Traits;
 template <> struct Traits<float> : Num<float> {
   static constexpr int TM = 4;    // rows per thread
   static constexpr int XPAD = 4;  // shared-memory row padding (elements)
-};
-
-template <> struct Traits<__nv_bfloat16> : Num<__nv_bfloat16> {
-  static constexpr int TM = 8;
-  static constexpr int XPAD = 8;
 };
 
 template <typename T>
@@ -376,6 +381,7 @@ __device__ __forceinline__ void edge_epilogue(
   }
 }
 
+// f32 only (bf16 runs on the tensor cores, below).
 // EDGE = false: K1 (masked K-sum, f32 [B, L, H] out).
 // EDGE = true:  K2 / K5's forward (DROP), or K6 (RAW), [B, L, K, H] out.
 template <typename T, bool EDGE, int DROP, bool RAW>
@@ -644,13 +650,26 @@ __device__ __forceinline__ void h2_pack(unsigned (&h2)[16][2], const float (&c2)
 // eps 1e-6, no affine) are local sums and two shuffles each; out = g
 // (LN (1 + sc) + sh), cast to bf16 into the slab's own rows of sE, then
 // written to `out` in 16-byte stores. vec holds b2, b3, sh, sc, g of
-// sample b ([5][H] f32).
+// sample b ([5][H] f32). K5 (DROP 1, 2): msg + b3 times keep_pair's scales
+// first, and with MASK_OUT the scales to d.mask_out (f32 [B, L, K, H]).
+struct Drop {
+  const bf16* keep;      // DROP 1
+  const int* seeds;      // DROP 2, with thresh and kscale
+  uint32_t thresh;
+  float kscale;
+  float* mask_out;       // MASK_OUT
+  int K;
+};
+
+template <int DROP = 0, bool MASK_OUT = false>
 __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], unsigned char* sE,
                                           const float* vec, bf16* __restrict__ out,
-                                          const Slab& s) {
+                                          const Slab& s, const Drop d = {}) {
   const int g = s.lane >> 2, t4 = s.lane & 3;
   const float *sb3 = vec + H, *ssh = vec + 2 * H, *ssc = vec + 3 * H, *sg = vec + 4 * H;
   unsigned char* rows = sE + s.r0 * MRS;
+  const uint32_t key = DROP == 2 ? sample_key(d.seeds[s.b], s.b) : 0u;
+  unsigned km[2] = {0u, 0u};  // the backward's record of the mask, not read here
   float mean[2] = {0.0f, 0.0f}, rstd[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) {
@@ -660,8 +679,16 @@ __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], unsigned char* sE
     for (int h = 0; h < 2; ++h) {
       const float2 e = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(rows + (g + 8 * h) * MRS + 2 * c));
-      acc[nt][2 * h] = e.x + (acc[nt][2 * h] + bias.x);
-      acc[nt][2 * h + 1] = e.y + (acc[nt][2 * h + 1] + bias.y);
+      float x0 = acc[nt][2 * h] + bias.x, x1 = acc[nt][2 * h + 1] + bias.y;
+      if constexpr (DROP != 0) {
+        const float2 kp = keep_pair<DROP>(d.keep, key, d.thresh, d.kscale, km, d.K, nt, h, c, s);
+        x0 *= kp.x;
+        x1 *= kp.y;
+        if constexpr (MASK_OUT)
+          *reinterpret_cast<float2*>(d.mask_out + (s.row0 + s.r0 + g + 8 * h) * H + c) = kp;
+      }
+      acc[nt][2 * h] = e.x + x0;
+      acc[nt][2 * h + 1] = e.y + x1;
       mean[h] += acc[nt][2 * h];
       mean[h] += acc[nt][2 * h + 1];
     }
@@ -795,8 +822,10 @@ message_sum_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
   message_sum_chain<false>(acc, sWe, sW2, sE, sb2, mask, W3, b3, out, L, K, scale, s);
 }
 
-// K2 for bf16 E: K1's block and slabs; W3 is restaged into W_e's buffer
-// (ESMEM: two blocks an SM).
+// K2 (DROP 0) and K5's forward (DROP 1: `keep`; DROP 2: `seeds`) for bf16
+// E: K1's block and slabs; W3 is restaged into W_e's buffer (ESMEM: two
+// blocks an SM).
+template <int DROP, bool MASK_OUT>
 __global__ void __launch_bounds__(MNT, 2)
 message_edge_lnmod_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ E,
                               const bf16* __restrict__ Gn, const int* __restrict__ idx,
@@ -804,7 +833,7 @@ message_edge_lnmod_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict
                               const float* __restrict__ b2, const bf16* __restrict__ W3,
                               const float* __restrict__ b3, const float* __restrict__ sh,
                               const float* __restrict__ sc, const float* __restrict__ gate,
-                              bf16* __restrict__ out, int L, int K, int N) {
+                              const Drop drop, bf16* __restrict__ out, int L, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sW0 = smem;             // W_e, then W3
   unsigned char* sW2 = sW0 + WBYTES;
@@ -825,7 +854,7 @@ message_edge_lnmod_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict
   mma::cp_async_wait<0>();
   __syncthreads();
   edge_chain(acc, sW0, sW2, W3, sE, vec, s, [] {},
-             [&](float (&a)[16][4]) { lnmod_out(a, sE, vec, out, s); });
+             [&](float (&a)[16][4]) { lnmod_out<DROP, MASK_OUT>(a, sE, vec, out, s, drop); });
 }
 
 // K6 for bf16 E: K2's kernel with raw_out for its epilogue (RSMEM: b2 and b3
@@ -941,21 +970,23 @@ int launch_sum_mma(const void* A, const void* E, const void* Gn, const void* idx
   return (int)cudaGetLastError();
 }
 
+template <int DROP, bool MASK_OUT>
 int launch_edge_lnmod_mma(const void* A, const void* E, const void* Gn, const void* idx,
                           const void* We, const void* W2, const void* b2, const void* W3,
                           const void* b3, const void* sh, const void* sc, const void* gate,
-                          void* out, int B, int L, int K, int N, void* stream) {
+                          const Drop& drop, void* out, int B, int L, int K, int N,
+                          void* stream) {
   if (bad_mma_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(message_edge_lnmod_mma_kernel, ESMEM);
+  auto kern = message_edge_lnmod_mma_kernel<DROP, MASK_OUT>;
+  cudaError_t err = set_smem(kern, ESMEM);
   if (err != cudaSuccess) return (int)err;
-  message_edge_lnmod_mma_kernel<<<mma_grid(B, L, K), MNT, ESMEM,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  kern<<<mma_grid(B, L, K), MNT, ESMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(A), static_cast<const bf16*>(E), static_cast<const bf16*>(Gn),
       static_cast<const int*>(idx), static_cast<const bf16*>(We),
       static_cast<const bf16*>(W2), static_cast<const float*>(b2),
       static_cast<const bf16*>(W3), static_cast<const float*>(b3),
       static_cast<const float*>(sh), static_cast<const float*>(sc),
-      static_cast<const float*>(gate), static_cast<bf16*>(out), L, K, N);
+      static_cast<const float*>(gate), drop, static_cast<bf16*>(out), L, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -1037,32 +1068,50 @@ int message_edge_lnmod_bf16(const void* A, const void* E, const void* Gn, const 
                             const void* We, const void* W2, const void* b2, const void* W3,
                             const void* b3, const void* sh, const void* sc, const void* gate,
                             void* out, int B, int L, int K, int N, void* stream) {
-  return launch_edge_lnmod_mma(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, out, B, L, K,
-                               N, stream);
+  return launch_edge_lnmod_mma<0, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                         Drop{}, out, B, L, K, N, stream);
 }
 
 // K5 forward: K2 with dropout on the message. Exactly one of `keep` (E's
 // dtype, [B, L, K, H] scales 0 or 1/(1-p)) and `seeds` (int32 [B]) is given;
 // with seeds, `mask_out` (f32 [B, L, K, H]) may receive the generated scales.
-#define EDGE_DROP(SUFFIX, TYPE)                                                        \
-  int message_edge_lnmod_drop_##SUFFIX(                                                \
-      const void* A, const void* E, const void* Gn, const void* idx, const void* We,   \
-      const void* W2, const void* b2, const void* W3, const void* b3, const void* sh,  \
-      const void* sc, const void* gate, const void* keep, const void* seeds,           \
-      void* mask_out, void* out, int B, int L, int K, int N, unsigned thresh,          \
-      float kscale, void* stream) {                                                    \
-    if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;    \
-    if (keep != nullptr)                                                               \
-      return launch<TYPE, true, 1, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3,  \
-                                          sh, sc, gate, keep, nullptr, 0u, 1.0f,       \
-                                          nullptr, out, B, L, K, N, 1.0f, stream);     \
-    return launch<TYPE, true, 2, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3,    \
-                                        sh, sc, gate, nullptr, seeds, thresh, kscale,  \
-                                        mask_out, out, B, L, K, N, 1.0f, stream);      \
-  }
+int message_edge_lnmod_drop_f32(const void* A, const void* E, const void* Gn,
+                                const void* idx, const void* We, const void* W2,
+                                const void* b2, const void* W3, const void* b3,
+                                const void* sh, const void* sc, const void* gate,
+                                const void* keep, const void* seeds, void* mask_out,
+                                void* out, int B, int L, int K, int N, unsigned thresh,
+                                float kscale, void* stream) {
+  if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;
+  if (keep != nullptr)
+    return launch<float, true, 1, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
+                                         gate, keep, nullptr, 0u, 1.0f, nullptr, out, B, L,
+                                         K, N, 1.0f, stream);
+  return launch<float, true, 2, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
+                                       gate, nullptr, seeds, thresh, kscale, mask_out, out,
+                                       B, L, K, N, 1.0f, stream);
+}
 
-EDGE_DROP(f32, float)
-EDGE_DROP(bf16, __nv_bfloat16)
+// bf16 on the tensor cores, K2's kernel: K a multiple of 16, at most 128
+int message_edge_lnmod_drop_bf16(const void* A, const void* E, const void* Gn,
+                                 const void* idx, const void* We, const void* W2,
+                                 const void* b2, const void* W3, const void* b3,
+                                 const void* sh, const void* sc, const void* gate,
+                                 const void* keep, const void* seeds, void* mask_out,
+                                 void* out, int B, int L, int K, int N, unsigned thresh,
+                                 float kscale, void* stream) {
+  if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;
+  const Drop d{static_cast<const bf16*>(keep), static_cast<const int*>(seeds), thresh,
+               kscale, static_cast<float*>(mask_out), K};
+  if (keep != nullptr)
+    return launch_edge_lnmod_mma<1, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                           d, out, B, L, K, N, stream);
+  if (mask_out != nullptr)
+    return launch_edge_lnmod_mma<2, true>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                          d, out, B, L, K, N, stream);
+  return launch_edge_lnmod_mma<2, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, d,
+                                         out, B, L, K, N, stream);
+}
 
 // K6: the raw per-edge messages cast(h2) W3 + b3, [B, L, K, H] in E's dtype.
 int message_edge_f32(const void* A, const void* E, const void* Gn, const void* idx,

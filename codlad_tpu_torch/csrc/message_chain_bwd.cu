@@ -1161,26 +1161,6 @@ __device__ __forceinline__ void x2_halves(unsigned (&h2)[16][2], const unsigned 
   }
 }
 
-// The keep scales of K5's backward at n tile nt, row g + 8 h of the slab,
-// natural columns c and c + 1: DROP 1 reads them from `keep`; DROP 2
-// regenerates the forward's mask, drop_bits(sample_key(seeds[b], b), ((l K) +
-// k) H + c) >= thresh (message_chain.cu's), and records it in km[h] (bit
-// 2 nt + e) for the second pass
-template <int DROP>
-__device__ __forceinline__ float2 keep_pair(const bf16* __restrict__ keep, uint32_t key,
-                                            uint32_t thresh, float kscale, unsigned (&km)[2],
-                                            int K, int nt, int h, int c, const Slab& s) {
-  const int r = s.r0 + (s.lane >> 2) + 8 * h;  // the row in the tile
-  if constexpr (DROP == 1) {
-    return bf16_pair(keep + (s.row0 + r) * H + c);
-  } else {
-    const uint32_t i0 = (uint32_t)(((size_t)s.l0 * K + r) * H + c);
-    const bool k0 = drop_bits(key, i0) >= thresh, k1 = drop_bits(key, i0 + 1) >= thresh;
-    km[h] |= (k0 ? 1u : 0u) << (2 * nt) | (k1 ? 1u : 0u) << (2 * nt + 1);
-    return make_float2(k0 ? kscale : 0.0f, k1 ? kscale : 0.0f);
-  }
-}
-
 // K4 / K5, first pass over acc = cast(h2) W3: msg = (acc + b3) x keep, resid =
 // E + msg (E from the slab's tile rows), ln = LN(resid) (eps 1e-6) into acc,
 // with rstd; then with dct = dout: dsh's (dct g) and dsc's (dct g ln) slab

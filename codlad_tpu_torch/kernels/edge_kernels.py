@@ -18,8 +18,11 @@ codlad_tpu/kernels/edge_kernels.py (Pallas `_pallas_gather`,
   that dtype, as DenseEdgeOps does (codlad_tpu/nn/graph.py). The kernel
   reads a CSR of the valid edges by node (`build_csr`: a stable sort of the
   flat node index, built once per batch and shared by every aggregate); a
-  warp sums each node's edges in a fixed order, so a run repeats bit for
-  bit (no f32 atomics). The plain version is `index_add_` in f32.
+  group of lanes sums each node's edges in sub-slots, then a fixed tree
+  (tests/_torch_aggregate_order.py repeats the order in torch), so a run
+  repeats bit for bit (no f32 atomics). The kernel loads 16-byte-aligned
+  rows; an offset view of msgs is copied first. The plain version is
+  `index_add_` in f32.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/edge_ops.cu`) or
 raises; the plain versions run only for tensors on the CPU, where autograd
@@ -137,6 +140,8 @@ def _launch_aggregate(mask, msgs, n_nodes, mean, csr):
     if ptr.numel() != B * n_nodes + 1:
         raise ValueError(f"the CSR has {ptr.numel() - 1} nodes, not {B * n_nodes}")
     msgs = msgs.contiguous()
+    if msgs.data_ptr() % 16:     # a view with a storage offset: the kernel loads vectors
+        msgs = msgs.clone()
     out = torch.empty((B, n_nodes, F), dtype=msgs.dtype, device=dev)
     fn = build.entry("edge_ops", f"edge_aggregate_{_SUFFIX[msgs.dtype]}", _AGGREGATE_ARGS)
     build.launch(fn, dev, ptr.data_ptr(), edges.data_ptr(), mask.data_ptr(), msgs.data_ptr(),

@@ -17,8 +17,9 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
   into K1 of the next inside one kernel (`denoise(fuse_pairs=True)`).
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
-launches K1, K2 or K6 (in bf16 on the tensor cores, K a multiple of 16) or
-K5 (`csrc/message_chain.cu`) and whose backward launches K3, K4, K5's or K6's
+launches K1, K2, K5's forward or K6 (`csrc/message_chain.cu`; in bf16 on
+the tensor cores, K a multiple of 16, K5's forward on K2's kernel) and whose
+backward launches K3, K4, K5's or K6's
 backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores, main
 pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
 `message_edge_lnmod_bwd_mma_kernel`, `message_edge_bwd_mma_kernel`; in f32
@@ -40,15 +41,14 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block of the CUDA-core forward kernels (16 row groups x rows
-# per thread); a block owns floor(rows / K) whole residues, so K may not
-# exceed it. The f32 backward kernels take 64 rows (4 a thread).
-_BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
-# K1, K2, K6, K7 and every backward in bf16 (K5's forward aside) run on the
-# tensor cores: 128 rows a block, a warp a 16-row slab of one residue, so K
-# is a multiple of 16
+# edge rows per block of the f32 kernels, forwards and backwards, on CUDA
+# cores (16 row groups x 4 rows a thread); a block owns floor(rows / K)
+# whole residues, so K may not exceed it
+_F32_ROWS = 64
+# every kernel in bf16 (K1, K2 and K5's forward, K6, K7 and the backwards)
+# runs on the tensor cores: 128 rows a block, a warp a 16-row slab of one
+# residue, so K is a multiple of 16
 _MMA_ROWS, _MMA_SLAB = 128, 16
-_BWD_ROWS = 64
 _WGRAD_CHUNKS = 264  # row chunks of the weight-grad pass (two blocks an SM)
 
 # kernel launches since the last reset, by kernel
@@ -247,9 +247,9 @@ def check_neighbours(K, rows, per_thread):
         raise ValueError(f"K={K} must be at most {rows} and a multiple of {per_thread}")
 
 
-def _check_edge(E, Gn, rows=None, per_thread=None):
+def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
     """(B, L, K, H, N) of an edge operand the kernels take; `rows` and
-    `per_thread` give the row tile (default: the forward kernels')."""
+    `per_thread` give the row tile (default: the f32 kernels')."""
     if E.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, not {E.device}")
     if E.dtype not in _SUFFIX:
@@ -257,8 +257,6 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
     if E.dim() != 4 or E.shape[-1] != HIDDEN:
         raise ValueError(f"E must be [B, L, K, {HIDDEN}], got {tuple(E.shape)}")
     B, L, K, H = E.shape
-    rows = rows or _BLOCK_ROWS[E.dtype]
-    per_thread = per_thread or rows // 16
     check_neighbours(K, rows, per_thread)
     if Gn.dim() != 3 or Gn.shape[0] != B or Gn.shape[2] != H:
         raise ValueError(f"Gn must be [{B}, N, {H}], got {tuple(Gn.shape)}")
@@ -266,9 +264,9 @@ def _check_edge(E, Gn, rows=None, per_thread=None):
 
 
 def _check_mma_edge(E, Gn):
-    """_check_edge for the kernels that run on the tensor cores in bf16 (K1,
-    K2, K6, K7 and the backwards K3, K4, K5's, K6's): K a multiple of 16
-    there."""
+    """_check_edge for the kernels, which run on the tensor cores in bf16
+    (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's, K6's):
+    K a multiple of 16 there."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)
@@ -327,7 +325,7 @@ def _edge_lnmod_fwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, keep=None,
     adaLN heads of a model cast to bf16, for sampling and for training)
     hand over bf16 tensors, so the two agree there."""
     drop = keep is not None or seeds is not None
-    dims = _check_edge(E, Gn) if drop else _check_mma_edge(E, Gn)
+    dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [
@@ -398,7 +396,7 @@ def _edge_then_sum_fwd(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, 
     return e2, ns
 
 
-def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_BWD_ROWS):
+def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_F32_ROWS):
     """Scratch of the backward kernels (see csrc/message_chain_bwd.cu);
     `tile_rows` edge rows a block of the main pass."""
     f32 = torch.float32
@@ -428,7 +426,7 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     on the tensor cores (K a multiple of 16), with W_e, W2 and W3 as they
     are; in f32 on CUDA cores, with their transposes."""
     bf = E.dtype == torch.bfloat16
-    dims = _check_mma_edge(E, Gn) if bf else _check_edge(E, Gn, _BWD_ROWS, 4)
+    dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2 = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims)
@@ -443,7 +441,7 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
     dW = torch.empty((3, H, H), dtype=f32, device=dev)
     db = torch.empty((2, H), dtype=f32, device=dev)
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else _BWD_ROWS)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else _F32_ROWS)
     # the bf16 kernel parks gelu'(pre) in f32 between its phases
     dg1 = [_f32_rows(dims, dev)] if bf else []
     scratch = ([s["s_h1"], s["s_dx2"], s["s_dpre"]] + dg1
@@ -465,7 +463,7 @@ def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
     K6's backwards: in bf16 on the tensor cores (K a multiple of 16, blocks
     of 128 edge rows), in f32 on CUDA cores (blocks of 64)."""
     bf = E.dtype == torch.bfloat16
-    dims = _check_mma_edge(E, Gn) if bf else _check_edge(E, Gn, _BWD_ROWS, 4)
+    dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     ops = _chain_ops(A, E, Gn, idx, W_e, W2, b2, dims) + [_operand(W3, dt, (H, H), "W3", dev)]
@@ -474,7 +472,7 @@ def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
             torch.zeros((B, N, H), dtype=f32, device=dev),
             torch.empty((3, H, H), dtype=f32, device=dev),
             torch.empty((2, H), dtype=f32, device=dev))
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K, _MMA_ROWS if bf else _BWD_ROWS)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K, _MMA_ROWS if bf else _F32_ROWS)
     return dims, ops, bf, outs, s
 
 

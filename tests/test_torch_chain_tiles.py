@@ -11,7 +11,8 @@ repeat that loop in torch with the kernels' rounding points:
 * y = cast(gelu(pre)) (the A fragments of the W2 product), x2 = y W2 in two
   halves of 64 columns;
 * K2: h2 = cast(gelu(x2 + b2)) reused as the A operand of msg = h2 W3;
-  resid = E + (msg + b3); the LayerNorm's two passes summed as the kernel
+  resid = E + (msg + b3) (K5's forward, the same kernel: E + (msg + b3) x
+  keep); the LayerNorm's two passes summed as the kernel
   sums them: a lane's 32 columns (8 nt + 2 t4 + e) in order, then the quad
   (t4 0-3) pairwise; out = g (LN (1 + sc) + sh), cast;
 * K1: mask * gelu(x2 + b2) of a slab's rows g and g + 8, then the 8 lanes'
@@ -22,7 +23,7 @@ repeat that loop in torch with the kernels' rounding points:
   cast(gelu(x2 + b2)) as K2's, out = cast(h2 W3 + b3), no LayerNorm.
 
 The gelu is the kernels' x / (1 + exp(-2u)). The emulation is held against
-the JAX package's Pallas `_pallas_message_edge_lnmod`,
+the JAX package's Pallas `_pallas_message_edge_lnmod` (also with `keep=`),
 `_pallas_edge_then_sum` and `_pallas_message_edge` in interpret mode (run as
 tests/test_torch_fuse_pairs.py runs them) at small B and L with K = 32 and
 48 (K6 also 16): bf16 within 2e-2 max|ref| (the two differ in the order of their f32
@@ -46,6 +47,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from codlad_tpu.kernels import mpnn_kernels as JK
+from codlad_tpu_torch.kernels.mpnn_kernels import (drop_threshold, keep_bits, keep_scale,
+                                                   keep_scales)
 
 H = 128
 SLAB = 16
@@ -102,15 +105,19 @@ def _quad_sum(v):
     return (lane[:, 0] + lane[:, 1]) + (lane[:, 2] + lane[:, 3])
 
 
-def emulate_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, skip=()):
+def emulate_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, skip=(), keep=None):
     """K2's slab loop -> [B, L, K, H] in E's dtype; `skip` leaves out the
-    rounding points it names ("y", "h2")."""
+    rounding points it names ("y", "h2"). With `keep` ([B, L, K, H] scales
+    in E's dtype), K5's forward on the same kernel: msg + b3 times keep at
+    the natural columns, before the residual."""
     dt = E.dtype
     B, L, K, _ = E.shape
     x2 = _x2(A, E, Gn, idx, W_e, W2, dt, skip)
     h2 = _round(gelu_exp(x2 + b2.to(F32)), dt, "h2", skip)  # packed as W3's A operand
-    msg = _k16(h2, _cast(W3, dt))
-    resid = E.reshape(-1, H).to(F32) + (msg + b3.to(F32))
+    msg = _k16(h2, _cast(W3, dt)) + b3.to(F32)
+    if keep is not None:
+        msg = msg * keep.reshape(-1, H).to(F32)
+    resid = E.reshape(-1, H).to(F32) + msg
     mean = _quad_sum(resid) / H
     d = resid - mean[:, None]
     rstd = torch.rsqrt(_quad_sum(d * d) / H + 1e-6)
@@ -289,3 +296,76 @@ def test_message_edge_emulation_matches_pallas(interpret, dname, K):
         assert (got != ref).to(F32).mean().item() <= 1e-2
         for point in ("y", "h2"):
             assert (emulate_message_edge(*t, skip=(point,)) != ref).to(F32).mean().item() > 1e-2
+
+
+P_DROP = 0.6
+
+
+@pytest.mark.parametrize("dname", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K", [32, 48])
+def test_edge_lnmod_keep_emulation_matches_pallas(interpret, dname, K):
+    """K5's forward on K2's kernel: the emulation with a keep operand filled
+    with keep_scales (the mask the seeded kernel makes) against the
+    interpreted Pallas K2 given the same keep, at the K2 test's limits."""
+    tdt, jdt = DTYPES[dname]
+    B, L = 2, 4
+    x = _inputs(tdt, B, L, K, seed=300 + K)[:12]
+    seeds = torch.from_numpy(np.random.default_rng(K).integers(0, 2 ** 31 - 1, size=B)
+                             .astype(np.int32))
+    keep = keep_scales(seeds, (L, K, H), P_DROP).to(tdt)
+    j = [jnp.asarray(a) for a in x]
+    j[1] = j[1].astype(jdt)
+    want = JK._pallas_message_edge_lnmod(*j[:4], None, *j[4:],
+                                         keep=jnp.asarray(keep.to(F32).numpy()).astype(jdt))
+    t = [torch.from_numpy(a) for a in x]
+    t[1] = t[1].to(tdt)
+    got = emulate_edge_lnmod(*t, keep=keep)
+    assert got.dtype == tdt and want.dtype == jdt
+    _close(got, want, dname)
+    # a keep of ones is K2 itself, bit for bit (as on the card)
+    assert torch.equal(emulate_edge_lnmod(*t, keep=torch.ones_like(keep)), emulate_edge_lnmod(*t))
+
+
+def _fragment_elements(L, K):
+    """(element index, l, k, column) of every accumulator position K5's
+    forward hashes, over every block, active warp, lane, n tile nt, row half
+    h and column e of a sample: ((l0 K) + r0 + g + 8 h) H + 8 nt + 2 t4 + e
+    (csrc/chain_mma.cuh keep_pair; a block of 128 rows holds TL = 128 // K
+    whole residues, a warp the 16-row slab r0 = 16 warp)."""
+    TL = 128 // K
+    out = []
+    for bx in range(-(-L // TL)):
+        l0 = bx * TL
+        nrows = min(TL, L - l0) * K
+        for warp in range(8):
+            r0 = SLAB * warp
+            if r0 >= nrows:
+                continue
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                for nt in range(16):
+                    for h in range(2):
+                        for e in range(2):
+                            row = l0 * K + r0 + g + 8 * h
+                            c = 8 * nt + 2 * t4 + e
+                            out.append((row * H + c, row // K, row % K, c))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("L,K", [(4, 32), (5, 48), (3, 64), (7, 16)])
+def test_keep_fragment_map_covers_a_sample_once(L, K):
+    """The forward's fragment map hashes each element of a sample exactly
+    once, at keep_bits' flat index ((l K) + k) H + c of the element it
+    scales, so its mask is keep_scales' (and the backward's, which reads
+    the same keep_pair)."""
+    el = _fragment_elements(L, K)
+    idx, l, k, c = el.T
+    assert sorted(idx.tolist()) == list(range(L * K * H))
+    assert np.array_equal(idx, (l * K + k) * H + c)
+    seeds = torch.tensor([7, -3], dtype=torch.int32)
+    bits = keep_bits(seeds, L * K * H)
+    scales = keep_scales(seeds, (L, K, H), P_DROP)
+    for b in range(2):
+        frag = torch.zeros(L, K, H)
+        frag[l, k, c] = (bits[b, idx] >= drop_threshold(P_DROP)).float() * keep_scale(P_DROP)
+        assert torch.equal(frag, scales[b])

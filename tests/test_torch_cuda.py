@@ -4,7 +4,11 @@ against torch.autograd of the plain versions on the same inputs and
 cotangent (the bf16 K3 and K6 on the tensor cores at every K the featurizer
 gives, bit for bit from run to run but K3's dGn; the bf16 K4, K5's and K6's
 backwards on the tensor cores at the training shapes, K5's regenerated
-mask the forward's, every output but dGn bit for bit from run to run); K8 (bit for bit, every width, aligned and offset views), K9 and
+mask the forward's, every output but dGn bit for bit from run to run; the
+bf16 K5 forward on K2's tensor-core kernel, its seeded and keep-tensor
+forms bit for bit each other and a keep of ones bit for bit K2); K8 (bit
+for bit, every width, aligned and offset views), K9 (also bit for bit its
+order emulated in torch, tests/_torch_aggregate_order.py) and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
@@ -397,6 +401,44 @@ def test_edge_backwards_bf16_tensor_cores(dev, B, L, N, K):
             assert torch.equal(a, b), i
 
 
+@pytest.mark.parametrize("B,L,N,K", [(96, 128, 128, 64), (96, 48, 48, 48), (3, 37, 50, 32)])
+def test_dropout_forward_bf16_tensor_cores(dev, B, L, N, K):
+    """K5's bf16 forward runs K2's tensor-core kernel: the debug forward's
+    mask is keep_scales'; the seeded forward equals the debug forward and
+    the keep-tensor forward given that mask, and a keep of ones equals K2,
+    each bit for bit; every forward repeats bit for bit; within 2e-2
+    max|ref| of the plain version (K6's limit: at these shapes a few
+    elements pass the elementwise 2e-2 + 2e-2 |ref| by a bf16 flip that
+    the keep scale 2.5 enlarges, while the kernel and the plain version
+    lie equally far from a float64 reference)."""
+    bf, p = torch.bfloat16, 0.6
+    x = _inputs(dev, bf, B, L, N, K, seed=90 + K)
+    args = [x[k] for k in _EDGE]
+    seeds = torch.randint(0, 2 ** 31 - 1, (B,), generator=torch.Generator().manual_seed(91),
+                          dtype=torch.int32).to(dev)
+    MK.reset_launches()
+    out, mask = MK.edge_lnmod_pdrop_debug(*args, seeds, p)
+    seeded = MK.fused_message_edge_lnmod_pdrop(*args, seeds, p)
+    kept = MK.fused_message_edge_lnmod_drop(*args, mask.to(bf))
+    ones = MK.fused_message_edge_lnmod_drop(*args, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge_lnmod_drop"] == 4
+    assert torch.equal(mask, MK.keep_scales(seeds, (L, K, H), p))
+    assert torch.equal(seeded, out) and torch.equal(kept, out)
+    assert torch.equal(ones, MK.fused_message_edge_lnmod(*args))
+    assert torch.equal(MK.fused_message_edge_lnmod_pdrop(*args, seeds, p), seeded)
+    assert torch.equal(MK.fused_message_edge_lnmod_drop(*args, mask.to(bf)), kept)
+    want = MK.plain_message_edge_lnmod_pdrop(*args, seeds, p).float()
+    assert (out.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_dropout_forward_bf16_refuses_k_off_the_warp_slab(dev):
+    x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    seeds = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        MK.fused_message_edge_lnmod_pdrop(*(x[k] for k in _EDGE), seeds, 0.6)
+
+
 def test_edge_backwards_bf16_refuse_k_off_the_warp_slab(dev):
     x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
     base = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
@@ -666,3 +708,32 @@ def test_edge_backwards_launch_each_other(dev, dtype):
     EK.edge_gather(idx, mask, nodes.clone().requires_grad_(False), csr)
     torch.cuda.synchronize()
     assert EK.LAUNCHES == {"edge_gather": 4, "edge_aggregate": 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [3, 12, 36, 48, 130])
+def test_aggregate_is_its_emulated_order(dev, dtype, F):
+    """K9 equals csr_order_aggregate (its order in torch, which
+    tests/test_torch_aggregate_tiles.py holds against the TPU kernel) bit
+    for bit, sum and mean, on fresh tensors and on offset views (which the
+    wrapper copies to an aligned buffer), with a node of 200 edges and
+    nodes of none; the C entry refuses msgs off the 16-byte grid."""
+    from _torch_aggregate_order import csr_order_aggregate
+    from codlad_tpu_torch.kernels import build
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    B, E, N = 2, 3000, 300
+    idx, mask, g = _edges(dev, B, E, N, 6)
+    idx[:, :200], mask[:, :200] = 5, 1.0
+    msgs = torch.randn(B, E, F, generator=g).to(dev).to(dtype)
+    csr = EK.build_csr(idx, mask, N)
+    assert int((csr[0][1:] - csr[0][:-1]).max()) >= 200
+    for reduce in ("sum", "mean"):
+        want = csr_order_aggregate(csr, mask, msgs, N, reduce)
+        for m in (msgs, _offset_view(msgs, 1)):
+            got = EK.edge_aggregate(idx, mask, m, N, reduce, csr)
+            assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype])), reduce
+    fn = build.entry("edge_ops", f"edge_aggregate_{EK._SUFFIX[dtype]}", EK._AGGREGATE_ARGS)
+    out, shifted = torch.empty(B * N, F, dtype=dtype, device=dev), _offset_view(msgs, 1)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.launch(fn, msgs.device, csr[0].data_ptr(), csr[1].data_ptr(), mask.data_ptr(),
+                     shifted.data_ptr(), out.data_ptr(), B * N, F, 0)
