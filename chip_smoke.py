@@ -146,6 +146,30 @@ Phases, each printing its seconds:
  16. recon entry -- `python -m codlad_tpu_torch.cli.test --experiment
                 recon` (its main) on a shard directory the port writes,
                 with the trained weights; summary_stats.json.
+ 16b. latent_trained -- the trained Stage-2 denoiser converted from the
+                study's checkpoint (weights/convergence_latent.npz, EMA) in
+                f32 on the fixture's four prot_0030 frames, against the JAX
+                outputs in weights/convergence_latent_fixture.npz: the kNN
+                graph, one denoise, a 100-step DDIM run at eta 0 from the
+                fixture's x_T (600 K1 and 300 K2 launches asserted), the VQ
+                codes (near-ties allowed) and per-frame rmsd_aligned; the
+                same run on the CPU's plain versions for the card/CPU drift;
+ 16c. latent_entry -- `cli.test --experiment latent` (its main; bf16, 100
+                ancestral steps, 10 members) and then `--experiment prior`
+                with the trained weights on shards the port writes of the
+                study's val proteins prot_0030 and prot_0031 (first 96
+                frames, the study's recipe): each protein's ensemble means
+                and wall seconds beside the card's name and power limit,
+                held against the JAX evaluation's numbers (JAX_EVAL, within
+                EVAL_TOL, on the JAX side of the port's prior), the
+                summaries' keys the JAX CLI's, the launches of the latent
+                run (per draw 600 K1, 300 K2 and a decode's K8/K9); then
+                three timed bf16 draws of each protein's batch (96 x 64 and
+                96 x 96), one draw whose first and last steps' K1/K2 calls
+                and whose decode's K8/K9 calls are each held against the
+                plain version on the same inputs (`check_trained_calls`:
+                the real shapes and padding), and one draw through
+                `trace_sampling`.
  17. train_stage1 -- the Stage-1 trainer's step (make_vqvae_step) at the
                 Stage-1 bench batch and the trained run's config (3 + 4
                 layers, 512 codes), random weights from --seed, bf16 feature
@@ -161,8 +185,10 @@ Phases, each printing its seconds:
                 -resume), cli.extract_features, 2 steps of cli.train_latent
                 on those features, cli.test --experiment recon --vae_ckpt.
 
-Sampling weights are the port's init from --seed with the adaLN heads (zero
-at init) drawn small and random, so that every layer reaches the output;
+Sampling weights, but in 15, 16, 16b and 16c (the trained weights), are the
+port's init from --seed with the adaLN heads (zero at init) drawn small and
+random, so that every layer reaches the output; a missing weights file
+fails its phase;
 the trunk training phases start from the plain init, as the trainer does;
 the residual ones open the gates too (at init a residual layer is the
 identity and K6's backward would receive a zero cotangent). The line
@@ -172,7 +198,9 @@ kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
 K8, K9 and K10 both the f32 record of recon and the bf16 one of the Stage-1
 trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
-fused_message_sum_k48, whose launches are the L = 48 draw's; every ms
+fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
+the f32 K8 and K9 records also carry latent_cli_launches, their launches
+over phase 16c's latent run; every ms
 one call timed with CUDA events, and the K1-K11 records' device_ms
 (K8-K11 also library_device_ms; K3 wgrad_library_ms and
 wgrad_library_device_ms, the torch.mm yardstick of its weight-grad pass)
@@ -273,6 +301,36 @@ ENC_LAYERS, DEC_LAYERS = 3, 4   # results/convergence/vqvae/modelparams.json
 CODEBOOK = 512
 CODE_MARGIN = 1e-4              # near-tie of the two nearest codes, squared distance
 FLOOR = {"rmsd_aligned": 0.6615, "ged": 0.0165, "clash": 0.0041}  # FLOOR_TABLE.md recon
+LATENT_WEIGHTS = WEIGHTS.with_name("convergence_latent.npz")
+LATENT_FIXTURE = WEIGHTS.with_name("convergence_latent_fixture.npz")
+# The trained denoiser in f32 against its JAX fixture: the denoise at one t
+# and the 100-step DDIM latents as fractions of max|ref| (the latents reach
+# ~370 in normalised units), per-frame rmsd_aligned in Å. Measured on an H100
+# (this script): denoise 8.5e-7 of max|ref| on the card and on the CPU,
+# latents 6.6e-7 card vs JAX, CPU vs JAX and card vs CPU alike (f32 sums in
+# another order); the limits are ~15x that.
+DENOISE_TOL = 1e-5
+LATENT_TOL = 1e-5
+LATENT_RMSD_TOL = 1e-2
+# The JAX evaluation of the trained model (results/convergence/eval_latent and
+# eval_prior/summary_stats.json: cli.test, bf16, 100 ancestral steps, 10
+# members, the first 96 frames), per protein; the card does not get results/.
+JAX_EVAL = {
+    "prot_0030.npz": {"latent": {"rmsd_aligned": 3.4463385581970214,
+                                 "ged": 0.5789645969867706, "clash": 0.021719863265752794,
+                                 "div": 0.32082098722457886},
+                      "prior": {"rmsd_aligned": 3.018958497047424}},
+    "prot_0031.npz": {"latent": {"rmsd_aligned": 3.6418501853942873,
+                                 "ged": 0.6634328901767731, "clash": 0.02422882867977023,
+                                 "div": 0.33537226915359497},
+                      "prior": {"rmsd_aligned": 3.245240330696106}},
+}
+EVAL_TOL = {"rmsd_aligned": 0.10, "ged": 0.03, "clash": 0.01, "div": 0.03}
+_METRICS = {"rmsd", "rmsd_aligned", "ged", "clash", "inter", "xyz", "bond", "angle",
+            "torsion", "graph_valid_ratio", "graph_diff_ratio"}
+_ENSEMBLE = _METRICS | {"div", "rmsd_ref_ens", "rmsd_gen_ens", "wallclock_sec"}
+JAX_SUMMARY_KEYS = (_ENSEMBLE | {"per_ensemble"}, _METRICS, _ENSEMBLE | {"total_sec"},
+                    _ENSEMBLE)  # a protein, a member, __global__, __global_stats__
 
 
 def log(msg):
@@ -1824,6 +1882,284 @@ def run_recon_cli(seed, device="cuda", batch_size=4):
 
 
 # ---------------------------------------------------------------------------
+# Stage 2 with the trained weights: the f32 fixture, the latent / prior CLI
+
+
+def chain_launches(n_steps):
+    """K1/K2 launches of n_steps denoise steps of the 3+3-layer trunk
+    denoiser."""
+    return {"fused_message_sum": 6 * n_steps, "fused_message_edge_lnmod": 3 * n_steps}
+
+
+def row_sets_equal(a, b):
+    """kNN indices [B, L, K] equal as a set per row (near-equal distances
+    may come in either order; the decoder sums over all K)."""
+    import torch
+    return bool(torch.equal(torch.sort(a, -1).values, torch.sort(b, -1).values))
+
+
+def trained_pipeline(device, compute_dtype=None, steps="100", sampler="ancestral"):
+    """The sampling pipeline of the converted trained weights (EMA
+    denoiser, VQ-VAE, stats); ancestral, as the CLI runs it, by default."""
+    from codlad_tpu_torch.cli.test import load_vae
+    from codlad_tpu_torch.convert.from_flax import load_denoiser
+    from codlad_tpu_torch.eval.harness import SamplingPipeline
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    den, _, (mean, std) = load_denoiser(str(LATENT_WEIGHTS), device)
+    vae, codebook, _ = load_vae(str(WEIGHTS), device)
+    return SamplingPipeline(denoiser=den, process=create_diffusion(steps), vae=vae,
+                            codebook=codebook, norm_mean=mean, norm_std=std,
+                            compute_dtype=compute_dtype, sampler=sampler)
+
+
+def trained_latent_run(device, n_frames=4, steps="100"):
+    """The converted trained denoiser (EMA, f32) on the fixture frames:
+    conditioning, one denoise of x_T at the fixture's t, a DDIM run at eta 0
+    from x_T with the K1/K2 launches counted, snap, decode, per-frame
+    rmsd_aligned. Returns numpy arrays and the launches."""
+    import numpy as np
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.eval.harness import evaluate_structures
+    pipe = trained_pipeline(device, steps=steps, sampler="ddim")
+    with np.load(LATENT_FIXTURE) as fx:
+        x_T, t_fix = fx["x_T"][:n_frames], int(fx["denoise_t"])
+    with np.load(FIXTURE) as fx:
+        batch = {k[len("batch/"):]: torch.as_tensor(fx[k][:n_frames], device=device)
+                 for k in fx.files if k.startswith("batch/")}
+    extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
+              "mask": batch["res_mask"]}
+    x_T = torch.as_tensor(x_T, device=device)
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    with torch.no_grad():
+        cond = pipe.condition(extras)
+        out = pipe.denoiser.denoise(x_T, torch.full((n_frames,), t_fix, device=device), cond)
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        lat = pipe.sample_latents(extras, noise=x_T)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        ic, xyz, codes = pipe.decode(batch, lat, return_codes=True)
+    rmsd = evaluate_structures(batch, ic, xyz, per_frame=True)["rmsd_aligned"]
+    return {"idx": cond["idx"].cpu(), "denoise": out.cpu().numpy(),
+            "latents": lat.cpu().numpy(), "codes": codes.cpu().numpy(),
+            "rmsd": rmsd.cpu().numpy(), "mask": batch["res_mask"].cpu().numpy(),
+            "codebook": pipe.codebook.cpu(), "launches": launches, "seconds": seconds,
+            "steps": pipe.process.num_timesteps}
+
+
+def latent_trained(device="cuda", n_frames=4, steps="100", cpu_check=True):
+    """The trained denoiser on the card (f32) against the JAX fixture
+    (weights/convergence_latent_fixture.npz: the JAX package on the CPU in
+    f32 with exact gathers): the kNN indices as row sets, the denoise at the
+    fixture's t within DENOISE_TOL of max|ref|, and, when the run has the
+    fixture's 100 DDIM steps, the latents within LATENT_TOL of max|latent|
+    (valid residues), VQ codes equal but where the JAX latent's two nearest
+    codes are within CODE_MARGIN of a tie, per-frame rmsd_aligned within
+    LATENT_RMSD_TOL Å. K1/K2 launched 6 and 3 times a step on the card.
+    With cpu_check the same run on the CPU's plain versions gives the
+    card/CPU drift beside the card/JAX one. Returns the card run."""
+    import numpy as np
+    import torch
+    from codlad_tpu_torch.convert.from_flax import read_flax_npz
+    with np.load(LATENT_FIXTURE) as fx:
+        want = {k: fx[k][:n_frames] if fx[k].ndim else fx[k] for k in fx.files}
+    cuda = torch.device(device).type == "cuda"
+    runs = {device: trained_latent_run(device, n_frames, steps)}
+    if cpu_check and cuda:
+        runs["cpu"] = trained_latent_run("cpu", n_frames, steps)
+    got = runs[device]
+    if not row_sets_equal(got["idx"], torch.as_tensor(want["cond_idx"]).to(got["idx"].dtype)):
+        raise RuntimeError("the trained denoiser's kNN graph differs from the JAX fixture's")
+    d_den = np.abs(got["denoise"] - want["denoise_out"]).max()
+    den_scale = np.abs(want["denoise_out"]).max()
+    check_launches(got["launches"], chain_launches(got["steps"]) if cuda else {},
+                   "the trained DDIM run")
+    msg = (f"latent trained (weights/convergence_latent.npz, EMA, f32, prot_0030 x "
+           f"{n_frames} frames): denoise at t {int(want['denoise_t'])} max|d| vs JAX "
+           f"{d_den:.3g} (max|ref| {den_scale:.3g}, tol {DENOISE_TOL:g} of it); "
+           f"{got['steps']} DDIM steps (eta 0) in {got['seconds']:.3f} s, launches "
+           f"{ {k: v for k, v in got['launches'].items() if v} }")
+    ok = d_den <= DENOISE_TOL * den_scale
+    if got["steps"] == 100:
+        m = got["mask"]
+        scale = np.abs(want["latents"][m]).max()
+        drift = {k: np.abs(r["latents"] - want["latents"])[m].max() / scale
+                 for k, r in runs.items()}
+        if "cpu" in runs:
+            drift["card vs cpu"] = np.abs(got["latents"] - runs["cpu"]["latents"])[m].max() / scale
+        mean, std = read_flax_npz(str(LATENT_WEIGHTS))["stats"]
+        z = torch.as_tensor(want["latents"] * std + mean)
+        tied = (code_gaps(got["codebook"], z) <= CODE_MARGIN).numpy()
+        differ = (got["codes"] != want["codes"]) & m
+        d_rmsd = np.abs(got["rmsd"] - want["metric/rmsd_aligned"]).max()
+        msg += (f"; latents max|d| / max|latent| ({scale:.4g}): "
+                + ", ".join(f"{k} {'vs JAX ' if k != 'card vs cpu' else ''}{v:.3g}"
+                            for k, v in drift.items())
+                + f" (tol {LATENT_TOL:g}); codes differ at {int(differ.sum())} of "
+                f"{int(m.sum())} residues ({int((differ & ~tied).sum())} not near-tied); "
+                f"per-frame rmsd_aligned {np.round(got['rmsd'], 5).tolist()} vs JAX "
+                f"{np.round(want['metric/rmsd_aligned'], 5).tolist()}, max|d| {d_rmsd:.3g} Å "
+                f"(tol {LATENT_RMSD_TOL:g})")
+        ok = ok and drift[device] <= LATENT_TOL and not int((differ & ~tied).sum()) \
+            and d_rmsd <= LATENT_RMSD_TOL
+    log(msg)
+    if not ok:
+        raise RuntimeError("the trained denoiser disagrees with the JAX fixture")
+    return got
+
+
+def run_latent_cli(device="cuda", n_frames=96, steps=100, ensemble=10, proteins=(30, 31)):
+    """cli.test --experiment latent, then prior, with the converted trained
+    weights (bf16 denoiser, ancestral) on shards the port writes of the
+    convergence study's val proteins (their first n_frames, by the study's
+    recipe, `corpus_protein`). Returns both summaries and the kernels'
+    launches over the latent run."""
+    import json
+    import os
+    import tempfile
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.shards import load_protein_shard, save_protein_shard
+    from codlad_tpu_torch.data.synthetic import corpus_protein
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        os.makedirs(f"{tmp}/shards")
+        out["shards"] = {}
+        for i in proteins:
+            path = f"{tmp}/shards/prot_{i:04d}.npz"
+            save_protein_shard(path, corpus_protein(i, n_frames))
+            out["shards"][os.path.basename(path)] = load_protein_shard(path)[1]
+        out["shard_seconds"] = time.perf_counter() - t0
+        args = ["--latent_weights", str(LATENT_WEIGHTS), "--vae_weights", str(WEIGHTS),
+                "--stats_name", "CONV", "--stats_dir", str(WEIGHTS.parent),
+                "--num_sampling_steps", str(steps), "--num_ensemble", str(ensemble),
+                "--data_dir", f"{tmp}/shards", "--device", str(device)]
+        for exp in ("latent", "prior"):
+            kernels.reset_launches()
+            CLI.main(["--experiment", exp, "--out_dir", f"{tmp}/eval_{exp}", *args])
+            if exp == "latent":
+                out["launches"] = kernels.launch_counts()
+            with open(f"{tmp}/eval_{exp}/summary_stats.json") as f:
+                out[exp] = json.load(f)
+    return out
+
+
+def check_latent_cli(out, steps, ensemble, cuda=True, hold=True):
+    """The summaries' keys against the JAX CLI's, finite means, the latent
+    run's launches (K1/K2 of steps x ensemble draws a protein and a decode a
+    draw), and with `hold` each protein's latent means within EVAL_TOL of
+    the JAX evaluation, on the JAX side of the port's own prior."""
+    failures = []
+    for exp in ("latent", "prior"):
+        summary = out[exp]
+        proteins = [k for k in summary if not k.startswith("__")]
+        keys = (set(summary[proteins[0]]), set(summary[proteins[0]]["per_ensemble"][0]),
+                set(summary["__global__"]), set(summary["__global_stats__"]))
+        if keys != JAX_SUMMARY_KEYS:
+            failures.append(f"{exp} summary keys {keys} are not the JAX CLI's")
+        for p in proteins:
+            if not all(math.isfinite(v) for v in summary[p].values() if isinstance(v, float)):
+                failures.append(f"{exp} {p}: not finite")
+    draws = ensemble * len([k for k in out["latent"] if not k.startswith("__")])
+    expect = {k: v * draws for k, v in chain_launches(steps).items()}
+    expect.update({k: v * draws for k, v in decoder_launches().items()})
+    try:
+        check_launches(out["launches"], expect if cuda else {}, "the latent CLI")
+    except RuntimeError as exc:
+        failures.append(str(exc))
+    for p, ref in JAX_EVAL.items() if hold else ():
+        lat, pri = out["latent"][p], out["prior"][p]
+        for k, tol in EVAL_TOL.items():
+            if not abs(lat[k] - ref["latent"][k]) <= tol:
+                failures.append(f"{p} latent {k} {lat[k]:.4f}: JAX {ref['latent'][k]:.4f} "
+                                f"+- {tol}")
+        want_sign = ref["latent"]["rmsd_aligned"] - ref["prior"]["rmsd_aligned"]
+        if (lat["rmsd_aligned"] - pri["rmsd_aligned"]) * want_sign <= 0:
+            failures.append(f"{p}: latent rmsd_aligned {lat['rmsd_aligned']:.4f} is not on "
+                            f"the JAX side of the port's prior {pri['rmsd_aligned']:.4f}")
+    return failures
+
+
+def check_trained_calls(pipe, batch, generator):
+    """One draw of the trained pipeline on a shard batch as the CLI gives it
+    (padded rows included), with every K1/K2 call of its first and last
+    denoise step and every K8/K9 call of its decode held against the plain
+    version on the very inputs the path gave the kernel: K1/K2 within
+    TOL of their inputs' dtype (bf16 in the CLI's pipeline), K8 equal, K9
+    within TOL (f32) or AGG_TOL_BF16. Returns {name: [calls, max|d|,
+    failed calls, shape]}; on the CPU both sides are the plain version."""
+    import torch
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    from codlad_tpu_torch.nn import graph, mpnn
+
+    seen, on = {}, {"chain": False, "edge": False}
+
+    def note(name, got, want, bound, shape):
+        d = (got.float() - want.float()).abs()
+        row = seen.setdefault(name, [0, 0.0, 0, shape])
+        row[0] += 1
+        row[1] = max(row[1], d.max().item())
+        row[2] += int(not bool((d <= bound(want.float().abs())).all()))
+
+    def chain_bound(dtype):
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        return lambda ref: atol + rtol * ref
+
+    def k1(*a):
+        out = MK.fused_message_sum(*a)
+        if on["chain"]:
+            note("fused_message_sum", out, MK.ref_message_sum(*a), chain_bound(a[1].dtype),
+                 tuple(a[1].shape[:3]))
+        return out
+
+    def k2(*a):
+        out = MK.fused_message_edge_lnmod(*a)
+        if on["chain"]:
+            note("fused_message_edge_lnmod", out, MK.ref_message_edge_lnmod(*a),
+                 chain_bound(a[1].dtype), tuple(a[1].shape[:3]))
+        return out
+
+    def k8(idx, mask, nodes, csr=None):
+        out = EK.edge_gather(idx, mask, nodes, csr)
+        if on["edge"]:
+            note("edge_gather", out, EK.ref_gather(idx, mask, nodes), lambda ref: 0.0,
+                 tuple(nodes.shape))
+        return out
+
+    def k9(idx, mask, msgs, n_nodes, reduce="sum", csr=None):
+        out = EK.edge_aggregate(idx, mask, msgs, n_nodes, reduce, csr)
+        if on["edge"]:
+            bound = (chain_bound(msgs.dtype) if msgs.dtype == torch.float32 else
+                     lambda ref: AGG_TOL_BF16[0] * ref + AGG_TOL_BF16[1] * ref.max())
+            note("edge_aggregate", out, EK.ref_aggregate(idx, mask, msgs, n_nodes, reduce),
+                 bound, tuple(msgs.shape))
+        return out
+
+    extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
+              "mask": batch["res_mask"]}
+    last = pipe.process.num_timesteps - 1
+    saved = (mpnn.fused_message_sum, mpnn.fused_message_edge_lnmod, graph.edge_gather,
+             graph.edge_aggregate)
+    mpnn.fused_message_sum, mpnn.fused_message_edge_lnmod = k1, k2
+    graph.edge_gather, graph.edge_aggregate = k8, k9
+    try:
+        lat = pipe.sample_latents(extras, generator=generator,
+                                  step_hook=lambda i: on.update(chain=i in (0, last)))
+        on.update(chain=False, edge=True)
+        pipe.decode(batch, lat)
+    finally:
+        (mpnn.fused_message_sum, mpnn.fused_message_edge_lnmod, graph.edge_gather,
+         graph.edge_aggregate) = saved
+    return seen
+
+
+# ---------------------------------------------------------------------------
 # Stage 1 training: K11 and the K8/K9 backwards, the trainer's step, its CLI
 
 
@@ -2437,6 +2773,67 @@ def main(argv=None):
     log(f"phase recon_entry: {time.perf_counter() - t0:.2f} s; cli.test --experiment recon "
         f"on 2 shards: global rmsd_aligned {glob['rmsd_aligned']:.4f}, ged {glob['ged']:.4f}, "
         f"clash {glob['clash']:.4f}; summary_stats.json written")
+
+    t0 = time.perf_counter()
+    latent_trained(device)
+    log(f"phase latent_trained: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    lat_steps, lat_members = 100, 10
+    cli = run_latent_cli(device, steps=lat_steps, ensemble=lat_members)
+    log(f"phase latent_entry: cli.test --experiment latent, then prior (trained weights, "
+        f"bf16, {lat_steps} ancestral steps, {lat_members} members, the first 96 frames of "
+        f"prot_0030 and prot_0031; shards written in {cli['shard_seconds']:.2f} s); {card}:")
+    for p, ref in JAX_EVAL.items():
+        lat, pri = cli["latent"][p], cli["prior"][p]
+        log(f"  {p} latent: " + ", ".join(f"{k} {lat[k]:.4f} (JAX {ref['latent'][k]:.4f})"
+                                          for k in EVAL_TOL)
+            + f"; member std of rmsd_aligned "
+            f"{statistics.pstdev([m['rmsd_aligned'] for m in lat['per_ensemble']]):.4f}; "
+            f"{lat['wallclock_sec']:.2f} s a protein; prior: rmsd_aligned "
+            f"{pri['rmsd_aligned']:.4f} (JAX {ref['prior']['rmsd_aligned']:.4f}), ged "
+            f"{pri['ged']:.4f}, clash {pri['clash']:.4f}, div {pri['div']:.4f}; "
+            f"{pri['wallclock_sec']:.2f} s a protein")
+    failures = check_latent_cli(cli, lat_steps, lat_members)
+    launches = {k: v for k, v in cli["launches"].items() if v}
+    for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
+                 "edge_aggregate"):
+        records[name]["latent_cli_launches"] = cli["launches"][name]
+    log(f"  launches over the latent run {launches} (asserted: per draw "
+        f"{chain_launches(lat_steps)} and a decode's {decoder_launches()})")
+    pipe = trained_pipeline(device, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    for p, shard in cli["shards"].items():
+        b = {k: torch.as_tensor(v, device=device) for k, v in shard.items()}
+        nb, nl = b["res_type"].shape
+        draws = [run_slice(pipe, b, gen) for _ in range(3)]
+        for d in draws:
+            check_launches(d["launches"], {**chain_launches(lat_steps), **decoder_launches()},
+                           f"the trained draw at L {nl}")
+        sec = [d["seconds"] for d in draws]
+        log(f"  trained bf16 draw + decode, {p} ({nb} x {nl}, K {min(64, nl)}): "
+            f"{[round(x, 4) for x in sec]} s, warm median {statistics.median(sec[1:]):.4f} s "
+            f"({lat_steps / statistics.median(sec[1:]):.2f} steps/s)")
+        calls = check_trained_calls(pipe, b, gen)
+        log(f"  kernel calls of a trained draw on {p} (first and last step, decode) against "
+            f"their plain versions on the same inputs: "
+            + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g}, {bad} failed"
+                        for k, (n, err, bad, shape) in calls.items()))
+        want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6,
+                "edge_gather": decoder_launches()["edge_gather"],
+                "edge_aggregate": decoder_launches()["edge_aggregate"]}
+        if {k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values()):
+            failures.append(f"the trained draw's kernel calls on {p} disagree with their "
+                            f"plain versions or were not all seen (expected {want}): {calls}")
+        names = trace_sampling(pipe, b, args.seed)
+        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                "chain_kernel" in n for n in names):
+            failures.append(f"the traced trained draw at L {nl} did not run K2 on its "
+                            f"tensor-core kernel: {sorted(names)}")
+    del pipe, cli
+    if failures:
+        raise RuntimeError("the latent CLI: " + "; ".join(failures))
+    log(f"phase latent_entry: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     s1_batch = stage1_batch(args.seed, device)

@@ -1,26 +1,45 @@
-"""Evaluation CLI, `--experiment recon`: encode -> VQ snap -> decode ->
-metrics over a directory of protein shards.
+"""Evaluation CLI: `--experiment latent`, `prior` and `recon` over a directory
+of protein shards.
 
-Twin of codlad_tpu/cli/test.py for its recon experiment. The VQ-VAE comes
-either from one converted weights file (`--vae_weights`: flax-named params,
-codebook and config; scripts/export_flax_npz.py writes it from an orbax
-checkpoint, because nothing on the card reads orbax) or from a run of the
-port's Stage-1 trainer (`--vae_ckpt <logdir>`: its config.json and best.pt,
-else last.pt). Per protein, the first --batch_size frames
-are encoded, normalised with --stats_name/--stats_dir (identity without),
-de-normalised, snapped to the codebook, decoded and scored; the per-protein
-metrics and their mean and std over proteins go to
-`{out_dir}/summary_stats.json`, as the JAX CLI writes them.
+Twin of codlad_tpu/cli/test.py. The VQ-VAE comes either from one converted
+weights file (`--vae_weights`: flax-named params, codebook and config;
+scripts/export_flax_npz.py writes it from an orbax checkpoint, because
+nothing on the card reads orbax) or from a run of the port's Stage-1
+trainer (`--vae_ckpt <logdir>`: its config.json and best.pt, else last.pt).
+The Stage-2 denoiser of `latent` comes likewise from a converted file
+(`--latent_weights`, `scripts/export_flax_npz.py --kind latent`) or from a
+logdir of the port's cli/train_latent.py (`--latent_ckpt`); `--use_ema`
+(the default) takes its EMA weights.
 
-    python -m codlad_tpu_torch.cli.test --experiment recon \
-        --vae_weights weights/convergence_vqvae.npz --data_dir shards/val \
-        --out_dir results/eval_recon [--stats_name CONV --stats_dir stats]
+Per protein, the first --batch_size frames are scored:
+* latent: --num_ensemble draws of `--num_sampling_steps` respaced steps of
+  the denoiser (ancestral, or `--sampler ddim` at `--ddim_eta`), in bf16
+  unless `--no-bf16`, de-normalised with --stats_name/--stats_dir (identity
+  without), snapped to the codebook, decoded and scored; the members'
+  mean per metric, DIV, and every member's metrics (`per_ensemble`);
+* prior: the same with N(0, I) latents in normalised space in place of
+  the sampler (the diffusion prior with zero denoising steps): the
+  no-model floor that brackets what Stage 2 contributes;
+* recon: the encoder's latents, normalised, snapped, decoded and scored.
+The per-protein metrics and their mean and std over proteins go to
+`{out_dir}/summary_stats.json` with the JAX CLI's keys.
+
+    python -m codlad_tpu_torch.cli.test --experiment latent \
+        --vae_weights weights/convergence_vqvae.npz \
+        --latent_weights weights/convergence_latent.npz \
+        --stats_name CONV --stats_dir weights --data_dir shards/val \
+        --out_dir results/eval_latent --num_sampling_steps 100 --num_ensemble 10
     python -m codlad_tpu_torch.cli.test --experiment recon --vae_ckpt results/vq \
         --data_dir shards/val --out_dir results/eval_recon
 
 It runs on the card (`--device cuda`, the default; it exits non-zero
-without one) or, with `--device cpu`, on the kernels' plain versions. The
-`latent`, `genzprot` and `prior` experiments are not ported yet.
+without one) or, with `--device cpu`, on the kernels' plain versions.
+Options the port does not have yet raise NotImplementedError naming the
+ROADMAP queue-1 item that brings them: `--experiment genzprot` (item 6),
+`--cfg_scale` other than 0 (item 5), `--model` other than diffusion (item
+8), `--seq_shards` (item 10), `--save_pdb` / `--save_xtc` (item 7). Member s
+of an ensemble draws from torch.Generator(device).manual_seed(seed + s),
+so the port's draws are not the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,18 +56,58 @@ import torch
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--experiment", default="recon", choices=["recon"])
+    p.add_argument("--experiment", default="latent",
+                   choices=["recon", "latent", "genzprot", "prior"])
+    p.add_argument("--model", default="diffusion",
+                   choices=["diffusion", "fm", "icfm", "vpfm", "otcfm", "sbcfm"])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--vae_weights", help="npz of flax-named VQ-VAE params, codebook and config")
     src.add_argument("--vae_ckpt", help="logdir of the port's Stage-1 trainer "
                                         "(codlad_tpu_torch.cli.train_vqvae)")
+    lat = p.add_mutually_exclusive_group()
+    lat.add_argument("--latent_weights", help="npz of the flax-named Stage-2 params, EMA "
+                                              "and config (scripts/export_flax_npz.py)")
+    lat.add_argument("--latent_ckpt", help="logdir of the port's Stage-2 trainer "
+                                           "(codlad_tpu_torch.cli.train_latent)")
     p.add_argument("--data_dir", required=True)
     p.add_argument("--out_dir", default="results/eval")
+    p.add_argument("--num_sampling_steps", type=int, default=100)
+    p.add_argument("--num_ensemble", type=int, default=10)
+    p.add_argument("--cfg_scale", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=96)
+    p.add_argument("--sampler", default="ancestral", choices=["ancestral", "ddim"])
+    p.add_argument("--ddim_eta", type=float, default=0.0,
+                   help="DDIM stochasticity (0 = deterministic)")
+    p.add_argument("--seq_shards", type=int, default=0)
     p.add_argument("--stats_name", default=None)
     p.add_argument("--stats_dir", default="datasets/miu_and_sigma")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--use_ema", action=argparse.BooleanOptionalAction, default=True,
+                   help="--no-use_ema evaluates the raw (non-EMA) Stage-2 weights")
+    p.add_argument("--save_pdb", action="store_true", default=False)
+    p.add_argument("--save_xtc", action="store_true", default=False)
+    p.add_argument("--doubled_batch", action="store_true", default=False,
+                   help="reproduce the reference's doubled-batch sampling")
+    p.add_argument("--ensemble_fold", type=int, default=1,
+                   help="ensemble members drawn per sampler call by tiling the batch "
+                        "(other noise streams than unfolded members)")
+    p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
+                   help="the denoiser in bf16 (the conditioning from the rounded weights)")
     p.add_argument("--device", default="cuda")
     return p
+
+
+def refuse_unported(args):
+    """NotImplementedError, naming the ROADMAP queue-1 item, for an option
+    the port does not have yet."""
+    missing = [(args.experiment == "genzprot", "--experiment genzprot", 6),
+               (args.cfg_scale != 0.0, "--cfg_scale (classifier-free guidance)", 5),
+               (args.model != "diffusion", f"--model {args.model} (flow matching)", 8),
+               (args.seq_shards != 0, "--seq_shards (sequence parallelism)", 10),
+               (args.save_pdb, "--save_pdb", 7), (args.save_xtc, "--save_xtc", 7)]
+    for hit, what, item in missing:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1 item {item})")
 
 
 def _vae_from_config(cfg):
@@ -79,6 +138,21 @@ def load_vae(path, device):
     return vae.to(device).eval(), codebook, w["config"]
 
 
+def _restore_params(module, ckpt, key="params"):
+    """Fill `module` from the `best` (else `last`) checkpoint of a port
+    logdir, from its `key` tree; -> (checkpoint name, its state dict)."""
+    name = "best" if ckpt.exists("best") else "last"
+    sd = torch.load(ckpt.path(name), map_location="cpu", weights_only=True)
+    params, saved = dict(module.named_parameters()), sd.get(key)
+    if saved is None or set(params) != set(saved):
+        raise KeyError(f"{ckpt.path(name)} does not hold this model's {key}: "
+                       f"{sorted(set(params) ^ set(saved or {}))}")
+    with torch.no_grad():
+        for k, v in params.items():
+            v.copy_(saved[k])
+    return name, sd
+
+
 def load_vae_ckpt(logdir, device):
     """(VAE in eval mode on `device`, codebook tensor, config) from a logdir
     of cli/train_vqvae.py: its config.json and `best` checkpoint, else
@@ -88,29 +162,50 @@ def load_vae_ckpt(logdir, device):
     ckpt = CheckpointManager(logdir)
     cfg = ckpt.load_config()
     vae = _vae_from_config(cfg)
-    name = "best" if ckpt.exists("best") else "last"
-    sd = torch.load(ckpt.path(name), map_location="cpu", weights_only=True)
-    params = dict(vae.named_parameters())
-    if set(params) != set(sd["params"]):
-        raise KeyError(f"{ckpt.path(name)} does not hold this VAE's parameters: "
-                       f"{sorted(set(params) ^ set(sd['params']))}")
-    with torch.no_grad():
-        for k, v in params.items():
-            v.copy_(sd["params"][k])
+    name, sd = _restore_params(vae, ckpt)
     codebook = sd["vq_state"]["codebook"].to(device=device, dtype=torch.float32)
     return vae.to(device).eval(), codebook, dict(cfg, checkpoint=name, step=int(sd["step"]))
+
+
+def load_latent_ckpt(logdir, device, use_ema=True, latent_size=3):
+    """(MPNNDenoiser in eval mode on `device`, config) from a logdir of
+    cli/train_latent.py: its config.json and `best` checkpoint, else `last`,
+    with the EMA weights unless use_ema is False."""
+    from codlad_tpu_torch.convert.from_flax import denoiser_from_config
+    from codlad_tpu_torch.train.checkpoints import CheckpointManager
+
+    ckpt = CheckpointManager(logdir)
+    cfg = ckpt.load_config()
+    model = denoiser_from_config(cfg, cfg.get("latent_size", latent_size))
+    name, sd = _restore_params(model, ckpt, "ema_params" if use_ema else "params")
+    return model.to(device).eval(), dict(cfg, checkpoint=name, step=int(sd["step"]))
+
+
+def load_latent(args, device, latent_size):
+    """(denoiser, its config) from --latent_weights or --latent_ckpt."""
+    from codlad_tpu_torch.convert.from_flax import load_denoiser
+
+    if args.latent_weights:
+        model, cfg, _ = load_denoiser(args.latent_weights, device, args.use_ema, latent_size)
+        return model, cfg
+    if args.latent_ckpt:
+        return load_latent_ckpt(args.latent_ckpt, device, args.use_ema, latent_size)
+    raise SystemExit("test: --experiment latent needs --latent_weights or --latent_ckpt")
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from codlad_tpu_torch.data.norm import load_stats
     from codlad_tpu_torch.data.shards import ShardDataset, load_protein_shard
-    from codlad_tpu_torch.eval.harness import SamplingPipeline, evaluate_structures
+    from codlad_tpu_torch.eval.harness import (SamplingPipeline, evaluate_structures,
+                                               run_ensemble)
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("test: no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         sys.exit(1)
+    refuse_unported(args)
     os.makedirs(args.out_dir, exist_ok=True)
     if args.vae_ckpt:
         vae, codebook, cfg = load_vae_ckpt(args.vae_ckpt, device)
@@ -121,8 +216,22 @@ def main(argv=None):
         mean, std = load_stats(args.stats_dir, args.stats_name)
     else:
         mean, std = np.zeros(latent_size, np.float32), np.ones(latent_size, np.float32)
-    pipe = SamplingPipeline(denoiser=None, process=None, vae=vae, codebook=codebook,
-                            norm_mean=mean, norm_std=std, latent_size=latent_size)
+    denoiser = process = None
+    if args.experiment == "latent":
+        denoiser, lat_cfg = load_latent(args, device, latent_size)
+        process = create_diffusion(str(args.num_sampling_steps),
+                                   diffusion_steps=lat_cfg.get("diffusion_steps", 1000),
+                                   learn_sigma=True)
+    pipe = SamplingPipeline(denoiser=denoiser, process=process, vae=vae, codebook=codebook,
+                            norm_mean=mean, norm_std=std, latent_size=latent_size,
+                            compute_dtype=torch.bfloat16 if args.bf16 else None,
+                            sampler=args.sampler, ddim_eta=args.ddim_eta,
+                            doubled_batch=args.doubled_batch)
+
+    def prior_sample(generator, b):
+        lat = torch.randn(tuple(b["res_type"].shape) + (latent_size,), generator=generator,
+                          device=device)
+        return pipe.decode(b, lat)
 
     data = ShardDataset(args.data_dir, args.batch_size, shuffle=False)
     summary = {}
@@ -132,14 +241,23 @@ def main(argv=None):
         n = min(shard["res_type"].shape[0], args.batch_size)
         batch = {k: torch.as_tensor(v[:n], device=device) for k, v in shard.items()}
         t0 = time.time()
-        h = pipe.encode_latents(batch)
-        ic, xyz14 = pipe.decode(batch, pipe.normalise(h))
-        agg = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
+        log_fn = (lambda s, m: print(f"  {fname} ensemble {s}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in m.items()), flush=True))
+        if args.experiment == "recon":
+            h = pipe.encode_latents(batch)
+            ic, xyz14 = pipe.decode(batch, pipe.normalise(h))
+            agg = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
+        else:
+            agg = run_ensemble(pipe, batch, args.num_ensemble, seed=args.seed,
+                               sample_fn=prior_sample if args.experiment == "prior" else None,
+                               log_fn=log_fn, fold=args.ensemble_fold)
         agg["wallclock_sec"] = time.time() - t0
         summary[fname] = agg
-        print(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()), flush=True)
+        print(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()
+                                      if np.isscalar(v)), flush=True)
 
-    keys = list(next(iter(summary.values())))
+    # global mean and std over proteins (reference test.py:821-889)
+    keys = [k for k, v in next(iter(summary.values())).items() if np.isscalar(v)]
     per_protein = {k: [v[k] for v in summary.values()] for k in keys}
     summary["__global__"] = {k: float(np.mean(vs)) for k, vs in per_protein.items()}
     summary["__global_stats__"] = {k: {"mean": float(np.mean(vs)), "std": float(np.std(vs))}

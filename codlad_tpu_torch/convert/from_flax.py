@@ -9,9 +9,12 @@ their name and layout. The encoder's names (`encoder/EdgeEmbed_i`,
 the same way. The VQ codebook is a plain array.
 
 `read_flax_npz` reads the single-file export of a trained checkpoint
-(scripts/export_flax_npz.py): flax-named leaves under `params/...`, the
-codebook, the model config and the latent stats; nothing on the card reads
-orbax.
+(scripts/export_flax_npz.py): flax-named leaves under `params/...` (and a
+Stage-2 checkpoint's EMA under `ema_params/...`), the codebook, the model
+config and the latent stats; nothing on the card reads orbax.
+`denoiser_from_config` builds the Stage-2 denoiser of a run config for
+evaluation, as codlad_tpu/cli/test.py does, and `load_denoiser` fills it
+from such a file.
 """
 
 from __future__ import annotations
@@ -69,24 +72,65 @@ def codebook_from_flax(codebook, device="cuda"):
 
 
 def read_flax_npz(path):
-    """-> {"params": nested dict of arrays, "codebook": [n_codes, dim] or
-    None, "cluster_size" / "embed_avg" (the VQ state's EMA statistics) or
-    None, "config": dict, "stats": (mean, std) or None} from an npz whose
-    keys are `params/<module>/.../<leaf>`, `codebook`, `cluster_size`,
-    `embed_avg`, `config` (JSON) and `stats_mean` / `stats_std`."""
-    params = {}
+    """-> {"params": nested dict of arrays, "ema_params": the same for the
+    EMA weights or None, "codebook": [n_codes, dim] or None, "cluster_size"
+    / "embed_avg" (the VQ state's EMA statistics) or None, "config": dict,
+    "stats": (mean, std) or None} from an npz whose keys are
+    `params/<module>/.../<leaf>`, `ema_params/...`, `codebook`,
+    `cluster_size`, `embed_avg`, `config` (JSON) and `stats_mean` /
+    `stats_std`."""
+    trees = {"params": {}, "ema_params": {}}
     with np.load(path, allow_pickle=False) as z:
         for key in z.files:
-            if not key.startswith("params/"):
+            top, *mods = key.split("/")
+            if top not in trees or not mods:
                 continue
-            node = params
-            *mods, leaf = key.split("/")[1:]
+            node, leaf = trees[top], mods.pop()
             for m in mods:
                 node = node.setdefault(m, {})
             node[leaf] = z[key]
         get = lambda k: z[k] if k in z.files else None
         stats = ((get("stats_mean"), get("stats_std")) if "stats_mean" in z.files else None)
-        return {"params": params, "codebook": get("codebook"),
+        return {"params": trees["params"], "ema_params": trees["ema_params"] or None,
+                "codebook": get("codebook"),
                 "cluster_size": get("cluster_size"), "embed_avg": get("embed_avg"),
                 "config": json.loads(str(z["config"])) if "config" in z.files else {},
                 "stats": stats}
+
+
+# Options of a Stage-2 run config that the port does not have yet, and the
+# ROADMAP queue-1 item that brings each.
+_MISSING = {"self_condition": 5, "decoder_mask": 5, "distill_tmap": 9}
+
+
+def denoiser_from_config(cfg, latent_size=3):
+    """The f32 MPNNDenoiser (random weights, dropout 0) of a Stage-2 run
+    config (the JAX trainer's modelparams.json or the port's config.json),
+    as codlad_tpu/cli/test.py:216-225 builds it for evaluation. Raises
+    NotImplementedError for an option the port lacks."""
+    from codlad_tpu_torch.models.denoiser import MPNNDenoiser
+
+    model = cfg.get("model", "diffusion")
+    if model != "diffusion":
+        raise NotImplementedError(f"--model {model}: flow matching is ROADMAP queue 1 item 8")
+    for key, item in _MISSING.items():
+        if cfg.get(key):
+            raise NotImplementedError(f"{key} is not ported (ROADMAP queue 1 item {item})")
+    backbone = cfg.get("backbone", "mpnn_diffusion")
+    if backbone != "mpnn_diffusion":
+        raise ValueError(f"unknown denoiser backbone {backbone!r}")
+    return MPNNDenoiser(torch.Generator().manual_seed(0), input_size=latent_size,
+                        learn_sigma=True, dropout=0.0,
+                        adaln_mode=cfg.get("adaln_mode", "trunk"))
+
+
+def load_denoiser(path, device="cuda", use_ema=True, latent_size=3):
+    """(MPNNDenoiser in eval mode on `device` with the EMA weights, or the
+    raw ones with use_ema=False; the config; the stats (mean, std) or None)
+    from a converted Stage-2 weights file."""
+    w = read_flax_npz(path)
+    params = w["ema_params"] if use_ema else w["params"]
+    if params is None:
+        raise KeyError(f"{path} holds no ema_params (pass use_ema=False for the raw weights)")
+    model = load_flax(denoiser_from_config(w["config"], latent_size), params)
+    return model.to(device).eval(), w["config"], w["stats"]

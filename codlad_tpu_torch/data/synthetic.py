@@ -192,3 +192,17 @@ def synthetic_examples(n_frames, n_res_og, seed=0, cfg: FeaturizeConfig | None =
             inputs = (res_type_og, chain_id_og, cg, xyz14)
         examples.append(featurize_frame(*inputs, cfg=cfg, prot_idx=prot_idx))
     return examples
+
+
+def corpus_protein(index, n_frames, seed=0, res_range=(48, 128), structured=True):
+    """The first n_frames of protein `index` of a synthetic corpus as
+    codlad_tpu/cli/preprocess.py `--synthetic N_PROT N_RES N_FRAMES
+    --structured --res_range LO HI --seed S` draws it: its length is the
+    (index+1)-th draw of default_rng(S + 991), its frames those of
+    synthetic_examples(seed=S + index). The convergence study's val
+    proteins are index 30 and 31 at the defaults."""
+    lens_rng = np.random.default_rng(seed + 991)
+    for _ in range(index + 1):
+        n_res = int(lens_rng.integers(res_range[0], res_range[1] + 1))
+    return synthetic_examples(n_frames, n_res, seed=seed + index, prot_idx=index,
+                              structured=structured)

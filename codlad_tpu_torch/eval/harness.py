@@ -3,17 +3,23 @@
 
 Counterpart of codlad_tpu/eval/harness.py:
 
-* `SamplingPipeline.sample_and_decode`: ancestral diffusion sampling with
-  the plain EMA-VQ snap (no guidance, no sequence sharding, no flows, no
-  DDIM). With `compute_dtype` set, the weights are rounded to that dtype
-  first, as the JAX pipeline's `_cast` does: the denoiser runs on a copy of
-  them in that dtype, the conditioning is computed in f32 arithmetic from
-  the rounded weights and then cast, and the sampler's schedule arithmetic
-  and the decode stay in f32.
+* `SamplingPipeline.sample_and_decode`: ancestral or DDIM diffusion
+  sampling with the plain EMA-VQ snap (no guidance, no sequence sharding,
+  no flows). With `compute_dtype` set, the weights are rounded to that
+  dtype first, as the JAX pipeline's `_cast` does: the denoiser runs on a
+  copy of them in that dtype, the conditioning is computed in f32
+  arithmetic from the rounded weights and then cast, and the sampler's
+  schedule arithmetic and the decode stay in f32. `doubled_batch`
+  reproduces the reference's doubled batch (test.py:504-535): every
+  denoise runs on the batch concatenated with itself and the first half of
+  its output is kept, so the samples are those of the undoubled batch for
+  the same noise.
 * `SamplingPipeline.encode_latents` + `decode`: the `--experiment recon`
   path (pre-VQ encoder latents, de-normalise, snap, decode); the pipeline
   then needs no denoiser.
 * `evaluate_structures`: the per-batch metric set.
+* `run_ensemble`: an ensemble of draws per batch, the mean of the members'
+  metrics and DIV, as `--experiment latent` / `prior` report them.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import copy
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from codlad_tpu_torch.eval import metrics as M
@@ -51,8 +58,13 @@ class SamplingPipeline:
     norm_std: Any
     latent_size: int = 3
     compute_dtype: Any = None   # e.g. torch.bfloat16 for the denoiser
+    sampler: str = "ancestral"  # 'ancestral' | 'ddim'
+    ddim_eta: float = 0.0       # DDIM only: 0 deterministic given x_T
+    doubled_batch: bool = False
 
     def __post_init__(self):
+        if self.sampler not in ("ancestral", "ddim"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
         self._denoise_model = self._cond_model = self.denoiser
         if self.compute_dtype is not None and self.denoiser is not None:
             self._denoise_model = copy.deepcopy(self.denoiser).to(self.compute_dtype)
@@ -73,23 +85,30 @@ class SamplingPipeline:
                        step_hook=None):
         """Normalised latents [B, L, latent_size] given the CG conditioning
         (res_type, cg_xyz [B, L, 3], mask). `noise` is x_T; `noises` the
-        per-step z of the ancestral sampler (both drawn from `generator`
-        when not given); `step_hook` goes to `p_sample_loop`."""
+        per-step z of the ancestral sampler or of DDIM at eta > 0 (both
+        drawn from `generator` when not given); `step_hook(i)` runs on the
+        host before step i."""
         res_type = extras["res_type"]
         B, L = res_type.shape
         dev = res_type.device
         if noise is None:
             noise = torch.randn((B, L, self.latent_size), generator=generator, device=dev)
+        if self.doubled_batch:
+            extras = {k: torch.cat([v, v], 0) for k, v in extras.items()}
         cond = self.condition(extras)
         model = self._denoise_model
         cd = self.compute_dtype
 
         def model_fn(x, t):
-            return model.denoise(x if cd is None else x.to(cd), t, cond).to(torch.float32)
+            if self.doubled_batch:
+                x, t = torch.cat([x, x], 0), torch.cat([t, t], 0)
+            out = model.denoise(x if cd is None else x.to(cd), t, cond).to(torch.float32)
+            return out[:B]
 
-        return self.process.p_sample_loop(model_fn, noise.shape, noise=noise,
-                                          noises=noises, generator=generator,
-                                          step_hook=step_hook)
+        kw = dict(noise=noise, noises=noises, generator=generator, step_hook=step_hook)
+        if self.sampler == "ddim":
+            return self.process.ddim_sample_loop(model_fn, noise.shape, eta=self.ddim_eta, **kw)
+        return self.process.p_sample_loop(model_fn, noise.shape, **kw)
 
     @torch.no_grad()
     def encode_latents(self, batch):
@@ -159,3 +178,61 @@ def evaluate_structures(batch, ic_recon, xyz14_gen, per_frame=False):
         "bond": bond, "angle": angle, "torsion": torsion,
         "graph_valid_ratio": valid.mean(), "graph_diff_ratio": ratio.mean(),
     }
+
+
+def _flat_atoms(batch, xyz14):
+    """xyz14 [B, L, 14, 3] -> [B, L * 14, 3] with the endpoint and missing
+    atoms zeroed, and that mask [B, L * 14]."""
+    keep = (~batch["endpoint_mask"].bool())[..., None] & batch["atom_mask"].bool()
+    zero = torch.zeros((), dtype=xyz14.dtype, device=xyz14.device)
+    B = xyz14.shape[0]
+    return torch.where(keep[..., None], xyz14, zero).reshape(B, -1, 3), keep.reshape(B, -1)
+
+
+@torch.no_grad()
+def run_ensemble(pipeline, batch, num_ensemble, seed=0, sample_fn=None,
+                 return_structures=False, log_fn=None, fold=1):
+    """Draw an ensemble of num_ensemble structures per frame of `batch` and
+    score it (codlad_tpu/eval/harness.py `run_ensemble`; reference
+    test.py:455-710). sample_fn(generator, batch) -> (ic, xyz14) replaces
+    the pipeline's sample_and_decode (the prior experiment). Member s draws
+    from torch.Generator(device).manual_seed(seed + s); with fold > 1, f
+    members come from one call on the batch tiled f times, drawn from one
+    generator seeded from seed and s (JAX: fold_in(PRNGKey(seed), s); other
+    noise than the unfolded members', so equal in distribution only). log_fn(s, metrics) is called
+    per member. Returns the members' mean per metric, `div`,
+    `rmsd_ref_ens`, `rmsd_gen_ens` and `per_ensemble` (the members' metric
+    dicts), and with return_structures also the xyz14 stack [S, B, L, 14,
+    3] as a numpy array."""
+    if sample_fn is None:
+        sample_fn = lambda g, b: pipeline.sample_and_decode(b, generator=g)
+    dev = batch["res_type"].device
+    B = batch["res_type"].shape[0]
+    gens, structures, per_sample = [], [], []
+    s = 0
+    while s < num_ensemble:
+        f = min(max(int(fold), 1), num_ensemble - s)
+        if f == 1:
+            chunks = [sample_fn(torch.Generator(dev).manual_seed(seed + s), batch)]
+        else:
+            big = {k: torch.cat([v] * f, 0) for k, v in batch.items()}
+            g = torch.Generator(dev).manual_seed((seed * 1_000_003 + s) % 2 ** 63)
+            ic_f, xyz_f = sample_fn(g, big)
+            chunks = [(ic_f[i * B:(i + 1) * B], xyz_f[i * B:(i + 1) * B]) for i in range(f)]
+        for ic, xyz14 in chunks:
+            m = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
+            per_sample.append(m)
+            if log_fn is not None:
+                log_fn(len(per_sample) - 1, m)
+            gens.append(_flat_atoms(batch, xyz14)[0])
+            if return_structures:
+                structures.append(xyz14.cpu().numpy())
+        s += f
+    ref, flat_mask = _flat_atoms(batch, batch["xyz14"])
+    div, rmsd_ref, rmsd_gen = M.diversity(torch.stack(gens), ref, flat_mask)
+    agg = {k: float(np.mean([m[k] for m in per_sample])) for k in per_sample[0]}
+    agg.update(div=float(div), rmsd_ref_ens=float(rmsd_ref), rmsd_gen_ens=float(rmsd_gen))
+    agg["per_ensemble"] = per_sample
+    if return_structures:
+        return agg, np.stack(structures)
+    return agg

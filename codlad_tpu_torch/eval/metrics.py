@@ -1,8 +1,8 @@
 """Evaluation metrics: RMSD, GED, clash ratio, interaction scores and
 covalent-graph validity, on padded [B, L, 14, 3] frames with masks.
 
-Torch twin of codlad_tpu/eval/metrics.py (`diversity` waits for the
-ensemble runner). Runs on whatever device the frames lie on.
+Torch twin of codlad_tpu/eval/metrics.py, with `diversity` (DIV) over an
+ensemble. Runs on whatever device the frames lie on.
 """
 
 from __future__ import annotations
@@ -127,3 +127,17 @@ def graph_validity(xyz14_gen, xyz14_ref, res_type, atom_mask, scale=1.3, chunk=1
     valid = (diff == 0).to(torch.float32)
     ratio = net.abs().to(torch.float32) / torch.clamp(nref, min=1).to(torch.float32)
     return valid, ratio
+
+
+def diversity(gen_ensemble, ref, mask):
+    """DIV = 1 - rmsd_gen / rmsd_ref over an ensemble (reference
+    test.py:81-95): rmsd_ref = mean aligned RMSD of the samples against the
+    reference, rmsd_gen = mean aligned RMSD against the ensemble mean.
+    gen_ensemble [G, B, N, 3] flat atoms, ref [B, N, 3], mask [B, N] ->
+    (div, rmsd_ref, rmsd_gen), 0-d tensors."""
+    G = gen_ensemble.shape[0]
+    rmsd_ref = torch.stack([kabsch_rmsd(ref, gen_ensemble[g], mask) for g in range(G)]).mean()
+    mean_gen = gen_ensemble.mean(0)
+    rmsd_gen = torch.stack([kabsch_rmsd(mean_gen, gen_ensemble[g], mask)
+                            for g in range(G)]).mean()
+    return 1.0 - rmsd_gen / torch.clamp(rmsd_ref, min=1e-8), rmsd_ref, rmsd_gen

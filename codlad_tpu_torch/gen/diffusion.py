@@ -286,10 +286,15 @@ class GaussianDiffusion:
         return sample, pred_xstart
 
     def ddim_sample_loop(self, model_fn, shape, noise=None, noises=None, eta=0.0,
-                         generator=None, device="cuda"):
+                         generator=None, device="cuda", step_hook=None):
+        """DDIM over every (respaced) step; at eta != 0 step i adds
+        `noises[i]`, or a z drawn from `generator`. `step_hook` as in
+        `p_sample_loop`."""
         x = noise if noise is not None else torch.randn(
             shape, generator=generator, device=device)
         for i in range(self.num_timesteps):
+            if step_hook is not None:
+                step_hook(i)
             z = None
             if eta != 0.0:
                 z = noises[i] if noises is not None else torch.randn(

@@ -9,6 +9,9 @@ reaches the output) and reach the port through
 (tests/test_torch_vqvae_step*.py).
 """
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,6 @@ from codlad_tpu.gen import diffusion as JD
 from codlad_tpu.models import denoiser as jax_denoiser_mod
 from codlad_tpu.models import vq as JVQ
 from codlad_tpu.models.vae import VAE as JaxVAE
-from codlad_tpu.nn import mpnn as jax_mpnn
 from codlad_tpu.train import losses as JL
 from codlad_tpu.train.state import create_train_state
 from codlad_tpu.train.steps import make_latent_step as jax_make_latent_step
@@ -37,6 +39,8 @@ from codlad_tpu_torch.models.vq import VQState
 from codlad_tpu_torch.train import losses as TL
 from codlad_tpu_torch.train.state import TrainState
 from codlad_tpu_torch.train.steps import make_latent_step, make_vqvae_step, weights_to_array
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SMALL = dict(hidden_dim=32, edge_features=32, num_encoder_layers=2,
              num_decoder_layers=1, k_neighbors=16)
@@ -65,15 +69,21 @@ def exact_gathers(monkeypatch):
     """Run the JAX featurizer's neighbour gathers in 'idx' mode.
 
     At L <= 256 its 'auto' mode gathers through a bf16 one-hot matmul (a TPU
-    device), which rounds the C-alpha coordinates to bf16; the port gathers
-    exactly, so parity is checked against the JAX package's exact mode."""
-    orig = jax_mpnn.make_neighbor_gather
+    device), which rounds the C-alpha coordinates; the port gathers
+    exactly, so parity is checked against the JAX package's exact mode. The
+    rule is scripts/export_flax_npz.py `idx_gather_patches`, which also
+    writes the Stage-2 fixture."""
+    for module, name, fn in export_script().idx_gather_patches():
+        monkeypatch.setattr(module, name, fn)
 
-    def idx_only(E_idx, mode="auto", dtype=jnp.bfloat16, n_nodes=None):
-        return orig(E_idx, mode="idx", dtype=dtype, n_nodes=n_nodes)
 
-    monkeypatch.setattr(jax_mpnn, "make_neighbor_gather", idx_only)
-    monkeypatch.setattr(jax_denoiser_mod, "make_neighbor_gather", idx_only)
+def export_script():
+    """scripts/export_flax_npz.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "export_flax_npz", os.path.join(REPO, "scripts", "export_flax_npz.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def ca_inputs(seed, B, L, n_valid=None):

@@ -737,3 +737,36 @@ def test_aggregate_is_its_emulated_order(dev, dtype, F):
     with pytest.raises(RuntimeError, match="cudaError"):
         build.launch(fn, msgs.device, csr[0].data_ptr(), csr[1].data_ptr(), mask.data_ptr(),
                      shifted.data_ptr(), out.data_ptr(), B * N, F, 0)
+
+
+def test_trained_denoiser_on_the_card(dev):
+    """The converted trained Stage-2 denoiser (weights/convergence_latent.npz,
+    EMA) on the card: one f32 denoise of two fixture frames through K1/K2
+    against the same weights' plain versions on the CPU (the f32 kernels'
+    atol 2e-4 + rtol 2e-4, as the kernel tests), 6 K1 and 3 K2 launches."""
+    import os
+
+    import numpy as np
+
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.convert.from_flax import load_denoiser
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "weights", "convergence_vqvae_fixture.npz")) as fx:
+        res, cg, mask = (fx["batch/res_type"][:2], fx["batch/cg_xyz_og"][:2, 1:-1],
+                         fx["batch/res_mask"][:2])
+    x = np.random.default_rng(0).standard_normal(res.shape + (3,)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        model, _, _ = load_denoiser(os.path.join(root, "weights", "convergence_latent.npz"), d)
+        args = [torch.as_tensor(a, device=d) for a in (res, cg, mask)]
+        with torch.no_grad():
+            cond = model.compute_condition(*args)
+            kernels.reset_launches()
+            out[str(d)] = model.denoise(torch.as_tensor(x, device=d),
+                                        torch.full((2,), 500, device=d), cond).cpu()
+        launches = kernels.launch_counts()
+    assert launches["fused_message_sum"] == 6 and launches["fused_message_edge_lnmod"] == 3
+    got, want = out[str(dev)], out["cpu"]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 2e-4 + 2e-4 * want.abs()).all(), (got - want).abs().max()

@@ -28,7 +28,7 @@ def _torch_model(x, tb, learn_sigma=True):
     return torch.cat([s, torch.sin(x)], dim=-1) if learn_sigma else s
 
 
-@pytest.mark.parametrize("respacing", ["ddim100", "ddim10", "250,100"])
+@pytest.mark.parametrize("respacing", ["ddim100", "ddim10", "250,100", "100"])
 def test_respaced_schedule_matches_jax(respacing):
     assert TD.space_timesteps(1000, respacing) == JD.space_timesteps(1000, respacing)
     jd = JD.create_diffusion(respacing, diffusion_steps=1000)
@@ -79,3 +79,27 @@ def test_sampler_draws_from_the_given_generator():
                                         generator=torch.Generator().manual_seed(seed))
     a, b, c = run(0), run(0), run(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_ddim_sample_loop_eta_matches_jax_with_injected_noise():
+    """DDIM at eta 0.5 adds z at every step: with JAX's z replayed (the same
+    split chain as the ancestral sampler's) the loops agree."""
+    jd = JD.create_diffusion("ddim10", diffusion_steps=1000)
+    td = TD.create_diffusion("ddim10", diffusion_steps=1000)
+    rng = jax.random.PRNGKey(4)
+    x_T = np.random.default_rng(2).normal(size=SHAPE).astype(np.float32)
+    want = jax.jit(lambda r: jd.ddim_sample_loop(r, _jax_model, SHAPE,
+                                                 noise=jnp.asarray(x_T), eta=0.5))(rng)
+    zs = [t(z) for z in replay_ancestral_noises(rng, td.num_timesteps, SHAPE)]
+    got = td.ddim_sample_loop(_torch_model, SHAPE, noise=t(x_T), noises=zs, eta=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_ddim_sample_loop_eta_draws_from_the_given_generator():
+    td = TD.create_diffusion("ddim10", diffusion_steps=1000)
+    x_T = torch.zeros(SHAPE)
+    run = lambda seed, eta: td.ddim_sample_loop(
+        _torch_model, SHAPE, noise=x_T, eta=eta, generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(0, 0.5), run(0, 0.5), run(1, 0.5)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(run(0, 0.0), run(1, 0.0))     # eta 0 draws nothing

@@ -9,7 +9,9 @@ pair-fused scans); so do its Stage-1 recon
 phases (random weights, the trained weights on their fixture, the recon
 CLI) and its Stage-1 training phases (steps of make_vqvae_step, the
 card-vs-CPU step, the chain train_vqvae -> extract_features ->
-train_latent -> test --vae_ckpt), tiny."""
+train_latent -> test --vae_ckpt), tiny; and the trained Stage-2 phases (the
+converted denoiser on its JAX fixture, `cli.test --experiment latent` and
+`prior`, a bf16 draw), which fail without their weights file."""
 
 import os
 import subprocess
@@ -121,6 +123,28 @@ SCRIPT = textwrap.dedent("""
     chain = chip_smoke.run_stage1_cli(0, "cpu", n_res=(20, 24), n_frames=2, batch=2, enc=2,
                                       dec=2, codes=16)
     assert chain["train_vqvae"]["epochs"] == ["0", "1", "2"]
+
+    # the trained Stage-2 phases, tiny: the f32 fixture check, the latent and
+    # prior CLI (no hold at this size), a bf16 draw; a missing weights file
+    # fails the phase
+    chip_smoke.latent_trained("cpu", n_frames=2, steps="5", cpu_check=False)
+    cli = chip_smoke.run_latent_cli("cpu", n_frames=2, steps=3, ensemble=2)
+    assert set(cli["shards"]) == set(chip_smoke.JAX_EVAL)
+    assert chip_smoke.check_latent_cli(cli, 3, 2, cuda=False, hold=False) == []
+    pipe = chip_smoke.trained_pipeline("cpu", torch.bfloat16, steps="ddim3")
+    b = {k: torch.as_tensor(v) for k, v in cli["shards"]["prot_0030.npz"].items()}
+    chip_smoke.check_slice(chip_smoke.run_slice(pipe, b, torch.Generator().manual_seed(0)),
+                           2, 64)
+    calls = chip_smoke.check_trained_calls(pipe, b, torch.Generator().manual_seed(0))
+    assert {k: v[0] for k, v in calls.items()} == {
+        "fused_message_sum": 12, "fused_message_edge_lnmod": 6, "edge_gather": 6,
+        "edge_aggregate": 4} and not any(v[2] for v in calls.values()), calls
+    chip_smoke.LATENT_WEIGHTS = chip_smoke.LATENT_WEIGHTS.with_name("missing.npz")
+    try:
+        chip_smoke.latent_trained("cpu", n_frames=2, steps="5", cpu_check=False)
+        raise SystemExit("latent_trained ran without its weights file")
+    except FileNotFoundError:
+        pass
     print("imported", len(names), "modules")
 """)
 
