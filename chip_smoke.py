@@ -128,6 +128,23 @@ Phases, each printing its seconds:
                 chain_bwd_kernel); one f32 step at dropout 0
                 card against CPU (12.); the trainer's main with
                 --adaln_mode residual for 3 steps;
+ 13b. train_stage2_full -- the whole Stage-2 trainer at B96 L128 K64 H128,
+                3+3 layers, bf16, dropout 0.6: train_latent.main with
+                --self_condition --class_dropout_prob 0.1 --t_sampler
+                loss_second_moment --grad_accum 2 --remat and validation
+                every 4 epochs on a val feature set, 8 micro-steps, each
+                one's launches asserted from its self-conditioning coin and
+                remat (K1 6 and K5 3 a forward: the main pass, its
+                recomputation, and the no-grad first pass on heads; K3 6
+                and K5's backward 3), `best` and the val rows written; then
+                --resume to micro-step 12 (restarting at 8, the best val
+                loss replayed) and a --model_ckpt warm start of 2
+                micro-steps with a fresh optimizer; the self-conditioned
+                step (heads) with and without remat on one batch: median
+                ms and peak memory (remat's peak must be the lower); two
+                f32 micro-steps at dropout 0 under accumulation 2,
+                self-conditioning heads then tails, class dropout injected,
+                card against CPU (as 12.);
  14. recon   -- the Stage-1 reconstruction path (`--experiment recon`) at
                 the production VQ-VAE config (results/convergence/vqvae:
                 embed 36, vqdim 3, ns 12, nv 4, 3 encoder and 4 decoder
@@ -170,6 +187,21 @@ Phases, each printing its seconds:
                 plain version on the same inputs (`check_trained_calls`:
                 the real shapes and padding), and one draw through
                 `trace_sampling`.
+ 16d. guided_sampling -- a self-conditioned denoiser (x_in 6 -> 128,
+                random weights, gates open) under create_diffusion("100",
+                self_condition=True), guided at cfg 1.5, bf16, through
+                sample_and_decode on the 96 x 128 batch: 600 K1 and 300 K2
+                launches on the condition-doubled 192 rows and a decode's
+                K8/K9 (asserted), a timed draw, every K1/K2 call of the
+                first and last step against the plain version (bf16 within
+                TOL + CALL_SCALE_TOL_BF16 max|ref|), one traced window
+                (`trace_sampling`); small f32 draws (4 x 64) card against
+                CPU on the CPU's conditioning: guided and self-conditioned,
+                the masked decoder with an injected decoding_randn,
+                use_seq_in_encoder=False, final_adln=False, and cfg 1
+                against the unguided draw; `cli.test --experiment latent
+                --cfg_scale 1.5 --num_ensemble 2` with the trained weights on
+                prot_0030 (finite summary, launches asserted, wall s).
  17. train_stage1 -- the Stage-1 trainer's step (make_vqvae_step) at the
                 Stage-1 bench batch and the trained run's config (3 + 4
                 layers, 512 codes), random weights from --seed, bf16 feature
@@ -200,7 +232,9 @@ trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
 fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
 the f32 K8 and K9 records also carry latent_cli_launches, their launches
-over phase 16c's latent run; every ms
+over phase 16c's latent run; K1 and K2 guided_launches, those of 16d's
+guided draw; K1, K3 and K5's two train_full_launches, those of 13b's 8
+micro-steps; every ms
 one call timed with CUDA events, and the K1-K11 records' device_ms
 (K8-K11 also library_device_ms; K3 wgrad_library_ms and
 wgrad_library_device_ms, the torch.mm yardstick of its weight-grad pass)
@@ -349,7 +383,8 @@ def open_gates(model, gen, std=0.02):
     gated shut (as after training)."""
     import torch
     heads = [layer.Dense_0 for layer in [*model.enc_layers, *model.dec_layers]]
-    heads.append(model.w_out.Dense_0)
+    if model.final_adln:
+        heads.append(model.w_out.Dense_0)
     with torch.no_grad():
         for lin in heads:
             for p in lin.parameters():
@@ -357,9 +392,12 @@ def open_gates(model, gen, std=0.02):
 
 
 def build_pipeline(device, seed, hidden=H, layers=3, k=K, codebook_size=4096,
-                   respacing=STEPS, compute_dtype=None, adaln_mode="trunk"):
+                   respacing=STEPS, compute_dtype=None, adaln_mode="trunk", cfg_scale=0.0,
+                   self_condition=False, **model_kw):
     """The port's sampling pipeline at the production configuration, in the
-    given adaLN mode."""
+    given adaLN mode; guided at cfg_scale != 0, self-conditioned (denoiser
+    and process) with self_condition, and the denoiser's other options as
+    `model_kw` give them."""
     import torch
     from codlad_tpu_torch.eval.harness import SamplingPipeline
     from codlad_tpu_torch.gen.diffusion import create_diffusion
@@ -369,15 +407,17 @@ def build_pipeline(device, seed, hidden=H, layers=3, k=K, codebook_size=4096,
     gen = torch.Generator().manual_seed(seed)
     denoiser = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
                             num_encoder_layers=layers, num_decoder_layers=layers,
-                            k_neighbors=k, adaln_mode=adaln_mode)
+                            k_neighbors=k, adaln_mode=adaln_mode,
+                            self_condition=self_condition, **model_kw)
     open_gates(denoiser, gen)
     codebook = torch.randn((codebook_size, 3), generator=gen)
     return SamplingPipeline(
         denoiser=denoiser.to(device).eval(),
-        process=create_diffusion(respacing, diffusion_steps=1000),
+        process=create_diffusion(respacing, diffusion_steps=1000,
+                                 self_condition=self_condition),
         vae=VAE(gen, encoder=False).to(device).eval(), codebook=codebook.to(device),
         norm_mean=[0.0, 0.0, 0.0], norm_std=[1.0, 1.0, 1.0],
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, cfg_scale=cfg_scale)
 
 
 def run_slice(pipe, batch, generator):
@@ -1230,11 +1270,14 @@ def train_launches(n_enc, n_dec, dropout, adaln_mode="trunk"):
 
 
 def build_trainer(device, seed, hidden=H, layers=3, k=K, dropout=P_DROP,
-                  compute_dtype=None, lr=3e-4, warmup=0, gates=False, adaln_mode="trunk"):
+                  compute_dtype=None, lr=3e-4, warmup=0, gates=False, adaln_mode="trunk",
+                  self_condition=False, remat=False, class_dropout_prob=0.0, accum=1,
+                  ema_decay=0.9999):
     """(model, TrainState, train_step) of the production denoiser in the
-    given adaLN mode. gates=True draws the adaLN heads small and random
-    (open_gates), so that every parameter gets a gradient at the first step
-    (in residual mode, that every branch reaches the loss)."""
+    given adaLN mode (self-conditioned, with remat, class dropout and
+    gradient accumulation as asked). gates=True draws the adaLN heads small
+    and random (open_gates), so that every parameter gets a gradient at the
+    first step (in residual mode, that every branch reaches the loss)."""
     import torch
     from codlad_tpu_torch.gen.diffusion import create_diffusion
     from codlad_tpu_torch.models.denoiser import MPNNDenoiser
@@ -1244,14 +1287,17 @@ def build_trainer(device, seed, hidden=H, layers=3, k=K, dropout=P_DROP,
     gen = torch.Generator().manual_seed(seed)
     model = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
                          num_encoder_layers=layers, num_decoder_layers=layers,
-                         k_neighbors=k, dropout=dropout, adaln_mode=adaln_mode)
+                         k_neighbors=k, dropout=dropout, adaln_mode=adaln_mode,
+                         self_condition=self_condition, remat=remat)
     if gates:
         open_gates(model, gen)
     model.to(device)
     state = TrainState(dict(model.named_parameters()), warmup_linear_schedule(lr, warmup),
-                       grad_clip=1.0)
-    step, _ = make_latent_step(model, create_diffusion(None, diffusion_steps=1000),
-                               dropout=dropout > 0, compute_dtype=compute_dtype)
+                       grad_clip=1.0, accum_steps=accum)
+    process = create_diffusion(None, diffusion_steps=1000, self_condition=self_condition)
+    step, _ = make_latent_step(model, process, dropout=dropout > 0, compute_dtype=compute_dtype,
+                               class_dropout_prob=class_dropout_prob,
+                               ema_decay=ema_decay ** (1.0 / accum))
     return model, state, step
 
 
@@ -1395,7 +1441,7 @@ def run_train_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=5,
                           "--seed", str(seed), "--bf16", "--device", str(device),
                           "--adaln_mode", adaln_mode])
         with open(f"{tmp}/exp/metrics.jsonl") as f:
-            rows = [json.loads(r) for r in f]
+            rows = [r for r in map(json.loads, f) if r["split"] == "train"]  # not the val row
         with open(f"{tmp}/exp/config.json") as f:
             if json.load(f)["adaln_mode"] != adaln_mode:
                 raise RuntimeError("the trainer's config does not record its adaLN mode")
@@ -1439,7 +1485,7 @@ def train_reference(seed, device="cuda", hidden=H, layers=3, dropout=P_DROP,
     The kNN order must be the same on both (the dropout mask belongs to the
     (l, k) slot), so the trace is jittered off the exact 3.8 Å ties."""
     import torch
-    lr, eps, clip, decay = 1e-3, 1e-8, 1.0, 0.9999
+    lr, decay = 1e-3, 0.9999
     x1, extras = train_batch(2, 32, seed + 2, "cpu", jitter=0.1)
     g = torch.Generator().manual_seed(seed + 3)
     t = torch.randint(0, 1000, (2,), generator=g)
@@ -1462,11 +1508,32 @@ def train_reference(seed, device="cuda", hidden=H, layers=3, dropout=P_DROP,
         raise RuntimeError("the kNN order differs between the devices")
     worst_g = max(((g_d[k] - v).abs().max() / (v.abs().max() + 1e-30)).item()
                   for k, v in g_c.items())
+    upd = check_update(g_c, g_d, m_c["grad_norm"], m_d["grad_norm"], p_c, p_d, e_c, e_d, lr,
+                       1 - decay)
+    rel = {k: abs(m_d[k] - m_c[k]) / abs(m_c[k]) for k in m_c}
+    log(f"train reference {adaln_mode} (card f32 kernels vs CPU plain, dropout {dropout}): loss "
+        f"{m_d['loss']:.6g} vs {m_c['loss']:.6g}, grad_norm {m_d['grad_norm']:.6g} vs "
+        f"{m_c['grad_norm']:.6g}; rel |d| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
+        f"(rtol 1e-3); worst max|dgrad|/max|grad| over {len(g_c)} params {worst_g:.3g} "
+        f"(tol 1e-3); {upd['msg']}")
+    if not (all(v <= 1e-3 for v in rel.values()) and worst_g <= 1e-3 and upd["ok"]):
+        raise RuntimeError("the card's training step disagrees with the CPU reference")
+
+
+def check_update(g_c, g_d, norm_c, norm_d, p_c, p_d, e_c, e_d, lr, ema_w, clip=1.0, eps=1e-8):
+    """The bounds of `train_reference` on one AdamW update from the same
+    state on both sides, given the grads that reached the optimizer (g_c on
+    the CPU, g_d on the card; clipped here by their norms): each weight within
+    atol 2e-5 + rtol 1e-5 + lr * |u(g_card) - u(g_cpu)| where the signs
+    agree, at most MAX_SIGN_FLIPS weights taking |u(g_card)| + |u(g_cpu)|;
+    the EMA, whose last tick put weight ema_w on the new params, within
+    ema_w |dp| + 2^-22 |ema|. Returns {ok, msg}."""
+    import torch
 
     def clipped(g, norm):
         return {k: v.double() * min(1.0, clip / norm) for k, v in g.items()}
 
-    gc, gd = clipped(g_c, m_c["grad_norm"]), clipped(g_d, m_d["grad_norm"])
+    gc, gd = clipped(g_c, norm_c), clipped(g_d, norm_d)
     u = lambda g: g.abs() / (g.abs() + eps)
     excess, worst_p, worst_e, flips, n_weights = 0.0, 0.0, 0.0, 0, 0
     for k, v in p_c.items():
@@ -1480,21 +1547,449 @@ def train_reference(seed, device="cuda", hidden=H, layers=3, dropout=P_DROP,
         excess = max(excess, (d - (2e-5 + 1e-5 * v.abs().double() + lr * du)).max().item())
         worst_p = max(worst_p, d.max().item())
         de = (e_d[k] - e_c[k]).abs().double()
-        worst_e = max(worst_e, (de - ((1 - decay) * d + 2.0 ** -22 * e_c[k].abs().double()))
+        worst_e = max(worst_e, (de - (ema_w * d + 2.0 ** -22 * e_c[k].abs().double()))
                       .max().item())
-    rel = {k: abs(m_d[k] - m_c[k]) / abs(m_c[k]) for k in m_c}
-    log(f"train reference {adaln_mode} (card f32 kernels vs CPU plain, dropout {dropout}): loss "
-        f"{m_d['loss']:.6g} vs {m_c['loss']:.6g}, grad_norm {m_d['grad_norm']:.6g} vs "
-        f"{m_c['grad_norm']:.6g}; rel |d| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
-        f"(rtol 1e-3); worst max|dgrad|/max|grad| over {len(g_c)} params {worst_g:.3g} "
-        f"(tol 1e-3); updated params max|d| {worst_p:.3g}, largest excess over the bound "
-        f"{excess:.3g} (atol 2e-5 + rtol 1e-5 + lr * |du| from the grads; must be <= 0); "
-        f"clipped grads of opposite sign {flips} of {n_weights} weights (at most "
-        f"{MAX_SIGN_FLIPS}); EMA largest excess over 1e-4 |dp| + 2^-22 |ema| {worst_e:.3g} "
-        f"(must be <= 0)")
-    if not (all(v <= 1e-3 for v in rel.values()) and worst_g <= 1e-3 and excess <= 0.0
-            and flips <= MAX_SIGN_FLIPS and worst_e <= 0.0):
-        raise RuntimeError("the card's training step disagrees with the CPU reference")
+    msg = (f"updated params max|d| {worst_p:.3g}, largest excess over the bound {excess:.3g} "
+           f"(atol 2e-5 + rtol 1e-5 + lr * |du| from the grads; must be <= 0); clipped grads "
+           f"of opposite sign {flips} of {n_weights} weights (at most {MAX_SIGN_FLIPS}); EMA "
+           f"largest excess over {ema_w:.3g} |dp| + 2^-22 |ema| {worst_e:.3g} (must be <= 0)")
+    return {"ok": excess <= 0.0 and flips <= MAX_SIGN_FLIPS and worst_e <= 0.0, "msg": msg}
+
+
+# ---------------------------------------------------------------------------
+# The whole Stage-2 trainer (self-conditioning, class dropout, the
+# loss-second-moment sampler, gradient accumulation, remat, validation,
+# resume, warm start) and guided, self-conditioned sampling
+
+
+def full_train_launches(heads, remat, n_enc=3, n_dec=3):
+    """Kernel launches of one trunk training micro-step at dropout > 0: K1
+    and K5 once a forward -- the main pass, its recomputation in the
+    backward under remat, and the no-grad first pass when the
+    self-conditioning coin falls heads -- and K3 and K5's backward once."""
+    fwd = 1 + int(remat) + int(bool(heads))
+    return {"fused_message_sum": (n_enc + n_dec) * fwd,
+            "fused_message_edge_lnmod_drop": n_enc * fwd,
+            "fused_message_sum_bwd": n_enc + n_dec, "fused_message_edge_lnmod_drop_bwd": n_enc}
+
+
+class counted_steps:
+    """Within the block, every train_step that make_latent_step builds
+    (the trainer CLI's too) has its kernel launches counted: `record` gets
+    (the self-conditioning coin, the launches, ms) of each call."""
+
+    def __init__(self, device):
+        self.device, self.record = device, []
+
+    def __enter__(self):
+        import torch
+        from codlad_tpu_torch import kernels
+        from codlad_tpu_torch.train import steps
+        self._steps, self._real = steps, steps.make_latent_step
+        cuda = torch.device(self.device).type == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+        def counted(*a, **k):
+            train_step, eval_step = self._real(*a, **k)
+
+            def step(*aa, **kk):
+                sync()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                state, m = train_step(*aa, **kk)
+                sync()
+                self.record.append((m.get("self_cond"), kernels.launch_counts(),
+                                    (time.perf_counter() - t0) * 1e3))
+                return state, m
+            return step, eval_step
+
+        steps.make_latent_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._steps.make_latent_step = self._real
+
+
+def run_train_full_cli(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=8, resume_to=12,
+                       warm=2):
+    """train_latent.main with the whole trainer on: --self_condition
+    --class_dropout_prob 0.1 --t_sampler loss_second_moment --grad_accum 2
+    --remat, validation every 4 epochs on a val feature set, bf16, dropout
+    0.6, on synthetic features of n_frames x n_res: `steps` micro-steps, each
+    one's launches held to full_train_launches of its coin; `best` and val
+    rows written; then --resume to `resume_to` (restarting at `steps`, the
+    best val loss replayed from metrics.jsonl, the optimizer's count going
+    on) and a --model_ckpt warm start of `warm` micro-steps with a fresh
+    optimizer. Returns the first run's micro-step ms, coins and launch
+    totals, and the rows."""
+    import json
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from codlad_tpu_torch.cli import train_latent as CLI
+    from codlad_tpu_torch.data.cg_batch import write_synthetic_features
+    from codlad_tpu_torch.data.norm import save_stats
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_features(f"{tmp}/feat", n_frames, n_res, seed=seed)
+        write_synthetic_features(f"{tmp}/val", n_frames, n_res, seed=seed + 1)
+        save_stats(f"{tmp}/stats", "SMOKE", np.zeros(3, np.float32), np.ones(3, np.float32))
+        common = ["--feature_dir", f"{tmp}/feat", "--val_dir", f"{tmp}/val",
+                  "--stats_name", "SMOKE", "--stats_dir", f"{tmp}/stats",
+                  "--batch_size", str(batch), "--log_step", "1", "--save_step", "4",
+                  "--warmup", "100", "--seed", str(seed), "--bf16", "--device", str(device),
+                  "--self_condition", "--class_dropout_prob", "0.1", "--t_sampler",
+                  "loss_second_moment", "--grad_accum", "2", "--remat",
+                  "--val_every_epochs", "4"]
+        exp = f"{tmp}/exp"
+        t0 = time.perf_counter()
+        with counted_steps(device) as counted:
+            first = CLI.main(common + ["--exp", exp, "--max_steps", str(steps)])
+        out["seconds"] = time.perf_counter() - t0
+        cuda = torch.device(device).type == "cuda"
+        failures = []
+        totals = {}
+        for i, (heads, got, _) in enumerate(counted.record):
+            want = full_train_launches(heads, remat=True) if cuda else {}
+            if got != dict(dict.fromkeys(got, 0), **want):
+                failures.append(f"micro-step {i} (coin {heads}) launched {got}, expected {want}")
+            totals = {k: totals.get(k, 0) + n for k, n in got.items()}
+        rows = [json.loads(r) for r in open(f"{exp}/metrics.jsonl")]
+        val = [r for r in rows if r["split"] == "val"]
+        if (first.step != steps or first.opt_state["count"] != steps // 2 or len(counted.record)
+                != steps or not os.path.exists(f"{exp}/best.pt") or not val
+                or not all(math.isfinite(r["loss"]) for r in rows)):
+            failures.append(f"the run: step {first.step}, optimizer count "
+                            f"{first.opt_state['count']}, {len(counted.record)} micro-steps, "
+                            f"best.pt {os.path.exists(f'{exp}/best.pt')}, rows {rows}")
+        best = min(r["loss"] for r in val) if val else math.nan
+        resumed = CLI.main(common + ["--exp", exp, "--max_steps", str(resume_to), "--resume"])
+        text = open(f"{exp}/log.txt").read()
+        rows2 = [json.loads(r) for r in open(f"{exp}/metrics.jsonl")]
+        if (resumed.step != resume_to or resumed.opt_state["count"] != resume_to // 2
+                or f"resumed at step {steps}" not in text
+                or f"replayed from metrics.jsonl: {best:.5f}" not in text
+                or [r["step"] for r in rows2 if r["split"] == "train"]
+                != list(range(1, resume_to + 1))):
+            failures.append(f"--resume: step {resumed.step}, count "
+                            f"{resumed.opt_state['count']}, log {text[-600:]!r}")
+        warmed = CLI.main(common + ["--exp", f"{tmp}/warm", "--model_ckpt", exp,
+                                    "--max_steps", str(warm)])
+        if (warmed.step != warm or warmed.opt_state["count"] != warm // 2
+                or f"warm-started weights from {exp}/best" not in open(f"{tmp}/warm/log.txt").read()):
+            failures.append(f"--model_ckpt: step {warmed.step}, count "
+                            f"{warmed.opt_state['count']}")
+        if failures:
+            raise RuntimeError("the whole trainer: " + "; ".join(failures))
+        out.update(ms=[ms for *_, ms in counted.record], coins=[c for c, *_ in counted.record],
+                   totals=totals, val=[(r["step"], r["loss"]) for r in val], best=best,
+                   train=[r["loss"] for r in rows if r["split"] == "train"])
+    return out
+
+
+def remat_memory(seed, device="cuda", n_frames=B, n_res=L, hidden=H, layers=3, k=K, steps=3):
+    """The bf16 self-conditioned training step (coin heads, dropout 0.6) on
+    one batch with and without remat: median ms of `steps` steps after a
+    warm-up one, the peak memory, and each step's launches held to
+    full_train_launches. Returns {remat: (ms list, peak GiB)}."""
+    import torch
+    from codlad_tpu_torch import kernels
+    x1, extras = train_batch(n_frames, n_res, seed + 1, device)
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for remat in (False, True):
+        model, state, step = build_trainer(device, seed, hidden=hidden, layers=layers, k=k,
+                                           compute_dtype=torch.bfloat16, self_condition=True,
+                                           remat=remat)
+        step(state, x1, extras, seed, self_cond=True)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(steps):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            step(state, x1, extras, seed + 1 + i, self_cond=True)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = kernels.launch_counts()
+            want = full_train_launches(True, remat, layers, layers) if cuda else {}
+            if got != dict(dict.fromkeys(got, 0), **want):
+                raise RuntimeError(f"remat={remat}: a step launched {got}, expected {want}")
+        out[remat] = (times, torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0)
+        del model, state, step
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_full_reference(seed, device="cuda", hidden=H, layers=3):
+    """Two f32 micro-steps at dropout 0 under gradient accumulation 2 on a
+    B2 L32 K16 batch, self-conditioned (the coin heads, then tails), class
+    dropout at 0.5 with the drop vectors of both passes injected, on the card
+    and on the CPU from the same weights, t and noise: each micro-step's
+    loss and grads as in `train_reference`, and the one AdamW update on the
+    mean of the two (clipped by its own norm) and the EMA (two ticks at
+    0.9999 ** (1/2)) within `check_update`'s bounds."""
+    import torch
+    lr, decay = 1e-3, 0.9999
+    x1, extras = train_batch(2, 32, seed + 2, "cpu", jitter=0.1)
+    g = torch.Generator().manual_seed(seed + 3)
+    ts = [torch.randint(0, 1000, (2,), generator=g) for _ in range(2)]
+    noises = [torch.randn((2, 32, 3), generator=g) for _ in range(2)]
+    drops = [(torch.tensor([True, False]), torch.tensor([False, True])),
+             (torch.tensor([False, True]), torch.tensor([True, True]))]
+    runs = {}
+    for dev in ("cpu", device):
+        model, state, step = build_trainer(dev, seed, hidden=hidden, layers=layers, k=16, lr=lr,
+                                           gates=True, dropout=0.0, self_condition=True,
+                                           class_dropout_prob=0.5, accum=2, ema_decay=decay)
+        ex = {k: v.to(dev) for k, v in extras.items()}
+        micro = []
+        for i, heads in enumerate((True, False)):
+            state, m = step(state, x1.to(dev), ex, seed + i, t=ts[i].to(dev),
+                            noise=noises[i].to(dev), self_cond=heads,
+                            class_drop=tuple(d.to(dev) for d in drops[i]))
+            micro.append(({k: float(m[k]) for k in ("loss", "mse")},
+                          {k: v.double().cpu() for k, v in m["grads"].items()}))
+        runs[str(dev)] = (micro, {k: v.cpu() for k, v in state.params.items()},
+                          {k: v.cpu() for k, v in state.ema_params.items()},
+                          state.opt_state["count"])
+    (mc, p_c, e_c, n_c), (md, p_d, e_d, n_d) = runs["cpu"], runs[str(device)]
+    rel, worst_g = 0.0, 0.0
+    for (m_c, g_c), (m_d, g_d) in zip(mc, md):
+        rel = max([rel] + [abs(m_d[k] - m_c[k]) / abs(m_c[k]) for k in m_c])
+        worst_g = max([worst_g] + [((g_d[k] - v).abs().max() / (v.abs().max() + 1e-30)).item()
+                                   for k, v in g_c.items()])
+    mean = lambda micro: {k: v + (micro[1][1][k] - v) / 2 for k, v in micro[0][1].items()}
+    norm = lambda gs: math.sqrt(sum(float((v ** 2).sum()) for v in gs.values()))
+    a_c, a_d = mean(mc), mean(md)
+    upd = check_update(a_c, a_d, norm(a_c), norm(a_d), p_c, p_d, e_c, e_d, lr,
+                       1 - decay ** 0.5)
+    log(f"train_full reference (card f32 kernels vs CPU plain, dropout 0, self-conditioning "
+        f"heads then tails, class dropout injected, grad accumulation 2): losses "
+        f"{[round(m['loss'], 6) for m, _ in md]} vs {[round(m['loss'], 6) for m, _ in mc]}, "
+        f"largest rel |d| of loss and mse {rel:.3g} (rtol 1e-3); worst max|dgrad|/max|grad| "
+        f"{worst_g:.3g} (tol 1e-3); optimizer count {n_d} (CPU {n_c}); {upd['msg']}")
+    if not (rel <= 1e-3 and worst_g <= 1e-3 and upd["ok"] and n_c == n_d == 1):
+        raise RuntimeError("the card's accumulated self-conditioned steps disagree with the CPU")
+
+
+GUIDED_CFG = 1.5
+# The guided phase's bf16 K1/K2 calls at random weights: the self-conditioned
+# draw feeds pred_xstart (of order 100 early in the draw, as x_0 = (x_t -
+# sqrt(1 - acp) eps) / sqrt(acp)) and a sample of order 100 late in it back
+# into x_in, so the first encoder layer's K1 sums per-edge terms of order
+# 1000. The kernel and the plain version round the chain's intermediates to
+# bf16 at different points, which moves an output by a fraction of a bf16
+# ulp of the terms it sums (~4 at 1000); where those terms cancel towards
+# zero no per-element tolerance absorbs it. So a call is held at TOL plus
+# half a bf16 ulp of its largest output (2^-9 max|ref|).
+CALL_SCALE_TOL_BF16 = 2.0 ** -9
+
+
+def guided_reference(seed, device="cuda", n_frames=4, n_res=64, hidden=H, layers=3,
+                     respacing="ddim10"):
+    """Small f32 draws (4 x 64 by default, `respacing` ancestral steps) on the
+    card and on the CPU from the same weights, x_T and per-step noise, the C-
+    alpha trace jittered off the exact 3.8 Å ties: guided at cfg 1.5 with a
+    self-conditioned denoiser and process; the masked decoder with an
+    injected decoding_randn; use_seq_in_encoder=False; final_adln=False.
+    Both sides run on the CPU's conditioning (its kNN graph and edge
+    features: the featurizer's self-edge rounding noise, ~3e-4 on either
+    device, would otherwise set the drift, as `reference_check` shows), so
+    the pair differs by the kernels' f32 arithmetic only: within 1e-4 of
+    max|latent|. And on the card, cfg 1 against the unguided draw (u + 1
+    (c - u) is c up to rounding) within the same bound."""
+    import functools
+    import torch
+    x1, extras = train_batch(n_frames, n_res, seed + 4, "cpu", jitter=0.1)
+    g = torch.Generator().manual_seed(seed + 5)
+    noise = torch.randn(x1.shape, generator=g)
+    randn = torch.randn(x1.shape[:2], generator=g)
+    variants = {"cfg 1.5 + self_condition": (dict(self_condition=True), GUIDED_CFG),
+                "decoder_mask": (dict(decoder_mask=True), 0.0),
+                "use_seq_in_encoder=False": (dict(use_seq_in_encoder=False), 0.0),
+                "final_adln=False": (dict(final_adln=False), 0.0)}
+    k = min(K, x1.shape[1])
+    zs = None
+    msgs, ok = [], True
+    for name, (kw, cfg) in variants.items():
+        lats, cpu_condition = {}, None
+        for dev in ("cpu", device):
+            pipe = build_pipeline(dev, seed, hidden=hidden, layers=layers, k=k, codebook_size=64,
+                                  respacing=respacing, cfg_scale=cfg, **kw)
+            if cpu_condition is None:
+                cpu_condition = pipe.condition
+            else:
+                pipe.condition = lambda ex, d=dev: {
+                    k_: v.to(d) for k_, v in cpu_condition(
+                        {k_: v.cpu() for k_, v in ex.items()}).items()}
+            if zs is None:
+                zs = [torch.randn(x1.shape, generator=g)
+                      for _ in range(pipe.process.num_timesteps)]
+            den = pipe.denoiser
+            if kw.get("decoder_mask"):
+                den.denoise = functools.partial(type(den).denoise, den,
+                                                decoding_randn=randn.to(dev))
+            ex = {k_: v.to(dev) for k_, v in extras.items()}
+            lats[dev] = pipe.sample_latents(ex, noise=noise.to(dev),
+                                            noises=[z.to(dev) for z in zs]).cpu()
+            if name.startswith("cfg") and dev == device:
+                pipe.cfg_scale = 1.0
+                one = pipe.sample_latents(ex, noise=noise.to(dev), noises=[z.to(dev) for z in zs])
+                pipe.cfg_scale = 0.0
+                plain = pipe.sample_latents(ex, noise=noise.to(dev),
+                                            noises=[z.to(dev) for z in zs])
+                scale = plain.abs().max().item()
+                d1 = (one - plain).abs().max().item()
+                ok = ok and d1 <= 1e-4 * scale
+                msgs.append(f"cfg 1 vs unguided on the card max|d| {d1:.3g} (tol {1e-4 * scale:.3g})")
+        scale = lats["cpu"].abs().max().item()
+        d = (lats[device] - lats["cpu"]).abs().max().item()
+        ok = ok and d <= 1e-4 * scale and math.isfinite(scale)
+        msgs.append(f"{name}: latents max|d| {d:.3g} (tol {1e-4 * scale:.3g} = 1e-4 * "
+                    f"max|latent| {scale:.3g})")
+    log(f"guided reference (f32, {n_frames} x {x1.shape[1]}, {len(zs)} ancestral steps, card vs "
+        "CPU plain versions): " + "; ".join(msgs))
+    if not ok:
+        raise RuntimeError("a guided or masked draw on the card disagrees with the CPU")
+
+
+def run_guided_cli(device="cuda", n_frames=96, steps=100, ensemble=2, protein=30):
+    """cli.test --experiment latent --cfg_scale 1.5 with the converted trained
+    weights (bf16, ancestral) on a shard of one val protein: the summary, its
+    wall seconds and the launches (per draw chain_launches and a decode's)."""
+    import json
+    import os
+    import tempfile
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import corpus_protein
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/shards")
+        save_protein_shard(f"{tmp}/shards/prot_{protein:04d}.npz",
+                           corpus_protein(protein, n_frames))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        CLI.main(["--experiment", "latent", "--latent_weights", str(LATENT_WEIGHTS),
+                  "--vae_weights", str(WEIGHTS), "--stats_name", "CONV", "--stats_dir",
+                  str(WEIGHTS.parent), "--num_sampling_steps", str(steps), "--num_ensemble",
+                  str(ensemble), "--cfg_scale", str(GUIDED_CFG), "--data_dir",
+                  f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--device", str(device)])
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        with open(f"{tmp}/eval/summary_stats.json") as f:
+            summary = json.load(f)
+    p = f"prot_{protein:04d}.npz"
+    failures = []
+    if set(summary[p]) != JAX_SUMMARY_KEYS[0] or not all(
+            math.isfinite(v) for v in summary[p].values() if isinstance(v, float)):
+        failures.append(f"summary of {p}: {summary[p]}")
+    expect = {k: v * ensemble for k, v in {**chain_launches(steps), **decoder_launches()}.items()}
+    try:
+        check_launches(launches, expect if torch.device(device).type == "cuda" else {},
+                       "the guided latent CLI")
+    except RuntimeError as exc:
+        failures.append(str(exc))
+    if failures:
+        raise RuntimeError("the guided latent CLI: " + "; ".join(failures))
+    return summary[p], seconds, launches
+
+
+def phase_train_stage2_full(seed, device, records, card):
+    """Phase train_stage2_full: the trainer CLI with every option of the
+    whole trainer (`run_train_full_cli`), remat's time and peak memory
+    (`remat_memory`; remat's peak must be below the plain step's), and the
+    accumulated self-conditioned step card against CPU
+    (`train_full_reference`); adds train_full_launches to the K1, K3 and K5
+    records."""
+    t0 = time.perf_counter()
+    full = run_train_full_cli(seed, device)
+    for name in ("fused_message_sum", "fused_message_edge_lnmod_drop", "fused_message_sum_bwd",
+                 "fused_message_edge_lnmod_drop_bwd"):
+        records[name]["train_full_launches"] = full["totals"][name]
+    log(f"  train_latent.main --bf16 --self_condition --class_dropout_prob 0.1 --t_sampler "
+        f"loss_second_moment --grad_accum 2 --remat, B{B} L{L} K{K} H{H} dropout {P_DROP}: "
+        f"{len(full['ms'])} micro-steps in {full['seconds']:.2f} s, median "
+        f"{statistics.median(full['ms']):.2f} ms a micro-step (first {full['ms'][0]:.1f} ms), "
+        f"coins {full['coins']}, launches each as full_train_launches (asserted), over the "
+        f"run {full['totals']}; train losses {[round(x, 4) for x in full['train']]}; val "
+        f"(step, loss) {[(s_, round(v, 4)) for s_, v in full['val']]}, best.pt written; "
+        f"--resume restarted at step 8 with the best val {full['best']:.5f} replayed and ran "
+        f"to 12; --model_ckpt warm start of 2 micro-steps with a fresh optimizer")
+    mem = remat_memory(seed, device)
+    (t_plain, pk_plain), (t_remat, pk_remat) = mem[False], mem[True]
+    log(f"  self-conditioned bf16 step (coin heads) on one B{B} L{L} batch, {card}: without "
+        f"remat median {statistics.median(t_plain):.2f} ms {[round(x, 2) for x in t_plain]}, "
+        f"peak {pk_plain:.3f} GiB; with remat median {statistics.median(t_remat):.2f} ms "
+        f"{[round(x, 2) for x in t_remat]}, peak {pk_remat:.3f} GiB (remat / plain: time "
+        f"{statistics.median(t_remat) / statistics.median(t_plain):.3f}, peak "
+        f"{pk_remat / pk_plain:.3f}); launches a step asserted")
+    if not pk_remat < pk_plain:
+        raise RuntimeError(f"remat's peak memory {pk_remat:.3f} GiB is not below the plain "
+                           f"step's {pk_plain:.3f} GiB")
+    train_full_reference(seed, device)
+    log(f"phase train_stage2_full: {time.perf_counter() - t0:.2f} s")
+
+
+def phase_guided_sampling(seed, device, records, card):
+    """Phase guided_sampling: a full-width guided (cfg 1.5) draw of a
+    self-conditioned bf16 denoiser (600 K1 and 300 K2 launches on the
+    doubled batch and a decode's K8/K9, asserted), timed, its first and last
+    steps' K1/K2 calls against the plain versions, one traced window; the
+    small f32 card-vs-CPU draws (`guided_reference`); and the guided latent
+    CLI on the trained weights (`run_guided_cli`); adds guided_launches to
+    the K1 and K2 records."""
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    gpipe = build_pipeline(device, seed, compute_dtype=torch.bfloat16, respacing="100",
+                           self_condition=True, cfg_scale=GUIDED_CFG)
+    if gpipe.denoiser.x_in.in_features != 6:
+        raise RuntimeError("the self-conditioned denoiser's x_in does not read 6 channels")
+    gbatch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
+    g_steps = gpipe.process.num_timesteps
+    out = run_slice(gpipe, gbatch, gen)
+    check_slice(out, B, L)
+    # one denoise a step, over the condition-doubled batch
+    expect = {**chain_launches(g_steps), **decoder_launches()}
+    check_launches(out["launches"], expect, "the guided sampling path")
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+        records[name]["guided_launches"] = out["launches"][name]
+    timed = run_slice(gpipe, gbatch, gen)
+    calls = check_trained_calls(gpipe, gbatch, gen, scale_tol=CALL_SCALE_TOL_BF16)
+    log(f"  guided draw (cfg {GUIDED_CFG}, self-conditioned, bf16, {g_steps} ancestral steps of "
+        f"create_diffusion('100'), B{B} L{L} K{K}, {card}): first {out['seconds']:.3f} s, timed "
+        f"{timed['seconds']:.3f} s ({g_steps / timed['seconds']:.2f} steps/s) + decode; "
+        f"launches {out['launches']} (expected {expect}); first and last steps' calls against "
+        f"the plain versions (bf16 K1/K2 within TOL + {CALL_SCALE_TOL_BF16:.3g} max|ref|): "
+        + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
+                    f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
+    want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6, **decoder_launches()}
+    if ({k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values())
+            or calls["fused_message_sum"][3] != (2 * B, L, K)):
+        raise RuntimeError(f"the guided draw's kernel calls disagree with their plain versions, "
+                           f"were not all seen or not on the doubled batch: {calls}")
+    names = trace_sampling(gpipe, gbatch, seed)
+    if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+            "chain_kernel" in n for n in names):
+        raise RuntimeError(f"the traced guided steps did not run K2 on its tensor-core kernel: "
+                           f"{sorted(names)}")
+    del gpipe, gbatch, out, timed
+    guided_reference(seed, device)
+    summary, sec, launches = run_guided_cli(device)
+    log(f"  cli.test --experiment latent --cfg_scale {GUIDED_CFG} --num_ensemble 2 (trained "
+        f"weights, bf16, 100 ancestral steps, prot_0030 x 96 frames, {card}): {sec:.2f} s wall; "
+        + ", ".join(f"{k} {summary[k]:.4f}" for k in ("rmsd_aligned", "ged", "clash", "div"))
+        + f"; launches {({k: v for k, v in launches.items() if v})} (asserted)")
+    log(f"phase guided_sampling: {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2085,14 +2580,17 @@ def check_latent_cli(out, steps, ensemble, cuda=True, hold=True):
     return failures
 
 
-def check_trained_calls(pipe, batch, generator):
+def check_trained_calls(pipe, batch, generator, scale_tol=0.0):
     """One draw of the trained pipeline on a shard batch as the CLI gives it
     (padded rows included), with every K1/K2 call of its first and last
     denoise step and every K8/K9 call of its decode held against the plain
     version on the very inputs the path gave the kernel: K1/K2 within
     TOL of their inputs' dtype (bf16 in the CLI's pipeline), K8 equal, K9
-    within TOL (f32) or AGG_TOL_BF16. Returns {name: [calls, max|d|,
-    failed calls, shape]}; on the CPU both sides are the plain version."""
+    within TOL (f32) or AGG_TOL_BF16; a bf16 K1/K2 call's limit takes
+    scale_tol * its max|ref| on top (CALL_SCALE_TOL_BF16). Returns {name:
+    [calls, max|d|, failed calls, shape, max|ref|]} (max|ref| the largest
+    plain output, the scale max|d| is read against); on the CPU both sides
+    are the plain version."""
     import torch
     from codlad_tpu_torch.kernels import edge_kernels as EK
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
@@ -2102,14 +2600,17 @@ def check_trained_calls(pipe, batch, generator):
 
     def note(name, got, want, bound, shape):
         d = (got.float() - want.float()).abs()
-        row = seen.setdefault(name, [0, 0.0, 0, shape])
+        row = seen.setdefault(name, [0, 0.0, 0, shape, 0.0])
         row[0] += 1
         row[1] = max(row[1], d.max().item())
         row[2] += int(not bool((d <= bound(want.float().abs())).all()))
+        row[4] = max(row[4], want.float().abs().max().item())
 
     def chain_bound(dtype):
-        atol, rtol = TOL[str(dtype).split(".")[-1]]
-        return lambda ref: atol + rtol * ref
+        dname = str(dtype).split(".")[-1]
+        atol, rtol = TOL[dname]
+        c = scale_tol if dname == "bfloat16" else 0.0
+        return lambda ref: atol + rtol * ref + c * ref.max()
 
     def k1(*a):
         out = MK.fused_message_sum(*a)
@@ -2463,7 +2964,7 @@ def run_stage1_cli(seed, device="cuda", n_res=(58, 75), n_frames=4, batch=2, enc
                                    "--log_step", "1", "--save_step", "2", "--bf16",
                                    "--seed", str(seed), "--device", str(device)])
         with open(f"{tmp}/latent/metrics.jsonl") as f:
-            lat = [json.loads(r) for r in f]
+            lat = [r for r in map(json.loads, f) if r["split"] == "train"]
         if state.step != 2 or not all(math.isfinite(r["loss"]) for r in lat):
             raise RuntimeError(f"train_latent on the extracted features: {lat}")
         out["train_latent"] = {"losses": [r["loss"] for r in lat]}
@@ -2722,6 +3223,8 @@ def main(argv=None):
         f"{len(rows)}: losses {[round(r['loss'], 4) for r in rows]}; `last` restores")
     log(f"phase residual_train: {time.perf_counter() - t0:.2f} s")
 
+    phase_train_stage2_full(args.seed, device, records, card)
+
     t0 = time.perf_counter()
     pipe = build_recon(device, args.seed)
     run_recon(pipe, s1_batch)                   # first use: tables to the card
@@ -2817,8 +3320,8 @@ def main(argv=None):
         calls = check_trained_calls(pipe, b, gen)
         log(f"  kernel calls of a trained draw on {p} (first and last step, decode) against "
             f"their plain versions on the same inputs: "
-            + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g}, {bad} failed"
-                        for k, (n, err, bad, shape) in calls.items()))
+            + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
+                        f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
         want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6,
                 "edge_gather": decoder_launches()["edge_gather"],
                 "edge_aggregate": decoder_launches()["edge_aggregate"]}
@@ -2834,6 +3337,8 @@ def main(argv=None):
     if failures:
         raise RuntimeError("the latent CLI: " + "; ".join(failures))
     log(f"phase latent_entry: {time.perf_counter() - t0:.2f} s")
+
+    phase_guided_sampling(args.seed, device, records, card)
 
     t0 = time.perf_counter()
     s1_batch = stage1_batch(args.seed, device)

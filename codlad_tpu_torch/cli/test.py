@@ -13,10 +13,12 @@ logdir of the port's cli/train_latent.py (`--latent_ckpt`); `--use_ema`
 
 Per protein, the first --batch_size frames are scored:
 * latent: --num_ensemble draws of `--num_sampling_steps` respaced steps of
-  the denoiser (ancestral, or `--sampler ddim` at `--ddim_eta`), in bf16
-  unless `--no-bf16`, de-normalised with --stats_name/--stats_dir (identity
-  without), snapped to the codebook, decoded and scored; the members'
-  mean per metric, DIV, and every member's metrics (`per_ensemble`);
+  the denoiser (ancestral, or `--sampler ddim` at `--ddim_eta`; guided by
+  classifier-free guidance at `--cfg_scale` != 0, against the null residue
+  token), in bf16 unless `--no-bf16`, de-normalised with
+  --stats_name/--stats_dir (identity without), snapped to the codebook,
+  decoded and scored; the members' mean per metric, DIV, and every
+  member's metrics (`per_ensemble`);
 * prior: the same with N(0, I) latents in normalised space in place of
   the sampler (the diffusion prior with zero denoising steps): the
   no-model floor that brackets what Stage 2 contributes;
@@ -34,10 +36,14 @@ The per-protein metrics and their mean and std over proteins go to
 
 It runs on the card (`--device cuda`, the default; it exits non-zero
 without one) or, with `--device cpu`, on the kernels' plain versions.
+As the JAX CLI does, the sampling process is built without the run's
+`self_condition` and `predict_xstart`: a self-conditioned denoiser gets
+zeros as x_self_cond at every step, and an x_start-predicting one is read
+as predicting eps.
 Options the port does not have yet raise NotImplementedError naming the
 ROADMAP queue-1 item that brings them: `--experiment genzprot` (item 6),
-`--cfg_scale` other than 0 (item 5), `--model` other than diffusion (item
-8), `--seq_shards` (item 10), `--save_pdb` / `--save_xtc` (item 7). Member s
+`--model` other than diffusion (item 8), `--seq_shards` (item 10),
+`--save_pdb` / `--save_xtc` (item 7). Member s
 of an ensemble draws from torch.Generator(device).manual_seed(seed + s),
 so the port's draws are not the JAX package's.
 """
@@ -101,7 +107,6 @@ def refuse_unported(args):
     """NotImplementedError, naming the ROADMAP queue-1 item, for an option
     the port does not have yet."""
     missing = [(args.experiment == "genzprot", "--experiment genzprot", 6),
-               (args.cfg_scale != 0.0, "--cfg_scale (classifier-free guidance)", 5),
                (args.model != "diffusion", f"--model {args.model} (flow matching)", 8),
                (args.seq_shards != 0, "--seq_shards (sequence parallelism)", 10),
                (args.save_pdb, "--save_pdb", 7), (args.save_xtc, "--save_xtc", 7)]
@@ -226,7 +231,7 @@ def main(argv=None):
                             norm_mean=mean, norm_std=std, latent_size=latent_size,
                             compute_dtype=torch.bfloat16 if args.bf16 else None,
                             sampler=args.sampler, ddim_eta=args.ddim_eta,
-                            doubled_batch=args.doubled_batch)
+                            doubled_batch=args.doubled_batch, cfg_scale=args.cfg_scale)
 
     def prior_sample(generator, b):
         lat = torch.randn(tuple(b["res_type"].shape) + (latent_size,), generator=generator,

@@ -100,14 +100,17 @@ def read_flax_npz(path):
 
 # Options of a Stage-2 run config that the port does not have yet, and the
 # ROADMAP queue-1 item that brings each.
-_MISSING = {"self_condition": 5, "decoder_mask": 5, "distill_tmap": 9}
+_MISSING = {"distill_tmap": 9}
 
 
 def denoiser_from_config(cfg, latent_size=3):
     """The f32 MPNNDenoiser (random weights, dropout 0) of a Stage-2 run
     config (the JAX trainer's modelparams.json or the port's config.json),
-    as codlad_tpu/cli/test.py:216-225 builds it for evaluation. Raises
-    NotImplementedError for an option the port lacks."""
+    as codlad_tpu/cli/test.py:219-224 builds it for evaluation: from the
+    keys `backbone`, `model`, `adaln_mode` and `self_condition`. Raises
+    NotImplementedError for an option the port lacks, and ValueError for a
+    `decoder_mask` config, a model JAX's evaluation does not build either
+    (it reads no such key)."""
     from codlad_tpu_torch.models.denoiser import MPNNDenoiser
 
     model = cfg.get("model", "diffusion")
@@ -116,12 +119,16 @@ def denoiser_from_config(cfg, latent_size=3):
     for key, item in _MISSING.items():
         if cfg.get(key):
             raise NotImplementedError(f"{key} is not ported (ROADMAP queue 1 item {item})")
+    if cfg.get("decoder_mask"):
+        raise ValueError("a decoder_mask denoiser cannot be evaluated: the JAX evaluation "
+                         "builds its denoiser without the mask too")
     backbone = cfg.get("backbone", "mpnn_diffusion")
     if backbone != "mpnn_diffusion":
         raise ValueError(f"unknown denoiser backbone {backbone!r}")
     return MPNNDenoiser(torch.Generator().manual_seed(0), input_size=latent_size,
                         learn_sigma=True, dropout=0.0,
-                        adaln_mode=cfg.get("adaln_mode", "trunk"))
+                        adaln_mode=cfg.get("adaln_mode", "trunk"),
+                        self_condition=bool(cfg.get("self_condition", False)))
 
 
 def load_denoiser(path, device="cuda", use_ema=True, latent_size=3):

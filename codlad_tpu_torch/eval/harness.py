@@ -4,12 +4,20 @@
 Counterpart of codlad_tpu/eval/harness.py:
 
 * `SamplingPipeline.sample_and_decode`: ancestral or DDIM diffusion
-  sampling with the plain EMA-VQ snap (no guidance, no sequence sharding,
-  no flows). With `compute_dtype` set, the weights are rounded to that
-  dtype first, as the JAX pipeline's `_cast` does: the denoiser runs on a
-  copy of them in that dtype, the conditioning is computed in f32
-  arithmetic from the rounded weights and then cast, and the sampler's
-  schedule arithmetic and the decode stay in f32. `doubled_batch`
+  sampling with the plain EMA-VQ snap (no sequence sharding, no flows),
+  with classifier-free guidance at `cfg_scale` != 0 (JAX
+  `_sample_from_cond_cfg`): the conditioning is computed for the batch and
+  for its null-token copy (res_type vocab - 1, the CG trace kept), every
+  step runs one denoise over cat(x, x) on cat(cond, uncond), and the mean
+  channels become u + cfg_scale * (c - u) while the variance channels come
+  from c; guidance takes precedence over `doubled_batch`. A self-conditioned
+  process's x_self_cond is doubled with x, and cast with x to the compute
+  dtype (the JAX pipeline passes it in f32, which promotes its bf16
+  network's activations to f32). With `compute_dtype` set, the weights
+  are rounded to that dtype first, as the JAX pipeline's `_cast` does: the
+  denoiser runs on a copy of them in that dtype, the conditioning is
+  computed in f32 arithmetic from the rounded weights and then cast, and
+  the sampler's schedule arithmetic and the decode stay in f32. `doubled_batch`
   reproduces the reference's doubled batch (test.py:504-535): every
   denoise runs on the batch concatenated with itself and the first half of
   its output is kept, so the samples are those of the undoubled batch for
@@ -61,6 +69,7 @@ class SamplingPipeline:
     sampler: str = "ancestral"  # 'ancestral' | 'ddim'
     ddim_eta: float = 0.0       # DDIM only: 0 deterministic given x_T
     doubled_batch: bool = False
+    cfg_scale: float = 0.0      # != 0: classifier-free guidance
 
     def __post_init__(self):
         if self.sampler not in ("ancestral", "ddim"):
@@ -93,17 +102,33 @@ class SamplingPipeline:
         dev = res_type.device
         if noise is None:
             noise = torch.randn((B, L, self.latent_size), generator=generator, device=dev)
-        if self.doubled_batch:
-            extras = {k: torch.cat([v, v], 0) for k, v in extras.items()}
-        cond = self.condition(extras)
+        cfg = float(self.cfg_scale or 0.0)
+        if cfg != 0.0:
+            null = torch.full_like(res_type, self._denoise_model.vocab - 1)
+            uncond = self.condition(dict(extras, res_type=null))
+            cond = {k: torch.cat([v, uncond[k]], 0) for k, v in self.condition(extras).items()}
+        else:
+            if self.doubled_batch:
+                extras = {k: torch.cat([v, v], 0) for k, v in extras.items()}
+            cond = self.condition(extras)
+        doubled = cfg != 0.0 or self.doubled_batch
         model = self._denoise_model
         cd = self.compute_dtype
+        C = self.latent_size
 
-        def model_fn(x, t):
-            if self.doubled_batch:
+        def model_fn(x, t, x_self_cond=None):
+            x = x if cd is None else x.to(cd)
+            if x_self_cond is not None and cd is not None:
+                x_self_cond = x_self_cond.to(cd)
+            if doubled:
                 x, t = torch.cat([x, x], 0), torch.cat([t, t], 0)
-            out = model.denoise(x if cd is None else x.to(cd), t, cond).to(torch.float32)
-            return out[:B]
+                if x_self_cond is not None:
+                    x_self_cond = torch.cat([x_self_cond, x_self_cond], 0)
+            out = model.denoise(x, t, cond, x_self_cond=x_self_cond).to(torch.float32)
+            if cfg == 0.0:
+                return out[:B]
+            c, u = out[:B], out[B:]
+            return torch.cat([u[..., :C] + cfg * (c[..., :C] - u[..., :C]), c[..., C:]], -1)
 
         kw = dict(noise=noise, noises=noises, generator=generator, step_hook=step_hook)
         if self.sampler == "ddim":

@@ -4,13 +4,17 @@ Counterpart of codlad_tpu/gen/diffusion.py for sampling and training: the
 schedules are computed in float64 numpy and kept as float32 tensors, as the
 JAX package keeps them; the sampling loops are Python loops over the
 respaced steps; `training_losses` gives the learned-range objective (MSE +
-VB). Noise comes from an explicit `torch.Generator`, or is injected: `noise`
-is x_T (sampling) or the q-sample noise (training) and `noises[i]` the z of
-the i-th ancestral step, so a test can replay another implementation's
-random stream.
+VB, the VB rescaled by T/1000 with loss_type 'rescaled_mse'). Noise comes
+from an explicit `torch.Generator`, or is injected: `noise` is x_T
+(sampling) or the q-sample noise (training) and `noises[i]` the z of the
+i-th ancestral step, so a test can replay another implementation's random
+stream.
 
 Model signature: model_fn(x, t_base) -> [B, ..., C or 2C], where t_base is
-the base-model timestep (`timestep_map` applied).
+the base-model timestep (`timestep_map` applied). With self_condition the
+process calls model_fn(x, t_base, x_self_cond=...): in sampling each step
+feeds back the previous step's pred_xstart (zeros at the first); in
+training a coin decides whether a no-grad first pass with zeros gives it.
 """
 
 from __future__ import annotations
@@ -99,13 +103,17 @@ def _wrap_pm1(x):
 
 class GaussianDiffusion:
     """mean_type: 'epsilon' | 'xstart'; var_type: 'learned_range' |
-    'fixed_small' | 'fixed_large'."""
+    'fixed_small' | 'fixed_large'; loss_type: 'mse' | 'rescaled_mse' |
+    'kl'. As in the JAX package, 'kl' trains mse + vb like 'mse' (its
+    `training_losses` special-cases 'rescaled_mse' only)."""
 
     def __init__(self, betas, mean_type="epsilon", var_type="learned_range",
-                 timestep_map=None):
+                 timestep_map=None, loss_type="mse", self_condition=False):
         self.betas = np.asarray(betas, dtype=np.float64)
         self.mean_type = mean_type
         self.var_type = var_type
+        self.loss_type = loss_type
+        self.self_condition = self_condition
         betas = self.betas
         alphas = 1.0 - betas
         acp = np.cumprod(alphas)
@@ -213,22 +221,40 @@ class GaussianDiffusion:
         nll = mean_flat(nll, mask) / math.log(2.0)
         return torch.where(t == 0, nll, kl)
 
-    def training_losses(self, model_fn, x_start, t, noise, mask=None):
-        """The MSE objective (+ the VB term with a learned variance, 'mse'
-        loss type). t: [B] respaced indices; noise: the q-sample noise;
-        mask: [B, L, 1]-broadcastable or None. Returns {'loss', 'mse'} (and
-        'vb' with a learned variance), each [B]."""
+    def training_losses(self, model_fn, x_start, t, noise, mask=None, self_cond=None,
+                        sc_model_fn=None):
+        """The MSE objective (+ the VB term with a learned variance). t: [B]
+        respaced indices; noise: the q-sample noise; mask: [B, L,
+        1]-broadcastable or None. With self_condition, `self_cond` is the
+        step's coin (one for the whole batch): on True a first pass of
+        `sc_model_fn` (default model_fn) with zeros as x_self_cond gives, as
+        a constant, the pred_xstart the main pass is conditioned on; on
+        False the main pass gets zeros. Returns {'loss', 'mse'} (and 'vb'
+        with a learned variance), each [B]."""
         if x_start.shape[-1] == 2:
             noise = _wrap_pm1(noise)
         x_t = self.q_sample(x_start, t, noise)
         if x_t.shape[-1] == 2:
             x_t = _wrap_pm1(x_t)
-        model_output = model_fn(x_t, self.map_t(t))
+        t_base = self.map_t(t)
+        if self.self_condition:
+            if self_cond is None:
+                raise ValueError("a self-conditioned process needs the step's coin (self_cond)")
+            x_self_cond = torch.zeros_like(x_t)
+            if self_cond:
+                with torch.no_grad():
+                    out0 = (sc_model_fn or model_fn)(x_t, t_base, x_self_cond=x_self_cond)
+                    x_self_cond = self.p_mean_variance(out0, x_t, t)["pred_xstart"]
+            model_output = model_fn(x_t, t_base, x_self_cond=x_self_cond)
+        else:
+            model_output = model_fn(x_t, t_base)
         terms = {}
         if self.var_type == "learned_range":
             mean_out, var_values = model_output.chunk(2, dim=-1)
             frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
             terms["vb"] = self._vb_terms(frozen, x_start, x_t, t, mask)
+            if self.loss_type == "rescaled_mse":
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
             model_output = mean_out
         target = noise if self.mean_type == "epsilon" else x_start
         diff = target - model_output
@@ -241,11 +267,17 @@ class GaussianDiffusion:
     def _t(self, x, t_idx):
         return torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
 
-    def p_sample(self, model_fn, x, t_idx, z):
-        """One ancestral step x_t -> x_{t-1} with noise z.
+    def _model(self, model_fn, x, t, x_self_cond):
+        if self.self_condition:
+            return model_fn(x, self.map_t(t), x_self_cond=x_self_cond)
+        return model_fn(x, self.map_t(t))
+
+    def p_sample(self, model_fn, x, t_idx, z, x_self_cond=None):
+        """One ancestral step x_t -> x_{t-1} with noise z (x_self_cond: the
+        self-conditioning input, used with self_condition).
         Returns (sample, pred_xstart)."""
         t = self._t(x, t_idx)
-        out = self.p_mean_variance(model_fn(x, self.map_t(t)), x, t)
+        out = self.p_mean_variance(self._model(model_fn, x, t, x_self_cond), x, t)
         nonzero = float(t_idx != 0)
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * z
         if x.shape[-1] == 2:
@@ -255,23 +287,30 @@ class GaussianDiffusion:
     def p_sample_loop(self, model_fn, shape, noise=None, noises=None,
                       generator=None, device="cuda", step_hook=None):
         """Ancestral sampling over every (respaced) step; `step_hook(i)`, if
-        given, runs on the host before step i (i = 0 first)."""
+        given, runs on the host before step i (i = 0 first). With
+        self_condition each step's pred_xstart is the next step's
+        x_self_cond, zeros at the first."""
         x = noise if noise is not None else torch.randn(
             shape, generator=generator, device=device)
+        x_start = torch.zeros_like(x)
         for i in range(self.num_timesteps):
             if step_hook is not None:
                 step_hook(i)
             z = noises[i] if noises is not None else torch.randn(
                 x.shape, generator=generator, device=x.device)
-            x, _ = self.p_sample(model_fn, x, self.num_timesteps - 1 - i, z)
+            x, x_start = self.p_sample(model_fn, x, self.num_timesteps - 1 - i, z, x_start)
         return x
 
-    def ddim_sample(self, model_fn, x, t_idx, eta=0.0, z=None):
+    # JAX's host loop over a jitted step is the same math as its scanned
+    # loop; in eager torch both are this Python loop.
+    p_sample_loop_host = p_sample_loop
+
+    def ddim_sample(self, model_fn, x, t_idx, eta=0.0, z=None, x_self_cond=None):
         """One DDIM step x_t -> x_{t-1}; z is needed only when eta != 0.
         Returns (sample, pred_xstart)."""
         nd = x.dim()
         t = self._t(x, t_idx)
-        out = self.p_mean_variance(model_fn(x, self.map_t(t)), x, t)
+        out = self.p_mean_variance(self._model(model_fn, x, t, x_self_cond), x, t)
         pred_xstart = out["pred_xstart"]
         eps = self._predict_eps_from_xstart(x, t, pred_xstart)
         acp = self._extract("alphas_cumprod", t, nd)
@@ -288,10 +327,11 @@ class GaussianDiffusion:
     def ddim_sample_loop(self, model_fn, shape, noise=None, noises=None, eta=0.0,
                          generator=None, device="cuda", step_hook=None):
         """DDIM over every (respaced) step; at eta != 0 step i adds
-        `noises[i]`, or a z drawn from `generator`. `step_hook` as in
-        `p_sample_loop`."""
+        `noises[i]`, or a z drawn from `generator`. `step_hook` and
+        self-conditioning as in `p_sample_loop`."""
         x = noise if noise is not None else torch.randn(
             shape, generator=generator, device=device)
+        x_start = torch.zeros_like(x)
         for i in range(self.num_timesteps):
             if step_hook is not None:
                 step_hook(i)
@@ -299,31 +339,56 @@ class GaussianDiffusion:
             if eta != 0.0:
                 z = noises[i] if noises is not None else torch.randn(
                     x.shape, generator=generator, device=x.device)
-            x, _ = self.ddim_sample(model_fn, x, self.num_timesteps - 1 - i, eta, z)
+            x, x_start = self.ddim_sample(model_fn, x, self.num_timesteps - 1 - i, eta, z,
+                                          x_start)
         return x
 
 
+def _respaced_betas(acp, steps):
+    """Betas of the process that keeps the base steps `steps` (ascending)
+    of a schedule with cumulative alphas `acp`."""
+    last, out = 1.0, []
+    for i in steps:
+        out.append(1.0 - acp[i] / last)
+        last = acp[i]
+    return np.array(out)
+
+
+def diffusion_from_tmap(tmap, noise_schedule="linear", diffusion_steps=1000,
+                        learn_sigma=True, predict_xstart=False, self_condition=False):
+    """The respaced process of an explicit base-timestep list (a distilled
+    student's grid, which no respacing string gives); fixed_small variance
+    without learn_sigma, loss 'mse', as in the JAX package."""
+    tmap = np.asarray(sorted(int(t) for t in tmap))
+    acp = np.cumprod(1.0 - get_named_beta_schedule(noise_schedule, diffusion_steps))
+    return GaussianDiffusion(
+        betas=_respaced_betas(acp, tmap),
+        mean_type="xstart" if predict_xstart else "epsilon",
+        var_type="learned_range" if learn_sigma else "fixed_small",
+        timestep_map=tmap, loss_type="mse", self_condition=self_condition)
+
+
 def create_diffusion(timestep_respacing=None, noise_schedule="linear",
-                     sigma_small=False, predict_xstart=False, learn_sigma=True,
-                     diffusion_steps=1000):
+                     use_kl=False, rescale_learned_sigmas=False, sigma_small=False,
+                     predict_xstart=False, learn_sigma=True, diffusion_steps=1000,
+                     self_condition=False):
     """Respaced diffusion with the reference defaults (the trainer's
     process is create_diffusion(None): all 1000 steps, learned range)."""
     betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     use_steps = space_timesteps(diffusion_steps, timestep_respacing)
-    acp = np.cumprod(1.0 - betas)
-    last = 1.0
-    new_betas, tmap = [], []
-    for i, a in enumerate(acp):
-        if i in use_steps:
-            new_betas.append(1 - a / last)
-            last = a
-            tmap.append(i)
+    tmap = sorted(use_steps)
+    if use_kl:
+        loss_type = "kl"
+    elif rescale_learned_sigmas:
+        loss_type = "rescaled_mse"
+    else:
+        loss_type = "mse"
     return GaussianDiffusion(
-        betas=np.array(new_betas),
+        betas=_respaced_betas(np.cumprod(1.0 - betas), tmap),
         mean_type="xstart" if predict_xstart else "epsilon",
         var_type=("learned_range" if learn_sigma
                   else ("fixed_small" if sigma_small else "fixed_large")),
-        timestep_map=np.array(tmap),
+        timestep_map=np.array(tmap), loss_type=loss_type, self_condition=self_condition,
     )

@@ -1,9 +1,10 @@
 """ProteinMPNN-style kNN graph blocks with adaLN timestep conditioning.
 
 Counterpart of codlad_tpu/nn/mpnn.py on the Stage-2 paths: the C-alpha
-featurizer (`CAProteinFeatures`), the split message chain in its
-`reduce_sum` (K1), `ln_mod` (K2, with dropout K5) and raw per-edge (K6)
-modes, and the encoder and decoder layers in both adaLN gate modes:
+featurizer (`CAProteinFeatures`, with `augment_eps`), the split message
+chain in its `reduce_sum` (K1), `ln_mod` (K2, with dropout K5) and raw
+per-edge (K6) modes, the encoder and decoder layers (the decoder also
+masked, in explicit ops) in both adaLN gate modes:
 'trunk' (the reference: the gates scale the whole trunk) and 'residual'
 (DiT-style: the gates scale each branch, so a layer is the identity at
 init). Neighbour gathers index the node tables directly (the JAX package's
@@ -116,13 +117,16 @@ class CAProteinFeatures(nn.Module):
 
     E_idx comes from a stable ascending sort of the adjusted distances, so
     ties (every padded column sits at the row's maximum) keep the lower
-    index first, as `jax.lax.top_k` does."""
+    index first, as `jax.lax.top_k` does. With augment_eps > 0 the
+    coordinates get augment_eps * `noise` (N(0, 1), [B, L, 3]) when the
+    caller passes one, as the JAX featurizer adds its draw when given a key."""
 
     def __init__(self, edge_features, gen, num_positional_embeddings=16,
-                 num_rbf=16, top_k=30):
+                 num_rbf=16, top_k=30, augment_eps=0.0):
         super().__init__()
         self.num_rbf = num_rbf
         self.top_k = top_k
+        self.augment_eps = augment_eps
         self.PositionalEncodings_0 = PositionalEncodings(num_positional_embeddings, gen)
         edge_in = num_positional_embeddings + 9 * num_rbf + 7
         self.Dense_0 = linear(edge_in, edge_features, gen, bias=False, init="lecun")
@@ -159,7 +163,9 @@ class CAProteinFeatures(nn.Module):
         Q = _quaternions(torch.einsum("blji,blkjm->blkim", Om, On))
         return torch.cat([dU, Q], dim=-1)
 
-    def forward(self, Ca, mask, residue_idx, chain_labels):
+    def forward(self, Ca, mask, residue_idx, chain_labels, noise=None):
+        if self.augment_eps > 0 and noise is not None:
+            Ca = Ca + self.augment_eps * noise.to(Ca.dtype)
         D_neighbors, E_idx = self._dist(Ca, mask)
         Ca_0 = F.pad(Ca[:, :-1], (0, 0, 1, 0))
         Ca_1 = Ca
@@ -336,21 +342,38 @@ class EncLayerDiffusion(_DropoutLayer):
 
 
 class DecLayerDiffusion(_DropoutLayer):
-    """Decoder layer (no decoder mask) with 6-way adaLN modulation: the
+    """Decoder layer with 6-way adaLN modulation. Unmasked (production): the
     message input cat[h_V, edge, s_nbr, v_nbr] in split form -- node blocks
     s_node and v_node are concatenated into one Dense, the edge block (2*h_E)
     enters through W_e scaled by `edge_scale` -- summed by K1. In residual
     mode (codlad_tpu/nn/mpnn.py:559-595) the chain's self input is
-    modulate(LN(h_V)); s_node and v_node come as the caller gives them."""
+    modulate(LN(h_V)); s_node and v_node come as the caller gives them.
+
+    masked=True (the `decoder_mask` configuration, codlad_tpu/nn/mpnn.py:
+    521-527, 574-588): the per-edge blocks edge_pre, s_node and v_node
+    [B, L, K, H] arrive already masked, and the message
+    Dense_5(gelu(Dense_6(gelu(Dense_3(h_V) + Dense_4(edge) + Dense_1(s) +
+    Dense_2(v))))) (erf gelu, as flax's) is summed over K / scale in
+    explicit ops: no kernel."""
 
     def __init__(self, num_hidden, gen, scale=30.0, dropout=0.1, site=0,
-                 gate_mode="trunk"):
+                 gate_mode="trunk", masked=False):
         super().__init__(dropout, site, gate_mode)
         H = num_hidden
+        self.masked = masked
+        self.scale = scale
         self.Dense_0 = linear(H, 6 * H, gen, init="zeros")
         self.PositionWiseFeedForward_0 = PositionWiseFeedForward(H, H, 4 * H, gen)
-        self.SplitMessageChain_0 = SplitMessageChain(H, H, 2 * H, H, gen,
-                                                     reduce_sum=True, scale=scale)
+        if masked:
+            self.Dense_1 = linear(H, H, gen, bias=False, init="xavier")
+            self.Dense_2 = linear(H, H, gen, bias=False, init="xavier")
+            self.Dense_3 = linear(H, H, gen)
+            self.Dense_4 = linear(H, H, gen, bias=False, init="xavier")
+            self.Dense_5 = linear(H, H, gen)
+            self.Dense_6 = linear(H, H, gen)
+        else:
+            self.SplitMessageChain_0 = SplitMessageChain(H, H, 2 * H, H, gen,
+                                                         reduce_sum=True, scale=scale)
 
     def mods(self, c):
         """The 6-way adaLN modulation splits for one conditioning batch."""
@@ -365,6 +388,12 @@ class DecLayerDiffusion(_DropoutLayer):
             W_e = W_e * edge_scale
         return A, Gn, W_e, W2, b2, W3, b3
 
+    def _masked_message_sum(self, h_self, edge_pre, s_edge, v_edge):
+        pre = (self.Dense_3(h_self)[:, :, None, :] + self.Dense_4(edge_pre)
+               + self.Dense_1(s_edge) + self.Dense_2(v_edge))
+        msg = self.Dense_5(F.gelu(self.Dense_6(F.gelu(pre))))
+        return msg.sum(dim=-2) / self.scale
+
     def forward(self, h_V, idx, edge_pre, s_node, v_node, mask_V, c,
                 edge_scale=1.0, deterministic=True, seed=None):
         sh1, sc1, g1, sh2, sc2, g2 = self.mods(c)
@@ -372,10 +401,13 @@ class DecLayerDiffusion(_DropoutLayer):
         if residual:
             s1, s2 = self._site_seeds(deterministic, seed, 2, h_V.shape[0], h_V.device)
         x = modulate(layer_norm(h_V), sh1, sc1) if residual else h_V
-        A, Gn, W_e, W2, b2, W3, b3 = self.chain_operands(x, s_node, v_node, edge_scale)
-        ones = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
-        dh = fused_message_sum(A, edge_pre, Gn, idx, ones, W_e, W2, b2, W3, b3,
-                               self.SplitMessageChain_0.scale)
+        if self.masked:
+            dh = self._masked_message_sum(x, edge_pre, s_node, v_node)
+        else:
+            A, Gn, W_e, W2, b2, W3, b3 = self.chain_operands(x, s_node, v_node, edge_scale)
+            ones = torch.ones(idx.shape, dtype=A.dtype, device=A.device)
+            dh = fused_message_sum(A, edge_pre, Gn, idx, ones, W_e, W2, b2, W3, b3,
+                                   self.SplitMessageChain_0.scale)
         if residual:
             return _residual_update(self, h_V, dh, g1, sh2, sc2, g2, mask_V, s1, s2)
         return _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,

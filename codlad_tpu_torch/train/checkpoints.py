@@ -37,10 +37,18 @@ class CheckpointManager:
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, self.path(name))
 
-    def restore(self, state, name):
-        """Load checkpoint `name` into `state` (its tensors keep their device)."""
+    def restore(self, state, name, load_opt=True):
+        """Load checkpoint `name` into `state` (its tensors keep their
+        device). load_opt=False loads the params and the EMA only and leaves
+        the step and the optimizer as they are (a warm start)."""
         sd = torch.load(self.path(name), map_location="cpu", weights_only=True)
-        state.load_state_dict(sd)
+        if load_opt:
+            state.load_state_dict(sd)
+            return state
+        with torch.no_grad():
+            for tree in ("params", "ema_params"):
+                for k, v in (getattr(state, tree) or {}).items():
+                    v.copy_(sd[tree][k])
         return state
 
     def exists(self, name):

@@ -32,7 +32,7 @@ def create_logger(logdir, name="codlad_torch"):
 
 class MetricsSink:
     """Appends one JSON object {step, split, **metrics} a line to
-    `<logdir>/metrics.jsonl`."""
+    `<logdir>/metrics.jsonl` (split "train", or "val" for validation rows)."""
 
     def __init__(self, logdir):
         os.makedirs(logdir, exist_ok=True)
@@ -43,6 +43,26 @@ class MetricsSink:
         row.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
+
+
+def best_val_from_metrics(logdir):
+    """The lowest finite validation loss among the `split: val` rows of
+    `<logdir>/metrics.jsonl` (inf when there is none): a resumed run's
+    best-checkpoint selection starts from it."""
+    best = np.inf
+    path = os.path.join(logdir, "metrics.jsonl")
+    if not os.path.exists(path):
+        return best
+    with open(path) as f:
+        for line in f:
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            v = row.get("loss")
+            if row.get("split") == "val" and isinstance(v, (int, float)) and np.isfinite(v):
+                best = min(best, float(v))
+    return best
 
 
 class CSVLogger:

@@ -15,6 +15,13 @@ only when norm >= max, and optax evaluates the schedule at the count before
 the update (with warmup, the first step has lr 0). The state is a dict of
 named tensors and is updated in place, with multi-tensor (`_foreach`) ops:
 one launch for each operation over all parameters, not one a parameter.
+
+Gradient accumulation (`accum_steps` N > 1) is `optax.MultiSteps(tx,
+every_k_schedule=N)` with its default running mean: each micro-step folds
+its grads into acc = acc + (g - acc) / (n + 1), and on every N-th the
+clip + AdamW update runs on acc, which then returns to zero. The other
+micro-steps leave the params and the moments as they are. The schedule and
+Adam's bias correction count optimizer steps; `step` counts micro-steps.
 """
 
 from __future__ import annotations
@@ -92,19 +99,22 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, as the JAX trainer use
 class TrainState:
     """step, f32 `params`, optional `ema_params`, the AdamW `opt_state`
     ({count, mu, nu}; one count serves Adam's bias correction and the
-    schedule, as optax's two counts are always equal here) and the VQ state
-    (models/vq.VQState, or None). AdamW's decoupled weight decay follows
-    optax: u = mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p, then
-    p += -lr * u; the Stage-2 trainer runs it at 0, the Stage-1 trainer at
-    optax's default 1e-4."""
+    schedule, as optax's two counts are always equal here; with
+    accum_steps > 1 also `acc` and `mini_step`, MultiSteps' accumulator)
+    and the VQ state (models/vq.VQState, or None). AdamW's decoupled
+    weight decay follows optax: u = mu_hat / (sqrt(nu_hat) + eps) +
+    weight_decay * p, then p += -lr * u; the Stage-2 trainer runs it at 0,
+    the Stage-1 trainer at optax's default 1e-4."""
 
     def __init__(self, params, lr_fn, grad_clip=None, weight_decay=0.0, ema=True,
-                 vq_state=None):
+                 vq_state=None, accum_steps=1):
         self.params = {k: v.detach().to(torch.float32).clone() for k, v in params.items()}
         self.ema_params = ({k: v.clone() for k, v in self.params.items()} if ema else None)
-        self.opt_state = {"count": 0,
-                          "mu": {k: torch.zeros_like(v) for k, v in self.params.items()},
-                          "nu": {k: torch.zeros_like(v) for k, v in self.params.items()}}
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in self.params.items()}
+        self.opt_state = {"count": 0, "mu": zeros(), "nu": zeros()}
+        self.accum_steps = int(accum_steps)
+        if self.accum_steps > 1:
+            self.opt_state.update(acc=zeros(), mini_step=0)
         self.step = 0
         self.lr_fn = lr_fn
         self.learning_rate = None   # set by set_learning_rate
@@ -120,7 +130,27 @@ class TrainState:
     def apply_gradients(self, grads, norm=None):
         """One optimizer step: clip (by `norm`, the grads' global norm, where
         the caller has it), Adam moments with bias correction, decoupled
-        weight decay, -lr(count) scaling, params += update."""
+        weight decay, -lr(count) scaling, params += update. Under gradient
+        accumulation, one micro-step: the grads join the running mean, and
+        the update runs on it at every N-th call."""
+        self.step += 1
+        if self.accum_steps > 1:
+            st = self.opt_state
+            acc = [st["acc"][k] for k in st["acc"]]
+            with torch.no_grad():
+                d = torch._foreach_sub([grads[k].to(torch.float32) for k in st["acc"]], acc)
+                torch._foreach_div_(d, float(st["mini_step"] + 1))
+                torch._foreach_add_(acc, d)
+            st["mini_step"] = (st["mini_step"] + 1) % self.accum_steps
+            if st["mini_step"]:
+                return
+            self._update(st["acc"], None)
+            with torch.no_grad():
+                torch._foreach_zero_(acc)
+            return
+        self._update(grads, norm)
+
+    def _update(self, grads, norm):
         if self.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.grad_clip, norm)
         st = self.opt_state
@@ -152,7 +182,6 @@ class TrainState:
             torch._foreach_mul_(u, -lr)
             torch._foreach_add_(ps, u)
         st["count"] = count
-        self.step += 1
 
     def update_ema(self, decay):
         update_ema(self.ema_params, self.params, decay)
@@ -172,9 +201,11 @@ class TrainState:
                     v.copy_(sd["ema_params"][k])
             self.step = int(sd["step"])
             self.opt_state["count"] = int(sd["opt_state"]["count"])
-            for m in ("mu", "nu"):
-                for k, v in self.opt_state[m].items():
+            for m in ("mu", "nu", "acc"):
+                for k, v in self.opt_state.get(m, {}).items():
                     v.copy_(sd["opt_state"][m][k])
+            if "mini_step" in self.opt_state:
+                self.opt_state["mini_step"] = int(sd["opt_state"]["mini_step"])
             if self.vq_state is not None:
                 for k, v in self.vq_state.tensors().items():
                     v.copy_(sd["vq_state"][k])

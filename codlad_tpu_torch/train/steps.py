@@ -1,17 +1,25 @@
 """Train and eval steps: Stage 2 (diffusion) and Stage 1 (VQ-VAE).
 
-Counterparts of `make_latent_step` (process_kind="diffusion"; flows, the
-backbone objective, sequence sharding and distillation are not ported) and
-`make_vqvae_step` (mode "vqvae" with the plain EMA VQ) in
-codlad_tpu/train/steps.py. With `compute_dtype` the network runs on
-a copy of the f32 master params cast to that dtype (`functional_call`), so
-the grads flow back through the cast into the f32 masters, while the
-diffusion math stays in f32, as in the JAX package.
+Counterparts of `make_latent_step` (process_kind="diffusion", with
+self-conditioning, classifier-free-guidance class dropout, importance
+weights for t and the per-sample aux the trainer's validation and
+loss-second-moment sampler read; the flow and backbone objectives, sequence
+sharding and distillation are not ported) and `make_vqvae_step` (mode
+"vqvae" with the plain EMA VQ) in codlad_tpu/train/steps.py. With
+`compute_dtype` the network runs on a copy of the f32 master params cast
+to that dtype (`functional_call`), so the grads flow back through the cast
+into the f32 masters, while the diffusion math stays in f32, as in the JAX
+package.
 
-Stage-2 randomness: t and the q-sample noise come from a generator seeded with the
-step's integer `seed` on the batch's device, unless the caller passes them
-(as the parity tests and the card-vs-CPU check do); dropout masks are keyed
-by the same integer seed (nn/mpnn.py), so they do not depend on the device.
+Stage-2 randomness: t and the q-sample noise come from a generator seeded
+with the step's integer `seed` on the batch's device, unless the caller
+passes them (as the parity tests and the card-vs-CPU check do); dropout
+masks are keyed by the same integer seed (nn/mpnn.py), so they do not
+depend on the device. A self-conditioned process's coin is drawn on the
+host from the seed; its no-grad first pass keys its dropout masks and its
+class-dropout draw by `pass_seed(seed, 1)`, the main pass by the seed itself
+(JAX's k_sc and k_model differ too). The coin and the class-dropout vectors
+can be passed in instead.
 """
 
 from __future__ import annotations
@@ -23,29 +31,69 @@ import torch
 from torch.func import functional_call
 
 from codlad_tpu_torch.gen.timestep_sampler import UniformSampler
+from codlad_tpu_torch.kernels.mpnn_kernels import _lowbias32
 from codlad_tpu_torch.train.state import global_norm
+
+_CLASS_DROP_SITE = 0xC1A55
+
+
+def pass_seed(seed, site):
+    """An integer seed for one use `site` of a step's seed (a pure function
+    of both, in [0, 2^31))."""
+    return _lowbias32((_lowbias32(int(seed) & 0xFFFFFFFF) + site) & 0xFFFFFFFF) & 0x7FFFFFFF
+
+
+def apply_class_dropout(res_type, drop, null_id):
+    """Classifier-free-guidance training: where drop[b] (bool [B]) holds,
+    sample b's whole residue-type sequence becomes the null token."""
+    return torch.where(drop[:, None], torch.full_like(res_type, null_id), res_type)
+
+
+def class_drop_draw(seed, batch, p, device):
+    """The per-sample class-dropout vector (bool [batch], True with
+    probability p) of one pass seeded with `seed`."""
+    g = torch.Generator(device=device).manual_seed(pass_seed(seed, _CLASS_DROP_SITE))
+    return torch.rand((batch,), generator=g, device=device) < p
+
+
+def self_cond_coin(seed):
+    """The self-conditioning coin of a step (one for the batch), drawn on
+    the host: True runs the first pass."""
+    return bool(torch.rand((), generator=torch.Generator().manual_seed(int(seed))) < 0.5)
 
 
 def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.9999,
-                     dropout=True, compute_dtype=None):
+                     dropout=True, compute_dtype=None, class_dropout_prob=0.0):
     """(train_step, eval_step) for the denoiser `model` (an MPNNDenoiser)
-    and the GaussianDiffusion `process`."""
+    and the GaussianDiffusion `process`. class_dropout_prob > 0 replaces a
+    training sample's sequence by the null token (vocab - 1) with that
+    probability, in every pass."""
     if process_kind != "diffusion":
-        raise NotImplementedError(f"process_kind {process_kind!r} is not ported")
+        raise NotImplementedError(f"process_kind {process_kind!r} is not ported "
+                                  "(flows: ROADMAP queue 1 item 8)")
     sampler = UniformSampler(process.num_timesteps)
+    null_id = model.vocab - 1
 
-    def model_apply(params, x, t, seed, extras, train=True):
+    def model_apply(params, x, t, seed, extras, x_self_cond=None, train=True, drop=None):
         use_dropout = dropout and train
         res_type, cg = extras["res_type"], extras["cg_xyz"]
+        if class_dropout_prob > 0 and train:
+            if drop is None:
+                drop = class_drop_draw(seed, x.shape[0], class_dropout_prob, x.device)
+            res_type = apply_class_dropout(res_type, drop, null_id)
         if compute_dtype is not None:
             params = {k: v.to(compute_dtype) if v.is_floating_point() else v
                       for k, v in params.items()}
             x, cg = x.to(compute_dtype), cg.to(compute_dtype)
+            if x_self_cond is not None:
+                x_self_cond = x_self_cond.to(compute_dtype)
         out = functional_call(model, params, (x, t, res_type, cg, extras["mask"]),
-                              {"deterministic": not use_dropout, "dropout_seed": seed})
+                              {"deterministic": not use_dropout, "dropout_seed": seed,
+                               "x_self_cond": x_self_cond})
         return out.to(torch.float32)
 
-    def loss_fn(params, x1, extras, seed, train=True, t=None, noise=None):
+    def loss_fn(params, x1, extras, seed, train=True, t=None, noise=None, t_weights=None,
+                self_cond=None, class_drop=None):
         mask = extras["mask"]
         B, dev = x1.shape[0], x1.device
         maskf = mask.to(torch.float32)
@@ -57,18 +105,42 @@ def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.99
             t = sampler.sample(B, gen, dev)[0]
         if noise is None:
             noise = torch.randn(x1.shape, generator=gen, device=dev)
+        drops = (class_drop if isinstance(class_drop, (tuple, list))
+                 else (class_drop, class_drop))
+        sc_seed = pass_seed(seed, 1)
+        if process.self_condition and self_cond is None:
+            self_cond = self_cond_coin(seed)
         terms = process.training_losses(
-            lambda x, tt: model_apply(params, x, tt, seed, extras, train),
-            x1, t, noise, mask=maskf[..., None])
-        loss = (terms["loss"] * valid).sum() / n_valid
-        return loss, {"mse": ((terms["mse"] * valid).sum() / n_valid).detach()}
+            lambda x, tt, **kw: model_apply(params, x, tt, seed, extras, train=train,
+                                            drop=drops[0], **kw),
+            x1, t, noise, mask=maskf[..., None], self_cond=self_cond,
+            sc_model_fn=lambda x, tt, **kw: model_apply(params, x, tt, sc_seed, extras,
+                                                        train=train, drop=drops[1], **kw))
+        per_sample = terms["loss"] * valid
+        if t_weights is not None:
+            loss = (per_sample * t_weights).sum() / n_valid
+        else:
+            loss = per_sample.sum() / n_valid
+        aux = {"mse": ((terms["mse"] * valid).sum() / n_valid).detach(),
+               "loss_per_sample": per_sample.detach(), "t": t, "valid_mask": valid,
+               "weight": n_valid}
+        if process.self_condition:
+            aux["self_cond"] = bool(self_cond)
+        return loss, aux
 
-    def train_step(state, x1, extras, seed, t=None, noise=None):
-        """One step: loss, grads of the f32 masters, clip + AdamW, EMA.
-        Returns (state, metrics: loss, mse, the unclipped grad_norm and the
-        grads)."""
+    def train_step(state, x1, extras, seed, t=None, noise=None, t_weights=None,
+                   self_cond=None, class_drop=None):
+        """One (micro-)step: loss, grads of the f32 masters, the optimizer
+        (clip + AdamW, on every N-th micro-step under gradient accumulation)
+        and the EMA. t_weights [B] weigh the per-sample losses (the
+        loss-second-moment sampler's). self_cond: the self-conditioning
+        coin; class_drop: the class-dropout vector (bool [B]) of both
+        passes, or (main pass, first pass). Returns (state, metrics: loss,
+        mse, the unclipped grad_norm of this micro-step's grads, the grads,
+        and the aux: loss_per_sample, t, valid_mask, weight, self_cond)."""
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        loss, aux = loss_fn(params, x1, extras, seed, t=t, noise=noise)
+        loss, aux = loss_fn(params, x1, extras, seed, t=t, noise=noise, t_weights=t_weights,
+                            self_cond=self_cond, class_drop=class_drop)
         gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), gs)}
@@ -78,9 +150,11 @@ def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.99
         return state, dict(aux, loss=loss.detach(), grad_norm=gnorm, grads=grads)
 
     @torch.no_grad()
-    def eval_step(state, x1, extras, seed, t=None, noise=None):
-        """The loss without dropout and without an update."""
-        loss, aux = loss_fn(state.params, x1, extras, seed, train=False, t=t, noise=noise)
+    def eval_step(state, x1, extras, seed, t=None, noise=None, self_cond=None):
+        """The loss without dropout and without an update, with the aux
+        (`weight`: the batch's valid samples, the validation's weight)."""
+        loss, aux = loss_fn(state.params, x1, extras, seed, train=False, t=t, noise=noise,
+                            self_cond=self_cond)
         return dict(aux, loss=loss)
 
     return train_step, eval_step

@@ -13,7 +13,8 @@ K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
 and K2 at every K the featurizer gives; K7 against K2's kernel then K1's,
-bit for bit.
+bit for bit; a guided self-conditioned f32 draw against the CPU, and a
+remat training step against the plain one.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -770,3 +771,94 @@ def test_trained_denoiser_on_the_card(dev):
     got, want = out[str(dev)], out["cpu"]
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= 2e-4 + 2e-4 * want.abs()).all(), (got - want).abs().max()
+
+
+def _small_denoiser(d, seed=0, **kw):
+    """A 1 + 1-layer H 128 denoiser with its adaLN heads drawn small (so that
+    every layer reaches the output), on device d."""
+    from codlad_tpu_torch.models.denoiser import MPNNDenoiser
+
+    gen = torch.Generator().manual_seed(seed)
+    model = MPNNDenoiser(gen, num_encoder_layers=1, num_decoder_layers=1, k_neighbors=16, **kw)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "Dense_0" in name and ("layers" in name or "w_out" in name):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model.to(d)
+
+
+def _jittered_batch(n, L, seed):
+    """res_type, C-alpha trace (jittered off the exact 3.8 Å ties, so that
+    the kNN order is the same on every device) and mask of n synthetic
+    proteins."""
+    import numpy as np
+
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch
+
+    nb = synthetic_cg_batch(n, L, seed=seed)
+    cg = nb["cg_xyz_og"][:, 1:-1]
+    cg = cg + 0.1 * np.random.default_rng(seed).standard_normal(cg.shape)
+    return {"res_type": torch.as_tensor(nb["res_type"]),
+            "cg_xyz": torch.as_tensor(cg.astype(np.float32)),
+            "mask": torch.as_tensor(nb["res_mask"])}
+
+
+def test_guided_self_conditioned_draw_matches_the_cpu(dev):
+    """A guided (cfg 1.5) f32 draw of a self-conditioned denoiser and
+    process, 5 ancestral steps from the same x_T and noise, on the card and
+    on the CPU: one K1/K2 launch a layer a step over the doubled batch, the
+    latents within 1e-4 of max|latent| (the featurizer's self-edge rounding
+    noise, as chip_smoke.py's reference check holds the plain path)."""
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.eval.harness import SamplingPipeline
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+
+    extras = _jittered_batch(2, 32, 3)
+    g = torch.Generator().manual_seed(4)
+    noise = torch.randn(extras["res_type"].shape + (3,), generator=g)
+    zs = [torch.randn(noise.shape, generator=g) for _ in range(5)]
+    out = {}
+    for d in ("cpu", dev):
+        pipe = SamplingPipeline(denoiser=_small_denoiser(d, self_condition=True),
+                                process=create_diffusion("ddim5", self_condition=True),
+                                vae=None, codebook=None, norm_mean=[0.0] * 3,
+                                norm_std=[1.0] * 3, cfg_scale=1.5)
+        kernels.reset_launches()
+        out[str(d)] = pipe.sample_latents({k: v.to(d) for k, v in extras.items()},
+                                          noise=noise.to(d), noises=[z.to(d) for z in zs]).cpu()
+    launches = kernels.launch_counts()
+    assert launches["fused_message_sum"] == 10 and launches["fused_message_edge_lnmod"] == 5
+    got, want = out[str(dev)], out["cpu"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_remat_step_matches_the_plain_step_on_the_card(dev):
+    """One f32 self-conditioned (coin heads) training step at dropout 0.6 with
+    and without remat on the card: the masks are keyed by the seed, so the
+    loss is the same bit for bit; the grads differ only by the order of K3's
+    and K5's dGn atomics (within 1e-5 of max|grad|). With remat K1 and K5
+    run once more a step, in the recomputed forward."""
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.train.state import TrainState
+    from codlad_tpu_torch.train.steps import make_latent_step
+
+    extras = {k: v.to(dev) for k, v in _jittered_batch(2, 32, 5).items()}
+    x1 = torch.randn(extras["res_type"].shape + (3,),
+                     generator=torch.Generator().manual_seed(6)).to(dev)
+    out = {}
+    for remat in (False, True):
+        model = _small_denoiser(dev, dropout=0.6, self_condition=True, remat=remat)
+        state = TrainState(dict(model.named_parameters()), lambda s: 1e-3, grad_clip=1.0)
+        step, _ = make_latent_step(model, create_diffusion(None, self_condition=True))
+        kernels.reset_launches()
+        _, m = step(state, x1, extras, 7, self_cond=True)
+        out[remat] = (m, kernels.launch_counts())
+    (m0, n0), (m1, n1) = out[False], out[True]
+    assert float(m0["loss"]) == float(m1["loss"])
+    for k, g in m0["grads"].items():
+        assert (m1["grads"][k] - g).abs().max() <= 1e-5 * g.abs().max() + 1e-12, k
+    assert n0["fused_message_sum"] == 4 and n1["fused_message_sum"] == 6
+    assert n0["fused_message_edge_lnmod_drop"] == 2 and n1["fused_message_edge_lnmod_drop"] == 3
+    assert n0["fused_message_sum_bwd"] == n1["fused_message_sum_bwd"] == 2

@@ -11,7 +11,11 @@ CLI) and its Stage-1 training phases (steps of make_vqvae_step, the
 card-vs-CPU step, the chain train_vqvae -> extract_features ->
 train_latent -> test --vae_ckpt), tiny; and the trained Stage-2 phases (the
 converted denoiser on its JAX fixture, `cli.test --experiment latent` and
-`prior`, a bf16 draw), which fail without their weights file."""
+`prior`, a bf16 draw), which fail without their weights file; and the
+whole Stage-2 trainer's and guided sampling's phases (the trainer CLI with
+every new flag, remat's memory, the accumulated self-conditioned step card
+against CPU, a guided self-conditioned draw with its kernel calls checked,
+the small f32 guided and masked draws, the guided latent CLI), tiny."""
 
 import os
 import subprocess
@@ -49,6 +53,9 @@ SCRIPT = textwrap.dedent("""
     import chip_smoke
 
     import torch
+    # one thread: the suite runs this beside its other workers on the same
+    # cores, where torch's thread pools oversubscribe them
+    torch.set_num_threads(1)
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
     pipe = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8,
                                      codebook_size=64, respacing="ddim5",
@@ -139,6 +146,32 @@ SCRIPT = textwrap.dedent("""
     assert {k: v[0] for k, v in calls.items()} == {
         "fused_message_sum": 12, "fused_message_edge_lnmod": 6, "edge_gather": 6,
         "edge_aggregate": 4} and not any(v[2] for v in calls.values()), calls
+    assert all(len(v) == 5 and v[4] > 0 for v in calls.values()), calls   # max|ref| logged
+
+    # the whole Stage-2 trainer and guided, self-conditioned sampling, tiny
+    assert chip_smoke.full_train_launches(True, True) == {
+        "fused_message_sum": 18, "fused_message_edge_lnmod_drop": 9,
+        "fused_message_sum_bwd": 6, "fused_message_edge_lnmod_drop_bwd": 3}
+    assert chip_smoke.full_train_launches(False, False)["fused_message_sum"] == 6
+    full = chip_smoke.run_train_full_cli(0, "cpu", n_frames=3, n_res=12, batch=2, steps=4,
+                                         resume_to=6, warm=2)
+    assert len(full["ms"]) == 4 and full["val"] and set(full["coins"]) <= {True, False}
+    mem = chip_smoke.remat_memory(0, "cpu", n_frames=2, n_res=12, hidden=32, layers=1, k=8,
+                                  steps=1)
+    assert set(mem) == {False, True}
+    chip_smoke.train_full_reference(0, device="cpu", hidden=32, layers=1)
+    gp = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8, codebook_size=64,
+                                   respacing="ddim5", compute_dtype=torch.bfloat16,
+                                   self_condition=True, cfg_scale=1.5)
+    assert gp.denoiser.x_in.in_features == 6
+    out = chip_smoke.run_slice(gp, batch, torch.Generator().manual_seed(0))
+    chip_smoke.check_slice(out, 2, 16)
+    calls = chip_smoke.check_trained_calls(gp, batch, torch.Generator().manual_seed(0))
+    assert calls["fused_message_sum"][:4] == [4, 0.0, 0, (4, 16, 8)], calls
+    chip_smoke.guided_reference(0, device="cpu", n_frames=2, n_res=16, hidden=32, layers=1)
+    summary, sec, _ = chip_smoke.run_guided_cli("cpu", n_frames=2, steps=3, ensemble=2)
+    assert summary["rmsd_aligned"] > 0 and sec > 0
+
     chip_smoke.LATENT_WEIGHTS = chip_smoke.LATENT_WEIGHTS.with_name("missing.npz")
     try:
         chip_smoke.latent_trained("cpu", n_frames=2, steps="5", cpu_check=False)

@@ -349,8 +349,9 @@ def test_cli_runs_with_the_study_summary_keys(shard_dir, tmp_path, experiment):
 
 
 def test_cli_latent_from_the_port_trainer(shard_dir, tmp_path):
-    """train_latent -> test --latent_ckpt: the logdir's `last` checkpoint,
-    EMA weights, loaded into the denoiser the CLI samples with."""
+    """train_latent -> test --latent_ckpt: the logdir's `best` checkpoint
+    (the bounded run's final validation writes it), EMA weights, loaded into
+    the denoiser the CLI samples with."""
     from codlad_tpu_torch.cli import train_latent
 
     write_synthetic_features(str(tmp_path / "features"), 4, 14)
@@ -358,8 +359,8 @@ def test_cli_latent_from_the_port_trainer(shard_dir, tmp_path):
                        str(tmp_path / "exp"), "--batch_size", "2", "--max_steps", "2",
                        "--dropout", "0", "--device", "cpu"])
     model, cfg = CLI.load_latent_ckpt(str(tmp_path / "exp"), "cpu")
-    assert cfg["checkpoint"] == "last" and cfg["step"] == 2
-    sd = torch.load(tmp_path / "exp" / "last.pt", weights_only=True)
+    assert cfg["checkpoint"] == "best" and cfg["step"] == 2
+    sd = torch.load(tmp_path / "exp" / "best.pt", weights_only=True)
     for k, v in model.named_parameters():
         torch.testing.assert_close(v.detach(), sd["ema_params"][k], rtol=0, atol=0)
     summary = CLI.main(["--experiment", "latent", "--latent_ckpt", str(tmp_path / "exp"),
@@ -368,7 +369,7 @@ def test_cli_latent_from_the_port_trainer(shard_dir, tmp_path):
     assert _keys(summary) == _study_keys("latent")
 
 
-@pytest.mark.parametrize("flags", [["--experiment", "genzprot"], ["--cfg_scale", "1.5"],
+@pytest.mark.parametrize("flags", [["--experiment", "genzprot"],
                                    ["--model", "icfm"], ["--seq_shards", "2"],
                                    ["--save_pdb"], ["--save_xtc"]])
 def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
@@ -378,11 +379,17 @@ def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
         CLI.main(args)
 
 
-@pytest.mark.parametrize("cfg", [{"self_condition": True}, {"decoder_mask": True},
-                                 {"distill_tmap": [999, 499]}, {"model": "otcfm"}])
+@pytest.mark.parametrize("cfg", [{"distill_tmap": [999, 499]}, {"model": "otcfm"}])
 def test_denoiser_config_refuses_what_is_not_ported(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         denoiser_from_config(cfg)
+
+
+def test_denoiser_config_refuses_a_decoder_mask():
+    """JAX's evaluation builds its denoiser without the mask, so such a
+    checkpoint cannot be evaluated by either package."""
+    with pytest.raises(ValueError, match="decoder_mask"):
+        denoiser_from_config({"decoder_mask": True})
 
 
 def test_cli_latent_needs_a_card_for_cuda(shard_dir, tmp_path):

@@ -177,6 +177,7 @@ def test_train_latent_cli_on_cpu(tmp_path):
                       "--log_step", "1", "--warmup", "2", "--bf16", "--device", "cpu"])
     assert state.step == 3
     rows = [__import__("json").loads(r) for r in (exp / "metrics.jsonl").read_text().splitlines()]
+    rows = [r for r in rows if r["split"] == "train"]    # the run ends with a val row
     assert [r["step"] for r in rows] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
     assert "steps/sec" in (exp / "log.txt").read_text()
