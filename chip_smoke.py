@@ -215,7 +215,21 @@ Phases, each printing its seconds:
  19. train_stage1_entry -- the chain through its entry points on two
                 synthetic proteins: cli.train_vqvae (-bf16, 2 epochs, then
                 -resume), cli.extract_features, 2 steps of cli.train_latent
-                on those features, cli.test --experiment recon --vae_ckpt.
+                on those features, cli.test --experiment recon --vae_ckpt;
+ 20. stage1_variants -- the rest of Stage 1 at the K3/K4 recipe's widths
+                (embed 36, vqdim 3, 4096 codes, 3 + 4 layers): CGPrior's
+                K8-K11 calls on the bench batch's CG graph, f32 and bf16,
+                against their plain versions (the f32 layer-2 calls timed:
+                records cgprior_*); 3 bf16 steps of the angle VQ-VAE and 3
+                f32 steps of GenZProt at the Stage-1 bench batch, launches
+                asserted every step; one f32 step card vs CPU of GenZProt,
+                the angle VQ-VAE and fgvae (a grad outside the f32 limit
+                refereed against a float64 CPU step); one step of each
+                quantizer kind card vs CPU; the chain train_vqvae
+                -train_section ivae -> cli.test --experiment genzprot
+                (launches a draw asserted), -predict_angle -quantize_type
+                fsq_5 -> extract_features -> recon, fgvae ->
+                extract_features --learn_sigma.
 
 Sampling weights, but in 15, 16, 16b and 16c (the trained weights), are the
 port's init from --seed with the adaLN heads (zero at init) drawn small and
@@ -234,7 +248,8 @@ fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
 the f32 K8 and K9 records also carry latent_cli_launches, their launches
 over phase 16c's latent run; K1 and K2 guided_launches, those of 16d's
 guided draw; K1, K3 and K5's two train_full_launches, those of 13b's 8
-micro-steps; every ms
+micro-steps; K8-K11's cgprior_* records, CGPrior's f32 calls, whose
+launches are CGPrior's share of phase 20's GenZProt steps; every ms
 one call timed with CUDA events, and the K1-K11 records' device_ms
 (K8-K11 also library_device_ms; K3 wgrad_library_ms and
 wgrad_library_device_ms, the torch.mm yardstick of its weight-grad pass)
@@ -2090,17 +2105,8 @@ def check_stage1_kernels(batch, seed):
         def report(name, label, err, ok, limit, kern, plain, library, nbytes, ops):
             if not ok:
                 raise RuntimeError(f"{name} ({dname}, {label}) disagrees with its plain version")
-            ms, plain_ms, lib_ms = time_calls(kern, plain, library)
-            dev_ms, lib_dev_ms = replay_ms(kern, library)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname} {label}: max|d|={err:.3g} ({limit}) ok; a call "
-                f"(events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{lib_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms, library "
-                f"{lib_dev_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops)")
-            return dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops, lib_ms),
-                        device_ms=dev_ms, library_device_ms=lib_dev_ms)
+            return timed_record(name, dname, label, err, limit, kern, plain, library, nbytes,
+                                ops)
 
         # K8: the geometry gather [xyz | z] (F 4) and the layer-2 features (F 36)
         for F in (4, 36):
@@ -2314,10 +2320,11 @@ def recon_trained(device="cuda"):
     within 1e-3 Å of JAX's. Returns the port's batch-mean metrics."""
     import numpy as np
     import torch
-    from codlad_tpu_torch.cli.test import load_vae
+    from codlad_tpu_torch.cli.test import load_vae_weights
     from codlad_tpu_torch.convert.from_flax import read_flax_npz
     from codlad_tpu_torch.eval.harness import SamplingPipeline, evaluate_structures
-    vae, codebook, _ = load_vae(str(WEIGHTS), device)
+    vae, snap, _ = load_vae_weights(str(WEIGHTS), device)
+    codebook = snap["vq_state"].codebook
     mean, std = read_flax_npz(str(WEIGHTS))["stats"]
     pipe = SamplingPipeline(denoiser=None, process=None, vae=vae, codebook=codebook,
                             norm_mean=mean, norm_std=std)
@@ -2396,14 +2403,14 @@ def row_sets_equal(a, b):
 def trained_pipeline(device, compute_dtype=None, steps="100", sampler="ancestral"):
     """The sampling pipeline of the converted trained weights (EMA
     denoiser, VQ-VAE, stats); ancestral, as the CLI runs it, by default."""
-    from codlad_tpu_torch.cli.test import load_vae
+    from codlad_tpu_torch.cli.test import load_vae_weights
     from codlad_tpu_torch.convert.from_flax import load_denoiser
     from codlad_tpu_torch.eval.harness import SamplingPipeline
     from codlad_tpu_torch.gen.diffusion import create_diffusion
     den, _, (mean, std) = load_denoiser(str(LATENT_WEIGHTS), device)
-    vae, codebook, _ = load_vae(str(WEIGHTS), device)
+    vae, snap, _ = load_vae_weights(str(WEIGHTS), device)
     return SamplingPipeline(denoiser=den, process=create_diffusion(steps), vae=vae,
-                            codebook=codebook, norm_mean=mean, norm_std=std,
+                            codebook=snap["vq_state"].codebook, norm_mean=mean, norm_std=std,
                             compute_dtype=compute_dtype, sampler=sampler)
 
 
@@ -2978,6 +2985,584 @@ def run_stage1_cli(seed, device="cuda", n_res=(58, 75), n_frames=4, batch=2, enc
     return out
 
 
+# ---------------------------------------------------------------------------
+# The rest of Stage 1: the angle VQ-VAE of the PDB / Atlas recipes, GenZProt
+# and its CG prior, every quantizer, the fgae / fgvae / cgvae modes
+
+VARIANT_STEPS = 3
+# the card-vs-CPU steps' grads: each within 1e-3 max|grad| of its parameter
+# plus this share of the step's largest grad (see variant_reference)
+STEP_GRAD_SCALE_TOL = 1e-5
+# the K3 / K4 recipe's widths (embed 36, vqdim 3, 4096 codes, 3 encoder and 4
+# decoder layers); the angle decoder adds -predict_angle
+RECIPE = ["-vqdim", "3", "-codebook_size", "4096", "-enc_nconv", str(ENC_LAYERS),
+          "-dec_nconv", str(DEC_LAYERS)]
+# every kind of models/vq.Quantizer -> (vqdim, its extra flags)
+QUANTIZER_KINDS = {"vqvae": ("3", []), "cosine": ("3", []), "orthogonal": ("3", []),
+                   "expire": ("3", []), "fsq": ("5", []), "rvq": ("3", []),
+                   "multihead": ("3", ["-vq_heads", "3"]), "gumbel": ("3", [])}
+
+
+def cgprior_launches(n_layers=ENC_LAYERS, train=False):
+    """K8-K11 launches of one CGPrior forward: a gather a side of the
+    [xyz | res_type] payload, per layer the full dst gather, the src
+    scalars' gather, the TP and the mean; with `train` also its backward's:
+    every feature gather a K9, every mean a K8, every K10 a K11."""
+    n = n_layers
+    if not train:
+        return {"edge_gather": 2 + 2 * n, "edge_aggregate": n, "fused_tp": n}
+    return {"edge_gather": 2 + 2 * n + n, "edge_aggregate": n + 2 * n, "fused_tp": n,
+            "fused_tp_bwd": n}
+
+
+class ModuleLaunches:
+    """The kernel launches made on behalf of one submodule, counted in the
+    runs that drive it: its forward's (between a forward pre-hook and a
+    forward hook) and its backward's (around each autograd node that its
+    forward made, by the node's pre-hook and hook: the engine runs one node
+    of a device at a time). Every node reachable from the module's outputs
+    that the inputs' history does not hold is its own. `counts` sums the
+    launches while the context is open."""
+
+    def __init__(self, module):
+        self.module, self.counts, self._handles = module, {}, []
+
+    def _add(self, before):
+        from codlad_tpu_torch import kernels
+        for k, v in kernels.launch_counts().items():
+            if v != before.get(k, 0):
+                self.counts[k] = self.counts.get(k, 0) + v - before.get(k, 0)
+
+    @staticmethod
+    def _nodes(tree):
+        import torch
+        if isinstance(tree, torch.Tensor):
+            return [tree.grad_fn] if tree.grad_fn is not None else []
+        items = tree.values() if isinstance(tree, dict) else (
+            tree if isinstance(tree, (list, tuple)) else ())
+        return [n for v in items for n in ModuleLaunches._nodes(v)]
+
+    def __enter__(self):
+        from codlad_tpu_torch import kernels
+        snaps = {}
+
+        def pre(module, args):
+            snaps["forward"] = (kernels.launch_counts(), args)
+
+        def post(module, args, out):
+            before, args = snaps.pop("forward")
+            self._add(before)
+            theirs, todo = set(), self._nodes(args)
+            while todo:
+                node = todo.pop()
+                if node not in theirs:
+                    theirs.add(node)
+                    todo.extend(n for n, _ in node.next_functions if n is not None)
+            mine, todo = set(), self._nodes(out)
+            while todo:
+                node = todo.pop()
+                if node in mine or node in theirs or type(node).__name__ == "AccumulateGrad":
+                    continue
+                mine.add(node)
+                node.register_prehook(
+                    lambda g, node=node: snaps.__setitem__(node, kernels.launch_counts()))
+                node.register_hook(lambda gi, go, node=node: self._add(snaps.pop(node)))
+                todo.extend(n for n, _ in node.next_functions if n is not None)
+
+        self._handles = [self.module.register_forward_pre_hook(pre),
+                         self.module.register_forward_hook(post)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+
+
+def add_launches(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def build_variant_trainer(device, seed, extra):
+    """(model, TrainState, train_step) of cli/train_vqvae.py `build_trainer`
+    for the flags `extra`, random weights and quantizer state from `seed`."""
+    from codlad_tpu_torch.cli import train_vqvae
+    args = train_vqvae.build_parser().parse_args(["-seed", str(seed), *extra])
+    model, state, step, _, _ = train_vqvae.build_trainer(args, device)
+    return model, state, step
+
+
+def timed_record(name, dname, label, err, limit, kern, plain, library, nbytes, ops):
+    """Time a checked kernel call beside its plain version and the nearest
+    PyTorch call (CUDA events; the kernel and that call also by graph
+    replay), log it and return its record."""
+    ms, plain_ms, lib_ms = time_calls(kern, plain, library)
+    dev_ms, lib_dev_ms = replay_ms(kern, library)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dname] * 1e3
+    log(f"kernel {name} {dname} {label}: max|d|={err:.3g} ({limit}) ok; a call (events) "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms; device "
+        f"(graph replay) kernel {dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G ops)")
+    return dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops, lib_ms),
+                device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=label)
+
+
+def check_cgprior_kernels(batch, seed):
+    """K8-K11 at CGPrior's shapes on `batch`'s CG radius graph (directed),
+    f32 (GenZProt's and the cgvae mode's dtype: CGPrior has no compute
+    dtype, in JAX either) and bf16, against their plain versions: K8 of the
+    F 4 payload and the F 12 / 24 / 36 features bit for bit; K9's means of
+    the three TP outputs (F 24, 36, 48) and the sums of K8's backward over
+    the dst CSR (F 12, 24, 36) within their limits, twice bit for bit and
+    bit for bit csr_order_aggregate; K10 and K11 (dx, dsh, dw against
+    autograd of the plain K10, float64 for f32) at the three layer
+    signatures. The f32 calls of the last layer are timed and returned as
+    records keyed cgprior_*; every other call is logged."""
+    import torch
+    from codlad_tpu_torch.kernels import edge_kernels as EK
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.graph import make_directed_batched
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+
+    dev = batch["res_type"].device
+    nb, nl = batch["res_type"].shape
+    edges, emask = make_directed_batched(batch["cg_edges"], batch["cg_edges_mask"])
+    src = edges[..., 0].to(torch.int32).contiguous()
+    dst = edges[..., 1].to(torch.int32).contiguous()
+    maskf = emask.to(torch.float32)
+    ne = src.shape[1]
+    csr_src, csr_dst = EK.build_csr(src, maskf, nl), EK.build_csr(dst, maskf, nl)
+    n_valid = csr_src[1].numel()
+    flat_src, flat_dst = EK._flat_index(src, nl), EK._flat_index(dst, nl)
+    log(f"  CGPrior's shapes: B{nb} L{nl}, {ne} directed CG edges a frame ({n_valid} valid "
+        f"in all, at the batch's CG cutoff)")
+    g = torch.Generator().manual_seed(seed + 17)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    ladder = irrep_ladder(12, 4)
+    records, seen = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.finfo(dtype).bits // 8
+        timed = dtype == torch.float32
+        for F in (4, 12, 24, 36):
+            nodes = rnd(nb, nl, F).to(dtype)
+            kern = lambda: EK.edge_gather(dst, maskf, nodes)
+            plain = lambda: EK.ref_gather(dst, maskf, nodes)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(got), _bits(want)):
+                raise RuntimeError(f"edge_gather ({dname}, CG F{F}) is not bit for bit its "
+                                   "plain version")
+            seen.append(f"K8 {dname} F{F} bit for bit")
+            if timed and F == 36:
+                records["cgprior_edge_gather"] = timed_record(
+                    "edge_gather", dname, f"CG graph F{F}", 0.0, "bit for bit", kern, plain,
+                    lambda: nodes.reshape(-1, F).index_select(0, flat_dst),
+                    nb * ne * 8 + nb * nl * F * es + nb * ne * F * es, nb * ne * F)
+        for F, reduce, idx, csr in ((24, "mean", src, csr_src), (36, "mean", src, csr_src),
+                                    (48, "mean", src, csr_src), (12, "sum", dst, csr_dst),
+                                    (24, "sum", dst, csr_dst), (36, "sum", dst, csr_dst)):
+            msgs = rnd(nb, ne, F).to(dtype)
+            kern = lambda: EK.edge_aggregate(idx, maskf, msgs, nl, reduce, csr)
+            plain = lambda: EK.ref_aggregate(idx, maskf, msgs, nl, reduce)
+            ok, err, limit = check_aggregate(kern, plain, csr, maskf, msgs, nl, reduce)
+            if not ok:
+                raise RuntimeError(f"edge_aggregate ({dname}, CG F{F} {reduce}) disagrees")
+            seen.append(f"K9 {dname} F{F} {reduce} {err:.3g}")
+            if timed and F == 48:
+                flat = flat_src
+                records["cgprior_edge_aggregate"] = timed_record(
+                    "edge_aggregate", dname, f"CG graph F{F} {reduce}", err, limit, kern, plain,
+                    lambda: torch.zeros((nb * nl, F), dtype=dtype, device=dev).index_add_(
+                        0, flat, msgs.reshape(-1, F)),
+                    (nb * nl + 1 + n_valid) * 4 + n_valid * 4 + n_valid * F * es
+                    + nb * nl * F * es, 2 * n_valid * F)
+        ref_dt = torch.float64 if dtype == torch.float32 else dtype
+        for layer in range(3):
+            tb = fused_tp_tables(tuple(ladder[layer]), tuple(SH_IRREPS),
+                                 tuple(ladder[layer + 1]))
+            din, numel, R = ladder[layer].dim, tb["numel"], tb["R"]
+            dout = tb["SUMR"].shape[1]
+            nnz = TK.sparse_tables(tb)["nnz"]
+            x = rnd(nb, ne, din).to(dtype)
+            sh = sh_l2(rnd(nb, ne, 3)).to(dtype)
+            w = (rnd(nb, ne, numel) * din ** -0.5).to(dtype)
+            ct = rnd(nb, ne, dout).to(dtype)
+            kern = lambda: TK.fused_tp(x, sh, w, tb)
+            plain = lambda: TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            d, ref = (got.float() - want.float()).abs(), want.float().abs()
+            if dtype == torch.float32:
+                ok, limit = bool((d <= 2e-4 + 2e-4 * ref).all()), "atol 2e-4 + rtol 2e-4"
+            else:
+                ok, limit = bool((d <= TP_TOL_BF16 * ref.max()).all()), "2e-2 max|ref|"
+            if not ok:
+                raise RuntimeError(f"fused_tp ({dname}, CG layer {layer}) disagrees")
+            seen.append(f"K10 {dname} layer {layer} {d.max().item():.3g}")
+            tabs = [torch.as_tensor(tb[k], device=dev).to(dtype) for k in
+                    ("CBIG_R", "EXPW", "SUMR")]
+
+            def dense_tp():
+                t = torch.cat([x * sh[..., b:b + 1] for b in range(9)], dim=-1)
+                return ((w @ tabs[1]) * (t @ tabs[0])) @ tabs[2]
+
+            m = nb * ne
+            if timed and layer == 2:
+                records["cgprior_fused_tp"] = timed_record(
+                    "fused_tp", dname, f"CG layer {layer} {(nb, ne)}", d.max().item(), limit,
+                    kern, plain, dense_tp, m * (din + 9 + numel + dout) * es,
+                    m * (9 * din + 2 * nnz + 2 * R))
+            bgot = TK.fused_tp_bwd(x, sh, w, ct, tb)
+            leaves = [v.to(ref_dt).requires_grad_(True) for v in (x, sh, w)]
+            bwant = torch.autograd.grad(TK.ref_fused_tp(*leaves, tb["CBIG_R"], tb["EXPW"],
+                                                        tb["SUMR"]), leaves, ct.to(ref_dt))
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, a, b in zip(("dx", "dsh", "dw"), bgot, bwant):
+                d, ref = (a.double() - b.double()).abs(), b.double().abs()
+                bound = (TOL["float32"][0] + TOL["float32"][1] * ref
+                         + GRAD_SCALE_TOL_F32 * ref.max()) if dtype == torch.float32 else (
+                    TP_TOL_BF16 * ref.max())
+                if not bool((d <= bound).all()):
+                    raise RuntimeError(f"fused_tp_bwd ({dname}, CG layer {layer}) {name} "
+                                       "disagrees with plain autograd")
+                err = max(err, d.max().item())
+            seen.append(f"K11 {dname} layer {layer} {err:.3g}")
+            if timed and layer == 2:
+                pl = [v.detach().requires_grad_(True) for v in (x, sh, w)]
+                pout = TK.ref_fused_tp(*pl, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+
+                def dense_bwd():
+                    t = torch.cat([x * sh[..., b:b + 1] for b in range(9)], dim=-1)
+                    dprod = ct @ tabs[2].T
+                    dw = (dprod * (t @ tabs[0])) @ tabs[1].T
+                    db = ((dprod * (w @ tabs[1])) @ tabs[0].T).unflatten(-1, (9, din))
+                    return (db * sh[..., :, None]).sum(-2), (db * x[..., None, :]).sum(-1), dw
+
+                nbytes, ops = tp_bwd_cost(m, din, numel, dout, R, nnz, es)
+                records["cgprior_fused_tp_bwd"] = timed_record(
+                    "fused_tp_bwd", dname, f"CG layer {layer} {(nb, ne)}", err,
+                    "atol 2e-4 + rtol 2e-4 + 2e-6 max|ref|, ref in float64",
+                    lambda: TK.fused_tp_bwd(x, sh, w, ct, tb),
+                    lambda: torch.autograd.grad(pout, pl, ct, retain_graph=True), dense_bwd,
+                    nbytes, ops)
+            del x, sh, w, ct, got, want, bgot, bwant, leaves
+        torch.cuda.empty_cache()
+    log("  CGPrior's kernel calls held: " + "; ".join(seen))
+    return records
+
+
+def _variant_step(dev, seed, extra, n_frames, n_res, eps, dtype=None):
+    """(loss, grads on the CPU, VQ state tensors on the CPU, skipped) of one
+    training step of the trainer of `extra` on `dev`; dtype float64 runs the
+    CPU's plain versions in float64 from end to end (params, VQ state and
+    batch cast, and the encoder's compute dtype)."""
+    import torch
+    model, state, step = build_variant_trainer(dev, seed, extra)
+    batch = stage1_batch(seed + 7, dev, n_frames, n_res)
+    if dtype is not None:
+        model.to(dtype)
+        model.encoder.compute_dtype = dtype
+        state.params = {k: v.to(dtype) for k, v in state.params.items()}
+        if state.vq_state is not None:
+            state.vq_state = type(state.vq_state)(**{k: v.to(dtype) for k, v in
+                                                     state.vq_state.tensors().items()})
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+    state, m = step(state, batch, stage1_weights(), return_grads=True,
+                    draws={"eps": eps.to(dev, dtype or torch.float32)})
+    vq = state.vq_state.tensors() if state.vq_state is not None else {}
+    return (float(m["loss"]), {k: v.cpu() for k, v in m["grads"].items()},
+            {k: v.cpu() for k, v in vq.items()}, float(m["skipped"]))
+
+
+def variant_reference(seed, device="cuda", n_frames=2, n_res=40, enc=ENC_LAYERS, dec=DEC_LAYERS):
+    """One f32 training step card vs CPU (kernels vs plain versions) from the
+    same weights, batch and draws (the reparametrisation's eps drawn on the
+    CPU) for GenZProt, the angle VQ-VAE (K3/K4 widths) and the fgvae VAE:
+    loss within rel 1e-5; the VQ state within 1e-5 + 1e-5 |ref|; each
+    parameter's grad within 1e-3 of its max|grad| plus STEP_GRAD_SCALE_TOL
+    times the step's largest grad, or else, where the f32 step itself is
+    that far from exact (random weights decode to degenerate geometry, where
+    the IC-to-xyz chain is ill-conditioned in f32), no further from a
+    float64 step on the CPU than twice the CPU's f32 grad is (+ 1e-6 of the
+    step's largest grad). Returns {section: (card loss, CPU loss, worst
+    grad)}."""
+    import torch
+    out = {}
+    recipe = RECIPE[:4] + ["-enc_nconv", str(enc), "-dec_nconv", str(dec)]
+    for label, extra in (("ivae", recipe + ["-train_section", "ivae"]),
+                         ("angle vqvae", recipe + ["-predict_angle"]),
+                         ("fgvae", recipe[2:] + ["-train_section", "fgvae", "-vqdim", "36"])):
+        eps = torch.randn((n_frames, stage1_batch(seed + 7, "cpu", n_frames, n_res)[
+            "res_type"].shape[1], 36), generator=torch.Generator().manual_seed(seed + 8))
+        l_c, g_c, v_c, s_c = _variant_step("cpu", seed, extra, n_frames, n_res, eps)
+        l_d, g_d, v_d, s_d = _variant_step(device, seed, extra, n_frames, n_res, eps)
+        rel = abs(l_d - l_c) / abs(l_c)
+        # a parameter whose grad is a cancelling sum over the edges (an edge
+        # embedding's bias) keeps the f32 order error of its terms, which
+        # its own max can be far below: hence the step-scale term
+        scale = max(v.abs().max().item() for v in g_c.values())
+        errs = sorted((((g_d[k] - v).abs().max().item() - STEP_GRAD_SCALE_TOL * scale)
+                       / (v.abs().max().item() + 1e-30), k, v.abs().max().item())
+                      for k, v in g_c.items())
+        worst_g = errs[-1][0]
+        refereed = ""
+        if worst_g > 1e-3:
+            l_64, g_64, _, _ = _variant_step("cpu", seed, extra, n_frames, n_res, eps,
+                                             torch.float64)
+            far = [k for e, k, _ in errs if e > 1e-3]
+            ratios = {k: ((g_d[k].double() - g_64[k]).abs().max().item() - 1e-6 * scale)
+                      / max((g_c[k].double() - g_64[k]).abs().max().item(), 1e-30)
+                      for k in far}
+            top = sorted(ratios.items(), key=lambda kv: kv[1])[-3:]
+            refereed = (f"; against a float64 CPU step (loss {l_64:.7g}), the card's "
+                        f"distance / the CPU f32's over the {len(far)} params outside it, "
+                        f"largest {[(k, round(v, 3)) for k, v in top]} (tol 2)")
+            if abs(l_64 - l_c) > 1e-4 * abs(l_c) or max(ratios.values()) > 2.0:
+                worst_g = float("inf")
+            else:
+                worst_g = max([e for e, k, _ in errs if k not in far] or [0.0])
+        worst_v = max([((v_d[k] - v).abs() - 1e-5 * v.abs()).max().item()
+                       for k, v in v_c.items()] or [0.0])
+        log(f"  {label} step card vs CPU (f32, {n_frames} x {n_res}): loss {l_d:.7g} vs "
+            f"{l_c:.7g} (rel {rel:.3g}, tol 1e-5); worst (max|dgrad| - "
+            f"{STEP_GRAD_SCALE_TOL:g} x {scale:.3g}, the step's largest grad) / max|grad| over "
+            f"{len(g_c)} params {errs[-1][0]:.3g} (tol 1e-3; the three worst "
+            f"{[(k, f'{e:.3g}', f'max|grad| {m:.3g}') for e, k, m in errs[-3:]]}){refereed}; "
+            f"VQ state largest |d| - 1e-5 |ref| {worst_v:.3g} (<= 1e-5); skipped {s_d:g} / "
+            f"{s_c:g}")
+        if not (rel <= 1e-5 and worst_g <= 1e-3 and worst_v <= 1e-5 and s_c == s_d == 0.0):
+            raise RuntimeError(f"the card's {label} training step disagrees with the CPU")
+        out[label] = (l_d, l_c, errs[-1][0])
+    return out
+
+
+def run_quantizer_kinds(seed, device="cuda", n_frames=2, n_res=40):
+    """One f32 training step of each quantizer kind on the card and on the
+    CPU (1 + 1 layers, 64 codes), the same weights, batch and draws (the
+    Gumbel noise or the expiry rows drawn on the CPU): the card's K8-K11
+    launches asserted, the loss finite, no skip, within rel 1e-4 of the
+    CPU's, the codes' perplexity within rel 1e-5 (the same histogram, its
+    entropy summed in another order), and the updated VQ state (each
+    stage's or head's codebook, cluster sizes and sums) within 1e-5 +
+    1e-5 |ref| of the CPU's. Returns {kind: (loss, perplexity, rel, largest
+    |d| - 1e-5 |ref| of the state, worst grad)}, the worst grad being
+    variant_reference's (max|dgrad| - STEP_GRAD_SCALE_TOL x the step's
+    largest grad) / max|grad| over the params, logged and not held."""
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.models.vq import gumbel_noise, state_tree
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for kind, (vqdim, extra) in QUANTIZER_KINDS.items():
+        flags = ["-quantize_type", kind, "-vqdim", vqdim, "-codebook_size", "64",
+                 "-enc_nconv", "1", "-dec_nconv", "1", *extra]
+        runs, draws = {}, {}
+        n_rows = n_frames * stage1_batch(seed + 9, "cpu", n_frames, n_res)["res_type"].shape[1]
+        g = torch.Generator().manual_seed(seed + 10)
+        if kind == "gumbel":
+            draws["quantizer"] = gumbel_noise((n_rows, 64), g)
+        elif kind == "expire":
+            draws["quantizer"] = torch.randint(0, n_rows, (64,), generator=g)
+        for dev in ("cpu", device):
+            _, state, step = build_variant_trainer(dev, seed, flags)
+            batch = stage1_batch(seed + 9, dev, n_frames, n_res)
+            kernels.reset_launches()
+            state, m = step(state, batch, stage1_weights(), return_grads=True,
+                            draws={k: v.to(dev) for k, v in draws.items()})
+            got = kernels.launch_counts()
+            if str(dev) != "cpu" and cuda:
+                want = dict(dict.fromkeys(got, 0), **stage1_train_launches(1, 1))
+                if got != want:
+                    raise RuntimeError(f"the {kind} step launched {got}, expected {want}")
+            tree = state_tree(state.vq_state)
+            tree = [] if tree is None else tree if isinstance(tree, list) else [tree]
+            vq = {f"{i}.{k}": v.cpu() for i, t in enumerate(tree) for k, v in t.items()}
+            runs[str(dev)] = (float(m["loss"]), float(m["vq_perplexity"]), float(m["skipped"]),
+                              vq, {k: v.cpu() for k, v in m["grads"].items()})
+        (l_c, p_c, s_c, v_c, g_c), (l_d, p_d, s_d, v_d, g_d) = runs["cpu"], runs[str(device)]
+        rel = abs(l_d - l_c) / abs(l_c)
+        worst_v = max([((v_d[k] - v).abs() - 1e-5 * v.abs()).max().item()
+                       for k, v in v_c.items()] or [0.0])
+        scale = max(v.abs().max().item() for v in g_c.values())
+        worst_g = max(((g_d[k] - v).abs().max().item() - STEP_GRAD_SCALE_TOL * scale)
+                      / (v.abs().max().item() + 1e-30) for k, v in g_c.items())
+        if not (math.isfinite(l_d) and s_c == s_d == 0.0 and rel <= 1e-4
+                and abs(p_d - p_c) <= 1e-5 * p_c and worst_v <= 1e-5
+                and v_c.keys() == v_d.keys()):
+            raise RuntimeError(f"the {kind} step on the card: loss {l_d} vs CPU {l_c}, "
+                               f"perplexity {p_d} vs {p_c}, VQ state largest |d| - 1e-5 |ref| "
+                               f"{worst_v} (<= 1e-5), skipped {s_d} / {s_c}")
+        out[kind] = (l_d, p_d, rel, worst_v, worst_g)
+    return out
+
+
+def run_variant_cli(seed, device="cuda", n_res=(58, 75), n_frames=4, batch=2,
+                    enc=ENC_LAYERS, dec=DEC_LAYERS, codes=4096, members=2):
+    """The rest of Stage 1 through its entry points on two synthetic
+    proteins, an epoch each: train_vqvae -train_section ivae then cli.test
+    --experiment genzprot (`members` draws a protein, the K8-K11 launches
+    of each draw asserted: the CG prior's forward and a decode);
+    train_vqvae -predict_angle -quantize_type fsq_5 -bf16 (vqdim 5) then
+    extract_features and cli.test --experiment recon; train_vqvae
+    -train_section fgvae then extract_features --learn_sigma. Returns
+    {name: summary}."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import extract_features, train_vqvae
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+
+    def train(tmp, name, extra):
+        t0 = time.perf_counter()
+        state = train_vqvae.main(["-data_dir", f"{tmp}/shards", "-logdir", f"{tmp}/{name}",
+                                  "-batch_size", str(batch), "-nepochs", "1", "-seed", str(seed),
+                                  "-enc_nconv", str(enc), "-dec_nconv", str(dec),
+                                  "-codebook_size", str(codes), "--device", str(device),
+                                  *extra])
+        with open(f"{tmp}/{name}/train_log.csv") as f:
+            row = f.read().splitlines()[1].split(",")
+        losses = [float(row[1]), float(row[2])]
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"train_vqvae {extra}: train / val loss {losses}")
+        return {"train_loss": losses[0], "val_loss": losses[1], "steps": state.step,
+                "seconds": time.perf_counter() - t0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/shards")
+        for i, n in enumerate(n_res):
+            save_protein_shard(f"{tmp}/shards/prot_{i:04d}.npz",
+                               synthetic_examples(n_frames, n, seed=seed + i, prot_idx=i,
+                                                  structured=True))
+        out["train_ivae"] = train(tmp, "ivae", ["-train_section", "ivae"])
+        kernels.reset_launches()
+        genz = CLI.main(["--experiment", "genzprot", "--vae_ckpt", f"{tmp}/ivae", "--data_dir",
+                         f"{tmp}/shards", "--out_dir", f"{tmp}/eval_genz", "--num_ensemble",
+                         str(members), "--batch_size", str(n_frames), "--device", str(device)])
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        draws = members * len(n_res)
+        want = {k: draws * v for k, v in add_launches(cgprior_launches(enc),
+                                                      decoder_launches(dec)).items()}
+        if cuda and got != want:
+            raise RuntimeError(f"cli.test --experiment genzprot launched {got}, expected {want}")
+        glob = genz["__global__"]
+        if not all(math.isfinite(v) for v in glob.values()):
+            raise RuntimeError(f"the genzprot CLI: {glob}")
+        out["test_genzprot"] = dict(glob, launches=got)
+
+        out["train_angle_fsq"] = train(tmp, "angle", ["-predict_angle", "-quantize_type",
+                                                      "fsq_5", "-vqdim", "5", "-bf16"])
+        usage = extract_features.main(["--ckpt", f"{tmp}/angle", "--data_dir", f"{tmp}/shards",
+                                       "--out_dir", f"{tmp}/feat_angle", "--stats_name", "A",
+                                       "--stats_dir", f"{tmp}/stats", "--batch_size",
+                                       str(batch), "--device", str(device)])
+        lat = np.load(f"{tmp}/feat_angle/prot_0000.npz")["latents"]
+        if usage.sum() != 0 or lat.shape[-1] != 5 or not np.isfinite(lat).all():
+            raise RuntimeError(f"extract_features on the angle / fsq run: usage {usage.sum()}, "
+                               f"latents {lat.shape}")
+        recon = CLI.main(["--experiment", "recon", "--vae_ckpt", f"{tmp}/angle", "--data_dir",
+                          f"{tmp}/shards", "--out_dir", f"{tmp}/eval_angle", "--stats_name",
+                          "A", "--stats_dir", f"{tmp}/stats", "--batch_size", str(n_frames),
+                          "--device", str(device)])["__global__"]
+        if not all(math.isfinite(v) for v in recon.values()):
+            raise RuntimeError(f"the recon CLI on the angle / fsq run: {recon}")
+        out["test_recon_angle"] = recon
+
+        out["train_fgvae"] = train(tmp, "fgvae", ["-train_section", "fgvae", "-vqdim", "36"])
+        extract_features.main(["--ckpt", f"{tmp}/fgvae", "--data_dir", f"{tmp}/shards",
+                               "--out_dir", f"{tmp}/feat_fgvae", "--learn_sigma",
+                               "--batch_size", str(batch), "--device", str(device)])
+        z = np.load(f"{tmp}/feat_fgvae/prot_0001.npz")
+        sig = z["latents"][..., 36:][z["res_mask"].astype(bool)]
+        if z["latents"].shape[-1] != 72 or "mu" in z or not (sig > 0).all():
+            raise RuntimeError(f"extract_features --learn_sigma: {z['latents'].shape}")
+        out["extract_learn_sigma"] = {"width": int(z["latents"].shape[-1]),
+                                      "sigma_mean": float(sig.mean())}
+    return out
+
+
+def phase_stage1_variants(seed, device, records, card):
+    """The rest of Stage 1 on the card, at the K3/K4 recipe's widths: CGPrior's
+    kernel calls; VARIANT_STEPS bf16 steps of the angle VQ-VAE and f32 steps
+    of GenZProt at the Stage-1 bench batch, launches asserted every step;
+    one f32 step of GenZProt, the angle VQ-VAE and the fgvae VAE card vs
+    CPU; one step of each quantizer kind card vs CPU; the entry chain
+    (run_variant_cli). Records CGPrior's own launches in the GenZProt steps,
+    counted by ModuleLaunches and held to cgprior_launches."""
+    import contextlib
+    import torch
+    t0 = time.perf_counter()
+    s1 = stage1_batch(seed, device)
+    records.update(check_cgprior_kernels(s1, seed))
+    t_kern = time.perf_counter() - t0
+    nb, nl = s1["res_type"].shape
+    plain = stage1_train_launches()
+    runs = {}
+    for label, extra, expect in (
+            ("angle VQ-VAE bf16", RECIPE + ["-predict_angle", "-bf16"], plain),
+            ("GenZProt f32", RECIPE + ["-train_section", "ivae"],
+             add_launches(plain, cgprior_launches(train=True)))):
+        model, state, step = build_variant_trainer(device, seed, extra)
+        torch.cuda.reset_peak_memory_stats()
+        genz = hasattr(model, "prior_net")
+        with ModuleLaunches(model.prior_net) if genz else contextlib.nullcontext() as counter:
+            times, metrics, _ = run_stage1_train(state, step, s1, VARIANT_STEPS, expect)
+        if genz:
+            prior = counter
+        runs[label] = (times, metrics, torch.cuda.max_memory_allocated() / 2 ** 30, expect)
+        del model, state, step
+    # CGPrior's own launches in the GenZProt steps, forward and backward
+    want = {k: v * VARIANT_STEPS for k, v in cgprior_launches(train=True).items()}
+    if prior.counts != want:
+        raise RuntimeError(f"CGPrior launched {prior.counts} in {VARIANT_STEPS} GenZProt "
+                           f"steps, expected {want}")
+    for key, name in (("cgprior_edge_gather", "edge_gather"),
+                      ("cgprior_edge_aggregate", "edge_aggregate"),
+                      ("cgprior_fused_tp", "fused_tp"), ("cgprior_fused_tp_bwd", "fused_tp_bwd")):
+        records[key]["launches"] = prior.counts[name]
+    log(f"  CGPrior's own launches in the {VARIANT_STEPS} GenZProt steps (counted around its "
+        f"forward and its backward's nodes): {prior.counts} (asserted)")
+    for label, (times, metrics, peak, expect) in runs.items():
+        log(f"  {label}: {VARIANT_STEPS} steps at {nb}x{nl} (embed 36, vqdim 3, 4096 codes, "
+            f"3 + 4 layers), median {statistics.median(times[1:] or times):.2f} ms/step "
+            f"(first {times[0]:.1f} ms), peak memory {peak:.2f} GiB; launches a step {expect} "
+            f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
+            f"{float(metrics['recon']):.5g}, kl {float(metrics['kl']):.4g}")
+    del s1
+    ref = variant_reference(seed, device)
+    kinds = run_quantizer_kinds(seed, device)
+    log("  one step of each quantizer kind card vs CPU (2 x 40, 1 + 1 layers, 64 codes): "
+        + "; ".join(f"{k} loss {l:.6g} (rel {r:.2g}), perplexity {p:.4g}, VQ state "
+                    f"|d| - 1e-5 |ref| {v:.3g} (<= 1e-5), worst grad {g:.3g} (logged)"
+                    for k, (l, p, r, v, g) in kinds.items()))
+    chain = run_variant_cli(seed, device)
+    genz = chain["test_genzprot"]
+    log(f"  entry chain: train_vqvae -train_section ivae {chain['train_ivae']}; cli.test "
+        f"--experiment genzprot (2 members): rmsd_aligned {genz['rmsd_aligned']:.4f}, ged "
+        f"{genz['ged']:.4f}, div {genz['div']:.4f}, launches {genz['launches']} (asserted: a "
+        f"draw {add_launches(cgprior_launches(), decoder_launches())}); train_vqvae "
+        f"-predict_angle -quantize_type fsq_5 -bf16 {chain['train_angle_fsq']}, "
+        f"extract_features, cli.test --experiment recon rmsd_aligned "
+        f"{chain['test_recon_angle']['rmsd_aligned']:.4f}; train_vqvae -train_section fgvae "
+        f"{chain['train_fgvae']}, extract_features --learn_sigma {chain['extract_learn_sigma']}")
+    log(f"phase stage1_variants: {time.perf_counter() - t0:.2f} s (CGPrior's kernels "
+        f"{t_kern:.2f} s; card vs CPU losses "
+        f"{ {k: round(v[0], 6) for k, v in ref.items()} }); {card}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3384,6 +3969,8 @@ def main(argv=None):
         f"{[round(v, 4) for v in chain['train_latent']['losses']]}; test --experiment recon "
         f"--vae_ckpt rmsd_aligned {chain['test_recon']['rmsd_aligned']:.4f}, ged "
         f"{chain['test_recon']['ged']:.4f}")
+
+    phase_stage1_variants(args.seed, device, records, card)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

@@ -1,5 +1,5 @@
-"""Evaluation CLI: `--experiment latent`, `prior` and `recon` over a directory
-of protein shards.
+"""Evaluation CLI: `--experiment latent`, `prior`, `recon` and `genzprot` over
+a directory of protein shards.
 
 Twin of codlad_tpu/cli/test.py. The VQ-VAE comes either from one converted
 weights file (`--vae_weights`: flax-named params, codebook and config;
@@ -22,7 +22,15 @@ Per protein, the first --batch_size frames are scored:
 * prior: the same with N(0, I) latents in normalised space in place of
   the sampler (the diffusion prior with zero denoising steps): the
   no-model floor that brackets what Stage 2 contributes;
-* recon: the encoder's latents, normalised, snapped, decoded and scored.
+* recon: the encoder's latents, normalised, snapped, decoded and scored;
+* genzprot (a `-train_section ivae` run of the Stage-1 trainer as
+  --vae_ckpt): --num_ensemble draws from GenZProt's CG prior, decoded and
+  scored as `latent`'s are.
+The Stage-1 model is rebuilt from its config: every VAE mode and
+`predict_angle`, and the exact quantizer it trained with (rvq and
+multihead carry a codebook a stage or head, fsq none), through which
+`latent`, `prior` and `recon` snap their latents (no snap for fsq and the
+modes without VQ, as in JAX).
 The per-protein metrics and their mean and std over proteins go to
 `{out_dir}/summary_stats.json` with the JAX CLI's keys.
 
@@ -41,9 +49,8 @@ As the JAX CLI does, the sampling process is built without the run's
 zeros as x_self_cond at every step, and an x_start-predicting one is read
 as predicting eps.
 Options the port does not have yet raise NotImplementedError naming the
-ROADMAP queue-1 item that brings them: `--experiment genzprot` (item 6),
-`--model` other than diffusion (item 8), `--seq_shards` (item 10),
-`--save_pdb` / `--save_xtc` (item 7). Member s
+ROADMAP queue-1 item that brings them: `--model` other than diffusion
+(item 8), `--seq_shards` (item 10), `--save_pdb` / `--save_xtc` (item 7). Member s
 of an ensemble draws from torch.Generator(device).manual_seed(seed + s),
 so the port's draws are not the JAX package's.
 """
@@ -106,8 +113,7 @@ def build_parser():
 def refuse_unported(args):
     """NotImplementedError, naming the ROADMAP queue-1 item, for an option
     the port does not have yet."""
-    missing = [(args.experiment == "genzprot", "--experiment genzprot", 6),
-               (args.model != "diffusion", f"--model {args.model} (flow matching)", 8),
+    missing = [(args.model != "diffusion", f"--model {args.model} (flow matching)", 8),
                (args.seq_shards != 0, "--seq_shards (sequence parallelism)", 10),
                (args.save_pdb, "--save_pdb", 7), (args.save_xtc, "--save_xtc", 7)]
     for hit, what, item in missing:
@@ -116,31 +122,52 @@ def refuse_unported(args):
 
 
 def _vae_from_config(cfg):
-    """The f32 VAE (random weights) of a run config, as the JAX CLI builds it
-    for evaluation; only the vqvae mode without predict_angle is ported."""
-    from codlad_tpu_torch.models.vae import VAE
+    """The f32 Stage-1 model (random weights) of a run config, as the JAX CLI
+    builds it for evaluation: GenZProt for `train_section` ivae, else the
+    VAE of that mode (vqvae by default) and `predict_angle`."""
+    from codlad_tpu_torch.models.vae import VAE, GenZProt
 
+    gen = torch.Generator().manual_seed(0)
+    common = dict(embed_dim=cfg.get("embed_dim", 36), n_rbf=cfg.get("n_rbf", 15),
+                  dec_cutoff=cfg.get("cg_cutoff", 21.0), dec_nconv=cfg.get("dec_nconv", 4),
+                  enc_nconv=cfg.get("enc_nconv", 3), atom_cutoff=cfg.get("atom_cutoff", 9.0),
+                  cg_cutoff=cfg.get("cg_cutoff", 21.0))
     mode = cfg.get("train_section", "vqvae")
-    if mode != "vqvae" or cfg.get("predict_angle", False):
-        raise ValueError(f"only the vqvae mode without predict_angle is ported, not {mode}")
-    return VAE(torch.Generator().manual_seed(0), embed_dim=cfg.get("embed_dim", 36),
-               vqdim=cfg.get("vqdim", 3), n_rbf=cfg.get("n_rbf", 15),
-               dec_cutoff=cfg.get("cg_cutoff", 21.0), dec_nconv=cfg.get("dec_nconv", 4),
-               enc_nconv=cfg.get("enc_nconv", 3), atom_cutoff=cfg.get("atom_cutoff", 9.0),
-               cg_cutoff=cfg.get("cg_cutoff", 21.0))
+    if mode == "ivae":
+        return GenZProt(gen, **common)
+    return VAE(gen, mode=mode, vqdim=cfg.get("vqdim", 3),
+               predict_angle=cfg.get("predict_angle", False), **common)
 
 
-def load_vae(path, device):
-    """(VAE in eval mode on `device`, codebook tensor or None, config) from a
-    converted weights file."""
+def _snap_of(cfg, tree, device):
+    """{quantizer, vq_state} of a run config and its saved VQ state tree:
+    the run's Quantizer and its state (None for fsq); nothing for the modes
+    without VQ."""
+    from codlad_tpu_torch.models.vq import load_state_tree, quantizer_from_config
+
+    quantizer = quantizer_from_config(cfg)
+    if quantizer is None:
+        return {"quantizer": None, "vq_state": None}
+    state = quantizer.init(torch.Generator().manual_seed(0), device)
+    load_state_tree(state, tree)
+    return {"quantizer": quantizer, "vq_state": state}
+
+
+def load_vae_weights(path, device):
+    """(Stage-1 model in eval mode on `device`, {quantizer, vq_state} (see
+    `_snap_of`), config) from a converted weights file; a plain EMA VQ's
+    file may hold only its codebook."""
     from codlad_tpu_torch.convert.from_flax import load_flax, read_flax_npz
+    from codlad_tpu_torch.models.vq import VQState
 
     w = read_flax_npz(path)
-    vae = load_flax(_vae_from_config(w["config"]), w["params"])
-    codebook = w["codebook"]
-    if codebook is not None:
-        codebook = torch.as_tensor(codebook, dtype=torch.float32, device=device)
-    return vae.to(device).eval(), codebook, w["config"]
+    model = load_flax(_vae_from_config(w["config"]), w["params"])
+    tree = w["vq_state"]
+    if tree is None and w["codebook"] is not None:
+        tree = VQState.of_codebook(torch.as_tensor(w["codebook"])).tensors()
+    snap = (_snap_of(w["config"], tree, device) if tree is not None
+            else {"quantizer": None, "vq_state": None})
+    return model.to(device).eval(), snap, w["config"]
 
 
 def _restore_params(module, ckpt, key="params"):
@@ -159,17 +186,31 @@ def _restore_params(module, ckpt, key="params"):
 
 
 def load_vae_ckpt(logdir, device):
-    """(VAE in eval mode on `device`, codebook tensor, config) from a logdir
-    of cli/train_vqvae.py: its config.json and `best` checkpoint, else
-    `last`."""
+    """(Stage-1 model in eval mode on `device`, {quantizer, vq_state} (see
+    `_snap_of`), config with the checkpoint's name and step)
+    from a logdir of cli/train_vqvae.py: its config.json and `best`
+    checkpoint, else `last`."""
     from codlad_tpu_torch.train.checkpoints import CheckpointManager
 
     ckpt = CheckpointManager(logdir)
     cfg = ckpt.load_config()
-    vae = _vae_from_config(cfg)
-    name, sd = _restore_params(vae, ckpt)
-    codebook = sd["vq_state"]["codebook"].to(device=device, dtype=torch.float32)
-    return vae.to(device).eval(), codebook, dict(cfg, checkpoint=name, step=int(sd["step"]))
+    model = _vae_from_config(cfg)
+    name, sd = _restore_params(model, ckpt)
+    snap = _snap_of(cfg, sd.get("vq_state"), device)
+    return model.to(device).eval(), snap, dict(cfg, checkpoint=name, step=int(sd["step"]))
+
+
+def genzprot_sample(model, generator, batch):
+    """One GenZProt member: a draw from the CG prior (standard-normal eps from
+    `generator`), decoded -> (ic, xyz14)."""
+    from codlad_tpu_torch.geometry.internal import ic_to_xyz14
+
+    res_type = batch["res_type"]
+    eps = torch.randn(tuple(res_type.shape) + (model.embed_dim,), generator=generator,
+                      device=res_type.device)
+    z, _, _ = model.get_latent_cg(batch, eps)
+    ic = model.decode(batch, z)
+    return ic, ic_to_xyz14(batch["cg_xyz_og"], ic, batch["res_type"])
 
 
 def load_latent_ckpt(logdir, device, use_ema=True, latent_size=3):
@@ -212,10 +253,12 @@ def main(argv=None):
         sys.exit(1)
     refuse_unported(args)
     os.makedirs(args.out_dir, exist_ok=True)
-    if args.vae_ckpt:
-        vae, codebook, cfg = load_vae_ckpt(args.vae_ckpt, device)
-    else:
-        vae, codebook, cfg = load_vae(args.vae_weights, device)
+    load = load_vae_ckpt if args.vae_ckpt else load_vae_weights
+    vae, snap, cfg = load(args.vae_ckpt or args.vae_weights, device)
+    genzprot = cfg.get("train_section") == "ivae"
+    if (args.experiment == "genzprot") != genzprot:
+        raise SystemExit("test: --experiment genzprot takes a GenZProt (-train_section ivae) "
+                         "checkpoint, and only it does")
     latent_size = cfg.get("vqdim", 3)
     if args.stats_name:
         mean, std = load_stats(args.stats_dir, args.stats_name)
@@ -227,7 +270,7 @@ def main(argv=None):
         process = create_diffusion(str(args.num_sampling_steps),
                                    diffusion_steps=lat_cfg.get("diffusion_steps", 1000),
                                    learn_sigma=True)
-    pipe = SamplingPipeline(denoiser=denoiser, process=process, vae=vae, codebook=codebook,
+    pipe = SamplingPipeline(denoiser=denoiser, process=process, vae=vae, codebook=None, **snap,
                             norm_mean=mean, norm_std=std, latent_size=latent_size,
                             compute_dtype=torch.bfloat16 if args.bf16 else None,
                             sampler=args.sampler, ddim_eta=args.ddim_eta,
@@ -253,9 +296,10 @@ def main(argv=None):
             ic, xyz14 = pipe.decode(batch, pipe.normalise(h))
             agg = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
         else:
+            sample_fn = {"prior": prior_sample,
+                         "genzprot": lambda g, b: genzprot_sample(vae, g, b)}.get(args.experiment)
             agg = run_ensemble(pipe, batch, args.num_ensemble, seed=args.seed,
-                               sample_fn=prior_sample if args.experiment == "prior" else None,
-                               log_fn=log_fn, fold=args.ensemble_fold)
+                               sample_fn=sample_fn, log_fn=log_fn, fold=args.ensemble_fold)
         agg["wallclock_sec"] = time.time() - t0
         summary[fname] = agg
         print(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()

@@ -113,8 +113,10 @@ class FeatureDataset:
     """Batches of latents and their conditioning from the feature files
     (`latents` or `mu`/`sigma`, `res_type`, `cg_xyz_og`, `res_mask`), one
     process. With `mu` and `sigma` a fresh x1 = mu + sigma * eps is drawn
-    every epoch. With `shuffle`, files and rows are shuffled each epoch from
-    `seed`; without, both come in order (validation)."""
+    every epoch, from a generator of its own seeded with the epoch as JAX's
+    is (numpy's, so the draws are JAX's too). With `shuffle`, files and rows
+    are shuffled each epoch from `seed`; without, both come in order
+    (validation)."""
 
     def __init__(self, directory, batch_size, seed=0, shuffle=True):
         self.directory = directory
@@ -125,20 +127,24 @@ class FeatureDataset:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
 
     def __iter__(self):
         files = list(self.files)
         if self.shuffle:
             self._rng.shuffle(files)
+        self._epoch += 1
+        # process 0 of JAX's (epoch, process index) seed
+        eps_rng = np.random.default_rng(hash((self._epoch, 0)) & 0x7FFFFFFF)
         for fname in files:
             z = np.load(os.path.join(self.directory, fname))
+            n = z["latents"].shape[0] if "latents" in z else z["mu"].shape[0]
+            idx = self._rng.permutation(n) if self.shuffle else np.arange(n)
             if "mu" in z and "sigma" in z:
                 mu, sigma = z["mu"], z["sigma"]
-                x1 = mu + sigma * self._rng.standard_normal(mu.shape).astype(mu.dtype)
+                x1 = mu + sigma * eps_rng.standard_normal(mu.shape).astype(mu.dtype)
             else:
                 x1 = z["latents"]
-            idx = (self._rng.permutation(x1.shape[0]) if self.shuffle
-                   else np.arange(x1.shape[0]))
             data = {"x1": x1, "res_type": z["res_type"],
                     "cg_xyz": z["cg_xyz_og"][:, 1:-1], "mask": z["res_mask"]}
             yield from iter_padded_batches(data, self.batch_size, idx)

@@ -6,7 +6,13 @@ The port's modules carry the flax module names, so the mapping is by name:
 `weight`; raw parameters (SplitMessageChain's W_e, W2, b2, W3, b3) keep
 their name and layout. The encoder's names (`encoder/EdgeEmbed_i`,
 `Embed_i`, `TPConv_i/Dense_j`, the cross graph's `Dense_i`, `map_in`) map
-the same way. The VQ codebook is a plain array.
+the same way, and so do the rest of Stage 1's: CGPrior's (`EdgeEmbed_0`,
+`Embed_0`, `TPConv_0..2`, `Dense_0..3`), a MuSigmaHead's `Dense_0..3` (the
+mean head, then the log variance head), ICDecoderAngle's extra `_MLP2_i`,
+GenZProt's `encoder`, `prior_net`, `head` and `decoder`, the VAE's `head`
+(fgvae) and `prior` (cgvae). The VQ codebook is a plain array; a
+quantizer's whole state is a `vq_state` tree (one VQState's fields, or a
+list of them for rvq and multihead).
 
 `read_flax_npz` reads the single-file export of a trained checkpoint
 (scripts/export_flax_npz.py): flax-named leaves under `params/...` (and a
@@ -74,12 +80,14 @@ def codebook_from_flax(codebook, device="cuda"):
 def read_flax_npz(path):
     """-> {"params": nested dict of arrays, "ema_params": the same for the
     EMA weights or None, "codebook": [n_codes, dim] or None, "cluster_size"
-    / "embed_avg" (the VQ state's EMA statistics) or None, "config": dict,
-    "stats": (mean, std) or None} from an npz whose keys are
-    `params/<module>/.../<leaf>`, `ema_params/...`, `codebook`,
-    `cluster_size`, `embed_avg`, `config` (JSON) and `stats_mean` /
+    / "embed_avg" (the VQ state's EMA statistics) or None, "vq_state": the
+    quantizer's state tree ({field: array}, or a list of them) or None,
+    "config": dict, "stats": (mean, std) or None} from an npz whose keys
+    are `params/<module>/.../<leaf>`, `ema_params/...`, `codebook`,
+    `cluster_size`, `embed_avg`, `vq_state/<field>` or
+    `vq_state/<i>/<field>`, `config` (JSON) and `stats_mean` /
     `stats_std`."""
-    trees = {"params": {}, "ema_params": {}}
+    trees = {"params": {}, "ema_params": {}, "vq_state": {}}
     with np.load(path, allow_pickle=False) as z:
         for key in z.files:
             top, *mods = key.split("/")
@@ -91,8 +99,11 @@ def read_flax_npz(path):
             node[leaf] = z[key]
         get = lambda k: z[k] if k in z.files else None
         stats = ((get("stats_mean"), get("stats_std")) if "stats_mean" in z.files else None)
+        vq = trees["vq_state"]
+        if vq and all(k.isdigit() for k in vq):
+            vq = [vq[k] for k in sorted(vq, key=int)]
         return {"params": trees["params"], "ema_params": trees["ema_params"] or None,
-                "codebook": get("codebook"),
+                "vq_state": vq or None, "codebook": get("codebook"),
                 "cluster_size": get("cluster_size"), "embed_avg": get("embed_avg"),
                 "config": json.loads(str(z["config"])) if "config" in z.files else {},
                 "stats": stats}

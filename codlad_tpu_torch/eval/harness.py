@@ -4,7 +4,7 @@
 Counterpart of codlad_tpu/eval/harness.py:
 
 * `SamplingPipeline.sample_and_decode`: ancestral or DDIM diffusion
-  sampling with the plain EMA-VQ snap (no sequence sharding, no flows),
+  sampling with the VQ snap (no sequence sharding, no flows),
   with classifier-free guidance at `cfg_scale` != 0 (JAX
   `_sample_from_cond_cfg`): the conditioning is computed for the batch and
   for its null-token copy (res_type vocab - 1, the CG trace kept), every
@@ -24,7 +24,9 @@ Counterpart of codlad_tpu/eval/harness.py:
   the same noise.
 * `SamplingPipeline.encode_latents` + `decode`: the `--experiment recon`
   path (pre-VQ encoder latents, de-normalise, snap, decode); the pipeline
-  then needs no denoiser.
+  then needs no denoiser. The snap is the run's `quantizer` with its
+  `vq_state` (`codebook=` builds a plain EMA VQ's); with no state (FSQ,
+  the modes without VQ) nothing is snapped, as in JAX.
 * `evaluate_structures`: the per-batch metric set.
 * `run_ensemble`: an ensemble of draws per batch, the mean of the members'
   metrics and DIV, as `--experiment latent` / `prior` report them.
@@ -41,7 +43,7 @@ import torch
 
 from codlad_tpu_torch.eval import metrics as M
 from codlad_tpu_torch.geometry.internal import ic_to_xyz14
-from codlad_tpu_torch.models.vq import vq_quantize
+from codlad_tpu_torch.models.vq import Quantizer, VQState
 from codlad_tpu_torch.train.losses import ic_terms, xyz_term
 
 
@@ -61,7 +63,8 @@ class SamplingPipeline:
     denoiser: Any               # models.denoiser.MPNNDenoiser (f32), or None (recon)
     process: Any                # gen.diffusion.GaussianDiffusion, or None (recon)
     vae: Any                    # models.vae.VAE
-    codebook: Any               # [n_codes, vqdim] tensor, or None (no snap)
+    codebook: Any               # a plain EMA VQ's [n_codes, vqdim] tensor (sets quantizer
+                                # and vq_state), or None
     norm_mean: Any              # [latent_size]
     norm_std: Any
     latent_size: int = 3
@@ -70,10 +73,15 @@ class SamplingPipeline:
     ddim_eta: float = 0.0       # DDIM only: 0 deterministic given x_T
     doubled_batch: bool = False
     cfg_scale: float = 0.0      # != 0: classifier-free guidance
+    quantizer: Any = None       # models.vq.Quantizer of the run
+    vq_state: Any = None        # its state (a list for rvq / multihead); None: no snap
 
     def __post_init__(self):
         if self.sampler not in ("ancestral", "ddim"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
+        if self.codebook is not None:
+            self.quantizer = Quantizer("vqvae", *self.codebook.shape)
+            self.vq_state = VQState.of_codebook(self.codebook)
         self._denoise_model = self._cond_model = self.denoiser
         if self.compute_dtype is not None and self.denoiser is not None:
             self._denoise_model = copy.deepcopy(self.denoiser).to(self.compute_dtype)
@@ -150,13 +158,14 @@ class SamplingPipeline:
 
     @torch.no_grad()
     def decode(self, batch, latents_norm, return_codes=False):
-        """De-normalise, snap to the codebook, decode -> (ic, xyz14), and the
-        VQ codes [B, L] (None without a codebook) with return_codes."""
+        """De-normalise, snap with the quantizer, decode -> (ic, xyz14), and
+        the VQ codes [B, L] (None without a VQ state) with return_codes."""
         mean, std = self._norm(latents_norm.device)
         latents = latents_norm * std + mean
         codes = None
-        if self.codebook is not None:
-            latents, codes, _ = vq_quantize(self.codebook, latents, batch["res_mask"])
+        if self.vq_state is not None:
+            latents, codes, _, _ = self.quantizer.quantize(self.vq_state, latents,
+                                                           batch["res_mask"])
         ic = self.vae.decode(batch, latents)
         xyz = ic_to_xyz14(batch["cg_xyz_og"], ic, batch["res_type"])
         return (ic, xyz, codes) if return_codes else (ic, xyz)

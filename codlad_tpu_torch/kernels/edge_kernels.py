@@ -76,9 +76,11 @@ def ref_gather(idx, mask, nodes):
 
 
 def ref_aggregate(idx, mask, msgs, n_nodes, reduce="sum"):
-    """Plain K9: index_add_ of mask * msgs in f32, cast, then the mean."""
+    """Plain K9: index_add_ of mask * msgs in f32 (float64 for float64
+    msgs), cast, then the mean."""
     B, E, F = msgs.shape
-    dt, f32 = msgs.dtype, torch.float32
+    dt = msgs.dtype
+    f32 = torch.float64 if dt == torch.float64 else torch.float32
     flat = _flat_index(idx, n_nodes)
     maskf = mask.to(f32).reshape(-1)
     out = torch.zeros((B * n_nodes, F), dtype=f32, device=msgs.device)

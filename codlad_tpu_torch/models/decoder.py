@@ -1,11 +1,14 @@
 """Internal-coordinate decoder: latent -> [B, L, 13, 3] ic tensors.
 
-Counterpart of `ICDecoder` (predict_sc_angle=False) in
-codlad_tpu/models/decoder.py: bond lengths and side-chain angles are
-residue-type embedding lookups; backbone angles/torsions and side-chain
-torsions are predicted by invariant message passing over the CG radius
-graph. Submodule names follow flax's auto-names (Embed_i, InvariantMessage_i,
-_MLP2_i) so converted parameters load by name.
+Counterpart of `ICDecoder` and `ICDecoderAngle` in
+codlad_tpu/models/decoder.py: bond lengths (and, in `ICDecoder`, side-chain
+angles) are residue-type embedding lookups; backbone angles/torsions and
+side-chain torsions are predicted by invariant message passing over the CG
+radius graph. `ICDecoderAngle` (the PDB and Atlas recipes) predicts the
+side-chain angles with an MLP too, and its side-chain torsion blocks run at
+width F + 10 on [s | sc_angle]. Submodule names follow flax's auto-names
+(Embed_i, InvariantMessage_i, _MLP2_i) so converted parameters load by
+name.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ class _MLP2(nn.Module):
         return self.Dense_1(swish(self.Dense_0(swish(x))))
 
 
-class ICDecoder(nn.Module):
+class _ICDecoderBase(nn.Module):
+    predict_sc_angle = False
+
     def __init__(self, gen, n_atom_basis=36, n_rbf=15, cutoff=21.0, num_conv=4,
                  res_embed_dim=4):
         super().__init__()
@@ -39,11 +44,15 @@ class ICDecoder(nn.Module):
         self.Embed_0 = embedding(25, 3, gen)    # backbone bond lengths
         self.Embed_1 = embedding(25, 10, gen)   # side-chain bond lengths
         self.Embed_2 = embedding(25, res_embed_dim, gen)
-        self.Embed_3 = embedding(25, 10, gen)   # side-chain angles
+        if not self.predict_sc_angle:
+            self.Embed_3 = embedding(25, 10, gen)   # side-chain angles
         for i in range(num_conv):
             setattr(self, f"InvariantMessage_{i}", InvariantMessage(F, F, n_rbf, cutoff, gen))
-        mlps = ([(F, F, F)] * num_conv + [(F, 3, 3), (F + 3, 3, 3)]
-                + [(F, F, F)] * num_conv + [(F, 10, 10)])
+        mlps = [(F, F, F)] * num_conv + [(F, 3, 3), (F + 3, 3, 3)]
+        if self.predict_sc_angle:   # the angle head, then the blocks on [s | sc_angle]
+            mlps += [(F, 10, 10)] + [(F + 10, F + 10, F + 10)] * num_conv + [(F + 10, 10, 10)]
+        else:
+            mlps += [(F, F, F)] * num_conv + [(F, 10, 10)]
         for i, dims in enumerate(mlps):
             setattr(self, f"_MLP2_{i}", _MLP2(*dims, gen))
 
@@ -71,11 +80,26 @@ class ICDecoder(nn.Module):
 
         bb_angle = self._mlp(nc)(s)
         bb_torsion = self._mlp(nc + 1)(torch.cat([s, bb_angle], dim=-1))
-        sc_angle = self.Embed_3(res_type)
-        for i in range(nc):
-            s = s + self._mlp(nc + 2 + i)(s)
-        sc_torsion = self._mlp(2 * nc + 2)(s)
+        if self.predict_sc_angle:
+            sc_angle = self._mlp(nc + 2)(s)
+            s = torch.cat([s, sc_angle], dim=-1)
+            for i in range(nc):
+                s = s + self._mlp(nc + 3 + i)(s)
+            sc_torsion = self._mlp(2 * nc + 3)(s)
+        else:
+            sc_angle = self.Embed_3(res_type)
+            for i in range(nc):
+                s = s + self._mlp(nc + 2 + i)(s)
+            sc_torsion = self._mlp(2 * nc + 2)(s)
 
         ic_bb = torch.cat([bb_dist, bb_angle[..., None], bb_torsion[..., None]], dim=-1)
         ic_sc = torch.cat([sc_dist, sc_angle[..., None], sc_torsion[..., None]], dim=-1)
         return torch.cat([ic_bb, ic_sc], dim=-2)
+
+
+class ICDecoder(_ICDecoderBase):
+    predict_sc_angle = False
+
+
+class ICDecoderAngle(_ICDecoderBase):
+    predict_sc_angle = True

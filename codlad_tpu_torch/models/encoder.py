@@ -194,7 +194,7 @@ class E3Encoder(nn.Module):
         af4 = atom_feat.reshape(B, L, A, -1)
         node = torch.cat([af4, cg_feat[:, :, None, :].expand(B, L, A, cg_feat.shape[-1])],
                          dim=-1) * amask[..., None]
-        per_res = (node.sum(2) / denom).to(torch.float32)
+        per_res = (node.sum(2) / denom).to(torch.promote_types(cdt, torch.float32))
         h = dense(self._dense(self._readout + 1),
                   torch.tanh(dense(self._dense(self._readout), per_res)))
         return h * res_mask[..., None].to(h.dtype)

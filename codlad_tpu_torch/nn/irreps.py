@@ -36,6 +36,10 @@ class Irreps(tuple):
     def dim(self):
         return sum(mul * (2 * l + 1) for mul, l, p in self)
 
+    @property
+    def num_irreps(self):
+        return sum(mul for mul, _, _ in self)
+
     def slices(self):
         out, i = [], 0
         for mul, l, p in self:
@@ -43,6 +47,15 @@ class Irreps(tuple):
             out.append(slice(i, i + d))
             i += d
         return out
+
+    def split(self, x):
+        """[..., dim] -> a list of [..., mul, 2l+1] blocks."""
+        return [x[..., sl].reshape(tuple(x.shape[:-1]) + (mul, 2 * l + 1))
+                for (mul, l, p), sl in zip(self, self.slices())]
+
+    @staticmethod
+    def merge(blocks):
+        return torch.cat([b.reshape(tuple(b.shape[:-2]) + (-1,)) for b in blocks], dim=-1)
 
 
 SH_IRREPS = Irreps("1x0e + 1x1o + 1x2e")

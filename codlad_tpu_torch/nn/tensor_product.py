@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 from torch import nn
 
 from codlad_tpu_torch.kernels.tp_kernels import fused_tp
@@ -94,6 +95,40 @@ class FullyConnectedTP(nn.Module):
         """x [..., din], y [..., dsh], weights [..., numel] -> [..., dout] in
         x's dtype (y and the weights are cast to it first)."""
         return fused_tp(x, y.to(x.dtype), weights.to(x.dtype), self.tables)
+
+
+class IrrepsLayerNorm(nn.Module):
+    """Irreps-aware LayerNorm with a learnable mean shift: per irrep,
+    subtract a learnable fraction (`mean_shift`, 1 on even scalars, else 0
+    at init) of the mean over the multiplicity, divide by the RMS component
+    norm over the multiplicity, scale by a `weight` per irrep copy and add a
+    `bias` on the even scalars only."""
+
+    def __init__(self, irreps, eps=1e-5):
+        super().__init__()
+        self.irreps = Irreps(irreps)
+        self.eps = eps
+        ir = self.irreps
+        num_scalar = sum(mul for mul, l, p in ir if l == 0 and p == 1)
+        shifts = np.concatenate([np.ones(mul) if (l == 0 and p == 1) else np.zeros(mul)
+                                 for mul, l, p in ir])
+        self.mean_shift = nn.Parameter(torch.as_tensor(shifts, dtype=torch.float32))
+        self.weight = nn.Parameter(torch.ones(ir.num_irreps))
+        self.bias = nn.Parameter(torch.zeros(max(num_scalar, 1)))
+
+    def forward(self, x):
+        out, iw, ib = [], 0, 0
+        for (mul, l, p), blk in zip(self.irreps, self.irreps.split(x)):
+            ms = self.mean_shift[iw:iw + mul][:, None]
+            blk = blk - blk.mean(dim=-2, keepdim=True) * ms
+            norm = (blk ** 2).mean(dim=-1).mean(dim=-1, keepdim=True)
+            blk = blk * torch.rsqrt(norm + self.eps)[..., None] * self.weight[iw:iw + mul][:, None]
+            iw += mul
+            if l == 0 and p == 1:
+                blk = blk + self.bias[ib:ib + mul][:, None]
+                ib += mul
+            out.append(blk)
+        return Irreps.merge(out)
 
 
 def dense(lin, x):

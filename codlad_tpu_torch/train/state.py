@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from codlad_tpu_torch.models.vq import load_state_tree, state_tree
+
 
 def warmup_linear_schedule(lr, warmup, schedule_steps=None, final_lr=None):
     """Linear warmup, then linear decay to final_lr at schedule_steps
@@ -101,7 +103,8 @@ class TrainState:
     ({count, mu, nu}; one count serves Adam's bias correction and the
     schedule, as optax's two counts are always equal here; with
     accum_steps > 1 also `acc` and `mini_step`, MultiSteps' accumulator)
-    and the VQ state (models/vq.VQState, or None). AdamW's decoupled
+    and the VQ state (models/vq.VQState, a list of them for the multi-stage
+    quantizers, or None). AdamW's decoupled
     weight decay follows optax: u = mu_hat / (sqrt(nu_hat) + eps) +
     weight_decay * p, then p += -lr * u; the Stage-2 trainer runs it at 0,
     the Stage-1 trainer at optax's default 1e-4."""
@@ -189,7 +192,7 @@ class TrainState:
     def state_dict(self):
         return {"step": self.step, "params": self.params, "ema_params": self.ema_params,
                 "opt_state": self.opt_state, "learning_rate": self.learning_rate,
-                "vq_state": None if self.vq_state is None else self.vq_state.tensors()}
+                "vq_state": state_tree(self.vq_state)}
 
     def load_state_dict(self, sd):
         """Copy a saved state into this one's tensors (on their device)."""
@@ -206,8 +209,6 @@ class TrainState:
                     v.copy_(sd["opt_state"][m][k])
             if "mini_step" in self.opt_state:
                 self.opt_state["mini_step"] = int(sd["opt_state"]["mini_step"])
-            if self.vq_state is not None:
-                for k, v in self.vq_state.tensors().items():
-                    v.copy_(sd["vq_state"][k])
+            load_state_tree(self.vq_state, sd.get("vq_state"))
         if sd.get("learning_rate") is not None:
             self.set_learning_rate(sd["learning_rate"])

@@ -1,11 +1,11 @@
-"""Train and eval steps: Stage 2 (diffusion) and Stage 1 (VQ-VAE).
+"""Train and eval steps: Stage 2 (diffusion) and Stage 1 (the VAE modes, GenZProt).
 
 Counterparts of `make_latent_step` (process_kind="diffusion", with
 self-conditioning, classifier-free-guidance class dropout, importance
 weights for t and the per-sample aux the trainer's validation and
 loss-second-moment sampler read; the flow and backbone objectives, sequence
-sharding and distillation are not ported) and `make_vqvae_step` (mode
-"vqvae" with the plain EMA VQ) in codlad_tpu/train/steps.py. With
+sharding and distillation are not ported), `make_vqvae_step` (every mode
+and quantizer) and `make_genzprot_step` in codlad_tpu/train/steps.py. With
 `compute_dtype` the network runs on a copy of the f32 master params cast
 to that dtype (`functional_call`), so the grads flow back through the cast
 into the f32 masters, while the diffusion math stays in f32, as in the JAX
@@ -175,67 +175,118 @@ def _weights_from_array(a):
 def vq_codebook_metrics(idx, mask, n_codes):
     """Codebook health: perplexity exp(H(p)) of the batch's code distribution
     (near 1 = collapse, near n_codes = uniform use) and the fraction of codes
-    hit at least once, over the unmasked positions."""
-    idx = idx.reshape(-1)
+    hit at least once, over the unmasked positions. Multi-head and residual
+    indices [..., n] repeat each position's mask over their n codes; an
+    index >= n_codes (an FSQ code past the configured codebook size) is
+    dropped, as JAX's scatter drops it."""
+    idx = idx.reshape(-1).long()
     w = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
     if mask is not None:
         m = mask.reshape(-1).to(torch.float32)
         if m.numel() == idx.numel():
             w = m
-    counts = torch.zeros(n_codes, dtype=torch.float32, device=idx.device).index_add_(0, idx, w)
+        elif idx.numel() % m.numel() == 0:
+            w = torch.repeat_interleave(m, idx.numel() // m.numel())
+    inside = (idx >= 0) & (idx < n_codes)
+    counts = torch.zeros(n_codes, dtype=torch.float32, device=idx.device).index_add_(
+        0, torch.where(inside, idx, torch.zeros_like(idx)), w * inside.to(w.dtype))
     p = counts / torch.clamp(counts.sum(), min=1.0)
     ent = torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-30)), torch.zeros_like(p))
     return torch.exp(-ent.sum()), (counts > 0).to(torch.float32).mean()
 
 
-def make_vqvae_step(vae, *, vq_decay=0.99, commitment_weight=0.25, skip_loss_threshold=50.0):
-    """(train_step, eval_step) of the Stage-1 VQ-VAE (mode "vqvae", plain EMA
-    VQ), counterpart of `make_vqvae_step` in codlad_tpu/train/steps.py.
+def _grads(loss, params):
+    gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), gs)}
 
-    train_step(state, batch, weights_arr, return_grads=False) -> (state,
-    metrics): encode -> vq_train -> decode -> vqvae_loss_terms, loss =
-    recon + commit, grads of the f32 master params, clip + AdamW, and the
-    VQ state's EMA update. A batch whose loss is not finite or is >= 50 is
-    skipped as if the step never happened: params, moments, count, step
-    and VQ state stay as they were and `skipped` is 1. The decision is one
-    host read of the loss a step (`sync_ms` times it), taken after the
-    backward is enqueued. Plain EMA VQ draws no randomness, so the step
-    takes no seed. eval_step(state, batch, weights_arr) -> the same metric
-    keys with the codebook left as it is."""
-    from codlad_tpu_torch.models.vq import vq_quantize, vq_train
-    from codlad_tpu_torch.train.losses import vqvae_loss_terms
 
-    def forward(params, vq_state, batch, w, train):
-        h = functional_call(vae, params, (batch,))
+def _skip_or_apply(state, loss, grads, skip_loss_threshold, new_vq=None):
+    """The reference's skip rule: a batch whose loss is not finite or is >=
+    the threshold leaves the whole state (params, moments, count, step, VQ
+    state) as it was. One host read of the loss, timed. -> (good, ms)."""
+    t0 = time.perf_counter()
+    value = float(loss.detach())
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    good = math.isfinite(value) and value < skip_loss_threshold
+    if good:
+        state.apply_gradients(grads)
+        if new_vq is not None:
+            state.vq_state = new_vq
+    return good, sync_ms
+
+
+def _step_generator(seed, device):
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_vqvae_step(vae, *, vq_decay=0.99, commitment_weight=0.25, skip_loss_threshold=50.0,
+                    quantizer=None):
+    """(train_step, eval_step) of the Stage-1 VAE, counterpart of
+    `make_vqvae_step` in codlad_tpu/train/steps.py, for each `vae.mode`:
+    vqvae (the plain EMA VQ, or `quantizer`, a models/vq.Quantizer), fgvae
+    and cgvae (the latents reparametrised from (mu, sigma) in training, mu
+    at eval, plus beta * KL(N(mu, sigma) || N(0, I))) and fgae (the latents
+    as they are).
+
+    train_step(state, batch, weights_arr, return_grads=False, seed=0,
+    draws=None) -> (state, metrics): encode -> quantize or draw -> decode ->
+    vqvae_loss_terms, loss = recon + vq + beta * kl, grads of the f32 master
+    params, clip + AdamW, and the VQ state's update. The step's draws (the
+    reparametrisation's eps; the Gumbel noise or the expiry rows of the
+    quantizers that draw) come from a generator seeded with `seed` on the
+    batch's device, unless `draws` holds them ({"eps": ..., "quantizer":
+    ...}). A batch whose loss is not finite or is >= 50 is skipped as if
+    the step never happened: params, moments, count, step and VQ state stay
+    as they were and `skipped` is 1. The decision is one host read of the
+    loss a step (`sync_ms` times it), taken after the backward is enqueued.
+    The metrics are JAX's: the loss terms, vq, kl, loss and, in vqvae mode,
+    vq_perplexity and vq_usage. eval_step(state, batch, weights_arr) -> the
+    same keys with no draw and the state left as it is."""
+    from codlad_tpu_torch.models.vq import build_quantize
+    from codlad_tpu_torch.train.losses import kl_standard_normal, vqvae_loss_terms
+
+    mode = vae.mode
+    plain = quantizer is None
+    if plain:   # the codebook's size comes with the state
+        quantizer = build_quantize("vqvae", decay=vq_decay, commitment_weight=commitment_weight)
+
+    def forward(params, vq_state, batch, w, train, seed=0, draws=None):
+        draws = draws or {}
+        h, mu, sigma = functional_call(vae, params, (batch,))
         mask = batch["res_mask"]
-        if train:
-            zq, idx, vq_loss, new_vq = vq_train(vq_state, h, mask, decay=vq_decay,
-                                                commitment_weight=commitment_weight)
-        else:
-            zq, idx, vq_loss = vq_quantize(vq_state.codebook, h, mask, commitment_weight)
-            new_vq = vq_state
-        perpl, usage = vq_codebook_metrics(idx, mask, vq_state.codebook.shape[0])
+        new_vq, zero = vq_state, torch.zeros((), dtype=torch.float32, device=h.device)
+        vq_loss, kl, health = zero, zero, {}
+        draws_here = mode in ("fgvae", "cgvae") or quantizer.kind in ("gumbel", "expire")
+        gen = _step_generator(seed, h.device) if train and draws_here else None
+        if mode == "vqvae":
+            zq, idx, vq_loss, new_vq = quantizer.quantize(
+                vq_state, h, mask, train=train, generator=gen, noise=draws.get("quantizer"))
+            n_codes = vq_state.codebook.shape[0] if plain else quantizer.codebook_size
+            perpl, usage = vq_codebook_metrics(idx, mask, n_codes)
+            health = {"vq_perplexity": perpl, "vq_usage": usage}
+        elif mode in ("fgvae", "cgvae"):
+            if train:
+                eps = draws.get("eps")
+                if eps is None:
+                    eps = torch.randn(sigma.shape, generator=gen, device=sigma.device)
+                zq = mu + sigma * eps.to(sigma.dtype)
+            else:
+                zq = mu
+            kl = kl_standard_normal(mu, sigma, mask)
+        else:   # fgae
+            zq = h
         ic_recon = functional_call(vae, params, (batch, zq))
         recon, metrics = vqvae_loss_terms(batch, ic_recon, w)
-        loss = recon + vq_loss
-        metrics = dict(metrics, vq=vq_loss, kl=torch.zeros_like(loss), loss=loss,
-                       vq_perplexity=perpl, vq_usage=usage)
+        loss = recon + vq_loss + w.beta * kl
+        metrics = dict(metrics, vq=vq_loss, kl=kl, loss=loss, **health)
         return loss, {k: v.detach() for k, v in metrics.items()}, new_vq
 
-    def train_step(state, batch, weights_arr, return_grads=False):
+    def train_step(state, batch, weights_arr, return_grads=False, seed=0, draws=None):
         w = _weights_from_array(weights_arr)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        loss, metrics, new_vq = forward(params, state.vq_state, batch, w, True)
-        gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), gs)}
-        t0 = time.perf_counter()
-        value = float(loss.detach())
-        sync_ms = (time.perf_counter() - t0) * 1e3
-        good = math.isfinite(value) and value < skip_loss_threshold
-        if good:
-            state.apply_gradients(grads)
-            state.vq_state = new_vq
+        loss, metrics, new_vq = forward(params, state.vq_state, batch, w, True, seed, draws)
+        grads = _grads(loss, params)
+        good, sync_ms = _skip_or_apply(state, loss, grads, skip_loss_threshold, new_vq)
         metrics["skipped"] = torch.tensor(0.0 if good else 1.0)
         metrics["sync_ms"] = torch.tensor(sync_ms)
         if return_grads:
@@ -247,5 +298,50 @@ def make_vqvae_step(vae, *, vq_decay=0.99, commitment_weight=0.25, skip_loss_thr
         _, metrics, _ = forward(state.params, state.vq_state, batch,
                                 _weights_from_array(weights_arr), False)
         return metrics
+
+    return train_step, eval_step
+
+
+def make_genzprot_step(model, *, beta=0.05, max_kl_free=0.01, skip_loss_threshold=50.0):
+    """(train_step, eval_step) of GenZProt (models/vae.GenZProt), the
+    counterpart of `make_genzprot_step` in codlad_tpu/train/steps.py: loss =
+    recon + beta * max(KL(posterior || CG prior) - max_kl_free, 0), the
+    decoder reading a posterior draw in training (eps from a generator
+    seeded with `seed`, or `draws["eps"]`) and mu at eval; the skip rule of
+    make_vqvae_step (the whole state kept). Metrics: the loss terms, kl,
+    loss (and skipped, sync_ms in training)."""
+    from codlad_tpu_torch.train.losses import kl_gaussians, vqvae_loss_terms
+
+    def forward(params, batch, w, train, seed=0, draws=None):
+        eps = None
+        if train:
+            eps = (draws or {}).get("eps")
+            if eps is None:
+                dev = batch["res_type"].device
+                eps = torch.randn(tuple(batch["res_type"].shape) + (model.embed_dim,),
+                                  generator=_step_generator(seed, dev), device=dev)
+        mu, sigma, pmu, psigma, ic_recon = functional_call(model, params, (batch,),
+                                                           {"eps": eps})
+        recon, metrics = vqvae_loss_terms(batch, ic_recon, w)
+        kl = kl_gaussians(mu, sigma, pmu, psigma, batch["res_mask"])
+        kl = torch.clamp(kl - max_kl_free, min=0.0)
+        loss = recon + beta * kl
+        return loss, {k: v.detach() for k, v in dict(metrics, kl=kl, loss=loss).items()}
+
+    def train_step(state, batch, weights_arr, return_grads=False, seed=0, draws=None):
+        w = _weights_from_array(weights_arr)
+        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        loss, metrics = forward(params, batch, w, True, seed, draws)
+        grads = _grads(loss, params)
+        good, sync_ms = _skip_or_apply(state, loss, grads, skip_loss_threshold)
+        metrics["skipped"] = torch.tensor(0.0 if good else 1.0)
+        metrics["sync_ms"] = torch.tensor(sync_ms)
+        if return_grads:
+            metrics["grads"] = grads
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(state, batch, weights_arr):
+        return forward(state.params, batch, _weights_from_array(weights_arr), False)[1]
 
     return train_step, eval_step

@@ -60,6 +60,22 @@ def _flat(tree, prefix=("params",)):
             yield "/".join(prefix + (k,)), np.asarray(v, np.float32)
 
 
+def vq_state_arrays(vq_state):
+    """The npz keys of a quantizer's state: `vq_state/<field>` for one
+    VQState, `vq_state/<i>/<field>` for the lists of rvq and multihead, none
+    for fsq (codlad_tpu_torch.convert.from_flax.read_flax_npz reads them
+    back as its `vq_state` tree)."""
+    if vq_state is None:
+        return {}
+    states = vq_state if isinstance(vq_state, (list, tuple)) else [vq_state]
+    out = {}
+    for i, st in enumerate(states):
+        prefix = f"vq_state/{i}/" if isinstance(vq_state, (list, tuple)) else "vq_state/"
+        for field in ("codebook", "cluster_size", "embed_avg"):
+            out[prefix + field] = np.asarray(getattr(st, field), np.float32)
+    return out
+
+
 def val_frames(n_frames, index=30, seed=0, res_range=(48, 128)):
     """The first n_frames of synthetic protein `index` of the study's corpus
     (codlad_tpu/cli/preprocess.py --synthetic, --structured, --res_range)."""
@@ -190,6 +206,7 @@ def export_vqvae(args):
     np.savez_compressed(args.out, **dict(_flat(state.params["params"])), codebook=codebook,
                         cluster_size=np.asarray(state.vq_state.cluster_size, np.float32),
                         embed_avg=np.asarray(state.vq_state.embed_avg, np.float32),
+                        **vq_state_arrays(state.vq_state),
                         config=np.array(json.dumps(cfg)), stats_mean=mean, stats_std=std)
 
     pipe = SamplingPipeline(denoiser=None, denoiser_params=None, process=None,

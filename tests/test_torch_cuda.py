@@ -14,7 +14,9 @@ backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
 and K2 at every K the featurizer gives; K7 against K2's kernel then K1's,
 bit for bit; a guided self-conditioned f32 draw against the CPU, and a
-remat training step against the plain one.
+remat training step against the plain one; CGPrior's kernel calls (K8-K11
+over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
+CUDA tensors against the CPU.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -862,3 +864,85 @@ def test_remat_step_matches_the_plain_step_on_the_card(dev):
     assert n0["fused_message_sum"] == 4 and n1["fused_message_sum"] == 6
     assert n0["fused_message_edge_lnmod_drop"] == 2 and n1["fused_message_edge_lnmod_drop"] == 3
     assert n0["fused_message_sum_bwd"] == n1["fused_message_sum_bwd"] == 2
+
+
+def _stage1_batch(n_frames, n_res, seed, device):
+    from codlad_tpu_torch.data.batch import collate, quantize_spec, spec_for
+    from codlad_tpu_torch.data.cg_batch import to_device
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    ex = synthetic_examples(n_frames, n_res, seed=seed)
+    return to_device(collate(ex, quantize_spec(spec_for(ex))), device)
+
+
+def test_cgprior_kernel_calls_match_plain(dev):
+    """CGPrior's forward and backward on the card (K8-K11 over the CG graph)
+    against the same module on the CPU (the plain versions), f32: mu and
+    sigma within 1e-4, every parameter's grad within 1e-3 max|grad| + 1e-5
+    of the largest grad; 3 K10 and 3 K11 launches (one a layer), 11 K8 and
+    9 K9 (the forward's 8 gathers and 3 means, the backward's 3 and 6)."""
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.models.prior import CGPrior
+    out = {}
+    for d in ("cpu", dev):
+        prior = CGPrior(torch.Generator().manual_seed(0)).to(d)
+        batch = _stage1_batch(2, 40, 3, d)
+        kernels.reset_launches()
+        mu, sigma = prior(batch)
+        (mu.square().sum() + sigma.sum()).backward()
+        out[str(d)] = (mu.detach().cpu(), sigma.detach().cpu(),
+                       {k: p.grad.cpu() for k, p in prior.named_parameters()},
+                       kernels.launch_counts())
+    (mu_c, sg_c, g_c, _), (mu_d, sg_d, g_d, n_d) = out["cpu"], out[str(dev)]
+    assert (mu_d - mu_c).abs().max() <= 1e-4 and (sg_d - sg_c).abs().max() <= 1e-4
+    scale = max(g.abs().max() for g in g_c.values())
+    for k, g in g_c.items():
+        assert (g_d[k] - g).abs().max() <= 1e-3 * g.abs().max() + 1e-5 * scale, k
+    assert {k: v for k, v in n_d.items() if v} == {"edge_gather": 11, "edge_aggregate": 9,
+                                                    "fused_tp": 3, "fused_tp_bwd": 3}
+
+
+def test_fsq_and_gumbel_quantizers_on_cuda_match_cpu(dev):
+    """FSQ and the Gumbel / ReinMax quantizer on CUDA tensors against the
+    CPU, the same inputs, state and Gumbel noise: codes equal (FSQ's where
+    the bounded value is more than 1e-4 from a rounding boundary), z_q,
+    loss and new state within 1e-6, the gradient through the
+    straight-through within 1e-6 + 1e-5 |ref|."""
+    from codlad_tpu_torch.models import vq as TVQ
+    g = torch.Generator().manual_seed(4)
+    z = torch.randn(3, 50, 5, generator=g) * 2
+    mask = (torch.rand(3, 50, generator=g) > 0.2).float()
+    c = torch.randn(3, 50, 5, generator=g)
+    fsq = TVQ.build_quantize("fsq_5", dim=5)
+    res = {}
+    for d in ("cpu", dev):
+        zz = z.to(d).clone().requires_grad_(True)
+        zq, idx, loss, st = fsq.quantize(None, zz, mask.to(d), train=True)
+        (zq * c.to(d)).sum().backward()
+        res[str(d)] = (zq.detach().cpu(), idx.cpu(), zz.grad.cpu())
+    (zq_c, idx_c, gr_c), (zq_d, idx_d, gr_d) = res["cpu"], res[str(dev)]
+    half_l, offset, shift, _, _ = TVQ.fsq_tables(fsq.levels)
+    bounded = torch.tanh(z + shift) * half_l - offset
+    safe = ((bounded - bounded.floor() - 0.5).abs() > 1e-4).all(-1)
+    assert safe.float().mean() > 0.9
+    assert torch.equal(idx_d[safe], idx_c[safe])
+    assert (zq_d[safe] - zq_c[safe]).abs().max() <= 1e-6
+    assert ((gr_d - gr_c).abs() <= 1e-6 + 1e-5 * gr_c.abs()).all()
+
+    gq = TVQ.build_quantize("gumbel", codebook_size=32, dim=3)
+    state = gq.init(torch.Generator().manual_seed(5))
+    z3, c3 = z[..., :3].contiguous(), c[..., :3].contiguous()
+    noise = TVQ.gumbel_noise((z3.shape[0] * z3.shape[1], 32), torch.Generator().manual_seed(6))
+    res = {}
+    for d in ("cpu", dev):
+        zz = z3.to(d).clone().requires_grad_(True)
+        zq, idx, loss, st = gq.quantize(state.to(d), zz, mask.to(d), train=True,
+                                        noise=noise.to(d))
+        ((zq * c3.to(d)).sum() + loss).backward()
+        res[str(d)] = (zq.detach().cpu(), idx.cpu(), float(loss.detach()), st.to("cpu"),
+                       zz.grad.cpu())
+    (zq_c, idx_c, l_c, st_c, gr_c), (zq_d, idx_d, l_d, st_d, gr_d) = res["cpu"], res[str(dev)]
+    assert torch.equal(idx_d, idx_c) and abs(l_d - l_c) <= 1e-6
+    assert (zq_d - zq_c).abs().max() <= 1e-6
+    for k, v in st_c.tensors().items():
+        assert (st_d.tensors()[k] - v).abs().max() <= 1e-6 + 1e-6 * v.abs().max(), k
+    assert ((gr_d - gr_c).abs() <= 1e-6 + 1e-5 * gr_c.abs()).all()

@@ -103,9 +103,10 @@ def test_recon_path_matches_jax():
 def test_trained_vqvae_matches_jax_fixture():
     """The converted study checkpoint (scripts/export_flax_npz.py) on its
     fixture frames: the JAX outputs stored there at f32 tolerance."""
-    from codlad_tpu_torch.cli.test import load_vae
+    from codlad_tpu_torch.cli.test import load_vae_weights
     from codlad_tpu_torch.convert.from_flax import read_flax_npz
-    vae, codebook, cfg = load_vae(WEIGHTS, "cpu")
+    vae, snap, cfg = load_vae_weights(WEIGHTS, "cpu")
+    codebook = snap["vq_state"].codebook
     assert (cfg["embed_dim"], cfg["vqdim"], cfg["codebook_size"]) == (36, 3, 512)
     mean, std = read_flax_npz(WEIGHTS)["stats"]
     with np.load(FIXTURE) as fx:

@@ -15,7 +15,11 @@ converted denoiser on its JAX fixture, `cli.test --experiment latent` and
 whole Stage-2 trainer's and guided sampling's phases (the trainer CLI with
 every new flag, remat's memory, the accumulated self-conditioned step card
 against CPU, a guided self-conditioned draw with its kernel calls checked,
-the small f32 guided and masked draws, the guided latent CLI), tiny."""
+the small f32 guided and masked draws, the guided latent CLI), tiny; and
+the phase of the rest of Stage 1 (GenZProt's steps, GenZProt, the angle
+VQ-VAE and fgvae card vs CPU, one step of each quantizer kind, the chain
+ivae -> genzprot, angle / fsq -> extract -> recon, fgvae -> extract
+--learn_sigma), tiny."""
 
 import os
 import subprocess
@@ -172,6 +176,24 @@ SCRIPT = textwrap.dedent("""
     summary, sec, _ = chip_smoke.run_guided_cli("cpu", n_frames=2, steps=3, ensemble=2)
     assert summary["rmsd_aligned"] > 0 and sec > 0
 
+    # the rest of Stage 1, tiny: CGPrior's launches, GenZProt's steps, the
+    # three sections card vs CPU, each quantizer kind, the entry chain
+    assert "codlad_tpu_torch.models.prior" in names
+    assert chip_smoke.cgprior_launches() == {"edge_gather": 8, "edge_aggregate": 3,
+                                             "fused_tp": 3}
+    assert chip_smoke.cgprior_launches(train=True) == {
+        "edge_gather": 11, "edge_aggregate": 9, "fused_tp": 3, "fused_tp_bwd": 3}
+    _, state, step = chip_smoke.build_variant_trainer(
+        "cpu", 0, ["-train_section", "ivae", "-enc_nconv", "1", "-dec_nconv", "1"])
+    times, metrics, _ = chip_smoke.run_stage1_train(state, step, s1, 2, {})
+    assert state.step == 2 and float(metrics["kl"]) >= 0
+    chip_smoke.variant_reference(0, "cpu", n_frames=2, n_res=20, enc=1, dec=1)
+    assert set(chip_smoke.run_quantizer_kinds(0, "cpu", n_res=20)) == set(
+        chip_smoke.QUANTIZER_KINDS)
+    chain = chip_smoke.run_variant_cli(0, "cpu", n_res=(20, 24), n_frames=2, batch=2, enc=1,
+                                       dec=1, codes=16)
+    assert chain["extract_learn_sigma"]["width"] == 72
+
     chip_smoke.LATENT_WEIGHTS = chip_smoke.LATENT_WEIGHTS.with_name("missing.npz")
     try:
         chip_smoke.latent_trained("cpu", n_frames=2, steps="5", cpu_check=False)
@@ -188,3 +210,109 @@ def test_port_and_chip_smoke_import_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_module_launches_counts_only_its_module():
+    """chip_smoke.ModuleLaunches attributes to a submodule exactly the
+    launches of its forward and of its backward's nodes, with another
+    module's forward and backward nodes around and between them (a stand-in
+    autograd Function bumps the K10 / K11 counters)."""
+    import torch
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+
+    class Bump(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, name):
+            TK.LAUNCHES[name] += 1
+            ctx.kernel = name
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            TK.LAUNCHES["fused_tp_bwd" if ctx.kernel == "fused_tp" else "fused_tp"] += 1
+            return g * 2, None
+
+    class Sub(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(3))
+
+        def forward(self, b):
+            y = b["x"] * self.w
+            for _ in range(3):
+                y = Bump.apply(y, "fused_tp")
+            return y, y.sum()
+
+    class Top(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.sub, self.v = Sub(), torch.nn.Parameter(torch.ones(3))
+
+        def forward(self, b):
+            a = b["x"] * self.v
+            for _ in range(5):
+                a = Bump.apply(a, "fused_tp_bwd")
+            y, s = self.sub(b)
+            return (Bump.apply(a + y, "fused_tp_bwd") * y).sum() + s
+
+    top = Top()
+    TK.reset_launches()
+    with chip_smoke.ModuleLaunches(top.sub) as counter:
+        for _ in range(2):
+            params = dict(top.named_parameters())
+            loss = torch.func.functional_call(top, params, ({"x": torch.randn(3)},))
+            torch.autograd.grad(loss, list(params.values()))
+    assert counter.counts == {"fused_tp": 6, "fused_tp_bwd": 6}
+    assert TK.LAUNCHES == {"fused_tp": 18, "fused_tp_bwd": 18}
+    assert not top.sub._forward_hooks and not top.sub._forward_pre_hooks
+    TK.reset_launches()
+
+
+def test_float64_witness_narrows_nothing():
+    """chip_smoke's float64 CPU step (the referee of variant_reference)
+    computes every floating tensor of the forward and the backward from
+    float64 operands in float64: no op narrows a float64 input to float32
+    or bf16, for GenZProt, the angle VQ-VAE and the fgvae VAE (1 + 1
+    layers, one frame of 12 residues)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from codlad_tpu_torch.train import steps as S
+
+    narrowed = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
+            if any(t.dtype == torch.float64 for t in ins):
+                narrowed.extend(str(func) for t in tree_flatten(out)[0]
+                                if isinstance(t, torch.Tensor)
+                                and t.dtype in (torch.float32, torch.bfloat16))
+            return out
+
+    def spied(fn):
+        def run(*a, **k):
+            with Spy():
+                return fn(*a, **k)
+        return run
+
+    fc, grads = S.functional_call, S._grads
+    S.functional_call, S._grads = spied(fc), spied(grads)
+    try:
+        layers = ["-enc_nconv", "1", "-dec_nconv", "1"]
+        eps = torch.randn((1, chip_smoke.stage1_batch(7, "cpu", 1, 12)["res_type"].shape[1], 36),
+                          generator=torch.Generator().manual_seed(0))
+        for extra in (["-vqdim", "3", "-train_section", "ivae"],
+                      ["-vqdim", "3", "-codebook_size", "64", "-predict_angle"],
+                      ["-vqdim", "36", "-train_section", "fgvae"]):
+            loss, g, _, skipped = chip_smoke._variant_step("cpu", 0, extra + layers, 1, 12, eps,
+                                                           torch.float64)
+            assert not narrowed, (extra, sorted(set(narrowed)))
+            assert skipped == 0.0 and all(v.dtype == torch.float64 for v in g.values())
+    finally:
+        S.functional_call, S._grads = fc, grads

@@ -369,8 +369,22 @@ def test_cli_latent_from_the_port_trainer(shard_dir, tmp_path):
     assert _keys(summary) == _study_keys("latent")
 
 
-@pytest.mark.parametrize("flags", [["--experiment", "genzprot"],
-                                   ["--model", "icfm"], ["--seq_shards", "2"],
+def test_cli_genzprot_from_the_port_trainer(shard_dir, tmp_path):
+    """train_vqvae -train_section ivae -> test --experiment genzprot: draws
+    from GenZProt's CG prior, decoded and scored with the study's summary
+    keys (those of `latent`)."""
+    from codlad_tpu_torch.cli import train_vqvae
+
+    train_vqvae.main(["-data_dir", str(shard_dir), "-logdir", str(tmp_path / "ivae"),
+                      "-train_section", "ivae", "-batch_size", "2", "-nepochs", "1",
+                      "-enc_nconv", "1", "-dec_nconv", "1", "--device", "cpu"])
+    summary = CLI.main(["--experiment", "genzprot", "--vae_ckpt", str(tmp_path / "ivae"),
+                        "--data_dir", str(shard_dir), "--out_dir", str(tmp_path / "eval"),
+                        "--num_ensemble", "2", "--device", "cpu"])
+    assert _keys(summary) == _study_keys("latent")
+
+
+@pytest.mark.parametrize("flags", [["--model", "icfm"], ["--seq_shards", "2"],
                                    ["--save_pdb"], ["--save_xtc"]])
 def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
     args = ["--experiment", "latent", "--latent_weights", WEIGHTS, "--data_dir",

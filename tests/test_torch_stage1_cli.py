@@ -13,6 +13,9 @@
   both read, the stats and the codebook usage; `cli.test --experiment
   recon --vae_ckpt` scores the checkpoint.
 * Without a card, `--device cuda` exits non-zero in both new CLIs.
+* The fgvae section and the fsq quantizer train; an unknown quantize_type
+  raises ValueError (tests/test_torch_stage1_variants_cli.py drives the
+  rest of Stage 1).
 """
 
 import json
@@ -141,8 +144,21 @@ def test_cuda_without_a_card_exits_nonzero(run, monkeypatch):
 
 
 def test_unported_sections_raise(run):
+    """The sections and quantizers this file's run does not cover train
+    (fgvae; fsq, with its vqdim 5), and a quantize_type no package has
+    raises ValueError, as JAX's Quantizer does. (The name is the one this
+    test had while the port refused fgvae and fsq; it is kept so that the
+    test's record runs on.)"""
     d = run[0]
-    for extra in (["-train_section", "fgvae"], ["-quantize_type", "fsq"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_vqvae.main(["-data_dir", str(d / "shards"), "-logdir", str(d / "x"),
-                              "--device", "cpu", *extra])
+    for name, extra, want in (
+            ("fgvae", ["-train_section", "fgvae", "-vqdim", "36"], ("fgvae", "vqvae")),
+            ("fsq", ["-quantize_type", "fsq", "-vqdim", "5"], ("vqvae", "fsq"))):
+        state = train_vqvae.main(["-data_dir", str(d / "shards"), "-logdir", str(d / name),
+                                  *ARGS[:-4], "-enc_nconv", "1", "-dec_nconv", "1",
+                                  "-nepochs", "1", "--device", "cpu", *extra])
+        assert state.step > 0 and state.vq_state is None
+        cfg = CheckpointManager(str(d / name)).load_config()
+        assert (cfg["train_section"], cfg["quantize_type"]) == want
+    with pytest.raises(ValueError, match="unknown quantize_type"):
+        train_vqvae.main(["-data_dir", str(d / "shards"), "-logdir", str(d / "x"),
+                          "--device", "cpu", "-quantize_type", "pq"])
