@@ -230,6 +230,28 @@ Phases, each printing its seconds:
                 (launches a draw asserted), -predict_angle -quantize_type
                 fsq_5 -> extract_features -> recon, fgvae ->
                 extract_features --learn_sigma.
+ 21. flows  -- flow matching and the data I/O: the port's native host
+                library loaded (not its fallbacks), its LAP equal to
+                scipy's and its radius graph to the dense form, an XTC
+                round trip within the codec's precision; bf16 flow draws of
+                the 3+3-layer denoiser (C output channels) at B96 L128 K64
+                by euler (100 steps), midpoint (50) and rk4 (25), each
+                100 evaluations: 6 K1 and 3 K2 an evaluation and a decode's
+                K8/K9 asserted, each timed, euler beside the diffusion
+                timing phase's rate and traced (`trace_sampling`); dopri5
+                at rtol = atol = 1e-5 within 100 attempts (nfe, accepted,
+                rejected, host reads, launches asserted); f32 draws card vs
+                CPU on the CPU's conditioning (4 x 64, euler and dopri5:
+                1e-5 of max|latent|, nfe equal); 10 bf16 otcfm and sbcfm
+                steps at dropout 0.6 (launches asserted, ms/step, the host
+                LAP's ms) and 2 otcfm steps at dropout 0 (K2/K4); an f32
+                step of each card vs CPU (loss rtol 1e-6, grads 1e-3); the
+                user path: synthetic proteins written by the port's
+                write_pdb / write_xtc -> cli.preprocess --xtc_dir ->
+                features from the committed VQ-VAE -> train_latent --model
+                otcfm --bf16 -> cli.test --model otcfm --method euler
+                --save_pdb --save_xtc (launches asserted, the PDB and XTC
+                parsed back).
 
 Sampling weights, but in 15, 16, 16b and 16c (the trained weights), are the
 port's init from --seed with the adaLN heads (zero at init) drawn small and
@@ -247,8 +269,9 @@ K1 the bench shape's record and the L = 48 bucket's, keyed
 fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
 the f32 K8 and K9 records also carry latent_cli_launches, their launches
 over phase 16c's latent run; K1 and K2 guided_launches, those of 16d's
-guided draw; K1, K3 and K5's two train_full_launches, those of 13b's 8
-micro-steps; K8-K11's cgprior_* records, CGPrior's f32 calls, whose
+guided draw; K1, K2, K8 and K9 flow_launches, those of phase 21's euler
+draw, and K1-K5 flow_train_launches, those of its flow steps; K1, K3
+and K5's two train_full_launches, those of 13b's 8 micro-steps; K8-K11's cgprior_* records, CGPrior's f32 calls, whose
 launches are CGPrior's share of phase 20's GenZProt steps; every ms
 one call timed with CUDA events, and the K1-K11 records' device_ms
 (K8-K11 also library_device_ms; K3 wgrad_library_ms and
@@ -3563,6 +3586,356 @@ def phase_stage1_variants(seed, device, records, card):
         f"{ {k: round(v[0], 6) for k, v in ref.items()} }); {card}")
 
 
+# ---------------------------------------------------------------------------
+# Flow matching (ROADMAP queue 1 item 8) and the data I/O it stands on (item 7)
+
+# each fixed-step method at 100 denoiser evaluations a draw
+FLOW_STEPS = {"euler": 100, "midpoint": 50, "rk4": 25}
+FLOW_DOPRI5_STEPS = 25          # a budget of 100 attempts
+FLOW_TOL = 1e-5                 # dopri5's rtol = atol; card-vs-CPU f32 draws, of max|latent|
+FLOW_TRAIN_STEPS = 10
+FLOW_KINDS = ("otcfm", "sbcfm")
+
+
+def native_checks(seed, n_points=2000):
+    """The port's native host library is loaded (not the fallbacks), its LAP
+    equals scipy's and its radius graph the dense numpy form on random
+    inputs, and an XTC the port writes reads back within the codec's
+    precision. Returns a log line."""
+    import tempfile
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+    from codlad_tpu_torch import native
+    from codlad_tpu_torch.data.xtc import read_xtc, write_xtc
+    if not native.loaded():
+        raise RuntimeError(f"the native host library did not load: {native.load_error()}")
+    rng = np.random.default_rng(seed)
+    cost = rng.random((B, B))
+    t0 = time.perf_counter()
+    col = native.lap_solve(cost)
+    lap_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(col, linear_sum_assignment(cost)[1]):
+        raise RuntimeError("the native LAP disagrees with scipy's")
+    xyz, valid = rng.uniform(0, 40, (n_points, 3)), rng.random(n_points) > 0.1
+    pairs = native.radius_graph(xyz, valid, 9.0)
+    if not np.array_equal(pairs, native.radius_graph_dense(xyz, valid, 9.0)):
+        raise RuntimeError("the native radius graph disagrees with its dense form")
+    frames = np.cumsum(rng.normal(0, 0.05, (4, 1000, 3)), 1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_xtc(f"{tmp}/t.xtc", frames)
+        back = read_xtc(f"{tmp}/t.xtc")["xyz"]
+    err, tol = float(np.abs(back - frames).max()), 0.5 / 1000.0 + 1e-5
+    if not (back.shape == frames.shape and err <= tol):
+        raise RuntimeError(f"the XTC round trip: {back.shape}, max|d| {err} (tol {tol})")
+    return (f"native library {native.library_path().name} loaded; LAP {B}x{B} equal to "
+            f"scipy's ({lap_ms:.3f} ms); radius graph of {n_points} points, {len(pairs)} "
+            f"pairs, equal to the dense form in value and order; XTC 4 x 1000 atoms round "
+            f"trip max|d| {err:.3g} nm (tol {tol:.3g})")
+
+
+def build_flow_pipeline(device, seed, method="euler", steps=100, kind="otcfm", **kw):
+    """The production sampling pipeline (build_pipeline: 3+3 layers, hidden
+    128, gates open) with a flow denoiser (C output channels) integrating by
+    `method`."""
+    pipe = build_pipeline(device, seed, learn_sigma=False, **kw)
+    pipe.process, pipe.process_kind = None, kind
+    pipe.ode_method, pipe.ode_steps = method, steps
+    return pipe
+
+
+def flow_launches(nfe, decode=True):
+    """K1/K2 launches of nfe evaluations of the 3+3-layer denoiser, and a
+    decode's K8/K9."""
+    return {**chain_launches(nfe), **(decoder_launches() if decode else {})}
+
+
+def flow_reference(seed, device="cuda", n_frames=4, n_res=64, hidden=H, layers=3,
+                   steps=(("euler", 20), ("dopri5", 10))):
+    """f32 flow draws card (kernels) against CPU (plain versions) from the
+    same weights and noise, each method: the card's draw on the CPU's
+    conditioning (the featurizer's self-edge quaternions carry ~3e-4 of f32
+    rounding on either device, which the reference phase covers), held to
+    FLOW_TOL of max|latent|, dopri5's nfe equal; the card's draw on its own
+    conditioning logged beside. Returns {method: (max|d|, scale, nfe, own
+    max|d|)}."""
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    pipes = {dev: build_flow_pipeline(dev, seed, hidden=hidden, layers=layers,
+                                      k=min(K, n_res)) for dev in ("cpu", device)}
+    nb = synthetic_cg_batch(n_frames, n_res, seed=seed + 5)
+    noise = torch.randn((n_frames, n_res, 3), generator=torch.Generator().manual_seed(seed))
+    ex = {dev: {"res_type": b["res_type"], "cg_xyz": b["cg_xyz_og"][:, 1:-1],
+                "mask": b["res_mask"]} for dev, b in
+          ((d, to_device(nb, d)) for d in pipes)}
+    with torch.no_grad():
+        cond = pipes["cpu"].condition(ex["cpu"])
+    out = {}
+    for method, n in steps:
+        lat, nfe = {}, {}
+        for dev, pipe in pipes.items():
+            pipe.ode_method, pipe.ode_steps = method, n
+            pipe.condition = lambda e, d=dev: {k: v.to(d) for k, v in cond.items()}
+            lat[dev] = pipe.sample_latents(ex[dev], noise=noise.to(dev)).cpu()
+            nfe[dev] = pipe.last_ode["nfe"]
+        del pipes[device].condition          # the card's own conditioning
+        own = pipes[device].sample_latents(ex[device], noise=noise.to(device)).cpu()
+        scale = lat["cpu"].abs().max().item()
+        d = (lat[device] - lat["cpu"]).abs().max().item()
+        d_own = (own - lat["cpu"]).abs().max().item()
+        out[method] = (d, scale, nfe[device], d_own)
+        log(f"  flow reference {method} (f32, {n_frames} x {n_res}, {n} steps): card vs CPU "
+            f"max|d| {d:.3g} (tol {FLOW_TOL:g} x max|latent| {scale:.4g}); nfe card "
+            f"{nfe[device]}, CPU {nfe['cpu']}; on the card's own conditioning max|d| "
+            f"{d_own:.3g} (logged)")
+        if not (d <= FLOW_TOL * scale and nfe[device] == nfe["cpu"]):
+            raise RuntimeError(f"the card's f32 {method} flow draw disagrees with the CPU's")
+    return out
+
+
+def build_flow_trainer(device, seed, kind, hidden=H, layers=3, k=K, dropout=P_DROP,
+                       compute_dtype=None, lr=3e-4, gates=False):
+    """(model, TrainState, train_step) of the production denoiser trained by
+    the flow matcher `kind` (sbcfm: 2C output channels)."""
+    import torch
+    from codlad_tpu_torch.gen.flow import FLOW_MATCHERS
+    from codlad_tpu_torch.models.denoiser import MPNNDenoiser
+    from codlad_tpu_torch.train.state import TrainState, warmup_linear_schedule
+    from codlad_tpu_torch.train.steps import make_latent_step
+
+    gen = torch.Generator().manual_seed(seed)
+    model = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
+                         num_encoder_layers=layers, num_decoder_layers=layers, k_neighbors=k,
+                         dropout=dropout, learn_sigma=kind == "sbcfm")
+    if gates:
+        open_gates(model, gen)
+    model.to(device)
+    state = TrainState(dict(model.named_parameters()), warmup_linear_schedule(lr, 0),
+                       grad_clip=1.0)
+    step, _ = make_latent_step(model, FLOW_MATCHERS[kind](), process_kind=kind,
+                               dropout=dropout > 0, compute_dtype=compute_dtype)
+    return model, state, step
+
+
+def flow_train_reference(seed, kind, device="cuda", hidden=H, layers=3):
+    """One f32 flow training step at dropout 0 on a B2 L32 K16 batch, card
+    (kernels) against CPU (plain versions), the same weights and injected
+    draws (x0, t, eps); the OT coupling computed on each side. The loss
+    within rtol 1e-6 (measured 9e-8 to 1.3e-7 on an H100), each grad within
+    1e-3 of its max|grad|, train_reference's f32 limit. Returns (loss card,
+    loss CPU, rel, worst grad)."""
+    import torch
+    x1, extras = train_batch(2, 32, seed + 2, "cpu", jitter=0.1)
+    g = torch.Generator().manual_seed(seed + 3)
+    draws = {"x0": torch.randn(x1.shape, generator=g),
+             "t": 0.05 + 0.9 * torch.rand((2,), generator=g),
+             "eps": torch.randn(x1.shape, generator=g)}
+    runs = {}
+    for dev in ("cpu", device):
+        _, state, step = build_flow_trainer(dev, seed, kind, hidden=hidden, layers=layers, k=16,
+                                            dropout=0.0, gates=True, lr=1e-3)
+        state, m = step(state, x1.to(dev), {k: v.to(dev) for k, v in extras.items()}, seed,
+                        draws={k: v.to(dev) for k, v in draws.items()})
+        runs[str(dev)] = (float(m["loss"]), {k: v.cpu() for k, v in m["grads"].items()})
+    (l_c, g_c), (l_d, g_d) = runs["cpu"], runs[str(device)]
+    rel = abs(l_d - l_c) / abs(l_c)
+    worst = max(((g_d[k] - v).abs().max() / (v.abs().max() + 1e-30)).item()
+                for k, v in g_c.items())
+    log(f"  flow train reference {kind} (f32, dropout 0, card vs CPU): loss {l_d:.8g} vs "
+        f"{l_c:.8g}, rel {rel:.3g} (rtol 1e-6); worst max|dgrad|/max|grad| over {len(g_c)} "
+        f"params {worst:.3g} (tol 1e-3)")
+    if not (rel <= 1e-6 and worst <= 1e-3):
+        raise RuntimeError(f"the card's {kind} training step disagrees with the CPU's")
+    return l_d, l_c, rel, worst
+
+
+def run_flow_user_path(seed, device="cuda", n_res=(60, 90), n_frames=8, batch=8,
+                       train_steps=5, steps=20, members=2):
+    """The user's path on synthetic proteins written by the port's write_pdb
+    and write_xtc: `cli.preprocess --pdb_dir --xtc_dir` -> feature files (the
+    committed VQ-VAE's encoder latents of every frame) -> `train_latent
+    --model otcfm --bf16` for train_steps -> `cli.test --experiment latent
+    --model otcfm --method euler --save_pdb --save_xtc` with that VQ-VAE.
+    The PDB and XTC it writes are parsed back (one MODEL / frame a member).
+    Returns the summary, the test run's launches and the seconds of each
+    stage."""
+    import json
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import preprocess, train_latent
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.data.batch import to_device
+    from codlad_tpu_torch.data.pdb import parse_pdb
+    from codlad_tpu_torch.data.shards import load_protein_shard
+    from codlad_tpu_torch.data.synthetic import write_structure_files
+    from codlad_tpu_torch.data.xtc import read_xtc
+    out, sec = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        names = [f"prot_{i}" for i in range(len(n_res))]
+        for i, (name, n) in enumerate(zip(names, n_res)):
+            write_structure_files(tmp, name, n, n_frames, seed=seed + i, pdb_dir=f"{tmp}/pdb",
+                                  xtc_dir=f"{tmp}/xtc")
+        got = preprocess.main(["--pdb_dir", f"{tmp}/pdb", "--xtc_dir", f"{tmp}/xtc",
+                               "--stride", "1", "--out_dir", f"{tmp}/shards"])
+        if got["success"] != names or got["failed"]:
+            raise RuntimeError(f"cli.preprocess: {got}")
+        sec["preprocess"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vae = CLI.load_vae_weights(str(WEIGHTS), device)[0]
+        os.makedirs(f"{tmp}/features")
+        for name in names:
+            _, shard = load_protein_shard(f"{tmp}/shards/{name}.npz")
+            if shard["res_type"].shape[0] != n_frames:
+                raise RuntimeError(f"{name}: {shard['res_type'].shape[0]} frames in its shard")
+            with torch.no_grad():
+                h = vae.encode(to_device(shard, device)).float().cpu().numpy()
+            np.savez(f"{tmp}/features/{name}.npz", latents=h, res_type=shard["res_type"],
+                     cg_xyz_og=shard["cg_xyz_og"], res_mask=shard["res_mask"])
+        sec["features"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_latent.main(["--feature_dir", f"{tmp}/features", "--exp", f"{tmp}/exp",
+                           "--model", "otcfm", "--bf16", "--batch_size", str(batch),
+                           "--max_steps", str(train_steps), "--log_step", "1", "--warmup",
+                           "10", "--device", str(device)])
+        with open(f"{tmp}/exp/config.json") as f:
+            if json.load(f)["model"] != "otcfm":
+                raise RuntimeError("train_latent's config does not name the model it trained")
+        with open(f"{tmp}/exp/metrics.jsonl") as f:
+            out["losses"] = [r["loss"] for r in map(json.loads, f) if r["split"] == "train"]
+        sec["train_latent"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        out["summary"] = CLI.main(
+            ["--experiment", "latent", "--model", "otcfm", "--method", "euler",
+             "--vae_weights", str(WEIGHTS), "--latent_ckpt", f"{tmp}/exp", "--data_dir",
+             f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--num_sampling_steps", str(steps),
+             "--num_ensemble", str(members), "--save_pdb", "--save_xtc",
+             "--device", str(device)])
+        out["launches"] = kernels.launch_counts()
+        sec["test"] = time.perf_counter() - t0
+        for name, n in zip(names, n_res):
+            models = parse_pdb(f"{tmp}/eval/{name}_gen.pdb")["xyz14"]
+            traj = read_xtc(f"{tmp}/eval/{name}_gen.xtc")["xyz"]
+            # the export writes the n - 2 modeled residues; their parse models n - 4
+            if models.shape[:2] != (members, n - 4) or traj.shape[0] != members:
+                raise RuntimeError(f"{name}: the exports hold {models.shape} models and "
+                                   f"{traj.shape} frames, expected {members} of {n - 4}")
+    g = out["summary"]["__global__"]
+    if not (len(out["losses"]) == train_steps and all(map(math.isfinite, out["losses"]))
+            and all(math.isfinite(v) for v in g.values())):
+        raise RuntimeError(f"the flow user path: losses {out['losses']}, summary {g}")
+    out["seconds"] = sec
+    out["draws"] = members * len(n_res)
+    return out
+
+
+def phase_flows(seed, device, records, card, diffusion_rate=None):
+    """Phase flows: the native host helpers, full-width flow draws by every
+    solver (launches asserted; euler timed beside the diffusion timing
+    phase's rate, traced), the f32 card-vs-CPU draws, bf16 otcfm / sbcfm
+    training steps (launches asserted, the LAP's host ms), the f32
+    card-vs-CPU steps and the user path preprocess -> train_latent ->
+    cli.test. Adds flow_launches to K1, K2, K8, K9 and flow_train_launches
+    to K1-K5."""
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    from codlad_tpu_torch.gen import ot
+    from codlad_tpu_torch.gen.solvers import NFE_PER_STEP
+    t0 = time.perf_counter()
+    log("  " + native_checks(seed))
+    batch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pipe = build_flow_pipeline(device, seed, compute_dtype=torch.bfloat16)
+    rates = {}
+    for method, steps in FLOW_STEPS.items():
+        pipe.ode_method, pipe.ode_steps = method, steps
+        out = run_slice(pipe, batch, gen)
+        check_slice(out, B, L)
+        expect = flow_launches(steps * NFE_PER_STEP[method])
+        check_launches(out["launches"], expect, f"the {method} flow draw")
+        timed = run_slice(pipe, batch, gen)
+        rates[method] = (steps, timed["seconds"])
+        if method == "euler":
+            for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
+                         "edge_aggregate"):
+                records[name]["flow_launches"] = out["launches"][name]
+        log(f"  flow draw {method}, {steps} steps (bf16, B{B} L{L} K{K}, {card}): first "
+            f"{out['seconds']:.3f} s, timed {timed['seconds']:.3f} s a draw + decode "
+            f"({steps / timed['seconds']:.2f} steps/s, "
+            f"{steps * NFE_PER_STEP[method] / timed['seconds']:.2f} evaluations/s); launches "
+            f"{out['launches']} (expected {expect})")
+    pipe.ode_method, pipe.ode_steps = "euler", FLOW_STEPS["euler"]
+    names = trace_sampling(pipe, batch, seed)
+    if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+            "chain_kernel" in n for n in names):
+        raise RuntimeError(f"the traced flow steps did not run K2 on its tensor-core kernel: "
+                           f"{sorted(names)}")
+    steps, sec = rates["euler"]
+    log(f"  euler flow {steps / sec:.2f} steps/s, {sec:.3f} s a draw; the diffusion timing "
+        f"phase's {diffusion_rate if diffusion_rate is None else round(diffusion_rate, 2)} "
+        f"steps/s (100 ddim100 steps + decode) in this run")
+    pipe.ode_method, pipe.ode_steps = "dopri5", FLOW_DOPRI5_STEPS
+    pipe.ode_rtol = pipe.ode_atol = FLOW_TOL
+    out = run_slice(pipe, batch, gen)
+    check_slice(out, B, L)
+    ode = pipe.last_ode
+    check_launches(out["launches"], flow_launches(ode["nfe"]), "the dopri5 flow draw")
+    log(f"  flow draw dopri5 (rtol = atol = {FLOW_TOL:g}, budget {4 * FLOW_DOPRI5_STEPS} "
+        f"attempts): nfe {ode['nfe']}, accepted {ode['accepted']}, rejected "
+        f"{ode['rejected']}, host syncs {ode['host_syncs']}, reached t {ode['t']:.4f}, "
+        f"{out['seconds']:.3f} s a draw + "
+        f"decode; launches {out['launches']} (asserted: 6 K1 and 3 K2 an evaluation)")
+    del pipe, out
+    flow_reference(seed, device)
+    t_sample = time.perf_counter() - t0
+
+    x1, extras = train_batch(B, L, seed + 1, device)
+    per_step = train_launches(3, 3, P_DROP)
+    totals = dict.fromkeys(per_step, 0)
+    for kind in FLOW_KINDS:
+        _, state, step = build_flow_trainer(device, seed, kind, compute_dtype=torch.bfloat16)
+        ot.reset_lap_stats()
+        times, metrics, tot = run_train(state, step, x1, extras, seed, FLOW_TRAIN_STEPS,
+                                        per_step)
+        lap = dict(ot.LAP_STATS)
+        totals = {k: totals[k] + tot[k] for k in totals}
+        log(f"  flow train {kind}: {FLOW_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
+            f"{P_DROP}: median {statistics.median(times[1:]):.2f} ms/step (first "
+            f"{times[0]:.1f} ms); the exact OT's host LAP {lap['ms'] / lap['calls']:.3f} ms a "
+            f"step ({lap['calls']} calls, the copy to the host included); launches a step "
+            f"{per_step} (asserted); last loss {float(metrics['loss']):.5g}"
+            + (f", score {float(metrics['score']):.5g}" if "score" in metrics else ""))
+        del state, step
+    _, state, step = build_flow_trainer(device, seed, "otcfm", dropout=0.0,
+                                        compute_dtype=torch.bfloat16)
+    p0 = train_launches(3, 3, 0.0)
+    times, _, tot0 = run_train(state, step, x1, extras, seed, 2, p0)
+    for name in set(totals) | set(p0):
+        records[name]["flow_train_launches"] = totals.get(name, 0) + tot0[name]
+    log(f"  flow train otcfm at dropout 0: {statistics.median(times):.2f} ms/step; launches a "
+        f"step {p0} (asserted)")
+    del state, step, x1, extras
+    for kind in FLOW_KINDS:
+        flow_train_reference(seed, kind, device)
+    t_train = time.perf_counter() - t0 - t_sample
+
+    user = run_flow_user_path(seed, device)
+    expect = {k: v * user["draws"] for k, v in flow_launches(20).items()}
+    check_launches(user["launches"], expect, "the flow user path's cli.test")
+    g = user["summary"]["__global__"]
+    log(f"  user path: preprocess (PDB + XTC, 2 proteins x 8 frames) -> features -> "
+        f"train_latent --model otcfm --bf16 (losses {[round(x, 4) for x in user['losses']]}) "
+        f"-> cli.test --model otcfm --method euler --save_pdb --save_xtc: rmsd_aligned "
+        f"{g['rmsd_aligned']:.4f}, ged {g['ged']:.4f}, div {g['div']:.4f}; launches "
+        f"{({k: v for k, v in user['launches'].items() if v})} (asserted); PDB and XTC parsed "
+        f"back; seconds {({k: round(v, 2) for k, v in user['seconds'].items()})}")
+    log(f"phase flows: {time.perf_counter() - t0:.2f} s (sampling {t_sample:.2f} s, training "
+        f"{t_train:.2f} s); {card}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3636,6 +4009,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     if not torch.isfinite(xyz).all():
         raise RuntimeError("timed run produced non-finite xyz14")
+    diffusion_rate = steps / dt
     log(f"phase timing: {dt:.3f} s for {steps} denoise steps + decode "
         f"({steps / dt:.2f} steps/s, batch {B}x{L}, bf16 denoiser)")
     b48, l48, k48 = K48
@@ -3971,6 +4345,7 @@ def main(argv=None):
         f"{chain['test_recon']['ged']:.4f}")
 
     phase_stage1_variants(args.seed, device, records, card)
+    phase_flows(args.seed, device, records, card, diffusion_rate)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

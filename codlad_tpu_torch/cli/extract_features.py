@@ -67,6 +67,7 @@ def main(argv=None):
               file=sys.stderr)
         raise SystemExit(1)
     from codlad_tpu_torch.cli.test import load_vae_ckpt
+    from codlad_tpu_torch.data.batch import compress_indices, decompress_indices, to_device
     from codlad_tpu_torch.data.norm import compute_stats, save_stats
     from codlad_tpu_torch.data.shards import ShardDataset, load_protein_shard
 
@@ -96,7 +97,7 @@ def main(argv=None):
                       for k, v in sl.items()}
             with torch.no_grad():
                 h, mu, sigma = vae.encode_full(
-                    {k: torch.as_tensor(v, device=dev) for k, v in sl.items()})
+                    decompress_indices(to_device(compress_indices(sl), dev)))
                 if mode in ("fgvae", "cgvae"):
                     if args.learn_sigma:
                         h, mu = torch.cat([mu, sigma], dim=-1), None

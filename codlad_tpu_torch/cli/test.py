@@ -13,9 +13,11 @@ logdir of the port's cli/train_latent.py (`--latent_ckpt`); `--use_ema`
 
 Per protein, the first --batch_size frames are scored:
 * latent: --num_ensemble draws of `--num_sampling_steps` respaced steps of
-  the denoiser (ancestral, or `--sampler ddim` at `--ddim_eta`; guided by
-  classifier-free guidance at `--cfg_scale` != 0, against the null residue
-  token), in bf16 unless `--no-bf16`, de-normalised with
+  the denoiser (ancestral, or `--sampler ddim` at `--ddim_eta`; for a flow
+  `--model` the ODE from noise by `--method` euler, midpoint, rk4 or dopri5
+  (at `--rtol` / `--atol`, within 4 x --num_sampling_steps attempts); guided
+  by classifier-free guidance at `--cfg_scale` != 0, against the null
+  residue token), in bf16 unless `--no-bf16`, de-normalised with
   --stats_name/--stats_dir (identity without), snapped to the codebook,
   decoded and scored; the members' mean per metric, DIV, and every
   member's metrics (`per_ensemble`);
@@ -32,7 +34,11 @@ multihead carry a codebook a stage or head, fsq none), through which
 `latent`, `prior` and `recon` snap their latents (no snap for fsq and the
 modes without VQ, as in JAX).
 The per-protein metrics and their mean and std over proteins go to
-`{out_dir}/summary_stats.json` with the JAX CLI's keys.
+`{out_dir}/summary_stats.json` with the JAX CLI's keys. `--save_pdb` and
+`--save_xtc` write each protein's ensemble of its first frame as
+`{name}_gen.pdb` (multi-MODEL) and `{name}_gen.xtc` (nm), and recon's
+decoded frames as `{name}_recon.pdb`, with the JAX CLI's writers
+(data/pdb.py, data/xtc.py).
 
     python -m codlad_tpu_torch.cli.test --experiment latent \
         --vae_weights weights/convergence_vqvae.npz \
@@ -48,9 +54,12 @@ As the JAX CLI does, the sampling process is built without the run's
 `self_condition` and `predict_xstart`: a self-conditioned denoiser gets
 zeros as x_self_cond at every step, and an x_start-predicting one is read
 as predicting eps.
-Options the port does not have yet raise NotImplementedError naming the
-ROADMAP queue-1 item that brings them: `--model` other than diffusion
-(item 8), `--seq_shards` (item 10), `--save_pdb` / `--save_xtc` (item 7). Member s
+`--seq_shards`, which the port does not have yet, raises
+NotImplementedError naming ROADMAP queue 1 item 10. As in JAX, the
+denoiser's output width follows the run config's `model` (2C for diffusion
+and sbcfm) and the process follows `--model`; an sbcfm denoiser cannot be
+integrated (its 2C channels do not fit the C-channel state), and the draw
+raises where the JAX CLI's fails. Member s
 of an ensemble draws from torch.Generator(device).manual_seed(seed + s),
 so the port's draws are not the JAX package's.
 """
@@ -88,6 +97,10 @@ def build_parser():
     p.add_argument("--num_ensemble", type=int, default=10)
     p.add_argument("--cfg_scale", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=96)
+    p.add_argument("--method", default="euler", choices=["euler", "midpoint", "rk4", "dopri5"],
+                   help="ODE solver of the flow models")
+    p.add_argument("--rtol", type=float, default=1e-5, help="dopri5 relative tolerance")
+    p.add_argument("--atol", type=float, default=1e-5, help="dopri5 absolute tolerance")
     p.add_argument("--sampler", default="ancestral", choices=["ancestral", "ddim"])
     p.add_argument("--ddim_eta", type=float, default=0.0,
                    help="DDIM stochasticity (0 = deterministic)")
@@ -97,8 +110,10 @@ def build_parser():
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--use_ema", action=argparse.BooleanOptionalAction, default=True,
                    help="--no-use_ema evaluates the raw (non-EMA) Stage-2 weights")
-    p.add_argument("--save_pdb", action="store_true", default=False)
-    p.add_argument("--save_xtc", action="store_true", default=False)
+    p.add_argument("--save_pdb", action="store_true", default=False,
+                   help="write the ensembles as multi-MODEL PDB (reference test.py:804-816)")
+    p.add_argument("--save_xtc", action="store_true", default=False,
+                   help="write the ensembles as xtc trajectories (reference test.py:787-803)")
     p.add_argument("--doubled_batch", action="store_true", default=False,
                    help="reproduce the reference's doubled-batch sampling")
     p.add_argument("--ensemble_fold", type=int, default=1,
@@ -113,12 +128,9 @@ def build_parser():
 def refuse_unported(args):
     """NotImplementedError, naming the ROADMAP queue-1 item, for an option
     the port does not have yet."""
-    missing = [(args.model != "diffusion", f"--model {args.model} (flow matching)", 8),
-               (args.seq_shards != 0, "--seq_shards (sequence parallelism)", 10),
-               (args.save_pdb, "--save_pdb", 7), (args.save_xtc, "--save_xtc", 7)]
-    for hit, what, item in missing:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1 item {item})")
+    if args.seq_shards != 0:
+        raise NotImplementedError("--seq_shards (sequence parallelism) is not ported "
+                                  "(ROADMAP queue 1 item 10)")
 
 
 def _vae_from_config(cfg):
@@ -239,6 +251,38 @@ def load_latent(args, device, latent_size):
     raise SystemExit("test: --experiment latent needs --latent_weights or --latent_ckpt")
 
 
+def export_ensembles(out_dir, fname, batch, structures, save_pdb, save_xtc):
+    """The ensemble of a protein's first frame (structures [S, B, L, 14, 3]
+    Å) as `{name}_gen.pdb` and / or `{name}_gen.xtc` (nm), as the JAX CLI's
+    `_export_ensembles` writes them (reference test.py:787-816)."""
+    from codlad_tpu_torch.data.pdb import write_pdb
+    from codlad_tpu_torch.data.xtc import write_xtc
+    from codlad_tpu_torch.geometry import residues as R
+
+    base = fname.replace(".npz", "")
+    n_valid = int(np.asarray(batch["res_mask"][0].cpu()).sum())
+    res_type = np.asarray(batch["res_type"][0].cpu())[:n_valid]
+    frames = structures[:, 0, :n_valid]
+    if save_pdb:
+        og_res = np.concatenate([res_type[:1], res_type, res_type[-1:]])
+        write_pdb(os.path.join(out_dir, f"{base}_gen.pdb"), og_res, np.zeros_like(og_res),
+                  frames)
+    if save_xtc:
+        write_xtc(os.path.join(out_dir, f"{base}_gen.xtc"),
+                  frames[:, R.ATOM14_EXISTS[res_type]] / 10.0)
+
+
+def write_recon_pdb(out_dir, fname, batch, xyz14):
+    """recon's decoded frames as `{name}_recon.pdb` (the JAX CLI's recon
+    export: the first frame's sequence, every frame a MODEL)."""
+    from codlad_tpu_torch.data.pdb import write_pdb
+
+    rt = np.asarray(batch["res_type"].cpu())
+    og_res = np.concatenate([rt[:, :1], rt, rt[:, -1:]], axis=1)[0]
+    write_pdb(os.path.join(out_dir, fname.replace(".npz", "_recon.pdb")), og_res,
+              np.zeros_like(og_res), np.asarray(xyz14.cpu()))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from codlad_tpu_torch.data.norm import load_stats
@@ -246,6 +290,7 @@ def main(argv=None):
     from codlad_tpu_torch.eval.harness import (SamplingPipeline, evaluate_structures,
                                                run_ensemble)
     from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.gen.flow import FLOW_MATCHERS
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -267,14 +312,19 @@ def main(argv=None):
     denoiser = process = None
     if args.experiment == "latent":
         denoiser, lat_cfg = load_latent(args, device, latent_size)
-        process = create_diffusion(str(args.num_sampling_steps),
-                                   diffusion_steps=lat_cfg.get("diffusion_steps", 1000),
-                                   learn_sigma=True)
+        if args.model == "diffusion":
+            process = create_diffusion(str(args.num_sampling_steps),
+                                       diffusion_steps=lat_cfg.get("diffusion_steps", 1000),
+                                       learn_sigma=True)
+        else:
+            process = FLOW_MATCHERS[args.model]()
     pipe = SamplingPipeline(denoiser=denoiser, process=process, vae=vae, codebook=None, **snap,
                             norm_mean=mean, norm_std=std, latent_size=latent_size,
                             compute_dtype=torch.bfloat16 if args.bf16 else None,
                             sampler=args.sampler, ddim_eta=args.ddim_eta,
-                            doubled_batch=args.doubled_batch, cfg_scale=args.cfg_scale)
+                            doubled_batch=args.doubled_batch, cfg_scale=args.cfg_scale,
+                            process_kind=args.model, ode_steps=args.num_sampling_steps,
+                            ode_method=args.method, ode_rtol=args.rtol, ode_atol=args.atol)
 
     def prior_sample(generator, b):
         lat = torch.randn(tuple(b["res_type"].shape) + (latent_size,), generator=generator,
@@ -291,15 +341,23 @@ def main(argv=None):
         t0 = time.time()
         log_fn = (lambda s, m: print(f"  {fname} ensemble {s}: " + " ".join(
             f"{k}={v:.4f}" for k, v in m.items()), flush=True))
+        export = args.save_pdb or args.save_xtc
         if args.experiment == "recon":
             h = pipe.encode_latents(batch)
             ic, xyz14 = pipe.decode(batch, pipe.normalise(h))
             agg = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
+            if args.save_pdb:
+                write_recon_pdb(args.out_dir, fname, batch, xyz14)
         else:
             sample_fn = {"prior": prior_sample,
                          "genzprot": lambda g, b: genzprot_sample(vae, g, b)}.get(args.experiment)
             agg = run_ensemble(pipe, batch, args.num_ensemble, seed=args.seed,
-                               sample_fn=sample_fn, log_fn=log_fn, fold=args.ensemble_fold)
+                               sample_fn=sample_fn, log_fn=log_fn, fold=args.ensemble_fold,
+                               return_structures=export)
+            if export:
+                agg, structures = agg
+                export_ensembles(args.out_dir, fname, batch, structures, args.save_pdb,
+                                 args.save_xtc)
         agg["wallclock_sec"] = time.time() - t0
         summary[fname] = agg
         print(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()

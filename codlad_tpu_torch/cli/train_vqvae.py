@@ -163,6 +163,8 @@ def main(argv=None):
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("train_vqvae: no CUDA device (--device cpu trains on the CPU)", file=sys.stderr)
         raise SystemExit(1)
+    from codlad_tpu_torch.data.batch import compress_indices, to_device
+    from codlad_tpu_torch.data.prefetch import prefetch
     from codlad_tpu_torch.data.shards import MixedShardDataset, ShardDataset
     from codlad_tpu_torch.train.checkpoints import CheckpointManager
     from codlad_tpu_torch.train.logging_utils import (
@@ -234,11 +236,16 @@ def main(argv=None):
     # schedule's epoch-keyed weights make val losses incomparable across epochs
     w_val = weights_to_array(base_w)
 
+    def device_batches(data):
+        # the host pipeline on prefetch's thread, overlapped with the device
+        # step; edge lists travel as uint16 (the step widens them again)
+        for hb in data:
+            yield to_device(compress_indices({k: np.asarray(v) for k, v in hb.items()}), dev)
+
     def run(data, train, w):
         nonlocal state
         sums, n = {}, 0
-        for i, hb in enumerate(data):
-            b = {k: torch.as_tensor(v, device=dev) for k, v in hb.items()}
+        for i, b in enumerate(prefetch(device_batches(data))):
             if train:
                 state, metrics = train_step(state, b, w,
                                             seed=pass_seed(args.seed, epoch * 100000 + i))

@@ -118,15 +118,15 @@ def denoiser_from_config(cfg, latent_size=3):
     """The f32 MPNNDenoiser (random weights, dropout 0) of a Stage-2 run
     config (the JAX trainer's modelparams.json or the port's config.json),
     as codlad_tpu/cli/test.py:219-224 builds it for evaluation: from the
-    keys `backbone`, `model`, `adaln_mode` and `self_condition`. Raises
+    keys `backbone`, `model` (2C output channels, learn_sigma, for diffusion
+    and sbcfm; C for the other flows and backbone), `adaln_mode` and
+    `self_condition`. Raises
     NotImplementedError for an option the port lacks, and ValueError for a
     `decoder_mask` config, a model JAX's evaluation does not build either
     (it reads no such key)."""
     from codlad_tpu_torch.models.denoiser import MPNNDenoiser
 
     model = cfg.get("model", "diffusion")
-    if model != "diffusion":
-        raise NotImplementedError(f"--model {model}: flow matching is ROADMAP queue 1 item 8")
     for key, item in _MISSING.items():
         if cfg.get(key):
             raise NotImplementedError(f"{key} is not ported (ROADMAP queue 1 item {item})")
@@ -137,7 +137,7 @@ def denoiser_from_config(cfg, latent_size=3):
     if backbone != "mpnn_diffusion":
         raise ValueError(f"unknown denoiser backbone {backbone!r}")
     return MPNNDenoiser(torch.Generator().manual_seed(0), input_size=latent_size,
-                        learn_sigma=True, dropout=0.0,
+                        learn_sigma=model in ("diffusion", "sbcfm"), dropout=0.0,
                         adaln_mode=cfg.get("adaln_mode", "trunk"),
                         self_condition=bool(cfg.get("self_condition", False)))
 

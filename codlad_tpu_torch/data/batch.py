@@ -1,9 +1,11 @@
 """Static padded batching for variable-length proteins.
 
 A copy of `PadSpec`, `spec_for`, `LENGTH_LATTICE`, `quantize_spec`,
-`merge_specs`, `pad_example` and `collate` from codlad_tpu/data/batch.py:
-every extent padded to a length bucket and an edge capacity, with boolean
-masks for validity.
+`merge_specs`, `pad_example`, `collate` and `compress_indices` from
+codlad_tpu/data/batch.py: every extent padded to a length bucket and an edge
+capacity, with boolean masks for validity. `to_device` and
+`decompress_indices` carry the compressed edge lists to the card and back to
+int32 there.
 """
 
 from __future__ import annotations
@@ -131,3 +133,34 @@ def collate(examples, spec: PadSpec | None = None):
     spec = spec or spec_for(examples)
     padded = [pad_example(e, spec) for e in examples]
     return {k: np.stack([p[k] for p in padded]) for k in padded[0]}
+
+
+def compress_indices(batch):
+    """Edge-index arrays downcast to uint16 for the host -> device copy
+    (flat atom14 indices < 14 L, so uint16 is exact for L <= 4681; the edge
+    lists are the bulk of a Stage-1 batch's bytes). Pair with
+    `decompress_indices` on the device."""
+    L = batch["res_type"].shape[-1] if "res_type" in batch else None
+    if L is None or L * 14 > np.iinfo(np.uint16).max:
+        return batch
+    return {k: (v.astype(np.uint16) if k in EDGE_KEYS and v.dtype == np.int32 else v)
+            for k, v in batch.items()}
+
+
+def to_device(batch, device):
+    """numpy batch -> tensors on `device`; uint16 arrays travel as their
+    int16 bit pattern (torch's uint16 has few operations on every build)."""
+    import torch
+
+    return {k: torch.as_tensor(v.view(np.int16) if v.dtype == np.uint16 else v,
+                               device=device) for k, v in batch.items()}
+
+
+def decompress_indices(batch):
+    """Compressed edge lists (the int16 bit pattern `to_device` carries, or
+    uint16) back to int32 indices; every other entry as it is."""
+    import torch
+
+    small = {torch.int16, getattr(torch, "uint16", torch.int16)}
+    return {k: ((v.to(torch.int32) & 0xFFFF) if k in EDGE_KEYS and v.dtype in small else v)
+            for k, v in batch.items()}

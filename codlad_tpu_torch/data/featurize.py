@@ -3,11 +3,11 @@
 A copy of codlad_tpu/data/featurize.py: per-frame internal coordinates,
 atom and CG radius graphs as undirected edge lists over flat `res*14+slot`
 indices, the order-2 covalent bond pairs, the interaction lists and the
-clash pairs. The two places where the JAX package leaves numpy are done in
-numpy here: the radius graph is the dense O(N^2) form that
-codlad_tpu/native.py falls back to (not its g++ cell list), and the bond
-reachability expands adjacency lists instead of scipy's sparse products.
-Both give the same pairs in the same sorted order.
+clash pairs. The radius graph is the port's native cell list
+(codlad_tpu_torch/native.py, as the JAX featurizer uses its own), or its
+dense numpy form where the library is not loaded; the bond reachability
+expands adjacency lists instead of scipy's sparse products. Each gives the
+same pairs in the same sorted order as the JAX package.
 """
 
 from __future__ import annotations
@@ -16,11 +16,9 @@ import dataclasses
 
 import numpy as np
 
+from codlad_tpu_torch import native
 from codlad_tpu_torch.data.np_geometry import np_extract_ic
 from codlad_tpu_torch.geometry import residues as R
-
-_FAR = 1.0e6  # sentinel offset that excludes absent atom slots from graphs
-
 
 @dataclasses.dataclass
 class FeaturizeConfig:
@@ -37,15 +35,9 @@ def flat_index(L: int):
 
 
 def _radius_edges(xyz_flat, valid, cutoff):
-    """Undirected (i<j) edges among valid flat atoms within cutoff, sorted
-    (the numpy fallback of codlad_tpu/native.py `radius_graph`)."""
-    xyz = np.ascontiguousarray(xyz_flat, dtype=np.float64)
-    valid = np.asarray(valid, dtype=bool)
-    n = xyz.shape[0]
-    pos = np.where(valid[:, None], xyz, _FAR * (1.0 + np.arange(n, dtype=np.float64))[:, None])
-    d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
-    ii, jj = np.where((d <= cutoff) & np.triu(np.ones((n, n), dtype=bool), k=1))
-    return np.stack([ii, jj], axis=-1).astype(np.int32)
+    """Undirected (i<j) edges among valid flat atoms within cutoff, sorted:
+    the native cell list when the library is loaded, else its dense form."""
+    return native.radius_graph(xyz_flat, valid, cutoff)
 
 
 def _compose(pairs, adj_ptr, adj_dst):

@@ -1,6 +1,7 @@
 """Per-protein `.npz` shards and constant-size batches over them.
 
-Copies of `save_protein_shard`, `load_protein_shard`, `iter_padded_batches`,
+Copies of `save_protein_shard`, `load_protein_shard`, `preprocess_structure`,
+`repad_shard_data`, `align_shard_buckets`, `iter_padded_batches`,
 `ShardDataset` and `MixedShardDataset` from codlad_tpu/data/shards.py: one shard holds every
 featurized frame of one protein, padded to a PadSpec snapped onto the
 global bucket lattice, so shards written by the JAX `cli.preprocess` and by
@@ -44,6 +45,61 @@ def load_protein_shard(path):
     with np.load(path, allow_pickle=False) as z:
         spec = B.PadSpec(**json.loads(str(z["__spec__"])))
         return spec, {k: z[k] for k in z.files if k != "__spec__"}
+
+
+def preprocess_structure(struct, prot_idx=0, cfg=None, max_frames=None):
+    """Parsed structure dict (data/pdb.py `parse_pdb`) -> featurized examples,
+    one a frame (the first max_frames)."""
+    from codlad_tpu_torch.data.featurize import featurize_frame
+
+    frames = struct["cg_xyz_og"].shape[0]
+    if max_frames is not None:
+        frames = min(frames, max_frames)
+    return [featurize_frame(struct["res_type_og"], struct["chain_id_og"],
+                            struct["cg_xyz_og"][f], struct["xyz14"][f], cfg=cfg,
+                            prot_idx=prot_idx)
+            for f in range(frames)]
+
+
+def repad_shard_data(data, old_spec: B.PadSpec, new_spec: B.PadSpec):
+    """Grow a shard's padded arrays from old_spec to new_spec (same or larger
+    extents; the new rows carry False masks and zeros)."""
+    out = {}
+    grow_L = new_spec.L - old_spec.L
+    for k, v in data.items():
+        if k in B.EDGE_KEYS or (k.endswith("_mask") and k[:-5] in B.EDGE_KEYS):
+            key = k if k in B.EDGE_KEYS else k[:-5]
+            pad = [(0, 0)] * v.ndim
+            pad[1] = (0, new_spec.edge_capacity(key) - old_spec.edge_capacity(key))
+            out[k] = np.pad(v, pad)
+        elif v.ndim >= 2 and v.shape[1] in (old_spec.L, old_spec.L + 2):
+            pad = [(0, 0)] * v.ndim
+            pad[1] = (0, grow_L)
+            out[k] = np.pad(v, pad)
+        else:
+            out[k] = v
+    return out
+
+
+def align_shard_buckets(directory):
+    """Unify the PadSpecs of a shard directory: within each length bucket,
+    every shard is re-padded to the bucket's upper envelope of edge
+    capacities, so that proteins of one bucket share batch shapes (and
+    MixedShardDataset can mix them). Returns {L: merged spec}."""
+    files = sorted(f for f in os.listdir(directory) if f.endswith(".npz"))
+    specs = {f: load_protein_shard(os.path.join(directory, f))[0] for f in files}
+    by_L = {}
+    for f in files:
+        by_L.setdefault(specs[f].L, []).append(f)
+    merged = {L: B.merge_specs(specs[f] for f in group) for L, group in by_L.items()}
+    for f in files:
+        new_spec = merged[specs[f].L]
+        if new_spec == specs[f]:
+            continue
+        path = os.path.join(directory, f)
+        data = repad_shard_data(load_protein_shard(path)[1], specs[f], new_spec)
+        _savez_fast(path, __spec__=np.array(json.dumps(dataclasses.asdict(new_spec))), **data)
+    return merged
 
 
 def iter_padded_batches(data, batch_size, idx, n_valid=None):

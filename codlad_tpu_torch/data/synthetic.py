@@ -206,3 +206,34 @@ def corpus_protein(index, n_frames, seed=0, res_range=(48, 128), structured=True
         n_res = int(lens_rng.integers(res_range[0], res_range[1] + 1))
     return synthetic_examples(n_frames, n_res, seed=seed + index, prot_idx=index,
                               structured=structured)
+
+
+def write_structure_files(out_dir, name, n_res, n_frames, seed=0, pdb_dir=None, xtc_dir=None):
+    """A synthetic protein of n_res residues as files a user would bring:
+    its first frame as `{name}.pdb` (the topology) and all n_frames as
+    `{name}.xtc` (nm), written by data/pdb.py `write_pdb` and data/xtc.py
+    `write_xtc`; the frames are random_protein's with the trace jittered by
+    N(0, 0.3^2) Å and fresh side chains. Returns the frames' xyz14 [F,
+    n_res, 14, 3] (Å) and res_type [n_res]."""
+    import os
+
+    from codlad_tpu_torch.data.pdb import write_pdb
+    from codlad_tpu_torch.data.xtc import write_xtc
+
+    rng = np.random.default_rng(seed)
+    # two more residues around the ones written: write_pdb writes the modeled
+    # residues [1:-1] of its res_type_og
+    res_type_og, chain_id_og, cg, xyz14 = random_protein(rng, n_res + 2)
+    frames = [xyz14]
+    for _ in range(n_frames - 1):
+        jit = (cg + rng.normal(0, 0.3, cg.shape)).astype(np.float64)
+        frames.append(np_ic_to_xyz14(jit, random_ic(rng, res_type_og[1:-1]),
+                                     res_type_og[1:-1]).astype(np.float32))
+    frames = np.stack(frames)
+    pdb_dir, xtc_dir = pdb_dir or out_dir, xtc_dir or out_dir
+    os.makedirs(pdb_dir, exist_ok=True)
+    os.makedirs(xtc_dir, exist_ok=True)
+    write_pdb(os.path.join(pdb_dir, f"{name}.pdb"), res_type_og, chain_id_og, frames[:1])
+    res_type = res_type_og[1:-1]
+    write_xtc(os.path.join(xtc_dir, f"{name}.xtc"), frames[:, R.ATOM14_EXISTS[res_type]] / 10.0)
+    return frames, res_type

@@ -4,13 +4,21 @@
 Counterpart of codlad_tpu/eval/harness.py:
 
 * `SamplingPipeline.sample_and_decode`: ancestral or DDIM diffusion
-  sampling with the VQ snap (no sequence sharding, no flows),
+  sampling, or for a flow `process_kind` the ODE from noise at t = 0 to
+  t = 1 (gen/solvers.py `odeint`: `ode_method` euler, midpoint, rk4 or
+  dopri5, `ode_steps` steps or, for dopri5, its budget of 4 x ode_steps
+  attempts at `ode_rtol` / `ode_atol`; t enters the denoiser as the
+  continuous f32 time, the state stays f32 and only the denoiser's input is
+  cast), with the VQ snap (no sequence sharding),
   with classifier-free guidance at `cfg_scale` != 0 (JAX
   `_sample_from_cond_cfg`): the conditioning is computed for the batch and
   for its null-token copy (res_type vocab - 1, the CG trace kept), every
   step runs one denoise over cat(x, x) on cat(cond, uncond), and the mean
   channels become u + cfg_scale * (c - u) while the variance channels come
-  from c; guidance takes precedence over `doubled_batch`. A self-conditioned
+  from c (the flows' velocity channels are the mean); guidance takes
+  precedence over `doubled_batch`. An sbcfm denoiser emits 2C channels
+  (velocity and score) for a C-channel state, which the ODE cannot take:
+  the draw raises, as the JAX pipeline's does. A self-conditioned
   process's x_self_cond is doubled with x, and cast with x to the compute
   dtype (the JAX pipeline passes it in f32, which promotes its bf16
   network's activations to f32). With `compute_dtype` set, the weights
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from codlad_tpu_torch.eval import metrics as M
+from codlad_tpu_torch.gen.solvers import odeint
 from codlad_tpu_torch.geometry.internal import ic_to_xyz14
 from codlad_tpu_torch.models.vq import Quantizer, VQState
 from codlad_tpu_torch.train.losses import ic_terms, xyz_term
@@ -75,10 +84,16 @@ class SamplingPipeline:
     cfg_scale: float = 0.0      # != 0: classifier-free guidance
     quantizer: Any = None       # models.vq.Quantizer of the run
     vq_state: Any = None        # its state (a list for rvq / multihead); None: no snap
+    process_kind: str = "diffusion"  # 'diffusion' | a flow name (gen/flow.py)
+    ode_steps: int = 100        # flows: the solver's steps (dopri5: a quarter of its budget)
+    ode_method: str = "euler"   # flows: euler | midpoint | rk4 | dopri5
+    ode_rtol: float = 1e-5      # dopri5's tolerances
+    ode_atol: float = 1e-5
 
     def __post_init__(self):
         if self.sampler not in ("ancestral", "ddim"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
+        self.last_ode = {}      # a flow draw's nfe (and dopri5's attempts, host reads)
         if self.codebook is not None:
             self.quantizer = Quantizer("vqvae", *self.codebook.shape)
             self.vq_state = VQState.of_codebook(self.codebook)
@@ -138,10 +153,33 @@ class SamplingPipeline:
             c, u = out[:B], out[B:]
             return torch.cat([u[..., :C] + cfg * (c[..., :C] - u[..., :C]), c[..., C:]], -1)
 
+        if self.process_kind != "diffusion":
+            return self._integrate(model_fn, noise, step_hook)
         kw = dict(noise=noise, noises=noises, generator=generator, step_hook=step_hook)
         if self.sampler == "ddim":
             return self.process.ddim_sample_loop(model_fn, noise.shape, eta=self.ddim_eta, **kw)
         return self.process.p_sample_loop(model_fn, noise.shape, **kw)
+
+    def _integrate(self, model_fn, noise, step_hook=None):
+        """A flow draw: the ODE dx/dt = model_fn(x, t) from the noise at t = 0
+        to t = 1 (JAX `_run_process`'s flow branch)."""
+        B, C = noise.shape[0], noise.shape[-1]
+
+        def velocity(t, x):
+            out = model_fn(x, t.expand(B))
+            if out.shape[-1] != C:
+                raise ValueError(
+                    f"the denoiser emits {out.shape[-1]} channels for a {C}-channel ODE state "
+                    f"(sbcfm's velocity and score): x + dt f cannot broadcast, and the JAX "
+                    f"pipeline fails at the same point")
+            return out
+
+        stats = {}
+        x, nfe = odeint(velocity, noise.to(torch.float32), 0.0, 1.0, steps=self.ode_steps,
+                        method=self.ode_method, rtol=self.ode_rtol, atol=self.ode_atol,
+                        stats=stats, step_hook=step_hook)
+        self.last_ode = dict(stats, nfe=nfe)
+        return x
 
     @torch.no_grad()
     def encode_latents(self, batch):

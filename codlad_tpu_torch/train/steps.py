@@ -1,10 +1,11 @@
 """Train and eval steps: Stage 2 (diffusion) and Stage 1 (the VAE modes, GenZProt).
 
-Counterparts of `make_latent_step` (process_kind="diffusion", with
+Counterparts of `make_latent_step` (process_kind "diffusion", with
 self-conditioning, classifier-free-guidance class dropout, importance
 weights for t and the per-sample aux the trainer's validation and
-loss-second-moment sampler read; the flow and backbone objectives, sequence
-sharding and distillation are not ported), `make_vqvae_step` (every mode
+loss-second-moment sampler read; the flow matchers of gen/flow.py, sbcfm's
+velocity-and-score loss and the `backbone` regression; sequence sharding
+and distillation are not ported), `make_vqvae_step` (every mode
 and quantizer) and `make_genzprot_step` in codlad_tpu/train/steps.py. With
 `compute_dtype` the network runs on a copy of the f32 master params cast
 to that dtype (`functional_call`), so the grads flow back through the cast
@@ -20,6 +21,12 @@ host from the seed; its no-grad first pass keys its dropout masks and its
 class-dropout draw by `pass_seed(seed, 1)`, the main pass by the seed itself
 (JAX's k_sc and k_model differ too). The coin and the class-dropout vectors
 can be passed in instead.
+
+Flow randomness: x0 ~ N(0, I), then the matcher's draws (an OT matcher's
+plan pick, t, eps; gen/flow.py) come from one generator seeded with the
+step's seed on the batch's device, unless `draws` holds them ({"x0", "t",
+"eps", "pick"}), which is how the tests replay JAX's split chain (k_x0,
+k_fm, k_drop).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import time
 import torch
 from torch.func import functional_call
 
+from codlad_tpu_torch.data.batch import decompress_indices
 from codlad_tpu_torch.gen.timestep_sampler import UniformSampler
 from codlad_tpu_torch.kernels.mpnn_kernels import _lowbias32
 from codlad_tpu_torch.train.state import global_norm
@@ -62,16 +70,27 @@ def self_cond_coin(seed):
     return bool(torch.rand((), generator=torch.Generator().manual_seed(int(seed))) < 0.5)
 
 
+def masked_l2(pred, target, mask):
+    """The reference's 'l2' loss: the mean squared error over the unmasked
+    tokens' channels (train_module.py:27-56)."""
+    m = torch.broadcast_to(mask[..., None], pred.shape).to(pred.dtype)
+    return ((pred - target) ** 2 * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+FLOW_KINDS = ("fm", "icfm", "vpfm", "otcfm", "sbcfm")
+
+
 def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.9999,
                      dropout=True, compute_dtype=None, class_dropout_prob=0.0):
     """(train_step, eval_step) for the denoiser `model` (an MPNNDenoiser)
-    and the GaussianDiffusion `process`. class_dropout_prob > 0 replaces a
+    and `process`: the GaussianDiffusion of process_kind "diffusion", a flow
+    matcher (gen/flow.py) of a flow kind, or None for "backbone" (x1
+    regressed from noise at t = 1). class_dropout_prob > 0 replaces a
     training sample's sequence by the null token (vocab - 1) with that
     probability, in every pass."""
-    if process_kind != "diffusion":
-        raise NotImplementedError(f"process_kind {process_kind!r} is not ported "
-                                  "(flows: ROADMAP queue 1 item 8)")
-    sampler = UniformSampler(process.num_timesteps)
+    if process_kind not in ("diffusion", "backbone") + FLOW_KINDS:
+        raise ValueError(f"unknown process_kind {process_kind!r}")
+    sampler = UniformSampler(process.num_timesteps) if process_kind == "diffusion" else None
     null_id = model.vocab - 1
 
     def model_apply(params, x, t, seed, extras, x_self_cond=None, train=True, drop=None):
@@ -92,8 +111,36 @@ def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.99
                                "x_self_cond": x_self_cond})
         return out.to(torch.float32)
 
+    def flow_loss_fn(params, x1, extras, seed, train, draws, class_drop):
+        # masked-token means (masked_l2): padded samples add nothing to either
+        # side, and `weight`, the token count, weighs validation batches
+        draws = draws or {}
+        mask = extras["mask"]
+        token_w = mask.to(torch.float32).sum()
+        gen = torch.Generator(device=x1.device).manual_seed(int(seed))
+        x0 = draws.get("x0")
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=gen, device=x1.device)
+        drop = class_drop[0] if isinstance(class_drop, (tuple, list)) else class_drop
+        apply = lambda x, t: model_apply(params, x, t, seed, extras, train=train, drop=drop)
+        if process_kind == "backbone":
+            vt = apply(x0, torch.ones((x1.shape[0],), dtype=x1.dtype, device=x1.device))
+            return masked_l2(vt, x1, mask), {"weight": token_w}
+        t, xt, ut, eps = process.sample_location_and_conditional_flow(
+            x0, x1, t=draws.get("t"), eps=draws.get("eps"), generator=gen,
+            pick=draws.get("pick"), return_noise=True)
+        out = apply(xt, t)
+        if process_kind != "sbcfm":
+            return masked_l2(out, ut, mask), {"weight": token_w}
+        # sbcfm: a denoiser of 2C channels, velocity then score
+        vt, st = out.chunk(2, dim=-1)
+        score = torch.mean((process.compute_lambda(t)[:, None, None] * st + eps) ** 2)
+        return masked_l2(vt, ut, mask) + score, {"score": score.detach(), "weight": token_w}
+
     def loss_fn(params, x1, extras, seed, train=True, t=None, noise=None, t_weights=None,
-                self_cond=None, class_drop=None):
+                self_cond=None, class_drop=None, draws=None):
+        if process_kind != "diffusion":
+            return flow_loss_fn(params, x1, extras, seed, train, draws, class_drop)
         mask = extras["mask"]
         B, dev = x1.shape[0], x1.device
         maskf = mask.to(torch.float32)
@@ -129,18 +176,20 @@ def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.99
         return loss, aux
 
     def train_step(state, x1, extras, seed, t=None, noise=None, t_weights=None,
-                   self_cond=None, class_drop=None):
+                   self_cond=None, class_drop=None, draws=None):
         """One (micro-)step: loss, grads of the f32 masters, the optimizer
         (clip + AdamW, on every N-th micro-step under gradient accumulation)
         and the EMA. t_weights [B] weigh the per-sample losses (the
         loss-second-moment sampler's). self_cond: the self-conditioning
         coin; class_drop: the class-dropout vector (bool [B]) of both
-        passes, or (main pass, first pass). Returns (state, metrics: loss,
-        mse, the unclipped grad_norm of this micro-step's grads, the grads,
-        and the aux: loss_per_sample, t, valid_mask, weight, self_cond)."""
+        passes, or (main pass, first pass); draws: a flow step's injected
+        draws (x0, t, eps, pick). Returns (state, metrics: loss, the
+        unclipped grad_norm of this micro-step's grads, the grads, and the
+        aux: diffusion's mse, loss_per_sample, t, valid_mask, weight,
+        self_cond; a flow's weight (the token count) and sbcfm's score)."""
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         loss, aux = loss_fn(params, x1, extras, seed, t=t, noise=noise, t_weights=t_weights,
-                            self_cond=self_cond, class_drop=class_drop)
+                            self_cond=self_cond, class_drop=class_drop, draws=draws)
         gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), gs)}
@@ -150,11 +199,12 @@ def make_latent_step(model, process, *, process_kind="diffusion", ema_decay=0.99
         return state, dict(aux, loss=loss.detach(), grad_norm=gnorm, grads=grads)
 
     @torch.no_grad()
-    def eval_step(state, x1, extras, seed, t=None, noise=None, self_cond=None):
+    def eval_step(state, x1, extras, seed, t=None, noise=None, self_cond=None, draws=None):
         """The loss without dropout and without an update, with the aux
-        (`weight`: the batch's valid samples, the validation's weight)."""
+        (`weight`: the validation's weight, the batch's valid samples for
+        diffusion and its tokens for the flows)."""
         loss, aux = loss_fn(state.params, x1, extras, seed, train=False, t=t, noise=noise,
-                            self_cond=self_cond)
+                            self_cond=self_cond, draws=draws)
         return dict(aux, loss=loss)
 
     return train_step, eval_step
@@ -252,6 +302,7 @@ def make_vqvae_step(vae, *, vq_decay=0.99, commitment_weight=0.25, skip_loss_thr
 
     def forward(params, vq_state, batch, w, train, seed=0, draws=None):
         draws = draws or {}
+        batch = decompress_indices(batch)
         h, mu, sigma = functional_call(vae, params, (batch,))
         mask = batch["res_mask"]
         new_vq, zero = vq_state, torch.zeros((), dtype=torch.float32, device=h.device)
@@ -313,6 +364,7 @@ def make_genzprot_step(model, *, beta=0.05, max_kl_free=0.01, skip_loss_threshol
     from codlad_tpu_torch.train.losses import kl_gaussians, vqvae_loss_terms
 
     def forward(params, batch, w, train, seed=0, draws=None):
+        batch = decompress_indices(batch)
         eps = None
         if train:
             eps = (draws or {}).get("eps")

@@ -2,7 +2,7 @@
 """Warm sampling rates of the PyTorch port (codlad_tpu_torch) on one GPU.
 
     python3 scripts/torch_sampling_rates.py [--draws 9] [--seed 0]
-        [--adaln_mode trunk|residual] [--trained]
+        [--adaln_mode trunk|residual] [--trained] [--flow euler|midpoint|rk4]
 
 Drives the bf16 sampling path through `chip_smoke.build_pipeline` and
 `chip_smoke.run_slice` (100 denoise steps and the decode, random weights
@@ -17,6 +17,9 @@ K6) instead of the trunk one (K2). `--trained` drives the converted trained
 denoiser and VQ-VAE (`chip_smoke.trained_pipeline`, weights/) on the
 convergence study's val proteins instead, their first 96 frames by the
 study's recipe: prot_0030 (B96 L64) and prot_0031 (B96 L96), K 64.
+`--flow METHOD` drives the flow pipeline instead (`chip_smoke.build_flow_pipeline`:
+the same denoiser with C output channels, integrated by METHOD over 100
+denoiser evaluations); its rates are solver steps/s.
 
 It imports chip_smoke.py and codlad_tpu_torch from the checkout that holds
 it, so two commits compare on one card by running each checkout's copy from
@@ -41,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--adaln_mode", choices=("trunk", "residual"), default="trunk")
     ap.add_argument("--trained", action="store_true",
                     help="the trained weights on the study's val proteins (trunk adaLN)")
+    ap.add_argument("--flow", choices=("euler", "midpoint", "rk4"), default=None,
+                    help="a flow draw by this solver, 100 evaluations (random weights)")
     args = ap.parse_args(argv)
 
     import torch
@@ -63,8 +68,15 @@ def main(argv=None):
             batches[f"l{nb['res_type'].shape[1]}"] = {
                 k: torch.as_tensor(v, device=device) for k, v in nb.items()}
     else:
-        pipe = S.build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
-                                adaln_mode=args.adaln_mode)
+        if args.flow:
+            from codlad_tpu_torch.gen.solvers import NFE_PER_STEP
+            pipe = S.build_flow_pipeline(device, args.seed, method=args.flow,
+                                         steps=100 // NFE_PER_STEP[args.flow],
+                                         compute_dtype=torch.bfloat16,
+                                         adaln_mode=args.adaln_mode)
+        else:
+            pipe = S.build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
+                                    adaln_mode=args.adaln_mode)
         batches = {name: to_device(synthetic_cg_batch(b, l, seed=args.seed + i), device)
                    for i, (name, (b, l)) in enumerate((("l128", (S.B, S.L)),
                                                        ("l48", S.K48[:2])))}
@@ -78,8 +90,8 @@ def main(argv=None):
             out = S.run_slice(pipe, batch, gen)
             S.check_slice(out, *shapes[name])
             seconds[name].append(out["seconds"])
-    steps = pipe.process.num_timesteps
-    result = {"card": S.gpu_line(), "adaln_mode": args.adaln_mode,
+    steps = pipe.ode_steps if args.flow else pipe.process.num_timesteps
+    result = {"card": S.gpu_line(), "adaln_mode": args.adaln_mode, "flow": args.flow,
               "weights": "trained" if args.trained else "random", "steps": steps,
               **{f"{name}_s": s for name, s in seconds.items()},
               **{f"{name}_steps_per_s": steps / statistics.median(s)

@@ -16,7 +16,8 @@ and K2 at every K the featurizer gives; K7 against K2's kernel then K1's,
 bit for bit; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
-CUDA tensors against the CPU.
+CUDA tensors against the CPU; an f32 flow draw by each solver against the
+CPU, with its K1/K2 launches per denoiser evaluation.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -946,3 +947,34 @@ def test_fsq_and_gumbel_quantizers_on_cuda_match_cpu(dev):
     for k, v in st_c.tensors().items():
         assert (st_d.tensors()[k] - v).abs().max() <= 1e-6 + 1e-6 * v.abs().max(), k
     assert ((gr_d - gr_c).abs() <= 1e-6 + 1e-5 * gr_c.abs()).all()
+
+
+@pytest.mark.parametrize("method,steps,evals", [("euler", 4, 4), ("midpoint", 2, 4),
+                                                ("rk4", 1, 4), ("dopri5", 2, None)])
+def test_flow_draw_launches_and_matches_the_cpu(dev, method, steps, evals):
+    """An f32 flow draw (1 + 1 layers, C output channels) by each solver on
+    the card and on the CPU from the same x0: one K1 a layer and one K2 an
+    encoder layer per denoiser evaluation (dopri5: 7 an attempt), nfe equal,
+    the latents within 1e-4 of max|latent| (each side on its own
+    conditioning, as the guided test above)."""
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.eval.harness import SamplingPipeline
+
+    extras = _jittered_batch(2, 32, 5)
+    noise = torch.randn(extras["res_type"].shape + (3,), generator=torch.Generator().manual_seed(6))
+    out, nfe = {}, {}
+    for d in ("cpu", dev):
+        pipe = SamplingPipeline(denoiser=_small_denoiser(d, learn_sigma=False), process=None,
+                                vae=None, codebook=None, norm_mean=[0.0] * 3, norm_std=[1.0] * 3,
+                                process_kind="otcfm", ode_method=method, ode_steps=steps)
+        kernels.reset_launches()
+        out[str(d)] = pipe.sample_latents({k: v.to(d) for k, v in extras.items()},
+                                          noise=noise.to(d)).cpu()
+        nfe[str(d)] = pipe.last_ode["nfe"]
+    launches = kernels.launch_counts()
+    n = nfe[str(dev)]
+    assert n == nfe["cpu"] and (evals is None or n == evals)
+    assert launches["fused_message_sum"] == 2 * n and launches["fused_message_edge_lnmod"] == n
+    got, want = out[str(dev)], out["cpu"]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -60,6 +60,18 @@ from test_torch_chain_bwd_tiles import (MMA_ROWS, _gelu_grad, _in_order, _slab_s
 from test_torch_chain_tiles import (DTYPES, F32, H, SLAB, UNIT, _cast, _k16, _quad_sum,  # noqa: F401
                                     _round, gelu_exp, interpret)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread: the suite runs this file beside its other
+    workers on the same cores, where torch's thread pools oversubscribe
+    them; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P_DROP = 0.6
 NAMES = ("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3", "dsh", "dsc", "dgate")
 CLOSE = ("dE", "dW_e", "dW2")   # held to the closer mean limit in bf16

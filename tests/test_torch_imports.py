@@ -19,16 +19,22 @@ the small f32 guided and masked draws, the guided latent CLI), tiny; and
 the phase of the rest of Stage 1 (GenZProt's steps, GenZProt, the angle
 VQ-VAE and fgvae card vs CPU, one step of each quantizer kind, the chain
 ivae -> genzprot, angle / fsq -> extract -> recon, fgvae -> extract
---learn_sigma), tiny."""
+--learn_sigma), tiny; and the flows phase's parts (the native host
+library loaded and checked, a flow draw by each solver, the f32 reference
+draws, otcfm and sbcfm steps and their card-vs-CPU step, the user path
+preprocess -> train_latent --model otcfm -> cli.test --save_pdb --save_xtc),
+tiny."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
+BLOCKER = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "codlad_tpu")
@@ -61,10 +67,14 @@ SCRIPT = textwrap.dedent("""
     # cores, where torch's thread pools oversubscribe them
     torch.set_num_threads(1)
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    batch = to_device(synthetic_cg_batch(2, 12, seed=0), "cpu")
+    x1, extras = chip_smoke.train_batch(2, 12, 1, "cpu")
+""")
+
+SCRIPT = BLOCKER + textwrap.dedent("""
     pipe = chip_smoke.build_pipeline("cpu", 0, hidden=32, layers=1, k=8,
                                      codebook_size=64, respacing="ddim5",
                                      compute_dtype=torch.bfloat16)
-    batch = to_device(synthetic_cg_batch(2, 12, seed=0), "cpu")
     out = chip_smoke.run_slice(pipe, batch, torch.Generator().manual_seed(0))
     chip_smoke.check_slice(out, 2, 16)
     assert {"fused_message_sum", "fused_message_edge_lnmod"} <= set(out["launches"])
@@ -87,7 +97,6 @@ SCRIPT = textwrap.dedent("""
     chip_smoke.reference_check(0, device="cpu", adaln_mode="residual")
 
     # the training phases, tiny, with the CPU standing in for the card
-    x1, extras = chip_smoke.train_batch(2, 12, 1, "cpu")
     model, state, step = chip_smoke.build_trainer("cpu", 0, hidden=32, layers=1, k=8,
                                                   compute_dtype=torch.bfloat16)
     times, metrics, totals = chip_smoke.run_train(state, step, x1, extras, 0, 3, {},
@@ -112,6 +121,12 @@ SCRIPT = textwrap.dedent("""
                                     adaln_mode="residual")
     assert len(rows) == 2
 
+    print("imported", len(names), "modules")
+""")
+
+# the later phases in processes of their own: one script for all of them
+# ran close to its 300 s limit beside the suite's other workers
+STAGE1_SCRIPT = BLOCKER + textwrap.dedent("""
     # the Stage-1 recon phases, tiny, with the CPU standing in for the card
     s1 = chip_smoke.stage1_batch(0, "cpu", 2, 20)
     out = chip_smoke.run_recon(chip_smoke.build_recon("cpu", 0), s1)
@@ -135,6 +150,11 @@ SCRIPT = textwrap.dedent("""
                                       dec=2, codes=16)
     assert chain["train_vqvae"]["epochs"] == ["0", "1", "2"]
 
+    print("Stage-1 phases rehearsed")
+""")
+
+TRAINED_SCRIPT = BLOCKER + textwrap.dedent("""
+    s1 = chip_smoke.stage1_batch(0, "cpu", 2, 20)
     # the trained Stage-2 phases, tiny: the f32 fixture check, the latent and
     # prior CLI (no hold at this size), a bf16 draw; a missing weights file
     # fails the phase
@@ -200,7 +220,43 @@ SCRIPT = textwrap.dedent("""
         raise SystemExit("latent_trained ran without its weights file")
     except FileNotFoundError:
         pass
-    print("imported", len(names), "modules")
+    print("later phases rehearsed")
+""")
+
+
+FLOWS_SCRIPT = BLOCKER + textwrap.dedent("""
+    # flow matching and the data I/O, tiny: the native checks, a draw by every
+    # solver, the f32 reference draws, otcfm / sbcfm steps and their
+    # reference, the user path preprocess -> train_latent -> cli.test
+    for name in ("native", "data.pdb", "data.xtc", "data.prefetch", "cli.preprocess",
+                 "gen.flow", "gen.ot", "gen.solvers"):
+        assert "codlad_tpu_torch." + name in names, name
+    from codlad_tpu_torch import native
+    assert native.loaded(), native.load_error()
+    chip_smoke.native_checks(0, n_points=200)
+    fp = chip_smoke.build_flow_pipeline("cpu", 0, hidden=32, layers=1, k=8, codebook_size=64,
+                                        compute_dtype=torch.bfloat16)
+    for method, steps in (("euler", 2), ("midpoint", 1), ("rk4", 1), ("dopri5", 1)):
+        fp.ode_method, fp.ode_steps = method, steps
+        chip_smoke.check_slice(chip_smoke.run_slice(fp, batch, torch.Generator().manual_seed(0)),
+                               2, 16)
+        assert fp.last_ode["nfe"] > 0, fp.last_ode
+    assert chip_smoke.flow_launches(4) == {"fused_message_sum": 24,
+                                           "fused_message_edge_lnmod": 12, "edge_gather": 6,
+                                           "edge_aggregate": 4}
+    ref = chip_smoke.flow_reference(0, "cpu", n_frames=2, n_res=16, hidden=32, layers=1,
+                                    steps=(("euler", 2), ("dopri5", 1)))
+    assert set(ref) == {"euler", "dopri5"}
+    for kind in chip_smoke.FLOW_KINDS:
+        _, state, step = chip_smoke.build_flow_trainer("cpu", 0, kind, hidden=32, layers=1, k=8,
+                                                       compute_dtype=torch.bfloat16)
+        times, metrics, _ = chip_smoke.run_train(state, step, x1, extras, 0, 2, {})
+        assert state.step == 2 and ("score" in metrics) == (kind == "sbcfm")
+        chip_smoke.flow_train_reference(0, kind, "cpu", hidden=32, layers=1)
+    user = chip_smoke.run_flow_user_path(0, "cpu", n_res=(20, 24), n_frames=2, batch=2,
+                                         train_steps=2, steps=2, members=2)
+    assert user["draws"] == 4 and len(user["losses"]) == 2
+    print("flows rehearsed")
 """)
 
 
@@ -210,6 +266,29 @@ def test_port_and_chip_smoke_import_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+@pytest.mark.parametrize("script,done", [
+    (STAGE1_SCRIPT, "Stage-1 phases rehearsed"), (TRAINED_SCRIPT, "later phases rehearsed")],
+    ids=["stage1", "trained_stage2_and_variants"])
+def test_later_phases_run_without_jax(script, done):
+    """chip_smoke's Stage-1 phases, and its trained Stage-2, whole-trainer,
+    guided and Stage-1-variant phases, tiny, under the same import blocker."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert done in proc.stdout
+
+
+def test_flows_phase_parts_run_without_jax():
+    """chip_smoke's flows phase, tiny, under the same import blocker: the
+    new modules import, the native library loads, and each part runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", FLOWS_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "flows rehearsed" in proc.stdout
 
 
 def test_module_launches_counts_only_its_module():

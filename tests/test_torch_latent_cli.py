@@ -50,6 +50,18 @@ from codlad_tpu_torch.eval.metrics import diversity
 from codlad_tpu_torch.gen import diffusion as TD
 from codlad_tpu_torch.models.denoiser import MPNNDenoiser
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread: the suite runs this file beside its other
+    workers on the same cores, where torch's thread pools oversubscribe
+    them; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "convergence_latent.npz")
 VAE_WEIGHTS = os.path.join(REPO, "weights", "convergence_vqvae.npz")
@@ -384,8 +396,7 @@ def test_cli_genzprot_from_the_port_trainer(shard_dir, tmp_path):
     assert _keys(summary) == _study_keys("latent")
 
 
-@pytest.mark.parametrize("flags", [["--model", "icfm"], ["--seq_shards", "2"],
-                                   ["--save_pdb"], ["--save_xtc"]])
+@pytest.mark.parametrize("flags", [["--seq_shards", "2"]])
 def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
     args = ["--experiment", "latent", "--latent_weights", WEIGHTS, "--data_dir",
             str(shard_dir), "--out_dir", str(tmp_path / "eval"), *CLI_ARGS, *flags]
@@ -393,10 +404,19 @@ def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
         CLI.main(args)
 
 
-@pytest.mark.parametrize("cfg", [{"distill_tmap": [999, 499]}, {"model": "otcfm"}])
+@pytest.mark.parametrize("cfg", [{"distill_tmap": [999, 499]}])
 def test_denoiser_config_refuses_what_is_not_ported(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         denoiser_from_config(cfg)
+
+
+@pytest.mark.parametrize("model,out", [("diffusion", 6), ("sbcfm", 6), ("otcfm", 3),
+                                       ("icfm", 3), ("fm", 3), ("vpfm", 3), ("backbone", 3)])
+def test_denoiser_config_builds_every_model(model, out):
+    """learn_sigma (2C output channels) for diffusion and sbcfm only, as the
+    JAX CLI builds its denoiser (codlad_tpu/cli/test.py:219-220)."""
+    den = denoiser_from_config({"model": model})
+    assert den.w_out.Dense_1.out_features == out
 
 
 def test_denoiser_config_refuses_a_decoder_mask():
