@@ -252,6 +252,33 @@ Phases, each printing its seconds:
                 otcfm --bf16 -> cli.test --model otcfm --method euler
                 --save_pdb --save_xtc (launches asserted, the PDB and XTC
                 parsed back).
+ 22. distill -- progressive distillation: 20 bf16 steps of
+                make_distill_step at B96 L128 K64 (ddim100 -> 50, the
+                student starting as the teacher), launches asserted every
+                step (18 K1, 9 K2, 6 K3, 3 K4: two teacher evaluations and
+                the student's forward, and its backward), median ms/step,
+                peak memory, the last step traced (K1-K4 must run as
+                message_sum_mma_kernel, message_edge_lnmod_mma_kernel,
+                message_sum_bwd_mma_kernel and
+                message_edge_lnmod_bwd_mma_kernel<0>); one f32 step card vs
+                CPU (as 12.); the user path with the trained weights:
+                cli.extract_features --vae_weights on 16c's val shards,
+                one round of cli.distill (100 -> 50, --teacher_weights, bf16),
+                the distillation loss of a held batch before and after it
+                (it must fall), cli.test --latent_ckpt on the student (DDIM
+                on its 50-step grid: 300 K1 + 150 K2 a draw asserted) beside
+                the teacher's 100-step DDIM means.
+ 23. parallel -- K1-K4 at the sequence-sharded shape (B96, 64 local rows
+                of a node table of N 128, K 64), both dtypes, against their
+                plain versions (records *_seq); cli.train_latent and
+                cli.train_vqvae -dp without a process group and then in a
+                process group of one rank (NCCL, made from torchrun's
+                variables): their losses equal (rtol 1e-3); on that rank
+                ring_knn against the dense kNN, the seq-mode denoiser's f32
+                forward and step against the dense ones, one bf16 seq-mode
+                step, the dryrun twin (parallel/dryrun.py), and a bf16
+                training step with and without that rank's mesh, timed in
+                turns; with two cards, the dryrun twin on two NCCL ranks.
 
 Sampling weights, but in 15, 16, 16b and 16c (the trained weights), are the
 port's init from --seed with the adaLN heads (zero at init) drawn small and
@@ -270,7 +297,11 @@ fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
 the f32 K8 and K9 records also carry latent_cli_launches, their launches
 over phase 16c's latent run; K1 and K2 guided_launches, those of 16d's
 guided draw; K1, K2, K8 and K9 flow_launches, those of phase 21's euler
-draw, and K1-K5 flow_train_launches, those of its flow steps; K1, K3
+draw, and K1-K5 flow_train_launches, those of its flow steps; K1-K4
+distill_launches, those of phase 22's 20 steps, and K1, K2
+distill_cli_launches, those of its student's draws; the *_seq records
+(K1-K4 at N != L, each dtype), whose launches are those of phase 23's
+seq-mode steps on one rank (where N = L); K1, K3
 and K5's two train_full_launches, those of 13b's 8 micro-steps; K8-K11's cgprior_* records, CGPrior's f32 calls, whose
 launches are CGPrior's share of phase 20's GenZProt steps; every ms
 one call timed with CUDA events, and the K1-K11 records' device_ms
@@ -283,11 +314,14 @@ non-zero, printing no result, without a CUDA device or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -630,15 +664,18 @@ def check_slice(out, n_frames, n_res):
             raise RuntimeError(f"{key} is not finite")
 
 
-def kernel_inputs(dtype, seed, device, dims=(B, L, K)):
-    """Full-width K1/K2 operands in the layout the main path gives them."""
+def kernel_inputs(dtype, seed, device, dims=(B, L, K), n_nodes=None):
+    """Full-width K1/K2 operands in the layout the main path gives them;
+    n_nodes: the node table's rows N (default L), as the sequence-sharded
+    denoiser gives them (L local edge rows, idx into the gathered N)."""
     import torch
     b, l, k = dims
+    n = n_nodes or l
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(device)
     return dict(
-        A=r(b, l, H).to(dtype), E=r(b, l, k, H).to(dtype), Gn=r(b, l, H).to(dtype),
-        idx=torch.randint(0, l, (b, l, k), generator=g, dtype=torch.int32).to(device),
+        A=r(b, l, H).to(dtype), E=r(b, l, k, H).to(dtype), Gn=r(b, n, H).to(dtype),
+        idx=torch.randint(0, n, (b, l, k), generator=g, dtype=torch.int32).to(device),
         mask=(torch.rand(b, l, k, generator=g) > 0.2).float().to(device),
         W_e=r(H, H, sc=H ** -0.5).to(dtype), W2=r(H, H, sc=H ** -0.5).to(dtype),
         b2=r(H, sc=0.1), W3=r(H, H, sc=H ** -0.5).to(dtype), b3=r(H, sc=0.1),
@@ -650,8 +687,9 @@ def kernel_calls(x):
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     es = x["E"].element_size()
     b, l, k, _ = x["E"].shape
+    n = x["Gn"].shape[1]
     n_edge = b * l * k
-    chain_in = (b * l * H + n_edge * H + b * l * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
+    chain_in = (b * l * H + n_edge * H + b * n * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
     s_args = [x[k] for k in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3", "b3")]
     e_args = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3",
                              "sh", "sc", "g")]
@@ -735,16 +773,17 @@ def replay_ms(*fns, n=20, reps=5):
     return tuple(statistics.median(t) for t in times)
 
 
-def check_kernels(device, seed, dims=(B, L, K)):
+def check_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=False):
     """Every kernel against its plain version, both dtypes, timed a call
     (CUDA events) and on the device (`replay_ms`, the records'
     device_ms); returns the bf16 (main-path dtype) record of each kernel,
-    with its shape."""
+    with its shape, and with f32_records also the f32 one (key
+    `<name>_f32`). n_nodes: see kernel_inputs."""
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        x = kernel_inputs(dtype, seed, device, dims)
+        x = kernel_inputs(dtype, seed, device, dims, n_nodes)
         atol, rtol = TOL[dname]
         for name, (kern, plain, nbytes, flops) in kernel_calls(x).items():
             got = kern()
@@ -757,7 +796,7 @@ def check_kernels(device, seed, dims=(B, L, K)):
             (dev_ms,) = replay_ms(kern)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_OPS[dname] * 1e3
-            log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g} (atol {atol:g} + "
+            log(f"kernel {name} {dname} {dims_tag(dims, n_nodes)}: max|d|={err:.3g} (atol {atol:g} + "
                 f"rtol {rtol:g}*|ref|) "
                 f"{'ok' if ok else 'FAIL'}; a call (events) kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms; "
@@ -765,9 +804,10 @@ def check_kernels(device, seed, dims=(B, L, K)):
                 f"{flops / 1e9:.1f} GFLOP)")
             if not ok:
                 raise RuntimeError(f"{name} ({dname}) disagrees with its plain version")
-            if dtype == torch.bfloat16:
-                records[name] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
-                                     shape=dims_tag(dims), device_ms=dev_ms)
+            if dtype == torch.bfloat16 or f32_records:
+                key = name if dtype == torch.bfloat16 else f"{name}_f32"
+                records[key] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
+                                    shape=dims_tag(dims, n_nodes), device_ms=dev_ms)
         del x
     return records
 
@@ -831,19 +871,22 @@ def compare_grads(label, got, want, dname):
     return worst
 
 
-def dims_tag(dims):
-    return "B{} L{} K{}".format(*dims)
+def dims_tag(dims, n_nodes=None):
+    tag = "B{} L{} K{}".format(*dims)
+    return tag if n_nodes in (None, dims[1]) else tag.replace(" K", f" N{n_nodes} K")
 
 
-def bwd_bytes_flops(es, edge, dims=(B, L, K), raw=False):
+def bwd_bytes_flops(es, edge, dims=(B, L, K), raw=False, n_nodes=None):
     """Bytes (each input read once, each output written once) and matmul
     flops of K3 (edge=False), K4 / K5's backward (edge=True) or K6's
     backward (edge=True, raw=True: no b3, sc, g, dsh, dsc, dgate, and no
-    recomputed W3 product)."""
+    recomputed W3 product); n_nodes: Gn's and dGn's rows (default L)."""
     b, l, k = dims
     n_edge, n_node = b * l * k, b * l
-    nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
-              + n_node * H * 4 + n_edge * H * es + n_node * H * 4      # dA, dE, dGn
+    n_tab = b * (n_nodes or l)
+    nbytes = ((n_node * H + n_tab * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es
+              + 2 * H * 4
+              + n_node * H * 4 + n_edge * H * es + n_tab * H * 4       # dA, dE, dGn
               + 3 * H * H * 4 + 2 * H * 4)                              # weight grads
     if raw:    # dout; no mask and one bias less
         nbytes += n_edge * H * es - n_edge * 4 - H * 4
@@ -877,7 +920,7 @@ def check_repeats(label, call):
     check_same_bits(label, call(), call(), "two calls on the same inputs:")
 
 
-def check_bwd_kernels(device, seed, dims=(B, L, K)):
+def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=False):
     """K3, K4 and K5 (forward and backward) at the training shape, f32 and
     bf16, against autograd of the plain versions; K5's mask bit for bit
     against the plain generator. Returns the bf16 record of each.
@@ -887,7 +930,8 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
     are cuBLAS products over 786k edge rows that accumulate in f32 and carry
     ~1e-6 of the summed terms' scale themselves (~2e-3 for K4's dW_e), more
     than the f32 tolerance. The plain f32 versions remain the timing
-    yardstick. bf16 kernels are held against the bf16 plain versions."""
+    yardstick. bf16 kernels are held against the bf16 plain versions.
+    n_nodes and f32_records: as check_kernels."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
@@ -895,7 +939,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         es = torch.finfo(dtype).bits // 8
-        x = kernel_inputs(dtype, seed, device, dims)
+        x = kernel_inputs(dtype, seed, device, dims, n_nodes)
         g = torch.Generator().manual_seed(seed + 7)
         ct_sum = torch.randn(b, l, H, generator=g).to(device)
         ct_edge = torch.randn(b, l, k, H, generator=g).to(device).to(dtype)
@@ -915,14 +959,14 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
                             ct_sum)
         _, gp, _ = reference(lambda *a: MK.ref_message_sum(*a, 30.0), _SUM_KEYS, _DIFF,
                              ct_sum)
-        err = compare_grads(f"K3 {dims_tag(dims)}", gk, gp, dname)
+        err = compare_grads(f"K3 {dims_tag(dims, n_nodes)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(lambda *a: MK.ref_message_sum(*a, 30.0), x, _SUM_KEYS,
                                    _DIFF, ct_sum)
         sum_args = args(("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3"))
         dout = ct_sum / 30.0
         k3 = lambda: MK.message_sum_bwd(*sum_args, dout)
-        check_repeats(f"K3 {dname} {dims_tag(dims)}", k3)
+        check_repeats(f"K3 {dname} {dims_tag(dims, n_nodes)}", k3)
         ms, plain_ms = time_calls(k3, plain_bwd)
         # the yardstick of K3's weight-grad pass alone: its three products
         # X^T Y as torch.mm (cuBLAS) on operands of the scratch's shapes and
@@ -936,7 +980,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         dev_ms, lib_dev_ms = replay_ms(k3, wgrad_lib)
         del mats
         recs = {"fused_message_sum_bwd": (err, ms, plain_ms,
-                                          *bwd_bytes_flops(es, False, dims),
+                                          *bwd_bytes_flops(es, False, dims, n_nodes=n_nodes),
                                           dict(device_ms=dev_ms, wgrad_library_ms=lib_ms,
                                                wgrad_library_device_ms=lib_dev_ms))}
         del gk, plain_bwd
@@ -944,18 +988,18 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         # K4 through K2's autograd wrapper
         _, gk, _ = grads_of(MK.fused_message_edge_lnmod, x, _EDGE_KEYS, edge_diff, ct_edge)
         _, gp, _ = reference(MK.ref_message_edge_lnmod, _EDGE_KEYS, edge_diff, ct_edge)
-        err = compare_grads(f"K4 {dims_tag(dims)}", gk, gp, dname)
+        err = compare_grads(f"K4 {dims_tag(dims, n_nodes)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(MK.ref_message_edge_lnmod, x, _EDGE_KEYS, edge_diff,
                                    ct_edge)
         bwd_args = args(("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g"))
         k4 = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge)
         if dtype == torch.bfloat16:
-            check_repeats(f"K4 {dname} {dims_tag(dims)}", k4)
+            check_repeats(f"K4 {dname} {dims_tag(dims, n_nodes)}", k4)
         ms, plain_ms = time_calls(k4, plain_bwd)
         (dev_ms,) = replay_ms(k4)
         recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms,
-                                                *bwd_bytes_flops(es, True, dims),
+                                                *bwd_bytes_flops(es, True, dims, n_nodes=n_nodes),
                                                 dict(device_ms=dev_ms))
         del gk, plain_bwd
 
@@ -990,17 +1034,17 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         plain_pd = lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, P_DROP)
         _, gk, _ = grads_of(pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         _, gp, _ = reference(plain_pd, _EDGE_KEYS, edge_diff, ct_edge)
-        err = compare_grads(f"K5 seeded {dims_tag(dims)}", gk, gp, dname)
+        err = compare_grads(f"K5 seeded {dims_tag(dims, n_nodes)}", gk, gp, dname)
         del gp
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         k5b = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP)
         if dtype == torch.bfloat16:
-            check_repeats(f"K5 backward {dname} {dims_tag(dims)}", k5b)
+            check_repeats(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b)
             # the mask the seeded backward regenerates is the forward's: the
             # keep-tensor backward given the forward's own mask (2.5 and 0,
             # exact in bf16) gives the same bits but dGn's
             _, fwd_mask = MK.edge_lnmod_pdrop_debug(*args(_EDGE_KEYS), seeds, P_DROP)
-            check_same_bits(f"K5 backward {dname} {dims_tag(dims)}", k5b(),
+            check_same_bits(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b(),
                             MK.message_edge_lnmod_bwd(*bwd_args, ct_edge,
                                                       keep=fwd_mask.to(dtype)),
                             "seeded and given the forward's own mask as keep (the mask it "
@@ -1008,7 +1052,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
             del fwd_mask
         ms, plain_ms = time_calls(k5b, plain_bwd)
         (dev_ms,) = replay_ms(k5b)
-        nbytes, flops = bwd_bytes_flops(es, True, dims)
+        nbytes, flops = bwd_bytes_flops(es, True, dims, n_nodes=n_nodes)
         recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + b * 4, flops,
                                                      dict(device_ms=dev_ms))
         del gk, plain_bwd
@@ -1022,12 +1066,13 @@ def check_bwd_kernels(device, seed, dims=(B, L, K)):
         d = (out_k.float() - out_p.float()).abs()
         if not bool((d <= atol + rtol * out_p.float().abs()).all()):
             raise RuntimeError(f"K5 keep variant ({dname}) forward disagrees")
-        compare_grads(f"K5 keep {dims_tag(dims)}", gk, gp, dname)
+        compare_grads(f"K5 keep {dims_tag(dims, n_nodes)}", gk, gp, dname)
         del gk, gp, out_k, out_p, keep, want_mask, x, xr
         torch.cuda.empty_cache()
 
         for name, rec in recs.items():
-            records_bwd(records, name, dname, dims, *rec)
+            records_bwd(records, name, dname, dims, *rec, n_nodes=n_nodes,
+                        keep_f32=f32_records)
     return records
 
 
@@ -1063,23 +1108,27 @@ def check_k5_forward_bits(x, seeds, out, mask, dims):
         raise RuntimeError(f"K5 forward bfloat16 {dims_tag(dims)}: {bad}")
 
 
-def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra):
+def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra,
+                n_nodes=None, keep_f32=False):
     """Log one kernel's timing line (a call by CUDA events, the device by
     graph replay, `extra`'s other times) beside its bound; keep the bf16
-    record, with `extra`, in `records`."""
+    record, with `extra`, in `records` (with keep_f32 the f32 one too, key
+    `<name>_f32`)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[dname] * 1e3
     more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items() if k != "device_ms")
-    if dname == "bfloat16" and name in CUDA_CORE_BWD_MS and dims[2] in (K, K48[2]):
+    if (dname == "bfloat16" and name in CUDA_CORE_BWD_MS and n_nodes is None
+            and tuple(dims) in ((B, L, K), K48)):
         was = CUDA_CORE_BWD_MS[name][0 if dims[2] == K else 1]
         more += f" (the CUDA-core body's device {was:.4f} ms, {was / extra['device_ms']:.2f}x)"
-    log(f"kernel {name} {dname} {dims_tag(dims)}: max|d|={err:.3g}; a call (events) kernel "
+    log(f"kernel {name} {dname} {dims_tag(dims, n_nodes)}: max|d|={err:.3g}; a call (events) kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device (graph replay) kernel "
         f"{extra['device_ms']:.4f} ms{more}; bound {max(t_bytes, t_ops):.4f} ms "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
-    if dname == "bfloat16":
-        records[name] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
-                             shape=dims_tag(dims), **extra)
+    if dname == "bfloat16" or keep_f32:
+        key = name if dname == "bfloat16" else f"{name}_f32"
+        records[key] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
+                            shape=dims_tag(dims, n_nodes), **extra)
 
 
 _MSG_KEYS = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
@@ -2537,12 +2586,14 @@ def latent_trained(device="cuda", n_frames=4, steps="100", cpu_check=True):
     return got
 
 
-def run_latent_cli(device="cuda", n_frames=96, steps=100, ensemble=10, proteins=(30, 31)):
+def run_latent_cli(device="cuda", n_frames=96, steps=100, ensemble=10, proteins=(30, 31),
+                   shard_dir=None):
     """cli.test --experiment latent, then prior, with the converted trained
     weights (bf16 denoiser, ancestral) on shards the port writes of the
     convergence study's val proteins (their first n_frames, by the study's
-    recipe, `corpus_protein`). Returns both summaries and the kernels'
-    launches over the latent run."""
+    recipe, `corpus_protein`), into `shard_dir` when given (where later
+    phases read them), else into a temporary directory. Returns both
+    summaries and the kernels' launches over the latent run."""
     import json
     import os
     import tempfile
@@ -2553,17 +2604,18 @@ def run_latent_cli(device="cuda", n_frames=96, steps=100, ensemble=10, proteins=
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        os.makedirs(f"{tmp}/shards")
+        shards = str(shard_dir or f"{tmp}/shards")
+        os.makedirs(shards, exist_ok=True)
         out["shards"] = {}
         for i in proteins:
-            path = f"{tmp}/shards/prot_{i:04d}.npz"
+            path = f"{shards}/prot_{i:04d}.npz"
             save_protein_shard(path, corpus_protein(i, n_frames))
             out["shards"][os.path.basename(path)] = load_protein_shard(path)[1]
         out["shard_seconds"] = time.perf_counter() - t0
         args = ["--latent_weights", str(LATENT_WEIGHTS), "--vae_weights", str(WEIGHTS),
                 "--stats_name", "CONV", "--stats_dir", str(WEIGHTS.parent),
                 "--num_sampling_steps", str(steps), "--num_ensemble", str(ensemble),
-                "--data_dir", f"{tmp}/shards", "--device", str(device)]
+                "--data_dir", shards, "--device", str(device)]
         for exp in ("latent", "prior"):
             kernels.reset_launches()
             CLI.main(["--experiment", exp, "--out_dir", f"{tmp}/eval_{exp}", *args])
@@ -3936,6 +3988,473 @@ def phase_flows(seed, device, records, card, diffusion_rate=None):
         f"{t_train:.2f} s); {card}")
 
 
+# ---------------------------------------------------------------------------
+# Progressive distillation (cli/distill.py, train/steps.py make_distill_step)
+
+DISTILL_STEPS = 20
+DISTILL_ROUND_STEPS = 60         # cli.distill's one round on the trained teacher
+DISTILL_MEMBERS = 2
+
+
+def distill_launches(n_enc=3, n_dec=3):
+    """Launches of one distillation step (dropout 0): two teacher
+    evaluations and the student's forward, each K1 for every node update
+    and K2 for every encoder edge update, and the student's backward."""
+    return {"fused_message_sum": 3 * (n_enc + n_dec), "fused_message_edge_lnmod": 3 * n_enc,
+            "fused_message_sum_bwd": n_enc + n_dec, "fused_message_edge_lnmod_bwd": n_enc}
+
+
+def build_distill_trainer(device, seed, hidden=H, layers=3, k=K, compute_dtype=None, lr=1e-4,
+                          teacher_steps=STEPS):
+    """(model, TrainState, teacher params, train_step, eval_step) of
+    make_distill_step: the production denoiser (dropout 0, adaLN heads drawn
+    small so every layer reaches the output), the student starting as the
+    teacher (as cli.distill starts it) on the halved grid of teacher_steps."""
+    import torch
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.gen.distill import halve
+    from codlad_tpu_torch.models.denoiser import MPNNDenoiser
+    from codlad_tpu_torch.train.state import TrainState, warmup_linear_schedule
+    from codlad_tpu_torch.train.steps import make_distill_step
+    gen = torch.Generator().manual_seed(seed)
+    model = MPNNDenoiser(gen, hidden_dim=hidden, edge_features=hidden,
+                         num_encoder_layers=layers, num_decoder_layers=layers, k_neighbors=k,
+                         dropout=0.0)
+    open_gates(model, gen)
+    model.to(device)
+    teacher = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = TrainState(teacher, warmup_linear_schedule(lr, 0), grad_clip=1.0)
+    tp = create_diffusion(teacher_steps, diffusion_steps=1000)
+    step, eval_step = make_distill_step(model, tp, halve(tp), compute_dtype=compute_dtype)
+    return model, state, teacher, step, eval_step
+
+
+def distill_reference(seed, device="cuda", hidden=H, layers=3):
+    """One f32 distillation step on a B2 L32 K16 batch on the card (kernels)
+    and on the CPU (plain versions), from the same weights, student indices
+    and noise, held as `train_reference` holds a training step."""
+    import torch
+    lr = 1e-3
+    x1, extras = train_batch(2, 32, seed + 2, "cpu", jitter=0.1)
+    g = torch.Generator().manual_seed(seed + 3)
+    i_s = torch.tensor([0, 37])
+    noise = torch.randn((2, 32, 3), generator=g)
+    runs = {}
+    for dev in ("cpu", device):
+        _, state, teacher, step, _ = build_distill_trainer(dev, seed, hidden=hidden,
+                                                           layers=layers, k=16, lr=lr)
+        ex = {k: v.to(dev) for k, v in extras.items()}
+        state, m = step(state, teacher, x1.to(dev), ex, seed, i_s=i_s.to(dev),
+                        noise=noise.to(dev))
+        runs[str(dev)] = ({k: float(m[k]) for k in ("loss", "mse", "grad_norm")},
+                          {k: v.cpu() for k, v in m["grads"].items()},
+                          {k: v.cpu() for k, v in state.params.items()},
+                          {k: v.cpu() for k, v in state.ema_params.items()})
+    (m_c, g_c, p_c, e_c), (m_d, g_d, p_d, e_d) = runs["cpu"], runs[str(device)]
+    worst_g = max(((g_d[k] - v).abs().max() / (v.abs().max() + 1e-30)).item()
+                  for k, v in g_c.items())
+    upd = check_update(g_c, g_d, m_c["grad_norm"], m_d["grad_norm"], p_c, p_d, e_c, e_d, lr,
+                       1e-4)
+    rel = {k: abs(m_d[k] - m_c[k]) / abs(m_c[k]) for k in m_c}
+    log(f"distill reference (card f32 kernels vs CPU plain): loss {m_d['loss']:.6g} vs "
+        f"{m_c['loss']:.6g}, grad_norm {m_d['grad_norm']:.6g} vs {m_c['grad_norm']:.6g}; rel "
+        f"|d| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (rtol 1e-3); worst "
+        f"max|dgrad|/max|grad| over {len(g_c)} params {worst_g:.3g} (tol 1e-3); {upd['msg']}")
+    if not (all(v <= 1e-3 for v in rel.values()) and worst_g <= 1e-3 and upd["ok"]):
+        raise RuntimeError("the card's distillation step disagrees with the CPU reference")
+
+
+def run_distill_user_path(seed, device="cuda", shard_dir=None, n_frames=96, batch=B,
+                          round_steps=DISTILL_ROUND_STEPS, members=DISTILL_MEMBERS,
+                          proteins=(30, 31), start_steps=100):
+    """The user path of distillation with the trained weights: features of the
+    convergence study's val proteins (shards in `shard_dir`, else written
+    here) by the trained VQ-VAE (cli.extract_features --vae_weights), one
+    round of cli.distill (start_steps -> start_steps / 2) from the trained
+    denoiser (--teacher_weights, bf16), the distillation loss of a fixed held
+    batch before and after the round (the student's raw weights), then
+    cli.test --latent_ckpt on the student (the DDIM sampler on its own grid,
+    launches counted) and cli.test --latent_weights on the teacher with DDIM
+    at start_steps. Returns both summaries, the student's launches, the held
+    losses and the seconds of each part."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import distill, extract_features
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.convert.from_flax import load_denoiser
+    from codlad_tpu_torch.data.norm import load_stats, normalize
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import corpus_protein
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.gen.distill import halve
+    from codlad_tpu_torch.train.state import TrainState
+    from codlad_tpu_torch.train.steps import make_distill_step
+    out, sec = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if shard_dir is None:
+            shard_dir = f"{tmp}/shards"
+            os.makedirs(shard_dir)
+            for i in proteins:
+                save_protein_shard(f"{shard_dir}/prot_{i:04d}.npz", corpus_protein(i, n_frames))
+        extract_features.main(["--vae_weights", str(WEIGHTS), "--data_dir", str(shard_dir),
+                               "--out_dir", f"{tmp}/feats", "--batch_size", str(batch),
+                               "--device", str(device)])
+        sec["extract_features"] = time.perf_counter() - t0
+
+        # the held batch: the first `batch` frames of the first protein
+        mean, std = load_stats(str(WEIGHTS.parent), "CONV")
+        z = np.load(f"{tmp}/feats/prot_{proteins[0]:04d}.npz")
+        held_x = torch.as_tensor(normalize(z["latents"][:batch], mean, std).astype(np.float32),
+                                 device=device)
+        held = {"res_type": torch.as_tensor(z["res_type"][:batch], device=device),
+                "cg_xyz": torch.as_tensor(z["cg_xyz_og"][:batch, 1:-1], device=device),
+                "mask": torch.as_tensor(z["res_mask"][:batch], device=device)}
+        model, _, _ = load_denoiser(str(LATENT_WEIGHTS), device)
+        teacher = {n: p.detach().clone() for n, p in model.named_parameters()}
+        tp = create_diffusion(f"ddim{start_steps}", diffusion_steps=1000)
+        _, held_eval = make_distill_step(model, tp, halve(tp), compute_dtype=torch.bfloat16)
+
+        def held_loss(params):
+            st = TrainState(params, lambda s: 0.0, ema=False)
+            return float(held_eval(st, teacher, held_x, held, seed + 99)["loss"])
+
+        out["held_start"] = held_loss(teacher)
+        t0 = time.perf_counter()
+        distill.main(["--teacher_weights", str(LATENT_WEIGHTS), "--feature_dir",
+                      f"{tmp}/feats", "--exp", f"{tmp}/distill", "--stats_name", "CONV",
+                      "--stats_dir", str(WEIGHTS.parent), "--start_steps", str(start_steps),
+                      "--rounds", "1", "--steps_per_round", str(round_steps), "--batch_size",
+                      str(batch), "--warmup", "5", "--lr", "1e-4", "--ema_decay", "0.99",
+                      "--log_step", str(max(round_steps // 3, 1)), "--bf16", "--device",
+                      str(device)])
+        sec["distill"] = time.perf_counter() - t0
+        sd = torch.load(f"{tmp}/distill/last.pt", map_location="cpu", weights_only=True)
+        out["held_end"] = held_loss({k: v.to(device) for k, v in sd["params"].items()})
+        with open(f"{tmp}/distill/config.json") as f:
+            out["config"] = json.load(f)
+        args = ["--vae_weights", str(WEIGHTS), "--stats_name", "CONV", "--stats_dir",
+                str(WEIGHTS.parent), "--num_sampling_steps", str(start_steps), "--num_ensemble",
+                str(members), "--data_dir", str(shard_dir), "--device", str(device),
+                "--experiment", "latent"]
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        out["student"] = CLI.main(["--latent_ckpt", f"{tmp}/distill", "--out_dir",
+                                   f"{tmp}/eval_student", *args])
+        out["launches"] = kernels.launch_counts()
+        sec["student_test"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["teacher"] = CLI.main(["--latent_weights", str(LATENT_WEIGHTS), "--sampler",
+                                   "ddim", "--out_dir", f"{tmp}/eval_teacher", *args])
+        sec["teacher_test"] = time.perf_counter() - t0
+    out["seconds"] = sec
+    return out
+
+
+def phase_distill(seed, device, records, card, shard_dir=None):
+    """Phase distill: 20 bf16 distillation steps at full width with launches
+    asserted every step, ms/step and peak memory, the last traced (K1-K4
+    must run on their tensor-core kernels); one f32 step card vs CPU; the
+    user path with the trained weights (`run_distill_user_path`): the held
+    batch's loss must fall and the student's CLI draws launch 300 K1 and 150
+    K2 a draw. Adds distill_launches to K1-K4 and distill_cli_launches to
+    K1 and K2."""
+    import torch
+    t0 = time.perf_counter()
+    x1, extras = train_batch(B, L, seed + 1, device)
+    _, state, teacher, step, _ = build_distill_trainer(device, seed,
+                                                       compute_dtype=torch.bfloat16)
+    per_step = distill_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ran = set()
+    times, metrics, totals = run_train(
+        state, lambda st, x, e, s: step(st, teacher, x, e, s), x1, extras, seed,
+        DISTILL_STEPS, per_step, traced=1, names=ran)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    need = ("message_sum_mma_kernel", "message_edge_lnmod_mma_kernel",
+            "message_sum_bwd_mma_kernel", "message_edge_lnmod_bwd_mma_kernel<0>")
+    if not all(any(k in n for n in ran) for k in need) or any(
+            "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
+        raise RuntimeError(f"the traced distillation step did not run K1-K4 on their "
+                           f"tensor-core kernels {need}: {sorted(ran)}")
+    for name, n in totals.items():
+        if n:
+            records[name]["distill_launches"] = n
+    log(f"  distill: {DISTILL_STEPS} bf16 steps of make_distill_step at B{B} L{L} K{K} H{H} "
+        f"(3 + 3 layers, ddim100 -> 50), {card}: median of the {len(times)} untraced "
+        f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
+        f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
+        f"a step {per_step} (asserted); the traced step ran {', '.join(need)}; last loss "
+        f"{float(metrics['loss']):.5g}, mse {float(metrics['mse']):.5g}, grad_norm "
+        f"{float(metrics['grad_norm']):.5g}")
+    del state, teacher, step, x1, extras
+    distill_reference(seed, device)
+
+    user = run_distill_user_path(seed, device, shard_dir)
+    cfg = user["config"]
+    n_grid = len(cfg["distill_tmap"])
+    draws = DISTILL_MEMBERS * len([k for k in user["student"] if not k.startswith("__")])
+    expect = {k: v * draws for k, v in chain_launches(n_grid).items()}
+    expect.update({k: v * draws for k, v in decoder_launches().items()})
+    check_launches(user["launches"], expect, "the distilled student's cli.test")
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+        records[name]["distill_cli_launches"] = user["launches"][name]
+    for who in ("student", "teacher"):
+        for p, agg in user[who].items():
+            if not p.startswith("__") and not all(
+                    math.isfinite(v) for v in agg.values() if isinstance(v, float)):
+                raise RuntimeError(f"the distilled {who}'s summary of {p} is not finite")
+    for p in sorted(k for k in user["student"] if not k.startswith("__")):
+        s, t = user["student"][p], user["teacher"][p]
+        log(f"  {p}: student ({n_grid} DDIM steps) "
+            + ", ".join(f"{k} {s[k]:.4f}" for k in EVAL_TOL)
+            + f", {s['wallclock_sec']:.2f} s; teacher (100 DDIM steps) "
+            + ", ".join(f"{k} {t[k]:.4f}" for k in EVAL_TOL) + f", {t['wallclock_sec']:.2f} s")
+    log(f"  distill user path: cli.extract_features --vae_weights -> cli.distill (1 round, "
+        f"100 -> {n_grid}, {DISTILL_ROUND_STEPS} bf16 steps of batch {B}) -> cli.test "
+        f"--latent_ckpt (sampler ddim on the student's grid, launches {expect} asserted); "
+        f"held batch distillation loss {user['held_start']:.6g} at the start, "
+        f"{user['held_end']:.6g} after the round; seconds "
+        f"{ {k: round(v, 2) for k, v in user['seconds'].items()} }")
+    if not user["held_end"] < user["held_start"]:
+        raise RuntimeError("the distillation loss of the held batch did not fall")
+    log(f"phase distill: {time.perf_counter() - t0:.2f} s; {card}")
+
+
+# ---------------------------------------------------------------------------
+# Data and sequence parallelism over torch.distributed (train/mesh.py,
+# parallel/sequence.py, parallel/dryrun.py)
+
+SEQ_ROWS = 64                    # the K1-K4 records at N != L: 64 local rows of N = 128
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_world_of_one(device):
+    """Join a process group of this one process through torchrun's
+    environment variables (NCCL on a card, gloo on the CPU)."""
+    import os
+    from codlad_tpu_torch.train.mesh import maybe_init_distributed
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    return maybe_init_distributed(device)
+
+
+def leave_world():
+    import os
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+
+
+def run_parallel_trainers(seed, device="cuda", n_frames=B, n_res=L, batch=B, steps=3,
+                          s1_res=(58, 75), s1_frames=4, s1_batch=2, enc=ENC_LAYERS,
+                          dec=DEC_LAYERS):
+    """cli.train_latent (bf16, `steps` steps) and cli.train_vqvae -dp (-bf16, one
+    epoch) on synthetic data in this process as it stands (in a process
+    group or not): their logged train losses."""
+    import os
+    import tempfile
+    from codlad_tpu_torch.cli import train_latent, train_vqvae
+    from codlad_tpu_torch.data.cg_batch import write_synthetic_features
+    from codlad_tpu_torch.data.shards import save_protein_shard
+    from codlad_tpu_torch.data.synthetic import synthetic_examples
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_features(f"{tmp}/feats", n_frames, n_res, seed=seed)
+        train_latent.main(["--feature_dir", f"{tmp}/feats", "--exp", f"{tmp}/lat",
+                           "--batch_size", str(batch), "--max_steps", str(steps),
+                           "--log_step", "1", "--bf16", "--seed", str(seed), "--device",
+                           str(device)])
+        with open(f"{tmp}/lat/metrics.jsonl") as f:
+            out["train_latent"] = [json.loads(r)["loss"] for r in f
+                                   if json.loads(r)["split"] == "train"]
+        os.makedirs(f"{tmp}/shards")
+        for i, n in enumerate(s1_res):
+            save_protein_shard(f"{tmp}/shards/p{i}.npz",
+                               synthetic_examples(s1_frames, n, seed=seed + i))
+        train_vqvae.main(["-data_dir", f"{tmp}/shards", "-logdir", f"{tmp}/vq", "-dp",
+                          "-batch_size", str(s1_batch), "-nepochs", "1", "-enc_nconv",
+                          str(enc), "-dec_nconv", str(dec), "-vqdim", "3", "-codebook_size",
+                          str(CODEBOOK), "-bf16", "-seed", str(seed), "--device", str(device)])
+        with open(f"{tmp}/vq/metrics.jsonl") as f:
+            out["train_vqvae"] = [json.loads(r)["loss"] for r in f
+                                  if json.loads(r)["split"] == "train"]
+    return out
+
+
+def seq_mode_checks(seed, device="cuda", n_frames=8, n_res=L, hidden=H, layers=3, k=K,
+                    train_frames=B):
+    """On one rank of a process group: ring_knn against the dense featurizer's
+    kNN (E_idx equal, distances within 1e-6 of max), the seq-mode denoiser's
+    f32 forward against the dense one (within 1e-5 of max|out|), an f32
+    seq-mode training step at dropout 0 against the dense step (loss rtol
+    1e-5, params within 1e-5 of max|param|), then one bf16 seq-mode step at
+    train_frames x n_res. Returns the launches of the f32 forward and step
+    and of the bf16 step."""
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.parallel.sequence import ring_knn
+    from codlad_tpu_torch.train.mesh import make_mesh
+    from codlad_tpu_torch.train.state import TrainState
+    from codlad_tpu_torch.train.steps import make_latent_step
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    mesh = make_mesh(1, seq_mode=True)
+    seq = mesh.seq_ctx()
+    x1, extras = train_batch(n_frames, n_res, seed + 5, device, jitter=0.1)
+    model, _, _ = build_trainer(device, seed, hidden=hidden, layers=layers, k=k, dropout=0.0,
+                                gates=True)
+    maskf = extras["mask"].float()
+    d_ref, i_ref = model.features._dist(extras["cg_xyz"], maskf)
+    d_ring, i_ring = ring_knn(extras["cg_xyz"], maskf, i_ref.shape[-1], seq)
+    if not torch.equal(i_ring, i_ref) or (d_ring - d_ref).abs().max() > 1e-6 * d_ref.abs().max():
+        raise RuntimeError("ring_knn disagrees with the dense kNN")
+    t = torch.randint(0, 1000, (n_frames,), generator=torch.Generator().manual_seed(seed)
+                      ).to(device)
+    kernels.reset_launches()
+    with torch.no_grad():
+        dense = model(x1, t, extras["res_type"], extras["cg_xyz"], extras["mask"])
+        kernels.reset_launches()
+        sharded = model(x1, t, extras["res_type"], extras["cg_xyz"], extras["mask"], seq=seq)
+    launches = {"forward_f32": kernels.launch_counts()}
+    err = (sharded - dense).abs().max().item()
+    if not err <= 1e-5 * dense.abs().max().item():
+        raise RuntimeError(f"the seq-mode forward disagrees with the dense one: {err}")
+    runs = {}
+    for name, m in (("dense", None), ("seq", mesh)):
+        st = TrainState(dict(model.named_parameters()), lambda s: 1e-3, grad_clip=1.0)
+        step, _ = make_latent_step(model, create_diffusion(None), dropout=False, mesh=m)
+        kernels.reset_launches()
+        st, met = step(st, x1, extras, seed)
+        runs[name] = (float(met["loss"]), st.params, kernels.launch_counts())
+    launches["step_f32"] = runs["seq"][2]
+    pmax = max(v.abs().max().item() for v in runs["dense"][1].values())
+    dp = max((runs["seq"][1][k] - v).abs().max().item() for k, v in runs["dense"][1].items())
+    if not (abs(runs["seq"][0] - runs["dense"][0]) <= 1e-5 * abs(runs["dense"][0])
+            and dp <= 1e-5 * pmax):
+        raise RuntimeError(f"the seq-mode step disagrees with the dense one: loss "
+                           f"{runs['seq'][0]} vs {runs['dense'][0]}, max|dparam| {dp}")
+    xb, eb = train_batch(train_frames, n_res, seed + 6, device)
+    st = TrainState(dict(model.named_parameters()), lambda s: 1e-3, grad_clip=1.0)
+    step, _ = make_latent_step(model, create_diffusion(None), dropout=False,
+                               compute_dtype=torch.bfloat16, mesh=mesh)
+    kernels.reset_launches()
+    st, met = step(st, xb, eb, seed)
+    launches["step_bf16"] = kernels.launch_counts()
+    if not math.isfinite(float(met["loss"])):
+        raise RuntimeError("the bf16 seq-mode step's loss is not finite")
+    return {"forward_err": err, "forward_scale": dense.abs().max().item(),
+            "loss": runs["seq"][0], "dense_loss": runs["dense"][0], "param_err": dp,
+            "launches": launches}
+
+
+def ddp_step_times(seed, device="cuda", n_frames=B, n_res=L, rounds=5, **kw):
+    """Median ms of a bf16 Stage-2 training step (dropout 0.6) without a
+    mesh and with the Mesh of the process group (one rank: its gradient
+    all-reduce and reductions run), timed in turns (plain, mesh, mesh,
+    plain, ...) after one warm-up step each."""
+    import torch
+    from codlad_tpu_torch.train.mesh import make_mesh
+    from codlad_tpu_torch.train.steps import make_latent_step
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    x1, extras = train_batch(n_frames, n_res, seed + 1, device)
+    model, state, step = build_trainer(device, seed, compute_dtype=torch.bfloat16, **kw)
+    mesh_step, _ = make_latent_step(model, create_diffusion(None, diffusion_steps=1000),
+                                    compute_dtype=torch.bfloat16, mesh=make_mesh(1))
+    times = {"plain": [], "mesh": []}
+    cuda = torch.device(device).type == "cuda"
+    for i in range(2 * rounds + 2):
+        name = "plain" if i % 4 in (0, 3) else "mesh"
+        fn = step if name == "plain" else mesh_step
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = fn(state, x1, extras, seed + i)
+        if cuda:
+            torch.cuda.synchronize()
+        if i >= 2:                      # the first of each is a warm-up
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _two_card_rank(rank, world, port):
+    import os
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                      RANK=str(rank), LOCAL_RANK=str(rank))
+    from codlad_tpu_torch.parallel.dryrun import main as dryrun_main
+    dryrun_main(["--device", "cuda"])
+
+
+def phase_parallel(seed, device, records, card):
+    """Phase parallel: K1-K4 at the sequence-sharded shape (B96, 64 local
+    rows, N 128, K 64) in both dtypes against their plain versions (records
+    *_seq); the trainers with and without a process group (one rank, NCCL):
+    equal losses; on that rank the seq-mode checks (`seq_mode_checks`),
+    whose launches the *_seq records carry (one rank: N = L there), and the
+    dryrun twin; with two or more cards the dryrun twin on two NCCL ranks."""
+    import torch
+    t0 = time.perf_counter()
+    dims = (B, SEQ_ROWS, K)
+    recs = check_kernels(device, seed, dims, n_nodes=L, f32_records=True)
+    bwd = check_bwd_kernels(device, seed, dims, n_nodes=L, f32_records=True)
+    recs.update({k: v for k, v in bwd.items() if "drop" not in k})
+    t_kern = time.perf_counter() - t0
+
+    plain = run_parallel_trainers(seed, device)
+    init_world_of_one(device)
+    try:
+        ddp = run_parallel_trainers(seed, device)
+        # within rtol 1e-3: the bf16 K3's dGn sums by f32 atomics, in an order
+        # that varies run to run, so steps after the first may move apart
+        if ddp.keys() != plain.keys() or not all(
+                len(ddp[k]) == len(plain[k]) and all(
+                    abs(u - v) <= 1e-3 * abs(v) for u, v in zip(ddp[k], plain[k]))
+                for k in plain):
+            raise RuntimeError(f"the trainers under a process group of one rank (NCCL) "
+                               f"disagree with the plain ones: {ddp} vs {plain}")
+        seq = seq_mode_checks(seed, device)
+        from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
+        dry = dryrun_multichip(device)
+        rates = ddp_step_times(seed, device)
+    finally:
+        leave_world()
+    for key, rec in recs.items():
+        base = key.removesuffix("_f32")
+        src = seq["launches"]["step_bf16" if rec["dtype"] == "bfloat16" else "step_f32"]
+        rec["launches"] = src.get(base, 0)
+        records[f"{key}_seq"] = rec
+    log(f"  parallel: train_latent (3 bf16 steps at B{B} L{L}) and train_vqvae -dp (one "
+        f"epoch) in a process group of one rank (NCCL): losses "
+        f"{ {k: [round(v, 6) for v in vs] for k, vs in ddp.items()} }, the plain runs' "
+        f"{ {k: [round(v, 6) for v in vs] for k, vs in plain.items()} } (rtol 1e-3)")
+    log(f"  seq mode on one rank (CUDA): ring_knn equals the dense kNN; forward max|d| "
+        f"{seq['forward_err']:.3g} (max|out| {seq['forward_scale']:.4g}); f32 step loss "
+        f"{seq['loss']:.6g} vs dense {seq['dense_loss']:.6g}, max|dparam| "
+        f"{seq['param_err']:.3g}; launches {seq['launches']}")
+    log(f"  dryrun twin on one NCCL rank: {dry}")
+    log(f"  a bf16 training step at B{B} L{L} K{K} (dropout {P_DROP}), in turns: plain "
+        f"{rates['plain']:.2f} ms, with the one-rank NCCL mesh {rates['mesh']:.2f} ms "
+        f"(ratio {rates['mesh'] / rates['plain']:.4f}); {card}")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        torch.multiprocessing.spawn(_two_card_rank, args=(2, free_port()), nprocs=2)
+        log("  two cards: the dryrun twin on two NCCL ranks (the 2-rank DDP step against "
+            "one rank, the seq forward and train step against dense, Stage-1 DP) passed")
+    else:
+        log(f"  {n_cards} card: the 2-rank DDP step and the 2-rank seq forward were not run")
+    log(f"phase parallel: {time.perf_counter() - t0:.2f} s (kernels {t_kern:.2f} s); {card}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4242,7 +4761,10 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     lat_steps, lat_members = 100, 10
-    cli = run_latent_cli(device, steps=lat_steps, ensemble=lat_members)
+    # the val proteins' shards, which the distill phase reads too
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    atexit.register(shutil.rmtree, shard_dir, True)
+    cli = run_latent_cli(device, steps=lat_steps, ensemble=lat_members, shard_dir=shard_dir)
     log(f"phase latent_entry: cli.test --experiment latent, then prior (trained weights, "
         f"bf16, {lat_steps} ancestral steps, {lat_members} members, the first 96 frames of "
         f"prot_0030 and prot_0031; shards written in {cli['shard_seconds']:.2f} s); {card}:")
@@ -4346,6 +4868,8 @@ def main(argv=None):
 
     phase_stage1_variants(args.seed, device, records, card)
     phase_flows(args.seed, device, records, card, diffusion_rate)
+    phase_distill(args.seed, device, records, card, shard_dir)
+    phase_parallel(args.seed, device, records, card)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

@@ -3,7 +3,8 @@ latent features and their normalisation stats.
 
 Twin of codlad_tpu/cli/extract_features.py: the pre-VQ latents of every
 frame of every shard, from a run of the port's Stage-1 trainer (`--ckpt
-<logdir>`: config.json and best.pt, else last.pt), written per protein
+<logdir>`: config.json and best.pt, else last.pt) or a converted weights
+file (`--vae_weights`, as cli.test reads it), written per protein
 under the shard's own name (`latents`, `res_mask`, `res_type`, `cg_xyz_og`,
 `ic`, `prot_idx`), as the Stage-2 trainers of both packages read them
 (`FeatureDataset`). In the fgvae and cgvae modes the latents are one draw
@@ -46,7 +47,10 @@ ENC_KEYS = ("res_type", "atom_mask", "xyz14", "cg_xyz_og", "res_mask", "atom_edg
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--ckpt", type=str, required=True)
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", type=str, help="a logdir of the port's cli.train_vqvae")
+    src.add_argument("--vae_weights", type=str,
+                     help="a converted VQ-VAE .npz (scripts/export_flax_npz.py)")
     p.add_argument("--data_dir", type=str, required=True)
     p.add_argument("--out_dir", type=str, required=True)
     p.add_argument("--stats_name", type=str, default=None,
@@ -66,13 +70,17 @@ def main(argv=None):
         print("extract_features: no CUDA device (pass --device cpu to run on the CPU)",
               file=sys.stderr)
         raise SystemExit(1)
-    from codlad_tpu_torch.cli.test import load_vae_ckpt
+    from codlad_tpu_torch.cli.test import load_vae_ckpt, load_vae_weights
     from codlad_tpu_torch.data.batch import compress_indices, decompress_indices, to_device
     from codlad_tpu_torch.data.norm import compute_stats, save_stats
     from codlad_tpu_torch.data.shards import ShardDataset, load_protein_shard
 
-    vae, snap, cfg = load_vae_ckpt(args.ckpt, dev)
-    print(f"loaded {cfg['checkpoint']} checkpoint (step {cfg['step']})")
+    if args.ckpt:
+        vae, snap, cfg = load_vae_ckpt(args.ckpt, dev)
+        print(f"loaded {cfg['checkpoint']} checkpoint (step {cfg['step']})")
+    else:
+        vae, snap, cfg = load_vae_weights(args.vae_weights, dev)
+        print(f"loaded {args.vae_weights}")
     mode = cfg.get("train_section", "vqvae")
     if mode == "ivae":
         raise SystemExit("extract_features: a GenZProt (-train_section ivae) run has no "

@@ -54,8 +54,14 @@ As the JAX CLI does, the sampling process is built without the run's
 `self_condition` and `predict_xstart`: a self-conditioned denoiser gets
 zeros as x_self_cond at every step, and an x_start-predicting one is read
 as predicting eps.
-`--seq_shards`, which the port does not have yet, raises
-NotImplementedError naming ROADMAP queue 1 item 10. As in JAX, the
+A distilled checkpoint (cli/distill.py; `distill_tmap` in its config)
+samples on the student's own grid (gen/diffusion.diffusion_from_tmap),
+ignoring --num_sampling_steps with a note, and with the DDIM sampler unless
+`--sampler` says otherwise; any other checkpoint defaults to ancestral.
+`--seq_shards S` samples sequence-parallel (eval/harness.py `seq`): run
+under torchrun with S ranks (NCCL on cards, gloo with --device cpu), or
+with S = 1 in one process; every rank draws the same members and rank 0
+alone prints and writes. As in JAX, the
 denoiser's output width follows the run config's `model` (2C for diffusion
 and sbcfm) and the process follows `--model`; an sbcfm denoiser cannot be
 integrated (its 2C channels do not fit the C-channel state), and the draw
@@ -101,10 +107,13 @@ def build_parser():
                    help="ODE solver of the flow models")
     p.add_argument("--rtol", type=float, default=1e-5, help="dopri5 relative tolerance")
     p.add_argument("--atol", type=float, default=1e-5, help="dopri5 absolute tolerance")
-    p.add_argument("--sampler", default="ancestral", choices=["ancestral", "ddim"])
+    p.add_argument("--sampler", default=None, choices=["ancestral", "ddim"],
+                   help="default: ddim for a distilled checkpoint, else ancestral")
     p.add_argument("--ddim_eta", type=float, default=0.0,
                    help="DDIM stochasticity (0 = deterministic)")
-    p.add_argument("--seq_shards", type=int, default=0)
+    p.add_argument("--seq_shards", type=int, default=0,
+                   help="shard each protein's residues over this many ranks (torchrun "
+                        "with that many processes)")
     p.add_argument("--stats_name", default=None)
     p.add_argument("--stats_dir", default="datasets/miu_and_sigma")
     p.add_argument("--seed", type=int, default=42)
@@ -123,14 +132,6 @@ def build_parser():
                    help="the denoiser in bf16 (the conditioning from the rounded weights)")
     p.add_argument("--device", default="cuda")
     return p
-
-
-def refuse_unported(args):
-    """NotImplementedError, naming the ROADMAP queue-1 item, for an option
-    the port does not have yet."""
-    if args.seq_shards != 0:
-        raise NotImplementedError("--seq_shards (sequence parallelism) is not ported "
-                                  "(ROADMAP queue 1 item 10)")
 
 
 def _vae_from_config(cfg):
@@ -289,14 +290,24 @@ def main(argv=None):
     from codlad_tpu_torch.data.shards import ShardDataset, load_protein_shard
     from codlad_tpu_torch.eval.harness import (SamplingPipeline, evaluate_structures,
                                                run_ensemble)
-    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.gen.diffusion import create_diffusion, diffusion_from_tmap
     from codlad_tpu_torch.gen.flow import FLOW_MATCHERS
+    from codlad_tpu_torch.train import mesh as mesh_mod
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("test: no CUDA device (pass --device cpu to run on the CPU)", file=sys.stderr)
         sys.exit(1)
-    refuse_unported(args)
+    device = mesh_mod.rank_device(args.device)
+    seq = None
+    if args.seq_shards:
+        mesh_mod.maybe_init_distributed(device)
+        mesh = mesh_mod.make_mesh(args.seq_shards, seq_mode=True)
+        if mesh.data != 1:
+            raise SystemExit(f"--seq_shards {args.seq_shards} needs as many ranks, not "
+                             f"{mesh.world}")
+        seq = mesh.seq_ctx()
+    main_rank = mesh_mod.is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
     os.makedirs(args.out_dir, exist_ok=True)
     load = load_vae_ckpt if args.vae_ckpt else load_vae_weights
     vae, snap, cfg = load(args.vae_ckpt or args.vae_weights, device)
@@ -312,19 +323,31 @@ def main(argv=None):
     denoiser = process = None
     if args.experiment == "latent":
         denoiser, lat_cfg = load_latent(args, device, latent_size)
-        if args.model == "diffusion":
+        tmap = lat_cfg.get("distill_tmap")
+        if args.model == "diffusion" and tmap:
+            # a distilled student samples on its own grid (teacher grid[0::2]^k)
+            if args.num_sampling_steps != len(tmap):
+                say(f"note: distilled checkpoint has a fixed {len(tmap)}-step grid; "
+                    f"ignoring --num_sampling_steps {args.num_sampling_steps}")
+            process = diffusion_from_tmap(
+                tmap, noise_schedule=lat_cfg.get("noise_schedule", "linear"),
+                diffusion_steps=lat_cfg.get("diffusion_steps", 1000), learn_sigma=True)
+        elif args.model == "diffusion":
             process = create_diffusion(str(args.num_sampling_steps),
                                        diffusion_steps=lat_cfg.get("diffusion_steps", 1000),
                                        learn_sigma=True)
         else:
             process = FLOW_MATCHERS[args.model]()
+        if args.sampler is None:
+            args.sampler = "ddim" if args.model == "diffusion" and tmap else "ancestral"
     pipe = SamplingPipeline(denoiser=denoiser, process=process, vae=vae, codebook=None, **snap,
                             norm_mean=mean, norm_std=std, latent_size=latent_size,
                             compute_dtype=torch.bfloat16 if args.bf16 else None,
-                            sampler=args.sampler, ddim_eta=args.ddim_eta,
+                            sampler=args.sampler or "ancestral", ddim_eta=args.ddim_eta,
                             doubled_batch=args.doubled_batch, cfg_scale=args.cfg_scale,
                             process_kind=args.model, ode_steps=args.num_sampling_steps,
-                            ode_method=args.method, ode_rtol=args.rtol, ode_atol=args.atol)
+                            ode_method=args.method, ode_rtol=args.rtol, ode_atol=args.atol,
+                            seq=seq)
 
     def prior_sample(generator, b):
         lat = torch.randn(tuple(b["res_type"].shape) + (latent_size,), generator=generator,
@@ -339,14 +362,14 @@ def main(argv=None):
         n = min(shard["res_type"].shape[0], args.batch_size)
         batch = {k: torch.as_tensor(v[:n], device=device) for k, v in shard.items()}
         t0 = time.time()
-        log_fn = (lambda s, m: print(f"  {fname} ensemble {s}: " + " ".join(
+        log_fn = (lambda s, m: say(f"  {fname} ensemble {s}: " + " ".join(
             f"{k}={v:.4f}" for k, v in m.items()), flush=True))
         export = args.save_pdb or args.save_xtc
         if args.experiment == "recon":
             h = pipe.encode_latents(batch)
             ic, xyz14 = pipe.decode(batch, pipe.normalise(h))
             agg = {k: float(v) for k, v in evaluate_structures(batch, ic, xyz14).items()}
-            if args.save_pdb:
+            if args.save_pdb and main_rank:
                 write_recon_pdb(args.out_dir, fname, batch, xyz14)
         else:
             sample_fn = {"prior": prior_sample,
@@ -356,12 +379,13 @@ def main(argv=None):
                                return_structures=export)
             if export:
                 agg, structures = agg
-                export_ensembles(args.out_dir, fname, batch, structures, args.save_pdb,
-                                 args.save_xtc)
+                if main_rank:
+                    export_ensembles(args.out_dir, fname, batch, structures, args.save_pdb,
+                                     args.save_xtc)
         agg["wallclock_sec"] = time.time() - t0
         summary[fname] = agg
-        print(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()
-                                      if np.isscalar(v)), flush=True)
+        say(f"{fname}: " + " ".join(f"{k}={v:.4f}" for k, v in agg.items()
+                                    if np.isscalar(v)), flush=True)
 
     # global mean and std over proteins (reference test.py:821-889)
     keys = [k for k, v in next(iter(summary.values())).items() if np.isscalar(v)]
@@ -370,9 +394,10 @@ def main(argv=None):
     summary["__global_stats__"] = {k: {"mean": float(np.mean(vs)), "std": float(np.std(vs))}
                                    for k, vs in per_protein.items()}
     summary["__global__"]["total_sec"] = time.time() - t_start
-    with open(os.path.join(args.out_dir, "summary_stats.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    print("global:", json.dumps(summary["__global__"], indent=2))
+    if main_rank:
+        with open(os.path.join(args.out_dir, "summary_stats.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+    say("global:", json.dumps(summary["__global__"], indent=2))
     return summary
 
 

@@ -109,27 +109,19 @@ def read_flax_npz(path):
                 "stats": stats}
 
 
-# Options of a Stage-2 run config that the port does not have yet, and the
-# ROADMAP queue-1 item that brings each.
-_MISSING = {"distill_tmap": 9}
-
-
 def denoiser_from_config(cfg, latent_size=3):
     """The f32 MPNNDenoiser (random weights, dropout 0) of a Stage-2 run
     config (the JAX trainer's modelparams.json or the port's config.json),
     as codlad_tpu/cli/test.py:219-224 builds it for evaluation: from the
     keys `backbone`, `model` (2C output channels, learn_sigma, for diffusion
     and sbcfm; C for the other flows and backbone), `adaln_mode` and
-    `self_condition`. Raises
-    NotImplementedError for an option the port lacks, and ValueError for a
-    `decoder_mask` config, a model JAX's evaluation does not build either
-    (it reads no such key)."""
+    `self_condition`; a distilled run's `distill_tmap` (its sampling grid,
+    which cli/test.py rebuilds) leaves the network as it is. Raises
+    ValueError for a `decoder_mask` config, a model JAX's evaluation does
+    not build either (it reads no such key)."""
     from codlad_tpu_torch.models.denoiser import MPNNDenoiser
 
     model = cfg.get("model", "diffusion")
-    for key, item in _MISSING.items():
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} is not ported (ROADMAP queue 1 item {item})")
     if cfg.get("decoder_mask"):
         raise ValueError("a decoder_mask denoiser cannot be evaluated: the JAX evaluation "
                          "builds its denoiser without the mask too")

@@ -9,8 +9,12 @@ Counterpart of codlad_tpu/eval/harness.py:
   dopri5, `ode_steps` steps or, for dopri5, its budget of 4 x ode_steps
   attempts at `ode_rtol` / `ode_atol`; t enters the denoiser as the
   continuous f32 time, the state stays f32 and only the denoiser's input is
-  cast), with the VQ snap (no sequence sharding),
-  with classifier-free guidance at `cfg_scale` != 0 (JAX
+  cast), with the VQ snap, with sequence sharding (`seq`, a
+  parallel/sequence.SeqGroup: each seq rank runs the conditioning and every
+  denoise on its block of the residues, the ring-kNN and all-gathered node
+  tables of the seq-mode denoiser; the draws are the whole batch's, sliced,
+  so a sharded draw is the dense draw, and the latents are all-gathered at
+  the end; JAX `_sample_sharded`), with classifier-free guidance at `cfg_scale` != 0 (JAX
   `_sample_from_cond_cfg`): the conditioning is computed for the batch and
   for its null-token copy (res_type vocab - 1, the CG trace kept), every
   step runs one denoise over cat(x, x) on cat(cond, uncond), and the mean
@@ -89,6 +93,7 @@ class SamplingPipeline:
     ode_method: str = "euler"   # flows: euler | midpoint | rk4 | dopri5
     ode_rtol: float = 1e-5      # dopri5's tolerances
     ode_atol: float = 1e-5
+    seq: Any = None             # parallel/sequence.SeqGroup: sequence-sharded sampling
 
     def __post_init__(self):
         if self.sampler not in ("ancestral", "ddim"):
@@ -106,7 +111,7 @@ class SamplingPipeline:
         """The denoiser's conditioning in the compute dtype (JAX
         `_compute_condition` on the cast params)."""
         cond = self._cond_model.compute_condition(extras["res_type"], extras["cg_xyz"],
-                                                  extras["mask"])
+                                                  extras["mask"], seq=self.seq)
         if self.compute_dtype is not None:
             cond = {k: v.to(self.compute_dtype) if v.is_floating_point() else v
                     for k, v in cond.items()}
@@ -125,6 +130,22 @@ class SamplingPipeline:
         dev = res_type.device
         if noise is None:
             noise = torch.randn((B, L, self.latent_size), generator=generator, device=dev)
+        seq = self.seq
+        if seq is not None:
+            if L % seq.size:
+                raise ValueError(f"sequence length {L} must divide by the {seq.size} seq "
+                                 "shards (pick a compatible padding bucket)")
+            n = L // seq.size
+            cols = slice(seq.rank * n, (seq.rank + 1) * n)
+            if noises is None and (self.process_kind == "diffusion"
+                                   and (self.sampler == "ancestral" or self.ddim_eta != 0.0)):
+                # every step's z of the whole batch, in the order a dense draw takes them
+                noises = [torch.randn(noise.shape, generator=generator, device=dev)
+                          for _ in range(self.process.num_timesteps)]
+            noise = noise[:, cols]
+            noises = None if noises is None else [z[:, cols] for z in noises]
+            extras = {k: v[:, cols] for k, v in extras.items()}
+            res_type = extras["res_type"]
         cfg = float(self.cfg_scale or 0.0)
         if cfg != 0.0:
             null = torch.full_like(res_type, self._denoise_model.vocab - 1)
@@ -147,18 +168,26 @@ class SamplingPipeline:
                 x, t = torch.cat([x, x], 0), torch.cat([t, t], 0)
                 if x_self_cond is not None:
                     x_self_cond = torch.cat([x_self_cond, x_self_cond], 0)
-            out = model.denoise(x, t, cond, x_self_cond=x_self_cond).to(torch.float32)
+            out = model.denoise(x, t, cond, x_self_cond=x_self_cond,
+                                seq=seq).to(torch.float32)
             if cfg == 0.0:
                 return out[:B]
             c, u = out[:B], out[B:]
             return torch.cat([u[..., :C] + cfg * (c[..., :C] - u[..., :C]), c[..., C:]], -1)
 
         if self.process_kind != "diffusion":
-            return self._integrate(model_fn, noise, step_hook)
-        kw = dict(noise=noise, noises=noises, generator=generator, step_hook=step_hook)
-        if self.sampler == "ddim":
-            return self.process.ddim_sample_loop(model_fn, noise.shape, eta=self.ddim_eta, **kw)
-        return self.process.p_sample_loop(model_fn, noise.shape, **kw)
+            out = self._integrate(model_fn, noise, step_hook)
+        else:
+            kw = dict(noise=noise, noises=noises, generator=generator, step_hook=step_hook)
+            if self.sampler == "ddim":
+                out = self.process.ddim_sample_loop(model_fn, noise.shape, eta=self.ddim_eta,
+                                                    **kw)
+            else:
+                out = self.process.p_sample_loop(model_fn, noise.shape, **kw)
+        if seq is not None:
+            from codlad_tpu_torch.parallel.sequence import seq_all_gather
+            out = seq_all_gather(out, seq)
+        return out
 
     def _integrate(self, model_fn, noise, step_hook=None):
         """A flow draw: the ODE dx/dt = model_fn(x, t) from the noise at t = 0

@@ -25,15 +25,21 @@ import numpy as np
 import torch
 
 
-def mean_flat(x, mask=None):
+def mean_flat(x, mask=None, mask_sum=None):
     """Mean over the non-batch axes, only where mask is nonzero when given.
     The divisor is the mask's own sum, unbroadcast (a [B, L, 1] mask counts
-    residues, not residues x channels), as in the JAX package."""
+    residues, not residues x channels), as in the JAX package. mask_sum, if
+    given, maps the per-sample divisors to the global ones (a sum over the
+    seq ranks of a sequence-sharded batch, whose ranks each hold a block of
+    residues: each rank's result is then its part of the global mean)."""
     axes = tuple(range(1, x.dim()))
     if mask is None:
         return x.mean(dim=axes)
     x = x * mask
-    return x.sum(dim=axes) / torch.clamp(mask.sum(dim=axes), min=1.0)
+    denom = mask.sum(dim=axes)
+    if mask_sum is not None:
+        denom = mask_sum(denom)
+    return x.sum(dim=axes) / torch.clamp(denom, min=1.0)
 
 
 def normal_kl(mean1, logvar1, mean2, logvar2):
@@ -209,28 +215,28 @@ class GaussianDiffusion:
         mean = self.q_posterior_mean(pred_xstart, x, t)
         return {"mean": mean, "log_variance": model_log_var, "pred_xstart": pred_xstart}
 
-    def _vb_terms(self, frozen_out, x_start, x_t, t, mask=None):
+    def _vb_terms(self, frozen_out, x_start, x_t, t, mask=None, mask_sum=None):
         """Variational bound term in bits: the KL to the posterior, or the
         decoder NLL at t = 0."""
         true_mean, _, true_log_var = self.q_posterior(x_start, x_t, t)
         out = self.p_mean_variance(frozen_out, x_t, t)
         kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
-        kl = mean_flat(kl, mask) / math.log(2.0)
+        kl = mean_flat(kl, mask, mask_sum) / math.log(2.0)
         nll = -discretized_gaussian_log_likelihood(
             x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
-        nll = mean_flat(nll, mask) / math.log(2.0)
+        nll = mean_flat(nll, mask, mask_sum) / math.log(2.0)
         return torch.where(t == 0, nll, kl)
 
     def training_losses(self, model_fn, x_start, t, noise, mask=None, self_cond=None,
-                        sc_model_fn=None):
+                        sc_model_fn=None, mask_sum=None):
         """The MSE objective (+ the VB term with a learned variance). t: [B]
         respaced indices; noise: the q-sample noise; mask: [B, L,
         1]-broadcastable or None. With self_condition, `self_cond` is the
         step's coin (one for the whole batch): on True a first pass of
         `sc_model_fn` (default model_fn) with zeros as x_self_cond gives, as
         a constant, the pred_xstart the main pass is conditioned on; on
-        False the main pass gets zeros. Returns {'loss', 'mse'} (and 'vb'
-        with a learned variance), each [B]."""
+        False the main pass gets zeros. mask_sum: see mean_flat. Returns
+        {'loss', 'mse'} (and 'vb' with a learned variance), each [B]."""
         if x_start.shape[-1] == 2:
             noise = _wrap_pm1(noise)
         x_t = self.q_sample(x_start, t, noise)
@@ -252,7 +258,7 @@ class GaussianDiffusion:
         if self.var_type == "learned_range":
             mean_out, var_values = model_output.chunk(2, dim=-1)
             frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
-            terms["vb"] = self._vb_terms(frozen, x_start, x_t, t, mask)
+            terms["vb"] = self._vb_terms(frozen, x_start, x_t, t, mask, mask_sum)
             if self.loss_type == "rescaled_mse":
                 terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
             model_output = mean_out
@@ -260,7 +266,7 @@ class GaussianDiffusion:
         diff = target - model_output
         if target.shape[-1] == 2:
             diff = _wrap_pm1(diff)
-        terms["mse"] = mean_flat(diff ** 2, mask)
+        terms["mse"] = mean_flat(diff ** 2, mask, mask_sum)
         terms["loss"] = terms["mse"] + terms.get("vb", 0.0)
         return terms
 

@@ -192,11 +192,23 @@ def keep_scales(seeds, shape, p):
 
 
 def site_seeds(seed, site, batch, device):
-    """Per-sample int32 dropout seeds [batch] in [0, 2^31) for one dropout
-    site of one forward pass: a pure function of (seed, site, sample)."""
+    """Per-sample int32 dropout seeds [batch] for one dropout site of one
+    forward pass: a pure function of (seed, site, sample), in [0, 2^31).
+
+    `seed` may be (seed, row0): the rows are rows row0 .. row0 + batch - 1
+    of a larger batch (a data-parallel rank's), and the seeds are rebased
+    so that `keep_bits`, which hashes each seed with its LOCAL row b, gives
+    the bits that row row0 + b of the whole batch gets: seed' = seed ^
+    h(row0 + b) ^ h(b), h the row hash of keep_bits (any int32 then)."""
+    seed, row0 = seed if isinstance(seed, tuple) else (seed, 0)
     key = _lowbias32((_lowbias32(int(seed) & _M32) + site) & _M32)  # Python ints
     b = torch.arange(batch, dtype=torch.int64)
-    return (_lowbias32(key ^ b) & 0x7FFFFFFF).to(torch.int32).to(device)
+    s = _lowbias32(key ^ (b + row0)) & 0x7FFFFFFF
+    if row0:
+        s = (s ^ _lowbias32((b + row0 + 0x9E3779B9) & _M32)
+             ^ _lowbias32((b + 0x9E3779B9) & _M32))
+        s = torch.where(s >= 2 ** 31, s - 2 ** 32, s)   # the same 32 bits as int32
+    return s.to(torch.int32).to(device)
 
 
 def plain_message_edge_lnmod_pdrop(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc,

@@ -1,8 +1,7 @@
 """Latent denoiser: ProteinMPNN-style kNN graph network with adaLN timestep
 conditioning over per-residue latents.
 
-Counterpart of codlad_tpu/models/denoiser.py without sequence sharding:
-trunk or `residual` adaLN, `self_condition` (x_in reads cat[x_self_cond,
+Counterpart of codlad_tpu/models/denoiser.py: trunk or `residual` adaLN, `self_condition` (x_in reads cat[x_self_cond,
 x], zeros when none is given), `decoder_mask` (the masked decoder, its
 decoding order from a `decoding_randn` [B, L] the caller may pass),
 `use_seq_in_encoder`, `final_adln` (a plain Dense head when False),
@@ -12,8 +11,16 @@ latent (kNN graph, edge features, sequence embedding) and runs once per
 batch; `denoise` runs at every sampling step, with `fuse_pairs=True`
 through the layer-pair kernel K7. `forward` runs both, the training path:
 the featurizer is then inside the graph and gets gradients, and dropout is
-on when it is called with deterministic=False and an integer dropout seed.
-`forward_with_cfg` is the guided forward over a doubled batch.
+on when it is called with deterministic=False and a dropout seed (an
+integer, or (seed, row0): the masks of rows row0.. of a larger batch, as a
+data-parallel rank draws them). `forward_with_cfg` is the guided forward
+over a doubled batch. Each of the three takes `seq`, a
+parallel/sequence.SeqGroup: the sequence-sharded mode (JAX's `seq=`), in
+which the inputs hold this rank's rows of the residues, the kNN is
+ring-streamed, the node tables the message chains gather from are
+all-gathered (the kernels then take a node table of N = L x seq.size rows
+for L edge rows) and the output is this rank's rows; the parameters are the
+dense model's.
 """
 
 from __future__ import annotations
@@ -87,17 +94,25 @@ class MPNNDenoiser(nn.Module):
         self.w_out = (FinalLayer(h, out_size, gen) if final_adln
                       else linear(h, out_size, gen, init="lecun"))
 
-    def compute_condition(self, res_type, cg_xyz, mask, augment_noise=None):
+    def compute_condition(self, res_type, cg_xyz, mask, augment_noise=None, seq=None):
         """x-independent conditioning: kNN indices, edge features, masks and
         the sequence embedding. res_type [B, L], cg_xyz [B, L, 3] (Å),
-        mask [B, L]; augment_noise [B, L, 3] N(0, 1), used with augment_eps."""
+        mask [B, L]; augment_noise [B, L, 3] N(0, 1), used with augment_eps.
+        With `seq` the rows are this rank's block, their positions global."""
         B, L = res_type.shape
         maskf = mask.to(cg_xyz.dtype)
-        residue_idx = torch.arange(L, dtype=torch.int32,
-                                   device=cg_xyz.device).expand(B, L)
+        start = 0 if seq is None else seq.rank * L
+        residue_idx = (start + torch.arange(L, dtype=torch.int32,
+                                            device=cg_xyz.device)).expand(B, L)
         chain_labels = torch.ones((B, L), dtype=cg_xyz.dtype, device=cg_xyz.device)
-        E, E_idx = self.features(cg_xyz, maskf, residue_idx, chain_labels, augment_noise)
-        mask_attend = maskf[..., None] * gather_nodes(maskf[..., None], E_idx)[..., 0]
+        E, E_idx = self.features(cg_xyz, maskf, residue_idx, chain_labels, augment_noise,
+                                 seq=seq)
+        if seq is None:
+            mask_table = maskf
+        else:
+            from codlad_tpu_torch.parallel.sequence import seq_all_gather
+            mask_table = seq_all_gather(maskf, seq)
+        mask_attend = maskf[..., None] * gather_nodes(mask_table[..., None], E_idx)[..., 0]
         return {"idx": E_idx.to(torch.int32), "h_E0": self.w_e(E),
                 "h_S": self.w_s(res_type.long()), "maskf": maskf,
                 "mask_attend": mask_attend}
@@ -111,7 +126,7 @@ class MPNNDenoiser(nn.Module):
         return self.w_out(h_V, c) if self.final_adln else self.w_out(h_V)
 
     def denoise(self, x, t, cond, deterministic=True, dropout_seed=None, fuse_pairs=False,
-                x_self_cond=None, decoding_randn=None):
+                x_self_cond=None, decoding_randn=None, seq=None):
         """One denoiser evaluation. x [B, L, input_size] in the weights'
         dtype, t [B] or scalar base timesteps -> [B, L, out]. With
         deterministic=False the layers drop at rate `dropout`, with masks
@@ -124,7 +139,9 @@ class MPNNDenoiser(nn.Module):
         layer's edge update and the next layer's node sum as one kernel
         (`_denoise_fused`). As in the JAX package, that path is taken only
         where it exists: deterministic, trunk adaLN, decoder layers present,
-        no decoder mask, no remat; in any other mode the unfused path runs."""
+        no decoder mask, no remat, no `seq`; in any other mode the unfused
+        path runs. With `seq` (cond from compute_condition(seq=)) the decoder
+        mask raises NotImplementedError, as in JAX."""
         B, L = x.shape[:2]
         dt = x.dtype
         idx = cond["idx"]
@@ -141,17 +158,30 @@ class MPNNDenoiser(nn.Module):
         h_V = self.x_in(x)
         h_E = cond["h_E0"].to(dt)
         s_scale = 2.0 if self.use_seq_in_encoder else 1.0
-        if (fuse_pairs and deterministic and self.adaln_mode == "trunk"
+        if (fuse_pairs and deterministic and self.adaln_mode == "trunk" and seq is None
                 and not self.decoder_mask and not self.remat and len(self.dec_layers) > 0):
             return self._denoise_fused(h_V, h_E, idx, maskf, mask_attend, s_scale * h_S, c)
         for layer in self.enc_layers:
             h_V, h_E = self._layer(layer, h_V, h_E, idx, maskf, mask_attend, c,
-                                   deterministic, dropout_seed)
+                                   deterministic, dropout_seed, seq)
         h_V_enc = h_V
+
+        if seq is not None:
+            if self.decoder_mask:
+                raise NotImplementedError("decoder_mask is not supported under sequence "
+                                          "sharding (as in the JAX package)")
+            from codlad_tpu_torch.parallel.sequence import seq_all_gather
+            s_full = seq_all_gather(s_scale * h_S, seq)
+            for layer in self.dec_layers:
+                h_V = self._layer(layer, h_V, idx, h_E, s_full,
+                                  seq_all_gather(h_V + h_V_enc, seq), maskf, c, 2.0,
+                                  deterministic, dropout_seed)
+            return self._head(h_V, c)
 
         if self.decoder_mask:
             if decoding_randn is None:
-                g = torch.Generator(device=x.device).manual_seed(int(dropout_seed or 0))
+                base = dropout_seed[0] if isinstance(dropout_seed, tuple) else dropout_seed
+                g = torch.Generator(device=x.device).manual_seed(int(base or 0))
                 decoding_randn = torch.randn((B, L), generator=g, device=x.device)
             # argsort of (mask + 1e-4) * |randn|: ties between residues would
             # make the order depend on the sort's tie rule (the top-k trap),
@@ -214,13 +244,13 @@ class MPNNDenoiser(nn.Module):
 
     def forward(self, x, t, res_type, cg_xyz, mask, deterministic=True,
                 dropout_seed=None, x_self_cond=None, augment_noise=None,
-                decoding_randn=None):
+                decoding_randn=None, seq=None):
         """The training forward (JAX `__call__`): conditioning, then one
         denoiser evaluation. x [B, L, input_size], t [B], res_type [B, L],
         cg_xyz [B, L, 3] (Å), mask [B, L] -> [B, L, out]."""
-        cond = self.compute_condition(res_type, cg_xyz, mask, augment_noise)
+        cond = self.compute_condition(res_type, cg_xyz, mask, augment_noise, seq=seq)
         return self.denoise(x, t, cond, deterministic, dropout_seed,
-                            x_self_cond=x_self_cond, decoding_randn=decoding_randn)
+                            x_self_cond=x_self_cond, decoding_randn=decoding_randn, seq=seq)
 
     def forward_with_cfg(self, x, t, res_type, cg_xyz, mask, cfg_scale):
         """Classifier-free guidance over a doubled batch: the first half

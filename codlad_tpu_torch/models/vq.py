@@ -13,6 +13,11 @@ Randomness: JAX draws from a key, which does not port. Each random draw
 here comes from an explicit `torch.Generator`, or is handed in as the drawn
 tensor itself (the Gumbel noise, the expiry picks, the subsample rows), so
 that a test can pass JAX's draw.
+
+Under Stage-1 data parallelism (train/mesh.summing_over) the EMA update's
+per-code counts and sums and the commitment loss's count are summed over
+the ranks, so the codebook moves as one rank's on the global batch would;
+an expiring codebook's or Gumbel quantizer's draws are each rank's own.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import math
 
 import numpy as np
 import torch
+
+from codlad_tpu_torch.train.mesh import data_sum, data_size
 
 
 @dataclasses.dataclass
@@ -94,7 +101,7 @@ def _mask_of(z, mask):
 
 def _commit(z, quantized, maskf, weight):
     """weight * the masked mean of (z - sg(quantized))^2."""
-    denom = torch.clamp(maskf.sum() * z.shape[-1], min=1.0)
+    denom = torch.clamp(data_sum(maskf.sum()) * z.shape[-1], min=1.0)
     return weight * torch.sum((z - quantized.detach()) ** 2 * maskf[..., None]) / denom
 
 
@@ -124,8 +131,8 @@ def _ema_update(state, hard, z_flat, decay, epsilon):
     one-hot assignments `hard` [N, K] of the rows z_flat [N, D]; codes never
     assigned yet (cluster_size <= 1e-3) are left to the caller."""
     n_codes = state.codebook.shape[0]
-    cluster_size = state.cluster_size * decay + hard.sum(0) * (1 - decay)
-    embed_avg = state.embed_avg * decay + (hard.T @ z_flat) * (1 - decay)
+    cluster_size = state.cluster_size * decay + data_sum(hard.sum(0)) * (1 - decay)
+    embed_avg = state.embed_avg * decay + data_sum(hard.T @ z_flat) * (1 - decay)
     n = cluster_size.sum()
     smoothed = (cluster_size + epsilon) / (n + n_codes * epsilon) * n
     return cluster_size, embed_avg, embed_avg / smoothed[:, None]
@@ -461,7 +468,9 @@ class Quantizer:
         z_q, idx, loss, new_state = _vq(state, z, mask, train, self.decay,
                                         self.commitment_weight)
         if self.kind == "orthogonal":
-            loss = loss + orthogonal_reg_loss(new_state.codebook, weight=self.ortho_weight)
+            # a term of the codebook alone: each data-parallel rank adds its share
+            loss = loss + orthogonal_reg_loss(new_state.codebook,
+                                              weight=self.ortho_weight) / data_size()
         if self.kind == "expire" and train:
             new_state = expire_dead_codes(new_state, z, mask, self.expire_threshold,
                                           generator=generator, pick=noise)

@@ -1,7 +1,8 @@
 """ProteinMPNN-style kNN graph blocks with adaLN timestep conditioning.
 
 Counterpart of codlad_tpu/nn/mpnn.py on the Stage-2 paths: the C-alpha
-featurizer (`CAProteinFeatures`, with `augment_eps`), the split message
+featurizer (`CAProteinFeatures`, with `augment_eps` and the
+sequence-sharded mode, `seq=`), the split message
 chain in its `reduce_sum` (K1), `ln_mod` (K2, with dropout K5) and raw
 per-edge (K6) modes, the encoder and decoder layers (the decoder also
 masked, in explicit ops) in both adaLN gate modes:
@@ -154,33 +155,51 @@ class CAProteinFeatures(nn.Module):
         return self._rbf(D)
 
     @staticmethod
-    def _orient_edges(X, O, idx):
+    def _orient_edges(X_rows, O_rows, X_full, O_full, idx):
+        """Direction and quaternion features of the rows' edges, the
+        neighbours' frames and coordinates gathered from the full tables."""
         B, L, K = idx.shape
-        On = gather_nodes(O, idx).reshape(B, L, K, 3, 3)
-        dXn = gather_nodes(X, idx) - X[:, :, None, :]
-        Om = O.reshape(B, L, 3, 3)
+        On = gather_nodes(O_full, idx).reshape(B, L, K, 3, 3)
+        dXn = gather_nodes(X_full, idx) - X_rows[:, :, None, :]
+        Om = O_rows.reshape(B, L, 3, 3)
         dU = _normalize(torch.einsum("blij,blkj->blki", Om, dXn))
         Q = _quaternions(torch.einsum("blji,blkjm->blkim", Om, On))
         return torch.cat([dU, Q], dim=-1)
 
-    def forward(self, Ca, mask, residue_idx, chain_labels, noise=None):
+    def forward(self, Ca, mask, residue_idx, chain_labels, noise=None, seq=None):
+        """seq (parallel/sequence.SeqGroup): the sequence-sharded mode. Ca,
+        mask, residue_idx (GLOBAL positions) and chain_labels hold this
+        rank's rows; the kNN is ring-streamed, the per-node tables
+        all-gathered, and E_idx holds global indices."""
         if self.augment_eps > 0 and noise is not None:
             Ca = Ca + self.augment_eps * noise.to(Ca.dtype)
-        D_neighbors, E_idx = self._dist(Ca, mask)
-        Ca_0 = F.pad(Ca[:, :-1], (0, 0, 1, 0))
-        Ca_1 = Ca
-        Ca_2 = F.pad(Ca[:, 1:], (0, 0, 0, 1))
-        O_features = self._orient_edges(Ca, _frames(Ca), E_idx)
+        if seq is None:
+            D_neighbors, E_idx = self._dist(Ca, mask)
+            Ca_full, res_full, chain_full = Ca, residue_idx, chain_labels
+            loc = lambda table: table
+        else:
+            from codlad_tpu_torch.parallel.sequence import local_rows, ring_knn, seq_all_gather
+            D_neighbors, E_idx = ring_knn(Ca, mask, min(self.top_k, Ca.shape[1] * seq.size),
+                                          seq)
+            Ca_full = seq_all_gather(Ca, seq)
+            res_full = seq_all_gather(residue_idx, seq)
+            chain_full = seq_all_gather(chain_labels, seq)
+            loc = lambda table: local_rows(table, seq)
+        Ca_0 = F.pad(Ca_full[:, :-1], (0, 0, 1, 0))
+        Ca_1 = Ca_full
+        Ca_2 = F.pad(Ca_full[:, 1:], (0, 0, 0, 1))
+        O_full = _frames(Ca_full)
+        O_features = self._orient_edges(loc(Ca_full), loc(O_full), Ca_full, O_full, E_idx)
 
         rbf_all = [self._rbf(D_neighbors)]
         for A, Bc in [(Ca_0, Ca_0), (Ca_2, Ca_2), (Ca_0, Ca_1), (Ca_0, Ca_2),
                       (Ca_1, Ca_0), (Ca_1, Ca_2), (Ca_2, Ca_0), (Ca_2, Ca_1)]:
-            rbf_all.append(self._get_rbf(A, Bc, E_idx))
+            rbf_all.append(self._get_rbf(loc(A), Bc, E_idx))
         rbf_all = torch.cat(rbf_all, dim=-1)
 
         offset = residue_idx[:, :, None] - gather_nodes(
-            residue_idx[..., None].to(torch.float32), E_idx)[..., 0].to(residue_idx.dtype)
-        E_chains = (gather_nodes(chain_labels[..., None], E_idx)[..., 0]
+            res_full[..., None].to(torch.float32), E_idx)[..., 0].to(residue_idx.dtype)
+        E_chains = (gather_nodes(chain_full[..., None], E_idx)[..., 0]
                     == chain_labels[:, :, None]).to(torch.int32)
         E_positional = self.PositionalEncodings_0(offset, E_chains)
         E = torch.cat([E_positional, rbf_all, O_features], dim=-1).to(Ca.dtype)
@@ -320,23 +339,31 @@ class EncLayerDiffusion(_DropoutLayer):
         return self.Dense_0(F.silu(c)).chunk(9, dim=-1)
 
     def forward(self, h_V, h_E, idx, mask_V, mask_attend, c, deterministic=True,
-                seed=None):
+                seed=None, seq=None):
+        """seq (parallel/sequence.SeqGroup): the rows are this rank's, and
+        the chains gather neighbour state from the all-gathered node table
+        (Gn of N = L x seq.size rows)."""
         sh1, sc1, g1, sh2, sc2, g2, sh3, sc3, g3 = self.mods(c)
+        if seq is None:
+            tbl = lambda v: v
+        else:
+            from codlad_tpu_torch.parallel.sequence import seq_all_gather
+            tbl = lambda v: seq_all_gather(v, seq)
         if self.gate_mode == "residual":
             s1, s2, s3 = self._site_seeds(deterministic, seed, 3, h_V.shape[0], h_V.device)
             x = modulate(layer_norm(h_V), sh1, sc1)
-            dh = self.SplitMessageChain_0(x, h_E, x, idx, mask_attend=mask_attend)
+            dh = self.SplitMessageChain_0(x, h_E, tbl(x), idx, mask_attend=mask_attend)
             h_V = _residual_update(self, h_V, dh, g1, sh2, sc2, g2, mask_V, s1, s2)
             xe = modulate(layer_norm(h_E), sh3, sc3)
-            msg = self.SplitMessageChain_1(h_V, xe, h_V, idx)
+            msg = self.SplitMessageChain_1(h_V, xe, tbl(h_V), idx)
             h_E = h_E + g3[:, None, None, :] * self._drop(msg.to(h_E.dtype), s3)
             return h_V, h_E
-        dh = self.SplitMessageChain_0(h_V, h_E, h_V, idx, mask_attend=mask_attend)
+        dh = self.SplitMessageChain_0(h_V, h_E, tbl(h_V), idx, mask_attend=mask_attend)
         h_V = _node_epilogue(self, h_V, dh, sh1, sc1, g1, sh2, sc2, g2, mask_V,
                              deterministic, seed)
         seeds = self._seeds(deterministic, seed, 2, h_V.shape[0], h_V.device)
         pdrop = None if seeds is None else (seeds, self.dropout)
-        h_E = self.SplitMessageChain_1(h_V, h_E, h_V, idx, ln_mod=(sh3, sc3, g3),
+        h_E = self.SplitMessageChain_1(h_V, h_E, tbl(h_V), idx, ln_mod=(sh3, sc3, g3),
                                        pdrop=pdrop)
         return h_V, h_E
 

@@ -17,12 +17,17 @@ import time
 import numpy as np
 
 
-def create_logger(logdir, name="codlad_torch"):
-    os.makedirs(logdir, exist_ok=True)
+def create_logger(logdir, name="codlad_torch", main=True):
+    """A logger to the console and `<logdir>/log.txt`; on a rank other than
+    the main one (main=False) a logger that writes nothing."""
     logger = logging.getLogger(name)
     logger.handlers.clear()
     logger.setLevel(logging.INFO)
     logger.propagate = False
+    if not main:
+        logger.addHandler(logging.NullHandler())
+        return logger
+    os.makedirs(logdir, exist_ok=True)
     fmt = logging.Formatter("[%(asctime)s] %(message)s", "%Y-%m-%d %H:%M:%S")
     for h in (logging.StreamHandler(), logging.FileHandler(os.path.join(logdir, "log.txt"))):
         h.setFormatter(fmt)
@@ -34,11 +39,15 @@ class MetricsSink:
     """Appends one JSON object {step, split, **metrics} a line to
     `<logdir>/metrics.jsonl` (split "train", or "val" for validation rows)."""
 
-    def __init__(self, logdir):
-        os.makedirs(logdir, exist_ok=True)
+    def __init__(self, logdir, enabled=True):
+        self.enabled = enabled
         self.path = os.path.join(logdir, "metrics.jsonl")
+        if enabled:
+            os.makedirs(logdir, exist_ok=True)
 
     def log(self, metrics, step=None, split="train"):
+        if not self.enabled:
+            return
         row = {"step": None if step is None else int(step), "split": split}
         row.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:

@@ -11,6 +11,8 @@ existing atoms with interior-endpoint residues zeroed (but counted), and
 edge terms are masked means over their padded lists. `ic_to_xyz14` runs
 inside the autograd graph. The KL terms serve the fgvae/GenZProt modes;
 eval/harness.py reads its bond/angle/torsion and xyz metrics from here.
+Under Stage-1 data parallelism every count is the global batch's
+(train/mesh.data_sum), so the ranks' losses sum to the global batch's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 import torch
 
 from codlad_tpu_torch.geometry.internal import ic_to_xyz14
+from codlad_tpu_torch.train.mesh import data_sum
 
 EPS = 1e-7
 
@@ -58,8 +61,15 @@ def _masked_edge_dist(xyz_flat, edges, mask, eps=EPS):
     return d, mask.to(d.dtype)
 
 
+def _count(m):
+    """A mask's count, over the global batch under Stage-1 data parallelism
+    (train/mesh.data_sum): each rank's mean is then its part of the global
+    one."""
+    return data_sum(m.sum())
+
+
 def _mean(x, m):
-    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (x * m).sum() / torch.clamp(_count(m), min=1.0)
 
 
 def _cos(x):
@@ -76,7 +86,7 @@ def ic_terms(batch, ic_recon):
     angle and torsion errors, each summed over valid ic rows / their count."""
     ic = batch["ic"]
     ic_mask = batch["ic_mask"].to(ic.dtype)
-    natom = torch.clamp(ic_mask.sum(), min=1.0)
+    natom = torch.clamp(_count(ic_mask), min=1.0)
     d_bond = (ic_recon[..., 0] - ic[..., 0]) * ic_mask
     bond = (d_bond ** 2).sum() / natom
     angle = (torch.sqrt(2 * (1 - _cos(ic[..., 1] - ic_recon[..., 1])) + EPS)
@@ -90,7 +100,7 @@ def xyz_term(atom_mask, xyz_gen, xyz_ref):
     """Mean squared coordinate error over existing atoms."""
     m = atom_mask.to(xyz_gen.dtype)
     sq = ((xyz_gen - xyz_ref) ** 2).sum(-1)
-    return (sq * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (sq * m).sum() / torch.clamp(_count(m), min=1.0)
 
 
 def vqvae_loss_terms(batch, ic_recon, weights: LossWeights):
@@ -128,13 +138,13 @@ def vqvae_loss_terms(batch, ic_recon, weights: LossWeights):
 
     # interaction score: contacts and pi-pi pairs, two means weighted by counts
     int_d, imask = _masked_edge_dist(gen_flat, batch["inter_edges"], batch["inter_edges_mask"])
-    n_inter = imask.sum()
+    n_inter = _count(imask)
     pp = batch["pipi_pairs"]
     ppm = batch["pipi_pairs_mask"].to(ic.dtype)
     c0 = 0.5 * (_take(gen_flat, pp[..., 0]) + _take(gen_flat, pp[..., 1]))
     c1 = 0.5 * (_take(gen_flat, pp[..., 2]) + _take(gen_flat, pp[..., 3]))
     pp_d = torch.sqrt(((c0 - c1) ** 2).sum(-1) + EPS)
-    n_pipi = ppm.sum()
+    n_pipi = _count(ppm)
     n_tot = torch.clamp(n_inter + n_pipi, min=1.0)
     loss_inter = (_mean(torch.relu(int_d - 4.0), imask) * n_inter / n_tot
                   + _mean(torch.relu(pp_d - 6.0), ppm) * n_pipi / n_tot)
@@ -167,7 +177,7 @@ def kl_standard_normal(mu, sigma, mask=None):
     if mask is None:
         return kl.mean()
     m = mask.to(kl.dtype)
-    return (kl * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (kl * m).sum() / torch.clamp(_count(m), min=1.0)
 
 
 def kl_gaussians(mu1, sigma1, mu2, sigma2, mask=None):
@@ -186,4 +196,4 @@ def kl_gaussians(mu1, sigma1, mu2, sigma2, mask=None):
     if mask is None:
         return term.mean()
     m = mask.to(term.dtype)
-    return (term * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (term * m).sum() / torch.clamp(_count(m), min=1.0)

@@ -23,7 +23,9 @@ ivae -> genzprot, angle / fsq -> extract -> recon, fgvae -> extract
 library loaded and checked, a flow draw by each solver, the f32 reference
 draws, otcfm and sbcfm steps and their card-vs-CPU step, the user path
 preprocess -> train_latent --model otcfm -> cli.test --save_pdb --save_xtc),
-tiny."""
+tiny; and the distill and parallel phases' parts (distillation steps and
+their card-vs-CPU step, the distillation user path, the trainers in and out
+of a process group of one rank, the seq-mode checks, the dryrun twin), tiny."""
 
 import os
 import subprocess
@@ -259,6 +261,47 @@ FLOWS_SCRIPT = BLOCKER + textwrap.dedent("""
     print("flows rehearsed")
 """)
 
+DISTILL_PARALLEL_SCRIPT = BLOCKER + textwrap.dedent("""
+    # distillation and parallelism, tiny: distillation steps and their card-vs-CPU
+    # reference, the user path (the trained VQ-VAE's features of 2 frames, one
+    # round 8 -> 4, cli.test on the student and the teacher); the trainers in and
+    # out of a process group of one rank (gloo here), the seq-mode checks and
+    # the dryrun twin on that rank
+    for name in ("gen.distill", "cli.distill", "train.mesh", "parallel.sequence",
+                 "parallel.dryrun"):
+        assert "codlad_tpu_torch." + name in names, name
+    assert chip_smoke.distill_launches() == {
+        "fused_message_sum": 18, "fused_message_edge_lnmod": 9, "fused_message_sum_bwd": 6,
+        "fused_message_edge_lnmod_bwd": 3}
+    _, state, teacher, step, _ = chip_smoke.build_distill_trainer("cpu", 0, hidden=32,
+                                                                  layers=1, k=8)
+    times, metrics, _ = chip_smoke.run_train(
+        state, lambda st, x, e, s: step(st, teacher, x, e, s), x1, extras, 0, 2, {})
+    assert state.step == 2
+    chip_smoke.distill_reference(0, device="cpu", hidden=32, layers=1)
+    user = chip_smoke.run_distill_user_path(0, "cpu", n_frames=2, batch=2, round_steps=2,
+                                            members=1, start_steps=8)
+    assert user["config"]["distill_tmap"] == [0, 250, 500, 750], user["config"]
+    assert user["held_start"] > 0 and user["held_end"] > 0
+    small = dict(n_frames=4, n_res=16, batch=2, steps=2, s1_res=(20, 24), s1_frames=2,
+                 s1_batch=2, enc=1, dec=1)
+    plain = chip_smoke.run_parallel_trainers(0, "cpu", **small)
+    chip_smoke.init_world_of_one("cpu")
+    try:
+        assert chip_smoke.run_parallel_trainers(0, "cpu", **small) == plain
+        seq = chip_smoke.seq_mode_checks(0, "cpu", n_frames=2, n_res=32, hidden=32, layers=1,
+                                         k=16, train_frames=2)
+        assert seq["forward_err"] == 0.0
+        from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
+        assert set(dryrun_multichip("cpu")) == {"dp", "dp_x_sp_train", "seq_forward",
+                                                "stage1_dp"}
+        assert set(chip_smoke.ddp_step_times(0, "cpu", n_frames=2, n_res=16, rounds=1,
+                                             hidden=32, layers=1, k=8)) == {"plain", "mesh"}
+    finally:
+        chip_smoke.leave_world()
+    print("distill and parallel rehearsed")
+""")
+
 
 def test_port_and_chip_smoke_import_no_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -289,6 +332,16 @@ def test_flows_phase_parts_run_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "flows rehearsed" in proc.stdout
+
+
+def test_distill_and_parallel_phases_run_without_jax():
+    """chip_smoke's distill and parallel phases, tiny, under the same import
+    blocker: the new modules import and each part runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", DISTILL_PARALLEL_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "distill and parallel rehearsed" in proc.stdout
 
 
 def test_module_launches_counts_only_its_module():

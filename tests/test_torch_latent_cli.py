@@ -398,16 +398,24 @@ def test_cli_genzprot_from_the_port_trainer(shard_dir, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--seq_shards", "2"]])
 def test_cli_refuses_what_is_not_ported(shard_dir, tmp_path, flags):
+    """--seq_shards is ported: in a plain process (no torchrun group) two
+    seq shards are refused for want of their two ranks, and nothing names a
+    ROADMAP item; the 2-rank run is tests/test_torch_parallel_cli.py's."""
     args = ["--experiment", "latent", "--latent_weights", WEIGHTS, "--data_dir",
             str(shard_dir), "--out_dir", str(tmp_path / "eval"), *CLI_ARGS, *flags]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         CLI.main(args)
 
 
 @pytest.mark.parametrize("cfg", [{"distill_tmap": [999, 499]}])
 def test_denoiser_config_refuses_what_is_not_ported(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        denoiser_from_config(cfg)
+    """A distilled config (distill_tmap) is ported: it builds the dense
+    denoiser of its model, and its grid is a 2-step process on those base
+    steps (the one cli.test samples it on)."""
+    den = denoiser_from_config(cfg)
+    assert den.w_out.Dense_1.out_features == 6
+    grid = TD.diffusion_from_tmap(cfg["distill_tmap"])
+    assert grid.num_timesteps == 2 and grid.timestep_map.tolist() == [499, 999]
 
 
 @pytest.mark.parametrize("model,out", [("diffusion", 6), ("sbcfm", 6), ("otcfm", 3),
