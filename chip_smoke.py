@@ -276,9 +276,33 @@ Phases, each printing its seconds:
                 variables): their losses equal (rtol 1e-3); on that rank
                 ring_knn against the dense kNN, the seq-mode denoiser's f32
                 forward and step against the dense ones, one bf16 seq-mode
-                step, the dryrun twin (parallel/dryrun.py), and a bf16
-                training step with and without that rank's mesh, timed in
-                turns; with two cards, the dryrun twin on two NCCL ranks.
+                step, the dryrun twin (parallel/dryrun.py, with its data x
+                tensor configuration at a model axis of 1), a bf16 dp x tp
+                step (parallel/tensor.py) at B96 L128 K64, dropout 0,
+                against the plain step (launches asserted: 6 K1, 3 K2, 6
+                K3, 3 K4), and a bf16 training step with and without that
+                rank's mesh, timed in turns; with two cards, the dryrun
+                twin on two NCCL ranks.
+ 24. import -- cli.import_checkpoint on weights/convergence_vqvae_n6layout.pt
+                (the trained VQ-VAE in the reference's N6 key layout, with
+                DDP's prefix and a dist_filter key) into a port logdir; its
+                f32 recon on the fixture frames against the converted
+                weights' (every VQ code equal) and the JAX outputs (as
+                recon_trained); `cli.test --experiment recon --vae_ckpt` on
+                two proteins against the `--vae_weights` run (every metric
+                within rtol 1e-4), its K8 / K9 / K10 launches counted; a
+                K3 / K4 angle-layout state dict at the trained widths (a
+                random decoder; a temporary file only) through a run
+                directory and --modelnum 999.
+ 25. protein_mpnn -- the autoregressive ProteinMPNN at the JAX class's
+                default widths (hidden 128, 3 + 3 layers, K 64, 21 letters),
+                4 chains x 128, f32, random weights, card vs CPU: the
+                teacher-forced log-probs and unconditional_probs within
+                1e-4; conditional_probs (both modes) against the CPU's
+                teacher-forced forward at 4 positions; sample and
+                tied_sample with the same Gumbel noise (sequences equal,
+                probs within 1e-4, or a first differing draw whose top-two
+                gap is under 1e-4, logged); the seconds of a draw.
 
 Sampling weights, but in 15, 16, 16b and 16c (the trained weights), are the
 port's init from --seed with the adaLN heads (zero at init) drawn small and
@@ -2427,10 +2451,11 @@ def recon_trained(device="cuda"):
     return m
 
 
-def run_recon_cli(seed, device="cuda", batch_size=4):
-    """The recon CLI's main on two proteins of 3 frames the port writes as
-    shards, with the trained weights: summary_stats.json with finite
-    per-protein and global metrics."""
+def run_recon_cli(seed, device="cuda", batch_size=4, vae=None, n_res=(58, 75), n_frames=3):
+    """The recon CLI's main on two proteins (n_res residues, n_frames frames)
+    the port writes as shards, with the trained weights (`vae`: the CLI's
+    VAE flag and its value, --vae_weights WEIGHTS by default):
+    summary_stats.json with finite per-protein and global metrics."""
     import json
     import os
     import tempfile
@@ -2439,12 +2464,12 @@ def run_recon_cli(seed, device="cuda", batch_size=4):
     from codlad_tpu_torch.data.synthetic import synthetic_examples
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(f"{tmp}/shards")
-        for i, n_res in enumerate((58, 75)):
+        for i, n in enumerate(n_res):
             save_protein_shard(f"{tmp}/shards/prot_{i:04d}.npz",
-                               synthetic_examples(3, n_res, seed=seed + i, prot_idx=i,
+                               synthetic_examples(n_frames, n, seed=seed + i, prot_idx=i,
                                                   structured=True))
-        CLI.main(["--experiment", "recon", "--vae_weights", str(WEIGHTS), "--data_dir",
-                  f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--batch_size",
+        CLI.main(["--experiment", "recon", *(vae or ["--vae_weights", str(WEIGHTS)]),
+                  "--data_dir", f"{tmp}/shards", "--out_dir", f"{tmp}/eval", "--batch_size",
                   str(batch_size), "--device", str(device)])
         with open(f"{tmp}/eval/summary_stats.json") as f:
             summary = json.load(f)
@@ -4425,6 +4450,7 @@ def phase_parallel(seed, device, records, card):
         seq = seq_mode_checks(seed, device)
         from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
         dry = dryrun_multichip(device)
+        tp = tensor_step_check(seed, device)
         rates = ddp_step_times(seed, device)
     finally:
         leave_world()
@@ -4442,6 +4468,10 @@ def phase_parallel(seed, device, records, card):
         f"{seq['loss']:.6g} vs dense {seq['dense_loss']:.6g}, max|dparam| "
         f"{seq['param_err']:.3g}; launches {seq['launches']}")
     log(f"  dryrun twin on one NCCL rank: {dry}")
+    log(f"  dp x tp (parallel/tensor.py, a model axis of 1) bf16 step at B{B} L{L} K{K}, "
+        f"dropout 0: loss {tp['loss']:.6g} vs the plain step's {tp['plain_loss']:.6g}, "
+        f"{tp['ms']:.2f} ms (the second step), launches {tp['launches']} (asserted), "
+        f"{tp['sharded']} sharded params, {tp['bytes']:,} bytes of them with moments and EMA")
     log(f"  a bf16 training step at B{B} L{L} K{K} (dropout {P_DROP}), in turns: plain "
         f"{rates['plain']:.2f} ms, with the one-rank NCCL mesh {rates['mesh']:.2f} ms "
         f"(ratio {rates['mesh'] / rates['plain']:.4f}); {card}")
@@ -4453,6 +4483,347 @@ def phase_parallel(seed, device, records, card):
     else:
         log(f"  {n_cards} card: the 2-rank DDP step and the 2-rank seq forward were not run")
     log(f"phase parallel: {time.perf_counter() - t0:.2f} s (kernels {t_kern:.2f} s); {card}")
+
+
+def tensor_step_check(seed, device="cuda", n_frames=B, n_res=L, **widths):
+    """On one rank of a process group: a bf16 dp x tp training step
+    (parallel/tensor.py, a model axis of 1) at dropout 0 against the plain
+    step on the same weights and batch (loss rtol 1e-3: the bf16 K3's dGn
+    sums by f32 atomics), its launches (6 K1, 3 K2, 6 K3, 3 K4 asserted on
+    a card) and ms (the second step). `widths`: build_trainer's hidden,
+    layers, k."""
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.parallel.tensor import ShardedTrainState, make_tensor_mesh, shard_plan
+    from codlad_tpu_torch.train.steps import make_latent_step
+    x1, extras = train_batch(n_frames, n_res, seed + 7, device)
+    model, state, step = build_trainer(device, seed, dropout=0.0, gates=True,
+                                       compute_dtype=torch.bfloat16, **widths)
+    tmesh = make_tensor_mesh(1)
+    tp_state = ShardedTrainState(dict(model.named_parameters()), shard_plan(model, 1), tmesh,
+                                 lambda s: 3e-4, grad_clip=1.0)
+    tp_step, _ = make_latent_step(model, create_diffusion(None, diffusion_steps=1000),
+                                  dropout=False, compute_dtype=torch.bfloat16,
+                                  mesh=tmesh.data_mesh)
+    _, m = step(state, x1, extras, seed)
+    plain = float(m["loss"])
+    losses, ms, launches = [], [], []
+    for _ in range(2):                  # the first from the plain step's weights
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tp_state, mt = tp_step(tp_state, x1, extras, seed)
+        losses.append(float(mt["loss"]))   # a host read: the step has ended
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(kernels.launch_counts())
+    if torch.device(device).type == "cuda":
+        for got in launches:
+            check_launches(got, train_launches(3, 3, 0.0), "the dp x tp step")
+    if not abs(losses[0] - plain) <= 1e-3 * abs(plain):
+        raise RuntimeError(f"the dp x tp step's loss {losses[0]} differs from the plain {plain}")
+    return {"loss": losses[0], "plain_loss": plain, "ms": ms[1], "launches": launches[0],
+            "sharded": len(tp_state.plan), "bytes": tp_state.local_bytes()}
+
+
+# ---------------------------------------------------------------------------
+# The reference's own checkpoints; the autoregressive ProteinMPNN
+
+N6_REFERENCE = WEIGHTS.with_name("convergence_vqvae_n6layout.pt")
+IMPORT_TOL = 1e-4               # the CLI's metrics, --vae_ckpt vs --vae_weights (rtol)
+MPNN_TOL = 1e-4                 # f32 log-probs and probs, card vs CPU
+MPNN_TIE = 1e-4                 # a draw may differ only where its top two scores tie
+
+
+def angle_layout_state_dict(n6, seed):
+    """A reference K3 / K4 (IC_Decoder_angle) state dict at the trained
+    widths, in memory: the N6 file's encoder, map_in / map_out and codebook,
+    and the angle decoder of a port VAE drawn from `seed`, under the
+    reference's IC_Decoder_angle names (vae_model.py:318-415; a torch Linear
+    keeps its [out, in] layout). -> (state dict, that port decoder)."""
+    import torch
+    from codlad_tpu_torch.models.vae import VAE
+    dec = VAE(torch.Generator().manual_seed(seed), embed_dim=36, vqdim=3, predict_angle=True,
+              dec_nconv=DEC_LAYERS, enc_nconv=ENC_LAYERS).decoder
+    nc = DEC_LAYERS
+    names = {"Embed_0": "backbone_dist", "Embed_1": "sidechain_dist", "Embed_2": "res_embed"}
+    mlps = {nc: "backbone_angle", nc + 1: "backbone_torsion", nc + 2: "sidechain_angle",
+            2 * nc + 3: "final_torsion"}
+    for i in range(nc):
+        im, mb = f"InvariantMessage_{i}", f"message_blocks.{i}"
+        names.update({f"{im}.Dense_0": f"{mb}.inv_dense.0", f"{im}.Dense_1": f"{mb}.inv_dense.1",
+                      f"{im}.DistanceEmbed_0.Dense_0": f"{mb}.dist_embed.block.1"})
+        mlps.update({i: f"dense_blocks.{i}", nc + 3 + i: f"sidechain_torsion_blocks.{i}"})
+    for j, ref in mlps.items():
+        names.update({f"_MLP2_{j}.Dense_0": f"{ref}.1", f"_MLP2_{j}.Dense_1": f"{ref}.3"})
+    sd = {k: v for k, v in n6.items() if not k.startswith("module.equivaraintconv.")}
+    for name, v in dec.named_parameters():
+        mod, leaf = name.rsplit(".", 1)
+        sd[f"module.equivaraintconv.{names[mod]}.{leaf}"] = v.detach().clone()
+    return sd, dec
+
+
+def run_import(seed, device="cuda", fixture_frames=4, cli_res=(58, 75), cli_frames=3):
+    """Phase import: cli.import_checkpoint on weights/convergence_vqvae_n6layout.pt
+    (the trained VQ-VAE in the reference's N6 layout) into a port logdir;
+    `load_vae_ckpt` of it and `load_vae_weights` of the converted npz on the
+    fixture frames (every VQ code equal; latents and xyz14 differences
+    reported) and against the JAX outputs at recon_trained's limits;
+    `cli.test --experiment recon --vae_ckpt` on two proteins against the
+    `--vae_weights` run (metrics within IMPORT_TOL), its K8 / K9 / K10
+    launches counted; a K3 / K4 angle-layout file at the trained widths
+    (written to the temporary directory only) through a run directory and
+    --modelnum 999: the layout detected, its decoder loaded, its recon's
+    codes those of the N6 import (the same encoder and codebook).
+    fixture_frames, cli_res, cli_frames: the sizes (smaller to rehearse)."""
+    import json
+    import os
+    import numpy as np
+    import torch
+    from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.cli import import_checkpoint as IC
+    from codlad_tpu_torch.cli import test as CLI
+    from codlad_tpu_torch.convert.from_flax import read_flax_npz
+    from codlad_tpu_torch.eval.harness import SamplingPipeline, evaluate_structures
+    mean, std = read_flax_npz(str(WEIGHTS))["stats"]
+    with np.load(FIXTURE) as fx:
+        want = {k: fx[k] for k in fx.files}
+    want = {k: v[:fixture_frames] for k, v in want.items()}
+    batch = {k[len("batch/"):]: torch.as_tensor(v, device=device) for k, v in want.items()
+             if k.startswith("batch/")}
+    mask = batch["res_mask"].bool()
+    cli = dict(n_res=cli_res, n_frames=cli_frames)
+
+    def recon(vae, snap):
+        pipe = SamplingPipeline(denoiser=None, process=None, vae=vae,
+                                codebook=snap["vq_state"].codebook, norm_mean=mean,
+                                norm_std=std)
+        return run_recon(pipe, batch), snap["vq_state"].codebook
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        IC.main(["--torch_ckpt", str(N6_REFERENCE), "--kind", "vqvae", "--out", f"{tmp}/n6"])
+        out["import_s"] = time.perf_counter() - t0
+        got, codebook = recon(*CLI.load_vae_ckpt(f"{tmp}/n6", device)[:2])
+        ref, _ = recon(*CLI.load_vae_weights(str(WEIGHTS), device)[:2])
+        if not torch.equal(got["codes"][mask], ref["codes"][mask]):
+            raise RuntimeError("the imported VQ-VAE's codes differ from the converted weights'")
+        out["d_latents"] = (got["latents"] - ref["latents"]).abs().max().item()
+        out["d_xyz"] = (got["xyz14"] - ref["xyz14"]).abs().max().item()
+        rmsd = evaluate_structures(batch, got["ic"], got["xyz14"],
+                                   per_frame=True)["rmsd_aligned"].cpu().numpy()
+        out["d_rmsd_jax"] = float(np.abs(rmsd - want["metric/rmsd_aligned"]).max())
+        tied = code_gaps(codebook, torch.as_tensor(want["latents"], device=device)) <= CODE_MARGIN
+        differ = (got["codes"] != torch.as_tensor(want["codes"], device=device)) & mask
+        out["codes_vs_jax"] = (int(differ.sum()), int((differ & ~tied).sum()), int(mask.sum()))
+        if out["codes_vs_jax"][1] or not out["d_rmsd_jax"] <= 1e-3:
+            raise RuntimeError(f"the imported VQ-VAE disagrees with the JAX outputs: {out}")
+        out["enc_launches"], out["dec_launches"] = got["enc_launches"], got["dec_launches"]
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        via_ckpt = run_recon_cli(seed, device, vae=["--vae_ckpt", f"{tmp}/n6"], **cli)
+        out["cli_s"] = time.perf_counter() - t0
+        out["cli_launches"] = kernels.launch_counts()
+        via_weights = run_recon_cli(seed, device, **cli)
+        if torch.device(device).type == "cuda" and any(
+                not out["cli_launches"].get(k) for k in ("edge_gather", "edge_aggregate",
+                                                         "fused_tp")):
+            raise RuntimeError(f"the recon CLI did not launch K8 / K9 / K10: "
+                               f"{out['cli_launches']}")
+        bad = {k: (v, via_weights[k]) for k, v in via_ckpt.items() if not k.endswith("_sec")
+               and not abs(v - via_weights[k]) <= IMPORT_TOL * max(abs(via_weights[k]), 1e-2)}
+        if bad:
+            raise RuntimeError(f"cli.test --vae_ckpt (imported) differs from --vae_weights: {bad}")
+        out["cli"], out["cli_weights"] = via_ckpt, via_weights
+
+        sd, dec = angle_layout_state_dict(torch.load(N6_REFERENCE, weights_only=True), seed)
+        os.makedirs(f"{tmp}/Vae_vqvaeangle_PDB_ns36_vq3_vq4096")
+        torch.save(sd, f"{tmp}/Vae_vqvaeangle_PDB_ns36_vq3_vq4096/best_model.pt")
+        IC.main(["--torch_ckpt", f"{tmp}/Vae_vqvaeangle_PDB_ns36_vq3_vq4096", "--modelnum",
+                 "999", "--kind", "vqvae", "--out", f"{tmp}/k3"])
+        with open(f"{tmp}/k3/config.json") as f:
+            cfg = json.load(f)
+        vae, snap, _ = CLI.load_vae_ckpt(f"{tmp}/k3", device)
+        want_dec = dict(dec.named_parameters())
+        same = all(torch.equal(v.cpu(), want_dec[k]) for k, v in vae.decoder.named_parameters())
+        angle, _ = recon(vae, snap)
+        if not (cfg["predict_angle"] is True and cfg["codebook_size"] == CODEBOOK and same
+                and torch.equal(angle["codes"][mask], got["codes"][mask])
+                and bool(torch.isfinite(angle["xyz14"]).all())):
+            raise RuntimeError(f"the K3 / K4 angle-layout import failed: config {cfg}, "
+                               f"decoder loaded {same}")
+        out["angle_metrics"] = angle["metrics"]
+    return out
+
+
+def mpnn_inputs(seed, device, n_chains=4, n_res=L):
+    """Inputs of the ProteinMPNN phase: random C-alpha walks, the last chain
+    with a masked tail of 16, the first with 8 fixed positions, two chain
+    labels in the second; a decoding-order randn."""
+    import numpy as np
+    import torch
+    from codlad_tpu_torch.data.synthetic import random_ca_trace
+    rng = np.random.default_rng(seed)
+    X = np.stack([random_ca_trace(rng, n_res) for _ in range(n_chains)]).astype(np.float32)
+    mask = np.ones((n_chains, n_res), np.float32)
+    mask[-1, -16:] = 0.0
+    chain_M = np.ones((n_chains, n_res), np.float32)
+    chain_M[0, :8] = 0.0
+    chains = np.zeros((n_chains, n_res), np.int64)
+    chains[1, n_res // 2:] = 1
+    host = {"X": X, "mask": mask, "chain_M": chain_M, "chains": chains,
+            "S": rng.integers(0, 21, (n_chains, n_res)),
+            "residue_idx": np.broadcast_to(np.arange(n_res), (n_chains, n_res)).copy(),
+            "randn": rng.normal(size=(n_chains, n_res)).astype(np.float32)}
+    return {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+
+
+def compare_draws(label, card, cpu, noise, step_of):
+    """Hold a card draw against the CPU's with the same noise: the sequences
+    equal and the probs within MPNN_TOL, or, where a letter differs, the
+    CPU's top two scores (log p + g) at the first differing step within
+    MPNN_TIE (a tie f32 rounding may break either way; logged). step_of(b,
+    pos): the step (noise row) that drew position pos of chain b. -> the
+    largest probs difference (None where a draw differs)."""
+    import torch
+    S_c, S_p = card["S"].cpu(), cpu["S"]
+    if torch.equal(S_c, S_p):
+        d = (card["probs"].cpu() - cpu["probs"]).abs().max().item()
+        if not d <= MPNN_TOL:
+            raise RuntimeError(f"{label}: probs card vs CPU {d} > {MPNN_TOL}")
+        return d
+    b = int((S_c != S_p).any(1).nonzero()[0])
+    order = cpu["decoding_order"][b].tolist()
+    pos = next(p for p in order if S_c[b, p] != S_p[b, p])
+    score = torch.log(cpu["probs"][b, pos]) + noise[step_of(b, pos), b].cpu()
+    top = torch.topk(score, 2).values
+    gap = float(top[0] - top[1])
+    log(f"  {label}: chain {b} differs first at position {pos} (step "
+        f"{step_of(b, pos)}): the CPU's top-two gap {gap:.3g} (tie limit {MPNN_TIE:g})")
+    if not gap <= MPNN_TIE:
+        raise RuntimeError(f"{label}: the card's draw differs from the CPU's at a clear choice")
+    return None
+
+
+def mpnn_reference(seed, device="cuda", n_chains=4, n_res=L, **widths):
+    """Phase protein_mpnn: the ProteinMPNN at the JAX class's default widths
+    (hidden 128, 3 + 3 layers, K 64, 21 letters; `widths` to shrink it), f32,
+    random weights from `seed`, on the card and on the CPU: teacher-forced
+    log-probs and unconditional_probs within MPNN_TOL; conditional_probs in
+    both modes on the card against the CPU's teacher-forced forward at four
+    positions; sample and tied_sample (positions i and i + n_res / 2 tied,
+    every fourth) with the same Gumbel noise (`compare_draws`); the card's
+    seconds a draw. Returns the differences and times."""
+    import copy
+    import torch
+    from codlad_tpu_torch.models import protein_mpnn as PM
+    model = PM.ProteinMPNN(torch.Generator().manual_seed(seed), **widths).eval()
+    nets = {"cpu": copy.deepcopy(model), "card": model.to(device)}
+    ins = {"cpu": mpnn_inputs(seed, "cpu", n_chains, n_res),
+           "card": mpnn_inputs(seed, device, n_chains, n_res)}
+    args = lambda w, *ks: [ins[w][k] for k in ks]
+    sync = (lambda: torch.cuda.synchronize(device)) if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    out = {}
+    with torch.no_grad():
+        fwd = {w: nets[w](*args(w, "X", "S", "mask", "chain_M", "residue_idx", "chains", "randn"))
+               for w in nets}
+        unc = {w: nets[w].unconditional_probs(*args(w, "X", "mask", "residue_idx", "chains"))
+               for w in nets}
+    out["forward"] = (fwd["card"].cpu() - fwd["cpu"]).abs().max().item()
+    out["unconditional"] = (unc["card"].cpu() - unc["cpu"]).abs().max().item()
+    positions = (0, n_res // 3, 2 * n_res // 3, n_res - 1)
+    for backbone_only in (False, True):
+        t0 = time.perf_counter()
+        cond = PM.conditional_probs(nets["card"], *args("card", "X", "S", "mask", "chain_M",
+                                                        "residue_idx", "chains", "randn"),
+                                    backbone_only=backbone_only)
+        sync()
+        out[f"conditional_s_{backbone_only}"] = time.perf_counter() - t0
+        d = 0.0
+        cm = (ins["cpu"]["chain_M"] * ins["cpu"]["mask"])[..., None]
+        for idx in positions:
+            onehot = torch.zeros(n_res)
+            onehot[idx] = 1.0
+            prio = ((1.0 - onehot) if backbone_only else onehot).expand(n_chains, n_res)
+            order = PM.decoding_order_from_noise(prio, ins["cpu"]["randn"])
+            with torch.no_grad():
+                lp = nets["cpu"](*args("cpu", "X", "S", "mask", "chain_M", "residue_idx",
+                                       "chains", "randn"), use_input_decoding_order=True,
+                                 decoding_order=order)
+            d = max(d, ((cond[:, idx].cpu() - lp[:, idx]) * cm[:, idx]).abs().max().item())
+        out[f"conditional_{'backbone' if backbone_only else 'all'}"] = d
+    for k in ("forward", "unconditional", "conditional_all", "conditional_backbone"):
+        if not out[k] <= MPNN_TOL:
+            raise RuntimeError(f"ProteinMPNN {k} card vs CPU {out[k]} > {MPNN_TOL}")
+
+    V = model.num_letters
+    keys = ("X", "randn", "S", "chain_M", "chains", "residue_idx", "mask")
+    noise = PM.gumbel((n_res, n_chains, V), torch.Generator().manual_seed(seed + 1), "cpu")
+    draws = {w: PM.sample(nets[w], *args(w, *keys), noise=noise) for w in ("cpu", "card")}
+    sync()
+    t0 = time.perf_counter()
+    PM.sample(nets["card"], *args("card", *keys), noise=noise)
+    sync()
+    out["sample_s"] = time.perf_counter() - t0
+    rank = lambda d: {(b, p): s for b in range(n_chains)
+                      for s, p in enumerate(d["decoding_order"][b].tolist())}
+    steps = rank(draws["cpu"])
+    out["sample"] = compare_draws("sample", draws["card"], draws["cpu"], noise,
+                                  lambda b, p: steps[(b, p)])
+    tied = [[i, i + n_res // 2] for i in range(0, n_res // 2, 4)]
+    n_groups = n_res - len(tied)
+    noise = PM.gumbel((n_groups, n_chains, V), torch.Generator().manual_seed(seed + 2), "cpu")
+    ties = {w: PM.tied_sample(nets[w], *args(w, *keys), tied_pos=tied, noise=noise)
+            for w in ("cpu", "card")}
+    sync()
+    t0 = time.perf_counter()
+    PM.tied_sample(nets["card"], *args("card", *keys), tied_pos=tied, noise=noise)
+    sync()
+    out["tied_s"] = time.perf_counter() - t0
+    groups, _ = PM.build_tied_groups(ties["cpu"]["decoding_order"][0].numpy(), tied, n_res)
+    group_of = {int(p): g for g, grp in enumerate(groups) for p in grp if p >= 0}
+    out["tied"] = compare_draws("tied_sample", ties["card"], ties["cpu"], noise,
+                                lambda b, p: group_of[p])
+    S = ties["card"]["S"].cpu()
+    cm = (ins["cpu"]["chain_M"] * ins["cpu"]["mask"]) > 0
+    if not all(bool((S[:, i] == S[:, j])[cm[:, i] & cm[:, j]].all()) for i, j in tied):
+        raise RuntimeError("tied_sample on the card: tied positions differ")
+    return out
+
+
+def phase_import_and_mpnn(seed, device, card):
+    """Phases import and protein_mpnn (after `build.timed_build()`)."""
+    t0 = time.perf_counter()
+    imp = run_import(seed, device)
+    cli, cw = imp["cli"], imp["cli_weights"]
+    log(f"  import: cli.import_checkpoint of {N6_REFERENCE.name} {imp['import_s']:.2f} s; on "
+        f"the fixture frames (prot_0030 x 4) every code equal to --vae_weights', latents "
+        f"max|d| {imp['d_latents']:.3g}, xyz14 max|d| {imp['d_xyz']:.3g} Å; against the JAX "
+        f"outputs codes differ at {imp['codes_vs_jax'][0]} of {imp['codes_vs_jax'][2]} "
+        f"({imp['codes_vs_jax'][1]} not near-tied), per-frame rmsd_aligned max|d| "
+        f"{imp['d_rmsd_jax']:.3g} Å (tol 1e-3); launches an encoder forward "
+        f"{imp['enc_launches']}, a decode {imp['dec_launches']}")
+    log(f"  import: cli.test --experiment recon --vae_ckpt (imported logdir, 2 proteins x 3 "
+        f"frames) {imp['cli_s']:.2f} s, launches {imp['cli_launches']}; rmsd_aligned "
+        f"{cli['rmsd_aligned']:.6f} vs --vae_weights {cw['rmsd_aligned']:.6f}, ged "
+        f"{cli['ged']:.6f} vs {cw['ged']:.6f} (every metric rtol {IMPORT_TOL:g}); the K3 / K4 "
+        f"angle layout (--modelnum 999): detected, its decoder loaded, codes equal to N6's, "
+        f"rmsd_aligned {imp['angle_metrics']['rmsd_aligned']:.4f} (a random decoder)")
+    log(f"phase import: {time.perf_counter() - t0:.2f} s; {card}")
+    t0 = time.perf_counter()
+    mp = mpnn_reference(seed, device)
+    log(f"  protein_mpnn (hidden 128, 3 + 3 layers, K 64, 21 letters, 4 chains x {L}, f32) "
+        f"card vs CPU: log-probs max|d| {mp['forward']:.3g}, unconditional "
+        f"{mp['unconditional']:.3g}, conditional (4 positions against the teacher-forced "
+        f"forward) {mp['conditional_all']:.3g} / backbone-only "
+        f"{mp['conditional_backbone']:.3g} (tol {MPNN_TOL:g}); sample probs max|d| "
+        f"{mp['sample']}, tied_sample {mp['tied']} (None: a near-tie draw, logged above)")
+    log(f"  protein_mpnn on the card: a draw of 4 x {L} {mp['sample_s']:.3f} s, a tied draw "
+        f"{mp['tied_s']:.3f} s, conditional_probs {mp['conditional_s_False']:.3f} s / "
+        f"backbone-only {mp['conditional_s_True']:.3f} s; {card}")
+    log(f"phase protein_mpnn: {time.perf_counter() - t0:.2f} s")
 
 
 def main(argv=None):
@@ -4870,6 +5241,7 @@ def main(argv=None):
     phase_flows(args.seed, device, records, card, diffusion_rate)
     phase_distill(args.seed, device, records, card, shard_dir)
     phase_parallel(args.seed, device, records, card)
+    phase_import_and_mpnn(args.seed, device, card)
     log(f"total: {time.perf_counter() - t_start:.2f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

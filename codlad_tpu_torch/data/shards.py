@@ -2,7 +2,8 @@
 
 Copies of `save_protein_shard`, `load_protein_shard`, `preprocess_structure`,
 `repad_shard_data`, `align_shard_buckets`, `iter_padded_batches`,
-`ShardDataset` and `MixedShardDataset` from codlad_tpu/data/shards.py: one shard holds every
+`class_shuffle_order`, `ShardDataset` and `MixedShardDataset` from
+codlad_tpu/data/shards.py: one shard holds every
 featurized frame of one protein, padded to a PadSpec snapped onto the
 global bucket lattice, so shards written by the JAX `cli.preprocess` and by
 the port read the same.
@@ -125,6 +126,25 @@ def iter_padded_batches(data, batch_size, idx, n_valid=None):
                     v[valid:] = False if v.dtype == bool else 0
                     out[k] = v
         yield out
+
+
+def class_shuffle_order(labels, rng):
+    """Class-contiguous shuffled order (the reference's ShuffleSampler,
+    utils/dataset_module.py:351-380): the labels' order shuffled, each
+    label's indices shuffled within it, concatenated. The shard loaders
+    below give the same semantics implicitly; this explicit form serves a
+    flat indexable dataset. labels: int array [N] (e.g. prot_idx per
+    sample); rng: a numpy Generator, drawn as the JAX package draws it.
+    -> an int permutation of arange(N)."""
+    labels = np.asarray(labels)
+    out = []
+    uniq = list(np.unique(labels))
+    rng.shuffle(uniq)
+    for lab in uniq:
+        idx = np.flatnonzero(labels == lab)
+        rng.shuffle(idx)
+        out.append(idx)
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
 
 
 class ShardDataset:

@@ -122,6 +122,8 @@ class CAProteinFeatures(nn.Module):
     coordinates get augment_eps * `noise` (N(0, 1), [B, L, 3]) when the
     caller passes one, as the JAX featurizer adds its draw when given a key."""
 
+    n_rbf_sets, n_orient = 9, 7     # RBF sets; direction + quaternion features
+
     def __init__(self, edge_features, gen, num_positional_embeddings=16,
                  num_rbf=16, top_k=30, augment_eps=0.0):
         super().__init__()
@@ -129,7 +131,7 @@ class CAProteinFeatures(nn.Module):
         self.top_k = top_k
         self.augment_eps = augment_eps
         self.PositionalEncodings_0 = PositionalEncodings(num_positional_embeddings, gen)
-        edge_in = num_positional_embeddings + 9 * num_rbf + 7
+        edge_in = num_positional_embeddings + self.n_rbf_sets * num_rbf + self.n_orient
         self.Dense_0 = linear(edge_in, edge_features, gen, bias=False, init="lecun")
         self.LayerNorm_0 = nn.LayerNorm(edge_features, eps=1e-6)
 
@@ -203,6 +205,38 @@ class CAProteinFeatures(nn.Module):
                     == chain_labels[:, :, None]).to(torch.int32)
         E_positional = self.PositionalEncodings_0(offset, E_chains)
         E = torch.cat([E_positional, rbf_all, O_features], dim=-1).to(Ca.dtype)
+        return self.LayerNorm_0(self.Dense_0(E)), E_idx
+
+
+class ProteinFeatures(CAProteinFeatures):
+    """Full-backbone featurizer (the counterpart of codlad_tpu/nn/mpnn.py
+    `ProteinFeatures`; reference models/protein_mpnn_utils.py:526-621): X
+    [B, L, 4, 3] (N, CA, C, O) plus a virtual C-beta, 25 RBF sets over the
+    ordered atom pairs, relative positional encodings; the kNN graph on the
+    C-alpha distances with CAProteinFeatures' padding (the row's largest
+    distance) and tie rule. -> (E, E_idx). With augment_eps > 0, X gets
+    augment_eps * `noise` ([B, L, 4, 3]) where the caller passes one."""
+
+    n_rbf_sets, n_orient = 25, 0
+
+    def forward(self, X, mask, residue_idx, chain_labels, noise=None):
+        if self.augment_eps > 0 and noise is not None:
+            X = X + self.augment_eps * noise.to(X.dtype)
+        N, Ca, C, O = X.unbind(2)
+        # the virtual C-beta of ideal backbone geometry (reference :542-546)
+        b, c = Ca - N, C - Ca
+        a = torch.cross(b, c, dim=-1)
+        Cb = -0.58273431 * a + 0.56802827 * b - 0.54067466 * c + Ca
+        _, E_idx = self._dist(Ca, mask)
+        atoms = [Ca, N, C, O, Cb]
+        rbf_all = torch.cat([self._get_rbf(A, B_at, E_idx) for A in atoms for B_at in atoms],
+                            dim=-1)
+        offset = residue_idx[:, :, None] - gather_nodes(
+            residue_idx[..., None].to(torch.float32), E_idx)[..., 0].to(residue_idx.dtype)
+        E_chains = (gather_nodes(chain_labels[..., None], E_idx)[..., 0]
+                    == chain_labels[:, :, None]).to(torch.int32)
+        E_positional = self.PositionalEncodings_0(offset, E_chains)
+        E = torch.cat([E_positional, rbf_all], dim=-1).to(X.dtype)
         return self.LayerNorm_0(self.Dense_0(E)), E_idx
 
 

@@ -17,13 +17,18 @@ JAX function holds its own:
    that divides the world against the dense forward, max |delta| < 1e-3.
 5. Stage 1: a VQ-VAE step with the EMA codebook update, data-parallel,
    against one rank: |delta loss| < 1e-4, max |delta codebook| < 2e-5.
+6. dp x tp (parallel/tensor.py): the step of 1. on a (world / 2) x 2 data
+   x model layout, every parameter JAX's `shard_param` shards (its count
+   printed) held as a column shard with its moments and EMA, gathered for
+   the forward: |delta loss| < 1e-4 and the gathered updated params within
+   1e-5 of max|param| of one rank's step (the data axis's sums round apart,
+   as in 1.; a gradient summed over the model axis too would be off by
+   the model size); each rank's bytes of sharded params, moments and EMA
+   printed beside one rank's.
 
-With one rank, 1 and 5 compare one rank with itself and 2-4 run the
+With one rank, 1, 5 and 6 compare one rank with itself and 2-4 run the
 seq-mode network on one seq rank (its ring and gathers of one block); with
-an odd world size 2 and 4 do too. The
-JAX function's data x tensor configuration (GSPMD sharding the weights) is
-not here: the port's kernels take whole weight matrices (ROADMAP queue 1
-item 11).
+an odd world size 2, 4 and 6 do too (a model axis of 1).
 
     torchrun --nproc_per_node 4 -m codlad_tpu_torch.parallel.dryrun   # cards, NCCL
     python -m codlad_tpu_torch.parallel.dryrun --device cpu --nproc 4  # gloo ranks
@@ -71,14 +76,22 @@ def _denoiser(device, dropout):
     return model.to(device)
 
 
-def _latent_step(model, mesh, x1, extras, dropout, seed=0):
+def _latent_step(model, mesh, x1, extras, dropout, seed=0, tensor=None):
     """(loss, the state after one step) of make_latent_step on the block of
-    the global batch (x1, extras) that `mesh` gives this rank (None: all)."""
+    the global batch (x1, extras) that `mesh` gives this rank (None: all).
+    tensor (parallel/tensor.TensorMesh): the data x tensor step, on its
+    data mesh, with a ShardedTrainState."""
     from codlad_tpu_torch.gen.diffusion import create_diffusion
     from codlad_tpu_torch.train.state import TrainState
     from codlad_tpu_torch.train.steps import make_latent_step
-    state = TrainState(dict(model.named_parameters()), lambda s: np.float32(3e-4),
-                       grad_clip=1.0)
+    lr = lambda s: np.float32(3e-4)
+    if tensor is None:
+        state = TrainState(dict(model.named_parameters()), lr, grad_clip=1.0)
+    else:
+        from codlad_tpu_torch.parallel.tensor import ShardedTrainState, shard_plan
+        mesh = tensor.data_mesh
+        state = ShardedTrainState(dict(model.named_parameters()),
+                                  shard_plan(model, tensor.model), tensor, lr, grad_clip=1.0)
     step, _ = make_latent_step(model, create_diffusion(None), dropout=dropout > 0, mesh=mesh)
     if mesh is not None:
         B, L = x1.shape[:2]
@@ -98,7 +111,7 @@ def _say(msg):
 
 
 def dryrun_multichip(device="cuda"):
-    """Run the five configurations on the ranks of the process group (or
+    """Run the six configurations on the ranks of the process group (or
     one rank without one); raise AssertionError where one disagrees.
     Returns {configuration: its measured difference}."""
     from codlad_tpu_torch.train import mesh as mesh_mod
@@ -160,6 +173,27 @@ def dryrun_multichip(device="cuda"):
     out["stage1_dp"] = dcb
     _say(f"dryrun_multichip({world}): stage-1 vqvae dp ok, loss={l8:.4f}, "
          f"max|dcodebook| vs 1 rank {dcb:.2e}")
+
+    # 6. dp x tp, against config 1's one-rank step
+    from codlad_tpu_torch.parallel.tensor import make_tensor_mesh
+    tmesh = make_tensor_mesh(2 if world % 2 == 0 else 1)
+    loss6, st6 = _latent_step(_denoiser(device, 0.1), None, x, extras, 0.1, tensor=tmesh)
+    full = st6.params
+    pmax = max(float(v.abs().max()) for v in ref.params.values())
+    dp6 = max(float((full[k] - v).abs().max()) for k, v in ref.params.items())
+    assert np.isfinite(loss6) and abs(loss6 - ref_loss) <= 1e-4 * max(1.0, abs(ref_loss)), (
+        loss6, ref_loss)
+    assert dp6 <= 1e-5 * pmax, f"dp x tp params diverge from one rank: {dp6} (max {pmax})"
+    sharded = torch.tensor(st6.local_bytes(), dtype=torch.int64, device=device)
+    if dist.is_initialized():
+        dist.all_reduce(sharded, op=dist.ReduceOp.MAX)
+    whole = sum(ref.params[k].numel() * ref.params[k].element_size() * 4 for k in st6.plan)
+    out["dp_x_tp"] = abs(loss6 - ref_loss)
+    _say(f"dryrun_multichip({world}): dp x tp ({tmesh.data}, {tmesh.model}) ok "
+         f"({len(st6.plan)} tensor-sharded params), loss={loss6:.4f}, |dloss| vs 1 rank "
+         f"{out['dp_x_tp']:.2e}, max|dparam| vs 1 rank {dp6:.2e} (max|param| {pmax:.3g}); "
+         f"sharded params + moments + EMA a rank {int(sharded.item()):,} bytes, one rank's "
+         f"{whole:,}")
     return out
 
 

@@ -100,6 +100,43 @@ def latent_step_case(rank, world, sd, cfg, x1, extras, dropout, seq_shards=1, se
             "grad_norm": float(m["grad_norm"])}
 
 
+def tensor_step_case(rank, world, sd, cfg, x1, extras, dropout, model_shards, seed=3):
+    """One make_latent_step on a (world / model_shards) x model_shards data x
+    model layout (parallel/tensor.py), and the same step on the same data
+    ranks with every parameter whole: the gathered params and EMA, loss,
+    grad_norm, whether the update equals the unsharded one bit for bit, the
+    sharded parameters' count and this rank's bytes of them."""
+    from codlad_tpu_torch.gen.diffusion import create_diffusion
+    from codlad_tpu_torch.parallel.tensor import ShardedTrainState, make_tensor_mesh, shard_plan
+    from codlad_tpu_torch.train.state import TrainState
+    from codlad_tpu_torch.train.steps import make_latent_step
+    tmesh = make_tensor_mesh(model_shards)
+    mesh = tmesh.data_mesh
+    b = x1.shape[0] // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    lr = lambda s: np.float32(1e-3)
+    out = {}
+    for name in ("sharded", "whole"):
+        model = _model(sd, cfg)
+        params = dict(model.named_parameters())
+        state = (ShardedTrainState(params, shard_plan(model, model_shards), tmesh, lr,
+                                   grad_clip=1.0) if name == "sharded"
+                 else TrainState(params, lr, grad_clip=1.0))
+        step, _ = make_latent_step(model, create_diffusion(None), dropout=dropout > 0,
+                                   mesh=mesh)
+        state, m = step(state, x1[rows], {k: v[rows] for k, v in extras.items()}, seed)
+        out[name] = (state, m)
+    st, m = out["sharded"]
+    whole = out["whole"][0]
+    ema = {k: st.gather(k, v) for k, v in st.local.ema_params.items()}
+    params = st.params
+    return {"params": params, "ema": ema, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "equal": all(torch.equal(params[k], v) for k, v in whole.params.items())
+            and all(torch.equal(ema[k], v) for k, v in whole.ema_params.items()),
+            "n_sharded": len(st.plan), "bytes": st.local_bytes()}
+
+
 def stage1_step_case(rank, world, batch, sd, vq, weights):
     """The state and metrics after one data-parallel make_vqvae_step."""
     from codlad_tpu_torch.models.vae import VAE

@@ -25,7 +25,11 @@ draws, otcfm and sbcfm steps and their card-vs-CPU step, the user path
 preprocess -> train_latent --model otcfm -> cli.test --save_pdb --save_xtc),
 tiny; and the distill and parallel phases' parts (distillation steps and
 their card-vs-CPU step, the distillation user path, the trainers in and out
-of a process group of one rank, the seq-mode checks, the dryrun twin), tiny."""
+of a process group of one rank, the seq-mode checks, the dryrun twin), tiny;
+and the last slice's parts (the reference-checkpoint import on the N6
+file with the recon CLI and the angle layout, the ProteinMPNN card-vs-CPU
+phase, the dp x tp step; the dryrun's sixth configuration in the
+parallel script), tiny."""
 
 import os
 import subprocess
@@ -294,12 +298,39 @@ DISTILL_PARALLEL_SCRIPT = BLOCKER + textwrap.dedent("""
         assert seq["forward_err"] == 0.0
         from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
         assert set(dryrun_multichip("cpu")) == {"dp", "dp_x_sp_train", "seq_forward",
-                                                "stage1_dp"}
+                                                "stage1_dp", "dp_x_tp"}
         assert set(chip_smoke.ddp_step_times(0, "cpu", n_frames=2, n_res=16, rounds=1,
                                              hidden=32, layers=1, k=8)) == {"plain", "mesh"}
     finally:
         chip_smoke.leave_world()
     print("distill and parallel rehearsed")
+""")
+
+
+IMPORT_MPNN_SCRIPT = BLOCKER + textwrap.dedent("""
+    # the last slice, tiny: the reference-checkpoint importer's phase (the N6
+    # file, the recon CLI on its logdir, the angle layout), the ProteinMPNN
+    # phase card vs CPU and the dp x tp step (the dryrun's sixth configuration
+    # runs in the distill and parallel script)
+    for name in ("convert.e3nn_basis", "convert.torch_import", "cli.import_checkpoint",
+                 "models.protein_mpnn", "parallel.tensor"):
+        assert "codlad_tpu_torch." + name in names, name
+    from codlad_tpu_torch.data.shards import class_shuffle_order
+    import numpy as np
+    assert sorted(class_shuffle_order([2, 2, 0], np.random.default_rng(0))) == [0, 1, 2]
+    imp = chip_smoke.run_import(0, "cpu", fixture_frames=1, cli_res=(16, 20), cli_frames=1)
+    assert imp["codes_vs_jax"][1] == 0 and imp["d_rmsd_jax"] <= 1e-3, imp
+    mp = chip_smoke.mpnn_reference(0, "cpu", n_chains=2, n_res=24, hidden_dim=16,
+                                   node_features=16, edge_features=16, k_neighbors=8)
+    assert mp["sample"] == 0.0 and mp["tied"] == 0.0, mp
+    chip_smoke.init_world_of_one("cpu")
+    try:
+        tp = chip_smoke.tensor_step_check(0, "cpu", n_frames=2, n_res=16, hidden=32, layers=1,
+                                          k=8)
+        assert tp["loss"] == tp["plain_loss"], tp
+    finally:
+        chip_smoke.leave_world()
+    print("import, protein_mpnn and dp x tp rehearsed")
 """)
 
 
@@ -448,3 +479,14 @@ def test_float64_witness_narrows_nothing():
             assert skipped == 0.0 and all(v.dtype == torch.float64 for v in g.values())
     finally:
         S.functional_call, S._grads = fc, grads
+
+
+def test_import_mpnn_and_tensor_phases_run_without_jax():
+    """chip_smoke's import and protein_mpnn phases and its dp x tp step, tiny,
+    under the same import blocker: the new modules import and each part
+    runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_MPNN_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "import, protein_mpnn and dp x tp rehearsed" in proc.stdout

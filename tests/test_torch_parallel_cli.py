@@ -97,4 +97,4 @@ def test_cli_test_seq_shards_matches_dense(tmp_path):
 
 def test_dryrun_twin(tmp_path):
     res = spawn(4, "dryrun_case", tmp_path)
-    assert set(res[0]) == {"dp", "dp_x_sp_train", "seq_forward", "stage1_dp"}
+    assert set(res[0]) == {"dp", "dp_x_sp_train", "seq_forward", "stage1_dp", "dp_x_tp"}
