@@ -8,9 +8,11 @@ Phases, each printing its seconds:
                 each kernel's name, registers, static shared memory and
                 spills from `-Xptxas -v`;
   2. kernels -- K1 (fused_message_sum; bf16 on the tensor cores,
-                message_sum_mma_kernel) and K2 (fused_message_edge_lnmod;
-                bf16 on the tensor cores, message_edge_lnmod_mma_kernel) at
-                the bench shape (B96 L128 K64 H128), bf16 and f32, against
+                message_sum_mma_kernel; f32 on them in 3xTF32,
+                message_sum_f32_mma_kernel) and K2 (fused_message_edge_lnmod;
+                bf16 on the tensor cores, message_edge_lnmod_mma_kernel; f32
+                message_edge_lnmod_f32_mma_kernel) at the bench shape (B96
+                L128 K64 H128) and at B96 L48 K48, bf16 and f32, against
                 their plain PyTorch versions on the same inputs, timed with
                 CUDA events and by CUDA graph replay beside their bound; then
                 the backwards K3 (bf16 on the tensor cores,
@@ -64,7 +66,9 @@ Phases, each printing its seconds:
                 the plain version and the CUDA-core body's device time;
   4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
                 into K1 of the next in one kernel; bf16 on the tensor cores,
-                edge_then_sum_mma_kernel) at the same shapes and dtypes
+                edge_then_sum_mma_kernel; f32 edge_then_sum_f32_mma_kernel)
+                at the same shapes and dtypes (f32 also at N != L: B96, 64
+                rows, N 128)
                 against ref_edge_then_sum, and against K2's kernel followed
                 by K1's kernel on the same inputs, which it must equal bit
                 for bit; timed a call beside both and on the device (graph
@@ -83,6 +87,16 @@ Phases, each printing its seconds:
                 asserted (300 K7, 300 K1, no K2), the two paths' final
                 latents and first-step outputs bit for bit equal (and
                 within FUSE_TOL);
+ 7b. f32_chain -- the f32 denoiser (the trainers' default precision and the
+                --no-bf16 draw): a 100-step f32 draw to xyz14 at B96 L128
+                K64 with launches asserted (600 K1, 300 K2), timed (steps/s),
+                one at B96 L48 K48; one denoise call traced (K1 and K2 must
+                run as message_sum_f32_mma_kernel and
+                message_edge_lnmod_f32_mma_kernel, K7 with fuse_pairs as
+                edge_then_sum_f32_mma_kernel, no chain_kernel); an f32 fused
+                scan against the unfused one (300 K7, bit for bit equal);
+                f32 training steps at dropout 0.6 (ms a step, K1's forward
+                traced as message_sum_f32_mma_kernel);
   8. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
@@ -317,7 +331,10 @@ kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
 K8, K9 and K10 both the f32 record of recon and the bf16 one of the Stage-1
 trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
-fused_message_sum_k48, whose launches are the L = 48 draw's; K1, K2 and
+fused_message_sum_k48, whose launches are the L = 48 draw's; the f32 K1,
+K2 and K7 records (`<name>_f32` at the bench shape, `<name>_f32_k48` at
+L = 48; K7's at N != L logged), whose launches are those of phase 7b's
+f32 draws and f32 fused scan; K1, K2 and
 the f32 K8 and K9 records also carry latent_cli_launches, their launches
 over phase 16c's latent run; K1 and K2 guided_launches, those of 16d's
 guided draw; K1, K2, K8 and K9 flow_launches, those of phase 21's euler
@@ -353,6 +370,11 @@ B, L, K, H = 96, 128, 64, 128   # bench shape (bench.py)
 STEPS = "ddim100"                # 100 respaced steps of a 1000-step process
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 CUDA cores
+# The f32 K1, K2 and K7 run on the tensor cores in 3xTF32 (three TF32
+# products for each f32 one): their records also carry tc_bound_ms, the
+# larger of the bytes' time and 3 x the products' operations at the TF32
+# tensor cores' 495 TFLOP/s (dense; the H100 SXM data sheet).
+TF32_OPS = 495e12
 TOL = {"float32": (2e-4, 2e-4),   # atol, rtol as tests/test_kernels.py:77
        "bfloat16": (2e-2, 2e-2)}  # ~2.5 bf16 ulps: one-ulp rounding flips of gelu(pre)
 # Backward grads. f32 (against the float64 plain versions): |d| <= 2e-4 +
@@ -832,8 +854,19 @@ def check_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=False)
                 key = name if dtype == torch.bfloat16 else f"{name}_f32"
                 records[key] = dict(record(name, dname, err, ms, plain_ms, t_bytes, t_ops),
                                     shape=dims_tag(dims, n_nodes), device_ms=dev_ms)
+                if dtype == torch.float32:
+                    records[key]["tc_bound_ms"] = tc_bound_ms(nbytes, flops)
+                    log(f"  {name} f32 on the tensor cores (3xTF32): device {dev_ms:.4f} ms, "
+                        f"tensor-core bound {records[key]['tc_bound_ms']:.4f} ms, FFMA bound "
+                        f"{max(t_bytes, t_ops):.4f} ms")
         del x
     return records
+
+
+def tc_bound_ms(nbytes, flops):
+    """The 3xTF32 kernels' least time: the bytes at HBM's rate or three TF32
+    products for each f32 one at the tensor cores' peak, the larger."""
+    return max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS) * 1e3
 
 
 def record(name, dname, err, ms, plain_ms, t_bytes, t_ops, library_ms=None):
@@ -1225,29 +1258,33 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
     return records
 
 
-def k7_args(dtype, seed, device, dims=(B, L, K)):
+def k7_args(dtype, seed, device, dims=(B, L, K), n_nodes=None):
     """fused_edge_then_sum's operands: K2's of one layer, K1's of the next
-    (its own A, Gn, weights) and the mask, then the scale."""
-    x = kernel_inputs(dtype, seed, device, dims)
-    y = kernel_inputs(dtype, seed + 1, device, dims)
+    (its own A, Gn, weights) and the mask, then the scale; n_nodes: see
+    kernel_inputs."""
+    x = kernel_inputs(dtype, seed, device, dims, n_nodes)
+    y = kernel_inputs(dtype, seed + 1, device, dims, n_nodes)
     return ([x[n] for n in _EDGE_KEYS] + [y["A"], y["Gn"]]
             + [y[n] for n in ("W_e", "W2", "b2", "W3", "b3")] + [x["mask"], 30.0])
 
 
-def check_k7_kernels(device, seed, dims=(B, L, K)):
-    """K7 (fused_edge_then_sum) against ref_edge_then_sum, f32 and bf16, and
-    against K2's kernel followed by K1's kernel on the same inputs, whose
-    outputs it must equal bit for bit (raises otherwise); timed a call beside
-    the bound, the plain composition and that pair, and on the device (graph
-    replay) beside the pair. Returns the bf16 record."""
+def check_k7_kernels(device, seed, dims=(B, L, K), n_nodes=None, dtypes=None):
+    """K7 (fused_edge_then_sum) against ref_edge_then_sum, f32 and bf16 (or
+    `dtypes`), and against K2's kernel followed by K1's kernel on the same
+    inputs, whose outputs it must equal bit for bit (raises otherwise);
+    timed a call beside the bound, the plain composition and that pair, and
+    on the device (graph replay) beside the pair. Returns the records, the
+    bf16 one keyed fused_edge_then_sum, the f32 one fused_edge_then_sum_f32
+    (with tc_bound_ms). n_nodes: see kernel_inputs."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
     b, l, k = dims
-    for dtype in (torch.float32, torch.bfloat16):
+    n = n_nodes or l
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         es = torch.finfo(dtype).bits // 8
-        a = k7_args(dtype, seed, device, dims)
+        a = k7_args(dtype, seed, device, dims, n_nodes)
         kern = lambda: MK.fused_edge_then_sum(*a)
         plain = lambda: MK.ref_edge_then_sum(*a)
 
@@ -1271,7 +1308,7 @@ def check_k7_kernels(device, seed, dims=(B, L, K)):
         err = max(d_e.max().item(), d_n.max().item())
         same_e, same_n = torch.equal(e2, e2_k), torch.equal(ns, ns_k)
         pair_d = (ns - ns_k).abs().max().item()
-        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: edge out max|d|="
+        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims, n_nodes)}: edge out max|d|="
             f"{d_e.max().item():.3g} ({limits[0]}), node sum max|d|={d_n.max().item():.3g} "
             f"({limits[1]}) {'ok' if ok else 'FAIL'}; against K2 then K1 (kernels): edge out "
             f"{'bit for bit equal' if same_e else 'DIFFERS'}, node sum "
@@ -1284,22 +1321,28 @@ def check_k7_kernels(device, seed, dims=(B, L, K)):
         ms, plain_ms, pair_ms = time_calls(kern, plain, pair)
         dev_ms, pair_dev_ms = replay_ms(kern, pair)
         n_edge, n_node = b * l * k, b * l
-        nbytes = ((2 * n_node * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
-                  + 3 * b * H * 4                                # edge chain, sh, sc, g
-                  + 2 * n_node * H * es + 3 * H * H * es + 2 * H * 4 + n_edge * 4  # node chain
+        nbytes = ((n_node * H + n_edge * H + b * n * H) * es + n_edge * 4 + 3 * H * H * es
+                  + 2 * H * 4 + 3 * b * H * 4                    # edge chain, sh, sc, g
+                  + (n_node * H + b * n * H) * es + 3 * H * H * es + 2 * H * 4
+                  + n_edge * 4                                   # node chain
                   + n_edge * H * es + n_node * H * 4)             # e2, node sum
         flops = 5 * 2 * n_edge * H * H + 2 * n_node * H * H
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_OPS[dname] * 1e3
-        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims)}: max|d|={err:.3g}; a call "
+        log(f"kernel fused_edge_then_sum {dname} {dims_tag(dims, n_nodes)}: max|d|={err:.3g}; a call "
             f"(events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 then K1 {pair_ms:.4f} ms "
             f"(K7 / pair {ms / pair_ms:.3f}); device (graph replay) kernel {dev_ms:.4f} ms, "
             f"K2 then K1 {pair_dev_ms:.4f} ms (K7 / pair {dev_ms / pair_dev_ms:.3f}); bound "
             f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
-        if dtype == torch.bfloat16:
-            records["fused_edge_then_sum"] = dict(
-                record("fused_edge_then_sum", dname, err, ms, plain_ms, t_bytes, t_ops),
-                device_ms=dev_ms, pair_device_ms=pair_dev_ms)
+        key = "fused_edge_then_sum" + ("" if dtype == torch.bfloat16 else "_f32")
+        records[key] = dict(
+            record("fused_edge_then_sum", dname, err, ms, plain_ms, t_bytes, t_ops),
+            shape=dims_tag(dims, n_nodes), device_ms=dev_ms, pair_device_ms=pair_dev_ms)
+        if dtype == torch.float32:
+            records[key]["tc_bound_ms"] = tc_bound_ms(nbytes, flops)
+            log(f"  fused_edge_then_sum f32 on the tensor cores (3xTF32): device "
+                f"{dev_ms:.4f} ms, tensor-core bound {records[key]['tc_bound_ms']:.4f} ms, FFMA "
+                f"bound {max(t_bytes, t_ops):.4f} ms")
         del a
         torch.cuda.empty_cache()
     return records
@@ -1430,7 +1473,8 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
 
 
 CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
-                 "edge_then_sum_kernel", "message_sum_mma_kernel",
+                 "message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
+                 "edge_then_sum_f32_mma_kernel", "message_sum_mma_kernel",
                  "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
                  "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
                  "message_edge_lnmod_bwd_mma_kernel", "message_edge_bwd_mma_kernel")
@@ -4826,6 +4870,102 @@ def phase_import_and_mpnn(seed, device, card):
     log(f"phase protein_mpnn: {time.perf_counter() - t0:.2f} s")
 
 
+def f32_kernel_names(pipe, batch, device, seed):
+    """The device kernels of one f32 denoise call of `pipe` (f32) traced by
+    torch.profiler, unfused and with fuse_pairs: (names unfused, names fused).
+    Raises unless K1 and K2 ran as their f32 tensor-core kernels, K7 (fused)
+    as its own, and no chain_kernel ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
+              "mask": batch["res_mask"]}
+    shape = tuple(batch["res_type"].shape) + (pipe.latent_size,)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device)
+    tt = torch.full(shape[:1], 500, dtype=torch.long, device=device)
+    names = []
+    with torch.no_grad():
+        cond = pipe.condition(extras)
+        for fuse in (False, True):
+            pipe._denoise_model.denoise(x, tt, cond, fuse_pairs=fuse)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pipe._denoise_model.denoise(x, tt, cond, fuse_pairs=fuse)
+                torch.cuda.synchronize()
+            names.append({e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA})
+    want = [("message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel"),
+            ("message_sum_f32_mma_kernel", "edge_then_sum_f32_mma_kernel")]
+    for got, need in zip(names, want):
+        if not got:
+            log("  f32 kernel names: the trace holds no device events (not checked)")
+            return names
+        if not all(any(k in n for n in got) for k in need) or any("chain_kernel" in n
+                                                                   for n in got):
+            raise RuntimeError(f"the f32 denoiser did not run {need} (or ran chain_kernel): "
+                               f"{sorted(got)}")
+    return names
+
+
+def phase_f32_chain(seed, device, records, batch):
+    """Phase 7b: the f32 denoiser's sampling path (K1, K2 and K7 on the
+    tensor cores in 3xTF32) and an f32 training step. Fills the launches
+    of the f32 K1, K2, K7 records (bench shape and L = 48) and returns
+    {steps_per_s, steps_per_s_k48, fused, train_ms}."""
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    pipe = build_pipeline(device, seed)   # f32: no compute dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    steps = pipe.process.num_timesteps
+    n_enc, n_dec = len(pipe.denoiser.enc_layers), len(pipe.denoiser.dec_layers)
+    expect = {"fused_message_sum": steps * (n_enc + n_dec),
+              "fused_message_edge_lnmod": steps * n_enc, **decoder_launches()}
+    out = run_slice(pipe, batch, gen)
+    check_slice(out, B, L)
+    check_launches(out["launches"], expect, "the f32 sampling path")
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+        records[f"{name}_f32"]["launches"] = out["launches"][name]
+    timed = run_slice(pipe, batch, gen)      # warm: the 100 steps and the decode
+    check_slice(timed, B, L)
+    b48, l48, _ = K48
+    small = to_device(synthetic_cg_batch(b48, l48, seed=seed + 3), device)
+    out48 = run_slice(pipe, small, gen)
+    check_slice(out48, b48, l48)
+    check_launches(out48["launches"], expect, "the f32 sampling path at L = 48")
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+        records[f"{name}_f32_k48"]["launches"] = out48["launches"][name]
+    f32_kernel_names(pipe, batch, device, seed)
+    fs = fused_scans(pipe, batch, seed, rounds=1)
+    expect_fused = {"fused_edge_then_sum": steps * n_enc, "fused_message_sum": steps * n_dec}
+    check_launches(fs["launches"], expect_fused, "the f32 pair-fused scan")
+    if not (fs["first_equal"] and fs["latents_equal"]):
+        raise RuntimeError("the f32 pair-fused scan is not bit for bit the unfused one")
+    records["fused_edge_then_sum_f32"]["launches"] = fs["launches"]["fused_edge_then_sum"]
+    fs48 = fused_scans(pipe, small, seed, rounds=1)
+    check_launches(fs48["launches"], expect_fused, "the f32 pair-fused scan at L = 48")
+    if not (fs48["first_equal"] and fs48["latents_equal"]):
+        raise RuntimeError("the f32 pair-fused scan at L = 48 is not bit for bit the unfused one")
+    records["fused_edge_then_sum_f32_k48"]["launches"] = fs48["launches"]["fused_edge_then_sum"]
+    del pipe
+    torch.cuda.empty_cache()
+    x1, extras = train_batch(B, L, seed + 1, device)
+    model, state, step = build_trainer(device, seed)   # f32, dropout 0.6
+    per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP)
+    ran = set()
+    times, metrics, _ = run_train(state, step, x1, extras, seed, 6, per_step, traced=1,
+                                  names=ran)
+    times = times[1:]                                   # the first step is cold
+    if ran and not any("message_sum_f32_mma_kernel" in n for n in ran):
+        raise RuntimeError(f"the f32 training step did not run K1 on its tensor-core kernel: "
+                           f"{sorted(ran)}")
+    del model, state, step, x1, extras
+    torch.cuda.empty_cache()
+    return {"steps_per_s": steps / timed["seconds"], "seconds": timed["seconds"],
+            "steps_per_s_k48": steps / out48["seconds"], "fused": fs,
+            "train_ms": statistics.median(times), "train_times": times,
+            "loss": float(metrics["loss"])}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4854,10 +4994,14 @@ def main(argv=None):
     log(f"phase build: {seconds:.2f} s")
 
     t0 = time.perf_counter()
-    records = check_kernels(device, args.seed)
+    records = check_kernels(device, args.seed, f32_records=True)
     records.update(check_bwd_kernels(device, args.seed))
-    # K1's record at the L = 48 bucket beside the bench shape's (K2's is logged)
-    records["fused_message_sum_k48"] = check_kernels(device, args.seed, K48)["fused_message_sum"]
+    # K1's record at the L = 48 bucket beside the bench shape's (K2's bf16 is
+    # logged), and the f32 K1's and K2's
+    k48 = check_kernels(device, args.seed, K48, f32_records=True)
+    records["fused_message_sum_k48"] = k48["fused_message_sum"]
+    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+        records[f"{name}_f32_k48"] = k48[f"{name}_f32"]
     check_bwd_kernels(device, args.seed, K48)
     s1_batch = stage1_batch(args.seed, device)
     records.update(check_stage1_kernels(s1_batch, args.seed))
@@ -4870,7 +5014,9 @@ def main(argv=None):
     log(f"phase kernels_k6: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     records.update(check_k7_kernels(device, args.seed))
-    check_k7_kernels(device, args.seed, K48)
+    records["fused_edge_then_sum_f32_k48"] = check_k7_kernels(device, args.seed,
+                                                              K48)["fused_edge_then_sum_f32"]
+    check_k7_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
     log(f"phase kernels_k7: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -4937,6 +5083,22 @@ def main(argv=None):
         f"{'equal' if fs['latents_equal'] else 'DIFFERS'}")
     if not (fs["first_equal"] and fs["latents_equal"]):
         raise RuntimeError("the pair-fused scan is not bit for bit the unfused one")
+
+    t0 = time.perf_counter()
+    f32 = phase_f32_chain(args.seed, device, records, batch)
+    fs32 = f32["fused"]
+    log(f"phase f32_chain: {time.perf_counter() - t0:.2f} s; f32 denoiser (K1, K2, K7 on the "
+        f"tensor cores, 3xTF32): a {steps}-step draw + decode at B{B} L{L} K{K} "
+        f"{f32['seconds']:.3f} s ({f32['steps_per_s']:.2f} steps/s; launches 600 K1, 300 K2 "
+        f"as expected); at B{K48[0]} L{K48[1]} K{K48[2]} {f32['steps_per_s_k48']:.2f} steps/s; "
+        f"one denoise call traced: K1 message_sum_f32_mma_kernel, K2 "
+        f"message_edge_lnmod_f32_mma_kernel, fused K7 edge_then_sum_f32_mma_kernel, no "
+        f"chain_kernel; f32 fused scan against the unfused one bit for bit equal (first-step "
+        f"output and final latents; {fs32['launches']}), rates fused "
+        f"{steps / statistics.median(fs32['fused_s']):.2f} / unfused "
+        f"{steps / statistics.median(fs32['unfused_s']):.2f} steps/s; f32 training at dropout "
+        f"{P_DROP}, B{B} L{L}: median {f32['train_ms']:.2f} ms/step over "
+        f"{[round(x, 2) for x in f32['train_times']]} (last loss {f32['loss']:.5g})")
 
     t0 = time.perf_counter()
     reference_check(args.seed)

@@ -51,9 +51,10 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
 
 // acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
 // stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It
-// serves the f32 kernels only: every bf16 kernel runs its products on the
-// tensor cores (chain_mma.cuh's slab functions in message_chain.cu and
-// message_chain_bwd.cu).
+// serves the f32 K5 forward, K6 and the f32 backwards only: every bf16
+// kernel runs its products on the tensor cores (chain_mma.cuh's slab
+// functions in message_chain.cu and message_chain_bwd.cu), and so do the f32
+// K1, K2 and K7 (chain_tf32.cuh, 3xTF32).
 template <typename T, int TM, int XS>
 __device__ __forceinline__ void tile_gemm(const T* sX, const T* sW, int r0, int c0,
                                           float (&acc)[TM][TN]) {

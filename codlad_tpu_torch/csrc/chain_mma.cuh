@@ -3,6 +3,8 @@
 // (message_chain_bwd.cu: K3, K4, K5's and K6's), so that the backwards
 // recompute pre, x2 and msg with the forwards' own instructions. A block of MW warps owns MROWS edge rows (whole residues, K
 // a multiple of 16), a warp a 16-row slab of one residue x all 128 columns.
+// The f32 chains (chain_tf32.cuh) take unit(), gelu_exp and reduce_rows
+// from here.
 #pragma once
 
 #include "chain_common.cuh"

@@ -23,32 +23,33 @@
 // cast() rounds to the edge dtype where the TPU kernel does; every product
 // accumulates in f32.
 //
-// Design. One block of 256 threads owns ROWS = 16*TM edge rows (TM = 8 rows per
-// thread in bf16, 4 in f32), i.e. floor(ROWS/K) whole residues, so K1's masked
-// K-sum stays inside the block. Where K does not divide ROWS (K = 48) the rows
-// past the last whole residue stay idle: they load zeros and store nothing. W_e,
-// W2 (and W3 for K2/K6) are staged once per block in shared memory; the edge tile
-// lives in shared memory row-major and is overwritten in place by each
-// activation. Each thread computes a TM x 8 tile of every H x H product on CUDA
-// cores in f32. The neighbour table is read by index (Gn[b, idx]) instead of the
-// TPU's one-hot selection matmul. K2's LayerNorm reduces over the 16 lanes that
-// share a row with warp shuffles.
+// Three designs share this file.
 //
-// K7 keeps e2 in the block: the edge half writes it to device memory and into
-// the shared edge tile, and the node half runs K1's chain on that tile. Three
-// H x H matrices and the tile already fill a block's shared memory in f32 (226
-// of 227 KB), so the two weight sets are never resident together. K7 holds two
-// weight buffers only, K1's footprint: each buffer is restaged as soon as every
-// thread is done with its product, buffer 0 W_e -> W3 -> node W2, buffer 1
-// W2 -> node W_e; K1's W3 acts per residue and is read from global memory, as
-// in K1.
+// f32 K5's forward and f32 K6 (`chain_kernel`, CUDA cores). One block of 256
+// threads owns ROWS = 64 edge rows (4 a thread), i.e. floor(ROWS/K) whole
+// residues; where K does not divide ROWS (K = 48) the rows past the last whole
+// residue stay idle: they load zeros and store nothing. W_e, W2 and W3 are
+// staged once per block in shared memory; the edge tile lives there row-major
+// and is overwritten in place by each activation. Each thread computes a 4 x 8
+// tile of every H x H product in f32 FMAs (chain_common.cuh tile_gemm). The
+// neighbour table is read by index (Gn[b, idx]) instead of the TPU's one-hot
+// selection matmul. The LayerNorm reduces over the 16 lanes that share a row
+// with warp shuffles. This design is bound by the f32 FMA rate (67 TFLOP/s),
+// not by memory; ROADMAP.md queue 2b lists it for the tensor cores next.
 //
-// Bound on an H100 at the bench shape (B96 L128 K64 H128, bf16): the two
-// per-edge H x H products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for
-// K7); the bytes moved (the E tile read once, plus the edge output's write) put
-// the floor at 0.07-0.13 ms. The CUDA-core design above (`chain_kernel`,
-// `edge_then_sum_kernel`) is bound by the f32 FMA rate, not by memory: it
-// serves f32 K1-K7 only.
+// f32 K1, K2 and K7 on the tensor cores in 3xTF32 (`message_sum_f32_mma_kernel`,
+// `message_edge_lnmod_f32_mma_kernel`, `edge_then_sum_f32_mma_kernel`; the
+// slab functions of chain_tf32.cuh and the design note there, below). Every
+// f32 kernel takes K <= 64, a multiple of 4.
+//
+// Bound on an H100 at the bench shape (B96 L128 K64 H128): the per-edge H x H
+// products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for K7); the
+// bytes moved (the E tile read once, plus the edge output's write) put the
+// floor at 0.07-0.13 ms in bf16 and 0.12-0.24 ms in f32. In 3xTF32 the
+// products are three TF32 ones each: 0.32 ms (K1) and 0.47 ms (K2) at the
+// tensor cores' 495 TFLOP/s; a loop of these products alone reached 47% of
+// that peak (scripts/tf32_split_bench.py), so the products bound the f32 K1
+// and K2 near 0.67 and 0.99 ms.
 //
 // In bf16, K1 (`message_sum_mma_kernel`), K2 and K5's forward
 // (`message_edge_lnmod_mma_kernel<DROP, MASK_OUT>`), K6
@@ -104,8 +105,11 @@
 // at the tensor cores' peak) or the bytes (0.066 / 0.123 ms); PERF.md has
 // the times.
 
+#include <algorithm>
+
 #include "chain_common.cuh"
 #include "chain_mma.cuh"
+#include "chain_tf32.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -171,17 +175,15 @@ __device__ __forceinline__ void load_edges(T* sX, const T* __restrict__ E, const
 
 // acc <- h2 = gelu(cast(gelu(A[l] + X W_e + Gn[idx])) W2 + b2) of the edge tile X
 // in sX, which is overwritten by cast(gelu(pre)); sWe and sW2 hold the weights.
-// RESTAGE: once every thread is done with the W_e product, sWe is refilled
-// with `next` (visible to every thread on return). Indices come from the kNN
-// search; they are clamped so that a bad index can never read outside Gn.
-template <typename T, bool RESTAGE = false>
-__device__ __forceinline__ void chain_h2(T* sX, T* sWe, const T* sW2,
+// Indices come from the kNN search; they are clamped so that a bad index can
+// never read outside Gn.
+template <typename T>
+__device__ __forceinline__ void chain_h2(T* sX, const T* sWe, const T* sW2,
                                          const T* __restrict__ A, const T* __restrict__ Gn,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ b2, int L, int K, int N,
                                          const Tile& t,
-                                         float (&acc)[Traits<T>::TM][TN],
-                                         const T* __restrict__ next = nullptr) {
+                                         float (&acc)[Traits<T>::TM][TN]) {
   using Tr = Traits<T>;
   constexpr int TM = Tr::TM;
   constexpr int XS = H + Tr::XPAD;
@@ -204,7 +206,6 @@ __device__ __forceinline__ void chain_h2(T* sX, T* sWe, const T* sW2,
     }
   }
   __syncthreads();
-  if constexpr (RESTAGE) stage_weight(sWe, next);
 #pragma unroll
   for (int m = 0; m < TM; ++m) store8(sX + (t.r0 + m) * XS + t.c0, y[m]);
   __syncthreads();
@@ -218,76 +219,19 @@ __device__ __forceinline__ void chain_h2(T* sX, T* sWe, const T* sW2,
     for (int n = 0; n < TN; ++n) acc[m][n] = gelu_tanh(acc[m][n] + bias[n]);
 }
 
-// K1's epilogue: out[l] = (cast(sum_k mask h2) W3 + (sum_k mask) b3) / scale,
-// with sX (no longer read by any product) as scratch.
-template <typename T>
-__device__ __forceinline__ void sum_epilogue(const float (&acc)[Traits<T>::TM][TN], T* sX,
-                                             const float* __restrict__ mask,
-                                             const T* __restrict__ W3,
-                                             const float* __restrict__ b3,
-                                             float* __restrict__ out, int L, int K,
-                                             float scale, const Tile& t) {
-  using Tr = Traits<T>;
-  constexpr int TM = Tr::TM;
-  const int tid = threadIdx.x;
-  // masked sum over this thread's TM rows (all of one residue: K % TM == 0)
-  float part[8];
-#pragma unroll
-  for (int n = 0; n < TN; ++n) part[n] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = t.r0 + m;
-    const float mk = r < t.nrows ? mask[t.row0 + r] : 0.0f;
-#pragma unroll
-    for (int n = 0; n < TN; ++n) part[n] += acc[m][n] * mk;
-  }
-  __syncthreads();  // every product has finished reading sX
-  float* red = reinterpret_cast<float*>(sX);  // [RG][H] per-row-group sums
-  float* ssum = red + RG * H;                 // [TL][H] node sums (edge dtype)
-  float* msum = ssum + t.TL * H;              // [TL] mask counts
-  store8(red + t.rg * H + t.c0, part);
-  __syncthreads();
-  const int gpr = K / TM;  // row groups per residue
-  for (int i = tid; i < t.TL * H; i += NT) {
-    const int ll = i / H, c = i % H;
-    float s = 0.0f;
-    for (int q = 0; q < gpr; ++q) s += red[(ll * gpr + q) * H + c];
-    ssum[i] = Tr::round(s);
-  }
-  for (int ll = tid; ll < t.TL; ll += NT) {
-    float s = 0.0f;
-    if (t.l0 + ll < L)
-      for (int k = 0; k < K; ++k) s += mask[t.row0 + (size_t)ll * K + k];
-    msum[ll] = s;
-  }
-  __syncthreads();
-  for (int i = tid; i < t.TL * H; i += NT) {
-    const int ll = i / H, c = i % H;
-    if (t.l0 + ll >= L) continue;
-    float s = 0.0f;
-    for (int j = 0; j < H; ++j) s = fmaf(ssum[ll * H + j], Tr::f(W3[j * H + c]), s);
-    s += msum[ll] * b3[c];
-    out[((size_t)t.b * L + t.l0 + ll) * H + c] = s / scale;
-  }
-}
-
 // The per-edge epilogue: msg = cast(h2) W3 + b3 (W3 in sW3); K6 (RAW) writes msg,
-// K2 writes g * (LN(E + msg) * (1 + sc) + sh), with dropout on msg (K5's forward)
-// when DROP = 1 (keep scales read from `keep`, E's dtype) or DROP = 2 (keep
-// scales made here from `seeds` by the counter hash; `mask_out`, when not null,
-// receives them as f32 for validation). TO_TILE (K7) also writes the output,
-// cast to E's dtype, into sX (zeros past nrows), and restages the weight
-// buffers as they fall free: sW2 (the W2 product's, done) with `next2`, then
-// sW3 with `next3` after the W3 product.
-template <typename T, int DROP, bool RAW, bool TO_TILE>
+// K5's forward writes g * (LN(E + msg x keep) * (1 + sc) + sh) with the keep
+// scales read from `keep` (E's dtype; DROP = 1) or made here from `seeds` by
+// the counter hash (DROP = 2; `mask_out`, when not null, receives them as f32
+// for validation).
+template <typename T, int DROP, bool RAW>
 __device__ __forceinline__ void edge_epilogue(
-    float (&acc)[Traits<T>::TM][TN], T* sX, T* sW3, const T* __restrict__ E,
+    float (&acc)[Traits<T>::TM][TN], T* sX, const T* sW3, const T* __restrict__ E,
     const float* __restrict__ b3, const float* __restrict__ sh,
     const float* __restrict__ sc, const float* __restrict__ gate,
     const T* __restrict__ keep, const int* __restrict__ seeds, uint32_t thresh,
     float kscale, float* __restrict__ mask_out, T* __restrict__ out, int K,
-    const Tile& t, T* sW2 = nullptr, const T* __restrict__ next2 = nullptr,
-    const T* __restrict__ next3 = nullptr) {
+    const Tile& t) {
   using Tr = Traits<T>;
   constexpr int TM = Tr::TM;
   constexpr int XS = H + Tr::XPAD;
@@ -298,17 +242,12 @@ __device__ __forceinline__ void edge_epilogue(
 #pragma unroll
       for (int n = 0; n < TN; ++n) y[m][n] = Tr::round(acc[m][n]);
     __syncthreads();
-    if constexpr (TO_TILE) stage_weight(sW2, next2);
 #pragma unroll
     for (int m = 0; m < TM; ++m) store8(sX + (t.r0 + m) * XS + t.c0, y[m]);
     __syncthreads();
   }
 
   fwd_gemm<T>(sX, sW3, t.r0, t.c0, acc);
-  if constexpr (TO_TILE) {
-    __syncthreads();  // every thread is done reading sX and sW3
-    stage_weight(sW3, next3);
-  }
   float bias[8];
   load8(b3 + t.c0, bias);
   if constexpr (RAW) {
@@ -371,96 +310,48 @@ __device__ __forceinline__ void edge_epilogue(
     for (int n = 0; n < TN; ++n)
       v[n] = gv[n] * (((v[n] - mean) * rstd) * (1.0f + scv[n]) + shv[n]);
     if (r < t.nrows) store8(out + (t.row0 + r) * H + t.c0, v);
-    if constexpr (TO_TILE) {
-      if (r >= t.nrows) {
-#pragma unroll
-        for (int n = 0; n < TN; ++n) v[n] = 0.0f;
-      }
-      store8(sX + r * XS + t.c0, v);  // store8 rounds to T: the cast of `out`
-    }
   }
 }
 
-// f32 only (bf16 runs on the tensor cores, below).
-// EDGE = false: K1 (masked K-sum, f32 [B, L, H] out).
-// EDGE = true:  K2 / K5's forward (DROP), or K6 (RAW), [B, L, K, H] out.
-template <typename T, bool EDGE, int DROP, bool RAW>
+// f32 K5's forward (DROP 1, 2) and K6 (RAW) on CUDA cores, [B, L, K, H] out
+// (every bf16 kernel, and the f32 K1, K2 and K7, run on the tensor cores, below).
+template <typename T, int DROP, bool RAW>
 __global__ void __launch_bounds__(NT)
 chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
-             const int* __restrict__ idx, const float* __restrict__ mask,
-             const T* __restrict__ We, const T* __restrict__ W2,
-             const float* __restrict__ b2, const T* __restrict__ W3,
-             const float* __restrict__ b3, const float* __restrict__ sh,
-             const float* __restrict__ sc, const float* __restrict__ gate,
-             const T* __restrict__ keep, const int* __restrict__ seeds,
-             uint32_t thresh, float kscale, float* __restrict__ mask_out,
-             void* __restrict__ out, int L, int K, int N, float scale) {
+             const int* __restrict__ idx, const T* __restrict__ We,
+             const T* __restrict__ W2, const float* __restrict__ b2,
+             const T* __restrict__ W3, const float* __restrict__ b3,
+             const float* __restrict__ sh, const float* __restrict__ sc,
+             const float* __restrict__ gate, const T* __restrict__ keep,
+             const int* __restrict__ seeds, uint32_t thresh, float kscale,
+             float* __restrict__ mask_out, T* __restrict__ out, int L, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sWe = reinterpret_cast<T*>(smem);
   T* sW2 = sWe + H * H;
-  T* sW3 = sW2 + H * H;             // staged by K2 / K6 only
-  T* sX = EDGE ? sW3 + H * H : sW3; // [ROWS][XS] edge tile / activations
+  T* sW3 = sW2 + H * H;
+  T* sX = sW3 + H * H;  // [ROWS][XS] edge tile / activations
 
   const Tile t = make_tile<T>(L, K);
   stage_weight(sWe, We);
   stage_weight(sW2, W2);
-  if (EDGE) stage_weight(sW3, W3);
+  stage_weight(sW3, W3);
   load_edges(sX, E, t);
   __syncthreads();
 
   float acc[Traits<T>::TM][TN];
   chain_h2<T>(sX, sWe, sW2, A, Gn, idx, b2, L, K, N, t, acc);
-  if constexpr (!EDGE)
-    sum_epilogue<T>(acc, sX, mask, W3, b3, static_cast<float*>(out), L, K, scale, t);
-  else
-    edge_epilogue<T, DROP, RAW, false>(acc, sX, sW3, E, b3, sh, sc, gate, keep, seeds,
-                                       thresh, kscale, mask_out, static_cast<T*>(out), K, t);
+  edge_epilogue<T, DROP, RAW>(acc, sX, sW3, E, b3, sh, sc, gate, keep, seeds, thresh, kscale,
+                              mask_out, out, K, t);
 }
 
-// K7: K2 with the edge weight set, then K1 with the node set on its output, in
-// two weight buffers (K1's shared memory; at most 128 registers a thread, so
-// that two blocks fit an SM in bf16).
 template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-edge_then_sum_kernel(const T* __restrict__ Ae, const T* __restrict__ E,
-                     const T* __restrict__ Ge, const int* __restrict__ idx,
-                     const T* __restrict__ Wee, const T* __restrict__ W2e,
-                     const float* __restrict__ b2e, const T* __restrict__ W3e,
-                     const float* __restrict__ b3e, const float* __restrict__ sh,
-                     const float* __restrict__ sc, const float* __restrict__ gmod,
-                     const T* __restrict__ An, const T* __restrict__ Gnn,
-                     const T* __restrict__ Wen, const T* __restrict__ W2n,
-                     const float* __restrict__ b2n, const T* __restrict__ W3n,
-                     const float* __restrict__ b3n, const float* __restrict__ mask,
-                     T* __restrict__ e_out, float* __restrict__ n_out, int L, int K, int N,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* w0 = reinterpret_cast<T*>(smem);  // W_e, then W3, then the node W2
-  T* w1 = w0 + H * H;                  // W2, then the node W_e
-  T* sX = w1 + H * H;
-
-  const Tile t = make_tile<T>(L, K);
-  stage_weight(w0, Wee);
-  stage_weight(w1, W2e);
-  load_edges(sX, E, t);
-  __syncthreads();
-
-  float acc[Traits<T>::TM][TN];
-  chain_h2<T, true>(sX, w0, w1, Ae, Ge, idx, b2e, L, K, N, t, acc, W3e);
-  edge_epilogue<T, 0, false, true>(acc, sX, w0, E, b3e, sh, sc, gmod, nullptr, nullptr, 0u,
-                                   1.0f, nullptr, e_out, K, t, w1, Wen, W2n);
-  __syncthreads();  // e2 in sX and the node weights are in place
-  chain_h2<T>(sX, w1, w0, An, Gnn, idx, b2n, L, K, N, t, acc);
-  sum_epilogue<T>(acc, sX, mask, W3n, b3n, n_out, L, K, scale, t);
-}
-
-template <typename T, bool EDGE>
 size_t smem_bytes() {
   constexpr int ROWS = RG * Traits<T>::TM;
-  return (size_t)(EDGE ? 3 : 2) * H * H * sizeof(T) +
-         (size_t)ROWS * (H + Traits<T>::XPAD) * sizeof(T);
+  return (size_t)3 * H * H * sizeof(T) + (size_t)ROWS * (H + Traits<T>::XPAD) * sizeof(T);
 }
 
+// the f32 kernels take K <= 64, a multiple of 4 (the CUDA-core tiles of K5's
+// forward and K6: a thread's 4 rows belong to one residue)
 template <typename T>
 bool bad_dims(int B, int L, int K, int N) {
   constexpr int TM = Traits<T>::TM;
@@ -473,59 +364,260 @@ dim3 grid_of(int B, int L, int K) {
   return dim3((L + TL - 1) / TL, B);
 }
 
-template <typename T, bool EDGE, int DROP, bool RAW>
-int launch(const void* A, const void* E, const void* Gn, const void* idx,
-           const void* mask, const void* We, const void* W2, const void* b2,
-           const void* W3, const void* b3, const void* sh, const void* sc,
-           const void* gate, const void* keep, const void* seeds, uint32_t thresh,
-           float kscale, void* mask_out, void* out, int B, int L, int K, int N,
-           float scale, void* stream) {
+template <typename T, int DROP, bool RAW>
+int launch(const void* A, const void* E, const void* Gn, const void* idx, const void* We,
+           const void* W2, const void* b2, const void* W3, const void* b3, const void* sh,
+           const void* sc, const void* gate, const void* keep, const void* seeds,
+           uint32_t thresh, float kscale, void* mask_out, void* out, int B, int L, int K,
+           int N, void* stream) {
   if (bad_dims<T>(B, L, K, N)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, EDGE>();
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, EDGE, DROP, RAW>,
+  const size_t smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, DROP, RAW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  chain_kernel<T, EDGE, DROP, RAW>
+  chain_kernel<T, DROP, RAW>
       <<<grid_of<T>(B, L, K), NT, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
-          static_cast<const int*>(idx), static_cast<const float*>(mask),
-          static_cast<const T*>(We), static_cast<const T*>(W2),
+          static_cast<const int*>(idx), static_cast<const T*>(We), static_cast<const T*>(W2),
           static_cast<const float*>(b2), static_cast<const T*>(W3),
           static_cast<const float*>(b3), static_cast<const float*>(sh),
           static_cast<const float*>(sc), static_cast<const float*>(gate),
           static_cast<const T*>(keep), static_cast<const int*>(seeds), thresh, kscale,
-          static_cast<float*>(mask_out), out, L, K, N, scale);
+          static_cast<float*>(mask_out), static_cast<T*>(out), L, K, N);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_edge_then_sum(const void* Ae, const void* E, const void* Ge, const void* idx,
-                         const void* Wee, const void* W2e, const void* b2e,
-                         const void* W3e, const void* b3e, const void* sh,
-                         const void* sc, const void* gmod, const void* An,
-                         const void* Gnn, const void* Wen, const void* W2n,
-                         const void* b2n, const void* W3n, const void* b3n,
-                         const void* mask, void* e_out, void* n_out, int B, int L, int K,
-                         int N, float scale, void* stream) {
-  if (bad_dims<T>(B, L, K, N)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T, false>();  // two weight buffers, as K1
-  cudaError_t err = cudaFuncSetAttribute(edge_then_sum_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores (3xTF32, the slab functions of chain_tf32.cuh): K1
+// (`message_sum_f32_mma_kernel`), K2 (`message_edge_lnmod_f32_mma_kernel`)
+// and K7 (`edge_then_sum_f32_mma_kernel`). A block of 8 warps stages its
+// three weights once and walks over its share of the work (one block an SM:
+// the weights fill 192 KB). K2's warps walk over slabs on their own, with no
+// block barrier. K1's and K7's blocks walk over tiles of TRES residues of one
+// sample, warp w residue w: its slabs' masked sums, then, after one barrier,
+// the tile's s W3 with warp w computing 16 of its columns. K7 runs K2's slab
+// function on its residue's slabs (e2 to device memory), restages the node
+// weights, then K1's functions on the e2 each lane has just written: the
+// same instructions as K2's kernel followed by K1's, so the same bits.
+
+namespace tf = chain_tf32;
+
+constexpr int F1SMEM = (3 * tf::WFLOATS + 2 * H + 2 * tf::TRES * tf::SS + 2 * tf::TRES) * 4;
+constexpr int F2SMEM = (3 * tf::WFLOATS + 2 * H) * 4;
+constexpr int F7SMEM = (3 * tf::WFLOATS + 4 * H + 2 * tf::TRES * tf::SS + 2 * tf::TRES) * 4;
+
+// K1 in f32: out[b, l] = (s W3 + msum b3) / scale, s the masked K-sum of h2
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_sum_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                           const float* __restrict__ Gn, const int* __restrict__ idx,
+                           const float* __restrict__ mask, const float* __restrict__ We,
+                           const float* __restrict__ W2, const float* __restrict__ b2,
+                           const float* __restrict__ W3, const float* __restrict__ b3,
+                           float* __restrict__ out, int B, int L, int K, int N, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sWe = fsm;
+  float* sW2 = sWe + tf::WFLOATS;
+  float* sW3 = sW2 + tf::WFLOATS;
+  float* sb2 = sW3 + tf::WFLOATS;
+  float* sb3 = sb2 + H;
+  float* ssum = sb3 + H;                        // [2][TRES][SS], by tile parity
+  float* smsum = ssum + 2 * tf::TRES * tf::SS;  // [2][TRES]
+  tf::stage_frag<false, true>(sWe, We);
+  tf::stage_frag<true, false>(sW2, W2);
+  tf::stage_frag<false, false>(sW3, W3);
+  tf::load_vec(sb2, b2);
+  tf::load_vec(sb3, b3);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tps = (L + tf::TRES - 1) / tf::TRES;  // tiles a sample
+  int par = 0;
+  for (int tile = blockIdx.x; tile < B * tps; tile += gridDim.x, par ^= 1) {
+    const int b = tile / tps, l0 = (tile - b * tps) * tf::TRES;
+    float* ss = ssum + par * tf::TRES * tf::SS;
+    float* sm = smsum + par * tf::TRES;
+    tf::residue_sum(ss + warp * tf::SS, sm + warp, E, A, Gn, idx, mask, sWe, sW2, sb2, b,
+                    l0 + warp, L, K, N, lane);
+    __syncthreads();  // (the other parity's buffers are free: one barrier a tile)
+    tf::residue_out(ss, sm, sW3, sb3, out, b, l0, L, scale, warp, lane);
+  }
+}
+
+// K2 in f32: out[b, l, k] = g (LN(E + h2 W3 + b3) (1 + sc) + sh)
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                                  const float* __restrict__ Gn, const int* __restrict__ idx,
+                                  const float* __restrict__ We, const float* __restrict__ W2,
+                                  const float* __restrict__ b2, const float* __restrict__ W3,
+                                  const float* __restrict__ b3, const float* __restrict__ sh,
+                                  const float* __restrict__ sc,
+                                  const float* __restrict__ gate, float* __restrict__ out,
+                                  int B, int L, int K, int N) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sWe = fsm;
+  float* sW2 = sWe + tf::WFLOATS;
+  float* sW3 = sW2 + tf::WFLOATS;
+  float* sb2 = sW3 + tf::WFLOATS;
+  float* sb3 = sb2 + H;
+  tf::stage_frag<false, true>(sWe, We);
+  tf::stage_frag<true, false>(sW2, W2);
+  tf::stage_frag<false, false>(sW3, W3);
+  tf::load_vec(sb2, b2);
+  tf::load_vec(sb3, b3);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, spr = (K + 15) / 16;  // slabs a residue
+  const long long total = (long long)B * L * spr;
+  for (long long i = (long long)blockIdx.x * tf::TW + (threadIdx.x >> 5); i < total;
+       i += (long long)gridDim.x * tf::TW) {
+    const long long bl = i / spr;
+    const int b = (int)(bl / L), l = (int)(bl - (long long)b * L), q = (int)(i - bl * spr);
+    tf::edge_slab(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, sh, sc, gate, out, L, N,
+                  tf::make_slab(b, l, q, L, K, lane));
+  }
+}
+
+// K7 in f32: e_out = K2 of the edge set; n_out = K1 of the node set on e_out
+__global__ void __launch_bounds__(tf::TNT, 1)
+edge_then_sum_f32_mma_kernel(const float* __restrict__ Ae, const float* __restrict__ E,
+                             const float* __restrict__ Ge, const int* __restrict__ idx,
+                             const float* __restrict__ Wee, const float* __restrict__ W2e,
+                             const float* __restrict__ b2e, const float* __restrict__ W3e,
+                             const float* __restrict__ b3e, const float* __restrict__ sh,
+                             const float* __restrict__ sc, const float* __restrict__ gmod,
+                             const float* __restrict__ An, const float* __restrict__ Gnn,
+                             const float* __restrict__ Wen, const float* __restrict__ W2n,
+                             const float* __restrict__ b2n, const float* __restrict__ W3n,
+                             const float* __restrict__ b3n, const float* __restrict__ mask,
+                             float* e_out, float* __restrict__ n_out, int B, int L, int K,
+                             int N, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* w0 = fsm;                 // W_e of the edge set, then of the node set
+  float* w1 = w0 + tf::WFLOATS;    // W2 likewise
+  float* w2 = w1 + tf::WFLOATS;    // W3 likewise
+  float* vec = w2 + tf::WFLOATS;   // b2e, b3e, b2n, b3n
+  float* ssum = vec + 4 * H;
+  float* smsum = ssum + 2 * tf::TRES * tf::SS;
+  tf::load_vec(vec, b2e);
+  tf::load_vec(vec + H, b3e);
+  tf::load_vec(vec + 2 * H, b2n);
+  tf::load_vec(vec + 3 * H, b3n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tps = (L + tf::TRES - 1) / tf::TRES;
+  int par = 0;
+  for (int tile = blockIdx.x; tile < B * tps; tile += gridDim.x, par ^= 1) {
+    const int b = tile / tps, l0 = (tile - b * tps) * tf::TRES, l = l0 + warp;
+    __syncthreads();  // every warp is done with the node weights
+    tf::stage_frag<false, true>(w0, Wee);
+    tf::stage_frag<true, false>(w1, W2e);
+    tf::stage_frag<false, false>(w2, W3e);
+    __syncthreads();
+    if (l < L)
+      for (int q = 0; 16 * q < K; ++q)
+        tf::edge_slab(E, Ae, Ge, idx, w0, w1, w2, vec, vec + H, sh, sc, gmod, e_out, L, N,
+                      tf::make_slab(b, l, q, L, K, lane));
+    __syncthreads();  // every warp is done with the edge weights
+    tf::stage_frag<false, true>(w0, Wen);
+    tf::stage_frag<true, false>(w1, W2n);
+    tf::stage_frag<false, false>(w2, W3n);
+    __syncthreads();
+    float* ss = ssum + par * tf::TRES * tf::SS;
+    float* sm = smsum + par * tf::TRES;
+    tf::residue_sum(ss + warp * tf::SS, sm + warp, e_out, An, Gnn, idx, mask, w0, w1,
+                    vec + 2 * H, b, l, L, K, N, lane);
+    __syncthreads();
+    tf::residue_out(ss, sm, w2, vec + 3 * H, n_out, b, l0, L, scale, warp, lane);
+  }
+}
+
+// the SMs of the current device (the f32 tensor-core kernels' grid: one
+// block an SM, each walking over its share of the work)
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// cudaFuncSetAttribute once a device and kernel (not on every launch): `done`
+// the kernel's bit set of devices already set
+template <typename KernelT>
+cudaError_t smem_once(KernelT kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned bit = 1u << (dev & 31);
+  if (done & bit) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+int launch_sum_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                       const void* mask, const void* We, const void* W2, const void* b2,
+                       const void* W3, const void* b3, void* out, int B, int L, int K, int N,
+                       float scale, void* stream) {
+  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t err = smem_once(message_sum_f32_mma_kernel, F1SMEM, done);
   if (err != cudaSuccess) return (int)err;
-  edge_then_sum_kernel<T><<<grid_of<T>(B, L, K), NT, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Ae), static_cast<const T*>(E), static_cast<const T*>(Ge),
-      static_cast<const int*>(idx), static_cast<const T*>(Wee), static_cast<const T*>(W2e),
-      static_cast<const float*>(b2e), static_cast<const T*>(W3e),
+  const long long tiles = (long long)B * ((L + tf::TRES - 1) / tf::TRES);
+  const int grid = (int)std::min<long long>(tiles, sm_count());
+  message_sum_f32_mma_kernel<<<grid, tf::TNT, F1SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const float*>(We), static_cast<const float*>(W2),
+      static_cast<const float*>(b2), static_cast<const float*>(W3),
+      static_cast<const float*>(b3), static_cast<float*>(out), B, L, K, N, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_edge_lnmod_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                              const void* We, const void* W2, const void* b2, const void* W3,
+                              const void* b3, const void* sh, const void* sc, const void* gate,
+                              void* out, int B, int L, int K, int N, void* stream) {
+  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t err = smem_once(message_edge_lnmod_f32_mma_kernel, F2SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const long long warps = (long long)B * L * ((K + 15) / 16);
+  const int grid = (int)std::min<long long>((warps + tf::TW - 1) / tf::TW, sm_count());
+  message_edge_lnmod_f32_mma_kernel<<<grid, tf::TNT, F2SMEM,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(We),
+      static_cast<const float*>(W2), static_cast<const float*>(b2),
+      static_cast<const float*>(W3), static_cast<const float*>(b3),
+      static_cast<const float*>(sh), static_cast<const float*>(sc),
+      static_cast<const float*>(gate), static_cast<float*>(out), B, L, K, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_edge_then_sum_f32_mma(const void* Ae, const void* E, const void* Ge, const void* idx,
+                                 const void* Wee, const void* W2e, const void* b2e,
+                                 const void* W3e, const void* b3e, const void* sh,
+                                 const void* sc, const void* gmod, const void* An,
+                                 const void* Gnn, const void* Wen, const void* W2n,
+                                 const void* b2n, const void* W3n, const void* b3n,
+                                 const void* mask, void* e_out, void* n_out, int B, int L,
+                                 int K, int N, float scale, void* stream) {
+  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t err = smem_once(edge_then_sum_f32_mma_kernel, F7SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)B * ((L + tf::TRES - 1) / tf::TRES);
+  const int grid = (int)std::min<long long>(tiles, sm_count());
+  edge_then_sum_f32_mma_kernel<<<grid, tf::TNT, F7SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Ae), static_cast<const float*>(E),
+      static_cast<const float*>(Ge), static_cast<const int*>(idx),
+      static_cast<const float*>(Wee), static_cast<const float*>(W2e),
+      static_cast<const float*>(b2e), static_cast<const float*>(W3e),
       static_cast<const float*>(b3e), static_cast<const float*>(sh),
       static_cast<const float*>(sc), static_cast<const float*>(gmod),
-      static_cast<const T*>(An), static_cast<const T*>(Gnn), static_cast<const T*>(Wen),
-      static_cast<const T*>(W2n), static_cast<const float*>(b2n),
-      static_cast<const T*>(W3n), static_cast<const float*>(b3n),
-      static_cast<const float*>(mask), static_cast<T*>(e_out), static_cast<float*>(n_out),
-      L, K, N, scale);
+      static_cast<const float*>(An), static_cast<const float*>(Gnn),
+      static_cast<const float*>(Wen), static_cast<const float*>(W2n),
+      static_cast<const float*>(b2n), static_cast<const float*>(W3n),
+      static_cast<const float*>(b3n), static_cast<const float*>(mask),
+      static_cast<float*>(e_out), static_cast<float*>(n_out), B, L, K, N, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1040,9 +1132,8 @@ int message_sum_f32(const void* A, const void* E, const void* Gn, const void* id
                     const void* mask, const void* We, const void* W2, const void* b2,
                     const void* W3, const void* b3, void* out, int B, int L, int K, int N,
                     float scale, void* stream) {
-  return launch<float, false, 0, false>(A, E, Gn, idx, mask, We, W2, b2, W3, b3, nullptr,
-                                        nullptr, nullptr, nullptr, nullptr, 0u, 1.0f, nullptr,
-                                        out, B, L, K, N, scale, stream);
+  return launch_sum_f32_mma(A, E, Gn, idx, mask, We, W2, b2, W3, b3, out, B, L, K, N, scale,
+                            stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128
@@ -1058,9 +1149,8 @@ int message_edge_lnmod_f32(const void* A, const void* E, const void* Gn, const v
                            const void* We, const void* W2, const void* b2, const void* W3,
                            const void* b3, const void* sh, const void* sc, const void* gate,
                            void* out, int B, int L, int K, int N, void* stream) {
-  return launch<float, true, 0, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
-                                       gate, nullptr, nullptr, 0u, 1.0f, nullptr, out, B, L,
-                                       K, N, 1.0f, stream);
+  return launch_edge_lnmod_f32_mma(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, out, B, L,
+                                   K, N, stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128
@@ -1084,12 +1174,10 @@ int message_edge_lnmod_drop_f32(const void* A, const void* E, const void* Gn,
                                 float kscale, void* stream) {
   if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;
   if (keep != nullptr)
-    return launch<float, true, 1, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
-                                         gate, keep, nullptr, 0u, 1.0f, nullptr, out, B, L,
-                                         K, N, 1.0f, stream);
-  return launch<float, true, 2, false>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, sh, sc,
-                                       gate, nullptr, seeds, thresh, kscale, mask_out, out,
-                                       B, L, K, N, 1.0f, stream);
+    return launch<float, 1, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, keep,
+                                   nullptr, 0u, 1.0f, nullptr, out, B, L, K, N, stream);
+  return launch<float, 2, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, nullptr,
+                                 seeds, thresh, kscale, mask_out, out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores, K2's kernel: K a multiple of 16, at most 128
@@ -1117,9 +1205,8 @@ int message_edge_lnmod_drop_bf16(const void* A, const void* E, const void* Gn,
 int message_edge_f32(const void* A, const void* E, const void* Gn, const void* idx,
                      const void* We, const void* W2, const void* b2, const void* W3,
                      const void* b3, void* out, int B, int L, int K, int N, void* stream) {
-  return launch<float, true, 0, true>(A, E, Gn, idx, nullptr, We, W2, b2, W3, b3, nullptr,
-                                      nullptr, nullptr, nullptr, nullptr, 0u, 1.0f, nullptr,
-                                      out, B, L, K, N, 1.0f, stream);
+  return launch<float, 0, true>(A, E, Gn, idx, We, W2, b2, W3, b3, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, 0u, 1.0f, nullptr, out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128
@@ -1144,7 +1231,8 @@ int message_edge_bf16(const void* A, const void* E, const void* Gn, const void* 
                   W2n, b2n, W3n, b3n, mask, e_out, n_out, B, L, K, N, scale, stream);    \
   }
 
-EDGE_THEN_SUM(f32, launch_edge_then_sum<float>)
+// f32 on the tensor cores (3xTF32): K at most 64, a multiple of 4
+EDGE_THEN_SUM(f32, launch_edge_then_sum_f32_mma)
 // bf16 on the tensor cores: K a multiple of 16, at most 128
 EDGE_THEN_SUM(bf16, launch_edge_then_sum_mma)
 

@@ -18,13 +18,16 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
 launches K1, K2, K5's forward or K6 (`csrc/message_chain.cu`; in bf16 on
-the tensor cores, K a multiple of 16, K5's forward on K2's kernel) and whose
-backward launches K3, K4, K5's or K6's
-backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores, main
-pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
+the tensor cores, K a multiple of 16, K5's forward on K2's kernel; in f32
+K1 and K2 on the tensor cores too, in 3xTF32 (`message_sum_f32_mma_kernel`,
+`message_edge_lnmod_f32_mma_kernel`, K a multiple of 4 up to 64), K5's
+forward and K6 on CUDA cores) and whose backward launches K3, K4, K5's or
+K6's backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores,
+main pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
 `message_edge_lnmod_bwd_mma_kernel`, `message_edge_bwd_mma_kernel`; in f32
-on CUDA cores), or raises; K7 (in bf16 on K2's and K1's tensor-core bodies,
-so its outputs are K2's kernel then K1's, bit for bit) launches or raises. The plain version
+on CUDA cores), or raises; K7 (on K2's and K1's tensor-core bodies in either
+dtype, so its outputs are K2's kernel then K1's, bit for bit) launches or
+raises. The plain version
 runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
 the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
@@ -41,9 +44,11 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block of the f32 kernels, forwards and backwards, on CUDA
-# cores (16 row groups x 4 rows a thread); a block owns floor(rows / K)
-# whole residues, so K may not exceed it
+# edge rows per block of the f32 CUDA-core kernels (K5's forward, K6 and
+# the backwards: 16 row groups x 4 rows a thread); a block owns floor(rows /
+# K) whole residues, so K may not exceed it. Every f32 kernel takes the K
+# these tiles take (K <= 64, a multiple of 4), the tensor-core K1, K2 and K7
+# included (16-row slabs of one residue, padded past K).
 _F32_ROWS = 64
 # every kernel in bf16 (K1, K2 and K5's forward, K6, K7 and the backwards)
 # runs on the tensor cores: 128 rows a block, a warp a 16-row slab of one
@@ -278,7 +283,8 @@ def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
 def _check_mma_edge(E, Gn):
     """_check_edge for the kernels, which run on the tensor cores in bf16
     (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's, K6's):
-    K a multiple of 16 there."""
+    K a multiple of 16 there; in f32 the f32 tiles' K (the f32 K1, K2 and
+    K7 run on the tensor cores too, and take it)."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)

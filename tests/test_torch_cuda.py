@@ -12,8 +12,9 @@ order emulated in torch, tests/_torch_aggregate_order.py) and
 K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
-and K2 at every K the featurizer gives; K7 against K2's kernel then K1's,
-bit for bit; a guided self-conditioned f32 draw against the CPU, and a
+and K2 at every K the featurizer gives in bf16 and at every K the f32
+wrapper takes in f32 (3xTF32), each bit for bit from run to run; K7
+against K2's kernel then K1's, bit for bit, both dtypes; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
 CUDA tensors against the CPU; an f32 flow draw by each solver against the
@@ -129,6 +130,48 @@ def test_edge_lnmod_bf16_tensor_cores_every_k(dev, L, N, K):
 
 def test_edge_lnmod_bf16_refuses_k_off_the_warp_slab(dev):
     x = _inputs(dev, torch.bfloat16, 1, 8, 8, 24)  # a multiple of 8, not of 16
+    with pytest.raises(ValueError):
+        MK.fused_message_edge_lnmod(*(x[k] for k in _EDGE))
+
+
+# The f32 K1 and K2 on the tensor cores (3xTF32) at every K the f32 wrapper
+# takes (a multiple of 4 up to 64: K not a multiple of 16 leaves padding rows
+# in a residue's last slab), L not a multiple of a K1 tile's 8 residues and a
+# gather table longer than L: within TOLS' f32 limits of the plain version,
+# and bit for bit from run to run (K1's K-sum is taken in a fixed order).
+_F32_KS = list(range(4, 65, 4))
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_message_sum_f32_tensor_cores_every_k(dev, K):
+    x = _inputs(dev, torch.float32, 2, 37, 50, K, seed=40 + K)
+    MK.reset_launches()
+    s = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+    again = MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_sum"] == 2 and s.dtype == torch.float32
+    assert torch.equal(s, again)
+    _close(s, MK.ref_message_sum(*(x[k] for k in _SUM), 30.0), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_edge_lnmod_f32_tensor_cores_every_k(dev, K):
+    x = _inputs(dev, torch.float32, 3, 37, 50, K, seed=60 + K)
+    args = [x[k] for k in _EDGE]
+    MK.reset_launches()
+    e = MK.fused_message_edge_lnmod(*args)
+    again = MK.fused_message_edge_lnmod(*args)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge_lnmod"] == 2 and e.dtype == torch.float32
+    assert torch.equal(e, again)
+    _close(e, MK.ref_message_edge_lnmod(*args), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("K", [6, 68])
+def test_f32_kernels_refuse_a_k_the_wrapper_does_not_take(dev, K):
+    x = _inputs(dev, torch.float32, 1, 8, 8, K)
+    with pytest.raises(ValueError):
+        MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
     with pytest.raises(ValueError):
         MK.fused_message_edge_lnmod(*(x[k] for k in _EDGE))
 
