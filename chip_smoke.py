@@ -26,8 +26,14 @@ Phases, each printing its seconds:
                 keep of ones bit for bit K2, each forward twice bit for
                 bit), against torch.autograd
                 of the plain versions on the same inputs and cotangent, K5's
-                mask bit for bit against the plain generator, the bf16 K3,
-                K4 and K5's backward twice bit for bit but dGn, K5's seeded
+                mask bit for bit against the plain generator, K3, K4 and
+                K5's backward (both dtypes; f32 on the tensor cores in
+                3xTF32, message_sum_bwd_f32_mma_kernel or
+                message_edge_lnmod_bwd_f32_mma_kernel, then
+                data_grads_f32_mma_kernel, every f32 weight-grad pass
+                wgrad_f32_mma_kernel) twice bit for bit but dGn, each call's
+                device time split by CUDA kernel (main pass, weight-grad
+                pass, sum_partials; one traced call), the bf16 K5's seeded
                 backward bit for bit (but dGn) its keep-tensor backward
                 given the forward's own mask, each timed a call and by graph
                 replay (K4's and K5's backward beside the CUDA-core body's
@@ -96,7 +102,11 @@ Phases, each printing its seconds:
                 edge_then_sum_f32_mma_kernel, no chain_kernel); an f32 fused
                 scan against the unfused one (300 K7, bit for bit equal);
                 f32 training steps at dropout 0.6 (ms a step, K1's forward
-                traced as message_sum_f32_mma_kernel);
+                traced as message_sum_f32_mma_kernel, K3 and K5's backward
+                as message_sum_bwd_f32_mma_kernel,
+                message_edge_lnmod_bwd_f32_mma_kernel,
+                data_grads_f32_mma_kernel and wgrad_f32_mma_kernel, no
+                chain_bwd_kernel) and two at dropout 0 (K4's launches);
   8. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
@@ -977,6 +987,45 @@ def check_repeats(label, call):
     check_same_bits(label, call(), call(), "two calls on the same inputs:")
 
 
+def kernel_split(call, device_ms, reps=3):
+    """The device ms a call of one backward by CUDA kernel, from `reps`
+    calls under torch.profiler: main_pass_ms (the kernels of the main pass,
+    by name in `main_pass_kernels`), wgrad_ms (the weight-grad pass),
+    sum_partials_ms and other_ms (PyTorch's own, e.g. dGn's zeros); {}
+    where they do not add up to within 25% of `device_ms`, the call's
+    device time by graph replay (a trace late in a long process has been
+    seen to drop events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    split, main = dict(main_pass_ms=0.0, wgrad_ms=0.0, sum_partials_ms=0.0, other_ms=0.0), set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / reps
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+        if "wgrad" in name:
+            split["wgrad_ms"] += ms
+        elif "sum_partials" in name:
+            split["sum_partials_ms"] += ms
+        elif any(k in name for k in CHAIN_KERNELS):
+            split["main_pass_ms"] += ms
+            main.add(name)
+        else:
+            split["other_ms"] += ms
+    total = sum(split.values())
+    if not main or abs(total - device_ms) > 0.25 * device_ms:
+        log(f"  kernel split not measured: the trace's kernels add up to {total:.4f} ms "
+            f"a call against {device_ms:.4f} by graph replay")
+        return {}
+    return dict(split, main_pass_kernels=sorted(main))
+
+
 def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=False):
     """K3, K4 and K5 (forward and backward) at the training shape, f32 and
     bf16, against autograd of the plain versions; K5's mask bit for bit
@@ -1039,7 +1088,8 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
         recs = {"fused_message_sum_bwd": (err, ms, plain_ms,
                                           *bwd_bytes_flops(es, False, dims, n_nodes=n_nodes),
                                           dict(device_ms=dev_ms, wgrad_library_ms=lib_ms,
-                                               wgrad_library_device_ms=lib_dev_ms))}
+                                               wgrad_library_device_ms=lib_dev_ms,
+                                               **kernel_split(k3, dev_ms)))}
         del gk, plain_bwd
 
         # K4 through K2's autograd wrapper
@@ -1051,13 +1101,13 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
                                    ct_edge)
         bwd_args = args(("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g"))
         k4 = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge)
-        if dtype == torch.bfloat16:
-            check_repeats(f"K4 {dname} {dims_tag(dims, n_nodes)}", k4)
+        check_repeats(f"K4 {dname} {dims_tag(dims, n_nodes)}", k4)
         ms, plain_ms = time_calls(k4, plain_bwd)
         (dev_ms,) = replay_ms(k4)
         recs["fused_message_edge_lnmod_bwd"] = (err, ms, plain_ms,
                                                 *bwd_bytes_flops(es, True, dims, n_nodes=n_nodes),
-                                                dict(device_ms=dev_ms))
+                                                dict(device_ms=dev_ms, **(
+                                                    kernel_split(k4, dev_ms) if f32 else {})))
         del gk, plain_bwd
 
         # K5: the seeded forward's mask, its rate, its output and its backward
@@ -1095,8 +1145,8 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
         del gp
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         k5b = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP)
+        check_repeats(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b)
         if dtype == torch.bfloat16:
-            check_repeats(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b)
             # the mask the seeded backward regenerates is the forward's: the
             # keep-tensor backward given the forward's own mask (2.5 and 0,
             # exact in bf16) gives the same bits but dGn's
@@ -1111,7 +1161,8 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
         (dev_ms,) = replay_ms(k5b)
         nbytes, flops = bwd_bytes_flops(es, True, dims, n_nodes=n_nodes)
         recs["fused_message_edge_lnmod_drop_bwd"] = (err, ms, plain_ms, nbytes + b * 4, flops,
-                                                     dict(device_ms=dev_ms))
+                                                     dict(device_ms=dev_ms, **(
+                                                         kernel_split(k5b, dev_ms) if f32 else {})))
         del gk, plain_bwd
 
         # K5 with the keep operand: forward and grads
@@ -1165,6 +1216,12 @@ def check_k5_forward_bits(x, seeds, out, mask, dims):
         raise RuntimeError(f"K5 forward bfloat16 {dims_tag(dims)}: {bad}")
 
 
+# the f32 backwards on the tensor cores in 3xTF32 (their records carry
+# tc_bound_ms); K6's f32 backward keeps its main pass on CUDA cores
+TF32_BWD = ("fused_message_sum_bwd", "fused_message_edge_lnmod_bwd",
+            "fused_message_edge_lnmod_drop_bwd")
+
+
 def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra,
                 n_nodes=None, keep_f32=False):
     """Log one kernel's timing line (a call by CUDA events, the device by
@@ -1173,7 +1230,10 @@ def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, ex
     `<name>_f32`)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[dname] * 1e3
-    more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items() if k != "device_ms")
+    if dname == "float32" and name in TF32_BWD:
+        extra = dict(extra, tc_bound_ms=tc_bound_ms(nbytes, flops))
+    more = "".join(f", {k} {v:.4f} ms" if isinstance(v, float) else f", {k} {v}"
+                   for k, v in extra.items() if k != "device_ms")
     if (dname == "bfloat16" and name in CUDA_CORE_BWD_MS and n_nodes is None
             and tuple(dims) in ((B, L, K), K48)):
         was = CUDA_CORE_BWD_MS[name][0 if dims[2] == K else 1]
@@ -1250,7 +1310,8 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         ms, plain_ms = time_calls(k6b, plain_bwd)
         (dev_ms,) = replay_ms(k6b)
         bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True),
-               dict(device_ms=dev_ms))
+               dict(device_ms=dev_ms,
+                    **(kernel_split(k6b, dev_ms) if dtype == torch.float32 else {})))
         del plain_bwd, x, args, ct
         torch.cuda.empty_cache()
         for name, rec in (("fused_message_edge", fwd), ("fused_message_edge_bwd", bwd)):
@@ -1472,9 +1533,11 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
             {k: torch.as_tensor(v, device=device) for k, v in extras.items()})
 
 
-CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "wgrad_kernel", "sum_partials",  # csrc
+CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "sum_partials",  # csrc
                  "message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
-                 "edge_then_sum_f32_mma_kernel", "message_sum_mma_kernel",
+                 "edge_then_sum_f32_mma_kernel", "message_sum_bwd_f32_mma_kernel",
+                 "message_edge_lnmod_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
+                 "wgrad_f32_mma_kernel", "message_sum_mma_kernel",
                  "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
                  "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
                  "message_edge_lnmod_bwd_mma_kernel", "message_edge_bwd_mma_kernel")
@@ -4909,8 +4972,10 @@ def f32_kernel_names(pipe, batch, device, seed):
 
 def phase_f32_chain(seed, device, records, batch):
     """Phase 7b: the f32 denoiser's sampling path (K1, K2 and K7 on the
-    tensor cores in 3xTF32) and an f32 training step. Fills the launches
-    of the f32 K1, K2, K7 records (bench shape and L = 48) and returns
+    tensor cores in 3xTF32) and f32 training steps (K3 and K4 / K5's
+    backward on the tensor cores too). Fills the launches of the f32 K1,
+    K2, K7 records (bench shape and L = 48) and of the f32 K3, K4 and K5's
+    backward records and returns
     {steps_per_s, steps_per_s_k48, fused, train_ms}."""
     import torch
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
@@ -4952,12 +5017,25 @@ def phase_f32_chain(seed, device, records, batch):
     model, state, step = build_trainer(device, seed)   # f32, dropout 0.6
     per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP)
     ran = set()
-    times, metrics, _ = run_train(state, step, x1, extras, seed, 6, per_step, traced=1,
-                                  names=ran)
+    times, metrics, totals = run_train(state, step, x1, extras, seed, 6, per_step, traced=1,
+                                       names=ran)
     times = times[1:]                                   # the first step is cold
-    if ran and not any("message_sum_f32_mma_kernel" in n for n in ran):
-        raise RuntimeError(f"the f32 training step did not run K1 on its tensor-core kernel: "
+    need = ("message_sum_f32_mma_kernel", "message_sum_bwd_f32_mma_kernel",
+            "message_edge_lnmod_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
+            "wgrad_f32_mma_kernel")
+    if ran and (not all(any(k in n for n in ran) for k in need)
+                or any("chain_bwd_kernel" in n for n in ran)):
+        raise RuntimeError(f"the f32 training step did not run K1, K3 and K5's backward on "
+                           f"their tensor-core kernels {need} (or ran chain_bwd_kernel): "
                            f"{sorted(ran)}")
+    for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop_bwd"):
+        records[f"{name}_f32"]["launches"] = totals[name]
+    del model, state, step
+    model, state, step = build_trainer(device, seed, dropout=0.0)   # f32, K2 / K4
+    _, _, totals = run_train(state, step, x1, extras, seed, 2,
+                             train_launches(len(model.enc_layers), len(model.dec_layers), 0.0))
+    records["fused_message_edge_lnmod_bwd_f32"]["launches"] = totals[
+        "fused_message_edge_lnmod_bwd"]
     del model, state, step, x1, extras
     torch.cuda.empty_cache()
     return {"steps_per_s": steps / timed["seconds"], "seconds": timed["seconds"],
@@ -4995,7 +5073,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     records = check_kernels(device, args.seed, f32_records=True)
-    records.update(check_bwd_kernels(device, args.seed))
+    records.update(check_bwd_kernels(device, args.seed, f32_records=True))
     # K1's record at the L = 48 bucket beside the bench shape's (K2's bf16 is
     # logged), and the f32 K1's and K2's
     k48 = check_kernels(device, args.seed, K48, f32_records=True)

@@ -428,4 +428,30 @@ __device__ __forceinline__ void residue_out(const float* ssum, const float* smsu
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch helpers (host)
+
+// the SMs of the current device (the f32 tensor-core kernels' grid: one
+// block an SM, each walking over its share of the work)
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// cudaFuncSetAttribute once a device and kernel (not on every launch): `done`
+// the kernel's bit set of devices already set
+template <typename KernelT>
+cudaError_t smem_once(KernelT kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned bit = 1u << (dev & 31);
+  if (done & bit) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
 }  // namespace chain_tf32

@@ -529,28 +529,8 @@ edge_then_sum_f32_mma_kernel(const float* __restrict__ Ae, const float* __restri
   }
 }
 
-// the SMs of the current device (the f32 tensor-core kernels' grid: one
-// block an SM, each walking over its share of the work)
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
-// cudaFuncSetAttribute once a device and kernel (not on every launch): `done`
-// the kernel's bit set of devices already set
-template <typename KernelT>
-cudaError_t smem_once(KernelT kernel, int bytes, unsigned& done) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const unsigned bit = 1u << (dev & 31);
-  if (done & bit) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done |= bit;
-  return err;
-}
+using tf::sm_count;
+using tf::smem_once;
 
 int launch_sum_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
                        const void* mask, const void* We, const void* W2, const void* b2,

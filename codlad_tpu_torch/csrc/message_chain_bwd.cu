@@ -29,18 +29,50 @@
 //
 // Design. The TPU grid runs in order and carries the weight grads and dGn in
 // VMEM from one grid step to the next; Hopper blocks run in parallel. So:
-//  * chain_bwd_kernel (f32 K3-K6): one block of 256 threads per
-//    64-row tile (floor(64/K) whole residues; at K = 48 the last 16 rows stay
-//    idle). It recomputes the activations from the inputs (nothing
-//    [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as their gelu
-//    derivatives in registers, and does every row-wise product on CUDA cores
-//    through one shared [H, H] weight buffer that is restaged for each product
-//    (the transposed weights come from the wrapper). It writes dE and dA,
-//    scatter-adds cast(dpre) into the f32 dGn with atomicAdd (the one source of
-//    run-to-run differences: the order of f32 additions), and writes per-tile
-//    column sums (db2, db3, dsh, dsc, dgate) and the product operands of the
-//    weight grads (h1, cast(dx2), cast(dpre), cast(h2) or s, cast(dmsg) or
-//    cast(dout)) in the edge dtype to scratch, in natural column order.
+//  * f32 K3 and K4 / K5's backward on the tensor cores in 3xTF32 (the slab
+//    functions of chain_tf32.cuh, so pre, x2 and msg are recomputed as the
+//    f32 K1 and K2 compute them). One f32 H x H weight in fragment order is
+//    64 KB: the forward's three and the backward's three transposed ones do
+//    not fit in 227 KB, and restaging them every tile cost K7 1.375x K2
+//    then K1 (PERF.md). So each runs in two passes, each pass a
+//    persistent block of 8 warps (one an SM) with its weights staged once,
+//    a warp walking over whole residues (a residue's 16-row slabs in order,
+//    rows past K padding: K a multiple of 4 up to 64):
+//      pass 1 (`message_sum_bwd_f32_mma_kernel`; K4 / K5:
+//        `message_edge_lnmod_bwd_f32_mma_kernel<DROP>`) with W_e, W2 (and
+//        W3) in fragment order: pre, h1 = gelu(pre) (-> s_h1) and
+//        gelu'(pre) (-> s_dg1, parked) from one exp, x2, h2 and gelu'(x2).
+//        K3: ds = dout W3^T per residue on CUDA cores (W3^T row-major in
+//        shared memory, j in order), s's and db2's slab sums, dx2 = (ds
+//        mask) gelu'(x2) (-> s_dx2). K4 / K5: h2 (-> s_h2), gelu'(x2) (->
+//        s_dg2, parked), msg = h2 W3, the residual (E kept in registers, as
+//        K2 keeps it), the LayerNorm and its backward in fragment layout
+//        (K2's row sums), dresid (-> s_dres, parked), dmsg = dresid x keep
+//        (-> s_dmsg; DROP 2 regenerates the forward's mask from the natural
+//        element index), dsh's, dsc's, dgate's and db3's slab sums;
+//      pass 2 (`data_grads_f32_mma_kernel<EDGE>`) with the transposed
+//        weights staged by stage_frag from W^T (W2^T's columns and W_e^T's
+//        rows through unit(), so dh1 has pre's unit order and dE the
+//        natural one): K4 / K5: dh2 = dmsg W3^T, dx2 = dh2 gelu'(x2) (->
+//        s_dx2, db2's slab sums); K3 reads dx2 back; dh1 = dx2 W2^T, dpre
+//        = dh1 gelu'(pre) (-> s_dpre; dGn by float4 atomicAdd, the one
+//        source of run-to-run differences; dA's slab sums), dE = dpre
+//        W_e^T [+ dresid].
+//    A column sum is a residue's slabs in order (rows g and g + 8, the
+//    butterfly of reduce_rows, then the slabs), one part a residue, then
+//    sum_partials over the residues (dsh, dsc, dgate: each sample's), so
+//    every output but dGn repeats bit for bit.
+//  * chain_bwd_kernel (f32 K6's backward, CUDA cores): one block of 256
+//    threads per 64-row tile (floor(64/K) whole residues; at K = 48 the
+//    last 16 rows stay idle). It recomputes the activations from the inputs
+//    (nothing [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as
+//    their gelu derivatives in registers, and does every row-wise product
+//    on CUDA cores through one shared [H, H] weight buffer that is
+//    restaged for each product (the transposed weights come from the
+//    wrapper). It writes dE and dA, scatter-adds dpre into dGn with
+//    atomicAdd, and writes per-tile column sums (db2, db3) and the weight
+//    grads' operands (h1, dx2, dpre, h2) to scratch, in natural column
+//    order; dW3's Y is the cotangent itself.
 //  * message_sum_bwd_mma_kernel (bf16 K3) on the tensor cores: K1's block
 //    (8 warps, 128 edge rows of whole residues, K a multiple of 16) and
 //    slabs (a warp 16 rows of one residue), with K1's slab functions
@@ -110,45 +142,50 @@
 //         lane for pass 2. Holding gelu'(x2) and dresid (64 f32 a lane
 //         each) beside the LayerNorm's acc would pass 128 registers: they
 //         are parked, 0.8 GB written and read a call at the training shape.
-//  * wgrad_kernel (f32) / wgrad_mma_kernel (bf16, every backward): dW = X^T Y
-//    for the three operand pairs, each block summing one chunk of rows into
-//    an [H, H] partial (f32: 8 x 8 a thread on CUDA cores, Kahan-compensated;
-//    bf16: mma.m16n8k16 with ldmatrix.trans for X^T, a warp 32 x 64).
+//  * wgrad_f32_mma_kernel (f32) / wgrad_mma_kernel (bf16), every backward's
+//    weight grads: dW = X^T Y for the three operand pairs, each block
+//    summing one chunk of rows into an [H, H] partial on the tensor cores,
+//    a warp a 32 x 64 block (f32: mma.m16n8k8 in 3xTF32, the rows the k
+//    dimension read from a cp.async ring as scalars, each 32-row stage
+//    summed from a fresh accumulator and folded in with Kahan
+//    compensation; bf16: mma.m16n8k16 with ldmatrix.trans).
 //  * sum_partials: a second pass that adds the partials in a fixed order
 //    (compensated), so the weight and per-sample grads are deterministic.
 //
-// Bound on an H100 at the training shape (B96 L128 K64 H128, bf16): K3 does
+// Bound on an H100 at the training shape (B96 L128 K64 H128): K3 does
 // about 6 B*L*K x H x H products (2 recomputed, dh1, dE, dW2, dW_e), K4 about 9
 // and K6's backward 8, 25.8 GFLOP each; the bytes (E and dout read, dE
-// written) put the floor at ~0.1-0.2 ms. On CUDA cores in f32 the kernels are
-// bound by the FMA rate. The bf16 K3's scratch (three [B*L*K, H] bf16 arrays
-// written, then read by the weight-grad pass with E; gelu'(pre) in f32
-// written and read back) moves ~2.2 GB, ~0.65 ms at 3.35 TB/s; its four
-// per-edge products and gelu' are about twice K1's work, and it runs at
-// about K1's rate. K6's backward adds s_h2 (bf16) to that traffic, K4's s_h2,
-// s_dmsg and the two parked f32 arrays: ~3.0 and ~4.2 GB (PERF.md has the
-// times).
+// written) put the floor at ~0.1-0.2 ms in bf16, ~0.25-0.37 ms in f32. The
+// bf16 K3's scratch (three [B*L*K, H] bf16 arrays written, then read by the
+// weight-grad pass with E; gelu'(pre) in f32 written and read back) moves
+// ~2.2 GB, ~0.65 ms at 3.35 TB/s; its four per-edge products and gelu' are
+// about twice K1's work, and it runs at about K1's rate. K6's backward adds
+// s_h2 (bf16) to that traffic, K4's s_h2, s_dmsg and the two parked f32
+// arrays: ~3.0 and ~4.2 GB. In f32, 3xTF32 puts the products at 0.94 ms
+// (K3) and 1.40 ms (K4) at the TF32 peak, 495 TFLOP/s, and every scratch
+// array is 4 bytes an element (402.6 MB a [B*L*K, H] array): the two-pass
+// K3 writes and reads 12 of them (~4.8 GB, 1.44 ms), K4 / K5 21 (~8.5
+// GB, 2.52 ms), above the products' floor; the split at fragment load
+// holds the products near 47% of the peak. PERF.md has the times.
+
+#include <algorithm>
 
 #include "chain_common.cuh"
 #include "chain_mma.cuh"
+#include "chain_tf32.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
 using namespace chain;
 
-constexpr int TM = 4;          // rows per thread, both dtypes
+constexpr int TM = 4;          // rows per thread of chain_bwd_kernel
 constexpr int ROWS = RG * TM;  // 64 edge rows per block
-constexpr int WROWS = 32;      // rows per staging step of wgrad_kernel
+constexpr int XS = H + 4;      // row stride (floats) of its product input
 
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int XPAD = 4; };
-
-template <typename T>
-__device__ __forceinline__ void stage_weight(T* sW, const T* W) {
-  constexpr int V = 16 / sizeof(T);
-  for (int v = threadIdx.x; v < H * H / V; v += NT)
-    reinterpret_cast<uint4*>(sW)[v] = reinterpret_cast<const uint4*>(W)[v];
+__device__ __forceinline__ void stage_weight(float* sW, const float* W) {
+  for (int v = threadIdx.x; v < H * H / 4; v += NT)
+    reinterpret_cast<float4*>(sW)[v] = reinterpret_cast<const float4*>(W)[v];
 }
 
 // dst[c] = sum over the block's rows of part (each thread's sum over its TM
@@ -181,35 +218,23 @@ __device__ __forceinline__ void residue_sum(float* red, const float (&part)[TN],
   __syncthreads();
 }
 
-// EDGE = false: K3. EDGE = true: K4, DROP 0 / 1 (keep) / 2 (seeds); with RAW
-// (DROP 0), K6.
-template <typename T, bool EDGE, int DROP, bool RAW>
+// K6's backward in f32 on CUDA cores (module note): dmsg is the cotangent.
 __global__ void __launch_bounds__(NT)
-chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
-                 const int* __restrict__ idx, const float* __restrict__ mask,
-                 const T* __restrict__ We, const T* __restrict__ WeT,
-                 const T* __restrict__ W2, const T* __restrict__ W2T,
-                 const float* __restrict__ b2, const T* __restrict__ W3,
-                 const T* __restrict__ W3T, const float* __restrict__ b3,
-                 const float* __restrict__ sc, const float* __restrict__ gate,
-                 const T* __restrict__ keep, const int* __restrict__ seeds,
-                 uint32_t thresh, float kscale, const void* __restrict__ dout,
-                 float* __restrict__ dA, T* __restrict__ dE, float* __restrict__ dGn,
-                 T* __restrict__ s_h1, T* __restrict__ s_dx2, T* __restrict__ s_dpre,
-                 T* __restrict__ s_h2, T* __restrict__ s_dmsg,
-                 float* __restrict__ p_db, float* __restrict__ p_mod, int L, int K,
-                 int N, int n_tiles) {
-  using Nm = Num<T>;
-  constexpr int XS = H + Pad<T>::XPAD;
-  constexpr int V = 16 / sizeof(T);
-
+chain_bwd_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                 const float* __restrict__ Gn, const int* __restrict__ idx,
+                 const float* __restrict__ We, const float* __restrict__ WeT,
+                 const float* __restrict__ W2, const float* __restrict__ W2T,
+                 const float* __restrict__ b2, const float* __restrict__ W3T,
+                 const float* __restrict__ dout, float* __restrict__ dA,
+                 float* __restrict__ dE, float* __restrict__ dGn, float* __restrict__ s_h1,
+                 float* __restrict__ s_dx2, float* __restrict__ s_dpre,
+                 float* __restrict__ s_h2, float* __restrict__ p_db, int L, int K, int N,
+                 int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sW = reinterpret_cast<T*>(smem);            // [H][H] current weight
-  T* sX = sW + H * H;                            // [ROWS][XS] product input
-  float* red = reinterpret_cast<float*>(sX + ROWS * XS);  // [RG][H]
+  float* sW = reinterpret_cast<float*>(smem);    // [H][H] current weight
+  float* sX = sW + H * H;                        // [ROWS][XS] product input
+  float* red = sX + ROWS * XS;                   // [RG][H]
   float* node = red + RG * H;                    // [TL][H]
-  float* node2 = node + (ROWS / TM) * H;         // [TL][H]
-  float* msum = node2 + (ROWS / TM) * H;         // [TL]
 
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
@@ -222,18 +247,18 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   const size_t row0 = ((size_t)b * L + l0) * K;
   const int tile = b * gridDim.x + blockIdx.x;
 
-  // ---- recompute pre and h1 = cast(gelu(pre)); keep gelu'(pre)
+  // ---- recompute pre and h1 = gelu(pre); keep gelu'(pre)
   stage_weight(sW, We);
-  for (int v = tid; v < ROWS * (H / V); v += NT) {
-    const int r = v / (H / V), q = v % (H / V);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) val = reinterpret_cast<const uint4*>(E + (row0 + r) * H)[q];
-    *reinterpret_cast<uint4*>(sX + r * XS + q * V) = val;
+  for (int v = tid; v < ROWS * (H / 4); v += NT) {
+    const int r = v / (H / 4), q = v % (H / 4);
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < nrows) val = reinterpret_cast<const float4*>(E + (row0 + r) * H)[q];
+    *reinterpret_cast<float4*>(sX + r * XS + q * 4) = val;
   }
   __syncthreads();
 
   float acc[TM][TN], dg1[TM][TN], dg2[TM][TN];
-  tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);
+  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
@@ -248,7 +273,7 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
 #pragma unroll
       for (int n = 0; n < TN; ++n) {
         const float pre = acc[m][n] + a[n] + g[n];
-        y[n] = Nm::round(gelu_tanh(pre));
+        y[n] = gelu_tanh(pre);
         dg1[m][n] = gelu_tanh_grad(pre);
       }
       store8(s_h1 + (row0 + r) * H + c0, y);
@@ -262,7 +287,7 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   __syncthreads();
 
   // ---- x2 = h1 W2 + b2; keep gelu'(x2); acc <- h2 = gelu(x2)
-  tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);
+  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
   {
     float bias[8];
     load8(b2 + c0, bias);
@@ -277,203 +302,33 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   }
   __syncthreads();
 
-  float dres[TM][TN];  // K4: d resid (goes into dE); K3, K6: unused
+  // ---- dmsg is the cotangent (dW3's Y as it is): h2 to scratch, db3 and
+  // dh2 = dmsg W3^T
   float part[8];
-  if constexpr (!EDGE) {
-    // s = cast(sum_k mask h2) per residue; W3 acts after the sum
-    const float* dnode = static_cast<const float*>(dout);
-    float mk[TM];
 #pragma unroll
-    for (int n = 0; n < TN; ++n) part[n] = 0.0f;
+  for (int n = 0; n < TN; ++n) part[n] = 0.0f;
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = r0 + m;
-      mk[m] = r < nrows ? mask[row0 + r] : 0.0f;
+  for (int m = 0; m < TM; ++m) {
+    const int r = r0 + m;
+    float dm[8];
+    if (r < nrows) {
+      store8(s_h2 + (row0 + r) * H + c0, acc[m]);
+      load8(dout + (row0 + r) * H + c0, dm);
+    } else {
 #pragma unroll
-      for (int n = 0; n < TN; ++n) part[n] += acc[m][n] * mk[m];
+      for (int n = 0; n < TN; ++n) dm[n] = 0.0f;
     }
-    residue_sum(red, part, rg, c0, TL, gpr, node);
-    for (int t = tid; t < TL * H; t += NT) {
-      const int ll = t / H, c = t % H;
-      const bool ok = l0 + ll < L;
-      const size_t nrow = (size_t)b * L + l0 + ll;
-      const float s = Nm::round(node[t]);
-      const float d = ok ? dnode[nrow * H + c] : 0.0f;
-      node2[t] = Nm::round(d);
-      if (ok) {
-        s_h2[nrow * H + c] = Nm::cast(s);
-        s_dmsg[nrow * H + c] = Nm::cast(d);
-      }
-    }
-    for (int ll = tid; ll < TL; ll += NT) {
-      float s = 0.0f;
-      if (l0 + ll < L)
-        for (int k = 0; k < K; ++k) s += mask[row0 + (size_t)ll * K + k];
-      msum[ll] = s;
-    }
-    __syncthreads();
-    if (tid < H) {  // db3 = sum_l (sum_k mask) dout, f32 as on the TPU
-      float s = 0.0f;
-      for (int ll = 0; ll < TL; ++ll)
-        if (l0 + ll < L) s += msum[ll] * dnode[((size_t)b * L + l0 + ll) * H + tid];
-      p_db[((size_t)n_tiles + tile) * H + tid] = s;
-    }
-    // ds = cast(dout) W3^T per residue -> node
-    for (int t = tid; t < TL * H; t += NT) {
-      const int ll = t / H, c = t % H;
-      float s = 0.0f;
-      for (int i = 0; i < H; ++i) s = fmaf(node2[ll * H + i], Nm::f(W3T[i * H + c]), s);
-      node[t] = s;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int ll = (r0 + m) / K;
-      float ds[8];
-      // idle rows past the tile's whole residues (K = 48) read no node row
-      if (ll < TL) {
-        load8(node + ll * H + c0, ds);
-      } else {
-#pragma unroll
-        for (int n = 0; n < TN; ++n) ds[n] = 0.0f;
-      }
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[m][n] = ds[n] * mk[m];  // dh2
-    }
-  } else if constexpr (RAW) {
-    // ---- dmsg is the cotangent: dW3's operands, db3 and dh2 = cast(dmsg) W3^T
-    const T* dmsg_p = static_cast<const T*>(dout);
-#pragma unroll
-    for (int n = 0; n < TN; ++n) part[n] = 0.0f;
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = r0 + m;
-      float y[8], dm[8];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[n] = Nm::round(acc[m][n]);
-      if (r < nrows) {
-        store8(s_h2 + (row0 + r) * H + c0, y);
-        load8(dmsg_p + (row0 + r) * H + c0, dm);
-        store8(s_dmsg + (row0 + r) * H + c0, dm);
-      } else {
-#pragma unroll
-        for (int n = 0; n < TN; ++n) dm[n] = 0.0f;
-      }
-#pragma unroll
-      for (int n = 0; n < TN; ++n) part[n] += dm[n];
-      store8(sX + r * XS + c0, dm);
-    }
-    column_sum(red, part, rg, c0, p_db + ((size_t)n_tiles + tile) * H);  // db3
-    stage_weight(sW, W3T);
-    __syncthreads();
-    tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);  // dh2
-    __syncthreads();
-  } else {
-    // ---- msg = cast(h2) W3 + b3 (x keep); LayerNorm; adaLN; their backward
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = r0 + m;
-      float y[8];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[n] = Nm::round(acc[m][n]);
-      if (r < nrows) store8(s_h2 + (row0 + r) * H + c0, y);
-      store8(sX + r * XS + c0, y);
-    }
-    stage_weight(sW, W3);
-    __syncthreads();
-    tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);
-    __syncthreads();
-
-    float bias[8], scv[8], gv[8], psh[8], psc[8], pdg[8];
-    load8(b3 + c0, bias);
-    load8(sc + (size_t)b * H + c0, scv);
-    load8(gate + (size_t)b * H + c0, gv);
-#pragma unroll
-    for (int n = 0; n < TN; ++n) psh[n] = psc[n] = pdg[n] = part[n] = 0.0f;
-    uint32_t key = 0;
-    if constexpr (DROP == 2) key = sample_key(seeds[b], b);
-    const T* dct_p = static_cast<const T*>(dout);
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = r0 + m;
-      const bool ok = r < nrows;
-      float v[8], kp[8], dct[8];
-      if (ok) {
-        load8(E + (row0 + r) * H + c0, v);
-        load8(dct_p + (row0 + r) * H + c0, dct);
-        if constexpr (DROP == 1) load8(keep + (row0 + r) * H + c0, kp);
-      } else {
-#pragma unroll
-        for (int n = 0; n < TN; ++n) v[n] = dct[n] = kp[n] = 0.0f;
-      }
-      if constexpr (DROP == 2) {
-        const uint32_t e0 = (uint32_t)(((size_t)l0 * K + r) * H + c0);
-#pragma unroll
-        for (int n = 0; n < TN; ++n) kp[n] = drop_bits(key, e0 + n) >= thresh ? kscale : 0.0f;
-      }
-      float s = 0.0f;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        float msg = acc[m][n] + bias[n];
-        if constexpr (DROP != 0) msg *= kp[n];
-        v[n] += msg;
-        s += v[n];
-      }
-#pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      const float mean = s / H;
-      float q = 0.0f;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const float d = v[n] - mean;
-        q += d * d;
-      }
-#pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-      const float rstd = rsqrtf(q / H + 1e-6f);
-      float dln[8], s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const float ln = (v[n] - mean) * rstd;
-        v[n] = ln;
-        const float dgo = dct[n] * gv[n];
-        psh[n] += dgo;
-        psc[n] += dgo * ln;
-        pdg[n] += dct[n] * ln * (1.0f + scv[n]);
-        dln[n] = dgo * (1.0f + scv[n]);
-        s1 += dln[n];
-        s2 += dln[n] * ln;
-      }
-#pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1) {
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
-      const float m1 = s1 / H, m2 = s2 / H;
-      float y[8];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        dres[m][n] = rstd * (dln[n] - m1 - v[n] * m2);
-        float dmsg = dres[m][n];
-        if constexpr (DROP != 0) dmsg *= kp[n];
-        part[n] += dmsg;
-        y[n] = Nm::round(dmsg);
-      }
-      if (ok) store8(s_dmsg + (row0 + r) * H + c0, y);
-      store8(sX + r * XS + c0, y);
-    }
-    float* pm = p_mod + (size_t)tile * H;
-    column_sum(red, psh, rg, c0, pm);
-    column_sum(red, psc, rg, c0, pm + (size_t)n_tiles * H);
-    column_sum(red, pdg, rg, c0, pm + (size_t)2 * n_tiles * H);
-    column_sum(red, part, rg, c0, p_db + ((size_t)n_tiles + tile) * H);  // db3
-    stage_weight(sW, W3T);
-    __syncthreads();
-    tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);  // dh2
-    __syncthreads();
+    for (int n = 0; n < TN; ++n) part[n] += dm[n];
+    store8(sX + r * XS + c0, dm);
   }
+  column_sum(red, part, rg, c0, p_db + ((size_t)n_tiles + tile) * H);  // db3
+  stage_weight(sW, W3T);
+  __syncthreads();
+  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);  // dh2
+  __syncthreads();
 
-  // ---- dx2 = dh2 gelu'(x2); db2; dh1 = cast(dx2) W2^T
+  // ---- dx2 = dh2 gelu'(x2); db2; dh1 = dx2 W2^T
 #pragma unroll
   for (int n = 0; n < TN; ++n) part[n] = 0.0f;
 #pragma unroll
@@ -482,9 +337,8 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
     float y[8];
 #pragma unroll
     for (int n = 0; n < TN; ++n) {
-      const float dx2 = acc[m][n] * dg2[m][n];
-      part[n] += dx2;
-      y[n] = Nm::round(dx2);
+      y[n] = acc[m][n] * dg2[m][n];
+      part[n] += y[n];
     }
     if (r < nrows) store8(s_dx2 + (row0 + r) * H + c0, y);
     store8(sX + r * XS + c0, y);
@@ -492,10 +346,10 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
   column_sum(red, part, rg, c0, p_db + (size_t)tile * H);  // db2
   stage_weight(sW, W2T);
   __syncthreads();
-  tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);
+  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
   __syncthreads();
 
-  // ---- dpre = dh1 gelu'(pre); dA, dGn; dE = cast(dpre) W_e^T (+ dresid)
+  // ---- dpre = dh1 gelu'(pre); dA, dGn; dE = dpre W_e^T
 #pragma unroll
   for (int n = 0; n < TN; ++n) part[n] = 0.0f;
 #pragma unroll
@@ -504,9 +358,8 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
     float y[8];
 #pragma unroll
     for (int n = 0; n < TN; ++n) {
-      const float dpre = acc[m][n] * dg1[m][n];
-      part[n] += dpre;
-      y[n] = Nm::round(dpre);
+      y[n] = acc[m][n] * dg1[m][n];
+      part[n] += y[n];
     }
     if (r < nrows) {
       store8(s_dpre + (row0 + r) * H + c0, y);
@@ -523,16 +376,11 @@ chain_bwd_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __re
     const int ll = t / H;
     if (l0 + ll < L) dA[((size_t)b * L + l0) * H + t] = node[t];
   }
-  tile_gemm<T, TM, XS>(sX, sW, r0, c0, acc);
+  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     const int r = r0 + m;
-    if (r >= nrows) continue;
-    if constexpr (EDGE && !RAW) {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[m][n] += dres[m][n];
-    }
-    store8(dE + (row0 + r) * H + c0, acc[m]);
+    if (r < nrows) store8(dE + (row0 + r) * H + c0, acc[m]);
   }
 }
 
@@ -542,73 +390,6 @@ struct Pairs {
   const T* Y[3];
   long long M[3];
 };
-
-// part[z][chunk][i][j] = sum over the chunk's rows m of X_z[m][i] * Y_z[m][j]
-template <typename T>
-__global__ void __launch_bounds__(NT)
-wgrad_kernel(Pairs<T> p, int n_chunks, float* __restrict__ part) {
-  constexpr int V = 16 / sizeof(T);
-  __shared__ __align__(16) T sx[WROWS * H];
-  __shared__ __align__(16) T sy[WROWS * H];
-  const int z = blockIdx.y, chunk = blockIdx.x;
-  const T* X = p.X[z];
-  const T* Y = p.Y[z];
-  const long long M = p.M[z];
-  const long long per = ((M + n_chunks - 1) / n_chunks + WROWS - 1) / WROWS * WROWS;
-  const long long m_begin = chunk * per;
-  const long long m_end = min(M, m_begin + per);
-  const int tid = threadIdx.x;
-  const int i0 = (tid / 16) * 8, j0 = (tid % 16) * 8;
-  // each 32-row step sums into `step`, which is added to `acc` with Kahan
-  // compensation (`comp`): a plain running f32 sum over a chunk's ~3000 rows
-  // loses ~1e-6 of the terms' scale, visible against autograd in f32
-  float acc[8][8], comp[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = comp[a][c] = 0.0f;
-  for (long long m0 = m_begin; m0 < m_end; m0 += WROWS) {
-    float step[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) step[a][c] = 0.0f;
-    for (int v = tid; v < WROWS * (H / V); v += NT) {
-      const int r = v / (H / V), q = v % (H / V);
-      uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
-      if (m0 + r < m_end) {
-        xv = reinterpret_cast<const uint4*>(X + (m0 + r) * H)[q];
-        yv = reinterpret_cast<const uint4*>(Y + (m0 + r) * H)[q];
-      }
-      reinterpret_cast<uint4*>(sx)[v] = xv;
-      reinterpret_cast<uint4*>(sy)[v] = yv;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int mm = 0; mm < WROWS; ++mm) {
-      float xv[8], yv[8];
-      load8(sx + mm * H + i0, xv);
-      load8(sy + mm * H + j0, yv);
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) step[a][c] = fmaf(xv[a], yv[c], step[a][c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float y = step[a][c] - comp[a][c];
-        const float u = acc[a][c] + y;
-        comp[a][c] = (u - acc[a][c]) - y;
-        acc[a][c] = u;
-      }
-  }
-  float* dst = part + ((size_t)z * n_chunks + chunk) * H * H;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) store8(dst + (size_t)(i0 + a) * H + j0, acc[a]);
-}
 
 // out[g][c] = sum_t part[g][t][c], compensated (Kahan) and in a fixed order, so
 // deterministic. A block of 32 x 32 threads owns 32 columns: thread (ty, tx)
@@ -1673,10 +1454,717 @@ wgrad_mma_kernel(Pairs<bf16> p, int n_chunks, float* __restrict__ part) {
     }
 }
 
-// The weight-grad pass: f32 on CUDA cores (Kahan), bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores in 3xTF32 (chain_tf32.cuh; module note): K3 and
+// K4 / K5's backward in two passes each, pass 1 with the forward's weights
+// (`message_sum_bwd_f32_mma_kernel`, `message_edge_lnmod_bwd_f32_mma_kernel`),
+// pass 2 with the transposed ones (`data_grads_f32_mma_kernel`), and the
+// weight-grad pass of every f32 backward (`wgrad_f32_mma_kernel`). A block
+// of 8 warps stages its weights once and its warps walk over residues, each
+// residue's slabs in order, so its column sums repeat bit for bit.
+
+namespace tf = chain_tf32;
+
+// K3's pass 1: W_e, W2 (fragment order), W3^T (row-major, ds on CUDA cores),
+// b2, and a warp's [2][H] (its residue's dout, then ds)
+constexpr int F3SMEM = (3 * tf::WFLOATS + H + 2 * tf::TW * H) * 4;
+// K4 / K5's pass 1: K2's weights and vectors
+constexpr int F4SMEM = (3 * tf::WFLOATS + 2 * H) * 4;
+// pass 2: W2^T, W_e^T (and W3^T at EDGE)
+constexpr int fd_smem(bool edge) { return (edge ? 3 : 2) * tf::WFLOATS * 4; }
+
+// the 4 floats of row r (f32, row stride H) at column c, or zeros where
+// the row is padding
+__device__ __forceinline__ float4 row4(const float* __restrict__ X, size_t r, int c, bool ok) {
+  return ok ? *reinterpret_cast<const float4*>(X + r * H + c)
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float2 row2(const float* __restrict__ X, size_t r, int c, bool ok) {
+  return ok ? *reinterpret_cast<const float2*>(X + r * H + c) : make_float2(0.0f, 0.0f);
+}
+
+// v = gelu(v) in place and dg = gelu'(v), from one exp an element (the
+// passes 1 run this one copy for pre and for x2 + b2)
+__device__ __forceinline__ void gelu_in_place(float (&v)[16][4], float (&dg)[16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[nt][i] = gelu_and_grad(v[nt][i], dg[nt][i]);
+}
+
+// the slab's rows of v (pre's unit order: a lane's 32 columns of a row are
+// units 32 t4 .. 32 t4 + 31) to X at their hidden units, float4 stores
+__device__ __forceinline__ void store_units(float* __restrict__ X, const float (&v)[16][4],
+                                            const tf::Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (g + 8 * h < s.nrow)
+        *reinterpret_cast<float4*>(X + (s.row0 + g + 8 * h) * H + 32 * t4 + 4 * m) =
+            make_float4(v[2 * m][2 * h], v[2 * m][2 * h + 1], v[2 * m + 1][2 * h],
+                        v[2 * m + 1][2 * h + 1]);
+}
+
+// the slab's rows of v (natural columns) to X, float2 stores
+__device__ __forceinline__ void store_natural(float* __restrict__ X, const float (&v)[16][4],
+                                              const tf::Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (g + 8 * h < s.nrow)
+        *reinterpret_cast<float2*>(X + (s.row0 + g + 8 * h) * H + 8 * nt + 2 * t4) =
+            make_float2(v[nt][2 * h], v[nt][2 * h + 1]);
+}
+
+// v += b (natural columns; b in shared memory)
+__device__ __forceinline__ void add_bias(float (&v)[16][4], const float* b, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float2 bias = *reinterpret_cast<const float2*>(b + 8 * nt + 2 * (lane & 3));
+    v[nt][0] += bias.x;
+    v[nt][1] += bias.y;
+    v[nt][2] += bias.x;
+    v[nt][3] += bias.y;
+  }
+}
+
+// x = acc, then acc = 0: a product's output becomes the next one's A
+// operand (the accumulator layout is the A fragment layout, chain_tf32.cuh)
+__device__ __forceinline__ void pass_on(float (&x)[16][4], float (&acc)[16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[nt][i] = acc[nt][i];
+      acc[nt][i] = 0.0f;
+    }
+}
+
+// v[j], a lane's column sum after quarter j's reduce_rows, to the row dst
+// [H] at the lane's column quarter_col(j, lane)
+__device__ __forceinline__ void store_sums(float* __restrict__ dst, const float (&v)[4],
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dst[quarter_col(j, lane)] = v[j];
+}
+
+// K3, pass 1 (module note): a warp's residue: ds = dout W3^T on CUDA cores,
+// db3's part (the mask count times dout); each slab: pre, h1 (-> s_h1) and
+// gelu'(pre) (-> s_dg1), x2, then h2 = gelu(x2 + b2) and gelu'(x2) from one
+// exp: mask h2 summed for s, dx2 = (ds mask) gelu'(x2) (-> s_dx2) summed for
+// db2; the residue's s (-> s_s) and db2 part after its last slab.
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_sum_bwd_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                               const float* __restrict__ Gn, const int* __restrict__ idx,
+                               const float* __restrict__ mask, const float* __restrict__ We,
+                               const float* __restrict__ W2, const float* __restrict__ b2,
+                               const float* __restrict__ W3T, const float* __restrict__ dout,
+                               float* __restrict__ s_h1, float* __restrict__ s_dg1,
+                               float* __restrict__ s_dx2, float* __restrict__ s_s,
+                               float* __restrict__ p_db, int B, int L, int K, int N) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sWe = fsm;
+  float* sW2 = sWe + tf::WFLOATS;
+  float* sW3T = sW2 + tf::WFLOATS;   // W3^T row-major: ds's step j reads row j
+  float* sb2 = sW3T + tf::WFLOATS;
+  tf::stage_frag<false, true>(sWe, We);
+  tf::stage_frag<true, false>(sW2, W2);
+  for (int i = threadIdx.x; i < H * H / 4; i += tf::TNT)
+    reinterpret_cast<float4*>(sW3T)[i] = __ldg(reinterpret_cast<const float4*>(W3T) + i);
+  tf::load_vec(sb2, b2);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float* sdo = sb2 + H + 2 * warp * H;  // the warp's residue's dout
+  float* sds = sdo + H;                 // its ds
+  const int spr = (K + 15) / 16;        // slabs a residue
+  const long long n_res = (long long)B * L;
+  for (long long res = (long long)blockIdx.x * tf::TW + warp; res < n_res;
+       res += (long long)gridDim.x * tf::TW) {
+    const int b = (int)(res / L), l = (int)(res - (long long)b * L);
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(dout + res * H) + lane);
+    // db3's part: the residue's mask count (0 / 1 values: exact in any order) x dout
+    const size_t er = (size_t)res * K;
+    float mc = (lane < K ? __ldg(mask + er + lane) : 0.0f) +
+               (lane + 32 < K ? __ldg(mask + er + lane + 32) : 0.0f);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mc += __shfl_xor_sync(0xffffffffu, mc, off);
+    reinterpret_cast<float4*>(p_db + (n_res + res) * H)[lane] =
+        make_float4(mc * d4.x, mc * d4.y, mc * d4.z, mc * d4.w);
+    __syncwarp();  // every lane is done with the last residue's dout and ds
+    reinterpret_cast<float4*>(sdo)[lane] = d4;
+    __syncwarp();
+    // ds = dout W3^T: the lane's columns 4 lane .. 4 lane + 3, j in order
+    float4 ds = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+    for (int j = 0; j < H; ++j) {
+      const float d = sdo[j];
+      const float4 w = reinterpret_cast<const float4*>(sW3T + j * H)[lane];
+      ds.x = fmaf(d, w.x, ds.x);
+      ds.y = fmaf(d, w.y, ds.y);
+      ds.z = fmaf(d, w.z, ds.z);
+      ds.w = fmaf(d, w.w, ds.w);
+    }
+    reinterpret_cast<float4*>(sds)[lane] = ds;
+    __syncwarp();
+    float ssum[4] = {0.0f, 0.0f, 0.0f, 0.0f}, db2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < spr; ++q) {
+      const tf::Slab s = tf::make_slab(b, l, q, L, K, lane);
+      // pre = A[l] + Gn[idx] + E W_e, then x2 = h1 W2 + b2, each then gelu
+      // and gelu' from one exp: one copy of the product's and the gelu's code
+      // for both (a kernel of unrolled copies outgrows the instruction
+      // cache). x is passed on at the end of either, so it holds nothing
+      // live through the epilogues.
+      float x[16][4], acc[16][4];
+      tf::load_rows(x, E, s);
+      tf::preset(acc, A, Gn, idx, L, N, s);
+      const bool ok0 = g < s.nrow, ok8 = g + 8 < s.nrow;
+      const float m0 = ok0 ? __ldg(mask + s.row0 + g) : 0.0f;
+      const float m8 = ok8 ? __ldg(mask + s.row0 + g + 8) : 0.0f;
+#pragma unroll 1
+      for (int p = 0; p < 2; ++p) {
+        tf::mma_slab(acc, x, p == 0 ? sWe : sW2, lane);
+        if (p == 1) add_bias(acc, sb2, lane);
+        float dg[16][4];
+        gelu_in_place(acc, dg);
+        if (p == 0) {   // h1 (-> s_h1, dW2's X), gelu'(pre) (-> s_dg1, parked)
+          store_units(s_h1, acc, s);
+          store_units(s_dg1, dg, s);
+        } else {
+          // mask h2 summed for s, dx2 = (ds mask) gelu'(x2) (-> s_dx2)
+          // summed for db2
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float qs[8], qd[8];
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+              const int nt = 4 * j + o;
+              const float2 dsv = *reinterpret_cast<const float2*>(sds + 8 * nt + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float d = e ? dsv.y : dsv.x;
+                qs[2 * o + e] = m0 * acc[nt][e] + m8 * acc[nt][2 + e];
+                dg[nt][e] = (d * m0) * dg[nt][e];
+                dg[nt][2 + e] = (d * m8) * dg[nt][2 + e];
+                qd[2 * o + e] = dg[nt][e] + dg[nt][2 + e];
+              }
+            }
+            reduce_rows(qs, lane);
+            reduce_rows(qd, lane);
+            ssum[j] += qs[0];
+            db2[j] += qd[0];
+          }
+          store_natural(s_dx2, dg, s);
+        }
+        pass_on(x, acc);
+      }
+    }
+    store_sums(s_s + res * H, ssum, lane);
+    store_sums(p_db + res * H, db2, lane);
+  }
+}
+
+// K4 / K5's backward, pass 1: from acc = h2 W3 and the slab's E rows (read
+// again: L2 holds them, and registers do not), the residual, the LayerNorm
+// (eps 1e-6; K2's lnmod_out sums: a lane's columns in order, then the quad)
+// and its backward. Row means m1 of dln = dct g (1
+// + sc) and m2 of dln ln in the same order; the slab sums of dsh (dct g),
+// dsc (dct g ln) and dgate (dct ln (1 + sc)) by quarters; dresid = rstd
+// ((dln - m1) - ln m2) in acc and to s_dres (parked for dE), dmsg = dresid x
+// keep to s_dmsg (dW3's Y, pass 2's input) and db3's slab sums. DROP 1
+// reads keep (f32, E's dtype), DROP 2 makes the forward's mask from the
+// natural element index (drop_bits, as message_chain.cu) first, as 64 bits
+// a lane for both uses. Padding rows (past nrow) read dct as zeros.
+template <int DROP>
+__device__ __forceinline__ void lnmod_bwd(float (&acc)[16][4], const float* __restrict__ E,
+                                          const float* sb3, const float* __restrict__ sc,
+                                          const float* __restrict__ gate,
+                                          const float* __restrict__ keep, uint32_t key,
+                                          uint32_t thresh, float kscale,
+                                          const float* __restrict__ dout,
+                                          float* __restrict__ s_dres,
+                                          float* __restrict__ s_dmsg, float (&psh)[4],
+                                          float (&psc)[4], float (&pdg)[4], float (&pdb)[4],
+                                          size_t sample_row0, const tf::Slab& s) {
+  const int lane = s.lane, g = lane >> 2, t4 = lane & 3;
+  const bool ok[2] = {g < s.nrow, g + 8 < s.nrow};
+  unsigned km[2] = {0u, 0u};  // DROP 2: keep bit 2 nt + e of rows g, g + 8
+  if constexpr (DROP == 2) {
+    // the hashes in a loop that is not unrolled: their code once, not 16 times
+#pragma unroll 1
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t i0 =
+            (uint32_t)((s.row0 + g + 8 * h - sample_row0) * H + 8 * nt + 2 * t4);
+        km[h] |= (drop_bits(key, i0) >= thresh ? 1u : 0u) << (2 * nt) |
+                 (drop_bits(key, i0 + 1) >= thresh ? 1u : 0u) << (2 * nt + 1);
+      }
+  }
+  float mean[2] = {0.0f, 0.0f}, rstd[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int c = 8 * nt + 2 * t4;
+    const float2 bias = *reinterpret_cast<const float2*>(sb3 + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x0 = acc[nt][2 * h] + bias.x, x1 = acc[nt][2 * h + 1] + bias.y;
+      if constexpr (DROP == 1) {
+        const float2 kp = row2(keep, s.row0 + g + 8 * h, c, ok[h]);
+        x0 *= kp.x;
+        x1 *= kp.y;
+      } else if constexpr (DROP == 2) {
+        x0 *= (km[h] >> (2 * nt)) & 1u ? kscale : 0.0f;
+        x1 *= (km[h] >> (2 * nt + 1)) & 1u ? kscale : 0.0f;
+      }
+      const float2 e = row2(E, s.row0 + g + 8 * h, c, ok[h]);
+      acc[nt][2 * h] = e.x + x0;
+      acc[nt][2 * h + 1] = e.y + x1;
+      mean[h] += acc[nt][2 * h];
+      mean[h] += acc[nt][2 * h + 1];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 1);
+    mean[h] += __shfl_xor_sync(0xffffffffu, mean[h], 2);
+    mean[h] = mean[h] / H;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float d = acc[nt][2 * h + i] - mean[h];
+        rstd[h] += d * d;
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rstd[h] += __shfl_xor_sync(0xffffffffu, rstd[h], 1);
+    rstd[h] += __shfl_xor_sync(0xffffffffu, rstd[h], 2);
+    rstd[h] = rsqrtf(rstd[h] / H + 1e-6f);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = (acc[nt][i] - mean[i >> 1]) * rstd[i >> 1];  // ln
+
+  const float2* sc2 = reinterpret_cast<const float2*>(sc + (size_t)s.b * H + 2 * t4);
+  const float2* g2 = reinterpret_cast<const float2*>(gate + (size_t)s.b * H + 2 * t4);
+  float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float qh[8], qc[8], qg[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
+      const float2 gv = __ldg(g2 + 4 * nt), scv = __ldg(sc2 + 4 * nt);
+      const float2 d0 = row2(dout, s.row0 + g, c, ok[0]);
+      const float2 d8 = row2(dout, s.row0 + g + 8, c, ok[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float gg = i ? gv.y : gv.x, sc1 = 1.0f + (i ? scv.y : scv.x);
+        const float dct0 = i ? d0.y : d0.x, dct8 = i ? d8.y : d8.x;
+        const float ln0 = acc[nt][i], ln8 = acc[nt][2 + i];
+        const float dgo0 = dct0 * gg, dgo8 = dct8 * gg;
+        qh[2 * o + i] = dgo0 + dgo8;
+        qc[2 * o + i] = dgo0 * ln0 + dgo8 * ln8;
+        qg[2 * o + i] = dct0 * (ln0 * sc1) + dct8 * (ln8 * sc1);
+        const float dln0 = dgo0 * sc1, dln8 = dgo8 * sc1;
+        s1[0] += dln0;
+        s2[0] += dln0 * ln0;
+        s1[1] += dln8;
+        s2[1] += dln8 * ln8;
+      }
+    }
+    reduce_rows(qh, lane);
+    reduce_rows(qc, lane);
+    reduce_rows(qg, lane);
+    psh[j] += qh[0];
+    psc[j] += qc[0];
+    pdg[j] += qg[0];
+  }
+  float m1[2], m2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], 1);
+    s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], 2);
+    s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], 1);
+    s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], 2);
+    m1[h] = s1[h] / H;
+    m2[h] = s2[h] / H;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float qb[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
+      const float2 gv = __ldg(g2 + 4 * nt), scv = __ldg(sc2 + 4 * nt);
+      float dm[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t r = s.row0 + g + 8 * h;
+        const float2 d = row2(dout, r, c, ok[h]);
+        float2 kp = make_float2(1.0f, 1.0f);
+        if constexpr (DROP == 1) kp = row2(keep, r, c, ok[h]);
+        if constexpr (DROP == 2)
+          kp = make_float2((km[h] >> (2 * nt)) & 1u ? kscale : 0.0f,
+                           (km[h] >> (2 * nt + 1)) & 1u ? kscale : 0.0f);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float dln = ((i ? d.y : d.x) * (i ? gv.y : gv.x)) * (1.0f + (i ? scv.y : scv.x));
+          const float dr = rstd[h] * ((dln - m1[h]) - acc[nt][2 * h + i] * m2[h]);
+          acc[nt][2 * h + i] = dr;
+          dm[h][i] = DROP != 0 ? dr * (i ? kp.y : kp.x) : dr;
+        }
+        if (ok[h]) {
+          *reinterpret_cast<float2*>(s_dres + r * H + c) =
+              make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+          *reinterpret_cast<float2*>(s_dmsg + r * H + c) = make_float2(dm[h][0], dm[h][1]);
+        }
+      }
+      qb[2 * o] = dm[0][0] + dm[1][0];
+      qb[2 * o + 1] = dm[0][1] + dm[1][1];
+    }
+    reduce_rows(qb, lane);
+    pdb[j] += qb[0];
+  }
+}
+
+// K4 (DROP 0) and K5's backward (DROP 1: keep, 2: seeds), pass 1 (module
+// note): a warp's residue, each slab: pre, h1 (-> s_h1) and gelu'(pre) (->
+// s_dg1), x2, h2 = gelu(x2 + b2) (-> s_h2) and gelu'(x2) (-> s_dg2), msg =
+// h2 W3, then lnmod_bwd; the residue's dsh, dsc, dgate and db3 parts after
+// its last slab.
+template <int DROP>
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_edge_lnmod_bwd_f32_mma_kernel(
+    const float* __restrict__ A, const float* __restrict__ E, const float* __restrict__ Gn,
+    const int* __restrict__ idx, const float* __restrict__ We, const float* __restrict__ W2,
+    const float* __restrict__ b2, const float* __restrict__ W3, const float* __restrict__ b3,
+    const float* __restrict__ sc, const float* __restrict__ gate,
+    const float* __restrict__ keep, const int* __restrict__ seeds, uint32_t thresh,
+    float kscale, const float* __restrict__ dout, float* __restrict__ s_h1,
+    float* __restrict__ s_dg1, float* __restrict__ s_h2, float* __restrict__ s_dg2,
+    float* __restrict__ s_dres, float* __restrict__ s_dmsg, float* __restrict__ p_db,
+    float* __restrict__ p_mod, int B, int L, int K, int N) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sWe = fsm;
+  float* sW2 = sWe + tf::WFLOATS;
+  float* sW3 = sW2 + tf::WFLOATS;
+  float* sb2 = sW3 + tf::WFLOATS;
+  float* sb3 = sb2 + H;
+  tf::stage_frag<false, true>(sWe, We);
+  tf::stage_frag<true, false>(sW2, W2);
+  tf::stage_frag<false, false>(sW3, W3);
+  tf::load_vec(sb2, b2);
+  tf::load_vec(sb3, b3);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int spr = (K + 15) / 16;
+  const long long n_res = (long long)B * L;
+  for (long long res = (long long)blockIdx.x * tf::TW + warp; res < n_res;
+       res += (long long)gridDim.x * tf::TW) {
+    const int b = (int)(res / L), l = (int)(res - (long long)b * L);
+    const uint32_t key = DROP == 2 ? sample_key(__ldg(seeds + b), b) : 0u;
+    float psh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, psc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float pdg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pdb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < spr; ++q) {
+      const tf::Slab s = tf::make_slab(b, l, q, L, K, lane);
+      // pre = A[l] + Gn[idx] + E W_e, x2 = h1 W2 + b2, msg = h2 W3: one copy
+      // of the product's code for the three and of the gelu's for the first
+      // two (x is passed on at the end of each, so it holds nothing live
+      // through the epilogues)
+      float x[16][4], acc[16][4];
+      tf::load_rows(x, E, s);
+      tf::preset(acc, A, Gn, idx, L, N, s);
+#pragma unroll 1
+      for (int p = 0; p < 3; ++p) {
+        tf::mma_slab(acc, x, p == 0 ? sWe : p == 1 ? sW2 : sW3, lane);
+        if (p == 2) break;
+        if (p == 1) add_bias(acc, sb2, lane);
+        float dg[16][4];
+        gelu_in_place(acc, dg);
+        if (p == 0) {   // h1 (-> s_h1), gelu'(pre) (-> s_dg1)
+          store_units(s_h1, acc, s);
+          store_units(s_dg1, dg, s);
+        } else {        // h2 (-> s_h2), gelu'(x2) (-> s_dg2)
+          store_natural(s_h2, acc, s);
+          store_natural(s_dg2, dg, s);
+        }
+        pass_on(x, acc);
+      }
+      lnmod_bwd<DROP>(acc, E, sb3, sc, gate, keep, key, thresh, kscale, dout, s_dres, s_dmsg,
+                      psh, psc, pdg, pdb, (size_t)b * L * K, s);
+    }
+    store_sums(p_mod + res * H, psh, lane);
+    store_sums(p_mod + (n_res + res) * H, psc, lane);
+    store_sums(p_mod + (2 * n_res + res) * H, pdg, lane);
+    store_sums(p_db + (n_res + res) * H, pdb, lane);
+  }
+}
+
+// Pass 2 of K3 (EDGE false) and of K4 / K5's backward (EDGE true) (module
+// note): the transposed chain, its weights staged in fragment order from
+// their transposes. A warp's residue, each slab: EDGE: dh2 = dmsg W3^T
+// (dmsg from s_dmsg), dx2 = dh2 gelu'(x2) (-> s_dx2, its slab sums to db2);
+// else dx2 from s_dx2. dh1 = dx2 W2^T in pre's unit order (W2^T's columns
+// staged through unit()), dpre = dh1 gelu'(pre) (-> s_dpre, dGn by float4
+// atomics, its slab sums to dA), dE = dpre W_e^T (W_e^T's rows through
+// unit(): natural columns) [+ dresid from s_dres]. The residue's dA (and
+// db2 part) after its last slab.
+template <bool EDGE>
+__global__ void __launch_bounds__(tf::TNT, 1)
+data_grads_f32_mma_kernel(const int* __restrict__ idx, const float* __restrict__ W3T,
+                          const float* __restrict__ W2T, const float* __restrict__ WeT,
+                          const float* __restrict__ s_dmsg, const float* __restrict__ s_dg2,
+                          const float* __restrict__ s_dres, const float* __restrict__ s_dg1,
+                          float* s_dx2, float* __restrict__ s_dpre, float* __restrict__ dA,
+                          float* __restrict__ dE, float* __restrict__ dGn,
+                          float* __restrict__ p_db, int B, int L, int K, int N) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sW2T = fsm;
+  float* sWeT = sW2T + tf::WFLOATS;
+  float* sW3T = sWeT + tf::WFLOATS;
+  tf::stage_frag<false, true>(sW2T, W2T);
+  tf::stage_frag<true, false>(sWeT, WeT);
+  if constexpr (EDGE) tf::stage_frag<false, false>(sW3T, W3T);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int spr = (K + 15) / 16;
+  const long long n_res = (long long)B * L;
+  for (long long res = (long long)blockIdx.x * tf::TW + warp; res < n_res;
+       res += (long long)gridDim.x * tf::TW) {
+    const int b = (int)(res / L), l = (int)(res - (long long)b * L);
+    float da[4] = {0.0f, 0.0f, 0.0f, 0.0f}, db2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < spr; ++q) {
+      const tf::Slab s = tf::make_slab(b, l, q, L, K, lane);
+      const bool ok[2] = {g < s.nrow, g + 8 < s.nrow};
+      // dh2 = dmsg W3^T (EDGE), dh1 = dx2 W2^T, dE = dpre W_e^T: one copy of
+      // the product's code for the three
+      float x[16][4], acc[16][4];
+      tf::load_rows(x, EDGE ? s_dmsg : s_dx2, s);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll 1
+      for (int p = EDGE ? 0 : 1; p < 3; ++p) {
+        tf::mma_slab(acc, x, p == 0 ? sW3T : p == 1 ? sW2T : sWeT, lane);
+        if (EDGE && p == 0) {  // dx2 = dh2 gelu'(x2) (-> s_dx2), db2's slab sums
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float qd[8];
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+              const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const size_t r = s.row0 + g + 8 * h;
+                const float2 dg = row2(s_dg2, r, c, ok[h]);
+                acc[nt][2 * h] *= dg.x;
+                acc[nt][2 * h + 1] *= dg.y;
+                if (ok[h])
+                  *reinterpret_cast<float2*>(s_dx2 + r * H + c) =
+                      make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+              }
+              qd[2 * o] = acc[nt][0] + acc[nt][2];
+              qd[2 * o + 1] = acc[nt][1] + acc[nt][3];
+            }
+            reduce_rows(qd, lane);
+            db2[j] += qd[0];
+          }
+          pass_on(x, acc);
+        } else if (p == 1) {
+          // dpre = dh1 gelu'(pre) in pre's unit order: gelu' back from s_dg1
+          // at the units; dpre to s_dpre and dGn (the index clamped into
+          // Gn's rows), its slab sums to dA
+          float* gn[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int jn = ok[h] ? min(max(__ldg(idx + s.row0 + g + 8 * h), 0), N - 1) : 0;
+            gn[h] = dGn + ((size_t)b * N + jn) * H + 32 * t4;
+          }
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 gv = row4(s_dg1, s.row0 + g + 8 * h, 32 * t4 + 4 * m, ok[h]);
+              acc[2 * m][2 * h] *= gv.x;
+              acc[2 * m][2 * h + 1] *= gv.y;
+              acc[2 * m + 1][2 * h] *= gv.z;
+              acc[2 * m + 1][2 * h + 1] *= gv.w;
+              if (ok[h]) {
+                const float4 v = make_float4(acc[2 * m][2 * h], acc[2 * m][2 * h + 1],
+                                             acc[2 * m + 1][2 * h], acc[2 * m + 1][2 * h + 1]);
+                *reinterpret_cast<float4*>(s_dpre + (s.row0 + g + 8 * h) * H + 32 * t4 +
+                                           4 * m) = v;
+                atomicAdd(reinterpret_cast<float4*>(gn[h] + 4 * m), v);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float qa[8];
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+              qa[2 * o] = acc[4 * j + o][0] + acc[4 * j + o][2];
+              qa[2 * o + 1] = acc[4 * j + o][1] + acc[4 * j + o][3];
+            }
+            reduce_rows(qa, lane);
+            da[j] += qa[0];
+          }
+          pass_on(x, acc);
+        } else if (p == 2) {  // dE [+ dresid], natural columns
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int c = 8 * nt + 2 * t4;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (!ok[h]) continue;
+              const size_t r = s.row0 + g + 8 * h;
+              float2 v = make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+              if constexpr (EDGE) {
+                const float2 dr = *reinterpret_cast<const float2*>(s_dres + r * H + c);
+                v.x += dr.x;
+                v.y += dr.y;
+              }
+              *reinterpret_cast<float2*>(dE + r * H + c) = v;
+            }
+          }
+        }
+      }
+    }
+    // dA: the reduced column n of pre's order is hidden unit unit(n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dA[res * H + unit(quarter_col(j, lane))] = da[j];
+    if constexpr (EDGE) store_sums(p_db + res * H, db2, lane);
+  }
+}
+
+// The weight-grad pass of every f32 backward: part[z][chunk] = X_z^T Y_z over
+// the chunk's rows on mma.sync m16n8k8 in 3xTF32, from a ring of FGSTAGES
+// stages of FGROWS rows of X and Y (cp.async, rows past the chunk zero, row
+// stride FGS: lane (g, t4) reads bank 8 t4 + g, no conflicts); a warp owns a
+// 32 x 64 block of the [H, H] partial (X^T's A fragments and Y's B fragments
+// read as scalars: the rows are the k dimension). Each stage's 4 k8 steps
+// sum from a fresh accumulator, folded into the running sum with Kahan
+// compensation (the tensor cores' sums over a chunk's ~3000 rows would lose
+// bits the f32 check sees); sum_partials then adds the chunks in a fixed
+// order, so the weight grads repeat bit for bit.
+constexpr int FGROWS = 32;
+constexpr int FGSTAGES = 4;
+constexpr int FGS = H + 8;
+constexpr int FGSTAGE = 2 * FGROWS * FGS;         // floats: X's rows, then Y's
+constexpr int FGSMEM = FGSTAGES * FGSTAGE * 4;
+
+__global__ void __launch_bounds__(tf::TNT, 1)
+wgrad_f32_mma_kernel(Pairs<float> p, int n_chunks, float* __restrict__ part) {
+  extern __shared__ __align__(16) float fsm[];
+  const int z = blockIdx.y, chunk = blockIdx.x;
+  // constant indices: a runtime index copies the parameter to local memory
+  const float* X = z == 0 ? p.X[0] : z == 1 ? p.X[1] : p.X[2];
+  const float* Y = z == 0 ? p.Y[0] : z == 1 ? p.Y[1] : p.Y[2];
+  const long long M = z == 0 ? p.M[0] : z == 1 ? p.M[1] : p.M[2];
+  const long long per = ((M + n_chunks - 1) / n_chunks + FGROWS - 1) / FGROWS * FGROWS;
+  const long long m_begin = min(M, chunk * per);
+  const long long m_end = min(M, m_begin + per);
+  const int n_steps = (int)((m_end - m_begin + FGROWS - 1) / FGROWS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int i0 = 32 * (warp & 3), j0 = 64 * (warp >> 2);
+  auto issue = [&](int st) {
+    if (st < n_steps) {
+      float* buf = fsm + (st % FGSTAGES) * FGSTAGE;
+      const long long m0 = m_begin + (long long)st * FGROWS;
+      for (int i = tid; i < 2 * FGROWS * (H / 4); i += tf::TNT) {
+        const int w = i / (FGROWS * (H / 4)), rr = (i / (H / 4)) % FGROWS, c = i % (H / 4);
+        float* d = buf + (w * FGROWS + rr) * FGS + 4 * c;
+        if (m0 + rr < m_end) mma::cp_async16(d, (w ? Y : X) + (m0 + rr) * H + 4 * c);
+        else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  float acc[2][8][4], comp[2][8][4];
+#pragma unroll
+  for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[ti][nt][i] = comp[ti][nt][i] = 0.0f;
+  for (int st = 0; st < FGSTAGES - 1; ++st) issue(st);
+  for (int st = 0; st < n_steps; ++st) {
+    mma::cp_async_wait<FGSTAGES - 2>();
+    __syncthreads();  // stage st in place; every warp is done with stage st - 1
+    issue(st + FGSTAGES - 1);
+    const float* sx = fsm + (st % FGSTAGES) * FGSTAGE;
+    const float* sy = sx + FGROWS * FGS;
+    float step[2][8][4];
+#pragma unroll
+    for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) step[ti][nt][i] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < FGROWS / 8; ++ks) {
+      // A = X^T: a0 (m g, k t4) = X[t4][g], a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4)
+      const float* x0 = sx + (8 * ks + t4) * FGS + i0 + g;
+      const float* x4 = x0 + 4 * FGS;
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int ti = 0; ti < 2; ++ti) {
+        tf::split(x0[16 * ti], ahi[ti][0], alo[ti][0]);
+        tf::split(x0[16 * ti + 8], ahi[ti][1], alo[ti][1]);
+        tf::split(x4[16 * ti], ahi[ti][2], alo[ti][2]);
+        tf::split(x4[16 * ti + 8], ahi[ti][3], alo[ti][3]);
+      }
+      // B = Y: b0 (k t4, n g), b1 (k t4 + 4, n g)
+      const float* y0 = sy + (8 * ks + t4) * FGS + j0 + g;
+      const float* y4 = y0 + 4 * FGS;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        tf::split(y0[8 * nt], bh0, bl0);
+        tf::split(y4[8 * nt], bh1, bl1);
+#pragma unroll
+        for (int ti = 0; ti < 2; ++ti) {
+          tf::mma_tf32(step[ti][nt], alo[ti], bh0, bh1);
+          tf::mma_tf32(step[ti][nt], ahi[ti], bl0, bl1);
+          tf::mma_tf32(step[ti][nt], ahi[ti], bh0, bh1);
+        }
+      }
+    }
+#pragma unroll
+    for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kahan_add(acc[ti][nt][i], comp[ti][nt][i], step[ti][nt][i]);
+  }
+  float* dst = part + ((size_t)z * n_chunks + chunk) * H * H;
+#pragma unroll
+  for (int ti = 0; ti < 2; ++ti)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int r = i0 + 16 * ti + g, c = j0 + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(dst + r * H + c) = make_float2(acc[ti][nt][0], acc[ti][nt][1]);
+      *reinterpret_cast<float2*>(dst + (r + 8) * H + c) =
+          make_float2(acc[ti][nt][2], acc[ti][nt][3]);
+    }
+}
+
+// The weight-grad pass: f32 and bf16 on the tensor cores.
 cudaError_t launch_wgrad(const Pairs<float>& pairs, int n_chunks, float* wpart,
                          cudaStream_t st) {
-  wgrad_kernel<float><<<dim3(n_chunks, 3), NT, 0, st>>>(pairs, n_chunks, wpart);
+  static unsigned done = 0;
+  const cudaError_t err = tf::smem_once(wgrad_f32_mma_kernel, FGSMEM, done);
+  if (err != cudaSuccess) return err;
+  wgrad_f32_mma_kernel<<<dim3(n_chunks, 3), tf::TNT, FGSMEM, st>>>(pairs, n_chunks, wpart);
   return cudaGetLastError();
 }
 
@@ -1689,29 +2177,31 @@ cudaError_t launch_wgrad(const Pairs<bf16>& pairs, int n_chunks, float* wpart,
   return cudaGetLastError();
 }
 
-// The weight grads of a bf16 backward from its main pass's scratch, dW =
-// (E^T cast(dpre), h1^T cast(dx2), X3^T Y3) with the rows of X3 and Y3 (m3:
-// the edge rows, or K3's residue rows), on the tensor cores, then the
-// partial sums of dW and of db (p_db's [2, n_tiles, H] tile parts)
-int bf16_grads(const void* E, const void* s_dpre, const void* s_h1, const void* s_dx2,
-               const void* X3, const void* Y3, long long rows, long long m3, void* wpart,
-               void* p_db, void* dW, void* db, int n_tiles, int n_chunks, cudaStream_t st) {
-  Pairs<bf16> pairs;
-  pairs.X[0] = static_cast<const bf16*>(E);
-  pairs.Y[0] = static_cast<const bf16*>(s_dpre);
+// The weight grads of a backward from its main pass's scratch, dW = (E^T
+// dpre, h1^T dx2, X3^T Y3) with the rows of X3 and Y3 (m3: the edge rows, or
+// K3's residue rows) in the main pass's dtype T (bf16: dpre and dx2 cast), on
+// the tensor cores, then the partial sums of dW and of db (p_db's [2,
+// n_parts, H] tile or residue parts)
+template <typename T>
+int weight_grads(const void* E, const void* s_dpre, const void* s_h1, const void* s_dx2,
+                 const void* X3, const void* Y3, long long rows, long long m3, void* wpart,
+                 void* p_db, void* dW, void* db, int n_parts, int n_chunks, cudaStream_t st) {
+  Pairs<T> pairs;
+  pairs.X[0] = static_cast<const T*>(E);
+  pairs.Y[0] = static_cast<const T*>(s_dpre);
   pairs.M[0] = rows;
-  pairs.X[1] = static_cast<const bf16*>(s_h1);
-  pairs.Y[1] = static_cast<const bf16*>(s_dx2);
+  pairs.X[1] = static_cast<const T*>(s_h1);
+  pairs.Y[1] = static_cast<const T*>(s_dx2);
   pairs.M[1] = rows;
-  pairs.X[2] = static_cast<const bf16*>(X3);
-  pairs.Y[2] = static_cast<const bf16*>(Y3);
+  pairs.X[2] = static_cast<const T*>(X3);
+  pairs.Y[2] = static_cast<const T*>(Y3);
   pairs.M[2] = m3;
   const cudaError_t err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
   if (err != cudaSuccess) return (int)err;
   const int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
                         H * H, st);
   if (rc != 0) return rc;
-  return reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
+  return reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_parts, H, st);
 }
 
 // the tensor-core main passes' checks: K a multiple of 16, at most 128;
@@ -1728,7 +2218,7 @@ int mma_tiles(int B, int L, int K, int N, int n_tiles, int n_chunks) {
 // sums. Scratch: s_h1, s_dx2, s_dpre [B*L*K, H], s_s, s_dout [B*L, H] in bf16;
 // s_dg1 [B*L*K, H] f32 (gelu'(pre) between the main pass's phases A and C);
 // wpart f32 [3, n_chunks, H, H]; p_db f32 [2, n_tiles, H], n_tiles = B *
-// ceil(L / (128 / K)). Outputs as launch_bwd's.
+// ceil(L / (128 / K)). Outputs as launch_sum_bwd_f32_mma's.
 int launch_sum_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
                        const void* mask, const void* We, const void* W2, const void* b2,
                        const void* W3, const void* dout, void* dA, void* dE, void* dGn,
@@ -1754,13 +2244,13 @@ int launch_sum_bwd_mma(const void* A, const void* E, const void* Gn, const void*
       static_cast<float*>(p_db), L, K, N, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return bf16_grads(E, s_dpre, s_h1, s_dx2, s_s, s_dout, (long long)B * L * K, (long long)B * L,
-                    wpart, p_db, dW, db, n_tiles, n_chunks, st);
+  return weight_grads<bf16>(E, s_dpre, s_h1, s_dx2, s_s, s_dout, (long long)B * L * K,
+                            (long long)B * L, wpart, p_db, dW, db, n_tiles, n_chunks, st);
 }
 
-// K6's backward in bf16: the main pass, then bf16_grads with dW3 = cast(h2)^T
+// K6's backward in bf16: the main pass, then weight_grads<bf16> with dW3 = cast(h2)^T
 // dout. Scratch: s_h1, s_dx2, s_dpre, s_h2 [B*L*K, H] bf16, s_dg1 [B*L*K, H]
-// f32, wpart, p_db as K3's. Outputs as launch_bwd's.
+// f32, wpart, p_db as K3's. Outputs as launch_sum_bwd_f32_mma's.
 int launch_edge_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
                         const void* We, const void* W2, const void* b2, const void* W3,
                         const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
@@ -1784,14 +2274,14 @@ int launch_edge_bwd_mma(const void* A, const void* E, const void* Gn, const void
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)B * L * K;
-  return bf16_grads(E, s_dpre, s_h1, s_dx2, s_h2, dout, rows, rows, wpart, p_db, dW, db,
-                    n_tiles, n_chunks, st);
+  return weight_grads<bf16>(E, s_dpre, s_h1, s_dx2, s_h2, dout, rows, rows, wpart, p_db, dW,
+                            db, n_tiles, n_chunks, st);
 }
 
 // K4 / K5's backward in bf16 (DROP 0, 1: keep, 2: seeds): the main pass, then
-// bf16_grads with dW3 = cast(h2)^T cast(dmsg), then dmod's partial sums.
+// weight_grads<bf16> with dW3 = cast(h2)^T cast(dmsg), then dmod's partial sums.
 // Scratch: K6's and s_dmsg [B*L*K, H] bf16, s_dg2, s_dres [B*L*K, H] f32,
-// p_mod f32 [3, n_tiles, H]. Outputs as launch_bwd's.
+// p_mod f32 [3, n_tiles, H]. Outputs as launch_edge_lnmod_bwd_f32_mma's.
 template <int DROP>
 int launch_edge_lnmod_bwd_mma(const void* A, const void* E, const void* Gn, const void* idx,
                               const void* We, const void* W2, const void* b2, const void* W3,
@@ -1823,98 +2313,173 @@ int launch_edge_lnmod_bwd_mma(const void* A, const void* E, const void* Gn, cons
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)B * L * K;
-  const int rc = bf16_grads(E, s_dpre, s_h1, s_dx2, s_h2, s_dmsg, rows, rows, wpart, p_db, dW,
-                            db, n_tiles, n_chunks, st);
+  const int rc = weight_grads<bf16>(E, s_dpre, s_h1, s_dx2, s_h2, s_dmsg, rows, rows, wpart,
+                                    p_db, dW, db, n_tiles, n_chunks, st);
   if (rc != 0) return rc;
   return reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, ntl, H, st);
 }
 
-// The f32 backwards on CUDA cores. Scratch (from the wrapper): s_h1, s_dx2,
-// s_dpre [B*L*K, H] and s_h2, s_dmsg ([B*L*K, H] for K4, [B*L, H] for K3) in T;
-// wpart f32 [3, n_chunks, H, H];
-// p_db f32 [2, n_tiles, H]; p_mod f32 [3, n_tiles, H] (K4).
-// Outputs: dA f32 [B, L, H], dE T [B, L, K, H], dGn f32 [B, N, H] (zeroed by
-// the wrapper), dW f32 [3, H, H] (dW_e, dW2, dW3), db f32 [2, H] (db2, db3),
-// dmod f32 [3, B, H] (dsh, dsc, dgate without its sh term; K4; not K6).
-template <typename T, bool EDGE, int DROP, bool RAW = false>
-int launch_bwd(const void* A, const void* E, const void* Gn, const void* idx,
-               const void* mask, const void* We, const void* WeT, const void* W2,
-               const void* W2T, const void* b2, const void* W3, const void* W3T,
-               const void* b3, const void* sc, const void* gate, const void* keep,
-               const void* seeds, uint32_t thresh, float kscale, const void* dout,
-               void* dA, void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
-               void* s_h2, void* s_dmsg, void* wpart, void* p_db, void* p_mod, void* dW,
-               void* db, void* dmod, int B, int L, int K, int N, int n_tiles,
-               int n_chunks, void* stream) {
-  if (B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > ROWS || K % TM != 0 ||
-      n_chunks <= 0)
-    return (int)cudaErrorInvalidValue;
+// The f32 kernels take K <= 64, a multiple of 4 (K6's 64-row tiles; the
+// tensor-core passes pad a residue's last slab)
+bool f32_bad(int B, int L, int K, int N, int n_chunks) {
+  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > ROWS || K % TM != 0 || n_chunks <= 0;
+}
+
+// the f32 tensor-core passes' grid: one block an SM (or fewer where the
+// residues are fewer), each walking over its share of the residues
+int f32_grid(int B, int L) {
+  const long long warps = (long long)B * L;
+  return (int)std::min<long long>((warps + tf::TW - 1) / tf::TW, tf::sm_count());
+}
+
+// K3 in f32 (3xTF32): pass 1, pass 2, then the weight grads and the partial
+// sums. Scratch: s_h1, s_dx2, s_dpre, s_dg1 [B*L*K, H] f32 (gelu'(pre)
+// between the passes), s_s [B*L, H]; wpart f32 [3, n_chunks, H, H]; p_db f32
+// [2, n_res, H], n_res = B * L (a part a residue). dW3's Y is dout itself.
+// Outputs: dA f32 [B, L, H], dE f32 [B, L, K, H], dGn f32 [B, N, H] (zeroed
+// by the wrapper), dW f32 [3, H, H] (dW_e, dW2, dW3), db f32 [2, H] (db2,
+// db3).
+int launch_sum_bwd_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                           const void* mask, const void* We, const void* WeT, const void* W2,
+                           const void* W2T, const void* b2, const void* W3T, const void* dout,
+                           void* dA, void* dE, void* dGn, void* s_h1, void* s_dx2,
+                           void* s_dpre, void* s_dg1, void* s_s, void* wpart, void* p_db,
+                           void* dW, void* db, int B, int L, int K, int N, int n_res,
+                           int n_chunks, void* stream) {
+  if (f32_bad(B, L, K, N, n_chunks) || n_res != B * L) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static unsigned done1 = 0, done2 = 0;
+  cudaError_t err = tf::smem_once(message_sum_bwd_f32_mma_kernel, F3SMEM, done1);
+  if (err == cudaSuccess) err = tf::smem_once(data_grads_f32_mma_kernel<false>, fd_smem(false),
+                                              done2);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = f32_grid(B, L);
+  const float* f = nullptr;
+  message_sum_bwd_f32_mma_kernel<<<grid, tf::TNT, F3SMEM, st>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const float*>(We), static_cast<const float*>(W2),
+      static_cast<const float*>(b2), static_cast<const float*>(W3T),
+      static_cast<const float*>(dout), static_cast<float*>(s_h1), static_cast<float*>(s_dg1),
+      static_cast<float*>(s_dx2), static_cast<float*>(s_s), static_cast<float*>(p_db), B, L,
+      K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  data_grads_f32_mma_kernel<false><<<grid, tf::TNT, fd_smem(false), st>>>(
+      static_cast<const int*>(idx), f, static_cast<const float*>(W2T),
+      static_cast<const float*>(WeT), f, f, f, static_cast<const float*>(s_dg1),
+      static_cast<float*>(s_dx2), static_cast<float*>(s_dpre), static_cast<float*>(dA),
+      static_cast<float*>(dE), static_cast<float*>(dGn), nullptr, B, L, K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return weight_grads<float>(E, s_dpre, s_h1, s_dx2, s_s, dout, (long long)B * L * K,
+                             (long long)B * L, wpart, p_db, dW, db, n_res, n_chunks, st);
+}
+
+// K4 / K5's backward in f32 (3xTF32; DROP 0, 1: keep, 2: seeds): pass 1,
+// pass 2, the weight grads with dW3 = h2^T dmsg, then dmod's partial sums.
+// Scratch: K3's (s_h2, s_dmsg [B*L*K, H] in s_s's place) and the parked
+// s_dg2, s_dres [B*L*K, H] f32; p_mod f32 [3, n_res, H]. Outputs: K3's and
+// dmod f32 [3, B, H] (dsh, dsc, dgate without its sh term).
+template <int DROP>
+int launch_edge_lnmod_bwd_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                                  const void* We, const void* WeT, const void* W2,
+                                  const void* W2T, const void* b2, const void* W3,
+                                  const void* W3T, const void* b3, const void* sc,
+                                  const void* gate, const void* keep, const void* seeds,
+                                  uint32_t thresh, float kscale, const void* dout, void* dA,
+                                  void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
+                                  void* s_h2, void* s_dmsg, void* s_dg1, void* s_dg2,
+                                  void* s_dres, void* wpart, void* p_db, void* p_mod, void* dW,
+                                  void* db, void* dmod, int B, int L, int K, int N, int n_res,
+                                  int n_chunks, cudaStream_t st) {
+  if (f32_bad(B, L, K, N, n_chunks) || n_res != B * L) return (int)cudaErrorInvalidValue;
+  static unsigned done1 = 0, done2 = 0;
+  cudaError_t err = tf::smem_once(message_edge_lnmod_bwd_f32_mma_kernel<DROP>, F4SMEM, done1);
+  if (err == cudaSuccess) err = tf::smem_once(data_grads_f32_mma_kernel<true>, fd_smem(true),
+                                              done2);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = f32_grid(B, L);
+  message_edge_lnmod_bwd_f32_mma_kernel<DROP><<<grid, tf::TNT, F4SMEM, st>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(We),
+      static_cast<const float*>(W2), static_cast<const float*>(b2),
+      static_cast<const float*>(W3), static_cast<const float*>(b3),
+      static_cast<const float*>(sc), static_cast<const float*>(gate),
+      static_cast<const float*>(keep), static_cast<const int*>(seeds), thresh, kscale,
+      static_cast<const float*>(dout), static_cast<float*>(s_h1), static_cast<float*>(s_dg1),
+      static_cast<float*>(s_h2), static_cast<float*>(s_dg2), static_cast<float*>(s_dres),
+      static_cast<float*>(s_dmsg), static_cast<float*>(p_db), static_cast<float*>(p_mod), B, L,
+      K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  data_grads_f32_mma_kernel<true><<<grid, tf::TNT, fd_smem(true), st>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(W3T),
+      static_cast<const float*>(W2T), static_cast<const float*>(WeT),
+      static_cast<const float*>(s_dmsg), static_cast<const float*>(s_dg2),
+      static_cast<const float*>(s_dres), static_cast<const float*>(s_dg1),
+      static_cast<float*>(s_dx2), static_cast<float*>(s_dpre), static_cast<float*>(dA),
+      static_cast<float*>(dE), static_cast<float*>(dGn), static_cast<float*>(p_db), B, L, K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * L * K;
+  const int rc = weight_grads<float>(E, s_dpre, s_h1, s_dx2, s_h2, s_dmsg, rows, rows, wpart,
+                                     p_db, dW, db, n_res, n_chunks, st);
+  if (rc != 0) return rc;
+  return reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, L, H, st);
+}
+
+// K6's backward in f32: chain_bwd_kernel (CUDA cores), then the tensor-core
+// weight grads with dW3 = h2^T dout. Scratch: s_h1, s_dx2, s_dpre, s_h2
+// [B*L*K, H] f32, wpart, p_db f32 [2, n_tiles, H] (n_tiles = B * ceil(L /
+// (64 / K))). Outputs as K3's.
+int launch_edge_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
+                        const void* We, const void* WeT, const void* W2, const void* W2T,
+                        const void* b2, const void* W3T, const void* dout, void* dA, void* dE,
+                        void* dGn, void* s_h1, void* s_dx2, void* s_dpre, void* s_h2,
+                        void* wpart, void* p_db, void* dW, void* db, int B, int L, int K, int N,
+                        int n_tiles, int n_chunks, void* stream) {
+  if (f32_bad(B, L, K, N, n_chunks)) return (int)cudaErrorInvalidValue;
   const int TL = ROWS / K;
   const int ntl = (L + TL - 1) / TL;
   if (n_tiles != B * ntl) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)H * H * sizeof(T) +
-                      (size_t)ROWS * (H + Pad<T>::XPAD) * sizeof(T) +
-                      ((size_t)RG * H + 2 * (ROWS / TM) * H + (ROWS / TM)) * sizeof(float);
-  auto kern = chain_bwd_kernel<T, EDGE, DROP, RAW>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  constexpr int smem = (H * H + ROWS * XS + RG * H + (ROWS / TM) * H) * 4;
+  static unsigned done = 0;
+  cudaError_t err = tf::smem_once(chain_bwd_kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(ntl, B), NT, smem, st>>>(
-      static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
-      static_cast<const int*>(idx), static_cast<const float*>(mask),
-      static_cast<const T*>(We), static_cast<const T*>(WeT), static_cast<const T*>(W2),
-      static_cast<const T*>(W2T), static_cast<const float*>(b2), static_cast<const T*>(W3),
-      static_cast<const T*>(W3T), static_cast<const float*>(b3),
-      static_cast<const float*>(sc), static_cast<const float*>(gate),
-      static_cast<const T*>(keep), static_cast<const int*>(seeds), thresh, kscale, dout,
-      static_cast<float*>(dA), static_cast<T*>(dE), static_cast<float*>(dGn),
-      static_cast<T*>(s_h1), static_cast<T*>(s_dx2), static_cast<T*>(s_dpre),
-      static_cast<T*>(s_h2), static_cast<T*>(s_dmsg), static_cast<float*>(p_db),
-      static_cast<float*>(p_mod), L, K, N, n_tiles);
+  chain_bwd_kernel<<<dim3(ntl, B), NT, smem, st>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(We),
+      static_cast<const float*>(WeT), static_cast<const float*>(W2),
+      static_cast<const float*>(W2T), static_cast<const float*>(b2),
+      static_cast<const float*>(W3T), static_cast<const float*>(dout), static_cast<float*>(dA),
+      static_cast<float*>(dE), static_cast<float*>(dGn), static_cast<float*>(s_h1),
+      static_cast<float*>(s_dx2), static_cast<float*>(s_dpre), static_cast<float*>(s_h2),
+      static_cast<float*>(p_db), L, K, N, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
   const long long rows = (long long)B * L * K;
-  Pairs<T> pairs;
-  pairs.X[0] = static_cast<const T*>(E);
-  pairs.Y[0] = static_cast<const T*>(s_dpre);
-  pairs.M[0] = rows;
-  pairs.X[1] = static_cast<const T*>(s_h1);
-  pairs.Y[1] = static_cast<const T*>(s_dx2);
-  pairs.M[1] = rows;
-  pairs.X[2] = static_cast<const T*>(s_h2);
-  pairs.Y[2] = static_cast<const T*>(s_dmsg);
-  pairs.M[2] = EDGE ? rows : (long long)B * L;
-  err = launch_wgrad(pairs, n_chunks, static_cast<float*>(wpart), st);
-  if (err != cudaSuccess) return (int)err;
-
-  int rc = reduce(static_cast<const float*>(wpart), static_cast<float*>(dW), 3, n_chunks,
-                  H * H, st);
-  if (rc != 0) return rc;
-  rc = reduce(static_cast<const float*>(p_db), static_cast<float*>(db), 2, n_tiles, H, st);
-  if (rc != 0) return rc;
-  if (EDGE && !RAW)
-    rc = reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, ntl, H,
-                st);
-  return rc;
+  return weight_grads<float>(E, s_dpre, s_h1, s_dx2, s_h2, dout, rows, rows, wpart, p_db, dW,
+                             db, n_tiles, n_chunks, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// f32 on the tensor cores (3xTF32), with W_e^T, W2^T and W3^T from the
+// wrapper beside W_e and W2: K at most 64, a multiple of 4; n_tiles = B * L
+// (the column sums' parts are a residue's)
 int message_sum_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
                         const void* mask, const void* We, const void* WeT, const void* W2,
                         const void* W2T, const void* b2, const void* W3T, const void* dout,
                         void* dA, void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
-                        void* s_s, void* s_dout, void* wpart, void* p_db, void* dW, void* db,
+                        void* s_dg1, void* s_s, void* wpart, void* p_db, void* dW, void* db,
                         int B, int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
-  return launch_bwd<float, false, 0>(A, E, Gn, idx, mask, We, WeT, W2, W2T, b2, nullptr, W3T,
-                                     nullptr, nullptr, nullptr, nullptr, nullptr, 0u, 1.0f,
-                                     dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_s, s_dout, wpart,
-                                     p_db, nullptr, dW, db, nullptr, B, L, K, N, n_tiles,
-                                     n_chunks, stream);
+  return launch_sum_bwd_f32_mma(A, E, Gn, idx, mask, We, WeT, W2, W2T, b2, W3T, dout, dA, dE,
+                                dGn, s_h1, s_dx2, s_dpre, s_dg1, s_s, wpart, p_db, dW, db, B, L,
+                                K, N, n_tiles, n_chunks, stream);
 }
 
 // bf16 on the tensor cores, W_e, W2 and W3 as they are (no transposes): K a
@@ -1931,7 +2496,8 @@ int message_sum_bwd_bf16(const void* A, const void* E, const void* Gn, const voi
 }
 
 // K4, and K5's backward when `keep` (E's dtype) or `seeds` (int32 [B]) is given:
-// f32 on CUDA cores, with W_e, W2, W3 and their transposes
+// f32 on the tensor cores (3xTF32), with W_e, W2, W3 and their transposes; K
+// and n_tiles as message_sum_bwd_f32's
 int message_edge_lnmod_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
                                const void* We, const void* WeT, const void* W2,
                                const void* W2T, const void* b2, const void* W3,
@@ -1939,25 +2505,26 @@ int message_edge_lnmod_bwd_f32(const void* A, const void* E, const void* Gn, con
                                const void* gate, const void* keep, const void* seeds,
                                const void* dout, void* dA, void* dE, void* dGn, void* s_h1,
                                void* s_dx2, void* s_dpre, void* s_h2, void* s_dmsg,
-                               void* wpart, void* p_db, void* p_mod, void* dW, void* db,
-                               void* dmod, int B, int L, int K, int N, int n_tiles,
-                               int n_chunks, unsigned thresh, float kscale, void* stream) {
+                               void* s_dg1, void* s_dg2, void* s_dres, void* wpart,
+                               void* p_db, void* p_mod, void* dW, void* db, void* dmod, int B,
+                               int L, int K, int N, int n_tiles, int n_chunks,
+                               unsigned thresh, float kscale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (keep != nullptr && seeds != nullptr) return (int)cudaErrorInvalidValue;
   if (keep != nullptr)
-    return launch_bwd<float, true, 1>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T,
-                                      b3, sc, gate, keep, nullptr, 0u, 1.0f, dout, dA, dE, dGn,
-                                      s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db, p_mod,
-                                      dW, db, dmod, B, L, K, N, n_tiles, n_chunks, stream);
+    return launch_edge_lnmod_bwd_f32_mma<1>(
+        A, E, Gn, idx, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, keep, nullptr, 0u, 1.0f,
+        dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, s_dg1, s_dg2, s_dres, wpart, p_db,
+        p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, st);
   if (seeds != nullptr)
-    return launch_bwd<float, true, 2>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T,
-                                      b3, sc, gate, nullptr, seeds, thresh, kscale, dout, dA,
-                                      dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db,
-                                      p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks,
-                                      stream);
-  return launch_bwd<float, true, 0>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, W3, W3T, b3,
-                                    sc, gate, nullptr, nullptr, 0u, 1.0f, dout, dA, dE, dGn,
-                                    s_h1, s_dx2, s_dpre, s_h2, s_dmsg, wpart, p_db, p_mod, dW,
-                                    db, dmod, B, L, K, N, n_tiles, n_chunks, stream);
+    return launch_edge_lnmod_bwd_f32_mma<2>(
+        A, E, Gn, idx, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, nullptr, seeds, thresh,
+        kscale, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, s_dg1, s_dg2, s_dres,
+        wpart, p_db, p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, st);
+  return launch_edge_lnmod_bwd_f32_mma<0>(
+      A, E, Gn, idx, We, WeT, W2, W2T, b2, W3, W3T, b3, sc, gate, nullptr, nullptr, 0u, 1.0f,
+      dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2, s_dmsg, s_dg1, s_dg2, s_dres, wpart, p_db,
+      p_mod, dW, db, dmod, B, L, K, N, n_tiles, n_chunks, st);
 }
 
 // the same in bf16 on the tensor cores, W_e, W2 and W3 as they are: K a
@@ -1990,19 +2557,18 @@ int message_edge_lnmod_bwd_bf16(const void* A, const void* E, const void* Gn, co
                                       db, dmod, B, L, K, N, n_tiles, n_chunks, st);
 }
 
-// K6's backward: dout [B, L, K, H] in E's dtype; scratch and outputs as K4's,
-// without p_mod and dmod. f32 on CUDA cores with the transposes:
+// K6's backward: dout [B, L, K, H] in E's dtype (dW3's Y as it is). f32: the
+// main pass on CUDA cores with the transposes, the weight grads on the
+// tensor cores; n_tiles counts blocks of 64 edge rows:
 int message_edge_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
                          const void* We, const void* WeT, const void* W2, const void* W2T,
                          const void* b2, const void* W3T, const void* dout, void* dA,
                          void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
-                         void* s_h2, void* s_dmsg, void* wpart, void* p_db, void* dW, void* db,
-                         int B, int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
-  return launch_bwd<float, true, 0, true>(A, E, Gn, idx, nullptr, We, WeT, W2, W2T, b2, nullptr,
-                                          W3T, nullptr, nullptr, nullptr, nullptr, nullptr, 0u,
-                                          1.0f, dout, dA, dE, dGn, s_h1, s_dx2, s_dpre, s_h2,
-                                          s_dmsg, wpart, p_db, nullptr, dW, db, nullptr, B, L, K,
-                                          N, n_tiles, n_chunks, stream);
+                         void* s_h2, void* wpart, void* p_db, void* dW, void* db, int B, int L,
+                         int K, int N, int n_tiles, int n_chunks, void* stream) {
+  return launch_edge_bwd_f32(A, E, Gn, idx, We, WeT, W2, W2T, b2, W3T, dout, dA, dE, dGn, s_h1,
+                             s_dx2, s_dpre, s_h2, wpart, p_db, dW, db, B, L, K, N, n_tiles,
+                             n_chunks, stream);
 }
 
 // bf16 on the tensor cores, as message_edge_lnmod_bwd_bf16 (dout is dW3's Y)

@@ -25,9 +25,13 @@ forward and K6 on CUDA cores) and whose backward launches K3, K4, K5's or
 K6's backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores,
 main pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
 `message_edge_lnmod_bwd_mma_kernel`, `message_edge_bwd_mma_kernel`; in f32
-on CUDA cores), or raises; K7 (on K2's and K1's tensor-core bodies in either
-dtype, so its outputs are K2's kernel then K1's, bit for bit) launches or
-raises. The plain version
+K3, K4 and K5's on the tensor cores in 3xTF32, two passes each
+(`message_sum_bwd_f32_mma_kernel` or `message_edge_lnmod_bwd_f32_mma_kernel`,
+then `data_grads_f32_mma_kernel`), K6's main pass on CUDA cores, and every
+f32 weight-grad pass on the tensor cores, `wgrad_f32_mma_kernel`), or
+raises; K7 (on K2's and K1's tensor-core bodies in either dtype, so its
+outputs are K2's kernel then K1's, bit for bit) launches or raises. The
+plain version
 runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
 the K-sum (K1) before W3) and accumulate in f32; in f32 they equal the JAX
@@ -45,10 +49,11 @@ from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
 # edge rows per block of the f32 CUDA-core kernels (K5's forward, K6 and
-# the backwards: 16 row groups x 4 rows a thread); a block owns floor(rows /
+# K6's backward: 16 row groups x 4 rows a thread); a block owns floor(rows /
 # K) whole residues, so K may not exceed it. Every f32 kernel takes the K
-# these tiles take (K <= 64, a multiple of 4), the tensor-core K1, K2 and K7
-# included (16-row slabs of one residue, padded past K).
+# these tiles take (K <= 64, a multiple of 4), the tensor-core K1, K2, K7,
+# K3, K4 and K5's backward included (16-row slabs of one residue, padded
+# past K).
 _F32_ROWS = 64
 # every kernel in bf16 (K1, K2 and K5's forward, K6, K7 and the backwards)
 # runs on the tensor cores: 128 rows a block, a warp a 16-row slab of one
@@ -283,8 +288,8 @@ def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
 def _check_mma_edge(E, Gn):
     """_check_edge for the kernels, which run on the tensor cores in bf16
     (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's, K6's):
-    K a multiple of 16 there; in f32 the f32 tiles' K (the f32 K1, K2 and
-    K7 run on the tensor cores too, and take it)."""
+    K a multiple of 16 there; in f32 the f32 tiles' K (the f32 K1, K2, K7,
+    K3, K4 and K5's backward run on the tensor cores too, and take it)."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)
@@ -414,16 +419,16 @@ def _edge_then_sum_fwd(A_e, E, G_e, idx, W_e_e, W2_e, b2_e, W3_e, b3_e, sh, sc, 
     return e2, ns
 
 
-def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_F32_ROWS):
-    """Scratch of the backward kernels (see csrc/message_chain_bwd.cu);
-    `tile_rows` edge rows a block of the main pass."""
+def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows):
+    """Scratch of the backward kernels (see csrc/message_chain_bwd.cu):
+    `tile_rows` edge rows a block of the main pass, or a residue's K for the
+    f32 tensor-core passes, whose column sums have a part a residue."""
     f32 = torch.float32
     rows = B * L * K
     TL = tile_rows // K
     n_tiles = B * (-(-L // TL))
     e = lambda m: torch.empty((m, H), dtype=dt, device=dev)
     return dict(s_h1=e(rows), s_dx2=e(rows), s_dpre=e(rows), s_h2=e(edge_rows),
-                s_dmsg=e(edge_rows),
                 wpart=torch.empty((3, _WGRAD_CHUNKS, H, H), dtype=f32, device=dev),
                 p_db=torch.empty((2, n_tiles, H), dtype=f32, device=dev),
                 p_mod=torch.empty((3, n_tiles, H), dtype=f32, device=dev),
@@ -431,7 +436,8 @@ def _bwd_scratch(B, L, K, H, dt, dev, edge_rows, tile_rows=_F32_ROWS):
 
 
 def _f32_rows(dims, dev):
-    """An f32 [B L K, H] array: scratch of the bf16 backwards' parked values."""
+    """An f32 [B L K, H] array: scratch of the values that the backwards
+    park between their phases (gelu'(pre), gelu'(x2), dresid)."""
     B, L, K, H, _ = dims
     return torch.empty((B * L * K, H), dtype=torch.float32, device=dev)
 
@@ -440,9 +446,12 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     """K3: the backward of K1 given dout (f32 [B, L, H], already divided by
     scale). Returns the kernel's outputs, as `_pallas_sum_bwd` does:
     dA f32 [B, L, H], dE [B, L, K, H] in E's dtype, dGn f32 [B, N, H],
-    dW_e, dW2 f32 [H, H], db2 f32 [H], dW3 f32 [H, H], db3 f32 [H]. In bf16
-    on the tensor cores (K a multiple of 16), with W_e, W2 and W3 as they
-    are; in f32 on CUDA cores, with their transposes."""
+    dW_e, dW2 f32 [H, H], db2 f32 [H], dW3 f32 [H, H], db3 f32 [H]. On the
+    tensor cores, main pass and weight grads: in bf16
+    (`message_sum_bwd_mma_kernel`, K a multiple of 16) with W_e, W2 and W3
+    as they are; in f32 in 3xTF32 (`message_sum_bwd_f32_mma_kernel` then
+    `data_grads_f32_mma_kernel`, K a multiple of 4 up to 64) with their
+    transposes beside them."""
     bf = E.dtype == torch.bfloat16
     dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
@@ -459,11 +468,11 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     dGn = torch.zeros((B, N, H), dtype=f32, device=dev)
     dW = torch.empty((3, H, H), dtype=f32, device=dev)
     db = torch.empty((2, H), dtype=f32, device=dev)
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else _F32_ROWS)
-    # the bf16 kernel parks gelu'(pre) in f32 between its phases
-    dg1 = [_f32_rows(dims, dev)] if bf else []
-    scratch = ([s["s_h1"], s["s_dx2"], s["s_dpre"]] + dg1
-               + [s[k] for k in ("s_h2", "s_dmsg", "wpart", "p_db")])
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L, _MMA_ROWS if bf else K)
+    # gelu'(pre) parked in f32 between the phases (bf16) or passes (f32); s
+    # in s_h2; the bf16 kernel's cast(dout) beside it (f32: dout itself)
+    scratch = ([s["s_h1"], s["s_dx2"], s["s_dpre"], _f32_rows(dims, dev), s["s_h2"]]
+               + ([torch.empty_like(s["s_h2"])] if bf else []) + [s["wpart"], s["p_db"]])
     fn = _fn("message_chain_bwd", f"message_sum_bwd_{_SUFFIX[dt]}",
              "p" * (len(ops) + len(scratch) + 5) + "i" * 6 + "p")
     with torch.cuda.device(dev):
@@ -475,11 +484,12 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1]
 
 
-def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
+def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3, residues):
     """(dims, the chain's operands and W3 in the kernels' dtypes, whether
     bf16, the outputs dA, dE, dGn, dW, db, the scratch) of K4's, K5's and
     K6's backwards: in bf16 on the tensor cores (K a multiple of 16, blocks
-    of 128 edge rows), in f32 on CUDA cores (blocks of 64)."""
+    of 128 edge rows); in f32 with `residues` a residue's rows (K4's and
+    K5's tensor-core passes), else blocks of 64 (K6's, CUDA cores)."""
     bf = E.dtype == torch.bfloat16
     dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
@@ -490,7 +500,8 @@ def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
             torch.zeros((B, N, H), dtype=f32, device=dev),
             torch.empty((3, H, H), dtype=f32, device=dev),
             torch.empty((2, H), dtype=f32, device=dev))
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K, _MMA_ROWS if bf else _F32_ROWS)
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K,
+                     _MMA_ROWS if bf else (K if residues else _F32_ROWS))
     return dims, ops, bf, outs, s
 
 
@@ -499,11 +510,14 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
     """K4 (or K5's backward with `keep` or `seeds`): the backward of K2
     given dout [B, L, K, H]. Returns the kernel's outputs, as
     `_pallas_edge_lnmod_bwd` does: K3's eight, then dsh, dsc and dgate f32
-    [B, H] (dgate without its sh * sum(dout) term). In bf16 on the tensor
-    cores (`message_edge_lnmod_bwd_mma_kernel`, K a multiple of 16), with
-    W_e, W2 and W3 as they are; in f32 on CUDA cores, with their
-    transposes."""
-    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
+    [B, H] (dgate without its sh * sum(dout) term). On the tensor cores: in
+    bf16 (`message_edge_lnmod_bwd_mma_kernel`, K a multiple of 16) with W_e,
+    W2 and W3 as they are; in f32 in 3xTF32
+    (`message_edge_lnmod_bwd_f32_mma_kernel` then
+    `data_grads_f32_mma_kernel`, K a multiple of 4 up to 64) with their
+    transposes beside them."""
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3,
+                                                              True)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2, w3 = ops
@@ -518,9 +532,10 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
         seeds = _operand(seeds, torch.int32, (B,), "seeds", dev)
     dout = _operand(dout, dt, (B, L, K, H), "dout", dev)
     dmod = torch.empty((3, B, H), dtype=f32, device=dev)
-    # the bf16 kernel parks gelu'(pre), gelu'(x2) and dresid in f32
-    parked = [_f32_rows(dims, dev) for _ in range(3)] if bf else []
-    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2", "s_dmsg")] + parked
+    # gelu'(pre), gelu'(x2) and dresid parked in f32
+    parked = [_f32_rows(dims, dev) for _ in range(3)]
+    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2")]
+               + [torch.empty_like(s["s_h2"])] + parked                  # dmsg
                + [s[k] for k in ("wpart", "p_db", "p_mod")])
     fn = _fn("message_chain_bwd", f"message_edge_lnmod_bwd_{_SUFFIX[dt]}",
              "p" * (len(ops) + len(scratch) + 9) + "i" * 6 + "uf" + "p")
@@ -540,9 +555,11 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
 def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
     """K6's backward given dout [B, L, K, H] (E's dtype). Returns the
     kernel's outputs, as `_pallas_edge_bwd` does: K3's eight. In bf16 on the
-    tensor cores (`message_edge_bwd_mma_kernel`, K a multiple of 16; dout
-    itself is dW3's operand), in f32 on CUDA cores."""
-    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
+    tensor cores (`message_edge_bwd_mma_kernel`, K a multiple of 16); in f32
+    its main pass on CUDA cores (`chain_bwd_kernel`) and its weight grads on
+    the tensor cores (`wgrad_f32_mma_kernel`). dout itself is dW3's Y."""
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3,
+                                                              False)
     B, L, K, H, N = dims
     dt, dev = E.dtype, E.device
     a, e, gn, ix, we, w2, bb2, w3 = ops
@@ -550,9 +567,9 @@ def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
            [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
             w3.t().contiguous()])
     ops.append(_operand(dout, dt, (B, L, K, H), "dout", dev))
+    # the bf16 kernel parks gelu'(pre) in f32
     scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2")]
-               + ([_f32_rows(dims, dev)] if bf else [s["s_dmsg"]])
-               + [s["wpart"], s["p_db"]])
+               + ([_f32_rows(dims, dev)] if bf else []) + [s["wpart"], s["p_db"]])
     fn = _fn("message_chain_bwd", f"message_edge_bwd_{_SUFFIX[dt]}",
              "p" * (len(ops) + len(scratch) + 5) + "i" * 6 + "p")
     with torch.cuda.device(dev):

@@ -2,6 +2,7 @@
 """The f32 message chains of the PyTorch port (codlad_tpu_torch) on one GPU.
 
     python3 scripts/torch_f32_rates.py [--draws 3] [--steps 6] [--seed 0]
+                                       [--sections fwd,bwd,draw,train]
 
 Run from a checkout's root: it drives that checkout's kernels through its
 `chip_smoke` helpers (copy it into an older checkout to compare the two in
@@ -15,9 +16,19 @@ turns, one process each). Prints one JSON line:
 * the f32 100-step draw (the sampling path of `chip_smoke.build_pipeline`
   with no compute dtype, decode included) at B96 L128 K64: one untimed
   draw, then the median seconds of `--draws` and its denoise steps/s;
-* the f32 Stage-2 training step (`chip_smoke.build_trainer`, dropout 0.6)
-  at B96 L128: the median ms of `--steps` steps after one untimed step;
+* the f32 backwards (section bwd) at the same three shapes: K3
+  (`message_sum_bwd`), K4 (`message_edge_lnmod_bwd`), K5's backward with
+  seeds and with a keep tensor, and K6's backward (`message_edge_bwd`), each
+  by graph replay, and one call of each under torch.profiler split into
+  the device ms of every CUDA kernel it launched (main pass, weight-grad
+  pass, `sum_partials`);
+* the f32 Stage-2 training step (`chip_smoke.build_trainer`) at B96 L128,
+  dropout 0.6 and dropout 0: the median ms of `--steps` steps after one
+  untimed step, then one more step at dropout 0.6 under torch.profiler
+  (the device ms of each CUDA kernel in it);
 * the card's name and power limit.
+
+`--sections` picks the parts to run (fwd: the K1 / K2 / K7 lines).
 """
 
 import argparse
@@ -33,7 +44,9 @@ def main(argv=None):
     ap.add_argument("--draws", type=int, default=3)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sections", default="fwd,bwd,draw,train")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
     sys.path.insert(0, os.getcwd())
     import torch
     if not torch.cuda.is_available():
@@ -47,10 +60,14 @@ def main(argv=None):
     build.timed_build()
     dev = torch.device("cuda", 0)
     f32 = torch.float32
-    out = {"checkout": os.getcwd(), "kernels": {}}
+    out = {"checkout": os.getcwd(), "kernels": {}, "backwards": {}}
     for tag, dims, n in (("B96 L128 K64", (96, 128, 64), None),
                          ("B96 L48 K48", (96, 48, 48), None),
                          ("B96 L64 N128 K64", (96, 64, 64), 128)):
+        if "bwd" in sections:
+            out["backwards"][tag] = _backwards(cs, MK, dims, n, args.seed, dev)
+        if "fwd" not in sections:
+            continue
         x = cs.kernel_inputs(f32, args.seed, dev, dims, n)
         y = cs.kernel_inputs(f32, args.seed + 1, dev, dims, n)
         s_keys = ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3", "b3")
@@ -85,27 +102,85 @@ def main(argv=None):
         del x, y, k7, calls
         torch.cuda.empty_cache()
 
-    batch = _batch(96, 128, args.seed, dev)
-    pipe = cs.build_pipeline(dev, args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    cs.run_slice(pipe, batch, gen)
-    secs = [cs.run_slice(pipe, batch, gen)["seconds"] for _ in range(args.draws)]
-    steps = pipe.process.num_timesteps
-    out["draw"] = {"seconds": secs, "median_s": statistics.median(secs),
-                   "steps_per_s": steps / statistics.median(secs)}
-    del pipe
-    torch.cuda.empty_cache()
+    if "draw" in sections:
+        batch = _batch(96, 128, args.seed, dev)
+        pipe = cs.build_pipeline(dev, args.seed)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        cs.run_slice(pipe, batch, gen)
+        secs = [cs.run_slice(pipe, batch, gen)["seconds"] for _ in range(args.draws)]
+        steps = pipe.process.num_timesteps
+        out["draw"] = {"seconds": secs, "median_s": statistics.median(secs),
+                       "steps_per_s": steps / statistics.median(secs)}
+        del pipe
+        torch.cuda.empty_cache()
 
-    x1, extras = cs.train_batch(96, 128, args.seed + 1, dev)
-    model, state, step = cs.build_trainer(dev, args.seed)
-    expect = cs.train_launches(len(model.enc_layers), len(model.dec_layers), cs.P_DROP)
-    times, _, _ = cs.run_train(state, step, x1, extras, args.seed, args.steps + 1, expect)
-    out["train"] = {"ms": times[1:], "median_ms": statistics.median(times[1:])}
+    if "train" in sections:
+        x1, extras = cs.train_batch(96, 128, args.seed + 1, dev)
+        for p in (cs.P_DROP, 0.0):
+            model, state, step = cs.build_trainer(dev, args.seed, dropout=p)
+            expect = cs.train_launches(len(model.enc_layers), len(model.dec_layers), p)
+            times, _, _ = cs.run_train(state, step, x1, extras, args.seed, args.steps + 1,
+                                       expect)
+            key = "train" if p else "train_dropout0"
+            out[key] = {"ms": times[1:], "median_ms": statistics.median(times[1:])}
+            if p:
+                out["train"]["traced_kernels_ms"] = _traced(
+                    lambda: step(state, x1, extras, args.seed + 99))
+            del model, state, step
+            torch.cuda.empty_cache()
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True,
                                  text=True).stdout.strip()
     print(json.dumps(out))
     return 0
+
+
+def _traced(fn, reps=1):
+    """{CUDA kernel name: device ms a call} of `reps` calls of fn under
+    torch.profiler (after one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def _backwards(cs, MK, dims, n, seed, dev):
+    """Device ms (graph replay) of the f32 K3, K4, K5's (seeds, keep) and
+    K6's backwards at dims, and each call's kernels by device ms (traced)."""
+    import torch
+    b, l, k = dims
+    x = cs.kernel_inputs(torch.float32, seed, dev, dims, n)
+    g = torch.Generator().manual_seed(seed + 7)
+    ct_sum = torch.randn(b, l, cs.H, generator=g).to(dev) / 30.0
+    ct_edge = torch.randn(b, l, k, cs.H, generator=g).to(dev)
+    seeds = torch.randint(0, 2 ** 31 - 1, (b,), generator=g, dtype=torch.int32).to(dev)
+    keep = MK.keep_scales(seeds, (l, k, cs.H), cs.P_DROP)
+    base = [x[key] for key in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+    sum_args = [x[key] for key in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3")]
+    edge = base + [x["b3"], x["sc"], x["g"], ct_edge]
+    calls = {"fused_message_sum_bwd": lambda: MK.message_sum_bwd(*sum_args, ct_sum),
+             "fused_message_edge_lnmod_bwd": lambda: MK.message_edge_lnmod_bwd(*edge),
+             "fused_message_edge_lnmod_drop_bwd": lambda: MK.message_edge_lnmod_bwd(
+                 *edge, seeds=seeds, p=cs.P_DROP),
+             "fused_message_edge_lnmod_drop_bwd_keep": lambda: MK.message_edge_lnmod_bwd(
+                 *edge, keep=keep),
+             "fused_message_edge_bwd": lambda: MK.message_edge_bwd(*base, ct_edge)}
+    res = {}
+    for name, call in calls.items():
+        (ms,) = cs.replay_ms(call)
+        res[name] = {"device_ms": ms, "traced_kernels_ms": _traced(call, reps=3)}
+    del x, keep, calls
+    torch.cuda.empty_cache()
+    return res
 
 
 def _batch(n_frames, n_res, seed, device):

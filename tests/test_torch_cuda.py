@@ -13,7 +13,9 @@ K10 against theirs (K10 in bf16 also on offset views); K11 (K10's
 backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
 and K2 at every K the featurizer gives in bf16 and at every K the f32
-wrapper takes in f32 (3xTF32), each bit for bit from run to run; K7
+wrapper takes in f32 (3xTF32), each bit for bit from run to run; the f32
+K3, K4 and K5's backward (3xTF32) at every K the f32 wrapper takes against
+float64 autograd, every output but dGn bit for bit from run to run; K7
 against K2's kernel then K1's, bit for bit, both dtypes; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
@@ -228,6 +230,75 @@ def test_backward_kernels_match_plain_autograd(dev, dtype, L, N, K):
                                fused_message_edge_lnmod=1,
                                fused_message_edge_lnmod_bwd=1)
     assert sum(MK.LAUNCHES.values()) == 4
+
+
+# The f32 K3, K4 and K5's backward on the tensor cores (3xTF32, two passes
+# and the tensor-core weight-grad pass) at every K the f32 wrapper takes,
+# against autograd of the plain versions run in float64 on the same inputs
+# and cotangent, at chip_smoke.py's f32 grad limit (atol 2e-4 + rtol 2e-4 +
+# 2e-6 max|ref|: the weight grads sum every edge row), and every output but
+# dGn (f32 atomics) bit for bit from call to call.
+_BWD_NAMES = ("dA", "dE", "dGn", "dW_e", "dW2", "db2", "dW3", "db3", "dsh", "dsc", "dgate")
+
+
+def _f64(x):
+    return {k: v.double() if v.is_floating_point() else v for k, v in x.items()}
+
+
+def _check_bwd_f64(kernel_fn, plain_fn, x, keys, names, ct):
+    _, gk = _grads(kernel_fn, x, keys, names, ct)
+    torch.cuda.synchronize()
+    _, gp = _grads(plain_fn, _f64(x), keys, names, ct.double())
+    for n in names:
+        assert gk[n].dtype == torch.float32, n
+        d = (gk[n].double() - gp[n]).abs()
+        ref = gp[n].abs()
+        bound = 2e-4 + 2e-4 * ref + 2e-6 * ref.max()
+        assert bool((d <= bound).all()), (n, d.max().item(), ref.max().item())
+
+
+def _repeats(call):
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    for name, a, b in zip(_BWD_NAMES, first, again):
+        if name != "dGn":
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_message_sum_bwd_f32_tensor_cores_every_k(dev, K):
+    x = _inputs(dev, torch.float32, 3, 37, 50, K, seed=80 + K)
+    ct = torch.randn(3, 37, H, generator=torch.Generator().manual_seed(81)).to(dev)
+    MK.reset_launches()
+    _check_bwd_f64(lambda *a: MK.fused_message_sum(*a, 30.0),
+                   lambda *a: MK.ref_message_sum(*a, 30.0), x, _SUM, _GRAD, ct)
+    args = [x[k] for k in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3")]
+    _repeats(lambda: MK.message_sum_bwd(*args, ct / 30.0))
+    assert MK.LAUNCHES["fused_message_sum_bwd"] == 3
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_edge_lnmod_bwd_f32_tensor_cores_every_k(dev, K):
+    """K4, and K5's backward with seeds and with the keep tensor."""
+    B, L, N, p = 3, 21, 30, 0.6
+    x = _inputs(dev, torch.float32, B, L, N, K, seed=90 + K)
+    ct = torch.randn(B, L, K, H, generator=torch.Generator().manual_seed(91)).to(dev)
+    seeds = torch.tensor([11, -5, 2 ** 31 - 1], dtype=torch.int32, device=dev)
+    keep = MK.keep_scales(seeds, (L, K, H), p)
+    names = _GRAD + ("sh", "sc", "g")
+    MK.reset_launches()
+    for kern, plain in (
+            (MK.fused_message_edge_lnmod, MK.ref_message_edge_lnmod),
+            (lambda *a: MK.fused_message_edge_lnmod_pdrop(*a, seeds, p),
+             lambda *a: MK.plain_message_edge_lnmod_pdrop(*a, seeds, p)),
+            (lambda *a: MK.fused_message_edge_lnmod_drop(*a, keep),
+             lambda *a: MK.ref_message_edge_lnmod(*a, keep=keep))):
+        _check_bwd_f64(kern, plain, x, _EDGE, names, ct)
+    edge = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sc", "g")]
+    for kw in ({}, {"seeds": seeds, "p": p}, {"keep": keep}):
+        _repeats(lambda: MK.message_edge_lnmod_bwd(*edge, ct, **kw))
+    assert MK.LAUNCHES["fused_message_edge_lnmod_bwd"] == 3
+    assert MK.LAUNCHES["fused_message_edge_lnmod_drop_bwd"] == 6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
