@@ -19,12 +19,13 @@ Phases, each printing its seconds:
                 message_sum_bwd_mma_kernel; every bf16 weight-grad pass,
                 wgrad_mma_kernel) and K4 and the dropout kernel K5 (forward
                 and backward; bf16 K4 and K5's backward on the tensor cores,
-                message_edge_lnmod_bwd_mma_kernel; the bf16 K5 forward on
-                K2's tensor-core kernel, message_edge_lnmod_mma_kernel at
-                DROP 1 or 2: its seeded forward bit for bit the debug
-                forward's and the keep-tensor forward given that mask, a
-                keep of ones bit for bit K2, each forward twice bit for
-                bit), against torch.autograd
+                message_edge_lnmod_bwd_mma_kernel; the K5 forward on K2's
+                tensor-core kernel, message_edge_lnmod_mma_kernel (bf16) or
+                message_edge_lnmod_f32_mma_kernel (f32, 3xTF32) at DROP 1
+                or 2: in either dtype its seeded forward bit for bit the
+                debug forward's and the keep-tensor forward given that
+                mask, a keep of ones bit for bit K2, each forward twice bit
+                for bit), against torch.autograd
                 of the plain versions on the same inputs and cotangent, K5's
                 mask bit for bit against the plain generator, K3, K4 and
                 K5's backward (both dtypes; f32 on the tensor cores in
@@ -33,8 +34,8 @@ Phases, each printing its seconds:
                 data_grads_f32_mma_kernel, every f32 weight-grad pass
                 wgrad_f32_mma_kernel) twice bit for bit but dGn, each call's
                 device time split by CUDA kernel (main pass, weight-grad
-                pass, sum_partials; one traced call), the bf16 K5's seeded
-                backward bit for bit (but dGn) its keep-tensor backward
+                pass, sum_partials; one traced call), K5's seeded backward
+                (both dtypes) bit for bit (but dGn) its keep-tensor backward
                 given the forward's own mask, each timed a call and by graph
                 replay (K4's and K5's backward beside the CUDA-core body's
                 device time they replaced), K3's weight-grad
@@ -65,11 +66,15 @@ Phases, each printing its seconds:
   3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
                 per-edge messages; bf16 on the tensor cores,
                 message_edge_mma_kernel) at B96 L128 K64 and B96 L48 K48, f32
-                and bf16, against ref_message_edge, and its backward (bf16 on
-                the tensor cores, message_edge_bwd_mma_kernel, twice bit for
-                bit but dGn) against autograd of ref_message_edge (float64
-                for f32), timed a call and by graph replay beside the bound,
-                the plain version and the CUDA-core body's device time;
+                and bf16, against ref_message_edge, and its backward (on the
+                tensor cores: bf16 message_edge_bwd_mma_kernel, f32
+                message_edge_bwd_f32_mma_kernel then
+                data_grads_f32_mma_kernel in 3xTF32 and
+                wgrad_f32_mma_kernel; twice bit for bit but dGn) against
+                autograd of ref_message_edge (float64 for f32), timed a
+                call and by graph replay beside the bound, the plain
+                version and the CUDA-core body's device time (the f32
+                record `fused_message_edge_bwd_f32` with its split);
   4. kernels_k7 -- K7 (fused_edge_then_sum: K2 of one encoder layer chained
                 into K1 of the next in one kernel; bf16 on the tensor cores,
                 edge_then_sum_mma_kernel; f32 edge_then_sum_f32_mma_kernel)
@@ -101,12 +106,17 @@ Phases, each printing its seconds:
                 message_edge_lnmod_f32_mma_kernel, K7 with fuse_pairs as
                 edge_then_sum_f32_mma_kernel, no chain_kernel); an f32 fused
                 scan against the unfused one (300 K7, bit for bit equal);
-                f32 training steps at dropout 0.6 (ms a step, K1's forward
-                traced as message_sum_f32_mma_kernel, K3 and K5's backward
+                f32 training steps at dropout 0.6 (ms a step, K1's and K5's
+                forward traced as message_sum_f32_mma_kernel and
+                message_edge_lnmod_f32_mma_kernel, K3 and K5's backward
                 as message_sum_bwd_f32_mma_kernel,
                 message_edge_lnmod_bwd_f32_mma_kernel,
                 data_grads_f32_mma_kernel and wgrad_f32_mma_kernel, no
-                chain_bwd_kernel) and two at dropout 0 (K4's launches);
+                chain_kernel or chain_bwd_kernel), two at dropout 0 (K4's
+                launches) and four of the adaLN residual denoiser (gates
+                open, dropout 0.6; ms a step, the last traced: K6's
+                backward as message_edge_bwd_f32_mma_kernel, no
+                chain_bwd_kernel);
   8. reference -- a small batch through the same path in f32 on the card
                 and with the plain versions on the CPU, same weights and
                 noise (kNN indices, one denoise call, 10 sampling steps,
@@ -1126,8 +1136,7 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
             f"{'ok' if fwd_ok else 'FAIL'}")
         if not (same and abs(frac - (1 - P_DROP)) <= 0.002 and fwd_ok):
             raise RuntimeError(f"K5 ({dname}) forward or mask disagrees with its plain version")
-        if dtype == torch.bfloat16:
-            check_k5_forward_bits(args(_EDGE_KEYS), seeds, out, mask, dims)
+        check_k5_forward_bits(args(_EDGE_KEYS), seeds, out, mask, dims)
         del out, mask, want
         fwd_err = d.max().item()
         k5 = lambda: MK.fused_message_edge_lnmod_pdrop(*args(_EDGE_KEYS), seeds, P_DROP)
@@ -1146,17 +1155,15 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
         _, _, plain_bwd = grads_of(plain_pd, x, _EDGE_KEYS, edge_diff, ct_edge)
         k5b = lambda: MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, seeds=seeds, p=P_DROP)
         check_repeats(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b)
-        if dtype == torch.bfloat16:
-            # the mask the seeded backward regenerates is the forward's: the
-            # keep-tensor backward given the forward's own mask (2.5 and 0,
-            # exact in bf16) gives the same bits but dGn's
-            _, fwd_mask = MK.edge_lnmod_pdrop_debug(*args(_EDGE_KEYS), seeds, P_DROP)
-            check_same_bits(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b(),
-                            MK.message_edge_lnmod_bwd(*bwd_args, ct_edge,
-                                                      keep=fwd_mask.to(dtype)),
-                            "seeded and given the forward's own mask as keep (the mask it "
-                            "regenerates is the forward's):")
-            del fwd_mask
+        # the mask the seeded backward regenerates is the forward's: the
+        # keep-tensor backward given the forward's own mask (2.5 and 0, exact
+        # in bf16 and f32) gives the same bits but dGn's
+        _, fwd_mask = MK.edge_lnmod_pdrop_debug(*args(_EDGE_KEYS), seeds, P_DROP)
+        check_same_bits(f"K5 backward {dname} {dims_tag(dims, n_nodes)}", k5b(),
+                        MK.message_edge_lnmod_bwd(*bwd_args, ct_edge, keep=fwd_mask.to(dtype)),
+                        "seeded and given the forward's own mask as keep (the mask it "
+                        "regenerates is the forward's):")
+        del fwd_mask
         ms, plain_ms = time_calls(k5b, plain_bwd)
         (dev_ms,) = replay_ms(k5b)
         nbytes, flops = bwd_bytes_flops(es, True, dims, n_nodes=n_nodes)
@@ -1185,15 +1192,17 @@ def check_bwd_kernels(device, seed, dims=(B, L, K), n_nodes=None, f32_records=Fa
 
 
 def check_k5_forward_bits(x, seeds, out, mask, dims):
-    """The bf16 K5 forward runs K2's tensor-core kernel: given the debug
-    forward's (out, mask), the seeded forward equals it and the keep-tensor
-    forward given that mask (2.5 and 0, exact in bf16), a keep of ones
-    equals K2, each bit for bit, and every forward repeats bit for bit;
-    raise otherwise."""
+    """K5's forward runs K2's tensor-core kernel (bf16, and f32 in 3xTF32):
+    given the debug forward's (out, mask), the seeded forward equals it and
+    the keep-tensor forward given that mask (2.5 and 0, exact in either
+    dtype), a keep of ones equals K2, each bit for bit, and every forward
+    repeats bit for bit; raise otherwise."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
+    dt = x[1].dtype
+    dname = str(dt).split(".")[-1]
     seeded = lambda: MK.fused_message_edge_lnmod_pdrop(*x, seeds, P_DROP)
-    kept = lambda: MK.fused_message_edge_lnmod_drop(*x, mask.to(torch.bfloat16))
+    kept = lambda: MK.fused_message_edge_lnmod_drop(*x, mask.to(dt))
     ones = torch.ones_like(out)
     checks = {
         "the seeded forward equals the debug forward": (seeded(), out),
@@ -1209,17 +1218,18 @@ def check_k5_forward_bits(x, seeds, out, mask, dims):
     }
     torch.cuda.synchronize()
     bad = [k for k, (a, b) in checks.items() if not torch.equal(a, b)]
-    log(f"  K5 forward bfloat16 {dims_tag(dims)} (K2's tensor-core kernel): "
+    log(f"  K5 forward {dname} {dims_tag(dims)} (K2's tensor-core kernel): "
         f"{'; '.join(k for k in checks if k not in bad)}: bit for bit"
         + (f"; FAILED: {bad}" if bad else ""))
     if bad:
-        raise RuntimeError(f"K5 forward bfloat16 {dims_tag(dims)}: {bad}")
+        raise RuntimeError(f"K5 forward {dname} {dims_tag(dims)}: {bad}")
 
 
-# the f32 backwards on the tensor cores in 3xTF32 (their records carry
-# tc_bound_ms); K6's f32 backward keeps its main pass on CUDA cores
-TF32_BWD = ("fused_message_sum_bwd", "fused_message_edge_lnmod_bwd",
-            "fused_message_edge_lnmod_drop_bwd")
+# the f32 kernels of these records run on the tensor cores in 3xTF32 (their
+# records carry tc_bound_ms): the backwards and K5's forward (K2's kernel)
+TF32_RECORDS = ("fused_message_sum_bwd", "fused_message_edge_lnmod_bwd",
+                "fused_message_edge_lnmod_drop_bwd", "fused_message_edge_bwd",
+                "fused_message_edge_lnmod_drop")
 
 
 def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra,
@@ -1230,7 +1240,7 @@ def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, ex
     `<name>_f32`)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[dname] * 1e3
-    if dname == "float32" and name in TF32_BWD:
+    if dname == "float32" and name in TF32_RECORDS:
         extra = dict(extra, tc_bound_ms=tc_bound_ms(nbytes, flops))
     more = "".join(f", {k} {v:.4f} ms" if isinstance(v, float) else f", {k} {v}"
                    for k, v in extra.items() if k != "device_ms")
@@ -1260,8 +1270,9 @@ def bf16_close(got, want, tol):
 def check_k6_kernels(device, seed, dims=(B, L, K)):
     """K6 (fused_message_edge) against ref_message_edge, and its backward
     against autograd of ref_message_edge (float64 for the f32 kernel, as K4),
-    f32 and bf16; timed beside the bound and the plain version. Returns the
-    bf16 record of each."""
+    f32 and bf16, twice bit for bit but dGn; timed beside the bound and the
+    plain version. Returns the bf16 record of each, and the f32 record of
+    the backward (`fused_message_edge_bwd_f32`, on the tensor cores)."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
@@ -1305,8 +1316,7 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         _, _, plain_bwd = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
         bwd_args = [x[n] for n in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
         k6b = lambda: MK.message_edge_bwd(*bwd_args, ct)
-        if dtype == torch.bfloat16:
-            check_repeats(f"K6 backward {dname} {dims_tag(dims)}", k6b)
+        check_repeats(f"K6 backward {dname} {dims_tag(dims)}", k6b)
         ms, plain_ms = time_calls(k6b, plain_bwd)
         (dev_ms,) = replay_ms(k6b)
         bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True),
@@ -1315,7 +1325,8 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         del plain_bwd, x, args, ct
         torch.cuda.empty_cache()
         for name, rec in (("fused_message_edge", fwd), ("fused_message_edge_bwd", bwd)):
-            records_bwd(records, name, dname, dims, *rec)
+            records_bwd(records, name, dname, dims, *rec,
+                        keep_f32=name == "fused_message_edge_bwd")
     return records
 
 
@@ -1533,10 +1544,11 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
             {k: torch.as_tensor(v, device=device) for k, v in extras.items()})
 
 
-CHAIN_KERNELS = ("chain_kernel", "chain_bwd_kernel", "sum_partials",  # csrc
+CHAIN_KERNELS = ("chain_kernel", "sum_partials",  # csrc
                  "message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
                  "edge_then_sum_f32_mma_kernel", "message_sum_bwd_f32_mma_kernel",
-                 "message_edge_lnmod_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
+                 "message_edge_lnmod_bwd_f32_mma_kernel", "message_edge_bwd_f32_mma_kernel",
+                 "data_grads_f32_mma_kernel",
                  "wgrad_f32_mma_kernel", "message_sum_mma_kernel",
                  "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
                  "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
@@ -4972,11 +4984,12 @@ def f32_kernel_names(pipe, batch, device, seed):
 
 def phase_f32_chain(seed, device, records, batch):
     """Phase 7b: the f32 denoiser's sampling path (K1, K2 and K7 on the
-    tensor cores in 3xTF32) and f32 training steps (K3 and K4 / K5's
-    backward on the tensor cores too). Fills the launches of the f32 K1,
-    K2, K7 records (bench shape and L = 48) and of the f32 K3, K4 and K5's
+    tensor cores in 3xTF32) and f32 training steps (K5's forward, K3 and
+    K4 / K5's backward on the tensor cores too; in residual mode K6's
+    backward). Fills the launches of the f32 K1, K2, K7 records (bench
+    shape and L = 48) and of the f32 K5 forward, K3, K4, K5's and K6's
     backward records and returns
-    {steps_per_s, steps_per_s_k48, fused, train_ms}."""
+    {steps_per_s, steps_per_s_k48, fused, train_ms, resid_ms}."""
     import torch
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
     pipe = build_pipeline(device, seed)   # f32: no compute dtype
@@ -5020,15 +5033,16 @@ def phase_f32_chain(seed, device, records, batch):
     times, metrics, totals = run_train(state, step, x1, extras, seed, 6, per_step, traced=1,
                                        names=ran)
     times = times[1:]                                   # the first step is cold
-    need = ("message_sum_f32_mma_kernel", "message_sum_bwd_f32_mma_kernel",
-            "message_edge_lnmod_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
-            "wgrad_f32_mma_kernel")
+    need = ("message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
+            "message_sum_bwd_f32_mma_kernel", "message_edge_lnmod_bwd_f32_mma_kernel",
+            "data_grads_f32_mma_kernel", "wgrad_f32_mma_kernel")
     if ran and (not all(any(k in n for n in ran) for k in need)
-                or any("chain_bwd_kernel" in n for n in ran)):
-        raise RuntimeError(f"the f32 training step did not run K1, K3 and K5's backward on "
-                           f"their tensor-core kernels {need} (or ran chain_bwd_kernel): "
-                           f"{sorted(ran)}")
-    for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop_bwd"):
+                or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
+        raise RuntimeError(f"the f32 training step did not run K1, K5's forward, K3 and K5's "
+                           f"backward on their tensor-core kernels {need} (or ran "
+                           f"chain_kernel or chain_bwd_kernel): {sorted(ran)}")
+    for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
+                 "fused_message_edge_lnmod_drop_bwd"):
         records[f"{name}_f32"]["launches"] = totals[name]
     del model, state, step
     model, state, step = build_trainer(device, seed, dropout=0.0)   # f32, K2 / K4
@@ -5036,12 +5050,28 @@ def phase_f32_chain(seed, device, records, batch):
                              train_launches(len(model.enc_layers), len(model.dec_layers), 0.0))
     records["fused_message_edge_lnmod_bwd_f32"]["launches"] = totals[
         "fused_message_edge_lnmod_bwd"]
+    del model, state, step
+    # the adaLN residual denoiser (gates open, dropout 0.6): K6's f32
+    # backward on its tensor-core passes (its forward stays on CUDA cores)
+    model, state, step = build_trainer(device, seed, gates=True, adaln_mode="residual")
+    ran = set()
+    resid, _, totals = run_train(state, step, x1, extras, seed, 4,
+                                 train_launches(len(model.enc_layers), len(model.dec_layers),
+                                                P_DROP, "residual"), traced=1, names=ran)
+    need_r = ("message_edge_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
+              "wgrad_f32_mma_kernel")
+    if ran and (not all(any(k in n for n in ran) for k in need_r)
+                or any("chain_bwd_kernel" in n for n in ran)):
+        raise RuntimeError(f"the f32 residual training step did not run K6's backward on "
+                           f"{need_r} (or ran chain_bwd_kernel): {sorted(ran)}")
+    records["fused_message_edge_bwd_f32"]["launches"] = totals["fused_message_edge_bwd"]
     del model, state, step, x1, extras
     torch.cuda.empty_cache()
     return {"steps_per_s": steps / timed["seconds"], "seconds": timed["seconds"],
             "steps_per_s_k48": steps / out48["seconds"], "fused": fs,
             "train_ms": statistics.median(times), "train_times": times,
-            "loss": float(metrics["loss"])}
+            "loss": float(metrics["loss"]), "resid_ms": resid[1:],
+            "resid_traced": bool(ran)}
 
 
 def main(argv=None):
@@ -5165,6 +5195,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     f32 = phase_f32_chain(args.seed, device, records, batch)
     fs32 = f32["fused"]
+    k6_trace = ("traced as message_edge_bwd_f32_mma_kernel, no chain_bwd_kernel"
+                if f32["resid_traced"] else "not traced (no device events)")
     log(f"phase f32_chain: {time.perf_counter() - t0:.2f} s; f32 denoiser (K1, K2, K7 on the "
         f"tensor cores, 3xTF32): a {steps}-step draw + decode at B{B} L{L} K{K} "
         f"{f32['seconds']:.3f} s ({f32['steps_per_s']:.2f} steps/s; launches 600 K1, 300 K2 "
@@ -5176,7 +5208,11 @@ def main(argv=None):
         f"{steps / statistics.median(fs32['fused_s']):.2f} / unfused "
         f"{steps / statistics.median(fs32['unfused_s']):.2f} steps/s; f32 training at dropout "
         f"{P_DROP}, B{B} L{L}: median {f32['train_ms']:.2f} ms/step over "
-        f"{[round(x, 2) for x in f32['train_times']]} (last loss {f32['loss']:.5g})")
+        f"{[round(x, 2) for x in f32['train_times']]} (last loss {f32['loss']:.5g}; K5's "
+        f"forward traced as message_edge_lnmod_f32_mma_kernel, no chain_kernel or "
+        f"chain_bwd_kernel); f32 residual training (gates open) "
+        f"{[round(x, 2) for x in f32['resid_ms']]} ms/step after the first, K6's backward "
+        f"{k6_trace}")
 
     t0 = time.perf_counter()
     reference_check(args.seed)

@@ -1,6 +1,6 @@
 // Helpers shared by the message-chain kernels (message_chain.cu, forward;
-// message_chain_bwd.cu, backward): vector loads and stores, tanh-gelu and its
-// derivative, a CUDA-core tile product, and the counter-based dropout bits.
+// message_chain_bwd.cu, backward): vector loads and stores, tanh-gelu, a
+// CUDA-core tile product, and the counter-based dropout bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,14 +28,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(u));
 }
 
-// d gelu_tanh(x) / dx
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  const float t = tanhf(u);
-  return 0.5f * (1.0f + t) +
-         0.5f * x * (1.0f - t * t) * 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x);
-}
-
 // eight consecutive f32 values <-> registers (16-byte aligned addresses)
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -51,10 +43,9 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
 
 // acc[m][n] = sum_i X[r0+m][i] * W[i][c0+n] over the shared tile X (row
 // stride XS) and the shared weight W [H][H], f32 FMAs on CUDA cores. It
-// serves the f32 K5 forward, K6 and the f32 backwards only: every bf16
-// kernel runs its products on the tensor cores (chain_mma.cuh's slab
-// functions in message_chain.cu and message_chain_bwd.cu), and so do the f32
-// K1, K2 and K7 (chain_tf32.cuh, 3xTF32).
+// serves the f32 K6 forward only: every other kernel runs its products on
+// the tensor cores (chain_mma.cuh's slab functions in bf16, chain_tf32.cuh's
+// in f32, 3xTF32).
 template <typename T, int TM, int XS>
 __device__ __forceinline__ void tile_gemm(const T* sX, const T* sW, int r0, int c0,
                                           float (&acc)[TM][TN]) {

@@ -1,13 +1,15 @@
 // The slab functions of the f32 tensor-core message chains (message_chain.cu:
-// K1 `message_sum_f32_mma_kernel`, K2 `message_edge_lnmod_f32_mma_kernel`
-// and K7 `edge_then_sum_f32_mma_kernel`). Every product runs on mma.sync
-// m16n8k8 in TF32 with the 3xTF32 split (`split`): x = hi + lo, hi = x
-// rounded to TF32 (nearest, ties away from zero), lo = x - hi, and c +=
-// lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b, ~2^-22 of the product, is
-// left out), every sum in f32. One TF32 product alone keeps ~11 bits of each
-// operand: ~1e-3 off the f32 chain, several times the f32 limits; the split
-// is as close to the float64 chain as f32 itself
-// (tests/test_torch_chain_tiles_f32.py).
+// K1 `message_sum_f32_mma_kernel`, K2 and K5's forward
+// `message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>` and K7
+// `edge_then_sum_f32_mma_kernel`; message_chain_bwd.cu's f32 backwards).
+// Every product runs on mma.sync m16n8k8 in TF32 with the 3xTF32 split
+// (`split`): x = hi + lo, hi = x rounded to TF32 (nearest, ties away from
+// zero), lo = x - hi, and c += lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b,
+// ~2^-22 of the product, is left out), every sum in f32. One TF32 product
+// alone keeps ~11 bits of each operand: ~1e-3 off the f32 chain, several
+// times the f32 limits; the split is as close to the float64 chain as f32
+// itself (tests/test_torch_chain_tiles_f32.py), but for the tensor core's
+// truncating sums (mma_slab's G).
 //
 // A warp owns a 16-row slab of one residue x all 128 columns: 16 n8
 // accumulator tiles, 64 f32 registers a lane. Rows at or past K (K not a
@@ -196,19 +198,51 @@ __device__ __forceinline__ void preset(float (&acc)[16][4], const float* __restr
 }
 
 // acc += x W: x the slab's rows in the accumulator layout (x[kk] the A
-// fragment of k8 step kk), W staged by stage_frag in sW
+// fragment of k8 step kk), W staged by stage_frag in sW. G > 0: the products
+// of each G k8 steps summed from zero, then added to acc in f32 (round to
+// nearest). The tensor core's own sums truncate toward zero: 48 truncating
+// adds into the running sum of an H-long product (16 k8 steps x 3) leave a
+// backward's operands off by several times f32's error, and the weight
+// grads, which sum them over every edge row, several times f32 autograd's
+// (PERF.md has the measurement and a model of it); K6's backward takes G =
+// 2.
+template <int G = 0>
 __device__ __forceinline__ void mma_slab(float (&acc)[16][4], const float (&x)[16][4],
                                          const float* sW, int lane) {
   const float4* w = reinterpret_cast<const float4*>(sW) + lane;
+  if constexpr (G == 0) {
 #pragma unroll
-  for (int kk = 0; kk < 16; ++kk) {
-    uint32_t hi[4], lo[4];
-    a_split(x[kk], hi, lo);
+    for (int kk = 0; kk < 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      a_split(x[kk], hi, lo);
 #pragma unroll
-    for (int np = 0; np < 8; ++np) {
-      const float4 v = w[(kk * 8 + np) * 32];
-      mma3(acc[2 * np], hi, lo, v.x, v.y);
-      mma3(acc[2 * np + 1], hi, lo, v.z, v.w);
+      for (int np = 0; np < 8; ++np) {
+        const float4 v = w[(kk * 8 + np) * 32];
+        mma3(acc[2 * np], hi, lo, v.x, v.y);
+        mma3(acc[2 * np + 1], hi, lo, v.z, v.w);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < 16; k0 += G) {
+      uint32_t hi[G][4], lo[G][4];
+#pragma unroll
+      for (int j = 0; j < G; ++j) a_split(x[k0 + j], hi[j], lo[j]);
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float4 v = w[((k0 + j) * 8 + np) * 32];
+          mma3(t0, hi[j], lo[j], v.x, v.y);
+          mma3(t1, hi[j], lo[j], v.z, v.w);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[2 * np][i] += t0[i];
+          acc[2 * np + 1][i] += t1[i];
+        }
+      }
     }
   }
 }
@@ -234,31 +268,85 @@ __device__ __forceinline__ void chain_x2(float (&x2)[16][4], const float (&e)[16
 }
 
 // ---------------------------------------------------------------------------
-// K2 (and K7's edge half): one slab
+// K2 (and K7's edge half, and K5's forward): one slab
 
-// out = g (LN(E + msg + b3) (1 + sc) + sh) of the slab's rows at the
-// accumulator positions (acc = msg), f32; e the slab's E rows as load_rows
-// gave them to the first product (the accumulator layout: e[nt] lies where
-// acc[nt] does; kept in registers rather than read again); the
-// LayerNorm's sums as message_chain.cu's bf16 lnmod_out takes them (a lane's
-// columns in order, then the quad by two shuffles). sb3 in shared memory,
-// sh, sc, g the sample's [H] rows.
+// K5's dropout on msg + b3 (DROP 1: `keep`, f32 [B, L, K, H] scales; DROP 2:
+// made from `seeds` by the counter hash of chain_common.cuh, keep iff
+// drop_bits(key, i) >= thresh, i = ((l K) + k) H + c the element of sample
+// b, scaled by kscale; MASK_OUT: the scales to mask_out, f32 [B, L, K, H]).
+// LK = L K, a sample's edge rows.
+struct Dropout {
+  const float* keep;
+  const int* seeds;
+  uint32_t thresh;
+  float kscale;
+  float* mask_out;
+  long long LK;
+};
+
+// out = g (LN(E + (msg + b3) x keep) (1 + sc) + sh) of the slab's rows at
+// the accumulator positions (acc = msg), f32, keep 1 at DROP 0; e the slab's
+// E rows as load_rows gave them to the first product (the accumulator
+// layout: e[nt] lies where acc[nt] does; kept in registers rather than read
+// again); the LayerNorm's sums as message_chain.cu's bf16 lnmod_out takes
+// them (a lane's columns in order, then the quad by two shuffles). sb3 in
+// shared memory, sh, sc, g the sample's [H] rows. DROP 2 makes the mask
+// first, 64 bits a lane, with the hashes in a loop that is not unrolled
+// (their code once, not 16 times: unrolled, they cost the instruction
+// cache); both modes then apply one expression, rounded as JAX's E + msg x
+// keep (the product, then the sum), so the seeded forward and the keep
+// forward given its mask give the same bits, and a keep of ones K2's.
+template <int DROP = 0, bool MASK_OUT = false>
 __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], const float (&e)[16][4],
                                           const float* sb3,
                                           const float* __restrict__ sh,
                                           const float* __restrict__ sc,
                                           const float* __restrict__ gate, float* out,
-                                          const Slab& s) {
+                                          const Slab& s, const Dropout& d = {}) {
   const int g = s.lane >> 2, t4 = s.lane & 3;
+  const bool ok[2] = {g < s.nrow, g + 8 < s.nrow};
+  unsigned km[2] = {0u, 0u};  // DROP 2: keep bit 2 nt + i of rows g, g + 8
+  if constexpr (DROP == 2) {
+    const uint32_t key = chain::sample_key(__ldg(d.seeds + s.b), s.b);
+    const size_t r0 = s.row0 - (size_t)s.b * d.LK;  // the slab's first row in its sample
+#pragma unroll 1
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t i0 = (uint32_t)((r0 + g + 8 * h) * H + 8 * nt + 2 * t4);
+        km[h] |= (chain::drop_bits(key, i0) >= d.thresh ? 1u : 0u) << (2 * nt) |
+                 (chain::drop_bits(key, i0 + 1) >= d.thresh ? 1u : 0u) << (2 * nt + 1);
+      }
+  }
   float mean[2] = {0.0f, 0.0f}, rstd[2] = {0.0f, 0.0f};
   {
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
-      const float2 bias = *reinterpret_cast<const float2*>(sb3 + 8 * nt + 2 * t4);
+      const int c = 8 * nt + 2 * t4;
+      const float2 bias = *reinterpret_cast<const float2*>(sb3 + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        acc[nt][2 * h] = e[nt][2 * h] + (acc[nt][2 * h] + bias.x);
-        acc[nt][2 * h + 1] = e[nt][2 * h + 1] + (acc[nt][2 * h + 1] + bias.y);
+        if constexpr (DROP == 0) {
+          acc[nt][2 * h] = e[nt][2 * h] + (acc[nt][2 * h] + bias.x);
+          acc[nt][2 * h + 1] = e[nt][2 * h + 1] + (acc[nt][2 * h + 1] + bias.y);
+        } else {
+          const size_t r = s.row0 + g + 8 * h;
+          float2 kp;
+          if constexpr (DROP == 1) {
+            kp = ok[h] ? __ldg(reinterpret_cast<const float2*>(d.keep + r * H + c))
+                       : make_float2(0.0f, 0.0f);
+          } else {
+            kp = make_float2((km[h] >> (2 * nt)) & 1u ? d.kscale : 0.0f,
+                             (km[h] >> (2 * nt + 1)) & 1u ? d.kscale : 0.0f);
+          }
+          if constexpr (MASK_OUT)
+            if (ok[h]) *reinterpret_cast<float2*>(d.mask_out + r * H + c) = kp;
+          // __fmul_rn: never contracted into an fma with the add, in
+          // either mode (a select between them could stop one from it)
+          acc[nt][2 * h] = e[nt][2 * h] + __fmul_rn(acc[nt][2 * h] + bias.x, kp.x);
+          acc[nt][2 * h + 1] =
+              e[nt][2 * h + 1] + __fmul_rn(acc[nt][2 * h + 1] + bias.y, kp.y);
+        }
         mean[h] += acc[nt][2 * h];
         mean[h] += acc[nt][2 * h + 1];
       }
@@ -293,7 +381,7 @@ __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], const float (&e)[
     const float2 shv = __ldg(sh2 + 4 * nt), scv = __ldg(sc2 + 4 * nt), gv = __ldg(g2 + 4 * nt);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (g + 8 * h < s.nrow) {
+      if (ok[h]) {
         const float o0 = gv.x * (((acc[nt][2 * h] - mean[h]) * rstd[h]) * (1.0f + scv.x) + shv.x);
         const float o1 =
             gv.y * (((acc[nt][2 * h + 1] - mean[h]) * rstd[h]) * (1.0f + scv.y) + shv.y);
@@ -305,8 +393,10 @@ __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], const float (&e)[
 }
 
 // K2's chain of one slab: E's rows, x2, h2 = gelu(x2 + b2) in place (the A
-// operand of the W3 product), msg = h2 W3, then lnmod_out with those E rows. sWe, sW2 as chain_x2, sW3
-// W3 (stage_frag<false, false>); sb2, sb3 in shared memory.
+// operand of the W3 product), msg = h2 W3, then lnmod_out with those E rows
+// (K5's forward: DROP, MASK_OUT and d as lnmod_out's). sWe, sW2 as
+// chain_x2, sW3 W3 (stage_frag<false, false>); sb2, sb3 in shared memory.
+template <int DROP = 0, bool MASK_OUT = false>
 __device__ __forceinline__ void edge_slab(const float* E, const float* __restrict__ A,
                                           const float* __restrict__ Gn,
                                           const int* __restrict__ idx, const float* sWe,
@@ -314,7 +404,7 @@ __device__ __forceinline__ void edge_slab(const float* E, const float* __restric
                                           const float* sb3, const float* __restrict__ sh,
                                           const float* __restrict__ sc,
                                           const float* __restrict__ gate, float* out, int L,
-                                          int N, const Slab& s) {
+                                          int N, const Slab& s, const Dropout& d = {}) {
   const int t4 = s.lane & 3;
   float e[16][4], h2[16][4];
   load_rows(e, E, s);
@@ -331,7 +421,7 @@ __device__ __forceinline__ void edge_slab(const float* E, const float* __restric
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
   mma_slab(acc, h2, sW3, s.lane);
-  lnmod_out(acc, e, sb3, sh, sc, gate, out, s);
+  lnmod_out<DROP, MASK_OUT>(acc, e, sb3, sh, sc, gate, out, s, d);
 }
 
 // ---------------------------------------------------------------------------

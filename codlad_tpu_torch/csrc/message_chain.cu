@@ -6,8 +6,8 @@
 //   K5 message_edge_lnmod_drop_* (forward) <- _edge_lnmod_kernel with has_keep
 //      (fused_message_edge_lnmod_drop) or drop_p (fused_message_edge_lnmod_pdrop,
 //      mask from _inkernel_keep); here the mask is the counter hash of
-//      chain_common.cuh, a pure function of (seed, sample, element); in bf16
-//      K2's tensor-core kernel at DROP 1 (keep) or 2 (seeds)
+//      chain_common.cuh, a pure function of (seed, sample, element); K2's
+//      tensor-core kernel at DROP 1 (keep) or 2 (seeds), in either dtype
 //   K6 message_edge_*       <- _edge_kernel / _pallas_message_edge
 //   K7 edge_then_sum_*      <- _edge_then_sum_kernel / _pallas_edge_then_sum
 //
@@ -25,7 +25,7 @@
 //
 // Three designs share this file.
 //
-// f32 K5's forward and f32 K6 (`chain_kernel`, CUDA cores). One block of 256
+// f32 K6 (`chain_kernel`, CUDA cores). One block of 256
 // threads owns ROWS = 64 edge rows (4 a thread), i.e. floor(ROWS/K) whole
 // residues; where K does not divide ROWS (K = 48) the rows past the last whole
 // residue stay idle: they load zeros and store nothing. W_e, W2 and W3 are
@@ -37,19 +37,28 @@
 // with warp shuffles. This design is bound by the f32 FMA rate (67 TFLOP/s),
 // not by memory; ROADMAP.md queue 2b lists it for the tensor cores next.
 //
-// f32 K1, K2 and K7 on the tensor cores in 3xTF32 (`message_sum_f32_mma_kernel`,
-// `message_edge_lnmod_f32_mma_kernel`, `edge_then_sum_f32_mma_kernel`; the
-// slab functions of chain_tf32.cuh and the design note there, below). Every
-// f32 kernel takes K <= 64, a multiple of 4.
+// f32 K1, K2, K5's forward and K7 on the tensor cores in 3xTF32
+// (`message_sum_f32_mma_kernel`, `message_edge_lnmod_f32_mma_kernel<DROP,
+// MASK_OUT>`, `edge_then_sum_f32_mma_kernel`; the slab functions of
+// chain_tf32.cuh and the design note there, below). Every f32 kernel takes K
+// <= 64, a multiple of 4. K5's forward is K2's kernel with the keep scales
+// applied to msg + b3 in lnmod_out's first pass, where JAX's
+// _edge_lnmod_kernel applies them: DROP 1 reads `keep` (f32) there, DROP 2
+// first makes the slab's mask as 64 bits a lane from the counter hash of the
+// natural element index (the indices the f32 backward regenerates it from),
+// its hashes in a rolled loop; MASK_OUT (edge_lnmod_pdrop_debug only) writes
+// the scales. It is bound as K2 (below) plus the hash, two lowbias32 an
+// element, ~100 M a call on the integer units, which the rolled loop keeps
+// out of the instruction cache's way.
 //
 // Bound on an H100 at the bench shape (B96 L128 K64 H128): the per-edge H x H
 // products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for K7); the
 // bytes moved (the E tile read once, plus the edge output's write) put the
 // floor at 0.07-0.13 ms in bf16 and 0.12-0.24 ms in f32. In 3xTF32 the
 // products are three TF32 ones each: 0.32 ms (K1) and 0.47 ms (K2) at the
-// tensor cores' 495 TFLOP/s; a loop of these products alone reached 47% of
-// that peak (scripts/tf32_split_bench.py), so the products bound the f32 K1
-// and K2 near 0.67 and 0.99 ms.
+// tensor cores' 495 TFLOP/s (K5's forward as K2); a loop of these products
+// alone reached 47% of that peak (scripts/tf32_split_bench.py), so the
+// products bound the f32 K1 and K2 near 0.67 and 0.99 ms.
 //
 // In bf16, K1 (`message_sum_mma_kernel`), K2 and K5's forward
 // (`message_edge_lnmod_mma_kernel<DROP, MASK_OUT>`), K6
@@ -219,19 +228,11 @@ __device__ __forceinline__ void chain_h2(T* sX, const T* sWe, const T* sW2,
     for (int n = 0; n < TN; ++n) acc[m][n] = gelu_tanh(acc[m][n] + bias[n]);
 }
 
-// The per-edge epilogue: msg = cast(h2) W3 + b3 (W3 in sW3); K6 (RAW) writes msg,
-// K5's forward writes g * (LN(E + msg x keep) * (1 + sc) + sh) with the keep
-// scales read from `keep` (E's dtype; DROP = 1) or made here from `seeds` by
-// the counter hash (DROP = 2; `mask_out`, when not null, receives them as f32
-// for validation).
-template <typename T, int DROP, bool RAW>
-__device__ __forceinline__ void edge_epilogue(
-    float (&acc)[Traits<T>::TM][TN], T* sX, const T* sW3, const T* __restrict__ E,
-    const float* __restrict__ b3, const float* __restrict__ sh,
-    const float* __restrict__ sc, const float* __restrict__ gate,
-    const T* __restrict__ keep, const int* __restrict__ seeds, uint32_t thresh,
-    float kscale, float* __restrict__ mask_out, T* __restrict__ out, int K,
-    const Tile& t) {
+// K6's per-edge epilogue: out = cast(h2) W3 + b3 (W3 in sW3)
+template <typename T>
+__device__ __forceinline__ void edge_epilogue(float (&acc)[Traits<T>::TM][TN], T* sX,
+                                              const T* sW3, const float* __restrict__ b3,
+                                              T* __restrict__ out, const Tile& t) {
   using Tr = Traits<T>;
   constexpr int TM = Tr::TM;
   constexpr int XS = H + Tr::XPAD;
@@ -250,81 +251,25 @@ __device__ __forceinline__ void edge_epilogue(
   fwd_gemm<T>(sX, sW3, t.r0, t.c0, acc);
   float bias[8];
   load8(b3 + t.c0, bias);
-  if constexpr (RAW) {
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int r = t.r0 + m;
-      float v[8];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) v[n] = acc[m][n] + bias[n];
-      if (r < t.nrows) store8(out + (t.row0 + r) * H + t.c0, v);
-    }
-    return;
-  }
-  float shv[8], scv[8], gv[8];
-  load8(sh + (size_t)t.b * H + t.c0, shv);
-  load8(sc + (size_t)t.b * H + t.c0, scv);
-  load8(gate + (size_t)t.b * H + t.c0, gv);
-  uint32_t key = 0;
-  if constexpr (DROP == 2) key = sample_key(seeds[t.b], t.b);
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     const int r = t.r0 + m;
-    float v[8], kp[8];
-    if (r < t.nrows) {
-      load8(E + (t.row0 + r) * H + t.c0, v);
-      if constexpr (DROP == 1) load8(keep + (t.row0 + r) * H + t.c0, kp);
-    } else {
+    float v[8];
 #pragma unroll
-      for (int n = 0; n < TN; ++n) v[n] = kp[n] = 0.0f;
-    }
-    if constexpr (DROP == 2) {
-      const uint32_t e0 = (uint32_t)(((size_t)t.l0 * K + r) * H + t.c0);
-#pragma unroll
-      for (int n = 0; n < TN; ++n) kp[n] = drop_bits(key, e0 + n) >= thresh ? kscale : 0.0f;
-      if (mask_out != nullptr && r < t.nrows)
-        store8(mask_out + (t.row0 + r) * H + t.c0, kp);
-    }
-    float s = 0.0f;
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      float msg = acc[m][n] + bias[n];
-      if constexpr (DROP != 0) msg *= kp[n];
-      v[n] = v[n] + msg;
-      s += v[n];
-    }
-    // the 16 lanes of a row are 16 consecutive lanes of one warp
-#pragma unroll
-    for (int off = CG / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float mean = s / H;
-    float q = 0.0f;
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const float d = v[n] - mean;
-      q += d * d;
-    }
-#pragma unroll
-    for (int off = CG / 2; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-    const float rstd = rsqrtf(q / H + 1e-6f);
-#pragma unroll
-    for (int n = 0; n < TN; ++n)
-      v[n] = gv[n] * (((v[n] - mean) * rstd) * (1.0f + scv[n]) + shv[n]);
+    for (int n = 0; n < TN; ++n) v[n] = acc[m][n] + bias[n];
     if (r < t.nrows) store8(out + (t.row0 + r) * H + t.c0, v);
   }
 }
 
-// f32 K5's forward (DROP 1, 2) and K6 (RAW) on CUDA cores, [B, L, K, H] out
-// (every bf16 kernel, and the f32 K1, K2 and K7, run on the tensor cores, below).
-template <typename T, int DROP, bool RAW>
+// f32 K6 on CUDA cores, [B, L, K, H] out (every other kernel runs on the
+// tensor cores, below).
+template <typename T>
 __global__ void __launch_bounds__(NT)
 chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
              const int* __restrict__ idx, const T* __restrict__ We,
              const T* __restrict__ W2, const float* __restrict__ b2,
-             const T* __restrict__ W3, const float* __restrict__ b3,
-             const float* __restrict__ sh, const float* __restrict__ sc,
-             const float* __restrict__ gate, const T* __restrict__ keep,
-             const int* __restrict__ seeds, uint32_t thresh, float kscale,
-             float* __restrict__ mask_out, T* __restrict__ out, int L, int K, int N) {
+             const T* __restrict__ W3, const float* __restrict__ b3, T* __restrict__ out,
+             int L, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sWe = reinterpret_cast<T*>(smem);
   T* sW2 = sWe + H * H;
@@ -340,8 +285,7 @@ chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restri
 
   float acc[Traits<T>::TM][TN];
   chain_h2<T>(sX, sWe, sW2, A, Gn, idx, b2, L, K, N, t, acc);
-  edge_epilogue<T, DROP, RAW>(acc, sX, sW3, E, b3, sh, sc, gate, keep, seeds, thresh, kscale,
-                              mask_out, out, K, t);
+  edge_epilogue<T>(acc, sX, sW3, b3, out, t);
 }
 
 template <typename T>
@@ -350,8 +294,8 @@ size_t smem_bytes() {
   return (size_t)3 * H * H * sizeof(T) + (size_t)ROWS * (H + Traits<T>::XPAD) * sizeof(T);
 }
 
-// the f32 kernels take K <= 64, a multiple of 4 (the CUDA-core tiles of K5's
-// forward and K6: a thread's 4 rows belong to one residue)
+// the f32 kernels take K <= 64, a multiple of 4 (the CUDA-core tiles of
+// K6: a thread's 4 rows belong to one residue)
 template <typename T>
 bool bad_dims(int B, int L, int K, int N) {
   constexpr int TM = Traits<T>::TM;
@@ -364,34 +308,28 @@ dim3 grid_of(int B, int L, int K) {
   return dim3((L + TL - 1) / TL, B);
 }
 
-template <typename T, int DROP, bool RAW>
+template <typename T>
 int launch(const void* A, const void* E, const void* Gn, const void* idx, const void* We,
-           const void* W2, const void* b2, const void* W3, const void* b3, const void* sh,
-           const void* sc, const void* gate, const void* keep, const void* seeds,
-           uint32_t thresh, float kscale, void* mask_out, void* out, int B, int L, int K,
-           int N, void* stream) {
+           const void* W2, const void* b2, const void* W3, const void* b3, void* out, int B,
+           int L, int K, int N, void* stream) {
   if (bad_dims<T>(B, L, K, N)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, DROP, RAW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  static unsigned done = 0;
+  const cudaError_t err = chain_tf32::smem_once(chain_kernel<T>, (int)smem, done);
   if (err != cudaSuccess) return (int)err;
-  chain_kernel<T, DROP, RAW>
-      <<<grid_of<T>(B, L, K), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
-          static_cast<const int*>(idx), static_cast<const T*>(We), static_cast<const T*>(W2),
-          static_cast<const float*>(b2), static_cast<const T*>(W3),
-          static_cast<const float*>(b3), static_cast<const float*>(sh),
-          static_cast<const float*>(sc), static_cast<const float*>(gate),
-          static_cast<const T*>(keep), static_cast<const int*>(seeds), thresh, kscale,
-          static_cast<float*>(mask_out), static_cast<T*>(out), L, K, N);
+  chain_kernel<T><<<grid_of<T>(B, L, K), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
+      static_cast<const int*>(idx), static_cast<const T*>(We), static_cast<const T*>(W2),
+      static_cast<const float*>(b2), static_cast<const T*>(W3), static_cast<const float*>(b3),
+      static_cast<T*>(out), L, K, N);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // f32 on the tensor cores (3xTF32, the slab functions of chain_tf32.cuh): K1
-// (`message_sum_f32_mma_kernel`), K2 (`message_edge_lnmod_f32_mma_kernel`)
-// and K7 (`edge_then_sum_f32_mma_kernel`). A block of 8 warps stages its
+// (`message_sum_f32_mma_kernel`), K2 and K5's forward
+// (`message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>`) and K7
+// (`edge_then_sum_f32_mma_kernel`). A block of 8 warps stages its
 // three weights once and walks over its share of the work (one block an SM:
 // the weights fill 192 KB). K2's warps walk over slabs on their own, with no
 // block barrier. K1's and K7's blocks walk over tiles of TRES residues of one
@@ -443,7 +381,10 @@ message_sum_f32_mma_kernel(const float* __restrict__ A, const float* __restrict_
   }
 }
 
-// K2 in f32: out[b, l, k] = g (LN(E + h2 W3 + b3) (1 + sc) + sh)
+// K2 in f32 (DROP 0): out[b, l, k] = g (LN(E + h2 W3 + b3) (1 + sc) + sh);
+// K5's forward (DROP 1: keep, 2: seeds; MASK_OUT: the scales to
+// drop.mask_out) with (h2 W3 + b3) x keep in the LayerNorm
+template <int DROP, bool MASK_OUT>
 __global__ void __launch_bounds__(tf::TNT, 1)
 message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
                                   const float* __restrict__ Gn, const int* __restrict__ idx,
@@ -451,8 +392,8 @@ message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __re
                                   const float* __restrict__ b2, const float* __restrict__ W3,
                                   const float* __restrict__ b3, const float* __restrict__ sh,
                                   const float* __restrict__ sc,
-                                  const float* __restrict__ gate, float* __restrict__ out,
-                                  int B, int L, int K, int N) {
+                                  const float* __restrict__ gate, const tf::Dropout drop,
+                                  float* __restrict__ out, int B, int L, int K, int N) {
   extern __shared__ __align__(16) float fsm[];
   float* sWe = fsm;
   float* sW2 = sWe + tf::WFLOATS;
@@ -471,8 +412,8 @@ message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __re
        i += (long long)gridDim.x * tf::TW) {
     const long long bl = i / spr;
     const int b = (int)(bl / L), l = (int)(bl - (long long)b * L), q = (int)(i - bl * spr);
-    tf::edge_slab(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, sh, sc, gate, out, L, N,
-                  tf::make_slab(b, l, q, L, K, lane));
+    tf::edge_slab<DROP, MASK_OUT>(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, sh, sc, gate, out,
+                                  L, N, tf::make_slab(b, l, q, L, K, lane), drop);
   }
 }
 
@@ -551,24 +492,26 @@ int launch_sum_f32_mma(const void* A, const void* E, const void* Gn, const void*
   return (int)cudaGetLastError();
 }
 
+template <int DROP, bool MASK_OUT>
 int launch_edge_lnmod_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
                               const void* We, const void* W2, const void* b2, const void* W3,
                               const void* b3, const void* sh, const void* sc, const void* gate,
-                              void* out, int B, int L, int K, int N, void* stream) {
+                              const tf::Dropout& drop, void* out, int B, int L, int K, int N,
+                              void* stream) {
   if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  auto kern = message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>;
   static unsigned done = 0;
-  const cudaError_t err = smem_once(message_edge_lnmod_f32_mma_kernel, F2SMEM, done);
+  const cudaError_t err = smem_once(kern, F2SMEM, done);
   if (err != cudaSuccess) return (int)err;
   const long long warps = (long long)B * L * ((K + 15) / 16);
   const int grid = (int)std::min<long long>((warps + tf::TW - 1) / tf::TW, sm_count());
-  message_edge_lnmod_f32_mma_kernel<<<grid, tf::TNT, F2SMEM,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, tf::TNT, F2SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
       static_cast<const int*>(idx), static_cast<const float*>(We),
       static_cast<const float*>(W2), static_cast<const float*>(b2),
       static_cast<const float*>(W3), static_cast<const float*>(b3),
       static_cast<const float*>(sh), static_cast<const float*>(sc),
-      static_cast<const float*>(gate), static_cast<float*>(out), B, L, K, N);
+      static_cast<const float*>(gate), drop, static_cast<float*>(out), B, L, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -1129,8 +1072,8 @@ int message_edge_lnmod_f32(const void* A, const void* E, const void* Gn, const v
                            const void* We, const void* W2, const void* b2, const void* W3,
                            const void* b3, const void* sh, const void* sc, const void* gate,
                            void* out, int B, int L, int K, int N, void* stream) {
-  return launch_edge_lnmod_f32_mma(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, out, B, L,
-                                   K, N, stream);
+  return launch_edge_lnmod_f32_mma<0, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                              tf::Dropout{}, out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128
@@ -1145,6 +1088,7 @@ int message_edge_lnmod_bf16(const void* A, const void* E, const void* Gn, const 
 // K5 forward: K2 with dropout on the message. Exactly one of `keep` (E's
 // dtype, [B, L, K, H] scales 0 or 1/(1-p)) and `seeds` (int32 [B]) is given;
 // with seeds, `mask_out` (f32 [B, L, K, H]) may receive the generated scales.
+// f32 on the tensor cores (3xTF32), K2's kernel: K at most 64, a multiple of 4
 int message_edge_lnmod_drop_f32(const void* A, const void* E, const void* Gn,
                                 const void* idx, const void* We, const void* W2,
                                 const void* b2, const void* W3, const void* b3,
@@ -1153,11 +1097,16 @@ int message_edge_lnmod_drop_f32(const void* A, const void* E, const void* Gn,
                                 void* out, int B, int L, int K, int N, unsigned thresh,
                                 float kscale, void* stream) {
   if ((keep == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;
+  const tf::Dropout d{static_cast<const float*>(keep), static_cast<const int*>(seeds), thresh,
+                      kscale, static_cast<float*>(mask_out), (long long)L * K};
   if (keep != nullptr)
-    return launch<float, 1, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, keep,
-                                   nullptr, 0u, 1.0f, nullptr, out, B, L, K, N, stream);
-  return launch<float, 2, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, nullptr,
-                                 seeds, thresh, kscale, mask_out, out, B, L, K, N, stream);
+    return launch_edge_lnmod_f32_mma<1, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                               d, out, B, L, K, N, stream);
+  if (mask_out != nullptr)
+    return launch_edge_lnmod_f32_mma<2, true>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate,
+                                              d, out, B, L, K, N, stream);
+  return launch_edge_lnmod_f32_mma<2, false>(A, E, Gn, idx, We, W2, b2, W3, b3, sh, sc, gate, d,
+                                             out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores, K2's kernel: K a multiple of 16, at most 128
@@ -1185,8 +1134,7 @@ int message_edge_lnmod_drop_bf16(const void* A, const void* E, const void* Gn,
 int message_edge_f32(const void* A, const void* E, const void* Gn, const void* idx,
                      const void* We, const void* W2, const void* b2, const void* W3,
                      const void* b3, void* out, int B, int L, int K, int N, void* stream) {
-  return launch<float, 0, true>(A, E, Gn, idx, We, W2, b2, W3, b3, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, 0u, 1.0f, nullptr, out, B, L, K, N, stream);
+  return launch<float>(A, E, Gn, idx, We, W2, b2, W3, b3, out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128

@@ -29,9 +29,9 @@
 //
 // Design. The TPU grid runs in order and carries the weight grads and dGn in
 // VMEM from one grid step to the next; Hopper blocks run in parallel. So:
-//  * f32 K3 and K4 / K5's backward on the tensor cores in 3xTF32 (the slab
-//    functions of chain_tf32.cuh, so pre, x2 and msg are recomputed as the
-//    f32 K1 and K2 compute them). One f32 H x H weight in fragment order is
+//  * f32 K3, K4 / K5's and K6's backward on the tensor cores in 3xTF32 (the
+//    slab functions of chain_tf32.cuh, so pre, x2 and msg are recomputed as
+//    the f32 K1 and K2 compute them). One f32 H x H weight in fragment order is
 //    64 KB: the forward's three and the backward's three transposed ones do
 //    not fit in 227 KB, and restaging them every tile cost K7 1.375x K2
 //    then K1 (PERF.md). So each runs in two passes, each pass a
@@ -39,8 +39,9 @@
 //    a warp walking over whole residues (a residue's 16-row slabs in order,
 //    rows past K padding: K a multiple of 4 up to 64):
 //      pass 1 (`message_sum_bwd_f32_mma_kernel`; K4 / K5:
-//        `message_edge_lnmod_bwd_f32_mma_kernel<DROP>`) with W_e, W2 (and
-//        W3) in fragment order: pre, h1 = gelu(pre) (-> s_h1) and
+//        `message_edge_lnmod_bwd_f32_mma_kernel<DROP>`; K6:
+//        `message_edge_bwd_f32_mma_kernel`) with W_e, W2 (and W3, or K6's
+//        W3^T) in fragment order: pre, h1 = gelu(pre) (-> s_h1) and
 //        gelu'(pre) (-> s_dg1, parked) from one exp, x2, h2 and gelu'(x2).
 //        K3: ds = dout W3^T per residue on CUDA cores (W3^T row-major in
 //        shared memory, j in order), s's and db2's slab sums, dx2 = (ds
@@ -49,12 +50,15 @@
 //        K2 keeps it), the LayerNorm and its backward in fragment layout
 //        (K2's row sums), dresid (-> s_dres, parked), dmsg = dresid x keep
 //        (-> s_dmsg; DROP 2 regenerates the forward's mask from the natural
-//        element index), dsh's, dsc's, dgate's and db3's slab sums;
+//        element index), dsh's, dsc's, dgate's and db3's slab sums. K6: h2
+//        (-> s_h2), gelu'(x2) held in registers through dh2 = dout W3^T
+//        (dout's rows the A operand), dx2 = dh2 gelu'(x2) (-> s_dx2), db2's
+//        and db3's slab sums;
 //      pass 2 (`data_grads_f32_mma_kernel<EDGE>`) with the transposed
 //        weights staged by stage_frag from W^T (W2^T's columns and W_e^T's
 //        rows through unit(), so dh1 has pre's unit order and dE the
 //        natural one): K4 / K5: dh2 = dmsg W3^T, dx2 = dh2 gelu'(x2) (->
-//        s_dx2, db2's slab sums); K3 reads dx2 back; dh1 = dx2 W2^T, dpre
+//        s_dx2, db2's slab sums); K3 and K6 read dx2 back; dh1 = dx2 W2^T, dpre
 //        = dh1 gelu'(pre) (-> s_dpre; dGn by float4 atomicAdd, the one
 //        source of run-to-run differences; dA's slab sums), dE = dpre
 //        W_e^T [+ dresid].
@@ -62,17 +66,22 @@
 //    butterfly of reduce_rows, then the slabs), one part a residue, then
 //    sum_partials over the residues (dsh, dsc, dgate: each sample's), so
 //    every output but dGn repeats bit for bit.
-//  * chain_bwd_kernel (f32 K6's backward, CUDA cores): one block of 256
-//    threads per 64-row tile (floor(64/K) whole residues; at K = 48 the
-//    last 16 rows stay idle). It recomputes the activations from the inputs
-//    (nothing [B, L, K, H]-sized is saved by the forward), keeps pre/x2 as
-//    their gelu derivatives in registers, and does every row-wise product
-//    on CUDA cores through one shared [H, H] weight buffer that is
-//    restaged for each product (the transposed weights come from the
-//    wrapper). It writes dE and dA, scatter-adds dpre into dGn with
-//    atomicAdd, and writes per-tile column sums (db2, db3) and the weight
-//    grads' operands (h1, dx2, dpre, h2) to scratch, in natural column
-//    order; dW3's Y is the cotangent itself.
+//    K6's backward replaces the TPU's `_edge_bwd_kernel`
+//    (codlad_tpu/kernels/mpnn_kernels.py, via `_pallas_edge_bwd`). Its
+//    bound: 8 H x H products a row (2 recomputed, dh2, dh1, dE, three
+//    weight grads), 206 GFLOP at the training shape, 1.25 ms in 3xTF32 at
+//    the tensor cores' peak; above it its scratch, 16 [B*L*K, H] f32 arrays
+//    read or written (6.4 GB, 1.92 ms). K4's pass 1 without its LayerNorm,
+//    with dh2 = dout W3^T for its W3 product: gelu'(x2) stays in registers
+//    instead of being parked, and pass 2 is K3's unchanged. A form that
+//    parked gelu'(x2) and computed dh2 in pass 2 (17 arrays) timed the
+//    same (PERF.md). Pass 1's products sum each two k8 steps from zero and
+//    add them in f32 (`mma_slab<2>`): with the tensor core's truncating
+//    sums alone its operands carry several times f32's error, which the
+//    weight grads sum over every edge row to past the f32 limit of K6's
+//    card test against f32 autograd (~1.2x; grouped, 0.43x against
+//    float64). The three products share one rolled loop (one copy of their
+//    code); gelu'(x2) live through it costs a few registers' spills.
 //  * message_sum_bwd_mma_kernel (bf16 K3) on the tensor cores: K1's block
 //    (8 warps, 128 edge rows of whole residues, K a multiple of 16) and
 //    slabs (a warp 16 rows of one residue), with K1's slab functions
@@ -178,211 +187,6 @@
 namespace {
 
 using namespace chain;
-
-constexpr int TM = 4;          // rows per thread of chain_bwd_kernel
-constexpr int ROWS = RG * TM;  // 64 edge rows per block
-constexpr int XS = H + 4;      // row stride (floats) of its product input
-
-__device__ __forceinline__ void stage_weight(float* sW, const float* W) {
-  for (int v = threadIdx.x; v < H * H / 4; v += NT)
-    reinterpret_cast<float4*>(sW)[v] = reinterpret_cast<const float4*>(W)[v];
-}
-
-// dst[c] = sum over the block's rows of part (each thread's sum over its TM
-// rows, columns c0..c0+7), in a fixed order. `red` is [RG][H] f32.
-__device__ __forceinline__ void column_sum(float* red, const float (&part)[TN], int rg,
-                                           int c0, float* dst) {
-  __syncthreads();
-  store8(red + rg * H + c0, part);
-  __syncthreads();
-  if (threadIdx.x < H) {
-    float s = 0.0f;
-    for (int q = 0; q < RG; ++q) s += red[q * H + threadIdx.x];
-    dst[threadIdx.x] = s;
-  }
-}
-
-// node[ll][c] = sum over residue ll's K rows of part (row groups of TM rows,
-// K / TM of them a residue), for the TL residues of the tile.
-__device__ __forceinline__ void residue_sum(float* red, const float (&part)[TN], int rg,
-                                            int c0, int TL, int gpr, float* node) {
-  __syncthreads();
-  store8(red + rg * H + c0, part);
-  __syncthreads();
-  for (int t = threadIdx.x; t < TL * H; t += NT) {
-    const int ll = t / H, c = t % H;
-    float s = 0.0f;
-    for (int q = 0; q < gpr; ++q) s += red[(ll * gpr + q) * H + c];
-    node[t] = s;
-  }
-  __syncthreads();
-}
-
-// K6's backward in f32 on CUDA cores (module note): dmsg is the cotangent.
-__global__ void __launch_bounds__(NT)
-chain_bwd_kernel(const float* __restrict__ A, const float* __restrict__ E,
-                 const float* __restrict__ Gn, const int* __restrict__ idx,
-                 const float* __restrict__ We, const float* __restrict__ WeT,
-                 const float* __restrict__ W2, const float* __restrict__ W2T,
-                 const float* __restrict__ b2, const float* __restrict__ W3T,
-                 const float* __restrict__ dout, float* __restrict__ dA,
-                 float* __restrict__ dE, float* __restrict__ dGn, float* __restrict__ s_h1,
-                 float* __restrict__ s_dx2, float* __restrict__ s_dpre,
-                 float* __restrict__ s_h2, float* __restrict__ p_db, int L, int K, int N,
-                 int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sW = reinterpret_cast<float*>(smem);    // [H][H] current weight
-  float* sX = sW + H * H;                        // [ROWS][XS] product input
-  float* red = sX + ROWS * XS;                   // [RG][H]
-  float* node = red + RG * H;                    // [TL][H]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / CG, cg = tid % CG;
-  const int r0 = rg * TM, c0 = cg * TN;
-  const int TL = ROWS / K;
-  const int gpr = K / TM;
-  const int b = blockIdx.y;
-  const int l0 = blockIdx.x * TL;
-  const int nrows = min(TL, L - l0) * K;
-  const size_t row0 = ((size_t)b * L + l0) * K;
-  const int tile = b * gridDim.x + blockIdx.x;
-
-  // ---- recompute pre and h1 = gelu(pre); keep gelu'(pre)
-  stage_weight(sW, We);
-  for (int v = tid; v < ROWS * (H / 4); v += NT) {
-    const int r = v / (H / 4), q = v % (H / 4);
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < nrows) val = reinterpret_cast<const float4*>(E + (row0 + r) * H)[q];
-    *reinterpret_cast<float4*>(sX + r * XS + q * 4) = val;
-  }
-  __syncthreads();
-
-  float acc[TM][TN], dg1[TM][TN], dg2[TM][TN];
-  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = r0 + m;
-    float y[8];
-    if (r < nrows) {
-      const int l = l0 + r / K;
-      const int j = min(max(idx[row0 + r], 0), N - 1);
-      float a[8], g[8];
-      load8(A + ((size_t)b * L + l) * H + c0, a);
-      load8(Gn + ((size_t)b * N + j) * H + c0, g);
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const float pre = acc[m][n] + a[n] + g[n];
-        y[n] = gelu_tanh(pre);
-        dg1[m][n] = gelu_tanh_grad(pre);
-      }
-      store8(s_h1 + (row0 + r) * H + c0, y);
-    } else {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[n] = dg1[m][n] = 0.0f;
-    }
-    store8(sX + r * XS + c0, y);
-  }
-  stage_weight(sW, W2);
-  __syncthreads();
-
-  // ---- x2 = h1 W2 + b2; keep gelu'(x2); acc <- h2 = gelu(x2)
-  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
-  {
-    float bias[8];
-    load8(b2 + c0, bias);
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const float x2 = acc[m][n] + bias[n];
-        dg2[m][n] = gelu_tanh_grad(x2);
-        acc[m][n] = gelu_tanh(x2);
-      }
-  }
-  __syncthreads();
-
-  // ---- dmsg is the cotangent (dW3's Y as it is): h2 to scratch, db3 and
-  // dh2 = dmsg W3^T
-  float part[8];
-#pragma unroll
-  for (int n = 0; n < TN; ++n) part[n] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = r0 + m;
-    float dm[8];
-    if (r < nrows) {
-      store8(s_h2 + (row0 + r) * H + c0, acc[m]);
-      load8(dout + (row0 + r) * H + c0, dm);
-    } else {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) dm[n] = 0.0f;
-    }
-#pragma unroll
-    for (int n = 0; n < TN; ++n) part[n] += dm[n];
-    store8(sX + r * XS + c0, dm);
-  }
-  column_sum(red, part, rg, c0, p_db + ((size_t)n_tiles + tile) * H);  // db3
-  stage_weight(sW, W3T);
-  __syncthreads();
-  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);  // dh2
-  __syncthreads();
-
-  // ---- dx2 = dh2 gelu'(x2); db2; dh1 = dx2 W2^T
-#pragma unroll
-  for (int n = 0; n < TN; ++n) part[n] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = r0 + m;
-    float y[8];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      y[n] = acc[m][n] * dg2[m][n];
-      part[n] += y[n];
-    }
-    if (r < nrows) store8(s_dx2 + (row0 + r) * H + c0, y);
-    store8(sX + r * XS + c0, y);
-  }
-  column_sum(red, part, rg, c0, p_db + (size_t)tile * H);  // db2
-  stage_weight(sW, W2T);
-  __syncthreads();
-  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
-  __syncthreads();
-
-  // ---- dpre = dh1 gelu'(pre); dA, dGn; dE = dpre W_e^T
-#pragma unroll
-  for (int n = 0; n < TN; ++n) part[n] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = r0 + m;
-    float y[8];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      y[n] = acc[m][n] * dg1[m][n];
-      part[n] += y[n];
-    }
-    if (r < nrows) {
-      store8(s_dpre + (row0 + r) * H + c0, y);
-      const int j = min(max(idx[row0 + r], 0), N - 1);
-      float* dst = dGn + ((size_t)b * N + j) * H + c0;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) atomicAdd(dst + n, y[n]);
-    }
-    store8(sX + r * XS + c0, y);
-  }
-  stage_weight(sW, WeT);
-  residue_sum(red, part, rg, c0, TL, gpr, node);  // syncs: sX, sW and node ready
-  for (int t = tid; t < TL * H; t += NT) {
-    const int ll = t / H;
-    if (l0 + ll < L) dA[((size_t)b * L + l0) * H + t] = node[t];
-  }
-  tile_gemm<float, TM, XS>(sX, sW, r0, c0, acc);
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = r0 + m;
-    if (r < nrows) store8(dE + (row0 + r) * H + c0, acc[m]);
-  }
-}
 
 template <typename T>
 struct Pairs {
@@ -1553,6 +1357,23 @@ __device__ __forceinline__ void store_sums(float* __restrict__ dst, const float 
   for (int j = 0; j < 4; ++j) dst[quarter_col(j, lane)] = v[j];
 }
 
+// p[j] += the slab's column sums of v (accumulator layout; padding rows
+// zero) over quarter j: rows g and g + 8, then the butterfly over g
+// (reduce_rows); the lane's column quarter_col(j, lane)
+__device__ __forceinline__ void slab_sums(float (&p)[4], const float (&v)[16][4], int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float q[8];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      q[2 * o] = v[4 * j + o][0] + v[4 * j + o][2];
+      q[2 * o + 1] = v[4 * j + o][1] + v[4 * j + o][3];
+    }
+    reduce_rows(q, lane);
+    p[j] += q[0];
+  }
+}
+
 // K3, pass 1 (module note): a warp's residue: ds = dout W3^T on CUDA cores,
 // db3's part (the mask count times dout); each slab: pre, h1 (-> s_h1) and
 // gelu'(pre) (-> s_dg1), x2, then h2 = gelu(x2 + b2) and gelu'(x2) from one
@@ -1713,13 +1534,13 @@ __device__ __forceinline__ void lnmod_bwd(float (&acc)[16][4], const float* __re
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float x0 = acc[nt][2 * h] + bias.x, x1 = acc[nt][2 * h + 1] + bias.y;
-      if constexpr (DROP == 1) {
-        const float2 kp = row2(keep, s.row0 + g + 8 * h, c, ok[h]);
-        x0 *= kp.x;
-        x1 *= kp.y;
-      } else if constexpr (DROP == 2) {
-        x0 *= (km[h] >> (2 * nt)) & 1u ? kscale : 0.0f;
-        x1 *= (km[h] >> (2 * nt + 1)) & 1u ? kscale : 0.0f;
+      if constexpr (DROP != 0) {   // the forward's rounding (chain_tf32.cuh lnmod_out)
+        const float2 kp =
+            DROP == 1 ? row2(keep, s.row0 + g + 8 * h, c, ok[h])
+                      : make_float2((km[h] >> (2 * nt)) & 1u ? kscale : 0.0f,
+                                    (km[h] >> (2 * nt + 1)) & 1u ? kscale : 0.0f);
+        x0 = __fmul_rn(x0, kp.x);
+        x1 = __fmul_rn(x1, kp.y);
       }
       const float2 e = row2(E, s.row0 + g + 8 * h, c, ok[h]);
       acc[nt][2 * h] = e.x + x0;
@@ -1821,7 +1642,7 @@ __device__ __forceinline__ void lnmod_bwd(float (&acc)[16][4], const float* __re
           const float dln = ((i ? d.y : d.x) * (i ? gv.y : gv.x)) * (1.0f + (i ? scv.y : scv.x));
           const float dr = rstd[h] * ((dln - m1[h]) - acc[nt][2 * h + i] * m2[h]);
           acc[nt][2 * h + i] = dr;
-          dm[h][i] = DROP != 0 ? dr * (i ? kp.y : kp.x) : dr;
+          dm[h][i] = DROP != 0 ? __fmul_rn(dr, i ? kp.y : kp.x) : dr;
         }
         if (ok[h]) {
           *reinterpret_cast<float2*>(s_dres + r * H + c) =
@@ -1910,15 +1731,89 @@ message_edge_lnmod_bwd_f32_mma_kernel(
   }
 }
 
-// Pass 2 of K3 (EDGE false) and of K4 / K5's backward (EDGE true) (module
-// note): the transposed chain, its weights staged in fragment order from
-// their transposes. A warp's residue, each slab: EDGE: dh2 = dmsg W3^T
-// (dmsg from s_dmsg), dx2 = dh2 gelu'(x2) (-> s_dx2, its slab sums to db2);
-// else dx2 from s_dx2. dh1 = dx2 W2^T in pre's unit order (W2^T's columns
-// staged through unit()), dpre = dh1 gelu'(pre) (-> s_dpre, dGn by float4
-// atomics, its slab sums to dA), dE = dpre W_e^T (W_e^T's rows through
-// unit(): natural columns) [+ dresid from s_dres]. The residue's dA (and
-// db2 part) after its last slab.
+// K6's backward, pass 1 (module note): K4's pass 1 with dh2 = dout W3^T for
+// its W3 product and no LayerNorm. A warp's residue, each slab: pre, h1 (->
+// s_h1) and gelu'(pre) (-> s_dg1), x2, h2 = gelu(x2 + b2) (-> s_h2, dW3's
+// X) and gelu'(x2), held; dh2 = dout W3^T (W3^T in fragment order, dout's
+// rows the A operand), dx2 = dh2 gelu'(x2) (-> s_dx2) and the slab sums of
+// dx2 (db2) and of dout (db3), the residue's parts after its last slab.
+// Its products sum each two k8 steps from zero, then add them in f32
+// (mma_slab<2>): the weight grads then keep f32's accuracy (module note).
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_edge_bwd_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                                const float* __restrict__ Gn, const int* __restrict__ idx,
+                                const float* __restrict__ We, const float* __restrict__ W2,
+                                const float* __restrict__ b2, const float* __restrict__ W3T,
+                                const float* __restrict__ dout, float* __restrict__ s_h1,
+                                float* __restrict__ s_dg1, float* __restrict__ s_h2,
+                                float* __restrict__ s_dx2, float* __restrict__ p_db, int B,
+                                int L, int K, int N) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sWe = fsm;
+  float* sW2 = sWe + tf::WFLOATS;
+  float* sW3T = sW2 + tf::WFLOATS;
+  float* sb2 = sW3T + tf::WFLOATS;
+  tf::stage_frag<false, true>(sWe, We);
+  tf::stage_frag<true, false>(sW2, W2);
+  tf::stage_frag<false, false>(sW3T, W3T);
+  tf::load_vec(sb2, b2);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int spr = (K + 15) / 16;
+  const long long n_res = (long long)B * L;
+  for (long long res = (long long)blockIdx.x * tf::TW + warp; res < n_res;
+       res += (long long)gridDim.x * tf::TW) {
+    const int b = (int)(res / L), l = (int)(res - (long long)b * L);
+    float pd2[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pd3[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < spr; ++q) {
+      const tf::Slab s = tf::make_slab(b, l, q, L, K, lane);
+      // pre = A[l] + Gn[idx] + E W_e, x2 = h1 W2 + b2 (each then gelu and
+      // gelu' from one exp), dh2 = dout W3^T: one copy of the product's
+      // code for the three, of the gelu's for the first two (x is passed on
+      // at the end of each, so it holds nothing live through the epilogues)
+      float x[16][4], acc[16][4], dg[16][4];
+      tf::load_rows(x, E, s);
+      tf::preset(acc, A, Gn, idx, L, N, s);
+#pragma unroll 1
+      for (int p = 0; p < 3; ++p) {
+        if (p == 2) {   // dout's rows (padding rows zero), db3's slab sums
+          tf::load_rows(x, dout, s);
+          slab_sums(pd3, x, lane);
+        }
+        tf::mma_slab<2>(acc, x, p == 0 ? sWe : p == 1 ? sW2 : sW3T, lane);
+        if (p == 2) break;
+        if (p == 1) add_bias(acc, sb2, lane);
+        gelu_in_place(acc, dg);
+        if (p == 0) {   // h1 (-> s_h1), gelu'(pre) (-> s_dg1)
+          store_units(s_h1, acc, s);
+          store_units(s_dg1, dg, s);
+        } else {        // h2 (-> s_h2); gelu'(x2) stays in dg
+          store_natural(s_h2, acc, s);
+        }
+        pass_on(x, acc);
+      }
+      // dx2 = dh2 gelu'(x2) (-> s_dx2), db2's slab sums
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] *= dg[nt][i];
+      store_natural(s_dx2, acc, s);
+      slab_sums(pd2, acc, lane);
+    }
+    store_sums(p_db + res * H, pd2, lane);
+    store_sums(p_db + (n_res + res) * H, pd3, lane);
+  }
+}
+
+// Pass 2 of K3 and K6's backward (EDGE false) and of K4 / K5's backward
+// (EDGE true) (module note): the transposed chain, its weights staged in fragment
+// order from their transposes. A warp's residue, each slab: EDGE: dh2 =
+// dmsg W3^T (dmsg from s_dmsg), dx2 = dh2 gelu'(x2) (-> s_dx2, its slab sums
+// to db2); else dx2 from s_dx2. dh1 = dx2 W2^T in pre's unit order (W2^T's
+// columns staged through unit()), dpre = dh1 gelu'(pre) (-> s_dpre, dGn by
+// float4 atomics, its slab sums to dA), dE = dpre W_e^T (W_e^T's rows
+// through unit(): natural columns) [+ dresid from s_dres]. The residue's dA
+// (and db2 part) after its last slab.
 template <bool EDGE>
 __global__ void __launch_bounds__(tf::TNT, 1)
 data_grads_f32_mma_kernel(const int* __restrict__ idx, const float* __restrict__ W3T,
@@ -1957,27 +1852,20 @@ data_grads_f32_mma_kernel(const int* __restrict__ idx, const float* __restrict__
         tf::mma_slab(acc, x, p == 0 ? sW3T : p == 1 ? sW2T : sWeT, lane);
         if (EDGE && p == 0) {  // dx2 = dh2 gelu'(x2) (-> s_dx2), db2's slab sums
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float qd[8];
+          for (int nt = 0; nt < 16; ++nt) {
+            const int c = 8 * nt + 2 * t4;
 #pragma unroll
-            for (int o = 0; o < 4; ++o) {
-              const int nt = 4 * j + o, c = 8 * nt + 2 * t4;
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const size_t r = s.row0 + g + 8 * h;
-                const float2 dg = row2(s_dg2, r, c, ok[h]);
-                acc[nt][2 * h] *= dg.x;
-                acc[nt][2 * h + 1] *= dg.y;
-                if (ok[h])
-                  *reinterpret_cast<float2*>(s_dx2 + r * H + c) =
-                      make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-              }
-              qd[2 * o] = acc[nt][0] + acc[nt][2];
-              qd[2 * o + 1] = acc[nt][1] + acc[nt][3];
+            for (int h = 0; h < 2; ++h) {
+              const size_t r = s.row0 + g + 8 * h;
+              const float2 dg = row2(s_dg2, r, c, ok[h]);
+              acc[nt][2 * h] *= dg.x;
+              acc[nt][2 * h + 1] *= dg.y;
+              if (ok[h])
+                *reinterpret_cast<float2*>(s_dx2 + r * H + c) =
+                    make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
             }
-            reduce_rows(qd, lane);
-            db2[j] += qd[0];
           }
+          slab_sums(db2, acc, lane);
           pass_on(x, acc);
         } else if (p == 1) {
           // dpre = dh1 gelu'(pre) in pre's unit order: gelu' back from s_dg1
@@ -2007,17 +1895,7 @@ data_grads_f32_mma_kernel(const int* __restrict__ idx, const float* __restrict__
               }
             }
           }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float qa[8];
-#pragma unroll
-            for (int o = 0; o < 4; ++o) {
-              qa[2 * o] = acc[4 * j + o][0] + acc[4 * j + o][2];
-              qa[2 * o + 1] = acc[4 * j + o][1] + acc[4 * j + o][3];
-            }
-            reduce_rows(qa, lane);
-            da[j] += qa[0];
-          }
+          slab_sums(da, acc, lane);
           pass_on(x, acc);
         } else if (p == 2) {  // dE [+ dresid], natural columns
 #pragma unroll
@@ -2319,10 +2197,10 @@ int launch_edge_lnmod_bwd_mma(const void* A, const void* E, const void* Gn, cons
   return reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, ntl, H, st);
 }
 
-// The f32 kernels take K <= 64, a multiple of 4 (K6's 64-row tiles; the
-// tensor-core passes pad a residue's last slab)
+// The f32 kernels take K <= 64, a multiple of 4, as every f32 kernel of the
+// forward does (the tensor-core passes pad a residue's last slab)
 bool f32_bad(int B, int L, int K, int N, int n_chunks) {
-  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > ROWS || K % TM != 0 || n_chunks <= 0;
+  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > 64 || K % 4 != 0 || n_chunks <= 0;
 }
 
 // the f32 tensor-core passes' grid: one block an SM (or fewer where the
@@ -2350,8 +2228,8 @@ int launch_sum_bwd_f32_mma(const void* A, const void* E, const void* Gn, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static unsigned done1 = 0, done2 = 0;
   cudaError_t err = tf::smem_once(message_sum_bwd_f32_mma_kernel, F3SMEM, done1);
-  if (err == cudaSuccess) err = tf::smem_once(data_grads_f32_mma_kernel<false>, fd_smem(false),
-                                              done2);
+  if (err == cudaSuccess)
+    err = tf::smem_once(data_grads_f32_mma_kernel<false>, fd_smem(false), done2);
   if (err != cudaSuccess) return (int)err;
   const int grid = f32_grid(B, L);
   const float* f = nullptr;
@@ -2396,8 +2274,8 @@ int launch_edge_lnmod_bwd_f32_mma(const void* A, const void* E, const void* Gn, 
   if (f32_bad(B, L, K, N, n_chunks) || n_res != B * L) return (int)cudaErrorInvalidValue;
   static unsigned done1 = 0, done2 = 0;
   cudaError_t err = tf::smem_once(message_edge_lnmod_bwd_f32_mma_kernel<DROP>, F4SMEM, done1);
-  if (err == cudaSuccess) err = tf::smem_once(data_grads_f32_mma_kernel<true>, fd_smem(true),
-                                              done2);
+  if (err == cudaSuccess)
+    err = tf::smem_once(data_grads_f32_mma_kernel<true>, fd_smem(true), done2);
   if (err != cudaSuccess) return (int)err;
   const int grid = f32_grid(B, L);
   message_edge_lnmod_bwd_f32_mma_kernel<DROP><<<grid, tf::TNT, F4SMEM, st>>>(
@@ -2429,39 +2307,44 @@ int launch_edge_lnmod_bwd_f32_mma(const void* A, const void* E, const void* Gn, 
   return reduce(static_cast<const float*>(p_mod), static_cast<float*>(dmod), 3 * B, L, H, st);
 }
 
-// K6's backward in f32: chain_bwd_kernel (CUDA cores), then the tensor-core
-// weight grads with dW3 = h2^T dout. Scratch: s_h1, s_dx2, s_dpre, s_h2
-// [B*L*K, H] f32, wpart, p_db f32 [2, n_tiles, H] (n_tiles = B * ceil(L /
-// (64 / K))). Outputs as K3's.
-int launch_edge_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
-                        const void* We, const void* WeT, const void* W2, const void* W2T,
-                        const void* b2, const void* W3T, const void* dout, void* dA, void* dE,
-                        void* dGn, void* s_h1, void* s_dx2, void* s_dpre, void* s_h2,
-                        void* wpart, void* p_db, void* dW, void* db, int B, int L, int K, int N,
-                        int n_tiles, int n_chunks, void* stream) {
-  if (f32_bad(B, L, K, N, n_chunks)) return (int)cudaErrorInvalidValue;
-  const int TL = ROWS / K;
-  const int ntl = (L + TL - 1) / TL;
-  if (n_tiles != B * ntl) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int smem = (H * H + ROWS * XS + RG * H + (ROWS / TM) * H) * 4;
-  static unsigned done = 0;
-  cudaError_t err = tf::smem_once(chain_bwd_kernel, smem, done);
+// K6's backward in f32 (3xTF32): pass 1 (dh2, dx2, db2, db3), pass 2 (K3's),
+// then the weight grads with dW3 = h2^T dout and the partial sums. Scratch:
+// K3's, with s_h2 [B*L*K, H] in s_s's place; p_db f32 [2, n_res, H], n_res
+// = B * L. Outputs as K3's.
+int launch_edge_bwd_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                            const void* We, const void* WeT, const void* W2, const void* W2T,
+                            const void* b2, const void* W3T, const void* dout, void* dA,
+                            void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
+                            void* s_h2, void* s_dg1, void* wpart, void* p_db, void* dW,
+                            void* db, int B, int L, int K, int N, int n_res, int n_chunks,
+                            cudaStream_t st) {
+  if (f32_bad(B, L, K, N, n_chunks) || n_res != B * L) return (int)cudaErrorInvalidValue;
+  static unsigned done1 = 0, done2 = 0;
+  cudaError_t err = tf::smem_once(message_edge_bwd_f32_mma_kernel, F4SMEM, done1);
+  if (err == cudaSuccess)
+    err = tf::smem_once(data_grads_f32_mma_kernel<false>, fd_smem(false), done2);
   if (err != cudaSuccess) return (int)err;
-  chain_bwd_kernel<<<dim3(ntl, B), NT, smem, st>>>(
+  const int grid = f32_grid(B, L);
+  const float* f = nullptr;
+  message_edge_bwd_f32_mma_kernel<<<grid, tf::TNT, F4SMEM, st>>>(
       static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
       static_cast<const int*>(idx), static_cast<const float*>(We),
-      static_cast<const float*>(WeT), static_cast<const float*>(W2),
-      static_cast<const float*>(W2T), static_cast<const float*>(b2),
-      static_cast<const float*>(W3T), static_cast<const float*>(dout), static_cast<float*>(dA),
-      static_cast<float*>(dE), static_cast<float*>(dGn), static_cast<float*>(s_h1),
-      static_cast<float*>(s_dx2), static_cast<float*>(s_dpre), static_cast<float*>(s_h2),
-      static_cast<float*>(p_db), L, K, N, n_tiles);
+      static_cast<const float*>(W2), static_cast<const float*>(b2),
+      static_cast<const float*>(W3T), static_cast<const float*>(dout),
+      static_cast<float*>(s_h1), static_cast<float*>(s_dg1), static_cast<float*>(s_h2),
+      static_cast<float*>(s_dx2), static_cast<float*>(p_db), B, L, K, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  data_grads_f32_mma_kernel<false><<<grid, tf::TNT, fd_smem(false), st>>>(
+      static_cast<const int*>(idx), f, static_cast<const float*>(W2T),
+      static_cast<const float*>(WeT), f, f, f, static_cast<const float*>(s_dg1),
+      static_cast<float*>(s_dx2), static_cast<float*>(s_dpre), static_cast<float*>(dA),
+      static_cast<float*>(dE), static_cast<float*>(dGn), nullptr, B, L, K, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)B * L * K;
   return weight_grads<float>(E, s_dpre, s_h1, s_dx2, s_h2, dout, rows, rows, wpart, p_db, dW,
-                             db, n_tiles, n_chunks, st);
+                             db, n_res, n_chunks, st);
 }
 
 }  // namespace
@@ -2557,18 +2440,18 @@ int message_edge_lnmod_bwd_bf16(const void* A, const void* E, const void* Gn, co
                                       db, dmod, B, L, K, N, n_tiles, n_chunks, st);
 }
 
-// K6's backward: dout [B, L, K, H] in E's dtype (dW3's Y as it is). f32: the
-// main pass on CUDA cores with the transposes, the weight grads on the
-// tensor cores; n_tiles counts blocks of 64 edge rows:
+// K6's backward: dout [B, L, K, H] in E's dtype (dW3's Y as it is). f32 on
+// the tensor cores (3xTF32), with W_e^T, W2^T and W3^T beside W_e and W2;
+// K and n_tiles as message_sum_bwd_f32's
 int message_edge_bwd_f32(const void* A, const void* E, const void* Gn, const void* idx,
                          const void* We, const void* WeT, const void* W2, const void* W2T,
                          const void* b2, const void* W3T, const void* dout, void* dA,
                          void* dE, void* dGn, void* s_h1, void* s_dx2, void* s_dpre,
-                         void* s_h2, void* wpart, void* p_db, void* dW, void* db, int B, int L,
-                         int K, int N, int n_tiles, int n_chunks, void* stream) {
-  return launch_edge_bwd_f32(A, E, Gn, idx, We, WeT, W2, W2T, b2, W3T, dout, dA, dE, dGn, s_h1,
-                             s_dx2, s_dpre, s_h2, wpart, p_db, dW, db, B, L, K, N, n_tiles,
-                             n_chunks, stream);
+                         void* s_h2, void* s_dg1, void* wpart, void* p_db, void* dW, void* db,
+                         int B, int L, int K, int N, int n_tiles, int n_chunks, void* stream) {
+  return launch_edge_bwd_f32_mma(A, E, Gn, idx, We, WeT, W2, W2T, b2, W3T, dout, dA, dE, dGn,
+                                 s_h1, s_dx2, s_dpre, s_h2, s_dg1, wpart, p_db, dW, db, B, L, K,
+                                 N, n_tiles, n_chunks, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 on the tensor cores, as message_edge_lnmod_bwd_bf16 (dout is dW3's Y)

@@ -19,18 +19,19 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
 launches K1, K2, K5's forward or K6 (`csrc/message_chain.cu`; in bf16 on
 the tensor cores, K a multiple of 16, K5's forward on K2's kernel; in f32
-K1 and K2 on the tensor cores too, in 3xTF32 (`message_sum_f32_mma_kernel`,
-`message_edge_lnmod_f32_mma_kernel`, K a multiple of 4 up to 64), K5's
-forward and K6 on CUDA cores) and whose backward launches K3, K4, K5's or
-K6's backward (`csrc/message_chain_bwd.cu`; in bf16 on the tensor cores,
-main pass and weight grads, K a multiple of 16: `message_sum_bwd_mma_kernel`,
-`message_edge_lnmod_bwd_mma_kernel`, `message_edge_bwd_mma_kernel`; in f32
-K3, K4 and K5's on the tensor cores in 3xTF32, two passes each
-(`message_sum_bwd_f32_mma_kernel` or `message_edge_lnmod_bwd_f32_mma_kernel`,
-then `data_grads_f32_mma_kernel`), K6's main pass on CUDA cores, and every
-f32 weight-grad pass on the tensor cores, `wgrad_f32_mma_kernel`), or
-raises; K7 (on K2's and K1's tensor-core bodies in either dtype, so its
-outputs are K2's kernel then K1's, bit for bit) launches or raises. The
+K1, K2 and K5's forward (K2's kernel) on the tensor cores too, in 3xTF32
+(`message_sum_f32_mma_kernel`, `message_edge_lnmod_f32_mma_kernel`, K a
+multiple of 4 up to 64), K6 on CUDA cores) and whose backward launches K3,
+K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`; in bf16 on the
+tensor cores, main pass and weight grads, K a multiple of 16:
+`message_sum_bwd_mma_kernel`, `message_edge_lnmod_bwd_mma_kernel`,
+`message_edge_bwd_mma_kernel`; in f32 on the tensor cores in 3xTF32, two
+passes each (`message_sum_bwd_f32_mma_kernel`,
+`message_edge_lnmod_bwd_f32_mma_kernel` or `message_edge_bwd_f32_mma_kernel`,
+then `data_grads_f32_mma_kernel`) and the weight-grad pass,
+`wgrad_f32_mma_kernel`), or raises; K7 (on K2's and K1's tensor-core bodies
+in either dtype, so its outputs are K2's kernel then K1's, bit for bit)
+launches or raises. The
 plain version
 runs only for tensors that lie on the CPU, and autograd differentiates it. The plain versions cast where
 the kernels cast (A and Gn to E's dtype, gelu(pre) before W2, h2 (K2, K6) or
@@ -48,12 +49,11 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block of the f32 CUDA-core kernels (K5's forward, K6 and
-# K6's backward: 16 row groups x 4 rows a thread); a block owns floor(rows /
-# K) whole residues, so K may not exceed it. Every f32 kernel takes the K
-# these tiles take (K <= 64, a multiple of 4), the tensor-core K1, K2, K7,
-# K3, K4 and K5's backward included (16-row slabs of one residue, padded
-# past K).
+# edge rows per block of the f32 K6 forward, the one f32 kernel left on CUDA
+# cores (16 row groups x 4 rows a thread); a block owns floor(rows / K)
+# whole residues, so K may not exceed it. Every f32 kernel takes the K these
+# tiles take (K <= 64, a multiple of 4), the tensor-core ones included
+# (16-row slabs of one residue, padded past K).
 _F32_ROWS = 64
 # every kernel in bf16 (K1, K2 and K5's forward, K6, K7 and the backwards)
 # runs on the tensor cores: 128 rows a block, a warp a 16-row slab of one
@@ -288,8 +288,8 @@ def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
 def _check_mma_edge(E, Gn):
     """_check_edge for the kernels, which run on the tensor cores in bf16
     (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's, K6's):
-    K a multiple of 16 there; in f32 the f32 tiles' K (the f32 K1, K2, K7,
-    K3, K4 and K5's backward run on the tensor cores too, and take it)."""
+    K a multiple of 16 there; in f32 the f32 tiles' K (every f32 kernel but
+    K6's forward runs on the tensor cores too, and takes it)."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)
@@ -484,12 +484,11 @@ def message_sum_bwd(A, E, Gn, idx, mask, W_e, W2, b2, W3, dout):
     return dA, dE, dGn, dW[0], dW[1], db[0], dW[2], db[1]
 
 
-def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3, residues):
+def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3):
     """(dims, the chain's operands and W3 in the kernels' dtypes, whether
     bf16, the outputs dA, dE, dGn, dW, db, the scratch) of K4's, K5's and
-    K6's backwards: in bf16 on the tensor cores (K a multiple of 16, blocks
-    of 128 edge rows); in f32 with `residues` a residue's rows (K4's and
-    K5's tensor-core passes), else blocks of 64 (K6's, CUDA cores)."""
+    K6's backwards, on the tensor cores: in bf16 blocks of 128 edge rows (K
+    a multiple of 16); in f32 a column-sum part a residue."""
     bf = E.dtype == torch.bfloat16
     dims = _check_mma_edge(E, Gn)
     B, L, K, H, N = dims
@@ -500,8 +499,7 @@ def _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3, residues):
             torch.zeros((B, N, H), dtype=f32, device=dev),
             torch.empty((3, H, H), dtype=f32, device=dev),
             torch.empty((2, H), dtype=f32, device=dev))
-    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K,
-                     _MMA_ROWS if bf else (K if residues else _F32_ROWS))
+    s = _bwd_scratch(B, L, K, H, dt, dev, B * L * K, _MMA_ROWS if bf else K)
     return dims, ops, bf, outs, s
 
 
@@ -516,8 +514,7 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
     (`message_edge_lnmod_bwd_f32_mma_kernel` then
     `data_grads_f32_mma_kernel`, K a multiple of 4 up to 64) with their
     transposes beside them."""
-    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3,
-                                                              True)
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
     B, L, K, H, N = dims
     dt, dev, f32 = E.dtype, E.device, torch.float32
     a, e, gn, ix, we, w2, bb2, w3 = ops
@@ -554,12 +551,13 @@ def message_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout,
 
 def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
     """K6's backward given dout [B, L, K, H] (E's dtype). Returns the
-    kernel's outputs, as `_pallas_edge_bwd` does: K3's eight. In bf16 on the
-    tensor cores (`message_edge_bwd_mma_kernel`, K a multiple of 16); in f32
-    its main pass on CUDA cores (`chain_bwd_kernel`) and its weight grads on
-    the tensor cores (`wgrad_f32_mma_kernel`). dout itself is dW3's Y."""
-    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3,
-                                                              False)
+    kernel's outputs, as `_pallas_edge_bwd` does: K3's eight. On the tensor
+    cores: in bf16 (`message_edge_bwd_mma_kernel`, K a multiple of 16) with
+    W_e, W2 and W3 as they are; in f32 in 3xTF32
+    (`message_edge_bwd_f32_mma_kernel` then `data_grads_f32_mma_kernel`, K a
+    multiple of 4 up to 64) with their transposes beside them. dout itself
+    is dW3's Y."""
+    dims, ops, bf, (dA, dE, dGn, dW, db), s = _edge_bwd_setup(A, E, Gn, idx, W_e, W2, b2, W3)
     B, L, K, H, N = dims
     dt, dev = E.dtype, E.device
     a, e, gn, ix, we, w2, bb2, w3 = ops
@@ -567,9 +565,9 @@ def message_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout):
            [a, e, gn, ix, we, we.t().contiguous(), w2, w2.t().contiguous(), bb2,
             w3.t().contiguous()])
     ops.append(_operand(dout, dt, (B, L, K, H), "dout", dev))
-    # the bf16 kernel parks gelu'(pre) in f32
-    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2")]
-               + ([_f32_rows(dims, dev)] if bf else []) + [s["wpart"], s["p_db"]])
+    # gelu'(pre) parked in f32
+    scratch = ([s[k] for k in ("s_h1", "s_dx2", "s_dpre", "s_h2")] + [_f32_rows(dims, dev)]
+               + [s["wpart"], s["p_db"]])
     fn = _fn("message_chain_bwd", f"message_edge_bwd_{_SUFFIX[dt]}",
              "p" * (len(ops) + len(scratch) + 5) + "i" * 6 + "p")
     with torch.cuda.device(dev):

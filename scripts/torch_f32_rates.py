@@ -18,14 +18,15 @@ turns, one process each). Prints one JSON line:
   draw, then the median seconds of `--draws` and its denoise steps/s;
 * the f32 backwards (section bwd) at the same three shapes: K3
   (`message_sum_bwd`), K4 (`message_edge_lnmod_bwd`), K5's backward with
-  seeds and with a keep tensor, and K6's backward (`message_edge_bwd`), each
-  by graph replay, and one call of each under torch.profiler split into
-  the device ms of every CUDA kernel it launched (main pass, weight-grad
-  pass, `sum_partials`);
+  seeds and with a keep tensor, and K6's backward (`message_edge_bwd`), and
+  K5's forward with seeds and with a keep tensor, each by graph replay, and one
+  call of each under torch.profiler split into the device ms of every CUDA
+  kernel it launched (main pass, weight-grad pass, `sum_partials`);
 * the f32 Stage-2 training step (`chip_smoke.build_trainer`) at B96 L128,
-  dropout 0.6 and dropout 0: the median ms of `--steps` steps after one
-  untimed step, then one more step at dropout 0.6 under torch.profiler
-  (the device ms of each CUDA kernel in it);
+  dropout 0.6 and dropout 0, and the adaLN residual denoiser's (gates open,
+  dropout 0.6): the median ms of `--steps` steps after one untimed step,
+  then one more step at dropout 0.6 (trunk and residual) under
+  torch.profiler (the device ms of each CUDA kernel in it);
 * the card's name and power limit.
 
 `--sections` picks the parts to run (fwd: the K1 / K2 / K7 lines).
@@ -116,15 +117,16 @@ def main(argv=None):
 
     if "train" in sections:
         x1, extras = cs.train_batch(96, 128, args.seed + 1, dev)
-        for p in (cs.P_DROP, 0.0):
-            model, state, step = cs.build_trainer(dev, args.seed, dropout=p)
-            expect = cs.train_launches(len(model.enc_layers), len(model.dec_layers), p)
+        for key, p, mode in (("train", cs.P_DROP, "trunk"), ("train_dropout0", 0.0, "trunk"),
+                             ("train_residual", cs.P_DROP, "residual")):
+            model, state, step = cs.build_trainer(dev, args.seed, dropout=p, adaln_mode=mode,
+                                                  gates=mode == "residual")
+            expect = cs.train_launches(len(model.enc_layers), len(model.dec_layers), p, mode)
             times, _, _ = cs.run_train(state, step, x1, extras, args.seed, args.steps + 1,
                                        expect)
-            key = "train" if p else "train_dropout0"
             out[key] = {"ms": times[1:], "median_ms": statistics.median(times[1:])}
             if p:
-                out["train"]["traced_kernels_ms"] = _traced(
+                out[key]["traced_kernels_ms"] = _traced(
                     lambda: step(state, x1, extras, args.seed + 99))
             del model, state, step
             torch.cuda.empty_cache()
@@ -155,7 +157,8 @@ def _traced(fn, reps=1):
 
 def _backwards(cs, MK, dims, n, seed, dev):
     """Device ms (graph replay) of the f32 K3, K4, K5's (seeds, keep) and
-    K6's backwards at dims, and each call's kernels by device ms (traced)."""
+    K6's backwards and of K5's forward (seeds, keep) at dims, and each
+    call's kernels by device ms (traced)."""
     import torch
     b, l, k = dims
     x = cs.kernel_inputs(torch.float32, seed, dev, dims, n)
@@ -167,13 +170,19 @@ def _backwards(cs, MK, dims, n, seed, dev):
     base = [x[key] for key in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
     sum_args = [x[key] for key in ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3")]
     edge = base + [x["b3"], x["sc"], x["g"], ct_edge]
+    fwd = [x[key] for key in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sh",
+                              "sc", "g")]
     calls = {"fused_message_sum_bwd": lambda: MK.message_sum_bwd(*sum_args, ct_sum),
              "fused_message_edge_lnmod_bwd": lambda: MK.message_edge_lnmod_bwd(*edge),
              "fused_message_edge_lnmod_drop_bwd": lambda: MK.message_edge_lnmod_bwd(
                  *edge, seeds=seeds, p=cs.P_DROP),
              "fused_message_edge_lnmod_drop_bwd_keep": lambda: MK.message_edge_lnmod_bwd(
                  *edge, keep=keep),
-             "fused_message_edge_bwd": lambda: MK.message_edge_bwd(*base, ct_edge)}
+             "fused_message_edge_bwd": lambda: MK.message_edge_bwd(*base, ct_edge),
+             "fused_message_edge_lnmod_drop": lambda: MK.fused_message_edge_lnmod_pdrop(
+                 *fwd, seeds, cs.P_DROP),
+             "fused_message_edge_lnmod_drop_keep": lambda: MK.fused_message_edge_lnmod_drop(
+                 *fwd, keep)}
     res = {}
     for name, call in calls.items():
         (ms,) = cs.replay_ms(call)

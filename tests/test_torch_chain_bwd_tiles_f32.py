@@ -1,6 +1,6 @@
-"""The f32 tensor-core backwards K3 and K4 / K5's (3xTF32), on the CPU.
+"""The f32 tensor-core backwards K3, K4 / K5's and K6's (3xTF32), on the CPU.
 
-csrc/message_chain_bwd.cu runs the f32 K3 and K4 / K5's backward in two
+csrc/message_chain_bwd.cu runs the f32 K3, K4 / K5's and K6's backward in two
 passes, each a persistent block of 8 warps, a warp a residue's 16-row slabs
 in order (K a multiple of 4 up to 64: rows past K in a residue's last slab
 are padding), every product on mma.sync m16n8k8 in 3xTF32 (the split and
@@ -14,9 +14,11 @@ are padding), every product on mma.sync m16n8k8 in 3xTF32 (the split and
   summed, dx2 = (ds mask) gelu'(x2); K4: msg = h2 W3, resid = E + (msg +
   b3) x keep, the LayerNorm and its backward with K2's row sums (a lane's
   columns in order, then the quad), dresid = rstd ((dln - m1) - ln m2),
-  dmsg = dresid x keep;
+  dmsg = dresid x keep; K6 (`message_edge_bwd_f32_mma_kernel`): dmsg is
+  the cotangent, with no W3 product and no LayerNorm;
 * pass 2 (`data_grads_f32_mma_kernel`) with the transposed weights: K4's
-  dh2 = dmsg W3^T and dx2 = dh2 gelu'(x2); dh1 = dx2 W2^T in pre's unit
+  and K6's dh2 = dmsg W3^T and dx2 = dh2 gelu'(x2) (K6's, in one of its
+  forms, in pass 1: the same operands and order); dh1 = dx2 W2^T in pre's unit
   order (W2^T's columns through unit()), dpre = dh1 gelu'(pre), dE = dpre
   W_e^T (W_e^T's rows through unit()) [+ dresid];
 * the column sums (s, db2, db3, dsh, dsc, dgate, dA): rows g and g + 8 of a
@@ -29,9 +31,10 @@ are padding), every product on mma.sync m16n8k8 in 3xTF32 (the split and
   over every chunk (the empty ones' zeros too).
 
 `emulate_*` below repeat those loops in torch and are held against the
-JAX package's Pallas `_pallas_sum_bwd` and `_pallas_edge_lnmod_bwd`
+JAX package's Pallas `_pallas_sum_bwd`, `_pallas_edge_lnmod_bwd`
 (without and with `keep=`, filled with the port's counter-hash keep
-scales, which the kernel at DROP 2 regenerates) in interpret mode in f32
+scales, which the kernel at DROP 2 regenerates) and `_pallas_edge_bwd` in
+interpret mode in f32
 at atol 2e-4 + rtol 2e-4 (as tests/test_kernels.py holds them) at B 2, L 6
 with K 16, 32, 48, 64 and 20; the same loops with one TF32 product (hi_a
 hi_b) miss that limit; and the transposed weights' fragment order and the
@@ -188,13 +191,30 @@ def emulate_edge_lnmod_bwd(A, E, Gn, idx, W_e, W2, b2, W3, b3, sc, g, dout, keep
             _per_sample(_res_sums(dct * (ln * sc1), B, L, K), B))
 
 
+def emulate_edge_bwd(A, E, Gn, idx, W_e, W2, b2, W3, dout, single=False):
+    """K6's two passes and weight grads (dmsg = dout) -> `_pallas_edge_bwd`'s
+    eight outputs."""
+    B, L, K, _ = E.shape
+    pre, h1, g1, x2, bi, j = _pass1(A, E, Gn, idx, W_e, W2, b2, single)
+    dmsg = dout.reshape(-1, H)
+    dx2 = mma3(dmsg, W3.T, single=single) * _gelu_grad(x2)
+    dpre, dE, dGn = _pass2(dx2, g1, W_e, W2, bi, j, Gn.shape[1], single)
+    dA = torch.zeros(B * L, H, dtype=F32)
+    dA[:, UNIT] = _res_sums(dpre, B, L, K)
+    return (dA.reshape(B, L, H), dE.reshape(B, L, K, H), dGn,
+            wgrad(E.reshape(-1, H), dpre[:, NAT], single), wgrad(h1[:, NAT], dx2, single),
+            sum_partials(_res_sums(dx2, B, L, K)), wgrad(gelu_exp(x2), dmsg, single),
+            sum_partials(_res_sums(dmsg, B, L, K)))
+
+
 KS = [16, 32, 48, 64, 20]   # 20: a multiple of 4, not of 16
+_KIND_SEED = {"sum": 0, "lnmod": 100, "keep": 200, "edge": 300}
 
 
 def _inputs(kind, K, B=2, L=6, seed=0):
-    """Numpy f32 operands of K3 ("sum") or K4 ("lnmod", "keep"), the keep
-    scales for "keep"."""
-    rng = np.random.default_rng(seed + K + {"sum": 0, "lnmod": 100, "keep": 200}[kind])
+    """Numpy f32 operands of K3 ("sum"), K4 ("lnmod", "keep") or K6's
+    backward ("edge"), the keep scales for "keep"."""
+    rng = np.random.default_rng(seed + K + _KIND_SEED[kind])
     f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
     b = lambda: (rng.normal(size=H) * 0.1).astype(np.float32)
     x = [f(B, L, H), f(B, L, K, H), f(B, L, H),
@@ -202,6 +222,10 @@ def _inputs(kind, K, B=2, L=6, seed=0):
     if kind == "sum":
         x += [(rng.random((B, L, K)) > 0.2).astype(np.float32), f(H, H, sc=H ** -0.5),
               f(H, H, sc=H ** -0.5), b(), f(H, H, sc=H ** -0.5), f(B, L, H, sc=1 / 30)]
+        return x, None
+    if kind == "edge":
+        x += [f(H, H, sc=H ** -0.5), f(H, H, sc=H ** -0.5), b(), f(H, H, sc=H ** -0.5),
+              f(B, L, K, H)]
         return x, None
     x += [f(H, H, sc=H ** -0.5), f(H, H, sc=H ** -0.5), b(), f(H, H, sc=H ** -0.5), b(),
           f(B, H, sc=0.3), f(B, H), f(B, L, K, H, sc=0.05)]
@@ -213,8 +237,9 @@ def _inputs(kind, K, B=2, L=6, seed=0):
 
 def _pallas(kind, x, keep):
     jx = [jnp.asarray(v) for v in x]
-    if kind == "sum":
-        return JK._pallas_sum_bwd(*jx[:4], None, *jx[4:])
+    if kind in ("sum", "edge"):
+        return (JK._pallas_sum_bwd if kind == "sum" else JK._pallas_edge_bwd)(*jx[:4], None,
+                                                                              *jx[4:])
     kw = {} if keep is None else {"keep": jnp.asarray(keep)}
     return JK._pallas_edge_lnmod_bwd(*jx[:4], None, *jx[4:], **kw)
 
@@ -223,17 +248,19 @@ def _emulate(kind, x, keep, single=False):
     tx = [torch.from_numpy(v) for v in x]
     if kind == "sum":
         return emulate_sum_bwd(*tx, single=single)
+    if kind == "edge":
+        return emulate_edge_bwd(*tx, single=single)
     kp = None if keep is None else torch.from_numpy(keep)
     return emulate_edge_lnmod_bwd(*tx, keep=kp, single=single)
 
 
 @pytest.mark.parametrize("K", KS)
-@pytest.mark.parametrize("kind", ["sum", "lnmod", "keep"])
+@pytest.mark.parametrize("kind", ["sum", "lnmod", "keep", "edge"])
 def test_backward_emulation_matches_pallas(interpret, kind, K):
     x, keep = _inputs(kind, K)
     want = _pallas(kind, x, keep)
     got = _emulate(kind, x, keep)
-    names = SUM_NAMES if kind == "sum" else EDGE_NAMES
+    names = SUM_NAMES if kind in ("sum", "edge") else EDGE_NAMES
     assert len(got) == len(want) == len(names)
     for n, gt, w in zip(names, got, want):
         assert gt.dtype == F32 and gt.numel() == np.asarray(w).size, n
@@ -241,7 +268,7 @@ def test_backward_emulation_matches_pallas(interpret, kind, K):
         assert ok, (n, worst)
 
 
-@pytest.mark.parametrize("kind", ["sum", "lnmod"])
+@pytest.mark.parametrize("kind", ["sum", "lnmod", "edge"])
 def test_a_single_tf32_product_shows(interpret, kind):
     """The same passes with one TF32 product (hi_a hi_b) in every product
     and in the weight-grad pass miss the f32 limit by several times at K

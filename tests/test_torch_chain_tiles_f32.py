@@ -17,7 +17,8 @@ multiple of 4 up to 64: rows past K in a residue's last slab are padding).
   permuted alike); x2 = gelu(pre) W2;
 * K2: h2 = gelu(x2 + b2) as the A operand of msg = h2 W3; resid = E + (msg
   + b3); the LayerNorm's two passes summed as the bf16 kernel sums them;
-  out = g (LN (1 + sc) + sh), f32;
+  out = g (LN (1 + sc) + sh), f32; K5's forward (K2's kernel at DROP 1 or
+  2): resid = E + (msg + b3) x keep;
 * K1: mask * gelu(x2 + b2) of a slab's rows g and g + 8, the 8 lanes'
   butterfly as a pairwise tree, the residue's slabs in slab order, then
   out = (s W3 + msum b3) / scale with s W3 taken as W3^T s^T (W3 the A
@@ -26,7 +27,9 @@ multiple of 4 up to 64: rows past K in a residue's last slab are padding).
 
 The gelu is the kernels' x / (1 + exp(-2u)). The emulation is held against
 the JAX package's Pallas kernels in interpret mode in f32 at atol 2e-4 +
-rtol 2e-4 (as tests/test_kernels.py holds them) at K 16, 32, 48, 64 and 20;
+rtol 2e-4 (as tests/test_kernels.py holds them) at K 16, 32, 48, 64 and 20
+(K5's forward with the port's counter-hash keep scales, `keep_scales`, as
+the Pallas kernel's `keep`);
 the same loop with one TF32 product (hi_a hi_b) misses that limit; and a
 5-step f32 DDIM draw of the port's denoiser (hidden 128) with K1 and K2
 swapped for the emulation stays within 1e-5 of max|latent| of the JAX
@@ -48,6 +51,7 @@ from codlad_tpu.gen.diffusion import create_diffusion as jax_create_diffusion
 from codlad_tpu.kernels import mpnn_kernels as JK
 from codlad_tpu_torch.eval.harness import SamplingPipeline
 from codlad_tpu_torch.gen.diffusion import create_diffusion
+from codlad_tpu_torch.kernels.mpnn_kernels import keep_scales
 from codlad_tpu_torch.nn import mpnn as TM
 
 H = 128
@@ -135,11 +139,14 @@ def _quad_sum(v):
     return (lane[:, 0] + lane[:, 1]) + (lane[:, 2] + lane[:, 3])
 
 
-def emulate_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, single=False):
-    """K2's slab loop -> f32 [B, L, K, H]."""
+def emulate_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, single=False,
+                       keep=None):
+    """K2's slab loop (K5's forward with `keep` [B, L, K, H]) -> f32 [B, L,
+    K, H]."""
     B, L, K, _ = E.shape
     h2 = gelu_exp(_x2(A, E, Gn, idx, W_e, W2, single) + b2)
-    resid = E.reshape(-1, H) + (mma3(h2, W3, single=single) + b3)
+    msg = mma3(h2, W3, single=single) + b3
+    resid = E.reshape(-1, H) + (msg if keep is None else msg * keep.reshape(-1, H))
     mean = _quad_sum(resid) / H
     d = resid - mean[:, None]
     rstd = torch.rsqrt(_quad_sum(d * d) / H + 1e-6)
@@ -233,6 +240,23 @@ def test_edge_lnmod_emulation_matches_pallas(interpret, K):
     tx, jx = _case(K, 500 + K)
     want = JK._pallas_message_edge_lnmod(*jx[:4], None, *jx[4:12])
     got = emulate_edge_lnmod(*tx[:12])
+    ok, worst = _within(got, want)
+    assert got.shape == want.shape and ok, worst
+
+
+@pytest.mark.parametrize("K", KS)
+def test_dropout_forward_emulation_matches_pallas(interpret, K):
+    """K5's forward, K2's loop with the keep scales that the kernel at DROP
+    2 makes from per-sample seeds (rate 0.6), against the Pallas kernel
+    given them as `keep`."""
+    tx, jx = _case(K, 800 + K)
+    seeds = torch.from_numpy(np.random.default_rng(K).integers(0, 2 ** 31 - 1, size=2)
+                             .astype(np.int32))
+    keep = keep_scales(seeds, (12, K, H), 0.6)
+    assert 0.3 < float((keep > 0).float().mean()) < 0.5
+    want = JK._pallas_message_edge_lnmod(*jx[:4], None, *jx[4:12],
+                                         keep=jnp.asarray(keep.numpy()))
+    got = emulate_edge_lnmod(*tx[:12], keep=keep)
     ok, worst = _within(got, want)
     assert got.shape == want.shape and ok, worst
 

@@ -14,8 +14,10 @@ backward; in bf16 also on offset views) and the K8/K9 backwards (each the
 other kernel) against autograd of the plain versions; the tensor-core K1
 and K2 at every K the featurizer gives in bf16 and at every K the f32
 wrapper takes in f32 (3xTF32), each bit for bit from run to run; the f32
-K3, K4 and K5's backward (3xTF32) at every K the f32 wrapper takes against
-float64 autograd, every output but dGn bit for bit from run to run; K7
+K3, K4, K5's and K6's backward (3xTF32) at every K the f32 wrapper takes
+against float64 autograd, every output but dGn bit for bit from run to run;
+the f32 K5 forward on K2's 3xTF32 kernel at those K, bit for bit as the
+bf16 one; K7
 against K2's kernel then K1's, bit for bit, both dtypes; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
@@ -299,6 +301,46 @@ def test_edge_lnmod_bwd_f32_tensor_cores_every_k(dev, K):
         _repeats(lambda: MK.message_edge_lnmod_bwd(*edge, ct, **kw))
     assert MK.LAUNCHES["fused_message_edge_lnmod_bwd"] == 3
     assert MK.LAUNCHES["fused_message_edge_lnmod_drop_bwd"] == 6
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_edge_bwd_f32_tensor_cores_every_k(dev, K):
+    """K6's backward (3xTF32, two passes) against float64 autograd, every
+    output but dGn bit for bit from call to call."""
+    B, L, N = 3, 21, 30
+    x = _inputs(dev, torch.float32, B, L, N, K, seed=100 + K)
+    ct = torch.randn(B, L, K, H, generator=torch.Generator().manual_seed(101)).to(dev)
+    MK.reset_launches()
+    _check_bwd_f64(MK.fused_message_edge, MK.ref_message_edge, x, _MSG, _GRAD, ct)
+    base = [x[k] for k in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
+    _repeats(lambda: MK.message_edge_bwd(*base, ct))
+    assert MK.LAUNCHES["fused_message_edge_bwd"] == 3
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_dropout_forward_f32_tensor_cores_every_k(dev, K):
+    """K5's f32 forward on K2's 3xTF32 kernel: the debug forward's mask is
+    keep_scales'; the seeded forward equals the debug forward and the
+    keep-tensor forward given that mask, a keep of ones equals K2, each bit
+    for bit; every forward repeats bit for bit; within the f32 limits of
+    the plain version."""
+    B, L, N, p = 3, 37, 50, 0.6
+    x = _inputs(dev, torch.float32, B, L, N, K, seed=110 + K)
+    args = [x[k] for k in _EDGE]
+    seeds = torch.tensor([7, -3, 2 ** 31 - 1], dtype=torch.int32, device=dev)
+    MK.reset_launches()
+    out, mask = MK.edge_lnmod_pdrop_debug(*args, seeds, p)
+    seeded = MK.fused_message_edge_lnmod_pdrop(*args, seeds, p)
+    kept = MK.fused_message_edge_lnmod_drop(*args, mask)
+    ones = MK.fused_message_edge_lnmod_drop(*args, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge_lnmod_drop"] == 4
+    assert torch.equal(mask, MK.keep_scales(seeds, (L, K, H), p))
+    assert torch.equal(seeded, out) and torch.equal(kept, out)
+    assert torch.equal(ones, MK.fused_message_edge_lnmod(*args))
+    assert torch.equal(MK.fused_message_edge_lnmod_pdrop(*args, seeds, p), seeded)
+    assert torch.equal(MK.fused_message_edge_lnmod_drop(*args, mask), kept)
+    _close(out, MK.plain_message_edge_lnmod_pdrop(*args, seeds, p), 2e-4, 2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
