@@ -57,7 +57,9 @@ Phases, each printing its seconds:
                 their tolerances, each timed beside its bound, its plain
                 version and the nearest PyTorch call (the kernel and that
                 call also by CUDA graph replay: the device's time); K11
-                (fused_tp_bwd: dx, dsh, dw; bf16 on the tensor cores) at
+                (fused_tp_bwd: dx, dsh, dw; bf16 on the tensor cores, f32
+                on CUDA cores with its tables staged in shared memory,
+                fused_tp_bwd_f32_kernel, two launches bit for bit equal) at
                 K10's six shapes against autograd of the plain K10 (float64
                 for f32), timed beside its bound, the plain backward and
                 the dense form's backward in cuBLAS (both also by graph
@@ -65,8 +67,11 @@ Phases, each printing its seconds:
                 kernel) against autograd of their plain versions;
   3. kernels_k6 -- K6 (fused_message_edge, the adaLN residual encoder's raw
                 per-edge messages; bf16 on the tensor cores,
-                message_edge_mma_kernel) at B96 L128 K64 and B96 L48 K48, f32
-                and bf16, against ref_message_edge, and its backward (on the
+                message_edge_mma_kernel; f32 on K2's 3xTF32 kernel with a
+                raw epilogue, message_edge_f32_mma_kernel, beside its 3xTF32
+                bound, twice bit for bit) at B96 L128 K64 and B96 L48 K48, f32
+                and bf16 (and f32 at N != L: 64 local rows, N 128), against
+                ref_message_edge, and its backward (on the
                 tensor cores: bf16 message_edge_bwd_mma_kernel, f32
                 message_edge_bwd_f32_mma_kernel then
                 data_grads_f32_mma_kernel in 3xTF32 and
@@ -242,7 +247,10 @@ Phases, each printing its seconds:
                 path: 10 steps, launches of K8-K11 asserted every step,
                 the loss finite and no step skipped, median ms/step, the
                 first step, peak memory, the last step under
-                torch.profiler; then 3 steps in f32;
+                torch.profiler; then 4 steps in f32 (the default trainer),
+                the last traced, which fails unless K11 ran as
+                fused_tp_bwd_f32_kernel (tables staged in shared memory)
+                and no fused_tp_bwd_kernel ran;
  18. train_stage1_reference -- one f32 step on a small batch (2 x 40) on
                 the card and on the CPU: loss, every parameter's grad, the
                 VQ state;
@@ -1226,10 +1234,11 @@ def check_k5_forward_bits(x, seeds, out, mask, dims):
 
 
 # the f32 kernels of these records run on the tensor cores in 3xTF32 (their
-# records carry tc_bound_ms): the backwards and K5's forward (K2's kernel)
+# records carry tc_bound_ms): the backwards, K5's forward (K2's kernel) and
+# K6's forward (K2's kernel, the raw epilogue)
 TF32_RECORDS = ("fused_message_sum_bwd", "fused_message_edge_lnmod_bwd",
                 "fused_message_edge_lnmod_drop_bwd", "fused_message_edge_bwd",
-                "fused_message_edge_lnmod_drop")
+                "fused_message_edge_lnmod_drop", "fused_message_edge")
 
 
 def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, extra,
@@ -1243,14 +1252,17 @@ def records_bwd(records, name, dname, dims, err, ms, plain_ms, nbytes, flops, ex
     if dname == "float32" and name in TF32_RECORDS:
         extra = dict(extra, tc_bound_ms=tc_bound_ms(nbytes, flops))
     more = "".join(f", {k} {v:.4f} ms" if isinstance(v, float) else f", {k} {v}"
-                   for k, v in extra.items() if k != "device_ms")
+                   for k, v in extra.items() if k not in ("device_ms", "tc_bound_ms"))
     if (dname == "bfloat16" and name in CUDA_CORE_BWD_MS and n_nodes is None
             and tuple(dims) in ((B, L, K), K48)):
         was = CUDA_CORE_BWD_MS[name][0 if dims[2] == K else 1]
         more += f" (the CUDA-core body's device {was:.4f} ms, {was / extra['device_ms']:.2f}x)"
+    tc = (f", 3xTF32 bound {extra['tc_bound_ms']:.4f} ms (FFMA bound "
+          f"{max(t_bytes, t_ops):.4f} ms)" if "tc_bound_ms" in extra else
+          f"; bound {max(t_bytes, t_ops):.4f} ms")
     log(f"kernel {name} {dname} {dims_tag(dims, n_nodes)}: max|d|={err:.3g}; a call (events) kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device (graph replay) kernel "
-        f"{extra['device_ms']:.4f} ms{more}; bound {max(t_bytes, t_ops):.4f} ms "
+        f"{extra['device_ms']:.4f} ms{more}{tc} "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
     if dname == "bfloat16" or keep_f32:
         key = name if dname == "bfloat16" else f"{name}_f32"
@@ -1267,23 +1279,28 @@ def bf16_close(got, want, tol):
     return d.max().item(), bool((d <= tol * ref.max()).all())
 
 
-def check_k6_kernels(device, seed, dims=(B, L, K)):
+def check_k6_kernels(device, seed, dims=(B, L, K), n_nodes=None, dtypes=None):
     """K6 (fused_message_edge) against ref_message_edge, and its backward
-    against autograd of ref_message_edge (float64 for the f32 kernel, as K4),
-    f32 and bf16, twice bit for bit but dGn; timed beside the bound and the
-    plain version. Returns the bf16 record of each, and the f32 record of
-    the backward (`fused_message_edge_bwd_f32`, on the tensor cores)."""
+    against autograd of ref_message_edge (float64 for the f32 kernels, as
+    K4), f32 and bf16 (or `dtypes`), the forward and the backward each twice
+    bit for bit (the backward but dGn); timed beside the bound (the f32
+    ones beside the 3xTF32 bound too) and the plain version. Returns the
+    bf16 record of each and the f32 records of both
+    (`fused_message_edge_f32`, `fused_message_edge_bwd_f32`: on the tensor
+    cores). n_nodes: see kernel_inputs."""
     import torch
     from codlad_tpu_torch.kernels import mpnn_kernels as MK
     records = {}
     b, l, k = dims
-    for dtype in (torch.float32, torch.bfloat16):
+    n_tab = n_nodes or l
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         es = torch.finfo(dtype).bits // 8
-        x = kernel_inputs(dtype, seed, device, dims)
+        x = kernel_inputs(dtype, seed, device, dims, n_nodes)
         args = [x[n] for n in _MSG_KEYS]
         n_edge = b * l * k
-        chain_in = (2 * b * l * H + n_edge * H) * es + n_edge * 4 + 3 * H * H * es + 2 * H * 4
+        chain_in = ((b * l + b * n_tab + n_edge) * H * es + n_edge * 4 + 3 * H * H * es
+                    + 2 * H * 4)
         kern = lambda: MK.fused_message_edge(*args)
         plain = lambda: MK.ref_message_edge(*args)
         got, want = kern(), plain()
@@ -1298,10 +1315,12 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
         (dev_ms,) = replay_ms(kern)
         fwd = (err, ms, plain_ms, chain_in + n_edge * H * es, 3 * 2 * n_edge * H * H,
                dict(device_ms=dev_ms))
-        log(f"kernel fused_message_edge {dname} {dims_tag(dims)}: max|d|={err:.3g} ({limit}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"kernel fused_message_edge {dname} {dims_tag(dims, n_nodes)}: max|d|={err:.3g} "
+            f"({limit}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"K6 ({dname}) disagrees with its plain version")
+        if not torch.equal(got, kern()):
+            raise RuntimeError(f"K6 ({dname}) does not repeat bit for bit")
         del got, want
 
         g = torch.Generator().manual_seed(seed + 9)
@@ -1311,22 +1330,21 @@ def check_k6_kernels(device, seed, dims=(B, L, K)):
             _, gp, _ = grads_of(MK.ref_message_edge, as_f64(x), _MSG_KEYS, _DIFF, ct.double())
         else:
             _, gp, _ = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
-        err = compare_grads(f"K6 bwd {dims_tag(dims)}", gk, gp, dname)
+        err = compare_grads(f"K6 bwd {dims_tag(dims, n_nodes)}", gk, gp, dname)
         del gk, gp
         _, _, plain_bwd = grads_of(MK.ref_message_edge, x, _MSG_KEYS, _DIFF, ct)
         bwd_args = [x[n] for n in ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3")]
         k6b = lambda: MK.message_edge_bwd(*bwd_args, ct)
-        check_repeats(f"K6 backward {dname} {dims_tag(dims)}", k6b)
+        check_repeats(f"K6 backward {dname} {dims_tag(dims, n_nodes)}", k6b)
         ms, plain_ms = time_calls(k6b, plain_bwd)
         (dev_ms,) = replay_ms(k6b)
-        bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True),
+        bwd = (err, ms, plain_ms, *bwd_bytes_flops(es, True, dims, raw=True, n_nodes=n_nodes),
                dict(device_ms=dev_ms,
                     **(kernel_split(k6b, dev_ms) if dtype == torch.float32 else {})))
         del plain_bwd, x, args, ct
         torch.cuda.empty_cache()
         for name, rec in (("fused_message_edge", fwd), ("fused_message_edge_bwd", bwd)):
-            records_bwd(records, name, dname, dims, *rec,
-                        keep_f32=name == "fused_message_edge_bwd")
+            records_bwd(records, name, dname, dims, *rec, n_nodes=n_nodes, keep_f32=True)
     return records
 
 
@@ -1544,8 +1562,9 @@ def train_batch(n_frames, n_res, seed, device, jitter=0.0):
             {k: torch.as_tensor(v, device=device) for k, v in extras.items()})
 
 
-CHAIN_KERNELS = ("chain_kernel", "sum_partials",  # csrc
+CHAIN_KERNELS = ("sum_partials",  # csrc
                  "message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
+                 "message_edge_f32_mma_kernel",
                  "edge_then_sum_f32_mma_kernel", "message_sum_bwd_f32_mma_kernel",
                  "message_edge_lnmod_bwd_f32_mma_kernel", "message_edge_bwd_f32_mma_kernel",
                  "data_grads_f32_mma_kernel",
@@ -1554,7 +1573,7 @@ CHAIN_KERNELS = ("chain_kernel", "sum_partials",  # csrc
                  "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
                  "message_edge_lnmod_bwd_mma_kernel", "message_edge_bwd_mma_kernel")
 STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
-                  "fused_tp_mma_kernel", "fused_tp_bwd_kernel", "fused_tp_bwd_mma_kernel")
+                  "fused_tp_mma_kernel", "fused_tp_bwd_f32_kernel", "fused_tp_bwd_mma_kernel")
 
 
 def busy_us(intervals):
@@ -2890,6 +2909,18 @@ def check_trained_calls(pipe, batch, generator, scale_tol=0.0):
 # Stage 1 training: K11 and the K8/K9 backwards, the trainer's step, its CLI
 
 
+def tp_bwd_repeats(label, call):
+    """K11's dx, dsh and dw of two launches on the same inputs bit for bit
+    equal (every sum in a fixed order, no atomics), or raise."""
+    import torch
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    moved = [n for n, u, v in zip(("dx", "dsh", "dw"), first, again) if not torch.equal(u, v)]
+    if moved:
+        raise RuntimeError(f"{label}: two launches differ in {moved}")
+    return "two launches bit for bit equal"
+
+
 def tp_bwd_cost(m, din, numel, dout, R, nnz, es, dsh=9):
     """(bytes, operations) of K11 over m rows: x, sh, w and dct read once,
     dx, dsh and dw written once; 4 nnz + 5 R + 5 dsh din operations a row
@@ -2905,8 +2936,10 @@ def check_stage1_bwd_kernels(batch, seed):
     form's backward as cuBLAS products; then the K8 / K9 backwards (K9 over
     the dst CSR for the layer-2 atom feature gather, F 36; K8 of the
     cotangent over the valid degree for the layer-2 atom mean, F 48)
-    against autograd of their plain versions. Returns the bf16 (the
-    trainer's dtype) record of K11 at the layer-2 atom edges."""
+    against autograd of their plain versions. The f32 K11 also repeats
+    bit for bit. Returns the bf16 (the -bf16 trainer's dtype) and f32 (the
+    default trainer's, key `fused_tp_bwd_f32`) records of K11 at the
+    layer-2 atom edges."""
     import torch
     from codlad_tpu_torch.kernels import edge_kernels as EK
     from codlad_tpu_torch.kernels import tp_kernels as TK
@@ -2973,6 +3006,8 @@ def check_stage1_bwd_kernels(batch, seed):
                     return (db * sh[..., :, None]).sum(-2), (db * x[..., None, :]).sum(-1), dw
 
                 kern = lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)
+                same = (tp_bwd_repeats(f"K11 f32 layer {layer} {where}", kern)
+                        if dtype == torch.float32 else "")
                 ms, plain_ms, lib_ms = time_calls(kern, plain, library)
                 dev_ms, lib_dev_ms = replay_ms(kern, library)
                 m = x.numel() // din
@@ -2983,7 +3018,7 @@ def check_stage1_bwd_kernels(batch, seed):
                 log(f"kernel fused_tp_bwd {dname} layer {layer} {where} {tuple(lead)}: "
                     f"max|d|/max|ref| "
                     f"{', '.join(f'{n} {e:.3g}/{r:.3g}' for n, (e, r) in errs.items())} "
-                    f"({limit}) {'ok' if ok else 'FAIL'}; "
+                    f"({limit}) {'ok' if ok else 'FAIL'}; {same + '; ' if same else ''}"
                     f"a call (events) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                     f"{lib_ms:.4f} ms; device (graph replay) kernel {dev_ms:.4f} ms, library "
                     f"{lib_dev_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
@@ -2991,8 +3026,9 @@ def check_stage1_bwd_kernels(batch, seed):
                 if not ok:
                     raise RuntimeError(f"fused_tp_bwd ({dname}, layer {layer} {where}) "
                                        "disagrees with plain autograd")
-                if layer == 2 and where == "edges" and dtype == torch.bfloat16:
-                    records["fused_tp_bwd"] = dict(
+                if layer == 2 and where == "edges":
+                    key = "fused_tp_bwd" + ("" if dtype == torch.bfloat16 else "_f32")
+                    records[key] = dict(
                         record("fused_tp_bwd", dname, err, ms, plain_ms, t_bytes, t_ops, lib_ms),
                         device_ms=dev_ms, library_device_ms=lib_dev_ms)
                 del x, sh, w, ct, got, pl, pout
@@ -3069,10 +3105,11 @@ def stage1_weights():
     return weights_to_array(LossWeights(zeta=5.0, omega=3.0).dynamic(2))
 
 
-def run_stage1_train(state, step, batch, n_steps, expect, traced=0):
+def run_stage1_train(state, step, batch, n_steps, expect, traced=0, names=None):
     """n_steps Stage-1 training steps, each step's launches counted and held
     to `expect`, the loss finite and no step skipped; the last `traced`
-    steps under torch.profiler (summary logged). Returns (ms of the
+    steps under torch.profiler (summary logged; the names of the kernels
+    that ran on the device added to the set `names`). Returns (ms of the
     untraced steps, the last metrics, the host-read ms of each step)."""
     import contextlib
     import torch
@@ -3105,8 +3142,10 @@ def run_stage1_train(state, step, batch, n_steps, expect, traced=0):
                                    f"{float(metrics['skipped'])}")
             syncs.append(float(metrics["sync_ms"]))
     if traced:
-        trace_summary(prof, sum(times[n_steps - traced:]), traced, mine=STAGE1_KERNELS,
-                      label="K8-K11")
+        ran = trace_summary(prof, sum(times[n_steps - traced:]), traced, mine=STAGE1_KERNELS,
+                            label="K8-K11")
+        if names is not None:
+            names.update(ran)
     if not any(not torch.equal(state.params[k], v) for k, v in p0.items()):
         raise RuntimeError("the Stage-1 params did not move")
     return times[:n_steps - traced], metrics, syncs
@@ -3454,6 +3493,9 @@ def check_cgprior_kernels(batch, seed):
                                        "disagrees with plain autograd")
                 err = max(err, d.max().item())
             seen.append(f"K11 {dname} layer {layer} {err:.3g}")
+            if dtype == torch.float32:
+                seen.append(tp_bwd_repeats(f"K11 f32 CG layer {layer}",
+                                           lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)))
             if timed and layer == 2:
                 pl = [v.detach().requires_grad_(True) for v in (x, sh, w)]
                 pout = TK.ref_fused_tp(*pl, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
@@ -5051,19 +5093,21 @@ def phase_f32_chain(seed, device, records, batch):
     records["fused_message_edge_lnmod_bwd_f32"]["launches"] = totals[
         "fused_message_edge_lnmod_bwd"]
     del model, state, step
-    # the adaLN residual denoiser (gates open, dropout 0.6): K6's f32
-    # backward on its tensor-core passes (its forward stays on CUDA cores)
+    # the adaLN residual denoiser (gates open, dropout 0.6): K6's f32 forward
+    # on K2's 3xTF32 kernel, its backward on its tensor-core passes
     model, state, step = build_trainer(device, seed, gates=True, adaln_mode="residual")
     ran = set()
     resid, _, totals = run_train(state, step, x1, extras, seed, 4,
                                  train_launches(len(model.enc_layers), len(model.dec_layers),
                                                 P_DROP, "residual"), traced=1, names=ran)
-    need_r = ("message_edge_bwd_f32_mma_kernel", "data_grads_f32_mma_kernel",
-              "wgrad_f32_mma_kernel")
+    need_r = ("message_edge_f32_mma_kernel", "message_edge_bwd_f32_mma_kernel",
+              "data_grads_f32_mma_kernel", "wgrad_f32_mma_kernel")
     if ran and (not all(any(k in n for n in ran) for k in need_r)
-                or any("chain_bwd_kernel" in n for n in ran)):
-        raise RuntimeError(f"the f32 residual training step did not run K6's backward on "
-                           f"{need_r} (or ran chain_bwd_kernel): {sorted(ran)}")
+                or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
+        raise RuntimeError(f"the f32 residual training step did not run K6's forward and "
+                           f"backward on {need_r} (or ran chain_kernel or chain_bwd_kernel): "
+                           f"{sorted(ran)}")
+    records["fused_message_edge_f32"]["launches"] = totals["fused_message_edge"]
     records["fused_message_edge_bwd_f32"]["launches"] = totals["fused_message_edge_bwd"]
     del model, state, step, x1, extras
     torch.cuda.empty_cache()
@@ -5119,6 +5163,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     records.update(check_k6_kernels(device, args.seed))
     check_k6_kernels(device, args.seed, K48)     # logged; the records keep the bench shape
+    check_k6_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
     log(f"phase kernels_k6: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     records.update(check_k7_kernels(device, args.seed))
@@ -5195,7 +5240,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     f32 = phase_f32_chain(args.seed, device, records, batch)
     fs32 = f32["fused"]
-    k6_trace = ("traced as message_edge_bwd_f32_mma_kernel, no chain_bwd_kernel"
+    k6_trace = ("traced as message_edge_f32_mma_kernel and its backward as "
+                "message_edge_bwd_f32_mma_kernel, no chain_kernel or chain_bwd_kernel"
                 if f32["resid_traced"] else "not traced (no device events)")
     log(f"phase f32_chain: {time.perf_counter() - t0:.2f} s; f32 denoiser (K1, K2, K7 on the "
         f"tensor cores, 3xTF32): a {steps}-step draw + decode at B{B} L{L} K{K} "
@@ -5211,7 +5257,7 @@ def main(argv=None):
         f"{[round(x, 2) for x in f32['train_times']]} (last loss {f32['loss']:.5g}; K5's "
         f"forward traced as message_edge_lnmod_f32_mma_kernel, no chain_kernel or "
         f"chain_bwd_kernel); f32 residual training (gates open) "
-        f"{[round(x, 2) for x in f32['resid_ms']]} ms/step after the first, K6's backward "
+        f"{[round(x, 2) for x in f32['resid_ms']]} ms/step after the first, K6's forward "
         f"{k6_trace}")
 
     t0 = time.perf_counter()
@@ -5472,18 +5518,29 @@ def main(argv=None):
     s1_batch = stage1_batch(args.seed, device)
     per_step = stage1_train_launches()
     for dtype, n_steps, traced in ((torch.bfloat16, STAGE1_TRAIN_STEPS, 1),
-                                   (torch.float32, 3, 0)):
+                                   (torch.float32, 4, 1)):
         dname = str(dtype).split(".")[-1]
         _, state, step = build_stage1_trainer(device, args.seed, compute_dtype=dtype)
         torch.cuda.reset_peak_memory_stats()
+        ran = set()
         times, metrics, syncs = run_stage1_train(state, step, s1_batch, n_steps, per_step,
-                                                 traced=traced)
+                                                 traced=traced, names=ran)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if dtype == torch.bfloat16:
             for key, name in (("fused_tp_bwd", "fused_tp_bwd"), ("fused_tp_bf16", "fused_tp"),
                               ("edge_gather_bf16", "edge_gather"),
                               ("edge_aggregate_bf16", "edge_aggregate")):
                 records[key]["launches"] = per_step[name] * n_steps
+        else:
+            # the default (f32) trainer's K11 on the staged-table kernel
+            if ran and (not any("fused_tp_bwd_f32_kernel" in n for n in ran)
+                        or any("fused_tp_bwd_kernel" in n for n in ran)):
+                raise RuntimeError(f"the f32 Stage-1 step did not run K11 as "
+                                   f"fused_tp_bwd_f32_kernel (or ran fused_tp_bwd_kernel): "
+                                   f"{sorted(ran)}")
+            records["fused_tp_bwd_f32"]["launches"] = per_step["fused_tp_bwd"] * n_steps
+            log(f"  train_stage1 float32: the traced step ran K11 as "
+                f"{'fused_tp_bwd_f32_kernel, no fused_tp_bwd_kernel' if ran else '(no device events: not checked)'}")
         nb, nl = s1_batch["res_type"].shape
         log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
             f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "

@@ -1,7 +1,8 @@
 // The slab functions of the f32 tensor-core message chains (message_chain.cu:
 // K1 `message_sum_f32_mma_kernel`, K2 and K5's forward
-// `message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>` and K7
-// `edge_then_sum_f32_mma_kernel`; message_chain_bwd.cu's f32 backwards).
+// `message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>`, K6's forward
+// `message_edge_f32_mma_kernel` and K7 `edge_then_sum_f32_mma_kernel`;
+// message_chain_bwd.cu's f32 backwards).
 // Every product runs on mma.sync m16n8k8 in TF32 with the 3xTF32 split
 // (`split`): x = hi + lo, hi = x rounded to TF32 (nearest, ties away from
 // zero), lo = x - hi, and c += lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b,
@@ -392,21 +393,18 @@ __device__ __forceinline__ void lnmod_out(float (&acc)[16][4], const float (&e)[
   }
 }
 
-// K2's chain of one slab: E's rows, x2, h2 = gelu(x2 + b2) in place (the A
-// operand of the W3 product), msg = h2 W3, then lnmod_out with those E rows
-// (K5's forward: DROP, MASK_OUT and d as lnmod_out's). sWe, sW2 as
-// chain_x2, sW3 W3 (stage_frag<false, false>); sb2, sb3 in shared memory.
-template <int DROP = 0, bool MASK_OUT = false>
-__device__ __forceinline__ void edge_slab(const float* E, const float* __restrict__ A,
-                                          const float* __restrict__ Gn,
-                                          const int* __restrict__ idx, const float* sWe,
-                                          const float* sW2, const float* sW3, const float* sb2,
-                                          const float* sb3, const float* __restrict__ sh,
-                                          const float* __restrict__ sc,
-                                          const float* __restrict__ gate, float* out, int L,
-                                          int N, const Slab& s, const Dropout& d = {}) {
+// K2's (and K6's) chain of one slab: e its E rows (load_rows), x2, h2 =
+// gelu(x2 + b2) in place (the A operand of the W3 product), acc = msg =
+// h2 W3. sWe, sW2 as chain_x2, sW3 W3 (stage_frag<false, false>); sb2 in
+// shared memory.
+__device__ __forceinline__ void edge_msg(float (&acc)[16][4], float (&e)[16][4],
+                                         const float* E, const float* __restrict__ A,
+                                         const float* __restrict__ Gn,
+                                         const int* __restrict__ idx, const float* sWe,
+                                         const float* sW2, const float* sW3, const float* sb2,
+                                         int L, int N, const Slab& s) {
   const int t4 = s.lane & 3;
-  float e[16][4], h2[16][4];
+  float h2[16][4];
   load_rows(e, E, s);
   chain_x2(h2, e, A, Gn, idx, sWe, sW2, L, N, s);
 #pragma unroll
@@ -417,11 +415,55 @@ __device__ __forceinline__ void edge_slab(const float* E, const float* __restric
     h2[nt][2] = gelu_exp(h2[nt][2] + bias.x);
     h2[nt][3] = gelu_exp(h2[nt][3] + bias.y);
   }
-  float acc[16][4];
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
   mma_slab(acc, h2, sW3, s.lane);
+}
+
+// K2's slab: edge_msg, then lnmod_out with its E rows (K5's forward: DROP,
+// MASK_OUT and d as lnmod_out's); sb3 in shared memory, sh, sc, gate the
+// samples' [H] rows.
+template <int DROP = 0, bool MASK_OUT = false>
+__device__ __forceinline__ void edge_slab(const float* E, const float* __restrict__ A,
+                                          const float* __restrict__ Gn,
+                                          const int* __restrict__ idx, const float* sWe,
+                                          const float* sW2, const float* sW3, const float* sb2,
+                                          const float* sb3, const float* __restrict__ sh,
+                                          const float* __restrict__ sc,
+                                          const float* __restrict__ gate, float* out, int L,
+                                          int N, const Slab& s, const Dropout& d = {}) {
+  float e[16][4], acc[16][4];
+  edge_msg(acc, e, E, A, Gn, idx, sWe, sW2, sW3, sb2, L, N, s);
   lnmod_out<DROP, MASK_OUT>(acc, e, sb3, sh, sc, gate, out, s, d);
+}
+
+// K6's slab: edge_msg, then out = msg + b3 of the slab's rows (f32, 8-byte
+// stores at the accumulator positions). msg + b3 is lnmod_out's first sum at
+// DROP 0 (acc + bias, one add on the same operands), so K6's output is, bit
+// for bit, the residual's message term of K2's kernel on the same inputs;
+// no LayerNorm, and sh, sc, the gate and E's rows are not read after the
+// chain.
+__device__ __forceinline__ void raw_slab(const float* E, const float* __restrict__ A,
+                                         const float* __restrict__ Gn,
+                                         const int* __restrict__ idx, const float* sWe,
+                                         const float* sW2, const float* sW3, const float* sb2,
+                                         const float* sb3, float* out, int L, int N,
+                                         const Slab& s) {
+  const int g = s.lane >> 2, t4 = s.lane & 3;
+  float e[16][4], acc[16][4];
+  edge_msg(acc, e, E, A, Gn, idx, sWe, sW2, sW3, sb2, L, N, s);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h < s.nrow) {
+      float* o = out + (s.row0 + g + 8 * h) * H + 2 * t4;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const float2 bias = *reinterpret_cast<const float2*>(sb3 + 8 * nt + 2 * t4);
+        *reinterpret_cast<float2*>(o + 8 * nt) =
+            make_float2(acc[nt][2 * h] + bias.x, acc[nt][2 * h + 1] + bias.y);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -28,23 +28,67 @@
 // memory sets the bound.
 // chip_smoke.py computes it from the run's inputs.
 //
-// f32 (`fused_tp_bwd_kernel`): CUDA cores (tensor cores in f32 would be TF32,
-// outside the f32 tolerance), from the lists of kernels/tp_kernels.py
-// `sparse_tables`: the expansion columns q grouped by output column, each
-// with its output column (qcol), weight (widx) and CBIG_R nonzeros (rptr;
-// row split into rb, rf; coef), and two transposed lists, the q of each
-// weight (wptr, wq) for EXPW^T and the nonzeros of each CBIG_R row (tptr, tq,
-// tcoef) for CBIG_R^T. A block of 256 threads owns TE = 32 rows and stages x,
-// sh, w and dct (as f32) and Db in shared memory (odd row strides); each warp
-// takes table entries (Db rows, then weights) with one row a lane; x * sh[b]
-// is recomputed where TR needs it. 103 KB a block at layer 2, two blocks an
-// SM. Each Db and dw entry is a chain of dependent table loads (~4 000 FMAs a
-// row each at layer 2), so the f32 kernel is bound by latency.
+// f32 (`fused_tp_bwd_f32_kernel<RT>`): CUDA cores. The tensor cores in f32
+// would be TF32, outside the f32 tolerance, and a 3xTF32 form of the bf16
+// design below would do three times its block-sparse products, whose bf16
+// form alone (2.77 ms at layer 2) is slower than this kernel. The work is
+// small: 4 nnz + 5 R + 5 dsh din FMAs a row (5.5 G at layer 2, 0.08 ms at
+// 67 TFLOP/s), under the bytes (0.28 ms at 3.35 TB/s). It replaced a design
+// bound by latency (one row a lane, 32 rows a block, every Db and dw entry
+// a chain of dependent table loads through L1: 3.9 ms at layer 2). Here:
+//   * Tables staged once: a persistent grid, one block of 16 warps an SM,
+//     copies its signature's tables (kernels/tp_kernels.py `f32_bwd_tables`,
+//     one blob) into shared memory at the start: CBIG_R's nonzeros by
+//     expansion column in dw order (etr) and by CBIG_R row (edb) as 64-bit
+//     words, index fields low, the f32 coefficient high; the small pointer
+//     arrays in 16 bits (the q of each weight, each row's run of edb) and
+//     each q's first nonzero and output column in 32 (qword). edb holds
+//     (qcol[q], widx[q]) rather than q, so no entry waits on a second
+//     lookup. Every warp walks the tables in step across its 32 lanes: each
+//     read is a warp-uniform shared load (a broadcast). 69 KB at layer 2.
+//   * Rows by cp.async: a tile of T = 32 RT rows, lane l owns rows l + 32 r
+//     (r < RT; RT = 2, or 1 where two do not fit), so each entry word is read
+//     once for RT rows, and the RT FMA chains are independent. x, sh and dct
+//     (S, two buffers) and w (W, one) are staged feature-major, f * rs + r
+//     with rs = T + 1: the lanes' reads of one feature and a warp's copy of
+//     one row both fall on 32 distinct banks. The S of tile i + 1 loads
+//     while tile i is computed.
+//   * Two phases a tile over units that the host balances across the warps
+//     (`f32_bwd_tables` sched). Db first, while W holds w: a unit is a
+//     feature f, its CBIG_R rows j = b din + f (b ascending), Db[j] = sum of
+//     coef (dct[qcol q] w[widx q]) over j's nonzeros (q ascending), then
+//     dx[f] = sum_b sh[b] Db[j] into shared memory and the warp's part of
+//     dsh in registers; the 16 warps' parts of dsh are added in warp order.
+//     Then dw, into W (w is read): a unit is 4 consecutive weights; TR[q] =
+//     sum of coef (x[rf] sh[rb]) over q's nonzeros (rptr's order), dw[k] =
+//     sum of dct[qcol q] TR[q] over k's q (ascending), rows of dw in W at
+//     an odd stride. dw, dx and dsh then leave row by row in coalesced
+//     stores, and W of the next tile loads. (Stored from registers, a
+//     lane a row, dw went out as 16-byte pieces 1.5 KB apart: on an H100
+//     that took 0.78 of 2.13 ms at layer 2, more than all of Db.) The loops load each
+//     entry one step ahead of its use. The Pallas backward's rounding in
+//     f32: the products that it materialises before a sum (dwR = dprod TR,
+//     sh Db, x Db) are rounded alone (__fmul_rn, never contracted into the
+//     sum); the products inside its matmuls (TR, Db) are fmaf chains, x *
+//     sh[b] and dct * w rounded first as it rounds xcat and dTR.
+//   So every order is the old kernel's (the TR, Db, dw and dx sums) but
+//   dsh's: there the old kernel took f ascending over all f, here each
+//   warp's f ascending, then the warps in order.
+// Shared memory at layer 2 (RT 2): the blob 68,928 bytes, W 99,840, S 2 x
+// 24,180, P 2,340, X 9,360: 228,488 of the 232,448 bytes a block may take; at layer 3 -> 3 (enc_nconv > 3, numel 576) RT 1. ptxas: 94
+// registers (RT 2), 80 (RT 1), no spills. What bounds it: each FMA reads
+// one or two row operands from shared memory, ~17.8 k lane-words a row at
+// layer 2 (Db and TR 2 a nonzero, dw and dx / dsh the rest), plus the
+// entry words' broadcasts: at 32 lane-words a clock an SM on 132 SMs
+// ~0.6-0.8 ms, above the byte bound (0.28 ms); and the W tile, which loads
+// while no phase runs (the next tile's dw needs its buffer). PERF.md has
+// the times.
 //
 // bf16 (`fused_tp_bwd_mma_kernel`): the Pallas backward's products on the
-// tensor cores, block-sparse, mma.m16n8k16 (bf16 in, f32 sums). The CUDA-core
-// design above ran bf16 slower than f32 (5.15 against 4.19 ms, the extra
-// roundings) and slower than the dense form's backward in cuBLAS. A block of
+// tensor cores, block-sparse, mma.m16n8k16 (bf16 in, f32 sums). The first
+// CUDA-core design (the f32 kernel's before its redesign) ran bf16 slower
+// than f32 (5.15 against 4.19 ms, the extra roundings) and slower than the
+// dense form's backward in cuBLAS. A block of
 // BW = 3 warps owns BR = 48 rows, a warp 16. The R columns q are in K10's
 // order (`mma_tables`: grouped by output column, padded to 16-wide steps).
 // The packed tiles reach the warps through a two-slot cp.async ring in
@@ -88,6 +132,8 @@
 // shared-memory gathers, the ring and their own dependent steps. PERF.md
 // has the times.
 
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -95,156 +141,6 @@
 #include "mma_common.cuh"
 
 namespace {
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  __device__ static float f(float v) { return v; }
-  __device__ static float cast(float v) { return v; }
-  __device__ static float round(float v) { return v; }
-};
-
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
-constexpr int TE = 32;  // rows per block, one a lane
-
-struct Tables {
-  const int* qcol;    // [R] output column of expansion column q
-  const int* widx;    // [R] weight of q
-  const int* rptr;    // [R + 1] nonzeros of q's CBIG_R column
-  const int* rb;      // [nnz] their sh index b
-  const int* rf;      // [nnz] their x index f
-  const float* coef;  // [nnz]
-  const int* wptr;    // [numel + 1] the q of each weight
-  const int* wq;      // [R]
-  const int* tptr;    // [dsh * din + 1] the nonzeros of each CBIG_R row
-  const int* tq;      // [nnz] their q
-  const float* tcoef; // [nnz]
-};
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-fused_tp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
-                    const T* __restrict__ dct, Tables tb, T* __restrict__ dx,
-                    T* __restrict__ dsh_out, T* __restrict__ dw, long long M, int din, int dsh,
-                    int numel, int dout) {
-  using Nm = Num<T>;
-  extern __shared__ float smem[];
-  const int KX = dsh * din;
-  const int XS = din | 1, SS = dsh | 1, WS = numel | 1, DS = dout | 1, BS = KX | 1;
-  float* sx = smem;            // [TE][XS] x
-  float* ssh = sx + TE * XS;   // [TE][SS] sh
-  float* sw = ssh + TE * SS;   // [TE][WS] w, then dw
-  float* sd = sw + TE * WS;    // [TE][DS] cast(dct)
-  float* sb = sd + TE * DS;    // [TE][BS] Db
-  const long long e0 = (long long)blockIdx.x * TE;
-  const int ne = M - e0 < TE ? (int)(M - e0) : TE;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < TE * din; i += NT) {
-    const int e = i / din, f = i - e * din;
-    sx[e * XS + f] = e < ne ? Nm::f(x[e0 * din + i]) : 0.0f;
-  }
-  for (int i = tid; i < TE * dsh; i += NT) {
-    const int e = i / dsh, b = i - e * dsh;
-    ssh[e * SS + b] = e < ne ? Nm::f(sh[e0 * dsh + i]) : 0.0f;
-  }
-  for (int i = tid; i < TE * numel; i += NT) {
-    const int e = i / numel, k = i - e * numel;
-    sw[e * WS + k] = e < ne ? Nm::f(w[e0 * numel + i]) : 0.0f;
-  }
-  for (int i = tid; i < TE * dout; i += NT) {
-    const int e = i / dout, c = i - e * dout;
-    sd[e * DS + c] = e < ne ? Nm::f(dct[e0 * dout + i]) : 0.0f;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const float* xr = sx + lane * XS;
-  const float* shr = ssh + lane * SS;
-  const float* dr = sd + lane * DS;
-
-  // Db[j] = sum over CBIG_R row j's nonzeros (q, coef) of coef * cast(dct[col q] * w[widx q])
-  {
-    const float* wr = sw + lane * WS;
-    float* br = sb + lane * BS;
-    for (int j = warp; j < KX; j += NW) {
-      float acc = 0.0f;
-      for (int t = tb.tptr[j]; t < tb.tptr[j + 1]; ++t) {
-        const int q = tb.tq[t];
-        acc = fmaf(tb.tcoef[t], Nm::round(dr[tb.qcol[q]] * wr[tb.widx[q]]), acc);
-      }
-      br[j] = acc;
-    }
-  }
-  __syncthreads();
-
-  // dw[k] = sum over the q of weight k of cast(dct[col q] * TR[q]), TR from x * sh
-  {
-    float* dwr = sw + lane * WS;  // w is no longer read
-    for (int k = warp; k < numel; k += NW) {
-      float acc = 0.0f;
-      for (int t = tb.wptr[k]; t < tb.wptr[k + 1]; ++t) {
-        const int q = tb.wq[t];
-        float tr = 0.0f;
-        for (int z = tb.rptr[q]; z < tb.rptr[q + 1]; ++z)
-          tr = fmaf(tb.coef[z], Nm::round(xr[tb.rf[z]] * shr[tb.rb[z]]), tr);
-        acc += Nm::round(dr[tb.qcol[q]] * tr);
-      }
-      dwr[k] = acc;
-    }
-  }
-  // dx and dsh from Db (written before the last barrier)
-  for (int i = tid; i < ne * din; i += NT) {
-    const int e = i / din, f = i - e * din;
-    const float* br = sb + e * BS;
-    float acc = 0.0f;
-    for (int b = 0; b < dsh; ++b) acc += Nm::round(ssh[e * SS + b] * br[b * din + f]);
-    dx[e0 * din + i] = Nm::cast(acc);
-  }
-  if (dsh_out != nullptr) {
-    for (int i = tid; i < ne * dsh; i += NT) {
-      const int e = i / dsh, b = i - e * dsh;
-      const float* br = sb + e * BS + b * din;
-      float acc = 0.0f;
-      for (int f = 0; f < din; ++f) acc += Nm::round(sx[e * XS + f] * br[f]);
-      dsh_out[e0 * dsh + i] = Nm::cast(acc);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < ne * numel; i += NT) {
-    const int e = i / numel, k = i - e * numel;
-    dw[e0 * numel + i] = Nm::cast(sw[e * WS + k]);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* sh, const void* w, const void* dct, const void* qcol,
-           const void* widx, const void* rptr, const void* rb, const void* rf,
-           const void* coef, const void* wptr, const void* wq, const void* tptr,
-           const void* tq, const void* tcoef, void* dx, void* dsh_out, void* dw, long long M,
-           int din, int dsh, int numel, int dout, void* stream) {
-  if (M <= 0 || din <= 0 || dsh <= 0 || numel <= 0 || dout <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TE *
-                      ((din | 1) + (dsh | 1) + (numel | 1) + (dout | 1) + ((dsh * din) | 1)) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_tp_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Tables tb{static_cast<const int*>(qcol), static_cast<const int*>(widx),
-            static_cast<const int*>(rptr), static_cast<const int*>(rb),
-            static_cast<const int*>(rf), static_cast<const float*>(coef),
-            static_cast<const int*>(wptr), static_cast<const int*>(wq),
-            static_cast<const int*>(tptr), static_cast<const int*>(tq),
-            static_cast<const float*>(tcoef)};
-  const long long blocks = (M + TE - 1) / TE;
-  fused_tp_bwd_kernel<T><<<(unsigned)blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
-      static_cast<const T*>(dct), tb, static_cast<T*>(dx), static_cast<T*>(dsh_out),
-      static_cast<T*>(dw), M, din, dsh, numel, dout);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -732,22 +628,286 @@ int launch_mma(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32 on CUDA cores (`fused_tp_bwd_f32_kernel<RT>`, the design note at the top)
+
+namespace f32k {
+
+constexpr int NW = 16;  // warps a block (kernels/tp_kernels.py BWD_WARPS)
+constexpr int NT = 32 * NW;
+constexpr int DSH = 9;  // sh width (l <= 2)
+constexpr int G = 4;    // weights a dw unit (BWD_GROUP)
+
+// 4 bytes global -> shared, zeros instead when !ok (src-size 0)
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+struct Args {
+  const float *x, *sh, *w, *dct;
+  const unsigned char* blob;  // f32_bwd_tables' blob
+  float *dx, *dsh_out, *dw;
+  long long M;
+  int din, numel, dout, bytes, db_off, q_off, kq_off, tp_off, sc_off;
+};
+
+// A block's shared memory: the blob at 0, then W (w [numel][rs], then the
+// tile's dw [T][ws]), two row buffers S [din + DSH + dout][rs] (x, sh,
+// dct), P [DSH][rs] (dsh), X [din][rs] (dx); the row operands
+// feature-major, row r of feature f at f * rs + r
+struct Layout {
+  int rs, ws, w_off, s_off, s_floats, p_off, x_off, bytes;
+};
+
+__host__ __device__ inline Layout layout(int rt, int blob_bytes, int din, int numel, int dout) {
+  Layout l;
+  l.rs = 32 * rt + 1;  // odd: a warp's copy of one row writes 32 distinct banks
+  l.ws = numel | 1;    // odd: the lanes' rows of one dw on distinct banks
+  l.w_off = blob_bytes;
+  const int w_floats = numel * l.rs > 32 * rt * l.ws ? numel * l.rs : 32 * rt * l.ws;
+  l.s_off = l.w_off + 4 * w_floats;
+  l.s_floats = (din + DSH + dout) * l.rs;
+  l.p_off = l.s_off + 2 * 4 * l.s_floats;
+  l.x_off = l.p_off + 4 * DSH * l.rs;
+  l.bytes = l.x_off + 4 * din * l.rs;
+  return l;
+}
+
+// dst[f * rs + r] = src[(e0 + r) * width + f] for the tile's 32 RT rows
+// (zeros past M): a warp a row, its lanes over f (coalesced reads; rs odd
+// puts the 32 writes on distinct banks), 4-byte cp.async copies
+template <int RT>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int width,
+                                      long long e0, long long M, int rs, int warp, int lane) {
+  for (int r = warp; r < 32 * RT; r += NW) {
+    const bool ok = e0 + r < M;
+    const float* s = src + (ok ? (e0 + r) * width : 0);
+    for (int f = lane; f < width; f += 32) cp_async4z(dst + f * rs + r, s + f, ok);
+  }
+}
+
+template <int RT>
+__global__ void __launch_bounds__(NT, 1) fused_tp_bwd_f32_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int T = 32 * RT;  // rows a tile; lane l owns rows l + 32 r, r < RT
+  const Layout ly = layout(RT, a.bytes, a.din, a.numel, a.dout);
+  const int rs = ly.rs, ws = ly.ws, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint2* etr = reinterpret_cast<const uint2*>(smem);
+  const uint2* edb = reinterpret_cast<const uint2*>(smem + a.db_off);
+  const unsigned* qw = reinterpret_cast<const unsigned*>(smem + a.q_off);
+  const unsigned short* kq = reinterpret_cast<const unsigned short*>(smem + a.kq_off);
+  const unsigned short* tp = reinterpret_cast<const unsigned short*>(smem + a.tp_off);
+  const unsigned short* sc = reinterpret_cast<const unsigned short*>(smem + a.sc_off);
+  float* sw = reinterpret_cast<float*>(smem + ly.w_off);
+  float* ss = reinterpret_cast<float*>(smem + ly.s_off);
+  float* sp = reinterpret_cast<float*>(smem + ly.p_off);
+  float* sdx = reinterpret_cast<float*>(smem + ly.x_off);
+  const int din = a.din, numel = a.numel, dout = a.dout;
+  const long long M = a.M, ntiles = (M + T - 1) / T;
+
+  // the tables, once (visible after the loop's first barrier)
+  for (int i = tid; i < a.bytes / 16; i += NT)
+    reinterpret_cast<int4*>(smem)[i] = __ldg(reinterpret_cast<const int4*>(a.blob) + i);
+  // row tiles by cp.async, one group each: S of a tile, W of a tile
+  auto stage_s = [&](float* S, long long tile) {
+    if (tile < ntiles) {
+      const long long e0 = tile * T;
+      stage<RT>(S, a.x, din, e0, M, rs, warp, lane);
+      stage<RT>(S + din * rs, a.sh, DSH, e0, M, rs, warp, lane);
+      stage<RT>(S + (din + DSH) * rs, a.dct, dout, e0, M, rs, warp, lane);
+    }
+    cp_async_commit();
+  };
+  auto stage_w = [&](long long tile) {
+    if (tile < ntiles) stage<RT>(sw, a.w, numel, tile * T, M, rs, warp, lane);
+    cp_async_commit();
+  };
+  // groups in flight at the top of tile i: S of i, W of i, S of i + 1
+  stage_s(ss, blockIdx.x);
+  stage_w(blockIdx.x);
+  stage_s(ss + ly.s_floats, (long long)blockIdx.x + gridDim.x);
+
+  const int a0 = sc[warp], a1 = sc[warp + 1];                // this warp's dw units
+  const int b0 = sc[NW + 1 + warp], b1 = sc[NW + 2 + warp];  // its Db units
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    float* S = ss + (it & 1) * ly.s_floats;
+    const float* sx = S + lane;
+    const float* ssh = S + din * rs + lane;
+    const float* sd = S + (din + DSH) * rs + lane;
+    const long long e0 = tile * T;
+    cp_async_wait<1>();  // this tile's x, sh, dct and w
+    __syncthreads();
+
+    // Db[j] = sum over CBIG_R row j's nonzeros (q ascending) of coef *
+    // (dct[qcol q] * w[widx q]); a unit is a feature f, its rows j = b din +
+    // f in ascending b: dx[f] = sum_b sh[b] Db[j] (b ascending, each
+    // product rounded), and this warp's part of dsh[b], the sum of x[f]
+    // Db[j] over its f (ascending)
+    float dsp[DSH][RT];
+#pragma unroll
+    for (int b = 0; b < DSH; ++b)
+#pragma unroll
+      for (int r = 0; r < RT; ++r) dsp[b][r] = 0.0f;
+    const float* swl = sw + lane;
+    for (int u = b0; u < b1; ++u) {
+      const int f = sc[u];
+      float xf[RT], dxa[RT];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        xf[r] = sx[f * rs + 32 * r];
+        dxa[r] = 0.0f;
+      }
+#pragma unroll
+      for (int b = 0; b < DSH; ++b) {
+        const int j = b * din + f;
+        float acc[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) acc[r] = 0.0f;
+        int t = tp[j];
+        const int t1 = tp[j + 1];
+        uint2 e = edb[t];  // each entry loads one step ahead of its use
+#pragma unroll 2
+        for (; t < t1; ++t) {
+          const uint2 cur = e;
+          if (t + 1 < t1) e = edb[t + 1];
+          const float cf = __uint_as_float(cur.y);
+          const float* dp = sd + (cur.x & 0xffff) * rs;
+          const float* wp = swl + (cur.x >> 16) * rs;
+#pragma unroll
+          for (int r = 0; r < RT; ++r) acc[r] = fmaf(cf, dp[32 * r] * wp[32 * r], acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          dxa[r] += __fmul_rn(ssh[b * rs + 32 * r], acc[r]);
+          dsp[b][r] += __fmul_rn(xf[r], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) sdx[f * rs + lane + 32 * r] = dxa[r];
+    }
+    __syncthreads();  // w is read: W takes the tile's dw
+
+    // dw[k] = sum over the positions t of weight k (q ascending) of dct[qcol
+    // q] * TR[q] (each product rounded), TR[q] = sum over q's nonzeros
+    // (rptr's order) of coef * (x[rf] * sh[rb]); a unit is BWD_GROUP
+    // weights from k0, written to W as rows (row r of dw at r * ws)
+    for (int u = a0; u < a1; ++u) {
+      const int k0 = sc[u];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (k0 + g >= numel) continue;
+        float dwv[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) dwv[r] = 0.0f;
+        for (int t = kq[k0 + g], t1 = kq[k0 + g + 1]; t < t1; ++t) {
+          const unsigned w0 = qw[t];
+          const int z1 = qw[t + 1] & 0xffff;
+          float tr[RT];
+#pragma unroll
+          for (int r = 0; r < RT; ++r) tr[r] = 0.0f;
+          int z = w0 & 0xffff;
+          uint2 e = etr[z];
+#pragma unroll 2
+          for (; z < z1; ++z) {
+            const uint2 cur = e;
+            if (z + 1 < z1) e = etr[z + 1];
+            const float cf = __uint_as_float(cur.y);
+            const float* xp = sx + (cur.x & 0xffff) * rs;
+            const float* hp = ssh + (cur.x >> 16) * rs;
+#pragma unroll
+            for (int r = 0; r < RT; ++r) tr[r] = fmaf(cf, xp[32 * r] * hp[32 * r], tr[r]);
+          }
+          const float* dp = sd + (w0 >> 16) * rs;
+#pragma unroll
+          for (int r = 0; r < RT; ++r) dwv[r] += __fmul_rn(dp[32 * r], tr[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) sw[(lane + 32 * r) * ws + k0 + g] = dwv[r];
+      }
+    }
+    // dsh: the warps' parts added in warp order (fixed, no atomics)
+    if (a.dsh_out != nullptr) {
+      for (int w = 0; w < NW; ++w) {
+        __syncthreads();
+        if (warp == w) {
+#pragma unroll
+          for (int b = 0; b < DSH; ++b)
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+              float* p = sp + b * rs + lane + 32 * r;
+              *p = w == 0 ? dsp[b][r] : *p + dsp[b][r];
+            }
+        }
+      }
+    }
+    __syncthreads();  // dw, dx and dsh are whole in shared memory
+    // every output leaves row by row, coalesced
+    for (int r = warp; r < T; r += NW) {
+      if (e0 + r >= M) break;
+      float* o = a.dw + (e0 + r) * numel;
+      for (int k = lane; k < numel; k += 32) o[k] = sw[r * ws + k];
+      for (int f = lane; f < din; f += 32) a.dx[(e0 + r) * din + f] = sdx[f * rs + r];
+      if (a.dsh_out != nullptr && lane < DSH)
+        a.dsh_out[(e0 + r) * DSH + lane] = sp[lane * rs + r];
+    }
+    __syncthreads();  // W, S, P and X are read
+    stage_w(tile + gridDim.x);
+    stage_s(S, tile + 2LL * gridDim.x);
+  }
+  cp_async_wait<0>();
+}
+
+inline int device_attr(cudaDeviceAttr what) {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, what, dev);
+  return n;
+}
+
+template <int RT>
+int launch(const Args& a, int bytes, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_tp_bwd_f32_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.M + 32 * RT - 1) / (32 * RT);
+  const long long sms = std::max(device_attr(cudaDevAttrMultiProcessorCount), 1);
+  fused_tp_bwd_f32_kernel<RT><<<(unsigned)std::min(tiles, sms), NT, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32k
+
 }  // namespace
 
 extern "C" {
 
 // x [M, din], sh [M, dsh], w [M, numel], dct [M, dout] -> dx [M, din],
-// dsh [M, dsh] (not written when dsh_out is null), dw [M, numel]; tables from
-// kernels/tp_kernels.py `sparse_tables` (coef and tcoef already rounded to
-// the payload dtype, as f32)
+// dsh [M, dsh] (not written when dsh_out is null), dw [M, numel]. f32 on CUDA
+// cores (dsh 9) from the blob of kernels/tp_kernels.py `f32_bwd_tables`
+// (`bytes` long, a multiple of 16; its tables at the byte offsets given):
+// 64 rows a tile where the shared memory takes them, else 32
 int fused_tp_bwd_f32(const void* x, const void* sh, const void* w, const void* dct,
-                     const void* qcol, const void* widx, const void* rptr, const void* rb,
-                     const void* rf, const void* coef, const void* wptr, const void* wq,
-                     const void* tptr, const void* tq, const void* tcoef, void* dx,
-                     void* dsh_out, void* dw, long long M, int din, int dsh, int numel,
-                     int dout, void* stream) {
-  return launch<float>(x, sh, w, dct, qcol, widx, rptr, rb, rf, coef, wptr, wq, tptr, tq,
-                       tcoef, dx, dsh_out, dw, M, din, dsh, numel, dout, stream);
+                     const void* blob, void* dx, void* dsh_out, void* dw, long long M,
+                     int din, int dsh, int numel, int dout, int bytes, int db_off, int q_off,
+                     int kq_off, int tp_off, int sc_off, void* stream) {
+  if (M <= 0 || din <= 0 || dsh != f32k::DSH || numel <= 0 || dout <= 0 || bytes <= 0 ||
+      bytes % 16 != 0 || !aligned(blob, 16))
+    return (int)cudaErrorInvalidValue;
+  const f32k::Args a{static_cast<const float*>(x), static_cast<const float*>(sh),
+                     static_cast<const float*>(w), static_cast<const float*>(dct),
+                     static_cast<const unsigned char*>(blob), static_cast<float*>(dx),
+                     static_cast<float*>(dsh_out), static_cast<float*>(dw), M, din, numel,
+                     dout, bytes, db_off, q_off, kq_off, tp_off, sc_off};
+  const int cap = f32k::device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int two = f32k::layout(2, bytes, din, numel, dout).bytes;
+  if (two <= cap) return f32k::launch<2>(a, two, st);
+  const int one = f32k::layout(1, bytes, din, numel, dout).bytes;
+  if (one <= cap) return f32k::launch<1>(a, one, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16 on the tensor cores (numel < 4096, din <= 48, dsh <= 16, dsh * din

@@ -23,25 +23,20 @@
 // cast() rounds to the edge dtype where the TPU kernel does; every product
 // accumulates in f32.
 //
-// Three designs share this file.
+// Two designs share this file, one a dtype; every kernel runs on the tensor
+// cores.
 //
-// f32 K6 (`chain_kernel`, CUDA cores). One block of 256
-// threads owns ROWS = 64 edge rows (4 a thread), i.e. floor(ROWS/K) whole
-// residues; where K does not divide ROWS (K = 48) the rows past the last whole
-// residue stay idle: they load zeros and store nothing. W_e, W2 and W3 are
-// staged once per block in shared memory; the edge tile lives there row-major
-// and is overwritten in place by each activation. Each thread computes a 4 x 8
-// tile of every H x H product in f32 FMAs (chain_common.cuh tile_gemm). The
-// neighbour table is read by index (Gn[b, idx]) instead of the TPU's one-hot
-// selection matmul. The LayerNorm reduces over the 16 lanes that share a row
-// with warp shuffles. This design is bound by the f32 FMA rate (67 TFLOP/s),
-// not by memory; ROADMAP.md queue 2b lists it for the tensor cores next.
-//
-// f32 K1, K2, K5's forward and K7 on the tensor cores in 3xTF32
-// (`message_sum_f32_mma_kernel`, `message_edge_lnmod_f32_mma_kernel<DROP,
-// MASK_OUT>`, `edge_then_sum_f32_mma_kernel`; the slab functions of
-// chain_tf32.cuh and the design note there, below). Every f32 kernel takes K
-// <= 64, a multiple of 4. K5's forward is K2's kernel with the keep scales
+// f32 K1, K2, K5's forward, K6's forward and K7 on the tensor cores in
+// 3xTF32 (`message_sum_f32_mma_kernel`, `message_edge_lnmod_f32_mma_kernel<DROP,
+// MASK_OUT>`, `message_edge_f32_mma_kernel`, `edge_then_sum_f32_mma_kernel`;
+// the slab functions of chain_tf32.cuh and the design note there, below).
+// Every f32 kernel takes K <= 64, a multiple of 4. K6's forward is K2's
+// kernel with another epilogue (`raw_slab`): out = msg + b3 in f32, the add
+// lnmod_out makes before its LayerNorm, so it is K2's message term bit for
+// bit; no LayerNorm, and neither sh, sc, the gate nor E (after the chain) is
+// read. It replaced a CUDA-core design (one block of 64 edge rows, every
+// H x H product in f32 FMAs: bound by the FFMA rate, 1.15 ms at the bench
+// shape, and 3.5 ms measured). K5's forward is K2's kernel with the keep scales
 // applied to msg + b3 in lnmod_out's first pass, where JAX's
 // _edge_lnmod_kernel applies them: DROP 1 reads `keep` (f32) there, DROP 2
 // first makes the slab's mask as 64 bits a lane from the counter hash of the
@@ -55,10 +50,10 @@
 // products are ~52 GFLOP for K1 (~77 GFLOP for K2 and K6, ~129 for K7); the
 // bytes moved (the E tile read once, plus the edge output's write) put the
 // floor at 0.07-0.13 ms in bf16 and 0.12-0.24 ms in f32. In 3xTF32 the
-// products are three TF32 ones each: 0.32 ms (K1) and 0.47 ms (K2) at the
-// tensor cores' 495 TFLOP/s (K5's forward as K2); a loop of these products
-// alone reached 47% of that peak (scripts/tf32_split_bench.py), so the
-// products bound the f32 K1 and K2 near 0.67 and 0.99 ms.
+// products are three TF32 ones each: 0.32 ms (K1) and 0.47 ms (K2, K6) at
+// the tensor cores' 495 TFLOP/s (K5's forward as K2); a loop of these
+// products alone reached 47% of that peak (scripts/tf32_split_bench.py), so
+// the products bound the f32 K1 and K2 (and K6) near 0.67 and 0.99 ms.
 //
 // In bf16, K1 (`message_sum_mma_kernel`), K2 and K5's forward
 // (`message_edge_lnmod_mma_kernel<DROP, MASK_OUT>`), K6
@@ -125,214 +120,22 @@ namespace {
 
 using namespace chain;
 
-template <typename T> struct Traits;
+// the f32 kernels take K <= 64, a multiple of 4 (16-row slabs of one
+// residue, padded past K; chain_tf32.cuh)
+constexpr int F32_KMAX = 64, F32_KSTEP = 4;
 
-template <> struct Traits<float> : Num<float> {
-  static constexpr int TM = 4;    // rows per thread
-  static constexpr int XPAD = 4;  // shared-memory row padding (elements)
-};
-
-template <typename T>
-__device__ __forceinline__ void fwd_gemm(const T* sX, const T* sW, int r0, int c0,
-                                          float (&acc)[Traits<T>::TM][TN]) {
-  chain::tile_gemm<T, Traits<T>::TM, H + Traits<T>::XPAD>(sX, sW, r0, c0, acc);
-}
-
-// The block's tile: TL whole residues of sample b from residue l0; this thread
-// owns rows r0 .. r0 + TM - 1 (row group rg) and columns c0 .. c0 + 7.
-struct Tile {
-  int b, l0, TL, nrows, rg, r0, c0;
-  size_t row0;  // first edge row of the tile in [B * L * K]
-};
-
-template <typename T>
-__device__ __forceinline__ Tile make_tile(int L, int K) {
-  constexpr int ROWS = RG * Traits<T>::TM;
-  Tile t;
-  t.rg = threadIdx.x / CG;
-  t.r0 = t.rg * Traits<T>::TM;
-  t.c0 = (threadIdx.x % CG) * TN;
-  t.TL = ROWS / K;  // rows past TL*K idle
-  t.b = blockIdx.y;
-  t.l0 = blockIdx.x * t.TL;
-  t.nrows = min(t.TL, L - t.l0) * K;
-  t.row0 = ((size_t)t.b * L + t.l0) * K;
-  return t;
-}
-
-// dst[0:H*H] = src[0:H*H], 16 bytes a thread and step
-template <typename T>
-__device__ __forceinline__ void stage_weight(T* dst, const T* src) {
-  constexpr int V = 16 / sizeof(T);
-  for (int v = threadIdx.x; v < H * H / V; v += NT)
-    reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(src)[v];
-}
-
-// sX <- the tile's E rows (zeros past nrows)
-template <typename T>
-__device__ __forceinline__ void load_edges(T* sX, const T* __restrict__ E, const Tile& t) {
-  constexpr int ROWS = RG * Traits<T>::TM;
-  constexpr int XS = H + Traits<T>::XPAD;
-  constexpr int V = 16 / sizeof(T);
-  for (int v = threadIdx.x; v < ROWS * (H / V); v += NT) {
-    const int r = v / (H / V), q = v % (H / V);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < t.nrows) val = reinterpret_cast<const uint4*>(E + (t.row0 + r) * H)[q];
-    *reinterpret_cast<uint4*>(sX + r * XS + q * V) = val;
-  }
-}
-
-// acc <- h2 = gelu(cast(gelu(A[l] + X W_e + Gn[idx])) W2 + b2) of the edge tile X
-// in sX, which is overwritten by cast(gelu(pre)); sWe and sW2 hold the weights.
-// Indices come from the kNN search; they are clamped so that a bad index can
-// never read outside Gn.
-template <typename T>
-__device__ __forceinline__ void chain_h2(T* sX, const T* sWe, const T* sW2,
-                                         const T* __restrict__ A, const T* __restrict__ Gn,
-                                         const int* __restrict__ idx,
-                                         const float* __restrict__ b2, int L, int K, int N,
-                                         const Tile& t,
-                                         float (&acc)[Traits<T>::TM][TN]) {
-  using Tr = Traits<T>;
-  constexpr int TM = Tr::TM;
-  constexpr int XS = H + Tr::XPAD;
-  float y[TM][TN];
-  fwd_gemm<T>(sX, sWe, t.r0, t.c0, acc);
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = t.r0 + m;
-    if (r < t.nrows) {
-      const int l = t.l0 + r / K;
-      const int j = min(max(idx[t.row0 + r], 0), N - 1);
-      float a[8], g[8];
-      load8(A + ((size_t)t.b * L + l) * H + t.c0, a);
-      load8(Gn + ((size_t)t.b * N + j) * H + t.c0, g);
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[m][n] = Tr::round(gelu_tanh(acc[m][n] + a[n] + g[n]));
-    } else {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[m][n] = 0.0f;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < TM; ++m) store8(sX + (t.r0 + m) * XS + t.c0, y[m]);
-  __syncthreads();
-
-  fwd_gemm<T>(sX, sW2, t.r0, t.c0, acc);
-  float bias[8];
-  load8(b2 + t.c0, bias);
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) acc[m][n] = gelu_tanh(acc[m][n] + bias[n]);
-}
-
-// K6's per-edge epilogue: out = cast(h2) W3 + b3 (W3 in sW3)
-template <typename T>
-__device__ __forceinline__ void edge_epilogue(float (&acc)[Traits<T>::TM][TN], T* sX,
-                                              const T* sW3, const float* __restrict__ b3,
-                                              T* __restrict__ out, const Tile& t) {
-  using Tr = Traits<T>;
-  constexpr int TM = Tr::TM;
-  constexpr int XS = H + Tr::XPAD;
-  {
-    float y[TM][TN];
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) y[m][n] = Tr::round(acc[m][n]);
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < TM; ++m) store8(sX + (t.r0 + m) * XS + t.c0, y[m]);
-    __syncthreads();
-  }
-
-  fwd_gemm<T>(sX, sW3, t.r0, t.c0, acc);
-  float bias[8];
-  load8(b3 + t.c0, bias);
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = t.r0 + m;
-    float v[8];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) v[n] = acc[m][n] + bias[n];
-    if (r < t.nrows) store8(out + (t.row0 + r) * H + t.c0, v);
-  }
-}
-
-// f32 K6 on CUDA cores, [B, L, K, H] out (every other kernel runs on the
-// tensor cores, below).
-template <typename T>
-__global__ void __launch_bounds__(NT)
-chain_kernel(const T* __restrict__ A, const T* __restrict__ E, const T* __restrict__ Gn,
-             const int* __restrict__ idx, const T* __restrict__ We,
-             const T* __restrict__ W2, const float* __restrict__ b2,
-             const T* __restrict__ W3, const float* __restrict__ b3, T* __restrict__ out,
-             int L, int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sWe = reinterpret_cast<T*>(smem);
-  T* sW2 = sWe + H * H;
-  T* sW3 = sW2 + H * H;
-  T* sX = sW3 + H * H;  // [ROWS][XS] edge tile / activations
-
-  const Tile t = make_tile<T>(L, K);
-  stage_weight(sWe, We);
-  stage_weight(sW2, W2);
-  stage_weight(sW3, W3);
-  load_edges(sX, E, t);
-  __syncthreads();
-
-  float acc[Traits<T>::TM][TN];
-  chain_h2<T>(sX, sWe, sW2, A, Gn, idx, b2, L, K, N, t, acc);
-  edge_epilogue<T>(acc, sX, sW3, b3, out, t);
-}
-
-template <typename T>
-size_t smem_bytes() {
-  constexpr int ROWS = RG * Traits<T>::TM;
-  return (size_t)3 * H * H * sizeof(T) + (size_t)ROWS * (H + Traits<T>::XPAD) * sizeof(T);
-}
-
-// the f32 kernels take K <= 64, a multiple of 4 (the CUDA-core tiles of
-// K6: a thread's 4 rows belong to one residue)
-template <typename T>
 bool bad_dims(int B, int L, int K, int N) {
-  constexpr int TM = Traits<T>::TM;
-  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > RG * TM || K % TM != 0;
-}
-
-template <typename T>
-dim3 grid_of(int B, int L, int K) {
-  const int TL = RG * Traits<T>::TM / K;
-  return dim3((L + TL - 1) / TL, B);
-}
-
-template <typename T>
-int launch(const void* A, const void* E, const void* Gn, const void* idx, const void* We,
-           const void* W2, const void* b2, const void* W3, const void* b3, void* out, int B,
-           int L, int K, int N, void* stream) {
-  if (bad_dims<T>(B, L, K, N)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<T>();
-  static unsigned done = 0;
-  const cudaError_t err = chain_tf32::smem_once(chain_kernel<T>, (int)smem, done);
-  if (err != cudaSuccess) return (int)err;
-  chain_kernel<T><<<grid_of<T>(B, L, K), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<const T*>(E), static_cast<const T*>(Gn),
-      static_cast<const int*>(idx), static_cast<const T*>(We), static_cast<const T*>(W2),
-      static_cast<const float*>(b2), static_cast<const T*>(W3), static_cast<const float*>(b3),
-      static_cast<T*>(out), L, K, N);
-  return (int)cudaGetLastError();
+  return B <= 0 || L <= 0 || N <= 0 || K <= 0 || K > F32_KMAX || K % F32_KSTEP != 0;
 }
 
 // ---------------------------------------------------------------------------
 // f32 on the tensor cores (3xTF32, the slab functions of chain_tf32.cuh): K1
 // (`message_sum_f32_mma_kernel`), K2 and K5's forward
-// (`message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>`) and K7
-// (`edge_then_sum_f32_mma_kernel`). A block of 8 warps stages its
-// three weights once and walks over its share of the work (one block an SM:
-// the weights fill 192 KB). K2's warps walk over slabs on their own, with no
-// block barrier. K1's and K7's blocks walk over tiles of TRES residues of one
+// (`message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>`), K6's forward
+// (`message_edge_f32_mma_kernel`) and K7 (`edge_then_sum_f32_mma_kernel`). A
+// block of 8 warps stages its three weights once and walks over its share of
+// the work (one block an SM: the weights fill 192 KB). K2's and K6's warps
+// walk over slabs on their own, with no block barrier. K1's and K7's blocks walk over tiles of TRES residues of one
 // sample, warp w residue w: its slabs' masked sums, then, after one barrier,
 // the tile's s W3 with warp w computing 16 of its columns. K7 runs K2's slab
 // function on its residue's slabs (e2 to device memory), restages the node
@@ -381,19 +184,16 @@ message_sum_f32_mma_kernel(const float* __restrict__ A, const float* __restrict_
   }
 }
 
-// K2 in f32 (DROP 0): out[b, l, k] = g (LN(E + h2 W3 + b3) (1 + sc) + sh);
-// K5's forward (DROP 1: keep, 2: seeds; MASK_OUT: the scales to
-// drop.mask_out) with (h2 W3 + b3) x keep in the LayerNorm
-template <int DROP, bool MASK_OUT>
-__global__ void __launch_bounds__(tf::TNT, 1)
-message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
-                                  const float* __restrict__ Gn, const int* __restrict__ idx,
-                                  const float* __restrict__ We, const float* __restrict__ W2,
-                                  const float* __restrict__ b2, const float* __restrict__ W3,
-                                  const float* __restrict__ b3, const float* __restrict__ sh,
-                                  const float* __restrict__ sc,
-                                  const float* __restrict__ gate, const tf::Dropout drop,
-                                  float* __restrict__ out, int B, int L, int K, int N) {
+// K2's and K6's walk: the three weights, b2 and b3 staged once, then each
+// warp takes slabs on its own (no block barrier) and hands them to
+// slab(sWe, sW2, sW3, sb2, sb3, s)
+template <typename SlabFn>
+__device__ __forceinline__ void edge_walk(const float* __restrict__ We,
+                                          const float* __restrict__ W2,
+                                          const float* __restrict__ b2,
+                                          const float* __restrict__ W3,
+                                          const float* __restrict__ b3, int B, int L, int K,
+                                          SlabFn slab) {
   extern __shared__ __align__(16) float fsm[];
   float* sWe = fsm;
   float* sW2 = sWe + tf::WFLOATS;
@@ -412,9 +212,45 @@ message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __re
        i += (long long)gridDim.x * tf::TW) {
     const long long bl = i / spr;
     const int b = (int)(bl / L), l = (int)(bl - (long long)b * L), q = (int)(i - bl * spr);
-    tf::edge_slab<DROP, MASK_OUT>(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, sh, sc, gate, out,
-                                  L, N, tf::make_slab(b, l, q, L, K, lane), drop);
+    slab(sWe, sW2, sW3, sb2, sb3, tf::make_slab(b, l, q, L, K, lane));
   }
+}
+
+// K2 in f32 (DROP 0): out[b, l, k] = g (LN(E + h2 W3 + b3) (1 + sc) + sh);
+// K5's forward (DROP 1: keep, 2: seeds; MASK_OUT: the scales to
+// drop.mask_out) with (h2 W3 + b3) x keep in the LayerNorm
+template <int DROP, bool MASK_OUT>
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_edge_lnmod_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                                  const float* __restrict__ Gn, const int* __restrict__ idx,
+                                  const float* __restrict__ We, const float* __restrict__ W2,
+                                  const float* __restrict__ b2, const float* __restrict__ W3,
+                                  const float* __restrict__ b3, const float* __restrict__ sh,
+                                  const float* __restrict__ sc,
+                                  const float* __restrict__ gate, const tf::Dropout drop,
+                                  float* __restrict__ out, int B, int L, int K, int N) {
+  edge_walk(We, W2, b2, W3, b3, B, L, K,
+            [=](const float* sWe, const float* sW2, const float* sW3, const float* sb2,
+                const float* sb3, const tf::Slab& s) {
+              tf::edge_slab<DROP, MASK_OUT>(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, sh, sc,
+                                            gate, out, L, N, s, drop);
+            });
+}
+
+// K6's forward in f32: out[b, l, k] = h2 W3 + b3, K2's walk with
+// raw_slab's epilogue (no LayerNorm; sh, sc, the gate not read)
+__global__ void __launch_bounds__(tf::TNT, 1)
+message_edge_f32_mma_kernel(const float* __restrict__ A, const float* __restrict__ E,
+                            const float* __restrict__ Gn, const int* __restrict__ idx,
+                            const float* __restrict__ We, const float* __restrict__ W2,
+                            const float* __restrict__ b2, const float* __restrict__ W3,
+                            const float* __restrict__ b3, float* __restrict__ out, int B, int L,
+                            int K, int N) {
+  edge_walk(We, W2, b2, W3, b3, B, L, K,
+            [=](const float* sWe, const float* sW2, const float* sW3, const float* sb2,
+                const float* sb3, const tf::Slab& s) {
+              tf::raw_slab(E, A, Gn, idx, sWe, sW2, sW3, sb2, sb3, out, L, N, s);
+            });
 }
 
 // K7 in f32: e_out = K2 of the edge set; n_out = K1 of the node set on e_out
@@ -477,7 +313,7 @@ int launch_sum_f32_mma(const void* A, const void* E, const void* Gn, const void*
                        const void* mask, const void* We, const void* W2, const void* b2,
                        const void* W3, const void* b3, void* out, int B, int L, int K, int N,
                        float scale, void* stream) {
-  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
   static unsigned done = 0;
   const cudaError_t err = smem_once(message_sum_f32_mma_kernel, F1SMEM, done);
   if (err != cudaSuccess) return (int)err;
@@ -498,7 +334,7 @@ int launch_edge_lnmod_f32_mma(const void* A, const void* E, const void* Gn, cons
                               const void* b3, const void* sh, const void* sc, const void* gate,
                               const tf::Dropout& drop, void* out, int B, int L, int K, int N,
                               void* stream) {
-  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
   auto kern = message_edge_lnmod_f32_mma_kernel<DROP, MASK_OUT>;
   static unsigned done = 0;
   const cudaError_t err = smem_once(kern, F2SMEM, done);
@@ -515,6 +351,24 @@ int launch_edge_lnmod_f32_mma(const void* A, const void* E, const void* Gn, cons
   return (int)cudaGetLastError();
 }
 
+int launch_edge_f32_mma(const void* A, const void* E, const void* Gn, const void* idx,
+                        const void* We, const void* W2, const void* b2, const void* W3,
+                        const void* b3, void* out, int B, int L, int K, int N, void* stream) {
+  if (bad_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;
+  const cudaError_t err = smem_once(message_edge_f32_mma_kernel, F2SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const long long warps = (long long)B * L * ((K + 15) / 16);
+  const int grid = (int)std::min<long long>((warps + tf::TW - 1) / tf::TW, sm_count());
+  message_edge_f32_mma_kernel<<<grid, tf::TNT, F2SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(A), static_cast<const float*>(E), static_cast<const float*>(Gn),
+      static_cast<const int*>(idx), static_cast<const float*>(We),
+      static_cast<const float*>(W2), static_cast<const float*>(b2),
+      static_cast<const float*>(W3), static_cast<const float*>(b3), static_cast<float*>(out),
+      B, L, K, N);
+  return (int)cudaGetLastError();
+}
+
 int launch_edge_then_sum_f32_mma(const void* Ae, const void* E, const void* Ge, const void* idx,
                                  const void* Wee, const void* W2e, const void* b2e,
                                  const void* W3e, const void* b3e, const void* sh,
@@ -523,7 +377,7 @@ int launch_edge_then_sum_f32_mma(const void* Ae, const void* E, const void* Ge, 
                                  const void* b2n, const void* W3n, const void* b3n,
                                  const void* mask, void* e_out, void* n_out, int B, int L,
                                  int K, int N, float scale, void* stream) {
-  if (bad_dims<float>(B, L, K, N)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, L, K, N)) return (int)cudaErrorInvalidValue;
   static unsigned done = 0;
   const cudaError_t err = smem_once(edge_then_sum_f32_mma_kernel, F7SMEM, done);
   if (err != cudaSuccess) return (int)err;
@@ -1131,10 +985,11 @@ int message_edge_lnmod_drop_bf16(const void* A, const void* E, const void* Gn,
 }
 
 // K6: the raw per-edge messages cast(h2) W3 + b3, [B, L, K, H] in E's dtype.
+// f32 on the tensor cores (3xTF32), K2's kernel: K at most 64, a multiple of 4
 int message_edge_f32(const void* A, const void* E, const void* Gn, const void* idx,
                      const void* We, const void* W2, const void* b2, const void* W3,
                      const void* b3, void* out, int B, int L, int K, int N, void* stream) {
-  return launch<float>(A, E, Gn, idx, We, W2, b2, W3, b3, out, B, L, K, N, stream);
+  return launch_edge_f32_mma(A, E, Gn, idx, We, W2, b2, W3, b3, out, B, L, K, N, stream);
 }
 
 // bf16 on the tensor cores: K a multiple of 16, at most 128

@@ -19,9 +19,10 @@ Counterpart of codlad_tpu/kernels/mpnn_kernels.py:
 On a CUDA tensor each wrapper is a `torch.autograd.Function` whose forward
 launches K1, K2, K5's forward or K6 (`csrc/message_chain.cu`; in bf16 on
 the tensor cores, K a multiple of 16, K5's forward on K2's kernel; in f32
-K1, K2 and K5's forward (K2's kernel) on the tensor cores too, in 3xTF32
-(`message_sum_f32_mma_kernel`, `message_edge_lnmod_f32_mma_kernel`, K a
-multiple of 4 up to 64), K6 on CUDA cores) and whose backward launches K3,
+on the tensor cores too, in 3xTF32 (`message_sum_f32_mma_kernel`,
+`message_edge_lnmod_f32_mma_kernel`, K5's forward on K2's kernel, and K6
+on K2's kernel with a raw epilogue, `message_edge_f32_mma_kernel`; K a
+multiple of 4 up to 64)) and whose backward launches K3,
 K4, K5's or K6's backward (`csrc/message_chain_bwd.cu`; in bf16 on the
 tensor cores, main pass and weight grads, K a multiple of 16:
 `message_sum_bwd_mma_kernel`, `message_edge_lnmod_bwd_mma_kernel`,
@@ -49,12 +50,10 @@ import torch.nn.functional as F
 from codlad_tpu_torch.kernels import build
 
 HIDDEN = 128  # the width the kernels are compiled for
-# edge rows per block of the f32 K6 forward, the one f32 kernel left on CUDA
-# cores (16 row groups x 4 rows a thread); a block owns floor(rows / K)
-# whole residues, so K may not exceed it. Every f32 kernel takes the K these
-# tiles take (K <= 64, a multiple of 4), the tensor-core ones included
-# (16-row slabs of one residue, padded past K).
-_F32_ROWS = 64
+# every kernel in f32 runs on the tensor cores in 3xTF32 on 16-row slabs of
+# one residue (padded past K), with its staged weights and a slab's 64
+# accumulators a lane sized for K <= 64, a multiple of 4
+_F32_KMAX, _F32_KSTEP = 64, 4
 # every kernel in bf16 (K1, K2 and K5's forward, K6, K7 and the backwards)
 # runs on the tensor cores: 128 rows a block, a warp a 16-row slab of one
 # residue, so K is a multiple of 16
@@ -259,19 +258,20 @@ def _operand(t, dtype, shape, name, device):
 
 
 def check_neighbours(K, rows, per_thread):
-    """Raise unless a block of `rows` edge rows (`per_thread` rows a thread,
-    or a warp for the tensor-core K1) can take K neighbours a residue: K <=
-    rows (a block owns floor(rows / K) whole residues, the rest of its rows
-    idle) and K a multiple of per_thread (a thread's, or warp's, rows
-    belong to one residue). The featurizer's
-    K = min(64, L), L a multiple of 16, gives K in {16, 32, 48, 64}."""
+    """Raise unless the kernels can take K neighbours a residue: K <= rows
+    (the bf16 kernels' 128-row block owns floor(rows / K) whole residues;
+    the f32 slab kernels are sized for K <= 64) and K a multiple of
+    per_thread (16: a bf16 warp's slab holds rows of one residue; 4: the
+    f32 slabs' step). The featurizer's K = min(64, L), L a multiple of 16,
+    gives K in {16, 32, 48, 64}."""
     if K < 1 or K > rows or K % per_thread:
         raise ValueError(f"K={K} must be at most {rows} and a multiple of {per_thread}")
 
 
-def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
+def _check_edge(E, Gn, rows=_F32_KMAX, per_thread=_F32_KSTEP):
     """(B, L, K, H, N) of an edge operand the kernels take; `rows` and
-    `per_thread` give the row tile (default: the f32 kernels')."""
+    `per_thread` give the K limits (default: the f32 slab kernels', K <=
+    64, a multiple of 4)."""
     if E.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, not {E.device}")
     if E.dtype not in _SUFFIX:
@@ -286,10 +286,9 @@ def _check_edge(E, Gn, rows=_F32_ROWS, per_thread=4):
 
 
 def _check_mma_edge(E, Gn):
-    """_check_edge for the kernels, which run on the tensor cores in bf16
-    (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's, K6's):
-    K a multiple of 16 there; in f32 the f32 tiles' K (every f32 kernel but
-    K6's forward runs on the tensor cores too, and takes it)."""
+    """_check_edge for the kernels, which run on the tensor cores in either
+    dtype (K1, K2 and K5's forward, K6, K7 and the backwards K3, K4, K5's,
+    K6's): K a multiple of 16 in bf16; in f32 the f32 slabs' K."""
     if E.dtype == torch.bfloat16:
         return _check_edge(E, Gn, _MMA_ROWS, _MMA_SLAB)
     return _check_edge(E, Gn)

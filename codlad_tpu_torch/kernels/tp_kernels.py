@@ -25,9 +25,11 @@ nonzero 16 x 8 tiles of CBIG_R and SUMR that `mma_tables` packs.
 On a CUDA tensor `fused_tp` is a torch.autograd.Function whose backward is
 K11 (`csrc/fused_tp_bwd.cu`, counterpart of `_pallas_fused_tp_bwd`): dx,
 dsh and dw of every row, rounded as the Pallas backward rounds (the note
-at the top of the .cu file). In f32 from the same lists and two transposed
-ones (the q of each weight, the nonzeros of each CBIG_R row); in bf16 on
-the tensor cores from `mma_tables`' CBIG_R tiles and `mma_bwd_tables`'
+at the top of the .cu file). In f32 on CUDA cores from `f32_bwd_tables`'
+blob (CBIG_R's nonzeros by column and by row as 64-bit words, 16-bit
+pointers and the warps' schedule), which a persistent block stages in
+shared memory once, with 64 rows a tile (two a lane); in bf16 on the
+tensor cores from `mma_tables`' CBIG_R tiles and `mma_bwd_tables`'
 CBIG_R^T tiles, gathers and dw codes. The dsh store is skipped when sh
 needs no grad (the encoder's sh come from coordinates). On the CPU
 autograd differentiates the plain version.
@@ -73,10 +75,10 @@ def sparse_tables(tb):
     and the nonzeros rptr[q] .. rptr[q+1]-1 of its CBIG_R column (row into
     concat_b(x * sh[b]), split as row = rb * din + rf, and coefficient).
     Every nonzero is kept, however small, so the kernels compute exactly the
-    dense form's sums. K11 also reads two transposed lists: the positions q
-    of weight k, wq[wptr[k] .. wptr[k+1]-1] (EXPW^T), and the nonzeros of
-    CBIG_R row j, (tq, tcoef)[tptr[j] .. tptr[j+1]-1] (CBIG_R^T), each in
-    increasing q."""
+    dense form's sums. The f32 K11's tables (`f32_bwd_tables`) are packed
+    from these and from two transposed lists: the positions q of weight k,
+    wq[wptr[k] .. wptr[k+1]-1] (EXPW^T), and the nonzeros of CBIG_R row j,
+    (tq, tcoef)[tptr[j] .. tptr[j+1]-1] (CBIG_R^T), each in increasing q."""
     cbig_r, expw, sumr = tb["CBIG_R"], tb["EXPW"], tb["SUMR"]
     col = sumr.argmax(axis=1)                 # output column of each r
     order = np.argsort(col, kind="stable")
@@ -91,16 +93,103 @@ def sparse_tables(tb):
     wq = np.argsort(widx, kind="stable")
     i32 = lambda a: np.ascontiguousarray(a, np.int32)
     f32 = lambda a: np.ascontiguousarray(a, np.float32)
-    din = tb["din"]
     return {"cptr": i32(cptr), "qcol": i32(col[order]), "widx": i32(widx), "rptr": i32(rptr),
-            "rows": i32(rows), "rb": i32(rows // din), "rf": i32(rows % din),
-            "coef": f32(coef),
+            "rows": i32(rows), "coef": f32(coef),
             "wptr": i32(np.concatenate([[0], np.cumsum(np.bincount(widx,
                                                                    minlength=tb["numel"]))])),
             "wq": i32(wq),
             "tptr": i32(np.concatenate([[0], np.cumsum(np.bincount(
                 rows, minlength=cbig_r.shape[0]))])),
             "tq": i32(qz[tord]), "tcoef": f32(coef[tord]), "nnz": int(rows.size)}
+
+
+BWD_WARPS = 16  # warps of the f32 K11's block: the lists of its schedule
+BWD_GROUP = 4   # weights a unit of its dw phase
+
+
+def _words(lo, coef):
+    """64-bit entry words: the index fields `lo` in the low 32 bits, the f32
+    coefficient's bits in the high 32 (a little-endian uint2 (x, y) on the
+    card)."""
+    hi = np.ascontiguousarray(coef, np.float32).view(np.uint32).astype(np.uint64)
+    return np.asarray(lo, np.uint64) | hi << np.uint64(32)
+
+
+def _balance(costs, n):
+    """Unit indices split into n lists, longest first to the least loaded
+    (ties to the lower list), each list ascending."""
+    loads, lists = [0] * n, [[] for _ in range(n)]
+    for u in sorted(range(len(costs)), key=lambda u: (-costs[u], u)):
+        i = min(range(n), key=lambda i: (loads[i], i))
+        lists[i].append(u)
+        loads[i] += costs[u]
+    return [sorted(v) for v in lists]
+
+
+def f32_bwd_tables(tb):
+    """The f32 K11's tables (csrc/fused_tp_bwd.cu `fused_tp_bwd_f32_kernel`),
+    packed from `sparse_tables`' lists into one blob that a block copies to
+    its shared memory once:
+
+    * etr [nnz] (64-bit words): CBIG_R's nonzeros by expansion column q in
+      dw order, the q of weight 0, then of weight 1, ... (wq's order, q
+      ascending within a weight), each q's nonzeros in rptr's order; low
+      word rf | rb << 16 (the nonzero's row rb * din + rf of concat_b(x *
+      sh[b])), high word the coefficient;
+    * edb [nnz] (64-bit words): the nonzeros of each CBIG_R row j (tptr's
+      runs, q ascending): low word qcol[q] | widx[q] << 16, the two gathers
+      of dTR[q] = dct[qcol q] * w[widx q], high word the coefficient;
+    * qword [R + 1] (32 bits): position t in dw order, its nonzeros' start
+      in etr | its output column qcol << 16; qword[R]'s start is nnz;
+    * kqptr [numel + 1] (16 bits): the positions of weight k, kqptr[k] ..
+      kqptr[k + 1] - 1 (wptr);
+    * tptr [K + 1] (16 bits): each CBIG_R row's run of edb;
+    * sched (16 bits): aptr [BWD_WARPS + 1], bptr [BWD_WARPS + 1] (absolute
+      indices into sched), then warp w's dw units sched[aptr[w] ..
+      aptr[w + 1] - 1] (the first weight k0 of BWD_GROUP consecutive ones)
+      and its Db units sched[bptr[w] .. bptr[w + 1] - 1] (an x feature f:
+      the CBIG_R rows b * din + f, b ascending), each list ascending,
+      balanced over the warps by their entries.
+
+    "blob" (uint8, a multiple of 16 bytes) holds them in that order, each
+    at its byte offset ("offsets": tr, db, q, kq, tp, sc; "bytes")."""
+    sp = sparse_tables(tb)
+    din, numel = tb["din"], tb["numel"]
+    K, R = tb["CBIG_R"].shape
+    nnz = sp["nnz"]
+    if max(nnz, R, K, numel, tb["SUMR"].shape[1]) >= 1 << 16:
+        raise ValueError(f"the f32 K11's 16-bit tables take fewer than 65536 nonzeros, "
+                         f"columns and weights, not {tb['sig']}")
+    rows, rptr, wq, qcol, widx = sp["rows"], sp["rptr"], sp["wq"], sp["qcol"], sp["widx"]
+    zlen = np.diff(rptr)[wq]
+    zstart = np.concatenate([[0], np.cumsum(zlen)])
+    src = np.concatenate([np.arange(rptr[q], rptr[q + 1]) for q in wq])
+    etr = _words(rows[src] % din | (rows[src] // din) << 16, sp["coef"][src])
+    edb = _words(qcol[sp["tq"]] | widx[sp["tq"]] << 16, sp["tcoef"])
+    qword = (zstart | np.append(qcol[wq], 0) << 16).astype(np.uint32)
+    kqptr, tptr = sp["wptr"].astype(np.uint16), sp["tptr"].astype(np.uint16)
+    units_a = range(0, numel, BWD_GROUP)
+    cost_a = [sum(int(zlen[t]) + 1 for k in range(k0, min(k0 + BWD_GROUP, numel))
+                  for t in range(kqptr[k], kqptr[k + 1])) + 1 for k0 in units_a]
+    tlen = np.diff(sp["tptr"])
+    cost_b = [int(tlen[f::din].sum()) + 2 * (K // din) for f in range(din)]
+    lists_a = [[units_a[u] for u in v] for v in _balance(cost_a, BWD_WARPS)]
+    lists_b = _balance(cost_b, BWD_WARPS)
+    head = 2 * (BWD_WARPS + 1)
+    aptr = head + np.concatenate([[0], np.cumsum([len(v) for v in lists_a])])
+    bptr = aptr[-1] + np.concatenate([[0], np.cumsum([len(v) for v in lists_b])])
+    sched = np.concatenate([aptr, bptr, *map(np.asarray, lists_a), *map(np.asarray, lists_b)])
+    sched = sched.astype(np.uint16)
+    parts = {"tr": etr, "db": edb, "q": qword, "kq": kqptr, "tp": tptr, "sc": sched}
+    offsets, chunks, at = {}, [], 0
+    for key, arr in parts.items():
+        offsets[key] = at
+        chunks.append(arr.view(np.uint8))
+        at += arr.nbytes
+    blob = np.zeros(-(-at // 16) * 16, np.uint8)
+    blob[:at] = np.concatenate(chunks)
+    return {"etr": etr, "edb": edb, "qword": qword, "kqptr": kqptr, "tptr": tptr,
+            "sched": sched, "blob": blob, "offsets": offsets, "bytes": blob.size}
 
 
 def _pack_tiles(dense, by):
@@ -259,7 +348,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {  # the pointers, then M and the ints, of each entry point
     "fused_tp_f32": [_P] * 9 + [_LL] + [_I] * 4,
     "fused_tp_bf16": [_P] * 13 + [_LL] + [_I] * 6,
-    "fused_tp_bwd_f32": [_P] * 18 + [_LL] + [_I] * 4,
+    "fused_tp_bwd_f32": [_P] * 8 + [_LL] + [_I] * 10,
     "fused_tp_bwd_bf16": [_P] * 21 + [_LL] + [_I] * 12,
 }
 
@@ -269,9 +358,10 @@ _DEVICE_TABLES: dict = {}
 
 def _device_tables(tb, device, dtype):
     """The sparse lists on `device`, coefficients rounded to `dtype` (as the
-    Pallas kernel casts CBIG_R to x's dtype), cached by signature; for bf16
-    also the packed tiles of `mma_tables` (key "mma") and of
-    `mma_bwd_tables` (key "mma_bwd")."""
+    Pallas kernel casts CBIG_R to x's dtype), cached by signature; for f32
+    also the f32 K11's blob of `f32_bwd_tables` (key "f32_bwd"); for bf16
+    the packed tiles of `mma_tables` (key "mma") and of `mma_bwd_tables`
+    (key "mma_bwd")."""
     key = (tb["sig"], str(device), dtype)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
@@ -279,6 +369,10 @@ def _device_tables(tb, device, dtype):
         hit = {k: torch.as_tensor(v, device=device) for k, v in sp.items() if k != "nnz"}
         for k in ("coef", "tcoef"):
             hit[k] = hit[k].to(dtype).to(torch.float32)
+        if dtype == torch.float32:
+            fb = f32_bwd_tables(tb)
+            hit["f32_bwd"] = dict(fb["offsets"], bytes=fb["bytes"],
+                                  blob=torch.as_tensor(fb["blob"], device=device))
         if dtype == torch.bfloat16:
             mt = mma_tables(tb)
             hit["mma"] = {k: v if isinstance(v, int) else torch.as_tensor(v, device=device)
@@ -335,10 +429,6 @@ def _launch_fused_tp(x, sh, w, tb):
     return out
 
 
-_BWD_TABLES = ("qcol", "widx", "rptr", "rb", "rf", "coef", "wptr", "wq", "tptr", "tq",
-               "tcoef")
-
-
 def fused_tp_bwd(x, sh, w, dct, tb, want_dsh=True):
     """K11: (dx, dsh, dw) of K10 at x, sh, w for the output cotangent dct
     [..., dout], each in x's dtype (dsh None when not `want_dsh`). CUDA
@@ -369,8 +459,9 @@ def fused_tp_bwd(x, sh, w, dct, tb, want_dsh=True):
                 M, din, dsh, numel, dout, mt["npairs"], mb["ntri"], len(mb["gks"]),
                 mb["nj"], len(mb["aslot"]) - 1, len(mb["cslot"]) - 1, mb["csplit"], mb["cap"]]
     else:
-        args = [*ptrs, *(tabs[k].data_ptr() for k in _BWD_TABLES), *outs, M, din, dsh,
-                numel, dout]
+        ft = tabs["f32_bwd"]
+        args = [*ptrs, ft["blob"].data_ptr(), *outs, M, din, dsh, numel, dout,
+                *(ft[k] for k in ("bytes", "db", "q", "kq", "tp", "sc"))]
     build.launch(build.entry("fused_tp_bwd", name, _ARGTYPES[name]), dev, *args)
     LAUNCHES["fused_tp_bwd"] += 1
     return dx, dsh_out, dw

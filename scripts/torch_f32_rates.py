@@ -2,17 +2,17 @@
 """The f32 message chains of the PyTorch port (codlad_tpu_torch) on one GPU.
 
     python3 scripts/torch_f32_rates.py [--draws 3] [--steps 6] [--seed 0]
-                                       [--sections fwd,bwd,draw,train]
+                                       [--sections fwd,bwd,draw,train,tp]
 
 Run from a checkout's root: it drives that checkout's kernels through its
 `chip_smoke` helpers (copy it into an older checkout to compare the two in
 turns, one process each). Prints one JSON line:
 
 * the device ms (CUDA graph replay, `chip_smoke.replay_ms`) of the f32 K1
-  (fused_message_sum), K2 (fused_message_edge_lnmod) and K7
-  (fused_edge_then_sum) at B96 L128 K64, B96 L48 K48 and B96 with 64 edge
-  rows against a node table of 128 (N != L), each with max|d| against its
-  plain version run in float64;
+  (fused_message_sum), K2 (fused_message_edge_lnmod), K6's forward
+  (fused_message_edge) and K7 (fused_edge_then_sum) at B96 L128 K64, B96
+  L48 K48 and B96 with 64 edge rows against a node table of 128 (N != L),
+  each with max|d| against its plain version run in float64;
 * the f32 100-step draw (the sampling path of `chip_smoke.build_pipeline`
   with no compute dtype, decode included) at B96 L128 K64: one untimed
   draw, then the median seconds of `--draws` and its denoise steps/s;
@@ -27,9 +27,18 @@ turns, one process each). Prints one JSON line:
   dropout 0.6): the median ms of `--steps` steps after one untimed step,
   then one more step at dropout 0.6 (trunk and residual) under
   torch.profiler (the device ms of each CUDA kernel in it);
+* the f32 K11 (section tp, `fused_tp_bwd`) at the Stage-1 bench batch (4
+  frames of 132 residues, L 192: 65536 directed atom edges a frame) at the
+  encoder's three layer signatures, on the atom edges and on the dense
+  cross graph [4, 192, 14]: device ms by graph replay, max|d| / max|ref|
+  of dx, dsh and dw against float64 autograd of the plain K10, and a
+  sha256 of the outputs' bytes (to compare two checkouts' bits), then the
+  f32 Stage-1 training step (`chip_smoke.build_stage1_trainer`, the
+  default trainer): the median ms of `--steps` steps after one untimed
+  step and one more step under torch.profiler;
 * the card's name and power limit.
 
-`--sections` picks the parts to run (fwd: the K1 / K2 / K7 lines).
+`--sections` picks the parts to run (fwd: the K1 / K2 / K6 / K7 lines).
 """
 
 import argparse
@@ -38,6 +47,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def main(argv=None):
@@ -45,7 +55,7 @@ def main(argv=None):
     ap.add_argument("--draws", type=int, default=3)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sections", default="fwd,bwd,draw,train")
+    ap.add_argument("--sections", default="fwd,bwd,draw,train,tp")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     sys.path.insert(0, os.getcwd())
@@ -81,6 +91,9 @@ def main(argv=None):
             "fused_message_edge_lnmod": (
                 lambda: MK.fused_message_edge_lnmod(*(x[k] for k in e_keys)),
                 lambda v: MK.ref_message_edge_lnmod(*(v[k] for k in e_keys))),
+            "fused_message_edge": (
+                lambda: MK.fused_message_edge(*(x[k] for k in e_keys[:9])),
+                lambda v: MK.ref_message_edge(*(v[k] for k in e_keys[:9]))),
             "fused_edge_then_sum": (lambda: MK.fused_edge_then_sum(*k7), None),
         }
         res = {}
@@ -130,6 +143,8 @@ def main(argv=None):
                     lambda: step(state, x1, extras, args.seed + 99))
             del model, state, step
             torch.cuda.empty_cache()
+    if "tp" in sections:
+        out["tp"] = _tp_backward(cs, args.seed, args.steps, dev)
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True,
                                  text=True).stdout.strip()
@@ -189,6 +204,64 @@ def _backwards(cs, MK, dims, n, seed, dev):
         res[name] = {"device_ms": ms, "traced_kernels_ms": _traced(call, reps=3)}
     del x, keep, calls
     torch.cuda.empty_cache()
+    return res
+
+
+def _tp_backward(cs, seed, steps, dev):
+    """The f32 K11 at the Stage-1 bench batch (device ms, accuracy, a hash
+    of its outputs) and the f32 Stage-1 training step (ms, traced)."""
+    import hashlib
+    import torch
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.graph import make_directed_batched
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    batch = cs.stage1_batch(seed, dev)
+    nb, nl = batch["res_type"].shape
+    edges, _ = make_directed_batched(batch["atom_edges"], batch["atom_edges_mask"])
+    ladder = irrep_ladder(12, 4)
+    g = torch.Generator().manual_seed(seed + 13)
+    res = {}
+    for layer in range(3):
+        tb = fused_tp_tables(tuple(ladder[layer]), tuple(SH_IRREPS), tuple(ladder[layer + 1]))
+        din, numel, dout = ladder[layer].dim, tb["numel"], tb["SUMR"].shape[1]
+        for where, lead in (("edges", (nb, edges.shape[1])), ("cross", (nb, nl, 14))):
+            x = torch.randn(*lead, din, generator=g).to(dev)
+            sh = sh_l2(torch.randn(*lead, 3, generator=g)).to(dev)
+            w = (torch.randn(*lead, numel, generator=g) * din ** -0.5).to(dev)
+            ct = torch.randn(*lead, dout, generator=g).to(dev)
+            kern = lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)
+            got = kern()
+            leaves = [t.double().requires_grad_(True) for t in (x, sh, w)]
+            want = torch.autograd.grad(TK.ref_fused_tp(*leaves, tb["CBIG_R"], tb["EXPW"],
+                                                       tb["SUMR"]), leaves, ct.double())
+            err = {n: (a.double() - b).abs().max().item() / b.abs().max().item()
+                   for n, a, b in zip(("dx", "dsh", "dw"), got, want)}
+            digest = hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                             for t in got)).hexdigest()[:16]
+            del got, want, leaves
+            (ms,) = cs.replay_ms(kern)
+            res[f"layer {layer} {where} {tuple(lead)}"] = {
+                "device_ms": ms, "max_d_over_max_ref": err, "sha256": digest}
+            del x, sh, w, ct
+            torch.cuda.empty_cache()
+    _, state, step = cs.build_stage1_trainer(dev, seed)
+    weights = cs.stage1_weights()
+    times = []
+    for _ in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, weights)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], batch, weights)
+
+    res["train_stage1_f32"] = {"ms": times[1:], "median_ms": statistics.median(times[1:]),
+                               "traced_kernels_ms": _traced(one)}
     return res
 
 

@@ -1,7 +1,8 @@
 """The f32 tensor-core message chains' slab loop (3xTF32), on the CPU.
 
 csrc/message_chain.cu runs the f32 K1 (`message_sum_f32_mma_kernel`), K2
-(`message_edge_lnmod_f32_mma_kernel`) and K7 (`edge_then_sum_f32_mma_kernel`)
+(`message_edge_lnmod_f32_mma_kernel`), K6 (`message_edge_f32_mma_kernel`) and
+K7 (`edge_then_sum_f32_mma_kernel`)
 on mma.sync m16n8k8 in TF32, on 16-row slabs of one residue each (K a
 multiple of 4 up to 64: rows past K in a residue's last slab are padding).
 `emulate_*` below repeat that loop in torch with the kernels' arithmetic
@@ -18,7 +19,9 @@ multiple of 4 up to 64: rows past K in a residue's last slab are padding).
 * K2: h2 = gelu(x2 + b2) as the A operand of msg = h2 W3; resid = E + (msg
   + b3); the LayerNorm's two passes summed as the bf16 kernel sums them;
   out = g (LN (1 + sc) + sh), f32; K5's forward (K2's kernel at DROP 1 or
-  2): resid = E + (msg + b3) x keep;
+  2): resid = E + (msg + b3) x keep; K6's forward
+  (`message_edge_f32_mma_kernel`, twenty-first slice): K2's loop with the
+  raw epilogue, out = msg + b3;
 * K1: mask * gelu(x2 + b2) of a slab's rows g and g + 8, the 8 lanes'
   butterfly as a pairwise tree, the residue's slabs in slab order, then
   out = (s W3 + msum b3) / scale with s W3 taken as W3^T s^T (W3 the A
@@ -29,7 +32,7 @@ The gelu is the kernels' x / (1 + exp(-2u)). The emulation is held against
 the JAX package's Pallas kernels in interpret mode in f32 at atol 2e-4 +
 rtol 2e-4 (as tests/test_kernels.py holds them) at K 16, 32, 48, 64 and 20
 (K5's forward with the port's counter-hash keep scales, `keep_scales`, as
-the Pallas kernel's `keep`);
+the Pallas kernel's `keep`; K6's forward against `_pallas_message_edge`);
 the same loop with one TF32 product (hi_a hi_b) misses that limit; and a
 5-step f32 DDIM draw of the port's denoiser (hidden 128) with K1 and K2
 swapped for the emulation stays within 1e-5 of max|latent| of the JAX
@@ -155,6 +158,14 @@ def emulate_edge_lnmod(A, E, Gn, idx, W_e, W2, b2, W3, b3, sh, sc, g, single=Fal
     return out.reshape(B, L, K, H)
 
 
+def emulate_message_edge(A, E, Gn, idx, W_e, W2, b2, W3, b3, single=False):
+    """K6's forward: K2's slab loop with the raw epilogue, out = msg + b3
+    (lnmod_out's first sum, no LayerNorm) -> f32 [B, L, K, H]."""
+    B, L, K, _ = E.shape
+    h2 = gelu_exp(_x2(A, E, Gn, idx, W_e, W2, single) + b2)
+    return (mma3(h2, W3, single=single) + b3).reshape(B, L, K, H)
+
+
 def emulate_message_sum(A, E, Gn, idx, mask, W_e, W2, b2, W3, b3, scale, single=False):
     """K1's slab loop -> f32 [B, L, H]."""
     B, L, K, _ = E.shape
@@ -240,6 +251,16 @@ def test_edge_lnmod_emulation_matches_pallas(interpret, K):
     tx, jx = _case(K, 500 + K)
     want = JK._pallas_message_edge_lnmod(*jx[:4], None, *jx[4:12])
     got = emulate_edge_lnmod(*tx[:12])
+    ok, worst = _within(got, want)
+    assert got.shape == want.shape and ok, worst
+
+
+@pytest.mark.parametrize("K", KS)
+def test_message_edge_emulation_matches_pallas(interpret, K):
+    """K6's forward (K2's loop, the raw epilogue) against the Pallas K6."""
+    tx, jx = _case(K, 900 + K)
+    want = JK._pallas_message_edge(*jx[:4], None, *jx[4:9])
+    got = emulate_message_edge(*tx[:9])
     ok, worst = _within(got, want)
     assert got.shape == want.shape and ok, worst
 

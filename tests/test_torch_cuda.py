@@ -17,7 +17,10 @@ wrapper takes in f32 (3xTF32), each bit for bit from run to run; the f32
 K3, K4, K5's and K6's backward (3xTF32) at every K the f32 wrapper takes
 against float64 autograd, every output but dGn bit for bit from run to run;
 the f32 K5 forward on K2's 3xTF32 kernel at those K, bit for bit as the
-bf16 one; K7
+bf16 one, and the f32 K6 forward on K2's 3xTF32 kernel (raw epilogue) at
+those K, bit for bit from run to run; the f32 K11 with its tables staged in
+shared memory at the four encoder signatures, bit for bit from run to run
+and on offset views, against float64 autograd; K7
 against K2's kernel then K1's, bit for bit, both dtypes; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
@@ -62,6 +65,7 @@ def _inputs(dev, dtype, B, L, N, K, seed=0):
 
 _SUM = ("A", "E", "Gn", "idx", "mask", "W_e", "W2", "b2", "W3", "b3")
 _EDGE = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3", "sh", "sc", "g")
+_MSG = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
 
 
 def _close(got, want, atol, rtol):
@@ -169,6 +173,21 @@ def test_edge_lnmod_f32_tensor_cores_every_k(dev, K):
     assert MK.LAUNCHES["fused_message_edge_lnmod"] == 2 and e.dtype == torch.float32
     assert torch.equal(e, again)
     _close(e, MK.ref_message_edge_lnmod(*args), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("K", _F32_KS)
+def test_message_edge_f32_tensor_cores_every_k(dev, K):
+    """K6's f32 forward on K2's 3xTF32 kernel (the raw epilogue): within the
+    f32 limits of ref_message_edge and bit for bit from run to run."""
+    x = _inputs(dev, torch.float32, 3, 37, 50, K, seed=80 + K)
+    args = [x[k] for k in _MSG]
+    MK.reset_launches()
+    e = MK.fused_message_edge(*args)
+    again = MK.fused_message_edge(*args)
+    torch.cuda.synchronize()
+    assert MK.LAUNCHES["fused_message_edge"] == 2 and e.dtype == torch.float32
+    assert torch.equal(e, again)
+    _close(e, MK.ref_message_edge(*args), 2e-4, 2e-4)
 
 
 @pytest.mark.parametrize("K", [6, 68])
@@ -378,7 +397,6 @@ def test_dropout_kernels_match_plain(dev, dtype):
 # 2e-4; bf16 2e-2 max|ref| (K6's messages and K7's node sum), and K7's edge
 # output, K2's arithmetic, within the JAX test's 5e-2 (tests/test_kernels.py:
 # 796) + K2's rtol 2e-2. K6's backward as K4's (`_grad_close`).
-_MSG = ("A", "E", "Gn", "idx", "W_e", "W2", "b2", "W3", "b3")
 _SHAPES_67 = [(48, 48, 48), (64, 64, 64), (37, 50, 32)]
 
 
@@ -827,6 +845,47 @@ def test_fused_tp_bwd_bf16_unaligned_views(dev, layer):
         for a, b, name in zip(aligned, want, ("dx", "dsh", "dw")):
             d, ref = (a.float() - b.float()).abs(), b.float().abs()
             assert bool((d <= 2e-2 * ref.max()).all()), (name, d.max().item(), ref.max().item())
+
+
+@pytest.mark.parametrize("sig", [(0, 1), (1, 2), (2, 3), (3, 3)],
+                         ids=["layer0", "layer1", "layer2", "layer3-3"])
+def test_fused_tp_bwd_f32_staged_tables(dev, sig):
+    """The f32 K11 (tables staged in shared memory, two rows a lane; the
+    3 -> 3 signature of a fourth encoder layer takes one row a lane) on 1,
+    77 and 4100 rows (none a multiple of a 64-row tile) and on operands
+    that start off the 16-byte grid: the same bits from run to run and on
+    aligned copies, dx and dw the same without dsh, each within atol 2e-4 +
+    rtol 2e-4 + 2e-6 max|ref| of float64 autograd of the plain version."""
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[sig[0]]), tuple(SH_IRREPS), tuple(lad[sig[1]]))
+    g = torch.Generator().manual_seed(70 + sig[0] + sig[1])
+    for m in (4100, 77, 1):
+        x = torch.randn(m, lad[sig[0]].dim, generator=g).to(dev)
+        sh = sh_l2(torch.randn(m, 3, generator=g)).to(dev)
+        w = (torch.randn(m, tb["numel"], generator=g) * 0.2).to(dev)
+        ct = torch.randn(m, tb["SUMR"].shape[1], generator=g).to(dev)
+        TK.reset_launches()
+        got = TK.fused_tp_bwd(x, sh, w, ct, tb)
+        again = TK.fused_tp_bwd(x, sh, w, ct, tb)
+        shifted = TK.fused_tp_bwd(_offset_view(x, 1), _offset_view(sh, 3), _offset_view(w, 5),
+                                  _offset_view(ct, 7), tb)
+        no_dsh = TK.fused_tp_bwd(x, sh, w, ct, tb, want_dsh=False)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["fused_tp_bwd"] == 4 and no_dsh[1] is None
+        for a, b, c, name in zip(got, again, shifted, ("dx", "dsh", "dw")):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        assert torch.equal(no_dsh[0], got[0]) and torch.equal(no_dsh[2], got[2])
+        leaves = [t.double().requires_grad_(True) for t in (x, sh, w)]
+        out = TK.ref_fused_tp(*leaves, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
+        want = torch.autograd.grad(out, leaves, ct.double())
+        for a, b, name in zip(got, want, ("dx", "dsh", "dw")):
+            d, ref = (a.double() - b).abs(), b.abs()
+            bound = 2e-4 + 2e-4 * ref + 2e-6 * ref.max()
+            assert bool((d <= bound).all()), (name, d.max().item(), ref.max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,10 +8,11 @@ tensor product's backward), the K8/K9 VJPs and the CSR of each edge index.
   2e-4 (as tests/test_kernels.py holds the Pallas kernel), bf16 (against
   the JAX vjp, the same rounding steps) 2e-2 max|ref|, ~3 bf16 ulps of the
   largest element for sums taken in another order.
-* The kernel's lists: K11 reads the forward's lists and two transposed ones
-  (`sparse_tables`: the positions of each weight, the nonzeros of each
-  CBIG_R row); walking them in numpy, in the kernel's order, gives autograd's
-  dx, dsh and dw of the dense form (float64, atol 1e-9).
+* The kernel's lists: the f32 K11 reads `f32_bwd_tables`' words, packed
+  from the forward's lists and two transposed ones (`sparse_tables`: the
+  positions of each weight, the nonzeros of each CBIG_R row); walking them
+  in numpy, in the kernel's order, gives autograd's dx, dsh and dw of the
+  dense form (float64, atol 1e-9).
 * K8/K9 VJPs (gather; aggregate, sum and mean) against jax.vjp of the JAX
   `edge_gather` / `edge_aggregate` (and the mean over the valid degree, as
   its DenseEdgeOps divides): f32 atol 1e-5 + rtol 1e-5, bf16 within one
@@ -97,23 +98,31 @@ def test_tp_backward_plain_matches_jax(layer, lead):
         assert d.max() <= 2e-2 * np.abs(ref).max(), (name, d.max(), np.abs(ref).max())
 
 
-def _lists_bwd(sp, x, sh, w, dct, din, dsh, numel):
-    """K11's loops in numpy (float64), rows vectorised: Db by CBIG_R row from
-    the transposed nonzeros, dw by weight from the transposed positions with
-    TR recomputed from (rb, rf), then dx and dsh from Db."""
+def _words(v):
+    """(low 32 bits, f32 coefficient) of f32_bwd_tables' 64-bit words."""
+    lo = (v & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return lo, (v >> np.uint64(32)).astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def _lists_bwd(fb, x, sh, w, dct, din, dsh, numel):
+    """The f32 K11's loops over its packed words in numpy (float64), rows
+    vectorised: dw by weight from the by-column words in dw order (TR from
+    (rf, rb)), Db by CBIG_R row from the by-row words (qcol, widx), then dx
+    and dsh from Db."""
     M = x.shape[0]
-    Db = np.zeros((M, dsh * din))
-    for j in range(dsh * din):
-        for t in range(sp["tptr"][j], sp["tptr"][j + 1]):
-            q = sp["tq"][t]
-            Db[:, j] += sp["tcoef"][t] * (dct[:, sp["qcol"][q]] * w[:, sp["widx"][q]])
     dw = np.zeros((M, numel))
+    lo, cf = _words(fb["etr"])
+    qw = fb["qword"].astype(np.int64)
     for k in range(numel):
-        for t in range(sp["wptr"][k], sp["wptr"][k + 1]):
-            q = sp["wq"][t]
-            z = slice(sp["rptr"][q], sp["rptr"][q + 1])
-            tr = (sp["coef"][z] * x[:, sp["rf"][z]] * sh[:, sp["rb"][z]]).sum(1)
-            dw[:, k] += dct[:, sp["qcol"][q]] * tr
+        for t in range(fb["kqptr"][k], fb["kqptr"][k + 1]):
+            z = slice(qw[t] & 0xFFFF, qw[t + 1] & 0xFFFF)
+            tr = (cf[z] * x[:, lo[z] & 0xFFFF] * sh[:, lo[z] >> 16]).sum(1)
+            dw[:, k] += dct[:, qw[t] >> 16] * tr
+    Db = np.zeros((M, dsh * din))
+    lo, cf = _words(fb["edb"])
+    for j in range(dsh * din):
+        for t in range(fb["tptr"][j], fb["tptr"][j + 1]):
+            Db[:, j] += cf[t] * (dct[:, lo[t] & 0xFFFF] * w[:, lo[t] >> 16])
     Db = Db.reshape(M, dsh, din)
     return (sh[:, :, None] * Db).sum(1), (x[:, None, :] * Db).sum(2), dw
 
@@ -121,7 +130,7 @@ def _lists_bwd(sp, x, sh, w, dct, din, dsh, numel):
 @pytest.mark.parametrize("layer", [0, 1, 2])
 def test_tp_backward_lists_rebuild_autograd(layer):
     tb = _tables(layer)
-    sp = TK.sparse_tables(tb)
+    sp, fb = TK.sparse_tables(tb), TK.f32_bwd_tables(tb)
     x, sh, w, dct = (a.reshape(-1, a.shape[-1]).astype(np.float64)
                      for a in _tp_inputs(tb, layer, (1, 6), seed=20 + layer))
     assert sp["wptr"][-1] == tb["R"] and sp["tptr"][-1] == sp["nnz"]
@@ -131,7 +140,7 @@ def test_tp_backward_lists_rebuild_autograd(layer):
     t = torch.cat([leaves[0] * leaves[1][:, b:b + 1] for b in range(9)], dim=-1)
     out = ((leaves[2] @ dense[1]) * (t @ dense[0])) @ dense[2]
     want = torch.autograd.grad(out, leaves, torch.from_numpy(dct))
-    got = _lists_bwd(sp, x, sh, w, dct, LADDER[layer].dim, 9, tb["numel"])
+    got = _lists_bwd(fb, x, sh, w, dct, LADDER[layer].dim, 9, tb["numel"])
     for g, wt, name in zip(got, want, ("dx", "dsh", "dw")):
         np.testing.assert_allclose(g, wt.numpy(), atol=1e-9, err_msg=name)
 

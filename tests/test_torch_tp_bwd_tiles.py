@@ -1,5 +1,6 @@
-"""The bf16 K11 kernel's tables (`tp_kernels.mma_bwd_tables`, beside K10's
-`mma_tables`) and its tile loop, on the CPU.
+"""The K11 kernels' tables and loops, on the CPU: the bf16 kernel's
+(`tp_kernels.mma_bwd_tables`, beside K10's `mma_tables`, and its tile
+loop) and the f32 kernel's (`tp_kernels.f32_bwd_tables`, and its walk).
 
 * For each of the encoder ladder's three layer signatures: the packed k16 x
   n8 (q x j) tiles of CBIG_R^T and their group lists rebuild the
@@ -232,3 +233,142 @@ def test_kernel_emulation_matches_pallas(layer, dtype):
             np.testing.assert_allclose(g, ref, atol=2e-4, rtol=2e-4, err_msg=name)
         else:
             assert np.abs(g - ref).max() <= 2e-2 * np.abs(ref).max(), name
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernel: f32_bwd_tables' blob and the kernel's walk
+
+def _decode_blob(fb):
+    """The tables as the kernel reads them from its shared memory: every
+    array from fb["blob"] at its byte offset (the blob ends after sched)."""
+    blob, off = fb["blob"], fb["offsets"]
+    keys = ("tr", "db", "q", "kq", "tp", "sc")
+    ends = [off[k] for k in keys[1:]] + [off["sc"] + fb["sched"].nbytes]
+    kinds = {"tr": np.uint64, "db": np.uint64, "q": np.uint32, "kq": np.uint16,
+             "tp": np.uint16, "sc": np.uint16}
+    return {k: blob[off[k]:e].view(kinds[k]).astype(np.int64) for k, e in zip(keys, ends)}
+
+
+def _word(v):
+    """(low 32 bits, f32 coefficient) of 64-bit entry words."""
+    v = np.asarray(v, np.int64).astype(np.uint64)
+    lo = (v & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    hi = (v >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    return lo, hi
+
+
+@pytest.mark.parametrize("layer", SIGS)
+def test_f32_blob_decodes_to_sparse_lists(layer):
+    tb = _tables(layer)
+    sp, fb = TK.sparse_tables(tb), TK.f32_bwd_tables(tb)
+    d = _decode_blob(fb)
+    din, numel, (K, R), nnz = tb["din"], tb["numel"], tb["CBIG_R"].shape, sp["nnz"]
+    assert fb["bytes"] % 16 == 0 and fb["offsets"]["tr"] == 0
+    for key, arr in (("tr", fb["etr"]), ("db", fb["edb"]), ("q", fb["qword"]),
+                     ("kq", fb["kqptr"]), ("tp", fb["tptr"]), ("sc", fb["sched"])):
+        np.testing.assert_array_equal(d[key], arr.astype(np.int64), err_msg=key)
+    # by column, in dw order: position t is q = wq[t], weight k's run kqptr
+    np.testing.assert_array_equal(d["kq"], sp["wptr"])
+    lo, cf = _word(d["tr"])
+    zs = d["q"] & 0xFFFF
+    assert zs[-1] == nnz and len(zs) == R + 1
+    for t, q in enumerate(sp["wq"]):
+        z = slice(zs[t], zs[t + 1])
+        want = slice(sp["rptr"][q], sp["rptr"][q + 1])
+        np.testing.assert_array_equal((lo[z] >> 16) * din + (lo[z] & 0xFFFF), sp["rows"][want])
+        np.testing.assert_array_equal(cf[z], sp["coef"][want])
+        assert d["q"][t] >> 16 == sp["qcol"][q]
+    # by row: each nonzero's gathers and coefficient, tptr's runs
+    np.testing.assert_array_equal(d["tp"], sp["tptr"])
+    lo, cf = _word(d["db"])
+    np.testing.assert_array_equal(lo & 0xFFFF, sp["qcol"][sp["tq"]])
+    np.testing.assert_array_equal(lo >> 16, sp["widx"][sp["tq"]])
+    np.testing.assert_array_equal(cf, sp["tcoef"])
+    # the schedule: every dw unit (4 weights from k0) and every feature f
+    # once, each warp's list ascending
+    sc, nw = d["sc"], TK.BWD_WARPS
+    a_units = [sc[sc[w]:sc[w + 1]] for w in range(nw)]
+    b_units = [sc[sc[nw + 1 + w]:sc[nw + 2 + w]] for w in range(nw)]
+    assert sc[0] == 2 * (nw + 1) and sc[nw] == sc[nw + 1] and sc[2 * nw + 1] == len(sc)
+    assert sorted(np.concatenate(a_units)) == list(range(0, numel, TK.BWD_GROUP))
+    assert sorted(np.concatenate(b_units)) == list(range(din))
+    assert all(np.all(np.diff(u) > 0) for u in a_units + b_units)
+
+
+TILE_F32 = 64   # the f32 kernel's rows a tile: 32 lanes, two rows each
+
+
+def _fma(a, b, c):
+    """fmaf in f32 (the product exact in float64, one rounding of the sum
+    to f32 after float64's; a double rounding can move a result by one f32
+    ulp, far inside the limits held here)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_f32_kernel(x, sh, w, dct, tb):
+    """The f32 kernel's walk in torch: x [M, din], sh [M, 9], w [M, numel],
+    dct [M, dout] (numpy f32) -> (dx, dsh, dw) f32, over 64-row tiles
+    (row tile * 64 + 32 r + lane: lane's rows r = 0, 1; rows past M zero),
+    every table read from the decoded blob."""
+    fb = TK.f32_bwd_tables(tb)
+    d = _decode_blob(fb)
+    M, din = x.shape
+    numel, nw = w.shape[1], TK.BWD_WARPS
+    mp = -(-M // TILE_F32) * TILE_F32
+    pad = lambda a: torch.cat([torch.as_tensor(a), torch.zeros((mp - M, a.shape[1]))])
+    x, sh, w, dct = map(pad, (x, sh, w, dct))
+    # [tiles, RT, lanes] -> rows: the same row order, shown in the kernel's map
+    lanes = torch.arange(mp).reshape(-1, 2, 32)
+    assert torch.equal(lanes[:, 1], lanes[:, 0] + 32)
+    tr_lo, tr_cf = _word(d["tr"])
+    db_lo, db_cf = _word(d["db"])
+    tr_cf, db_cf = torch.from_numpy(tr_cf), torch.from_numpy(db_cf)
+    qw, kq, tp, sc = d["q"], d["kq"], d["tp"], d["sc"]
+    zero = lambda: torch.zeros(mp)
+    # dw phase: TR by fmaf chains, dw the sum of rounded products
+    dw = torch.zeros((mp, numel))
+    for k in range(numel):
+        acc = zero()
+        for t in range(kq[k], kq[k + 1]):
+            tr = zero()
+            for z in range(qw[t] & 0xFFFF, qw[t + 1] & 0xFFFF):
+                f, b = tr_lo[z] & 0xFFFF, tr_lo[z] >> 16
+                tr = _fma(tr_cf[z], x[:, f] * sh[:, b], tr)
+            acc = acc + dct[:, qw[t] >> 16] * tr
+        dw[:, k] = acc
+    # Db phase, warp by warp: dx (b ascending), the warps' parts of dsh
+    dx, parts = torch.zeros((mp, din)), []
+    for wp in range(nw):
+        dsp = torch.zeros((mp, 9))
+        for f in sc[sc[nw + 1 + wp]:sc[nw + 2 + wp]]:
+            dxa = zero()
+            for b in range(9):
+                j = b * din + f
+                acc = zero()
+                for t in range(tp[j], tp[j + 1]):
+                    c, k = db_lo[t] & 0xFFFF, db_lo[t] >> 16
+                    acc = _fma(db_cf[t], dct[:, c] * w[:, k], acc)
+                dxa = dxa + sh[:, b] * acc
+                dsp[:, b] = dsp[:, b] + x[:, f] * acc
+            dx[:, f] = dxa
+        parts.append(dsp)
+    dsh = parts[0]
+    for p in parts[1:]:
+        dsh = dsh + p
+    return dx[:M], dsh[:M], dw[:M]
+
+
+@pytest.mark.parametrize("layer", SIGS)
+def test_f32_kernel_walk_matches_pallas(layer):
+    tb = _tables(layer)
+    rng = np.random.default_rng(60 + layer)
+    M, din = 100, irrep_ladder(12, 4)[layer].dim
+    x = rng.normal(size=(M, din)).astype(np.float32)
+    sh = np.array(JI.sh_l2(jnp.asarray(rng.normal(size=(M, 3)).astype(np.float32))))
+    w = (rng.normal(size=(M, tb["numel"])) * din ** -0.5).astype(np.float32)
+    dct = rng.normal(size=(M, tb["SUMR"].shape[1])).astype(np.float32)
+    got = emulate_f32_kernel(x, sh, w, dct, tb)
+    want = _pallas(x, sh, w, dct, tb, jnp.float32)
+    for g, ref, name in zip(got, want, ("dx", "dsh", "dw")):
+        assert g.dtype == torch.float32 and g.shape == ref.shape, name
+        np.testing.assert_allclose(g.numpy(), ref, atol=2e-4, rtol=2e-4, err_msg=name)
