@@ -53,7 +53,10 @@ Phases, each printing its seconds:
                 tests/_torch_aggregate_order.py, the order the CPU tests
                 hold against the TPU kernel) and K10 (fused_tp, the three layer
                 signatures on the atom edges and on the cross graph's
-                [B, L, 14, *] operands; bf16 on the tensor cores) within
+                [B, L, 14, *] operands; bf16 on the tensor cores, f32 on
+                CUDA cores with its tables staged in shared memory,
+                fused_tp_f32_kernel, against the plain version in float64,
+                two launches bit for bit equal) within
                 their tolerances, each timed beside its bound, its plain
                 version and the nearest PyTorch call (the kernel and that
                 call also by CUDA graph replay: the device's time); K11
@@ -191,7 +194,9 @@ Phases, each printing its seconds:
                 random weights from --seed, on the Stage-1 bench batch:
                 encode, VQ snap, decode, xyz14, metrics; launches of K8, K9
                 and K10 per encoder forward and per decode asserted; wall
-                time, the encoder's share, peak memory; a small batch card
+                time, the encoder's share, peak memory; one traced batch,
+                which fails unless K10 ran as fused_tp_f32_kernel and no
+                fused_tp_kernel ran; a small batch card
                 against CPU (latents, VQ codes with near-ties allowed,
                 decode); the bf16 encoder forward timed at the bench batch;
  15. recon trained -- the trained VQ-VAE converted from the study's
@@ -248,9 +253,10 @@ Phases, each printing its seconds:
                 the loss finite and no step skipped, median ms/step, the
                 first step, peak memory, the last step under
                 torch.profiler; then 4 steps in f32 (the default trainer),
-                the last traced, which fails unless K11 ran as
-                fused_tp_bwd_f32_kernel (tables staged in shared memory)
-                and no fused_tp_bwd_kernel ran;
+                the last traced, which fails unless K10 ran as
+                fused_tp_f32_kernel and K11 as fused_tp_bwd_f32_kernel
+                (tables staged in shared memory) and neither
+                fused_tp_kernel nor fused_tp_bwd_kernel ran;
  18. train_stage1_reference -- one f32 step on a small batch (2 x 40) on
                 the card and on the CPU: loss, every parameter's grad, the
                 VQ state;
@@ -1572,8 +1578,26 @@ CHAIN_KERNELS = ("sum_partials",  # csrc
                  "message_edge_lnmod_mma_kernel", "edge_then_sum_mma_kernel",
                  "message_edge_mma_kernel", "message_sum_bwd_mma_kernel", "wgrad_mma_kernel",
                  "message_edge_lnmod_bwd_mma_kernel", "message_edge_bwd_mma_kernel")
-STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_kernel",          # csrc
+STAGE1_KERNELS = ("gather_kernel", "aggregate_kernel", "fused_tp_f32_kernel",      # csrc
                   "fused_tp_mma_kernel", "fused_tp_bwd_f32_kernel", "fused_tp_bwd_mma_kernel")
+
+
+def check_f32_tp_ran(ran, where, bwd):
+    """Raise unless the trace's kernel names `ran` hold the f32 K10 as
+    fused_tp_f32_kernel (tables staged in shared memory) and none of
+    fused_tp_kernel, the design it replaced (with `bwd`, also K11 as
+    fused_tp_bwd_f32_kernel and no fused_tp_bwd_kernel); log what was
+    seen. A trace with no device events is logged, not checked."""
+    if not ran:
+        log(f"  {where}: no device events; the f32 K10 / K11 kernel names not checked")
+        return
+    want = ["fused_tp_f32_kernel"] + (["fused_tp_bwd_f32_kernel"] if bwd else [])
+    gone = ["fused_tp_kernel"] + (["fused_tp_bwd_kernel"] if bwd else [])
+    missing = [k for k in want if not any(k in n for n in ran)]
+    stale = [k for k in gone if any(k in n for n in ran)]
+    if missing or stale:
+        raise RuntimeError(f"{where} did not run {missing} or ran {stale}: {sorted(ran)}")
+    log(f"  {where} ran {' and '.join(want)}, no {' or '.join(gone)}")
 
 
 def busy_us(intervals):
@@ -2407,12 +2431,19 @@ def check_stage1_kernels(batch, seed):
                 w = (rnd(*lead, numel) * din ** -0.5).to(dtype)
                 kern = lambda: TK.fused_tp(x, sh, w, tb)
                 plain = lambda: TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                d, ref = (got.float() - want.float()).abs(), want.float().abs()
+                got = kern()
                 if dtype == torch.float32:
-                    ok, limit = bool((d <= 2e-4 + 2e-4 * ref).all()), "atol 2e-4 + rtol 2e-4"
+                    # the f32 kernel against the plain version in float64,
+                    # and two launches bit for bit
+                    want = tp_f32_checks(f"fused_tp layer {layer} {where}", got, kern, x, sh,
+                                         w, tb)
+                    d, ref = (got.double() - want).abs(), want.abs()
+                    ok = bool((d <= 2e-4 + 2e-4 * ref).all())
+                    limit = "atol 2e-4 + rtol 2e-4, ref in float64; two launches bit-equal"
                 else:
+                    want = plain()
+                    torch.cuda.synchronize()
+                    d, ref = (got.float() - want.float()).abs(), want.float().abs()
                     ok = bool((d <= TP_TOL_BF16 * ref.max()).all())
                     limit = f"{TP_TOL_BF16:g} max|ref| (max|ref| {ref.max().item():.3g})"
                 tabs = [torch.as_tensor(tb[k], device=dev).to(dtype)
@@ -2428,6 +2459,21 @@ def check_stage1_kernels(batch, seed):
                 del x, sh, w, got, want, t
         torch.cuda.empty_cache()
     return records
+
+
+def tp_f32_checks(label, got, kern, x, sh, w, tb):
+    """The f32 K10's output `got` equal bit for bit to a second launch
+    (every sum in a fixed order), or raise; returns the plain version run
+    in float64 on the same inputs, the reference it is held against."""
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    import torch
+    again = kern()
+    want = TK.ref_fused_tp(x.double(), sh.double(), w.double(), tb["CBIG_R"], tb["EXPW"],
+                           tb["SUMR"])
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{label}: two launches of the f32 kernel differ")
+    return want
 
 
 def encoder_launches(n_layers=ENC_LAYERS):
@@ -3454,16 +3500,21 @@ def check_cgprior_kernels(batch, seed):
             ct = rnd(nb, ne, dout).to(dtype)
             kern = lambda: TK.fused_tp(x, sh, w, tb)
             plain = lambda: TK.ref_fused_tp(x, sh, w, tb["CBIG_R"], tb["EXPW"], tb["SUMR"])
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            d, ref = (got.float() - want.float()).abs(), want.float().abs()
+            got = kern()
             if dtype == torch.float32:
-                ok, limit = bool((d <= 2e-4 + 2e-4 * ref).all()), "atol 2e-4 + rtol 2e-4"
+                want = tp_f32_checks(f"fused_tp CG layer {layer}", got, kern, x, sh, w, tb)
+                d, ref = (got.double() - want).abs(), want.abs()
+                ok = bool((d <= 2e-4 + 2e-4 * ref).all())
+                limit = "atol 2e-4 + rtol 2e-4, ref in float64; two launches bit-equal"
             else:
+                want = plain()
+                torch.cuda.synchronize()
+                d, ref = (got.float() - want.float()).abs(), want.float().abs()
                 ok, limit = bool((d <= TP_TOL_BF16 * ref.max()).all()), "2e-2 max|ref|"
             if not ok:
                 raise RuntimeError(f"fused_tp ({dname}, CG layer {layer}) disagrees")
-            seen.append(f"K10 {dname} layer {layer} {d.max().item():.3g}")
+            seen.append(f"K10 {dname} layer {layer} {d.max().item():.3g}"
+                        + (", two launches bit for bit" if dtype == torch.float32 else ""))
             tabs = [torch.as_tensor(tb[k], device=dev).to(dtype) for k in
                     ("CBIG_R", "EXPW", "SUMR")]
 
@@ -5419,8 +5470,9 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = run_recon(pipe, s1_batch)
-    trace_summary(prof, traced["seconds"] * 1e3, 1, mine=STAGE1_KERNELS,
-                  label="K8/K9/K10", unit="batch")
+    ran = trace_summary(prof, traced["seconds"] * 1e3, 1, mine=STAGE1_KERNELS,
+                        label="K8/K9/K10", unit="batch")
+    check_f32_tp_ran(ran, "the traced f32 recon batch", bwd=False)
     recon_reference(args.seed, device)
     pipe = build_recon(device, args.seed, compute_dtype=torch.bfloat16)
     pipe.encode_latents(s1_batch)
@@ -5532,15 +5584,9 @@ def main(argv=None):
                               ("edge_aggregate_bf16", "edge_aggregate")):
                 records[key]["launches"] = per_step[name] * n_steps
         else:
-            # the default (f32) trainer's K11 on the staged-table kernel
-            if ran and (not any("fused_tp_bwd_f32_kernel" in n for n in ran)
-                        or any("fused_tp_bwd_kernel" in n for n in ran)):
-                raise RuntimeError(f"the f32 Stage-1 step did not run K11 as "
-                                   f"fused_tp_bwd_f32_kernel (or ran fused_tp_bwd_kernel): "
-                                   f"{sorted(ran)}")
+            # the default (f32) trainer's K10 and K11 on the staged-table kernels
+            check_f32_tp_ran(ran, "the traced f32 Stage-1 step", bwd=True)
             records["fused_tp_bwd_f32"]["launches"] = per_step["fused_tp_bwd"] * n_steps
-            log(f"  train_stage1 float32: the traced step ran K11 as "
-                f"{'fused_tp_bwd_f32_kernel, no fused_tp_bwd_kernel' if ran else '(no device events: not checked)'}")
         nb, nl = s1_batch["res_type"].shape
         log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
             f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "

@@ -19,24 +19,70 @@
 // nonzero k16 x n8 tiles a 16-row slab at layer 2 (34.6 GFLOP, ~35 us on
 // the bf16 tensor cores). chip_smoke.py computes the bound from the run.
 //
-// f32: CUDA cores (tensor cores in f32 would be TF32, outside the f32
-// tolerance). The TPU keeps the three dense tables resident per block; at
-// layer 2 CBIG_R alone is 324 x 672 (871 KB in f32), more than a Hopper
-// block's shared memory. EXPW and SUMR are 0/1 selections (one nonzero per
-// column of EXPW and per row of SUMR), and CBIG_R holds 2-15 nonzeros a
-// column. So the kernel reads the tables as lists (kernels/tp_kernels.py
-// `sparse_tables`): the R expansion columns grouped by output column (cptr),
-// each with its weight column (widx) and its nonzeros (rptr, rows, coef). A
-// block of 256 threads owns TE = 32 rows: it stages xcat [TE][dsh*din] and w
-// [TE][numel] in shared memory as f32 (row strides odd, so the lanes' reads
-// hit distinct banks), then each warp takes output columns c = warp, warp +
-// 8, ... with one row a lane; the table reads are the same address across
-// the warp. The outputs go through shared memory to coalesced stores.
+// f32 (`fused_tp_f32_kernel<RT>`): CUDA cores. The arithmetic is small (at
+// layer 2 a row takes 4032 FMAs for TR and 672 products and sums: 2.55
+// GFLOP at the bench shape, 0.038 ms at 67 TFLOP/s), under the bytes, so
+// the tensor cores would buy nothing; what bounds a CUDA-core form is the
+// shared-memory pipe. The TPU keeps the three dense tables resident per
+// block; at layer 2 CBIG_R alone is 324 x 672 (871 KB in f32), more than a
+// Hopper block's shared memory. EXPW and SUMR are 0/1 selections (one
+// nonzero per column of EXPW and per row of SUMR), and CBIG_R holds 1-15
+// nonzeros a column, so the kernel walks lists (kernels/tp_kernels.py
+// `f32_fwd_tables`). It replaced a design bound by latency (32 rows a
+// block of 8 warps, one row a lane, every nonzero a chain of dependent
+// table loads through an L1 that the shared memory left small, the rows
+// staged before any product: 2.16 ms at layer 2). Here:
+//   * Tables staged once: a persistent grid, one block of 16 warps an SM,
+//     copies its signature's blob into shared memory at the start: each
+//     nonzero of CBIG_R as a 64-bit word in output-column order (column c,
+//     its positions q in cptr's order, each q's nonzeros in rptr's order,
+//     so a column's nonzeros are one run), the index field low (rf | rb <<
+//     16, which the copy turns into the offsets of x[rf] and sh[rb] in the
+//     staged rows), the f32 coefficient high; a 32-bit word a q (its first
+//     nonzero | its weight widx[q] << 16); the 16-bit column pointers; the
+//     warps' lists of output columns, balanced by entries. 35,232 bytes at
+//     layer 2. Every table read in the loop is a warp-uniform shared load
+//     (a broadcast), each word loaded one step ahead of its use.
+//   * Rows by cp.async: a tile of T = 32 RT rows, lane l owns rows l + 32 r
+//     (r < RT), so each table word serves RT rows and a lane runs RT
+//     independent chains. x and sh (S, two buffers) and w (W) are staged
+//     feature-major, f * rs + r with rs = T + 1 odd, by 4-byte copies
+//     (zeros past M), so a warp's copy of one row and the lanes' reads of
+//     one feature both fall on 32 distinct banks. The next tile's S loads
+//     while this tile is computed, its w after this tile's products (a
+//     second W buffer, where it fits, measured no faster).
+//   * Each warp walks the run of each of its output columns c: TR[q] = an
+//     fmaf chain over q's nonzeros of coef * cast(x[rf] * sh[rb]) (the
+//     product formed from the staged rows, as the Pallas kernel rounds
+//     xcat), and at q's last nonzero acc += cast(w[widx q] * TR[q]), the
+//     product rounded alone (__fmul_rn, never contracted into the sum: the
+//     Pallas kernel materialises prod before its SUMR matmul), the sum in
+//     f32. The outputs go to shared memory [T][dout | 1] and leave row by
+//     row in coalesced stores (rows past M are not stored).
+//   The orders are the old kernel's (column by column, q in cptr's order,
+//   each q's nonzeros in rptr's order), so the outputs differ from its only
+//   where it contracted acc += w * TR into an FMA.
+// A first form of this design built xcat = cast(x * sh) in shared memory
+// once a tile (one operand read a nonzero) at one row a lane, the only
+// tile that xcat and two W buffers leave room for at layer 2: 1.08 ms
+// there, against 0.72 for two rows a lane with the products formed a
+// nonzero (scripts/tp_fwd_probe.py, PERF.md). A walk four nonzeros a step
+// (the words and operands of a step loaded before its products) was
+// slower than one a step (0.76 against 0.66 ms).
+// Shared memory: RT 2 where it fits, else RT 1. Layers 0, 1 and 2: RT 2,
+// 73,192, 122,088 and 171,016 bytes (at layer 2 the blob 35,232, W 99,840,
+// S 2 x 11,700, out 12,544); the 3 -> 3 signature of a fourth encoder
+// layer: RT 1, 138,344 bytes. Bound at layer 2 (4 x
+// 65536 rows): the bytes, x, sh, w read and out written once, 500 MB,
+// 0.149 ms at 3.35 TB/s; the shared-memory pipe, five wavefronts a
+// nonzero (its word, x and sh of two rows) and three a q for each 64
+// rows, ~91 M, ~0.39 ms at one a clock an SM on 132 SMs. PERF.md has the
+// measured times.
 //
 // bf16: the Pallas kernel's three products on the tensor cores,
-// block-sparse (`fused_tp_mma_kernel`). The f32 design above ran bf16 on
-// CUDA cores at f32 speed, two 97 KB blocks an SM, each of CBIG_R's
-// nonzeros a chain of dependent loads. Here:
+// block-sparse (`fused_tp_mma_kernel`). The CUDA-core design that the f32
+// kernel replaced (above) ran bf16 at f32 speed, two 97 KB blocks an SM,
+// each of CBIG_R's nonzeros a chain of dependent loads. Here:
 //   1. TR = xcat CBIG_R with mma.m16n8k16 (bf16 in, f32 sums). A block of 4
 //      warps owns 64 rows, a warp 16. xcat is built in shared memory from
 //      the staged x and sh (never read from device memory). CBIG_R, in
@@ -70,92 +116,13 @@
 // use it (k tiles outside, column tiles inside) is the next step; PERF.md
 // has the measured times.
 
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  __device__ static float f(float v) { return v; }
-  __device__ static float cast(float v) { return v; }
-  __device__ static float round(float v) { return v; }
-};
-
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
-constexpr int TE = 32;  // rows per block, one a lane
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-fused_tp_kernel(const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
-                const int* __restrict__ cptr, const int* __restrict__ widx,
-                const int* __restrict__ rptr, const int* __restrict__ rows,
-                const float* __restrict__ coef, T* __restrict__ out, long long M, int din,
-                int dsh, int numel, int dout) {
-  using Nm = Num<T>;
-  extern __shared__ float smem[];
-  const int KX = dsh * din;
-  const int XS = KX | 1, WS = numel | 1, OS = dout | 1;  // odd row strides
-  float* sx = smem;             // [TE][XS] cast(x * sh[b])
-  float* sw = sx + TE * XS;     // [TE][WS] w
-  float* so = sw + TE * WS;     // [TE][OS] out
-  const long long e0 = (long long)blockIdx.x * TE;
-  const int ne = M - e0 < TE ? (int)(M - e0) : TE;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < TE * KX; i += NT) {
-    const int e = i / KX, j = i - e * KX;
-    const int b = j / din, f = j - b * din;
-    float v = 0.0f;
-    if (e < ne) v = Nm::round(Nm::f(x[(e0 + e) * din + f]) * Nm::f(sh[(e0 + e) * dsh + b]));
-    sx[e * XS + j] = v;
-  }
-  for (int i = tid; i < TE * numel; i += NT) {
-    const int e = i / numel, k = i - e * numel;
-    sw[e * WS + k] = e < ne ? Nm::f(w[(e0 + e) * numel + k]) : 0.0f;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
-  const float* xr = sx + lane * XS;
-  const float* wr = sw + lane * WS;
-  for (int c = warp; c < dout; c += NW) {
-    float acc = 0.0f;
-    for (int q = cptr[c]; q < cptr[c + 1]; ++q) {
-      float tr = 0.0f;
-      for (int z = rptr[q]; z < rptr[q + 1]; ++z) tr = fmaf(coef[z], xr[rows[z]], tr);
-      acc += Nm::round(wr[widx[q]] * tr);
-    }
-    so[lane * OS + c] = acc;
-  }
-  __syncthreads();
-  for (int i = tid; i < ne * dout; i += NT) {
-    const int e = i / dout, c = i - e * dout;
-    out[e0 * dout + i] = Nm::cast(so[e * OS + c]);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* sh, const void* w, const void* cptr, const void* widx,
-           const void* rptr, const void* rows, const void* coef, void* out, long long M,
-           int din, int dsh, int numel, int dout, void* stream) {
-  if (M <= 0 || din <= 0 || dsh <= 0 || numel <= 0 || dout <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TE * (((dsh * din) | 1) + (numel | 1) + (dout | 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_tp_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (M + TE - 1) / TE;
-  fused_tp_kernel<T><<<(unsigned)blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
-      static_cast<const int*>(cptr), static_cast<const int*>(widx),
-      static_cast<const int*>(rptr), static_cast<const int*>(rows),
-      static_cast<const float*>(coef), static_cast<T*>(out), M, din, dsh, numel, dout);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -563,19 +530,217 @@ int launch_mma(const MmaArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// f32 on CUDA cores (`fused_tp_f32_kernel<RT>`, the design note at the top)
+
+namespace f32k {
+
+constexpr int NW = 16;  // warps a block (kernels/tp_kernels.py FWD_WARPS)
+constexpr int NT = 32 * NW;
+
+// 4 bytes global -> shared, zeros instead when !ok (src-size 0)
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+struct Args {
+  const float *x, *sh, *w;
+  const unsigned char* blob;  // f32_fwd_tables' blob
+  float* out;
+  long long M;
+  int din, dsh, numel, dout, bytes, q_off, cp_off, sc_off;
+};
+
+// A block's shared memory: the blob at 0, then W (w [numel][rs]), two S
+// buffers ([din + dsh][rs]: x, then sh) and O [T][os] (out); the row
+// operands feature-major, row r of feature f at f * rs + r
+struct Layout {
+  int rs, os, w_floats, s_floats, w_off, s_off, o_off, bytes;
+};
+
+__host__ __device__ inline Layout layout(int rt, int blob_bytes, int din, int dsh, int numel,
+                                         int dout) {
+  Layout l;
+  l.rs = 32 * rt + 1;  // odd: a warp's copy of one row writes 32 distinct banks
+  l.os = dout | 1;     // odd: the lanes' rows of one output column on distinct banks
+  l.w_floats = numel * l.rs;
+  l.s_floats = (din + dsh) * l.rs;
+  l.w_off = blob_bytes;
+  l.s_off = l.w_off + 4 * l.w_floats;
+  l.o_off = l.s_off + 4 * 2 * l.s_floats;
+  l.bytes = l.o_off + 4 * 32 * rt * l.os;
+  return l;
+}
+
+// dst[f * rs + r] = src[(e0 + r) * width + f] for the tile's 32 RT rows
+// (zeros past M): a warp a row, its lanes over f (coalesced reads; rs odd
+// puts the 32 writes on distinct banks), 4-byte cp.async copies
+template <int RT>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int width,
+                                      long long e0, long long M, int rs, int warp, int lane) {
+  for (int r = warp; r < 32 * RT; r += NW) {
+    const bool ok = e0 + r < M;
+    const float* s = src + (ok ? (e0 + r) * width : 0);
+    for (int f = lane; f < width; f += 32) cp_async4z(dst + f * rs + r, s + f, ok);
+  }
+}
+
+template <int RT>
+__global__ void __launch_bounds__(NT, 1) fused_tp_f32_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int T = 32 * RT;  // rows a tile; lane l owns rows l + 32 r, r < RT
+  const Layout ly = layout(RT, a.bytes, a.din, a.dsh, a.numel, a.dout);
+  const int rs = ly.rs, os = ly.os, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int din = a.din, dsh = a.dsh, numel = a.numel, dout = a.dout;
+  const uint2* ez = reinterpret_cast<const uint2*>(smem);
+  const unsigned* qw = reinterpret_cast<const unsigned*>(smem + a.q_off);
+  const unsigned short* cp = reinterpret_cast<const unsigned short*>(smem + a.cp_off);
+  const unsigned short* sc = reinterpret_cast<const unsigned short*>(smem + a.sc_off);
+  float* sw = reinterpret_cast<float*>(smem + ly.w_off);
+  float* ss = reinterpret_cast<float*>(smem + ly.s_off);
+  float* so = reinterpret_cast<float*>(smem + ly.o_off);
+  const long long M = a.M, ntiles = (M + T - 1) / T;
+
+  // the tables, once (visible after the loop's first barrier); a nonzero's
+  // rf | rb << 16 becomes the offsets in S of its x row, rf rs, and of its
+  // sh row, (din + rb) rs << 16
+  for (int i = tid; i < a.bytes / 16; i += NT) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(a.blob) + i);
+    if (16 * i < a.q_off) {
+      v.x = (v.x & 0xffff) * rs | ((v.x >> 16) + din) * rs << 16;
+      v.z = (v.z & 0xffff) * rs | ((v.z >> 16) + din) * rs << 16;
+    }
+    reinterpret_cast<uint4*>(smem)[i] = v;
+  }
+  // row tiles by cp.async, one group each: S of a tile, W of a tile
+  auto stage_s = [&](float* S, long long tile) {
+    if (tile < ntiles) {
+      stage<RT>(S, a.x, din, tile * T, M, rs, warp, lane);
+      stage<RT>(S + din * rs, a.sh, dsh, tile * T, M, rs, warp, lane);
+    }
+    cp_async_commit();
+  };
+  auto stage_w = [&](long long tile) {
+    if (tile < ntiles) stage<RT>(sw, a.w, numel, tile * T, M, rs, warp, lane);
+    cp_async_commit();
+  };
+  stage_s(ss, blockIdx.x);
+  stage_w(blockIdx.x);
+
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const long long e0 = tile * T, next = tile + gridDim.x;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's x, sh and w are in; the last tile's S and O are read
+    stage_s(ss + ((it + 1) & 1) * ly.s_floats, next);
+
+    // out[c] = sum over the positions q of column c (cptr's order) of
+    // cast(w[widx q] * TR[q]), TR[q] = sum over q's nonzeros (rptr's order)
+    // of coef * cast(x[rf] * sh[rb]), an fmaf chain. Column c's nonzeros
+    // are one run of ez; each word loads one step ahead of its use, and
+    // w[widx q] when q starts.
+    const float* S = ss + (it & 1) * ly.s_floats + lane;
+    const float* wl = sw + lane;
+    for (int u = sc[warp]; u < sc[warp + 1]; ++u) {
+      const int c = sc[u];
+      int q = cp[c];
+      unsigned qa = qw[q], qb = qw[q + 1];
+      int z = qa & 0xffff, zq = qb & 0xffff;  // q's nonzeros end at zq
+      const int ze = qw[cp[c + 1]] & 0xffff;
+      float wv[RT], tr[RT], acc[RT];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        wv[r] = wl[(qa >> 16) * rs + 32 * r];
+        tr[r] = 0.0f;
+        acc[r] = 0.0f;
+      }
+      uint2 e = ez[z];
+      for (; z < ze; ++z) {
+        const uint2 cur = e;
+        e = ez[z + 1];  // past the last column's run: the blob's zero word
+        const float* xp = S + (cur.x & 0xffff);
+        const float* hp = S + (cur.x >> 16);
+        const float cf = __uint_as_float(cur.y);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) tr[r] = fmaf(cf, __fmul_rn(xp[32 * r], hp[32 * r]), tr[r]);
+        if (z + 1 == zq) {  // q's last nonzero: its product joins the sum
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            acc[r] = __fadd_rn(acc[r], __fmul_rn(wv[r], tr[r]));
+            tr[r] = 0.0f;
+          }
+          qa = qb;
+          qb = qw[++q + 1];  // past the last position: qword's zero word
+          zq = qb & 0xffff;
+#pragma unroll
+          for (int r = 0; r < RT; ++r) wv[r] = wl[(qa >> 16) * rs + 32 * r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) so[(lane + 32 * r) * os + c] = acc[r];
+    }
+    __syncthreads();  // O is whole, and W is read: it takes the next tile's w
+    stage_w(next);
+    // the tile's outputs leave row by row, coalesced
+    for (int r = warp; r < T; r += NW) {
+      if (e0 + r >= M) break;
+      float* o = a.out + (e0 + r) * dout;
+      for (int c = lane; c < dout; c += 32) o[c] = so[r * os + c];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+inline int device_attr(cudaDeviceAttr what) {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, what, dev);
+  return n;
+}
+
+template <int RT>
+int launch(const Args& a, int bytes, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_tp_f32_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.M + 32 * RT - 1) / (32 * RT);
+  const long long sms = std::max(device_attr(cudaDevAttrMultiProcessorCount), 1);
+  fused_tp_f32_kernel<RT><<<(unsigned)std::min(tiles, sms), NT, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32k
+
 }  // namespace
 
 extern "C" {
 
-// x [M, din], sh [M, dsh], w [M, numel] -> out [M, dout]; tables from
-// kernels/tp_kernels.py `sparse_tables` (coef already rounded to the payload
-// dtype, as f32)
-int fused_tp_f32(const void* x, const void* sh, const void* w, const void* cptr,
-                 const void* widx, const void* rptr, const void* rows, const void* coef,
-                 void* out, long long M, int din, int dsh, int numel, int dout,
-                 void* stream) {
-  return launch<float>(x, sh, w, cptr, widx, rptr, rows, coef, out, M, din, dsh, numel,
-                       dout, stream);
+// x [M, din], sh [M, dsh], w [M, numel] -> out [M, dout]. f32 on CUDA
+// cores from the blob of kernels/tp_kernels.py `f32_fwd_tables` (`bytes`
+// long, a multiple of 16; its tables at the byte offsets given, each a
+// multiple of 16): 64 rows a tile where the shared memory takes them, else
+// 32
+int fused_tp_f32(const void* x, const void* sh, const void* w, const void* blob, void* out,
+                 long long M, int din, int dsh, int numel, int dout, int bytes, int q_off,
+                 int cp_off, int sc_off, void* stream) {
+  if (M <= 0 || din <= 0 || dsh <= 0 || numel <= 0 || dout <= 0 || bytes <= 0 ||
+      bytes % 16 != 0 || q_off <= 0 || q_off % 16 != 0 || !aligned(blob, 16) ||
+      (din + dsh) * 65 >= 1 << 16)  // the S offsets of a nonzero in 16 bits each
+    return (int)cudaErrorInvalidValue;
+  const f32k::Args a{static_cast<const float*>(x), static_cast<const float*>(sh),
+                     static_cast<const float*>(w), static_cast<const unsigned char*>(blob),
+                     static_cast<float*>(out), M, din, dsh, numel, dout, bytes, q_off,
+                     cp_off, sc_off};
+  const int cap = f32k::device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int two = f32k::layout(2, bytes, din, dsh, numel, dout).bytes;
+  if (two <= cap) return f32k::launch<2>(a, two, st);
+  const int one = f32k::layout(1, bytes, din, dsh, numel, dout).bytes;
+  if (one <= cap) return f32k::launch<1>(a, one, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16 on the tensor cores: x [M, din], sh [M, dsh], w [M, numel] -> out

@@ -19,8 +19,11 @@ memory; EXPW and SUMR are 0/1 selections) and rounds as the Pallas kernel
 does: x * sh[b] and CBIG_R in x's dtype, TR and wR in f32, their product
 cast to x's dtype, the output summed in f32 and cast. So in bf16 it differs
 from the plain version by the rounding of TR. In f32 it runs on CUDA cores
-from the lists of `sparse_tables`; in bf16 on the tensor cores, from the
-nonzero 16 x 8 tiles of CBIG_R and SUMR that `mma_tables` packs.
+from `f32_fwd_tables`' blob (CBIG_R's nonzeros as 64-bit words in output
+column order, a word a position q, 16-bit column pointers and the warps'
+schedule of output columns), which a persistent block stages in shared
+memory once, with 64 rows a tile (two a lane); in bf16 on the tensor cores,
+from the nonzero 16 x 8 tiles of CBIG_R and SUMR that `mma_tables` packs.
 
 On a CUDA tensor `fused_tp` is a torch.autograd.Function whose backward is
 K11 (`csrc/fused_tp_bwd.cu`, counterpart of `_pallas_fused_tp_bwd`): dx,
@@ -75,8 +78,9 @@ def sparse_tables(tb):
     and the nonzeros rptr[q] .. rptr[q+1]-1 of its CBIG_R column (row into
     concat_b(x * sh[b]), split as row = rb * din + rf, and coefficient).
     Every nonzero is kept, however small, so the kernels compute exactly the
-    dense form's sums. The f32 K11's tables (`f32_bwd_tables`) are packed
-    from these and from two transposed lists: the positions q of weight k,
+    dense form's sums. The f32 K10's and K11's tables (`f32_fwd_tables`,
+    `f32_bwd_tables`) are packed from these and, for K11, from two
+    transposed lists: the positions q of weight k,
     wq[wptr[k] .. wptr[k+1]-1] (EXPW^T), and the nonzeros of CBIG_R row j,
     (tq, tcoef)[tptr[j] .. tptr[j+1]-1] (CBIG_R^T), each in increasing q."""
     cbig_r, expw, sumr = tb["CBIG_R"], tb["EXPW"], tb["SUMR"]
@@ -103,6 +107,7 @@ def sparse_tables(tb):
             "tq": i32(qz[tord]), "tcoef": f32(coef[tord]), "nnz": int(rows.size)}
 
 
+FWD_WARPS = 16  # warps of the f32 K10's block: the lists of its schedule
 BWD_WARPS = 16  # warps of the f32 K11's block: the lists of its schedule
 BWD_GROUP = 4   # weights a unit of its dw phase
 
@@ -124,6 +129,70 @@ def _balance(costs, n):
         lists[i].append(u)
         loads[i] += costs[u]
     return [sorted(v) for v in lists]
+
+
+def _check16(tb, what):
+    """Raise unless the signature's nonzeros, expansion columns, CBIG_R rows,
+    weights and output columns all fit the 16-bit fields of `what`."""
+    (K, R), nnz = tb["CBIG_R"].shape, int(np.count_nonzero(tb["CBIG_R"]))
+    if max(nnz, R, K, tb["numel"], tb["SUMR"].shape[1]) >= 1 << 16:
+        raise ValueError(f"the {what}'s 16-bit tables take fewer than 65536 nonzeros, "
+                         f"columns and weights, not {tb['sig']}")
+
+
+def _pack(parts, align=1):
+    """One uint8 blob, a multiple of 16 bytes, holding the arrays of `parts`
+    in order, each at a byte offset that is a multiple of `align`: (blob,
+    {key: offset})."""
+    offsets, at = {}, 0
+    for key, arr in parts.items():
+        at = -(-at // align) * align
+        offsets[key] = at
+        at += arr.nbytes
+    blob = np.zeros(-(-at // 16) * 16, np.uint8)
+    for key, arr in parts.items():
+        blob[offsets[key]:offsets[key] + arr.nbytes] = arr.view(np.uint8)
+    return blob, offsets
+
+
+def f32_fwd_tables(tb):
+    """The f32 K10's tables (csrc/fused_tp.cu `fused_tp_f32_kernel`), packed
+    from `sparse_tables`' lists into one blob that a block copies to its
+    shared memory once:
+
+    * ez [nnz + 1] (64-bit words): CBIG_R's nonzeros in the lists' order
+      (output column c, its positions q in cptr's order, each q's nonzeros
+      in rptr's order), so that column c's nonzeros are one run; low word
+      rf | rb << 16 (the nonzero's row rb * din + rf of concat_b(x *
+      sh[b])), high word the coefficient; then a zero word, which the walk
+      reads (and does not use) one step past the last column's run;
+    * qword [R + 2] (32 bits): position q's first nonzero in ez | its
+      weight widx[q] << 16; qword[R]'s start is nnz, qword[R + 1] zero;
+    * cptr [dout + 1] (16 bits): the positions of output column c, cptr[c]
+      .. cptr[c + 1] - 1;
+    * sched (16 bits): ptr [FWD_WARPS + 1] (absolute indices into sched),
+      then warp w's output columns sched[ptr[w] .. ptr[w + 1] - 1],
+      ascending, balanced over the warps by their entries (a column's
+      nonzeros and positions).
+
+    "blob" (uint8, a multiple of 16 bytes) holds them in that order, each
+    at a 16-byte aligned byte offset ("offsets": z, q, cp, sc; "bytes")."""
+    _check16(tb, "f32 K10")
+    sp = sparse_tables(tb)
+    din, dout = tb["din"], tb["SUMR"].shape[1]
+    rows, rptr, cptr = sp["rows"].astype(np.int64), sp["rptr"], sp["cptr"]
+    ez = np.append(_words(rows % din | (rows // din) << 16, sp["coef"]), np.uint64(0))
+    qword = np.append(rptr | np.append(sp["widx"], 0).astype(np.int64) << 16, 0)
+    qword = qword.astype(np.uint32)
+    zlen = np.diff(rptr)
+    cost = [int(zlen[cptr[c]:cptr[c + 1]].sum() + cptr[c + 1] - cptr[c]) for c in range(dout)]
+    lists = _balance(cost, FWD_WARPS)
+    ptr = FWD_WARPS + 1 + np.concatenate([[0], np.cumsum([len(v) for v in lists])])
+    sched = np.concatenate([ptr, *(np.asarray(v, np.int64) for v in lists)]).astype(np.uint16)
+    parts = {"z": ez, "q": qword, "cp": cptr.astype(np.uint16), "sc": sched}
+    blob, offsets = _pack(parts, align=16)
+    return {"ez": ez, "qword": qword, "cptr": parts["cp"], "sched": sched, "blob": blob,
+            "offsets": offsets, "bytes": blob.size}
 
 
 def f32_bwd_tables(tb):
@@ -153,13 +222,10 @@ def f32_bwd_tables(tb):
 
     "blob" (uint8, a multiple of 16 bytes) holds them in that order, each
     at its byte offset ("offsets": tr, db, q, kq, tp, sc; "bytes")."""
+    _check16(tb, "f32 K11")
     sp = sparse_tables(tb)
     din, numel = tb["din"], tb["numel"]
     K, R = tb["CBIG_R"].shape
-    nnz = sp["nnz"]
-    if max(nnz, R, K, numel, tb["SUMR"].shape[1]) >= 1 << 16:
-        raise ValueError(f"the f32 K11's 16-bit tables take fewer than 65536 nonzeros, "
-                         f"columns and weights, not {tb['sig']}")
     rows, rptr, wq, qcol, widx = sp["rows"], sp["rptr"], sp["wq"], sp["qcol"], sp["widx"]
     zlen = np.diff(rptr)[wq]
     zstart = np.concatenate([[0], np.cumsum(zlen)])
@@ -180,14 +246,8 @@ def f32_bwd_tables(tb):
     bptr = aptr[-1] + np.concatenate([[0], np.cumsum([len(v) for v in lists_b])])
     sched = np.concatenate([aptr, bptr, *map(np.asarray, lists_a), *map(np.asarray, lists_b)])
     sched = sched.astype(np.uint16)
-    parts = {"tr": etr, "db": edb, "q": qword, "kq": kqptr, "tp": tptr, "sc": sched}
-    offsets, chunks, at = {}, [], 0
-    for key, arr in parts.items():
-        offsets[key] = at
-        chunks.append(arr.view(np.uint8))
-        at += arr.nbytes
-    blob = np.zeros(-(-at // 16) * 16, np.uint8)
-    blob[:at] = np.concatenate(chunks)
+    blob, offsets = _pack({"tr": etr, "db": edb, "q": qword, "kq": kqptr, "tp": tptr,
+                           "sc": sched})
     return {"etr": etr, "edb": edb, "qword": qword, "kqptr": kqptr, "tptr": tptr,
             "sched": sched, "blob": blob, "offsets": offsets, "bytes": blob.size}
 
@@ -346,7 +406,7 @@ def _slots(ptr, cuts, cap):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {  # the pointers, then M and the ints, of each entry point
-    "fused_tp_f32": [_P] * 9 + [_LL] + [_I] * 4,
+    "fused_tp_f32": [_P] * 5 + [_LL] + [_I] * 8,
     "fused_tp_bf16": [_P] * 13 + [_LL] + [_I] * 6,
     "fused_tp_bwd_f32": [_P] * 8 + [_LL] + [_I] * 10,
     "fused_tp_bwd_bf16": [_P] * 21 + [_LL] + [_I] * 12,
@@ -357,22 +417,20 @@ _DEVICE_TABLES: dict = {}
 
 
 def _device_tables(tb, device, dtype):
-    """The sparse lists on `device`, coefficients rounded to `dtype` (as the
-    Pallas kernel casts CBIG_R to x's dtype), cached by signature; for f32
-    also the f32 K11's blob of `f32_bwd_tables` (key "f32_bwd"); for bf16
-    the packed tiles of `mma_tables` (key "mma") and of `mma_bwd_tables`
-    (key "mma_bwd")."""
+    """The kernels' tables on `device`, cached by signature: for f32 the
+    blobs of `f32_fwd_tables` (key "f32_fwd", K10) and `f32_bwd_tables`
+    (key "f32_bwd", K11); for bf16 the packed tiles of `mma_tables` (key
+    "mma") and of `mma_bwd_tables` (key "mma_bwd"), their fragments rounded
+    to bf16 (as the Pallas kernel casts CBIG_R to x's dtype)."""
     key = (tb["sig"], str(device), dtype)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
-        sp = sparse_tables(tb)
-        hit = {k: torch.as_tensor(v, device=device) for k, v in sp.items() if k != "nnz"}
-        for k in ("coef", "tcoef"):
-            hit[k] = hit[k].to(dtype).to(torch.float32)
+        hit = {}
         if dtype == torch.float32:
-            fb = f32_bwd_tables(tb)
-            hit["f32_bwd"] = dict(fb["offsets"], bytes=fb["bytes"],
-                                  blob=torch.as_tensor(fb["blob"], device=device))
+            for name, pack in (("f32_fwd", f32_fwd_tables), ("f32_bwd", f32_bwd_tables)):
+                t = pack(tb)
+                hit[name] = dict(t["offsets"], bytes=t["bytes"],
+                                 blob=torch.as_tensor(t["blob"], device=device))
         if dtype == torch.bfloat16:
             mt = mma_tables(tb)
             hit["mma"] = {k: v if isinstance(v, int) else torch.as_tensor(v, device=device)
@@ -420,9 +478,9 @@ def _launch_fused_tp(x, sh, w, tb):
                                              "snptr", "stile", "sfrag", "widx")),
                 out.data_ptr(), M, din, dsh, numel, dout, mt["npairs"], mt["maxpair"]]
     else:
-        args = [*(t.data_ptr() for t in (x, sh, w)),
-                *(tabs[k].data_ptr() for k in ("cptr", "widx", "rptr", "rows", "coef")),
-                out.data_ptr(), M, din, dsh, numel, dout]
+        ft = tabs["f32_fwd"]
+        args = [*(t.data_ptr() for t in (x, sh, w)), ft["blob"].data_ptr(), out.data_ptr(),
+                M, din, dsh, numel, dout, *(ft[k] for k in ("bytes", "q", "cp", "sc"))]
     name = f"fused_tp_{_SUFFIX[dt]}"
     build.launch(build.entry("fused_tp", name, _ARGTYPES[name]), dev, *args)
     LAUNCHES["fused_tp"] += 1

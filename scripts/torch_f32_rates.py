@@ -27,15 +27,20 @@ turns, one process each). Prints one JSON line:
   dropout 0.6): the median ms of `--steps` steps after one untimed step,
   then one more step at dropout 0.6 (trunk and residual) under
   torch.profiler (the device ms of each CUDA kernel in it);
-* the f32 K11 (section tp, `fused_tp_bwd`) at the Stage-1 bench batch (4
-  frames of 132 residues, L 192: 65536 directed atom edges a frame) at the
-  encoder's three layer signatures, on the atom edges and on the dense
-  cross graph [4, 192, 14]: device ms by graph replay, max|d| / max|ref|
-  of dx, dsh and dw against float64 autograd of the plain K10, and a
-  sha256 of the outputs' bytes (to compare two checkouts' bits), then the
-  f32 Stage-1 training step (`chip_smoke.build_stage1_trainer`, the
-  default trainer): the median ms of `--steps` steps after one untimed
-  step and one more step under torch.profiler;
+* the f32 K10 (section tp, `fused_tp`) and K11 (`fused_tp_bwd`) at the
+  Stage-1 bench batch (4 frames of 132 residues, L 192: 65536 directed
+  atom edges a frame) at the encoder's three layer signatures, on the atom
+  edges and on the dense cross graph [4, 192, 14], and K10 at CGPrior's
+  layer-2 call (the batch's directed CG edges): device ms by graph
+  replay, max|d| against the plain K10 run in float64 (K10: max|d| / limit
+  too, limit atol 2e-4 + rtol 2e-4; K11: max|d| / max|ref| of dx, dsh and
+  dw against its float64 autograd), and a sha256 of the outputs' bytes (to
+  compare two checkouts' bits); then the f32 Stage-1 training step
+  (`chip_smoke.build_stage1_trainer`, the default trainer): the median ms
+  of `--steps` steps after one untimed step and one more step under
+  torch.profiler; and the f32 recon batch (`chip_smoke.build_recon`, the
+  same batch): the median ms of `--steps` batches after one untimed one
+  and one more under torch.profiler;
 * the card's name and power limit.
 
 `--sections` picks the parts to run (fwd: the K1 / K2 / K6 / K7 lines).
@@ -144,7 +149,7 @@ def main(argv=None):
             del model, state, step
             torch.cuda.empty_cache()
     if "tp" in sections:
-        out["tp"] = _tp_backward(cs, args.seed, args.steps, dev)
+        out["tp"] = _tp(cs, args.seed, args.steps, dev)
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True,
                                  text=True).stdout.strip()
@@ -207,10 +212,34 @@ def _backwards(cs, MK, dims, n, seed, dev):
     return res
 
 
-def _tp_backward(cs, seed, steps, dev):
-    """The f32 K11 at the Stage-1 bench batch (device ms, accuracy, a hash
-    of its outputs) and the f32 Stage-1 training step (ms, traced)."""
+def _digest(tensors):
     import hashlib
+    return hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()[:16]
+
+
+def _tp_forward(cs, TK, tb, x, sh, w):
+    """Device ms, max|d| against the plain K10 in float64, max|d| / limit
+    and the output's hash of one f32 K10 call."""
+    import torch
+    kern = lambda: TK.fused_tp(x, sh, w, tb)
+    got = kern()
+    want = TK.ref_fused_tp(x.double(), sh.double(), w.double(), tb["CBIG_R"], tb["EXPW"],
+                           tb["SUMR"])
+    d = (got.double() - want).abs()
+    res = {"max_abs_err": d.max().item(),
+           "max_d_over_limit": (d / (2e-4 + 2e-4 * want.abs())).max().item(),
+           "sha256": _digest([got])}
+    del got, want, d
+    (res["device_ms"],) = cs.replay_ms(kern)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp(cs, seed, steps, dev):
+    """The f32 K10 and K11 at the Stage-1 bench batch (device ms, accuracy,
+    a hash of their outputs), K10 at CGPrior's layer-2 call, then the f32
+    Stage-1 training step and the f32 recon batch (ms, traced)."""
     import torch
     from codlad_tpu_torch.kernels import tp_kernels as TK
     from codlad_tpu_torch.models.encoder import irrep_ladder
@@ -220,17 +249,25 @@ def _tp_backward(cs, seed, steps, dev):
     batch = cs.stage1_batch(seed, dev)
     nb, nl = batch["res_type"].shape
     edges, _ = make_directed_batched(batch["atom_edges"], batch["atom_edges_mask"])
+    cg_edges, _ = make_directed_batched(batch["cg_edges"], batch["cg_edges_mask"])
     ladder = irrep_ladder(12, 4)
     g = torch.Generator().manual_seed(seed + 13)
     res = {}
     for layer in range(3):
         tb = fused_tp_tables(tuple(ladder[layer]), tuple(SH_IRREPS), tuple(ladder[layer + 1]))
         din, numel, dout = ladder[layer].dim, tb["numel"], tb["SUMR"].shape[1]
-        for where, lead in (("edges", (nb, edges.shape[1])), ("cross", (nb, nl, 14))):
+        shapes = [("edges", (nb, edges.shape[1])), ("cross", (nb, nl, 14))]
+        if layer == 2:
+            shapes.append(("CG", (nb, cg_edges.shape[1])))
+        for where, lead in shapes:
             x = torch.randn(*lead, din, generator=g).to(dev)
             sh = sh_l2(torch.randn(*lead, 3, generator=g)).to(dev)
             w = (torch.randn(*lead, numel, generator=g) * din ** -0.5).to(dev)
             ct = torch.randn(*lead, dout, generator=g).to(dev)
+            tag = f"layer {layer} {where} {tuple(lead)}"
+            res[f"fwd {tag}"] = _tp_forward(cs, TK, tb, x, sh, w)
+            if where == "CG":
+                continue
             kern = lambda: TK.fused_tp_bwd(x, sh, w, ct, tb)
             got = kern()
             leaves = [t.double().requires_grad_(True) for t in (x, sh, w)]
@@ -238,12 +275,10 @@ def _tp_backward(cs, seed, steps, dev):
                                                        tb["SUMR"]), leaves, ct.double())
             err = {n: (a.double() - b).abs().max().item() / b.abs().max().item()
                    for n, a, b in zip(("dx", "dsh", "dw"), got, want)}
-            digest = hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes()
-                                             for t in got)).hexdigest()[:16]
+            digest = _digest(got)
             del got, want, leaves
             (ms,) = cs.replay_ms(kern)
-            res[f"layer {layer} {where} {tuple(lead)}"] = {
-                "device_ms": ms, "max_d_over_max_ref": err, "sha256": digest}
+            res[tag] = {"device_ms": ms, "max_d_over_max_ref": err, "sha256": digest}
             del x, sh, w, ct
             torch.cuda.empty_cache()
     _, state, step = cs.build_stage1_trainer(dev, seed)
@@ -262,6 +297,12 @@ def _tp_backward(cs, seed, steps, dev):
 
     res["train_stage1_f32"] = {"ms": times[1:], "median_ms": statistics.median(times[1:]),
                                "traced_kernels_ms": _traced(one)}
+    del state, step, holder
+    torch.cuda.empty_cache()
+    pipe = cs.build_recon(dev, seed)
+    times = [cs.run_recon(pipe, batch)["seconds"] * 1e3 for _ in range(steps + 1)]
+    res["recon_f32"] = {"ms": times[1:], "median_ms": statistics.median(times[1:]),
+                        "traced_kernels_ms": _traced(lambda: cs.run_recon(pipe, batch))}
     return res
 
 

@@ -18,9 +18,9 @@ K3, K4, K5's and K6's backward (3xTF32) at every K the f32 wrapper takes
 against float64 autograd, every output but dGn bit for bit from run to run;
 the f32 K5 forward on K2's 3xTF32 kernel at those K, bit for bit as the
 bf16 one, and the f32 K6 forward on K2's 3xTF32 kernel (raw epilogue) at
-those K, bit for bit from run to run; the f32 K11 with its tables staged in
+those K, bit for bit from run to run; the f32 K10 and K11 with their tables staged in
 shared memory at the four encoder signatures, bit for bit from run to run
-and on offset views, against float64 autograd; K7
+and on offset views, against the plain K10 and its autograd in float64; K7
 against K2's kernel then K1's, bit for bit, both dtypes; a guided self-conditioned f32 draw against the CPU, and a
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
@@ -761,6 +761,41 @@ def test_fused_tp_matches_plain(dev, dtype, layer):
             assert bool((d <= 2e-2 * ref.max()).all()), (d.max().item(), ref.max().item())
     torch.cuda.synchronize()
     assert TK.LAUNCHES == {"fused_tp": 2, "fused_tp_bwd": 0}
+
+
+@pytest.mark.parametrize("sig", [(0, 1), (1, 2), (2, 3), (3, 3)],
+                         ids=["layer0", "layer1", "layer2", "layer3-3"])
+def test_fused_tp_f32_staged_tables(dev, sig):
+    """The f32 K10 (tables staged in shared memory; two rows a lane at
+    layer 0, one elsewhere, and one w buffer at the 3 -> 3 signature of a
+    fourth encoder layer) on edge rows (4100, 77 and 1: none a multiple of
+    a tile) and on the cross graph's [B, L, 14, *] rows: within atol 2e-4 +
+    rtol 2e-4 of the plain version run in float64, two launches bit for bit
+    equal, and the same bits on operands that start off the 16-byte grid."""
+    from codlad_tpu_torch.kernels import tp_kernels as TK
+    from codlad_tpu_torch.models.encoder import irrep_ladder
+    from codlad_tpu_torch.nn.irreps import SH_IRREPS, sh_l2
+    from codlad_tpu_torch.nn.tensor_product import fused_tp_tables
+    lad = irrep_ladder(12, 4)
+    tb = fused_tp_tables(tuple(lad[sig[0]]), tuple(SH_IRREPS), tuple(lad[sig[1]]))
+    g = torch.Generator().manual_seed(90 + sig[0] + sig[1])
+    din = lad[sig[0]].dim
+    for lead in ((4100,), (77,), (1,), (2, 9, 14)):
+        x = torch.randn(*lead, din, generator=g).to(dev)
+        sh = sh_l2(torch.randn(*lead, 3, generator=g)).to(dev)
+        w = (torch.randn(*lead, tb["numel"], generator=g) * din ** -0.5).to(dev)
+        TK.reset_launches()
+        got = TK.fused_tp(x, sh, w, tb)
+        again = TK.fused_tp(x, sh, w, tb)
+        shifted = TK.fused_tp(_offset_view(x, 1), _offset_view(sh, 3), _offset_view(w, 5), tb)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES == {"fused_tp": 3, "fused_tp_bwd": 0}
+        assert got.dtype == torch.float32 and got.shape == lead + (tb["SUMR"].shape[1],)
+        assert torch.equal(got, again) and torch.equal(got, shifted)
+        want = TK.ref_fused_tp(x.double(), sh.double(), w.double(), tb["CBIG_R"], tb["EXPW"],
+                               tb["SUMR"])
+        d, ref = (got.double() - want).abs(), want.abs()
+        assert bool((d <= 2e-4 + 2e-4 * ref).all()), (lead, d.max().item())
 
 
 # K11 (f32 against the plain version's autograd in float64: atol 2e-4 +
