@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing its seconds:
+Phases, each printing its seconds, timed by one PhaseTimer
+(codlad_tpu_torch/train/profiling.py, as are the traced windows, through
+its `trace`, and the peak-memory reads, through its `device_memory_stats`):
   1. build   -- compile csrc/*.cu with plain nvcc (one process per source);
                 each kernel's name, registers, static shared memory and
                 spills from `-Xptxas -v`;
@@ -136,7 +138,7 @@ Phases, each printing its seconds:
                 the bf16 sampling path (5.) through `sample_latents` with a
                 step hook: 3 steps' untraced wall time, 3 steps' device
                 time (queued behind a sleep kernel: the untraced step's
-                device busy share), and 3 steps under torch.profiler: the
+                device busy share), and 3 steps traced: the
                 device's busy share of the traced wall and the kernels by
                 device time; K2 must run as message_edge_lnmod_mma_kernel
                 and no chain_kernel may run (after the sampling phases,
@@ -145,7 +147,7 @@ Phases, each printing its seconds:
                 B96 L128 K64 H128, 3+3 layers, bf16, dropout 0.6, with the
                 launches of every step counted (6 K1, 3 K5, 6 K3, 3 K5
                 backward), median ms/step and peak memory, the last 3
-                steps under torch.profiler (the device's busy share and
+                steps traced (the device's busy share and
                 the kernels by device time; K5's forward must run as
                 message_edge_lnmod_mma_kernel, K3 as
                 message_sum_bwd_mma_kernel, K5's backward as
@@ -164,7 +166,7 @@ Phases, each printing its seconds:
  13. residual_train -- 10 bf16 steps at dropout 0.6 with the adaLN residual
                 denoiser (gates open), launches asserted every step (6 K1,
                 3 K6, 6 K3, 3 K6 backward), median ms/step, peak memory, the
-                last step under torch.profiler (K6 must run as
+                last step traced (K6 must run as
                 message_edge_mma_kernel, its backward as
                 message_edge_bwd_mma_kernel, no chain_kernel or
                 chain_bwd_kernel); one f32 step at dropout 0
@@ -251,8 +253,8 @@ Phases, each printing its seconds:
                 layers, 512 codes), random weights from --seed, bf16 feature
                 path: 10 steps, launches of K8-K11 asserted every step,
                 the loss finite and no step skipped, median ms/step, the
-                first step, peak memory, the last step under
-                torch.profiler; then 4 steps in f32 (the default trainer),
+                first step, peak memory, the last step traced; then 4
+                steps in f32 (the default trainer),
                 the last traced, which fails unless K10 ran as
                 fused_tp_f32_kernel and K11 as fused_tp_bwd_f32_kernel
                 (tables staged in shared memory) and neither
@@ -360,9 +362,12 @@ the trunk training phases start from the plain init, as the trainer does;
 the residual ones open the gates too (at init a residual layer is the
 identity and K6's backward would receive a zero cotangent). The line
 before the last is the card's name and power limit from nvidia-smi; the
-last line is {"ok": true, "device": {...}}; the line before that one the
-kernels' JSON (K1-K11, each record with its dtype: the main path's, and for
-K8, K9 and K10 both the f32 record of recon and the bf16 one of the Stage-1
+last line is {"ok": true, "device": {...}}; the two lines before the
+card's are {"phases": the PhaseTimer's report()} (each phase's total_sec,
+mean_ms and share_pct; `total` holds all the others and `recon total`
+holds `recon`, so the shares sum past 100) and then the kernels' JSON
+(K1-K11, each record with its dtype: the main path's, and for K8, K9 and
+K10 both the f32 record of recon and the bf16 one of the Stage-1
 trainer, whose launches are those of the bf16 training steps, and for
 K1 the bench shape's record and the L = 48 bucket's, keyed
 fused_message_sum_k48, whose launches are the L = 48 draw's; the f32 K1,
@@ -662,19 +667,20 @@ def trace_sampling(pipe, batch, seed, n=3, sleep_cycles=400_000_000):
          before the device reaches them (held: the host's queueing time is
          below the sleep's), timed by CUDA events; its share of (1.) is the
          untraced step's device busy share;
-      3. under torch.profiler: the busy share of the traced wall time and
-         the kernels by device time a step (`trace_summary`).
+      3. in a `profiling.trace` window: the busy share of the traced wall
+         time and the kernels by device time a step (`trace_summary`).
     On the CPU (a rehearsal) (2.) is left out. Returns the names of the
     kernels that ran on the device in (3.)."""
+    import contextlib
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from codlad_tpu_torch.train import profiling
 
     extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
               "mask": batch["res_mask"]}
     dev = batch["res_type"].device
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = contextlib.ExitStack()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else []
     got = {"queue_ms": math.inf}
 
@@ -696,18 +702,20 @@ def trace_sampling(pipe, batch, seed, n=3, sleep_cycles=400_000_000):
             ev[2].record()
             got["queue_ms"] = (time.perf_counter() - got["t"]) * 1e3
         sync()
-        prof.start()
+        got["prof"] = window.enter_context(profiling.trace(None))
         got["t"] = time.perf_counter()
 
     def traced_stop():
         sync()
         got["traced_ms"] = (time.perf_counter() - got["t"]) * 1e3
-        prof.stop()
+        window.close()
 
     marks = {1: untraced_start, 1 + n: queued_start, 1 + 2 * n: traced_start,
              1 + 3 * n: traced_stop}
     g = torch.Generator(device=dev).manual_seed(seed)
-    pipe.sample_latents(extras, generator=g, step_hook=lambda i: marks.get(i, lambda: None)())
+    with window:
+        pipe.sample_latents(extras, generator=g,
+                            step_hook=lambda i: marks.get(i, lambda: None)())
     sleep_ms, dev_ms = ((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / n) if cuda
                         else (0.0, 0.0))
     if got["queue_ms"] < sleep_ms:
@@ -719,9 +727,7 @@ def trace_sampling(pipe, batch, seed, n=3, sleep_cycles=400_000_000):
         log(f"  untraced sampling step: wall {got['wall_ms']:.3f} ms; device time not "
             f"measured (queueing the {n} steps took {got['queue_ms']:.1f} ms, longer than "
             f"the {sleep_ms:.1f} ms sleep)")
-    trace_summary(prof, got["traced_ms"], n)
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return trace_summary(got["prof"], got["traced_ms"], n)
 
 
 def check_launches(got, expect, where):
@@ -1007,32 +1013,40 @@ def check_same_bits(label, first, again, what):
         raise RuntimeError(f"{label}: {what} differ in {moved}")
 
 
+# Late in this script's process a traced window has lost ~5-8 ms of its
+# kernels' device time on an H100 (three calls of the bf16 K3 at N != L,
+# 3.7 ms, kept none; scripts/trace_window_probe.py); a split traces at
+# least this much, so that what is lost stays under the 25% check below.
+SPLIT_WINDOW_MS = 40.0
+
+
 def check_repeats(label, call):
     check_same_bits(label, call(), call(), "two calls on the same inputs:")
 
 
-def kernel_split(call, device_ms, reps=3):
-    """The device ms a call of one backward by CUDA kernel, from `reps`
-    calls under torch.profiler: main_pass_ms (the kernels of the main pass,
-    by name in `main_pass_kernels`), wgrad_ms (the weight-grad pass),
-    sum_partials_ms and other_ms (PyTorch's own, e.g. dGn's zeros); {}
-    where they do not add up to within 25% of `device_ms`, the call's
-    device time by graph replay (a trace late in a long process has been
-    seen to drop events)."""
+def kernel_split(call, device_ms, window_ms=SPLIT_WINDOW_MS):
+    """The device ms a call of one backward by CUDA kernel, from enough
+    calls in a `profiling.trace` window for `window_ms` of device time (at
+    least 3): main_pass_ms (the kernels of the main pass, by name in
+    `main_pass_kernels`), wgrad_ms (the weight-grad pass), sum_partials_ms
+    and other_ms (PyTorch's own, e.g. dGn's zeros); {} where they do not
+    add up to within 25% of `device_ms`, the call's device time by graph
+    replay (late in a long process a window loses some of its kernels)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from codlad_tpu_torch.train import profiling
+    reps = max(3, math.ceil(window_ms / device_ms))
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(None) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     split, main = dict(main_pass_ms=0.0, wgrad_ms=0.0, sum_partials_ms=0.0, other_ms=0.0), set()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3 / reps
-        name = e.name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+    for name, (ms, _) in read_trace(prof, wall_ms)["kernels"].items():
+        ms /= reps
+        name = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
         if "wgrad" in name:
             split["wgrad_ms"] += ms
         elif "sum_partials" in name:
@@ -1503,8 +1517,8 @@ def reference_check(seed, device="cuda", adaln_mode="trunk"):
 
 
 TRAIN_STEPS = 20
-TRACED_STEPS = 3                 # the last ones, under torch.profiler
-RESID_TRAIN_STEPS = 10           # residual mode: the last one under torch.profiler
+TRACED_STEPS = 3                 # the last ones, traced
+RESID_TRAIN_STEPS = 10           # residual mode: the last one traced
 
 
 def train_launches(n_enc, n_dec, dropout, adaln_mode="trunk"):
@@ -1587,10 +1601,7 @@ def check_f32_tp_ran(ran, where, bwd):
     fused_tp_f32_kernel (tables staged in shared memory) and none of
     fused_tp_kernel, the design it replaced (with `bwd`, also K11 as
     fused_tp_bwd_f32_kernel and no fused_tp_bwd_kernel); log what was
-    seen. A trace with no device events is logged, not checked."""
-    if not ran:
-        log(f"  {where}: no device events; the f32 K10 / K11 kernel names not checked")
-        return
+    seen."""
     want = ["fused_tp_f32_kernel"] + (["fused_tp_bwd_f32_kernel"] if bwd else [])
     gone = ["fused_tp_kernel"] + (["fused_tp_bwd_kernel"] if bwd else [])
     missing = [k for k in want if not any(k in n for n in ran)]
@@ -1600,14 +1611,27 @@ def check_f32_tp_ran(ran, where, bwd):
     log(f"  {where} ran {' and '.join(want)}, no {' or '.join(gone)}")
 
 
-def busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
+def peak_gib():
+    """The current card's peak allocated GiB since the last
+    `torch.cuda.reset_peak_memory_stats` (`profiling.device_memory_stats`)."""
+    import torch
+    from codlad_tpu_torch.train import profiling
+    stats = profiling.device_memory_stats()[f"cuda:{torch.cuda.current_device()}"]
+    return stats["peak_bytes_in_use"] / 2 ** 30
+
+
+def read_trace(prof, wall_ms):
+    """`profiling.device_summary` of a finished `profiling.trace` window of
+    `wall_ms`. A window whose profiler did not start fails its phase, and
+    so, on the card, does one that holds no CUDA event."""
+    import torch
+    from codlad_tpu_torch.train import profiling
+    if not prof:
+        raise RuntimeError("the trace window's profiler did not start")
+    got = profiling.device_summary(prof, wall_ms)
+    if not got["kernels"] and torch.cuda.is_available():
+        raise RuntimeError("the trace window holds no CUDA event")
+    return got
 
 
 def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
@@ -1615,44 +1639,38 @@ def trace_summary(prof, wall_ms, n_steps, top=12, mine=CHAIN_KERNELS,
     """Log the device's busy share of the traced wall time (the union of
     kernel intervals) and the kernels by device time a `unit` (the `top`
     and every kernel named in `mine`), those of `mine` (default the message
-    chains, K1-K5) also summed apart."""
-    import torch
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        spans.append((e.time_range.start, e.time_range.end))
-    if not by_name:
+    chains, K1-K5) also summed apart. Returns the kernels' names (none on
+    the CPU)."""
+    got = read_trace(prof, wall_ms)
+    kernels, busy = got["kernels"], got["busy"]
+    if not kernels:
         log("  trace: no device events; device time not measured")
         return set()
-    busy = busy_us(spans) / (wall_ms * 1e3)
-    total = sum(us for us, _ in by_name.values())
-    chain = sum(us for k, (us, _) in by_name.items() if any(c in k for c in mine))
+    total = sum(ms for ms, _ in kernels.values())
+    chain = sum(ms for k, (ms, _) in kernels.items() if any(c in k for c in mine))
     log(f"  trace of {n_steps} {unit}s ({wall_ms / n_steps:.2f} ms/{unit} wall): device busy "
-        f"{busy:.3f} (idle {1 - busy:.3f}); kernels {total / 1e3 / n_steps:.2f} ms/{unit}, "
-        f"{label} {chain / 1e3 / n_steps:.2f} ms ({chain / total:.3f}), other "
-        f"{(total - chain) / 1e3 / n_steps:.2f} ms; "
-        f"{sum(n for _, n in by_name.values()) // n_steps} launches a {unit}")
-    for i, (name, (us, n)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])):
+        f"{busy:.3f} (idle {1 - busy:.3f}); kernels {total / n_steps:.2f} ms/{unit}, "
+        f"{label} {chain / n_steps:.2f} ms ({chain / total:.3f}), other "
+        f"{(total - chain) / n_steps:.2f} ms; "
+        f"{sum(n for _, n in kernels.values()) // n_steps} launches a {unit}")
+    for i, (name, (ms, n)) in enumerate(kernels.items()):
         if i >= top and not any(c in name for c in mine):
             continue
-        log(f"  {us / 1e3 / n_steps:9.3f} ms/{unit} {n // n_steps:5d}x  {name[:100]}")
-    return set(by_name)
+        log(f"  {ms / n_steps:9.3f} ms/{unit} {n // n_steps:5d}x  {name[:100]}")
+    return set(kernels)
 
 
 def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0, names=None):
     """n_steps training steps with every step's launches counted and held
     to `expect` (zero for any kernel it does not name); the last `traced`
-    of them run under torch.profiler, whose summary is logged (and the
+    of them run in a `profiling.trace` window, whose summary is logged (and the
     names of the kernels that ran on the device added to the set `names`).
     Returns the ms of the untraced steps, the last metrics and the launch
     totals."""
     import contextlib
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.train import profiling
     cuda = x1.device.type == "cuda"
     p0 = {k: v.clone() for k, v in state.params.items()}
     e0 = {k: v.clone() for k, v in state.ema_params.items()}
@@ -1660,8 +1678,7 @@ def run_train(state, step, x1, extras, seed, n_steps, expect, traced=0, names=No
     with contextlib.ExitStack() as stack:
         for i in range(n_steps):
             if i == n_steps - traced:
-                prof = stack.enter_context(profile(
-                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                prof = stack.enter_context(profiling.trace(None))
             if cuda:
                 torch.cuda.synchronize()
             kernels.reset_launches()
@@ -1992,7 +2009,7 @@ def remat_memory(seed, device="cuda", n_frames=B, n_res=L, hidden=H, layers=3, k
             want = full_train_launches(True, remat, layers, layers) if cuda else {}
             if got != dict(dict.fromkeys(got, 0), **want):
                 raise RuntimeError(f"remat={remat}: a step launched {got}, expected {want}")
-        out[remat] = (times, torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0)
+        out[remat] = (times, peak_gib() if cuda else 0.0)
         del model, state, step
         if cuda:
             torch.cuda.empty_cache()
@@ -2175,43 +2192,43 @@ def run_guided_cli(device="cuda", n_frames=96, steps=100, ensemble=2, protein=30
     return summary[p], seconds, launches
 
 
-def phase_train_stage2_full(seed, device, records, card):
+def phase_train_stage2_full(seed, device, records, card, timer):
     """Phase train_stage2_full: the trainer CLI with every option of the
     whole trainer (`run_train_full_cli`), remat's time and peak memory
     (`remat_memory`; remat's peak must be below the plain step's), and the
     accumulated self-conditioned step card against CPU
     (`train_full_reference`); adds train_full_launches to the K1, K3 and K5
     records."""
-    t0 = time.perf_counter()
-    full = run_train_full_cli(seed, device)
-    for name in ("fused_message_sum", "fused_message_edge_lnmod_drop", "fused_message_sum_bwd",
-                 "fused_message_edge_lnmod_drop_bwd"):
-        records[name]["train_full_launches"] = full["totals"][name]
-    log(f"  train_latent.main --bf16 --self_condition --class_dropout_prob 0.1 --t_sampler "
-        f"loss_second_moment --grad_accum 2 --remat, B{B} L{L} K{K} H{H} dropout {P_DROP}: "
-        f"{len(full['ms'])} micro-steps in {full['seconds']:.2f} s, median "
-        f"{statistics.median(full['ms']):.2f} ms a micro-step (first {full['ms'][0]:.1f} ms), "
-        f"coins {full['coins']}, launches each as full_train_launches (asserted), over the "
-        f"run {full['totals']}; train losses {[round(x, 4) for x in full['train']]}; val "
-        f"(step, loss) {[(s_, round(v, 4)) for s_, v in full['val']]}, best.pt written; "
-        f"--resume restarted at step 8 with the best val {full['best']:.5f} replayed and ran "
-        f"to 12; --model_ckpt warm start of 2 micro-steps with a fresh optimizer")
-    mem = remat_memory(seed, device)
-    (t_plain, pk_plain), (t_remat, pk_remat) = mem[False], mem[True]
-    log(f"  self-conditioned bf16 step (coin heads) on one B{B} L{L} batch, {card}: without "
-        f"remat median {statistics.median(t_plain):.2f} ms {[round(x, 2) for x in t_plain]}, "
-        f"peak {pk_plain:.3f} GiB; with remat median {statistics.median(t_remat):.2f} ms "
-        f"{[round(x, 2) for x in t_remat]}, peak {pk_remat:.3f} GiB (remat / plain: time "
-        f"{statistics.median(t_remat) / statistics.median(t_plain):.3f}, peak "
-        f"{pk_remat / pk_plain:.3f}); launches a step asserted")
-    if not pk_remat < pk_plain:
-        raise RuntimeError(f"remat's peak memory {pk_remat:.3f} GiB is not below the plain "
-                           f"step's {pk_plain:.3f} GiB")
-    train_full_reference(seed, device)
-    log(f"phase train_stage2_full: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("train_stage2_full"):
+        full = run_train_full_cli(seed, device)
+        for name in ("fused_message_sum", "fused_message_edge_lnmod_drop", "fused_message_sum_bwd",
+                     "fused_message_edge_lnmod_drop_bwd"):
+            records[name]["train_full_launches"] = full["totals"][name]
+        log(f"  train_latent.main --bf16 --self_condition --class_dropout_prob 0.1 --t_sampler "
+            f"loss_second_moment --grad_accum 2 --remat, B{B} L{L} K{K} H{H} dropout {P_DROP}: "
+            f"{len(full['ms'])} micro-steps in {full['seconds']:.2f} s, median "
+            f"{statistics.median(full['ms']):.2f} ms a micro-step (first {full['ms'][0]:.1f} ms), "
+            f"coins {full['coins']}, launches each as full_train_launches (asserted), over the "
+            f"run {full['totals']}; train losses {[round(x, 4) for x in full['train']]}; val "
+            f"(step, loss) {[(s_, round(v, 4)) for s_, v in full['val']]}, best.pt written; "
+            f"--resume restarted at step 8 with the best val {full['best']:.5f} replayed and ran "
+            f"to 12; --model_ckpt warm start of 2 micro-steps with a fresh optimizer")
+        mem = remat_memory(seed, device)
+        (t_plain, pk_plain), (t_remat, pk_remat) = mem[False], mem[True]
+        log(f"  self-conditioned bf16 step (coin heads) on one B{B} L{L} batch, {card}: without "
+            f"remat median {statistics.median(t_plain):.2f} ms {[round(x, 2) for x in t_plain]}, "
+            f"peak {pk_plain:.3f} GiB; with remat median {statistics.median(t_remat):.2f} ms "
+            f"{[round(x, 2) for x in t_remat]}, peak {pk_remat:.3f} GiB (remat / plain: time "
+            f"{statistics.median(t_remat) / statistics.median(t_plain):.3f}, peak "
+            f"{pk_remat / pk_plain:.3f}); launches a step asserted")
+        if not pk_remat < pk_plain:
+            raise RuntimeError(f"remat's peak memory {pk_remat:.3f} GiB is not below the plain "
+                               f"step's {pk_plain:.3f} GiB")
+        train_full_reference(seed, device)
+    log(f"phase train_stage2_full: {timer.totals['train_stage2_full']:.2f} s")
 
 
-def phase_guided_sampling(seed, device, records, card):
+def phase_guided_sampling(seed, device, records, card, timer):
     """Phase guided_sampling: a full-width guided (cfg 1.5) draw of a
     self-conditioned bf16 denoiser (600 K1 and 300 K2 launches on the
     doubled batch and a decode's K8/K9, asserted), timed, its first and last
@@ -2222,47 +2239,47 @@ def phase_guided_sampling(seed, device, records, card):
     import torch
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
     gen = torch.Generator(device=device).manual_seed(seed)
-    t0 = time.perf_counter()
-    gpipe = build_pipeline(device, seed, compute_dtype=torch.bfloat16, respacing="100",
-                           self_condition=True, cfg_scale=GUIDED_CFG)
-    if gpipe.denoiser.x_in.in_features != 6:
-        raise RuntimeError("the self-conditioned denoiser's x_in does not read 6 channels")
-    gbatch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
-    g_steps = gpipe.process.num_timesteps
-    out = run_slice(gpipe, gbatch, gen)
-    check_slice(out, B, L)
-    # one denoise a step, over the condition-doubled batch
-    expect = {**chain_launches(g_steps), **decoder_launches()}
-    check_launches(out["launches"], expect, "the guided sampling path")
-    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
-        records[name]["guided_launches"] = out["launches"][name]
-    timed = run_slice(gpipe, gbatch, gen)
-    calls = check_trained_calls(gpipe, gbatch, gen, scale_tol=CALL_SCALE_TOL_BF16)
-    log(f"  guided draw (cfg {GUIDED_CFG}, self-conditioned, bf16, {g_steps} ancestral steps of "
-        f"create_diffusion('100'), B{B} L{L} K{K}, {card}): first {out['seconds']:.3f} s, timed "
-        f"{timed['seconds']:.3f} s ({g_steps / timed['seconds']:.2f} steps/s) + decode; "
-        f"launches {out['launches']} (expected {expect}); first and last steps' calls against "
-        f"the plain versions (bf16 K1/K2 within TOL + {CALL_SCALE_TOL_BF16:.3g} max|ref|): "
-        + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
-                    f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
-    want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6, **decoder_launches()}
-    if ({k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values())
-            or calls["fused_message_sum"][3] != (2 * B, L, K)):
-        raise RuntimeError(f"the guided draw's kernel calls disagree with their plain versions, "
-                           f"were not all seen or not on the doubled batch: {calls}")
-    names = trace_sampling(gpipe, gbatch, seed)
-    if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
-            "chain_kernel" in n for n in names):
-        raise RuntimeError(f"the traced guided steps did not run K2 on its tensor-core kernel: "
-                           f"{sorted(names)}")
-    del gpipe, gbatch, out, timed
-    guided_reference(seed, device)
-    summary, sec, launches = run_guided_cli(device)
-    log(f"  cli.test --experiment latent --cfg_scale {GUIDED_CFG} --num_ensemble 2 (trained "
-        f"weights, bf16, 100 ancestral steps, prot_0030 x 96 frames, {card}): {sec:.2f} s wall; "
-        + ", ".join(f"{k} {summary[k]:.4f}" for k in ("rmsd_aligned", "ged", "clash", "div"))
-        + f"; launches {({k: v for k, v in launches.items() if v})} (asserted)")
-    log(f"phase guided_sampling: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("guided_sampling"):
+        gpipe = build_pipeline(device, seed, compute_dtype=torch.bfloat16, respacing="100",
+                               self_condition=True, cfg_scale=GUIDED_CFG)
+        if gpipe.denoiser.x_in.in_features != 6:
+            raise RuntimeError("the self-conditioned denoiser's x_in does not read 6 channels")
+        gbatch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
+        g_steps = gpipe.process.num_timesteps
+        out = run_slice(gpipe, gbatch, gen)
+        check_slice(out, B, L)
+        # one denoise a step, over the condition-doubled batch
+        expect = {**chain_launches(g_steps), **decoder_launches()}
+        check_launches(out["launches"], expect, "the guided sampling path")
+        for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+            records[name]["guided_launches"] = out["launches"][name]
+        timed = run_slice(gpipe, gbatch, gen)
+        calls = check_trained_calls(gpipe, gbatch, gen, scale_tol=CALL_SCALE_TOL_BF16)
+        log(f"  guided draw (cfg {GUIDED_CFG}, self-conditioned, bf16, {g_steps} ancestral steps of "
+            f"create_diffusion('100'), B{B} L{L} K{K}, {card}): first {out['seconds']:.3f} s, timed "
+            f"{timed['seconds']:.3f} s ({g_steps / timed['seconds']:.2f} steps/s) + decode; "
+            f"launches {out['launches']} (expected {expect}); first and last steps' calls against "
+            f"the plain versions (bf16 K1/K2 within TOL + {CALL_SCALE_TOL_BF16:.3g} max|ref|): "
+            + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
+                        f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
+        want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6, **decoder_launches()}
+        if ({k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values())
+                or calls["fused_message_sum"][3] != (2 * B, L, K)):
+            raise RuntimeError(f"the guided draw's kernel calls disagree with their plain versions, "
+                               f"were not all seen or not on the doubled batch: {calls}")
+        names = trace_sampling(gpipe, gbatch, seed)
+        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                "chain_kernel" in n for n in names):
+            raise RuntimeError(f"the traced guided steps did not run K2 on its tensor-core kernel: "
+                               f"{sorted(names)}")
+        del gpipe, gbatch, out, timed
+        guided_reference(seed, device)
+        summary, sec, launches = run_guided_cli(device)
+        log(f"  cli.test --experiment latent --cfg_scale {GUIDED_CFG} --num_ensemble 2 (trained "
+            f"weights, bf16, 100 ancestral steps, prot_0030 x 96 frames, {card}): {sec:.2f} s wall; "
+            + ", ".join(f"{k} {summary[k]:.4f}" for k in ("rmsd_aligned", "ged", "clash", "div"))
+            + f"; launches {({k: v for k, v in launches.items() if v})} (asserted)")
+    log(f"phase guided_sampling: {timer.totals['guided_sampling']:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3154,13 +3171,13 @@ def stage1_weights():
 def run_stage1_train(state, step, batch, n_steps, expect, traced=0, names=None):
     """n_steps Stage-1 training steps, each step's launches counted and held
     to `expect`, the loss finite and no step skipped; the last `traced`
-    steps under torch.profiler (summary logged; the names of the kernels
+    steps in a `profiling.trace` window (summary logged; the names of the kernels
     that ran on the device added to the set `names`). Returns (ms of the
     untraced steps, the last metrics, the host-read ms of each step)."""
     import contextlib
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from codlad_tpu_torch import kernels
+    from codlad_tpu_torch.train import profiling
     cuda = batch["res_type"].device.type == "cuda"
     w = stage1_weights()
     p0 = {k: v.clone() for k, v in state.params.items()}
@@ -3168,8 +3185,7 @@ def run_stage1_train(state, step, batch, n_steps, expect, traced=0, names=None):
     with contextlib.ExitStack() as stack:
         for i in range(n_steps):
             if i == n_steps - traced:
-                prof = stack.enter_context(profile(
-                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                prof = stack.enter_context(profiling.trace(None))
             if cuda:
                 torch.cuda.synchronize()
             kernels.reset_launches()
@@ -3806,7 +3822,7 @@ def run_variant_cli(seed, device="cuda", n_res=(58, 75), n_frames=4, batch=2,
     return out
 
 
-def phase_stage1_variants(seed, device, records, card):
+def phase_stage1_variants(seed, device, records, card, timer):
     """The rest of Stage 1 on the card, at the K3/K4 recipe's widths: CGPrior's
     kernel calls; VARIANT_STEPS bf16 steps of the angle VQ-VAE and f32 steps
     of GenZProt at the Stage-1 bench batch, launches asserted every step;
@@ -3816,61 +3832,62 @@ def phase_stage1_variants(seed, device, records, card):
     counted by ModuleLaunches and held to cgprior_launches."""
     import contextlib
     import torch
-    t0 = time.perf_counter()
-    s1 = stage1_batch(seed, device)
-    records.update(check_cgprior_kernels(s1, seed))
-    t_kern = time.perf_counter() - t0
-    nb, nl = s1["res_type"].shape
-    plain = stage1_train_launches()
-    runs = {}
-    for label, extra, expect in (
-            ("angle VQ-VAE bf16", RECIPE + ["-predict_angle", "-bf16"], plain),
-            ("GenZProt f32", RECIPE + ["-train_section", "ivae"],
-             add_launches(plain, cgprior_launches(train=True)))):
-        model, state, step = build_variant_trainer(device, seed, extra)
-        torch.cuda.reset_peak_memory_stats()
-        genz = hasattr(model, "prior_net")
-        with ModuleLaunches(model.prior_net) if genz else contextlib.nullcontext() as counter:
-            times, metrics, _ = run_stage1_train(state, step, s1, VARIANT_STEPS, expect)
-        if genz:
-            prior = counter
-        runs[label] = (times, metrics, torch.cuda.max_memory_allocated() / 2 ** 30, expect)
-        del model, state, step
-    # CGPrior's own launches in the GenZProt steps, forward and backward
-    want = {k: v * VARIANT_STEPS for k, v in cgprior_launches(train=True).items()}
-    if prior.counts != want:
-        raise RuntimeError(f"CGPrior launched {prior.counts} in {VARIANT_STEPS} GenZProt "
-                           f"steps, expected {want}")
-    for key, name in (("cgprior_edge_gather", "edge_gather"),
-                      ("cgprior_edge_aggregate", "edge_aggregate"),
-                      ("cgprior_fused_tp", "fused_tp"), ("cgprior_fused_tp_bwd", "fused_tp_bwd")):
-        records[key]["launches"] = prior.counts[name]
-    log(f"  CGPrior's own launches in the {VARIANT_STEPS} GenZProt steps (counted around its "
-        f"forward and its backward's nodes): {prior.counts} (asserted)")
-    for label, (times, metrics, peak, expect) in runs.items():
-        log(f"  {label}: {VARIANT_STEPS} steps at {nb}x{nl} (embed 36, vqdim 3, 4096 codes, "
-            f"3 + 4 layers), median {statistics.median(times[1:] or times):.2f} ms/step "
-            f"(first {times[0]:.1f} ms), peak memory {peak:.2f} GiB; launches a step {expect} "
-            f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
-            f"{float(metrics['recon']):.5g}, kl {float(metrics['kl']):.4g}")
-    del s1
-    ref = variant_reference(seed, device)
-    kinds = run_quantizer_kinds(seed, device)
-    log("  one step of each quantizer kind card vs CPU (2 x 40, 1 + 1 layers, 64 codes): "
-        + "; ".join(f"{k} loss {l:.6g} (rel {r:.2g}), perplexity {p:.4g}, VQ state "
-                    f"|d| - 1e-5 |ref| {v:.3g} (<= 1e-5), worst grad {g:.3g} (logged)"
-                    for k, (l, p, r, v, g) in kinds.items()))
-    chain = run_variant_cli(seed, device)
-    genz = chain["test_genzprot"]
-    log(f"  entry chain: train_vqvae -train_section ivae {chain['train_ivae']}; cli.test "
-        f"--experiment genzprot (2 members): rmsd_aligned {genz['rmsd_aligned']:.4f}, ged "
-        f"{genz['ged']:.4f}, div {genz['div']:.4f}, launches {genz['launches']} (asserted: a "
-        f"draw {add_launches(cgprior_launches(), decoder_launches())}); train_vqvae "
-        f"-predict_angle -quantize_type fsq_5 -bf16 {chain['train_angle_fsq']}, "
-        f"extract_features, cli.test --experiment recon rmsd_aligned "
-        f"{chain['test_recon_angle']['rmsd_aligned']:.4f}; train_vqvae -train_section fgvae "
-        f"{chain['train_fgvae']}, extract_features --learn_sigma {chain['extract_learn_sigma']}")
-    log(f"phase stage1_variants: {time.perf_counter() - t0:.2f} s (CGPrior's kernels "
+    with timer.phase("stage1_variants"):
+        t0 = time.perf_counter()
+        s1 = stage1_batch(seed, device)
+        records.update(check_cgprior_kernels(s1, seed))
+        t_kern = time.perf_counter() - t0
+        nb, nl = s1["res_type"].shape
+        plain = stage1_train_launches()
+        runs = {}
+        for label, extra, expect in (
+                ("angle VQ-VAE bf16", RECIPE + ["-predict_angle", "-bf16"], plain),
+                ("GenZProt f32", RECIPE + ["-train_section", "ivae"],
+                 add_launches(plain, cgprior_launches(train=True)))):
+            model, state, step = build_variant_trainer(device, seed, extra)
+            torch.cuda.reset_peak_memory_stats()
+            genz = hasattr(model, "prior_net")
+            with ModuleLaunches(model.prior_net) if genz else contextlib.nullcontext() as counter:
+                times, metrics, _ = run_stage1_train(state, step, s1, VARIANT_STEPS, expect)
+            if genz:
+                prior = counter
+            runs[label] = (times, metrics, peak_gib(), expect)
+            del model, state, step
+        # CGPrior's own launches in the GenZProt steps, forward and backward
+        want = {k: v * VARIANT_STEPS for k, v in cgprior_launches(train=True).items()}
+        if prior.counts != want:
+            raise RuntimeError(f"CGPrior launched {prior.counts} in {VARIANT_STEPS} GenZProt "
+                               f"steps, expected {want}")
+        for key, name in (("cgprior_edge_gather", "edge_gather"),
+                          ("cgprior_edge_aggregate", "edge_aggregate"),
+                          ("cgprior_fused_tp", "fused_tp"), ("cgprior_fused_tp_bwd", "fused_tp_bwd")):
+            records[key]["launches"] = prior.counts[name]
+        log(f"  CGPrior's own launches in the {VARIANT_STEPS} GenZProt steps (counted around its "
+            f"forward and its backward's nodes): {prior.counts} (asserted)")
+        for label, (times, metrics, peak, expect) in runs.items():
+            log(f"  {label}: {VARIANT_STEPS} steps at {nb}x{nl} (embed 36, vqdim 3, 4096 codes, "
+                f"3 + 4 layers), median {statistics.median(times[1:] or times):.2f} ms/step "
+                f"(first {times[0]:.1f} ms), peak memory {peak:.2f} GiB; launches a step {expect} "
+                f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
+                f"{float(metrics['recon']):.5g}, kl {float(metrics['kl']):.4g}")
+        del s1
+        ref = variant_reference(seed, device)
+        kinds = run_quantizer_kinds(seed, device)
+        log("  one step of each quantizer kind card vs CPU (2 x 40, 1 + 1 layers, 64 codes): "
+            + "; ".join(f"{k} loss {l:.6g} (rel {r:.2g}), perplexity {p:.4g}, VQ state "
+                        f"|d| - 1e-5 |ref| {v:.3g} (<= 1e-5), worst grad {g:.3g} (logged)"
+                        for k, (l, p, r, v, g) in kinds.items()))
+        chain = run_variant_cli(seed, device)
+        genz = chain["test_genzprot"]
+        log(f"  entry chain: train_vqvae -train_section ivae {chain['train_ivae']}; cli.test "
+            f"--experiment genzprot (2 members): rmsd_aligned {genz['rmsd_aligned']:.4f}, ged "
+            f"{genz['ged']:.4f}, div {genz['div']:.4f}, launches {genz['launches']} (asserted: a "
+            f"draw {add_launches(cgprior_launches(), decoder_launches())}); train_vqvae "
+            f"-predict_angle -quantize_type fsq_5 -bf16 {chain['train_angle_fsq']}, "
+            f"extract_features, cli.test --experiment recon rmsd_aligned "
+            f"{chain['test_recon_angle']['rmsd_aligned']:.4f}; train_vqvae -train_section fgvae "
+            f"{chain['train_fgvae']}, extract_features --learn_sigma {chain['extract_learn_sigma']}")
+    log(f"phase stage1_variants: {timer.totals['stage1_variants']:.2f} s (CGPrior's kernels "
         f"{t_kern:.2f} s; card vs CPU losses "
         f"{ {k: round(v[0], 6) for k, v in ref.items()} }); {card}")
 
@@ -4121,7 +4138,7 @@ def run_flow_user_path(seed, device="cuda", n_res=(60, 90), n_frames=8, batch=8,
     return out
 
 
-def phase_flows(seed, device, records, card, diffusion_rate=None):
+def phase_flows(seed, device, records, card, timer, diffusion_rate=None):
     """Phase flows: the native host helpers, full-width flow draws by every
     solver (launches asserted; euler timed beside the diffusion timing
     phase's rate, traced), the f32 card-vs-CPU draws, bf16 otcfm / sbcfm
@@ -4133,95 +4150,96 @@ def phase_flows(seed, device, records, card, diffusion_rate=None):
     from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
     from codlad_tpu_torch.gen import ot
     from codlad_tpu_torch.gen.solvers import NFE_PER_STEP
-    t0 = time.perf_counter()
-    log("  " + native_checks(seed))
-    batch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    pipe = build_flow_pipeline(device, seed, compute_dtype=torch.bfloat16)
-    rates = {}
-    for method, steps in FLOW_STEPS.items():
-        pipe.ode_method, pipe.ode_steps = method, steps
+    with timer.phase("flows"):
+        t0 = time.perf_counter()
+        log("  " + native_checks(seed))
+        batch = to_device(synthetic_cg_batch(B, L, seed=seed), device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        pipe = build_flow_pipeline(device, seed, compute_dtype=torch.bfloat16)
+        rates = {}
+        for method, steps in FLOW_STEPS.items():
+            pipe.ode_method, pipe.ode_steps = method, steps
+            out = run_slice(pipe, batch, gen)
+            check_slice(out, B, L)
+            expect = flow_launches(steps * NFE_PER_STEP[method])
+            check_launches(out["launches"], expect, f"the {method} flow draw")
+            timed = run_slice(pipe, batch, gen)
+            rates[method] = (steps, timed["seconds"])
+            if method == "euler":
+                for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
+                             "edge_aggregate"):
+                    records[name]["flow_launches"] = out["launches"][name]
+            log(f"  flow draw {method}, {steps} steps (bf16, B{B} L{L} K{K}, {card}): first "
+                f"{out['seconds']:.3f} s, timed {timed['seconds']:.3f} s a draw + decode "
+                f"({steps / timed['seconds']:.2f} steps/s, "
+                f"{steps * NFE_PER_STEP[method] / timed['seconds']:.2f} evaluations/s); launches "
+                f"{out['launches']} (expected {expect})")
+        pipe.ode_method, pipe.ode_steps = "euler", FLOW_STEPS["euler"]
+        names = trace_sampling(pipe, batch, seed)
+        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                "chain_kernel" in n for n in names):
+            raise RuntimeError(f"the traced flow steps did not run K2 on its tensor-core kernel: "
+                               f"{sorted(names)}")
+        steps, sec = rates["euler"]
+        log(f"  euler flow {steps / sec:.2f} steps/s, {sec:.3f} s a draw; the diffusion timing "
+            f"phase's {diffusion_rate if diffusion_rate is None else round(diffusion_rate, 2)} "
+            f"steps/s (100 ddim100 steps + decode) in this run")
+        pipe.ode_method, pipe.ode_steps = "dopri5", FLOW_DOPRI5_STEPS
+        pipe.ode_rtol = pipe.ode_atol = FLOW_TOL
         out = run_slice(pipe, batch, gen)
         check_slice(out, B, L)
-        expect = flow_launches(steps * NFE_PER_STEP[method])
-        check_launches(out["launches"], expect, f"the {method} flow draw")
-        timed = run_slice(pipe, batch, gen)
-        rates[method] = (steps, timed["seconds"])
-        if method == "euler":
-            for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
-                         "edge_aggregate"):
-                records[name]["flow_launches"] = out["launches"][name]
-        log(f"  flow draw {method}, {steps} steps (bf16, B{B} L{L} K{K}, {card}): first "
-            f"{out['seconds']:.3f} s, timed {timed['seconds']:.3f} s a draw + decode "
-            f"({steps / timed['seconds']:.2f} steps/s, "
-            f"{steps * NFE_PER_STEP[method] / timed['seconds']:.2f} evaluations/s); launches "
-            f"{out['launches']} (expected {expect})")
-    pipe.ode_method, pipe.ode_steps = "euler", FLOW_STEPS["euler"]
-    names = trace_sampling(pipe, batch, seed)
-    if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
-            "chain_kernel" in n for n in names):
-        raise RuntimeError(f"the traced flow steps did not run K2 on its tensor-core kernel: "
-                           f"{sorted(names)}")
-    steps, sec = rates["euler"]
-    log(f"  euler flow {steps / sec:.2f} steps/s, {sec:.3f} s a draw; the diffusion timing "
-        f"phase's {diffusion_rate if diffusion_rate is None else round(diffusion_rate, 2)} "
-        f"steps/s (100 ddim100 steps + decode) in this run")
-    pipe.ode_method, pipe.ode_steps = "dopri5", FLOW_DOPRI5_STEPS
-    pipe.ode_rtol = pipe.ode_atol = FLOW_TOL
-    out = run_slice(pipe, batch, gen)
-    check_slice(out, B, L)
-    ode = pipe.last_ode
-    check_launches(out["launches"], flow_launches(ode["nfe"]), "the dopri5 flow draw")
-    log(f"  flow draw dopri5 (rtol = atol = {FLOW_TOL:g}, budget {4 * FLOW_DOPRI5_STEPS} "
-        f"attempts): nfe {ode['nfe']}, accepted {ode['accepted']}, rejected "
-        f"{ode['rejected']}, host syncs {ode['host_syncs']}, reached t {ode['t']:.4f}, "
-        f"{out['seconds']:.3f} s a draw + "
-        f"decode; launches {out['launches']} (asserted: 6 K1 and 3 K2 an evaluation)")
-    del pipe, out
-    flow_reference(seed, device)
-    t_sample = time.perf_counter() - t0
+        ode = pipe.last_ode
+        check_launches(out["launches"], flow_launches(ode["nfe"]), "the dopri5 flow draw")
+        log(f"  flow draw dopri5 (rtol = atol = {FLOW_TOL:g}, budget {4 * FLOW_DOPRI5_STEPS} "
+            f"attempts): nfe {ode['nfe']}, accepted {ode['accepted']}, rejected "
+            f"{ode['rejected']}, host syncs {ode['host_syncs']}, reached t {ode['t']:.4f}, "
+            f"{out['seconds']:.3f} s a draw + "
+            f"decode; launches {out['launches']} (asserted: 6 K1 and 3 K2 an evaluation)")
+        del pipe, out
+        flow_reference(seed, device)
+        t_sample = time.perf_counter() - t0
 
-    x1, extras = train_batch(B, L, seed + 1, device)
-    per_step = train_launches(3, 3, P_DROP)
-    totals = dict.fromkeys(per_step, 0)
-    for kind in FLOW_KINDS:
-        _, state, step = build_flow_trainer(device, seed, kind, compute_dtype=torch.bfloat16)
-        ot.reset_lap_stats()
-        times, metrics, tot = run_train(state, step, x1, extras, seed, FLOW_TRAIN_STEPS,
-                                        per_step)
-        lap = dict(ot.LAP_STATS)
-        totals = {k: totals[k] + tot[k] for k in totals}
-        log(f"  flow train {kind}: {FLOW_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
-            f"{P_DROP}: median {statistics.median(times[1:]):.2f} ms/step (first "
-            f"{times[0]:.1f} ms); the exact OT's host LAP {lap['ms'] / lap['calls']:.3f} ms a "
-            f"step ({lap['calls']} calls, the copy to the host included); launches a step "
-            f"{per_step} (asserted); last loss {float(metrics['loss']):.5g}"
-            + (f", score {float(metrics['score']):.5g}" if "score" in metrics else ""))
-        del state, step
-    _, state, step = build_flow_trainer(device, seed, "otcfm", dropout=0.0,
-                                        compute_dtype=torch.bfloat16)
-    p0 = train_launches(3, 3, 0.0)
-    times, _, tot0 = run_train(state, step, x1, extras, seed, 2, p0)
-    for name in set(totals) | set(p0):
-        records[name]["flow_train_launches"] = totals.get(name, 0) + tot0[name]
-    log(f"  flow train otcfm at dropout 0: {statistics.median(times):.2f} ms/step; launches a "
-        f"step {p0} (asserted)")
-    del state, step, x1, extras
-    for kind in FLOW_KINDS:
-        flow_train_reference(seed, kind, device)
-    t_train = time.perf_counter() - t0 - t_sample
+        x1, extras = train_batch(B, L, seed + 1, device)
+        per_step = train_launches(3, 3, P_DROP)
+        totals = dict.fromkeys(per_step, 0)
+        for kind in FLOW_KINDS:
+            _, state, step = build_flow_trainer(device, seed, kind, compute_dtype=torch.bfloat16)
+            ot.reset_lap_stats()
+            times, metrics, tot = run_train(state, step, x1, extras, seed, FLOW_TRAIN_STEPS,
+                                            per_step)
+            lap = dict(ot.LAP_STATS)
+            totals = {k: totals[k] + tot[k] for k in totals}
+            log(f"  flow train {kind}: {FLOW_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
+                f"{P_DROP}: median {statistics.median(times[1:]):.2f} ms/step (first "
+                f"{times[0]:.1f} ms); the exact OT's host LAP {lap['ms'] / lap['calls']:.3f} ms a "
+                f"step ({lap['calls']} calls, the copy to the host included); launches a step "
+                f"{per_step} (asserted); last loss {float(metrics['loss']):.5g}"
+                + (f", score {float(metrics['score']):.5g}" if "score" in metrics else ""))
+            del state, step
+        _, state, step = build_flow_trainer(device, seed, "otcfm", dropout=0.0,
+                                            compute_dtype=torch.bfloat16)
+        p0 = train_launches(3, 3, 0.0)
+        times, _, tot0 = run_train(state, step, x1, extras, seed, 2, p0)
+        for name in set(totals) | set(p0):
+            records[name]["flow_train_launches"] = totals.get(name, 0) + tot0[name]
+        log(f"  flow train otcfm at dropout 0: {statistics.median(times):.2f} ms/step; launches a "
+            f"step {p0} (asserted)")
+        del state, step, x1, extras
+        for kind in FLOW_KINDS:
+            flow_train_reference(seed, kind, device)
+        t_train = time.perf_counter() - t0 - t_sample
 
-    user = run_flow_user_path(seed, device)
-    expect = {k: v * user["draws"] for k, v in flow_launches(20).items()}
-    check_launches(user["launches"], expect, "the flow user path's cli.test")
-    g = user["summary"]["__global__"]
-    log(f"  user path: preprocess (PDB + XTC, 2 proteins x 8 frames) -> features -> "
-        f"train_latent --model otcfm --bf16 (losses {[round(x, 4) for x in user['losses']]}) "
-        f"-> cli.test --model otcfm --method euler --save_pdb --save_xtc: rmsd_aligned "
-        f"{g['rmsd_aligned']:.4f}, ged {g['ged']:.4f}, div {g['div']:.4f}; launches "
-        f"{({k: v for k, v in user['launches'].items() if v})} (asserted); PDB and XTC parsed "
-        f"back; seconds {({k: round(v, 2) for k, v in user['seconds'].items()})}")
-    log(f"phase flows: {time.perf_counter() - t0:.2f} s (sampling {t_sample:.2f} s, training "
+        user = run_flow_user_path(seed, device)
+        expect = {k: v * user["draws"] for k, v in flow_launches(20).items()}
+        check_launches(user["launches"], expect, "the flow user path's cli.test")
+        g = user["summary"]["__global__"]
+        log(f"  user path: preprocess (PDB + XTC, 2 proteins x 8 frames) -> features -> "
+            f"train_latent --model otcfm --bf16 (losses {[round(x, 4) for x in user['losses']]}) "
+            f"-> cli.test --model otcfm --method euler --save_pdb --save_xtc: rmsd_aligned "
+            f"{g['rmsd_aligned']:.4f}, ged {g['ged']:.4f}, div {g['div']:.4f}; launches "
+            f"{({k: v for k, v in user['launches'].items() if v})} (asserted); PDB and XTC parsed "
+            f"back; seconds {({k: round(v, 2) for k, v in user['seconds'].items()})}")
+    log(f"phase flows: {timer.totals['flows']:.2f} s (sampling {t_sample:.2f} s, training "
         f"{t_train:.2f} s); {card}")
 
 
@@ -4391,7 +4409,7 @@ def run_distill_user_path(seed, device="cuda", shard_dir=None, n_frames=96, batc
     return out
 
 
-def phase_distill(seed, device, records, card, shard_dir=None):
+def phase_distill(seed, device, records, card, timer, shard_dir=None):
     """Phase distill: 20 bf16 distillation steps at full width with launches
     asserted every step, ms/step and peak memory, the last traced (K1-K4
     must run on their tensor-core kernels); one f32 step card vs CPU; the
@@ -4400,65 +4418,65 @@ def phase_distill(seed, device, records, card, shard_dir=None):
     K2 a draw. Adds distill_launches to K1-K4 and distill_cli_launches to
     K1 and K2."""
     import torch
-    t0 = time.perf_counter()
-    x1, extras = train_batch(B, L, seed + 1, device)
-    _, state, teacher, step, _ = build_distill_trainer(device, seed,
-                                                       compute_dtype=torch.bfloat16)
-    per_step = distill_launches()
-    torch.cuda.reset_peak_memory_stats()
-    ran = set()
-    times, metrics, totals = run_train(
-        state, lambda st, x, e, s: step(st, teacher, x, e, s), x1, extras, seed,
-        DISTILL_STEPS, per_step, traced=1, names=ran)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    need = ("message_sum_mma_kernel", "message_edge_lnmod_mma_kernel",
-            "message_sum_bwd_mma_kernel", "message_edge_lnmod_bwd_mma_kernel<0>")
-    if not all(any(k in n for n in ran) for k in need) or any(
-            "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
-        raise RuntimeError(f"the traced distillation step did not run K1-K4 on their "
-                           f"tensor-core kernels {need}: {sorted(ran)}")
-    for name, n in totals.items():
-        if n:
-            records[name]["distill_launches"] = n
-    log(f"  distill: {DISTILL_STEPS} bf16 steps of make_distill_step at B{B} L{L} K{K} H{H} "
-        f"(3 + 3 layers, ddim100 -> 50), {card}: median of the {len(times)} untraced "
-        f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
-        f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
-        f"a step {per_step} (asserted); the traced step ran {', '.join(need)}; last loss "
-        f"{float(metrics['loss']):.5g}, mse {float(metrics['mse']):.5g}, grad_norm "
-        f"{float(metrics['grad_norm']):.5g}")
-    del state, teacher, step, x1, extras
-    distill_reference(seed, device)
+    with timer.phase("distill"):
+        x1, extras = train_batch(B, L, seed + 1, device)
+        _, state, teacher, step, _ = build_distill_trainer(device, seed,
+                                                           compute_dtype=torch.bfloat16)
+        per_step = distill_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ran = set()
+        times, metrics, totals = run_train(
+            state, lambda st, x, e, s: step(st, teacher, x, e, s), x1, extras, seed,
+            DISTILL_STEPS, per_step, traced=1, names=ran)
+        peak = peak_gib()
+        need = ("message_sum_mma_kernel", "message_edge_lnmod_mma_kernel",
+                "message_sum_bwd_mma_kernel", "message_edge_lnmod_bwd_mma_kernel<0>")
+        if not all(any(k in n for n in ran) for k in need) or any(
+                "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
+            raise RuntimeError(f"the traced distillation step did not run K1-K4 on their "
+                               f"tensor-core kernels {need}: {sorted(ran)}")
+        for name, n in totals.items():
+            if n:
+                records[name]["distill_launches"] = n
+        log(f"  distill: {DISTILL_STEPS} bf16 steps of make_distill_step at B{B} L{L} K{K} H{H} "
+            f"(3 + 3 layers, ddim100 -> 50), {card}: median of the {len(times)} untraced "
+            f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
+            f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
+            f"a step {per_step} (asserted); the traced step ran {', '.join(need)}; last loss "
+            f"{float(metrics['loss']):.5g}, mse {float(metrics['mse']):.5g}, grad_norm "
+            f"{float(metrics['grad_norm']):.5g}")
+        del state, teacher, step, x1, extras
+        distill_reference(seed, device)
 
-    user = run_distill_user_path(seed, device, shard_dir)
-    cfg = user["config"]
-    n_grid = len(cfg["distill_tmap"])
-    draws = DISTILL_MEMBERS * len([k for k in user["student"] if not k.startswith("__")])
-    expect = {k: v * draws for k, v in chain_launches(n_grid).items()}
-    expect.update({k: v * draws for k, v in decoder_launches().items()})
-    check_launches(user["launches"], expect, "the distilled student's cli.test")
-    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
-        records[name]["distill_cli_launches"] = user["launches"][name]
-    for who in ("student", "teacher"):
-        for p, agg in user[who].items():
-            if not p.startswith("__") and not all(
-                    math.isfinite(v) for v in agg.values() if isinstance(v, float)):
-                raise RuntimeError(f"the distilled {who}'s summary of {p} is not finite")
-    for p in sorted(k for k in user["student"] if not k.startswith("__")):
-        s, t = user["student"][p], user["teacher"][p]
-        log(f"  {p}: student ({n_grid} DDIM steps) "
-            + ", ".join(f"{k} {s[k]:.4f}" for k in EVAL_TOL)
-            + f", {s['wallclock_sec']:.2f} s; teacher (100 DDIM steps) "
-            + ", ".join(f"{k} {t[k]:.4f}" for k in EVAL_TOL) + f", {t['wallclock_sec']:.2f} s")
-    log(f"  distill user path: cli.extract_features --vae_weights -> cli.distill (1 round, "
-        f"100 -> {n_grid}, {DISTILL_ROUND_STEPS} bf16 steps of batch {B}) -> cli.test "
-        f"--latent_ckpt (sampler ddim on the student's grid, launches {expect} asserted); "
-        f"held batch distillation loss {user['held_start']:.6g} at the start, "
-        f"{user['held_end']:.6g} after the round; seconds "
-        f"{ {k: round(v, 2) for k, v in user['seconds'].items()} }")
-    if not user["held_end"] < user["held_start"]:
-        raise RuntimeError("the distillation loss of the held batch did not fall")
-    log(f"phase distill: {time.perf_counter() - t0:.2f} s; {card}")
+        user = run_distill_user_path(seed, device, shard_dir)
+        cfg = user["config"]
+        n_grid = len(cfg["distill_tmap"])
+        draws = DISTILL_MEMBERS * len([k for k in user["student"] if not k.startswith("__")])
+        expect = {k: v * draws for k, v in chain_launches(n_grid).items()}
+        expect.update({k: v * draws for k, v in decoder_launches().items()})
+        check_launches(user["launches"], expect, "the distilled student's cli.test")
+        for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+            records[name]["distill_cli_launches"] = user["launches"][name]
+        for who in ("student", "teacher"):
+            for p, agg in user[who].items():
+                if not p.startswith("__") and not all(
+                        math.isfinite(v) for v in agg.values() if isinstance(v, float)):
+                    raise RuntimeError(f"the distilled {who}'s summary of {p} is not finite")
+        for p in sorted(k for k in user["student"] if not k.startswith("__")):
+            s, t = user["student"][p], user["teacher"][p]
+            log(f"  {p}: student ({n_grid} DDIM steps) "
+                + ", ".join(f"{k} {s[k]:.4f}" for k in EVAL_TOL)
+                + f", {s['wallclock_sec']:.2f} s; teacher (100 DDIM steps) "
+                + ", ".join(f"{k} {t[k]:.4f}" for k in EVAL_TOL) + f", {t['wallclock_sec']:.2f} s")
+        log(f"  distill user path: cli.extract_features --vae_weights -> cli.distill (1 round, "
+            f"100 -> {n_grid}, {DISTILL_ROUND_STEPS} bf16 steps of batch {B}) -> cli.test "
+            f"--latent_ckpt (sampler ddim on the student's grid, launches {expect} asserted); "
+            f"held batch distillation loss {user['held_start']:.6g} at the start, "
+            f"{user['held_end']:.6g} after the round; seconds "
+            f"{ {k: round(v, 2) for k, v in user['seconds'].items()} }")
+        if not user["held_end"] < user["held_start"]:
+            raise RuntimeError("the distillation loss of the held batch did not fall")
+    log(f"phase distill: {timer.totals['distill']:.2f} s; {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4632,7 +4650,7 @@ def _two_card_rank(rank, world, port):
     dryrun_main(["--device", "cuda"])
 
 
-def phase_parallel(seed, device, records, card):
+def phase_parallel(seed, device, records, card, timer):
     """Phase parallel: K1-K4 at the sequence-sharded shape (B96, 64 local
     rows, N 128, K 64) in both dtypes against their plain versions (records
     *_seq); the trainers with and without a process group (one rank, NCCL):
@@ -4640,61 +4658,62 @@ def phase_parallel(seed, device, records, card):
     whose launches the *_seq records carry (one rank: N = L there), and the
     dryrun twin; with two or more cards the dryrun twin on two NCCL ranks."""
     import torch
-    t0 = time.perf_counter()
-    dims = (B, SEQ_ROWS, K)
-    recs = check_kernels(device, seed, dims, n_nodes=L, f32_records=True)
-    bwd = check_bwd_kernels(device, seed, dims, n_nodes=L, f32_records=True)
-    recs.update({k: v for k, v in bwd.items() if "drop" not in k})
-    t_kern = time.perf_counter() - t0
+    with timer.phase("parallel"):
+        t0 = time.perf_counter()
+        dims = (B, SEQ_ROWS, K)
+        recs = check_kernels(device, seed, dims, n_nodes=L, f32_records=True)
+        bwd = check_bwd_kernels(device, seed, dims, n_nodes=L, f32_records=True)
+        recs.update({k: v for k, v in bwd.items() if "drop" not in k})
+        t_kern = time.perf_counter() - t0
 
-    plain = run_parallel_trainers(seed, device)
-    init_world_of_one(device)
-    try:
-        ddp = run_parallel_trainers(seed, device)
-        # within rtol 1e-3: the bf16 K3's dGn sums by f32 atomics, in an order
-        # that varies run to run, so steps after the first may move apart
-        if ddp.keys() != plain.keys() or not all(
-                len(ddp[k]) == len(plain[k]) and all(
-                    abs(u - v) <= 1e-3 * abs(v) for u, v in zip(ddp[k], plain[k]))
-                for k in plain):
-            raise RuntimeError(f"the trainers under a process group of one rank (NCCL) "
-                               f"disagree with the plain ones: {ddp} vs {plain}")
-        seq = seq_mode_checks(seed, device)
-        from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
-        dry = dryrun_multichip(device)
-        tp = tensor_step_check(seed, device)
-        rates = ddp_step_times(seed, device)
-    finally:
-        leave_world()
-    for key, rec in recs.items():
-        base = key.removesuffix("_f32")
-        src = seq["launches"]["step_bf16" if rec["dtype"] == "bfloat16" else "step_f32"]
-        rec["launches"] = src.get(base, 0)
-        records[f"{key}_seq"] = rec
-    log(f"  parallel: train_latent (3 bf16 steps at B{B} L{L}) and train_vqvae -dp (one "
-        f"epoch) in a process group of one rank (NCCL): losses "
-        f"{ {k: [round(v, 6) for v in vs] for k, vs in ddp.items()} }, the plain runs' "
-        f"{ {k: [round(v, 6) for v in vs] for k, vs in plain.items()} } (rtol 1e-3)")
-    log(f"  seq mode on one rank (CUDA): ring_knn equals the dense kNN; forward max|d| "
-        f"{seq['forward_err']:.3g} (max|out| {seq['forward_scale']:.4g}); f32 step loss "
-        f"{seq['loss']:.6g} vs dense {seq['dense_loss']:.6g}, max|dparam| "
-        f"{seq['param_err']:.3g}; launches {seq['launches']}")
-    log(f"  dryrun twin on one NCCL rank: {dry}")
-    log(f"  dp x tp (parallel/tensor.py, a model axis of 1) bf16 step at B{B} L{L} K{K}, "
-        f"dropout 0: loss {tp['loss']:.6g} vs the plain step's {tp['plain_loss']:.6g}, "
-        f"{tp['ms']:.2f} ms (the second step), launches {tp['launches']} (asserted), "
-        f"{tp['sharded']} sharded params, {tp['bytes']:,} bytes of them with moments and EMA")
-    log(f"  a bf16 training step at B{B} L{L} K{K} (dropout {P_DROP}), in turns: plain "
-        f"{rates['plain']:.2f} ms, with the one-rank NCCL mesh {rates['mesh']:.2f} ms "
-        f"(ratio {rates['mesh'] / rates['plain']:.4f}); {card}")
-    n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        torch.multiprocessing.spawn(_two_card_rank, args=(2, free_port()), nprocs=2)
-        log("  two cards: the dryrun twin on two NCCL ranks (the 2-rank DDP step against "
-            "one rank, the seq forward and train step against dense, Stage-1 DP) passed")
-    else:
-        log(f"  {n_cards} card: the 2-rank DDP step and the 2-rank seq forward were not run")
-    log(f"phase parallel: {time.perf_counter() - t0:.2f} s (kernels {t_kern:.2f} s); {card}")
+        plain = run_parallel_trainers(seed, device)
+        init_world_of_one(device)
+        try:
+            ddp = run_parallel_trainers(seed, device)
+            # within rtol 1e-3: the bf16 K3's dGn sums by f32 atomics, in an order
+            # that varies run to run, so steps after the first may move apart
+            if ddp.keys() != plain.keys() or not all(
+                    len(ddp[k]) == len(plain[k]) and all(
+                        abs(u - v) <= 1e-3 * abs(v) for u, v in zip(ddp[k], plain[k]))
+                    for k in plain):
+                raise RuntimeError(f"the trainers under a process group of one rank (NCCL) "
+                                   f"disagree with the plain ones: {ddp} vs {plain}")
+            seq = seq_mode_checks(seed, device)
+            from codlad_tpu_torch.parallel.dryrun import dryrun_multichip
+            dry = dryrun_multichip(device)
+            tp = tensor_step_check(seed, device)
+            rates = ddp_step_times(seed, device)
+        finally:
+            leave_world()
+        for key, rec in recs.items():
+            base = key.removesuffix("_f32")
+            src = seq["launches"]["step_bf16" if rec["dtype"] == "bfloat16" else "step_f32"]
+            rec["launches"] = src.get(base, 0)
+            records[f"{key}_seq"] = rec
+        log(f"  parallel: train_latent (3 bf16 steps at B{B} L{L}) and train_vqvae -dp (one "
+            f"epoch) in a process group of one rank (NCCL): losses "
+            f"{ {k: [round(v, 6) for v in vs] for k, vs in ddp.items()} }, the plain runs' "
+            f"{ {k: [round(v, 6) for v in vs] for k, vs in plain.items()} } (rtol 1e-3)")
+        log(f"  seq mode on one rank (CUDA): ring_knn equals the dense kNN; forward max|d| "
+            f"{seq['forward_err']:.3g} (max|out| {seq['forward_scale']:.4g}); f32 step loss "
+            f"{seq['loss']:.6g} vs dense {seq['dense_loss']:.6g}, max|dparam| "
+            f"{seq['param_err']:.3g}; launches {seq['launches']}")
+        log(f"  dryrun twin on one NCCL rank: {dry}")
+        log(f"  dp x tp (parallel/tensor.py, a model axis of 1) bf16 step at B{B} L{L} K{K}, "
+            f"dropout 0: loss {tp['loss']:.6g} vs the plain step's {tp['plain_loss']:.6g}, "
+            f"{tp['ms']:.2f} ms (the second step), launches {tp['launches']} (asserted), "
+            f"{tp['sharded']} sharded params, {tp['bytes']:,} bytes of them with moments and EMA")
+        log(f"  a bf16 training step at B{B} L{L} K{K} (dropout {P_DROP}), in turns: plain "
+            f"{rates['plain']:.2f} ms, with the one-rank NCCL mesh {rates['mesh']:.2f} ms "
+            f"(ratio {rates['mesh'] / rates['plain']:.4f}); {card}")
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            torch.multiprocessing.spawn(_two_card_rank, args=(2, free_port()), nprocs=2)
+            log("  two cards: the dryrun twin on two NCCL ranks (the 2-rank DDP step against "
+                "one rank, the seq forward and train step against dense, Stage-1 DP) passed")
+        else:
+            log(f"  {n_cards} card: the 2-rank DDP step and the 2-rank seq forward were not run")
+    log(f"phase parallel: {timer.totals['parallel']:.2f} s (kernels {t_kern:.2f} s); {card}")
 
 
 def tensor_step_check(seed, device="cuda", n_frames=B, n_res=L, **widths):
@@ -5005,46 +5024,47 @@ def mpnn_reference(seed, device="cuda", n_chains=4, n_res=L, **widths):
     return out
 
 
-def phase_import_and_mpnn(seed, device, card):
+def phase_import_and_mpnn(seed, device, card, timer):
     """Phases import and protein_mpnn (after `build.timed_build()`)."""
-    t0 = time.perf_counter()
-    imp = run_import(seed, device)
-    cli, cw = imp["cli"], imp["cli_weights"]
-    log(f"  import: cli.import_checkpoint of {N6_REFERENCE.name} {imp['import_s']:.2f} s; on "
-        f"the fixture frames (prot_0030 x 4) every code equal to --vae_weights', latents "
-        f"max|d| {imp['d_latents']:.3g}, xyz14 max|d| {imp['d_xyz']:.3g} Å; against the JAX "
-        f"outputs codes differ at {imp['codes_vs_jax'][0]} of {imp['codes_vs_jax'][2]} "
-        f"({imp['codes_vs_jax'][1]} not near-tied), per-frame rmsd_aligned max|d| "
-        f"{imp['d_rmsd_jax']:.3g} Å (tol 1e-3); launches an encoder forward "
-        f"{imp['enc_launches']}, a decode {imp['dec_launches']}")
-    log(f"  import: cli.test --experiment recon --vae_ckpt (imported logdir, 2 proteins x 3 "
-        f"frames) {imp['cli_s']:.2f} s, launches {imp['cli_launches']}; rmsd_aligned "
-        f"{cli['rmsd_aligned']:.6f} vs --vae_weights {cw['rmsd_aligned']:.6f}, ged "
-        f"{cli['ged']:.6f} vs {cw['ged']:.6f} (every metric rtol {IMPORT_TOL:g}); the K3 / K4 "
-        f"angle layout (--modelnum 999): detected, its decoder loaded, codes equal to N6's, "
-        f"rmsd_aligned {imp['angle_metrics']['rmsd_aligned']:.4f} (a random decoder)")
-    log(f"phase import: {time.perf_counter() - t0:.2f} s; {card}")
-    t0 = time.perf_counter()
-    mp = mpnn_reference(seed, device)
-    log(f"  protein_mpnn (hidden 128, 3 + 3 layers, K 64, 21 letters, 4 chains x {L}, f32) "
-        f"card vs CPU: log-probs max|d| {mp['forward']:.3g}, unconditional "
-        f"{mp['unconditional']:.3g}, conditional (4 positions against the teacher-forced "
-        f"forward) {mp['conditional_all']:.3g} / backbone-only "
-        f"{mp['conditional_backbone']:.3g} (tol {MPNN_TOL:g}); sample probs max|d| "
-        f"{mp['sample']}, tied_sample {mp['tied']} (None: a near-tie draw, logged above)")
-    log(f"  protein_mpnn on the card: a draw of 4 x {L} {mp['sample_s']:.3f} s, a tied draw "
-        f"{mp['tied_s']:.3f} s, conditional_probs {mp['conditional_s_False']:.3f} s / "
-        f"backbone-only {mp['conditional_s_True']:.3f} s; {card}")
-    log(f"phase protein_mpnn: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("import"):
+        imp = run_import(seed, device)
+        cli, cw = imp["cli"], imp["cli_weights"]
+        log(f"  import: cli.import_checkpoint of {N6_REFERENCE.name} {imp['import_s']:.2f} s; on "
+            f"the fixture frames (prot_0030 x 4) every code equal to --vae_weights', latents "
+            f"max|d| {imp['d_latents']:.3g}, xyz14 max|d| {imp['d_xyz']:.3g} Å; against the JAX "
+            f"outputs codes differ at {imp['codes_vs_jax'][0]} of {imp['codes_vs_jax'][2]} "
+            f"({imp['codes_vs_jax'][1]} not near-tied), per-frame rmsd_aligned max|d| "
+            f"{imp['d_rmsd_jax']:.3g} Å (tol 1e-3); launches an encoder forward "
+            f"{imp['enc_launches']}, a decode {imp['dec_launches']}")
+        log(f"  import: cli.test --experiment recon --vae_ckpt (imported logdir, 2 proteins x 3 "
+            f"frames) {imp['cli_s']:.2f} s, launches {imp['cli_launches']}; rmsd_aligned "
+            f"{cli['rmsd_aligned']:.6f} vs --vae_weights {cw['rmsd_aligned']:.6f}, ged "
+            f"{cli['ged']:.6f} vs {cw['ged']:.6f} (every metric rtol {IMPORT_TOL:g}); the K3 / K4 "
+            f"angle layout (--modelnum 999): detected, its decoder loaded, codes equal to N6's, "
+            f"rmsd_aligned {imp['angle_metrics']['rmsd_aligned']:.4f} (a random decoder)")
+    log(f"phase import: {timer.totals['import']:.2f} s; {card}")
+    with timer.phase("protein_mpnn"):
+        mp = mpnn_reference(seed, device)
+        log(f"  protein_mpnn (hidden 128, 3 + 3 layers, K 64, 21 letters, 4 chains x {L}, f32) "
+            f"card vs CPU: log-probs max|d| {mp['forward']:.3g}, unconditional "
+            f"{mp['unconditional']:.3g}, conditional (4 positions against the teacher-forced "
+            f"forward) {mp['conditional_all']:.3g} / backbone-only "
+            f"{mp['conditional_backbone']:.3g} (tol {MPNN_TOL:g}); sample probs max|d| "
+            f"{mp['sample']}, tied_sample {mp['tied']} (None: a near-tie draw, logged above)")
+        log(f"  protein_mpnn on the card: a draw of 4 x {L} {mp['sample_s']:.3f} s, a tied draw "
+            f"{mp['tied_s']:.3f} s, conditional_probs {mp['conditional_s_False']:.3f} s / "
+            f"backbone-only {mp['conditional_s_True']:.3f} s; {card}")
+    log(f"phase protein_mpnn: {timer.totals['protein_mpnn']:.2f} s")
 
 
 def f32_kernel_names(pipe, batch, device, seed):
     """The device kernels of one f32 denoise call of `pipe` (f32) traced by
-    torch.profiler, unfused and with fuse_pairs: (names unfused, names fused).
+    a `profiling.trace` window, unfused and with fuse_pairs: (names unfused,
+    names fused).
     Raises unless K1 and K2 ran as their f32 tensor-core kernels, K7 (fused)
     as its own, and no chain_kernel ran."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from codlad_tpu_torch.train import profiling
     extras = {"res_type": batch["res_type"], "cg_xyz": batch["cg_xyz_og"][:, 1:-1],
               "mask": batch["res_mask"]}
     shape = tuple(batch["res_type"].shape) + (pipe.latent_size,)
@@ -5057,17 +5077,15 @@ def f32_kernel_names(pipe, batch, device, seed):
         for fuse in (False, True):
             pipe._denoise_model.denoise(x, tt, cond, fuse_pairs=fuse)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiling.trace(None) as prof:
+                t0 = time.perf_counter()
                 pipe._denoise_model.denoise(x, tt, cond, fuse_pairs=fuse)
                 torch.cuda.synchronize()
-            names.append({e.name for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA})
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            names.append(set(read_trace(prof, wall_ms)["kernels"]))
     want = [("message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel"),
             ("message_sum_f32_mma_kernel", "edge_then_sum_f32_mma_kernel")]
     for got, need in zip(names, want):
-        if not got:
-            log("  f32 kernel names: the trace holds no device events (not checked)")
-            return names
         if not all(any(k in n for n in got) for k in need) or any("chain_kernel" in n
                                                                    for n in got):
             raise RuntimeError(f"the f32 denoiser did not run {need} (or ran chain_kernel): "
@@ -5129,8 +5147,8 @@ def phase_f32_chain(seed, device, records, batch):
     need = ("message_sum_f32_mma_kernel", "message_edge_lnmod_f32_mma_kernel",
             "message_sum_bwd_f32_mma_kernel", "message_edge_lnmod_bwd_f32_mma_kernel",
             "data_grads_f32_mma_kernel", "wgrad_f32_mma_kernel")
-    if ran and (not all(any(k in n for n in ran) for k in need)
-                or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
+    if (not all(any(k in n for n in ran) for k in need)
+            or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
         raise RuntimeError(f"the f32 training step did not run K1, K5's forward, K3 and K5's "
                            f"backward on their tensor-core kernels {need} (or ran "
                            f"chain_kernel or chain_bwd_kernel): {sorted(ran)}")
@@ -5153,8 +5171,8 @@ def phase_f32_chain(seed, device, records, batch):
                                                 P_DROP, "residual"), traced=1, names=ran)
     need_r = ("message_edge_f32_mma_kernel", "message_edge_bwd_f32_mma_kernel",
               "data_grads_f32_mma_kernel", "wgrad_f32_mma_kernel")
-    if ran and (not all(any(k in n for n in ran) for k in need_r)
-                or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
+    if (not all(any(k in n for n in ran) for k in need_r)
+            or any("chain_bwd_kernel" in n or "chain_kernel" in n for n in ran)):
         raise RuntimeError(f"the f32 residual training step did not run K6's forward and "
                            f"backward on {need_r} (or ran chain_kernel or chain_bwd_kernel): "
                            f"{sorted(ran)}")
@@ -5165,8 +5183,7 @@ def phase_f32_chain(seed, device, records, batch):
     return {"steps_per_s": steps / timed["seconds"], "seconds": timed["seconds"],
             "steps_per_s_k48": steps / out48["seconds"], "fused": fs,
             "train_ms": statistics.median(times), "train_times": times,
-            "loss": float(metrics["loss"]), "resid_ms": resid[1:],
-            "resid_traced": bool(ran)}
+            "loss": float(metrics["loss"]), "resid_ms": resid[1:]}
 
 
 def main(argv=None):
@@ -5178,75 +5195,96 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
-    from codlad_tpu_torch.kernels import build
+    from codlad_tpu_torch.train import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    timer = profiling.PhaseTimer()
+    with timer.phase("total"):
+        card, records = drive(args, timer)
+    log(f"total: {timer.totals['total']:.2f} s")
+
+    print(json.dumps({"phases": timer.report()}))
+    print(json.dumps({"kernels": list(records.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def drive(args, timer):
+    """Every phase after the card check, in order, each timed as a phase of
+    `timer` (a PhaseTimer); returns the card's nvidia-smi line and the
+    kernels' records."""
+    import torch
+    from codlad_tpu_torch.data.cg_batch import synthetic_cg_batch, to_device
+    from codlad_tpu_torch.kernels import build
+    from codlad_tpu_torch.train import profiling
+
     device = torch.device("cuda", 0)
     card = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
-    seconds, logs = build.timed_build()
+    with timer.phase("build"):
+        _, logs = build.timed_build()
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("entry function", "registers", "spill")) or (
                     "error" in line.lower()):
                 log(f"  {name}: {line.strip()}")
-    log(f"phase build: {seconds:.2f} s")
+    log(f"phase build: {timer.totals['build']:.2f} s")
 
-    t0 = time.perf_counter()
-    records = check_kernels(device, args.seed, f32_records=True)
-    records.update(check_bwd_kernels(device, args.seed, f32_records=True))
-    # K1's record at the L = 48 bucket beside the bench shape's (K2's bf16 is
-    # logged), and the f32 K1's and K2's
-    k48 = check_kernels(device, args.seed, K48, f32_records=True)
-    records["fused_message_sum_k48"] = k48["fused_message_sum"]
-    for name in ("fused_message_sum", "fused_message_edge_lnmod"):
-        records[f"{name}_f32_k48"] = k48[f"{name}_f32"]
-    check_bwd_kernels(device, args.seed, K48)
-    s1_batch = stage1_batch(args.seed, device)
-    records.update(check_stage1_kernels(s1_batch, args.seed))
-    records.update(check_stage1_bwd_kernels(s1_batch, args.seed))
-    log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("kernels"):
+        records = check_kernels(device, args.seed, f32_records=True)
+        records.update(check_bwd_kernels(device, args.seed, f32_records=True))
+        # K1's record at the L = 48 bucket beside the bench shape's (K2's bf16 is
+        # logged), and the f32 K1's and K2's
+        k48 = check_kernels(device, args.seed, K48, f32_records=True)
+        records["fused_message_sum_k48"] = k48["fused_message_sum"]
+        for name in ("fused_message_sum", "fused_message_edge_lnmod"):
+            records[f"{name}_f32_k48"] = k48[f"{name}_f32"]
+        check_bwd_kernels(device, args.seed, K48)
+        s1_batch = stage1_batch(args.seed, device)
+        records.update(check_stage1_kernels(s1_batch, args.seed))
+        records.update(check_stage1_bwd_kernels(s1_batch, args.seed))
+    log(f"phase kernels: {timer.totals['kernels']:.2f} s")
 
-    t0 = time.perf_counter()
-    records.update(check_k6_kernels(device, args.seed))
-    check_k6_kernels(device, args.seed, K48)     # logged; the records keep the bench shape
-    check_k6_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
-    log(f"phase kernels_k6: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    records.update(check_k7_kernels(device, args.seed))
-    records["fused_edge_then_sum_f32_k48"] = check_k7_kernels(device, args.seed,
-                                                              K48)["fused_edge_then_sum_f32"]
-    check_k7_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
-    log(f"phase kernels_k7: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("kernels_k6"):
+        records.update(check_k6_kernels(device, args.seed))
+        check_k6_kernels(device, args.seed, K48)     # logged; the records keep the bench shape
+        check_k6_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
+    log(f"phase kernels_k6: {timer.totals['kernels_k6']:.2f} s")
+    with timer.phase("kernels_k7"):
+        records.update(check_k7_kernels(device, args.seed))
+        records["fused_edge_then_sum_f32_k48"] = check_k7_kernels(device, args.seed,
+                                                                  K48)["fused_edge_then_sum_f32"]
+        check_k7_kernels(device, args.seed, (B, SEQ_ROWS, K), n_nodes=L, dtypes=(torch.float32,))
+    log(f"phase kernels_k7: {timer.totals['kernels_k7']:.2f} s")
 
-    t0 = time.perf_counter()
-    batch = to_device(synthetic_cg_batch(B, L, seed=args.seed), device)
-    pipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    log(f"phase setup: {time.perf_counter() - t0:.2f} s (batch {B}x{L}, weights)")
+    with timer.phase("setup"):
+        batch = to_device(synthetic_cg_batch(B, L, seed=args.seed), device)
+        pipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+    log(f"phase setup: {timer.totals['setup']:.2f} s (batch {B}x{L}, weights)")
 
-    t0 = time.perf_counter()
-    out = run_slice(pipe, batch, gen)
-    check_slice(out, B, L)
-    steps = pipe.process.num_timesteps
-    n_enc = len(pipe.denoiser.enc_layers)
-    expect = {"fused_message_sum": steps * (n_enc + len(pipe.denoiser.dec_layers)),
-              "fused_message_edge_lnmod": steps * n_enc, **decoder_launches()}
-    log(f"phase slice: {time.perf_counter() - t0:.2f} s; launches {out['launches']} "
+    with timer.phase("slice"):
+        out = run_slice(pipe, batch, gen)
+        check_slice(out, B, L)
+        steps = pipe.process.num_timesteps
+        n_enc = len(pipe.denoiser.enc_layers)
+        expect = {"fused_message_sum": steps * (n_enc + len(pipe.denoiser.dec_layers)),
+                  "fused_message_edge_lnmod": steps * n_enc, **decoder_launches()}
+    log(f"phase slice: {timer.totals['slice']:.2f} s; launches {out['launches']} "
         f"(expected {expect}); xyz14 {tuple(out['xyz14'].shape)} finite")
     check_launches(out["launches"], expect, "the sampling path")
     for name in ("fused_message_sum", "fused_message_edge_lnmod"):
         records[name]["launches"] = out["launches"][name]
 
-    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    ic, xyz = pipe.sample_and_decode(batch, generator=gen)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with timer.phase("timing", block_on=batch):
+        ic, xyz = pipe.sample_and_decode(batch, generator=gen)
+    dt = timer.totals["timing"]
     if not torch.isfinite(xyz).all():
         raise RuntimeError("timed run produced non-finite xyz14")
     diffusion_rate = steps / dt
@@ -5261,16 +5299,16 @@ def main(argv=None):
     log(f"  one draw at the L = 48 bucket ({b48}x{l48}, K {k48}): {out['seconds']:.3f} s "
         f"({steps / out['seconds']:.2f} steps/s); launches as expected; xyz14 finite")
 
-    t0 = time.perf_counter()
-    fs = fused_scans(pipe, batch, args.seed)
-    n_steps = fs["steps"]
-    expect_fused = {"fused_edge_then_sum": n_steps * n_enc,
-                    "fused_message_sum": n_steps * len(pipe.denoiser.dec_layers)}
-    check_launches(fs["launches"], expect_fused, "the pair-fused sampling scan")
-    records["fused_edge_then_sum"]["launches"] = fs["launches"]["fused_edge_then_sum"]
-    rate_f = n_steps / statistics.median(fs["fused_s"])
-    rate_u = n_steps / statistics.median(fs["unfused_s"])
-    log(f"phase fused_sampling: {time.perf_counter() - t0:.2f} s; {n_steps} bf16 steps at "
+    with timer.phase("fused_sampling"):
+        fs = fused_scans(pipe, batch, args.seed)
+        n_steps = fs["steps"]
+        expect_fused = {"fused_edge_then_sum": n_steps * n_enc,
+                        "fused_message_sum": n_steps * len(pipe.denoiser.dec_layers)}
+        check_launches(fs["launches"], expect_fused, "the pair-fused sampling scan")
+        records["fused_edge_then_sum"]["launches"] = fs["launches"]["fused_edge_then_sum"]
+        rate_f = n_steps / statistics.median(fs["fused_s"])
+        rate_u = n_steps / statistics.median(fs["unfused_s"])
+    log(f"phase fused_sampling: {timer.totals['fused_sampling']:.2f} s; {n_steps} bf16 steps at "
         f"B{B} L{L} K{K}, fuse_pairs=True {rate_f:.2f} steps/s, False {rate_u:.2f} steps/s "
         f"(median of {len(fs['fused_s'])} scans each, timed in turns: fused "
         f"{[round(x, 4) for x in fs['fused_s']]} s, unfused "
@@ -5288,13 +5326,10 @@ def main(argv=None):
     if not (fs["first_equal"] and fs["latents_equal"]):
         raise RuntimeError("the pair-fused scan is not bit for bit the unfused one")
 
-    t0 = time.perf_counter()
-    f32 = phase_f32_chain(args.seed, device, records, batch)
-    fs32 = f32["fused"]
-    k6_trace = ("traced as message_edge_f32_mma_kernel and its backward as "
-                "message_edge_bwd_f32_mma_kernel, no chain_kernel or chain_bwd_kernel"
-                if f32["resid_traced"] else "not traced (no device events)")
-    log(f"phase f32_chain: {time.perf_counter() - t0:.2f} s; f32 denoiser (K1, K2, K7 on the "
+    with timer.phase("f32_chain"):
+        f32 = phase_f32_chain(args.seed, device, records, batch)
+        fs32 = f32["fused"]
+    log(f"phase f32_chain: {timer.totals['f32_chain']:.2f} s; f32 denoiser (K1, K2, K7 on the "
         f"tensor cores, 3xTF32): a {steps}-step draw + decode at B{B} L{L} K{K} "
         f"{f32['seconds']:.3f} s ({f32['steps_per_s']:.2f} steps/s; launches 600 K1, 300 K2 "
         f"as expected); at B{K48[0]} L{K48[1]} K{K48[2]} {f32['steps_per_s_k48']:.2f} steps/s; "
@@ -5309,30 +5344,31 @@ def main(argv=None):
         f"forward traced as message_edge_lnmod_f32_mma_kernel, no chain_kernel or "
         f"chain_bwd_kernel); f32 residual training (gates open) "
         f"{[round(x, 2) for x in f32['resid_ms']]} ms/step after the first, K6's forward "
-        f"{k6_trace}")
+        f"traced as message_edge_f32_mma_kernel and its backward as "
+        f"message_edge_bwd_f32_mma_kernel, no chain_kernel or chain_bwd_kernel")
 
-    t0 = time.perf_counter()
-    reference_check(args.seed)
-    log(f"phase reference: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("reference"):
+        reference_check(args.seed)
+    log(f"phase reference: {timer.totals['reference']:.2f} s")
 
-    t0 = time.perf_counter()
-    rpipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
-                           adaln_mode="residual")
-    out = run_slice(rpipe, batch, gen)
-    check_slice(out, B, L)
-    expect_res = {"fused_message_sum": steps * (n_enc + len(rpipe.denoiser.dec_layers)),
-                  "fused_message_edge": steps * n_enc, **decoder_launches()}
-    check_launches(out["launches"], expect_res, "the residual sampling path")
-    records["fused_message_edge"]["launches"] = out["launches"]["fused_message_edge"]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    ic, xyz = rpipe.sample_and_decode(batch, generator=gen)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    if not torch.isfinite(xyz).all():
-        raise RuntimeError("the residual sampling run produced non-finite xyz14")
-    reference_check(args.seed, adaln_mode="residual")
-    log(f"phase residual_sampling: {time.perf_counter() - t0:.2f} s; adaLN residual, gates "
+    with timer.phase("residual_sampling"):
+        rpipe = build_pipeline(device, args.seed, compute_dtype=torch.bfloat16,
+                               adaln_mode="residual")
+        out = run_slice(rpipe, batch, gen)
+        check_slice(out, B, L)
+        expect_res = {"fused_message_sum": steps * (n_enc + len(rpipe.denoiser.dec_layers)),
+                      "fused_message_edge": steps * n_enc, **decoder_launches()}
+        check_launches(out["launches"], expect_res, "the residual sampling path")
+        records["fused_message_edge"]["launches"] = out["launches"]["fused_message_edge"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ic, xyz = rpipe.sample_and_decode(batch, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        if not torch.isfinite(xyz).all():
+            raise RuntimeError("the residual sampling run produced non-finite xyz14")
+        reference_check(args.seed, adaln_mode="residual")
+    log(f"phase residual_sampling: {timer.totals['residual_sampling']:.2f} s; adaLN residual, gates "
         f"open, bf16, B{B} L{L} K{K}: {dt:.3f} s for {steps} denoise steps + decode "
         f"({steps / dt:.2f} steps/s; first draw {out['seconds']:.3f} s); launches "
         f"{out['launches']} (expected {expect_res}); xyz14 finite")
@@ -5342,45 +5378,45 @@ def main(argv=None):
     # profiler session, as the phases of earlier versions of this script did
     # (run right after the timing phase, the session was followed by slower
     # host-bound draws)
-    t0 = time.perf_counter()
-    for (b, l, k), seed in (((B, L, K), args.seed), (K48, args.seed + 3)):
-        log(f"  sampling at B{b} L{l} K{k}:")
-        names = trace_sampling(pipe, to_device(synthetic_cg_batch(b, l, seed=seed), device),
-                               args.seed)
-        # bf16 K2 runs on the tensor cores: no CUDA-core chain kernel in a step
-        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
-                "chain_kernel" in n for n in names):
-            raise RuntimeError("the traced sampling steps did not run K2 on its tensor-core "
-                               f"kernel: {sorted(names)}")
-    log(f"phase trace_sampling: {time.perf_counter() - t0:.2f} s; 3 bf16 sampling steps at "
+    with timer.phase("trace_sampling"):
+        for (b, l, k), seed in (((B, L, K), args.seed), (K48, args.seed + 3)):
+            log(f"  sampling at B{b} L{l} K{k}:")
+            names = trace_sampling(pipe, to_device(synthetic_cg_batch(b, l, seed=seed), device),
+                                   args.seed)
+            # bf16 K2 runs on the tensor cores: no CUDA-core chain kernel in a step
+            if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                    "chain_kernel" in n for n in names):
+                raise RuntimeError("the traced sampling steps did not run K2 on its tensor-core "
+                                   f"kernel: {sorted(names)}")
+    log(f"phase trace_sampling: {timer.totals['trace_sampling']:.2f} s; 3 bf16 sampling steps at "
         f"B{B} L{L} K{K} and at B{K48[0]} L{K48[1]} K{K48[2]} traced; K2 ran as "
         f"message_edge_lnmod_mma_kernel, no chain_kernel")
     del pipe
 
-    t0 = time.perf_counter()
-    x1, extras = train_batch(B, L, args.seed + 1, device)
-    model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16)
-    per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP)
-    torch.cuda.reset_peak_memory_stats()
-    ran = set()
-    times, metrics, totals = run_train(state, step, x1, extras, args.seed, TRAIN_STEPS,
-                                       per_step, traced=TRACED_STEPS, names=ran)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # bf16 K5's forward, K3, K5's backward and every weight-grad pass run on
-    # the tensor cores
-    if not all(any(k in n for n in ran) for k in ("message_edge_lnmod_mma_kernel",
-                                                  "message_sum_bwd_mma_kernel",
-                                                  "message_edge_lnmod_bwd_mma_kernel",
-                                                  "wgrad_mma_kernel")) or any(
-            "wgrad_kernel<" in n or "chain_bwd_kernel" in n or "chain_kernel" in n
-            for n in ran):
-        raise RuntimeError("the traced training steps did not run K5's forward, K3, K5's "
-                           "backward and the weight grads on their tensor-core kernels: "
-                           f"{sorted(ran)}")
-    for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
-                 "fused_message_edge_lnmod_drop_bwd"):  # K1's count is the sampling path's
-        records[name]["launches"] = totals[name]
-    log(f"phase train: {time.perf_counter() - t0:.2f} s; {TRAIN_STEPS} steps B{B} L{L} K{K} "
+    with timer.phase("train"):
+        x1, extras = train_batch(B, L, args.seed + 1, device)
+        model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16)
+        per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP)
+        torch.cuda.reset_peak_memory_stats()
+        ran = set()
+        times, metrics, totals = run_train(state, step, x1, extras, args.seed, TRAIN_STEPS,
+                                           per_step, traced=TRACED_STEPS, names=ran)
+        peak = peak_gib()
+        # bf16 K5's forward, K3, K5's backward and every weight-grad pass run on
+        # the tensor cores
+        if not all(any(k in n for n in ran) for k in ("message_edge_lnmod_mma_kernel",
+                                                      "message_sum_bwd_mma_kernel",
+                                                      "message_edge_lnmod_bwd_mma_kernel",
+                                                      "wgrad_mma_kernel")) or any(
+                "wgrad_kernel<" in n or "chain_bwd_kernel" in n or "chain_kernel" in n
+                for n in ran):
+            raise RuntimeError("the traced training steps did not run K5's forward, K3, K5's "
+                               "backward and the weight grads on their tensor-core kernels: "
+                               f"{sorted(ran)}")
+        for name in ("fused_message_sum_bwd", "fused_message_edge_lnmod_drop",
+                     "fused_message_edge_lnmod_drop_bwd"):  # K1's count is the sampling path's
+            records[name]["launches"] = totals[name]
+    log(f"phase train: {timer.totals['train']:.2f} s; {TRAIN_STEPS} steps B{B} L{L} K{K} "
         f"H{H} bf16 dropout {P_DROP}: median of the {len(times)} untraced "
         f"{statistics.median(times):.2f} ms/step "
         f"(first {times[0]:.1f} ms), {1e3 / statistics.median(times):.2f} steps/s, peak "
@@ -5391,223 +5427,223 @@ def main(argv=None):
         f"{float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
     del model, state, step
 
-    t0 = time.perf_counter()
-    model, state, step = build_trainer(device, args.seed, dropout=0.0,
-                                       compute_dtype=torch.bfloat16)
-    per_step = train_launches(len(model.enc_layers), len(model.dec_layers), 0.0)
-    times, metrics, totals = run_train(state, step, x1, extras, args.seed, 2, per_step)
-    records["fused_message_edge_lnmod_bwd"]["launches"] = totals["fused_message_edge_lnmod_bwd"]
-    log(f"phase train_p0: {time.perf_counter() - t0:.2f} s; 2 steps at dropout 0: "
+    with timer.phase("train_p0"):
+        model, state, step = build_trainer(device, args.seed, dropout=0.0,
+                                           compute_dtype=torch.bfloat16)
+        per_step = train_launches(len(model.enc_layers), len(model.dec_layers), 0.0)
+        times, metrics, totals = run_train(state, step, x1, extras, args.seed, 2, per_step)
+        records["fused_message_edge_lnmod_bwd"]["launches"] = totals["fused_message_edge_lnmod_bwd"]
+    log(f"phase train_p0: {timer.totals['train_p0']:.2f} s; 2 steps at dropout 0: "
         f"{statistics.median(times):.2f} ms/step; launches a step {per_step}")
     del model, state, step, x1, extras
 
-    t0 = time.perf_counter()
-    rows = run_train_cli(args.seed, device)
-    log(f"phase train_entry: {time.perf_counter() - t0:.2f} s; train_latent.main "
+    with timer.phase("train_entry"):
+        rows = run_train_cli(args.seed, device)
+    log(f"phase train_entry: {timer.totals['train_entry']:.2f} s; train_latent.main "
         f"--bf16 --batch_size {B} --max_steps {len(rows)}: losses "
         f"{[round(r['loss'], 4) for r in rows]}, last {rows[-1]['steps_per_sec']:.2f} "
         f"steps/s; `last` restores")
 
-    t0 = time.perf_counter()
-    train_reference(args.seed, device)
-    log(f"phase train_reference: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("train_reference"):
+        train_reference(args.seed, device)
+    log(f"phase train_reference: {timer.totals['train_reference']:.2f} s")
 
-    t0 = time.perf_counter()
-    x1, extras = train_batch(B, L, args.seed + 1, device)
-    model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16,
-                                       gates=True, adaln_mode="residual")
-    per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP,
-                              "residual")
-    torch.cuda.reset_peak_memory_stats()
-    ran = set()
-    times, metrics, totals = run_train(state, step, x1, extras, args.seed, RESID_TRAIN_STEPS,
-                                       per_step, traced=1, names=ran)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # bf16 K6 and its backward run on the tensor cores: no CUDA-core chain
-    # kernel in the step
-    if not all(any(k in n for n in ran) for k in ("message_edge_mma_kernel",
-                                                  "message_edge_bwd_mma_kernel")) or any(
-            "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
-        raise RuntimeError("the traced residual training step did not run K6 and its "
-                           f"backward on their tensor-core kernels: {sorted(ran)}")
-    records["fused_message_edge_bwd"]["launches"] = totals["fused_message_edge_bwd"]
-    log(f"  residual train: {RESID_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
-        f"{P_DROP}, gates open: median of the {len(times)} untraced "
-        f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
-        f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
-        f"a step {per_step} (asserted); K6 ran as message_edge_mma_kernel, its backward as "
-        f"message_edge_bwd_mma_kernel, no chain_kernel or chain_bwd_kernel; "
-        f"last loss {float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
-    del model, state, step, x1, extras
-    train_reference(args.seed, device, dropout=0.0, adaln_mode="residual")
-    rows = run_train_cli(args.seed, device, steps=3, adaln_mode="residual")
-    log(f"  train_latent.main --adaln_mode residual --bf16 --batch_size {B} --max_steps "
-        f"{len(rows)}: losses {[round(r['loss'], 4) for r in rows]}; `last` restores")
-    log(f"phase residual_train: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("residual_train"):
+        x1, extras = train_batch(B, L, args.seed + 1, device)
+        model, state, step = build_trainer(device, args.seed, compute_dtype=torch.bfloat16,
+                                           gates=True, adaln_mode="residual")
+        per_step = train_launches(len(model.enc_layers), len(model.dec_layers), P_DROP,
+                                  "residual")
+        torch.cuda.reset_peak_memory_stats()
+        ran = set()
+        times, metrics, totals = run_train(state, step, x1, extras, args.seed, RESID_TRAIN_STEPS,
+                                           per_step, traced=1, names=ran)
+        peak = peak_gib()
+        # bf16 K6 and its backward run on the tensor cores: no CUDA-core chain
+        # kernel in the step
+        if not all(any(k in n for n in ran) for k in ("message_edge_mma_kernel",
+                                                      "message_edge_bwd_mma_kernel")) or any(
+                "chain_kernel" in n or "chain_bwd_kernel" in n for n in ran):
+            raise RuntimeError("the traced residual training step did not run K6 and its "
+                               f"backward on their tensor-core kernels: {sorted(ran)}")
+        records["fused_message_edge_bwd"]["launches"] = totals["fused_message_edge_bwd"]
+        log(f"  residual train: {RESID_TRAIN_STEPS} steps B{B} L{L} K{K} H{H} bf16 dropout "
+            f"{P_DROP}, gates open: median of the {len(times)} untraced "
+            f"{statistics.median(times):.2f} ms/step (first {times[0]:.1f} ms), "
+            f"{1e3 / statistics.median(times):.2f} steps/s, peak memory {peak:.2f} GiB; launches "
+            f"a step {per_step} (asserted); K6 ran as message_edge_mma_kernel, its backward as "
+            f"message_edge_bwd_mma_kernel, no chain_kernel or chain_bwd_kernel; "
+            f"last loss {float(metrics['loss']):.5g}, grad_norm {float(metrics['grad_norm']):.5g}")
+        del model, state, step, x1, extras
+        train_reference(args.seed, device, dropout=0.0, adaln_mode="residual")
+        rows = run_train_cli(args.seed, device, steps=3, adaln_mode="residual")
+        log(f"  train_latent.main --adaln_mode residual --bf16 --batch_size {B} --max_steps "
+            f"{len(rows)}: losses {[round(r['loss'], 4) for r in rows]}; `last` restores")
+    log(f"phase residual_train: {timer.totals['residual_train']:.2f} s")
 
-    phase_train_stage2_full(args.seed, device, records, card)
+    phase_train_stage2_full(args.seed, device, records, card, timer)
 
-    t0 = time.perf_counter()
-    pipe = build_recon(device, args.seed)
-    run_recon(pipe, s1_batch)                   # first use: tables to the card
-    torch.cuda.reset_peak_memory_stats()
-    out = run_recon(pipe, s1_batch)
-    check_recon(out, s1_batch)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name in ("edge_gather", "edge_aggregate", "fused_tp"):
-        records[name]["launches"] = out["enc_launches"][name] + out["dec_launches"][name]
-    nb, nl = s1_batch["res_type"].shape
-    sec = out["seconds"]
-    log(f"phase recon: {time.perf_counter() - t0:.2f} s; batch {nb}x{nl} f32: "
-        f"{sec * 1e3:.2f} ms a batch: encoder {out['encoder_seconds'] * 1e3:.2f} ms "
-        f"({out['encoder_seconds'] / sec:.3f}), snap + decode + xyz14 "
-        f"{out['decode_seconds'] * 1e3:.2f} ms ({out['decode_seconds'] / sec:.3f}), metrics "
-        f"{(sec - out['encoder_seconds'] - out['decode_seconds']) * 1e3:.2f} ms; peak memory "
-        f"{peak:.2f} GiB; "
-        f"launches per encoder forward {out['enc_launches']}, per decode "
-        f"{out['dec_launches']}; metrics (random weights) "
-        f"{ {k: round(v, 4) for k, v in out['metrics'].items()} }")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced = run_recon(pipe, s1_batch)
-    ran = trace_summary(prof, traced["seconds"] * 1e3, 1, mine=STAGE1_KERNELS,
-                        label="K8/K9/K10", unit="batch")
-    check_f32_tp_ran(ran, "the traced f32 recon batch", bwd=False)
-    recon_reference(args.seed, device)
-    pipe = build_recon(device, args.seed, compute_dtype=torch.bfloat16)
-    pipe.encode_latents(s1_batch)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        h = pipe.encode_latents(s1_batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-    if not torch.isfinite(h).all():
-        raise RuntimeError("the bf16 encoder gave non-finite latents")
-    log(f"  bf16 encoder forward at {nb}x{nl}: median {statistics.median(times):.2f} ms of 3 "
-        f"(f32 {out['encoder_seconds'] * 1e3:.2f} ms)")
-    log(f"phase recon total: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("recon total"):
+        with timer.phase("recon"):
+            pipe = build_recon(device, args.seed)
+            run_recon(pipe, s1_batch)                   # first use: tables to the card
+            torch.cuda.reset_peak_memory_stats()
+            out = run_recon(pipe, s1_batch)
+            check_recon(out, s1_batch)
+            peak = peak_gib()
+            for name in ("edge_gather", "edge_aggregate", "fused_tp"):
+                records[name]["launches"] = out["enc_launches"][name] + out["dec_launches"][name]
+            nb, nl = s1_batch["res_type"].shape
+            sec = out["seconds"]
+        log(f"phase recon: {timer.totals['recon']:.2f} s; batch {nb}x{nl} f32: "
+            f"{sec * 1e3:.2f} ms a batch: encoder {out['encoder_seconds'] * 1e3:.2f} ms "
+            f"({out['encoder_seconds'] / sec:.3f}), snap + decode + xyz14 "
+            f"{out['decode_seconds'] * 1e3:.2f} ms ({out['decode_seconds'] / sec:.3f}), metrics "
+            f"{(sec - out['encoder_seconds'] - out['decode_seconds']) * 1e3:.2f} ms; peak memory "
+            f"{peak:.2f} GiB; "
+            f"launches per encoder forward {out['enc_launches']}, per decode "
+            f"{out['dec_launches']}; metrics (random weights) "
+            f"{ {k: round(v, 4) for k, v in out['metrics'].items()} }")
+        with profiling.trace(None) as prof:
+            traced = run_recon(pipe, s1_batch)
+        ran = trace_summary(prof, traced["seconds"] * 1e3, 1, mine=STAGE1_KERNELS,
+                            label="K8/K9/K10", unit="batch")
+        check_f32_tp_ran(ran, "the traced f32 recon batch", bwd=False)
+        recon_reference(args.seed, device)
+        pipe = build_recon(device, args.seed, compute_dtype=torch.bfloat16)
+        pipe.encode_latents(s1_batch)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            h = pipe.encode_latents(s1_batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        if not torch.isfinite(h).all():
+            raise RuntimeError("the bf16 encoder gave non-finite latents")
+        log(f"  bf16 encoder forward at {nb}x{nl}: median {statistics.median(times):.2f} ms of 3 "
+            f"(f32 {out['encoder_seconds'] * 1e3:.2f} ms)")
+    log(f"phase recon total: {timer.totals['recon total']:.2f} s")
     del pipe, out, s1_batch
 
-    t0 = time.perf_counter()
-    recon_trained(device)
-    log(f"phase recon_trained: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("recon_trained"):
+        recon_trained(device)
+    log(f"phase recon_trained: {timer.totals['recon_trained']:.2f} s")
 
-    t0 = time.perf_counter()
-    glob = run_recon_cli(args.seed, device)
-    log(f"phase recon_entry: {time.perf_counter() - t0:.2f} s; cli.test --experiment recon "
+    with timer.phase("recon_entry"):
+        glob = run_recon_cli(args.seed, device)
+    log(f"phase recon_entry: {timer.totals['recon_entry']:.2f} s; cli.test --experiment recon "
         f"on 2 shards: global rmsd_aligned {glob['rmsd_aligned']:.4f}, ged {glob['ged']:.4f}, "
         f"clash {glob['clash']:.4f}; summary_stats.json written")
 
-    t0 = time.perf_counter()
-    latent_trained(device)
-    log(f"phase latent_trained: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("latent_trained"):
+        latent_trained(device)
+    log(f"phase latent_trained: {timer.totals['latent_trained']:.2f} s")
 
-    t0 = time.perf_counter()
-    lat_steps, lat_members = 100, 10
-    # the val proteins' shards, which the distill phase reads too
-    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_")
-    atexit.register(shutil.rmtree, shard_dir, True)
-    cli = run_latent_cli(device, steps=lat_steps, ensemble=lat_members, shard_dir=shard_dir)
-    log(f"phase latent_entry: cli.test --experiment latent, then prior (trained weights, "
-        f"bf16, {lat_steps} ancestral steps, {lat_members} members, the first 96 frames of "
-        f"prot_0030 and prot_0031; shards written in {cli['shard_seconds']:.2f} s); {card}:")
-    for p, ref in JAX_EVAL.items():
-        lat, pri = cli["latent"][p], cli["prior"][p]
-        log(f"  {p} latent: " + ", ".join(f"{k} {lat[k]:.4f} (JAX {ref['latent'][k]:.4f})"
-                                          for k in EVAL_TOL)
-            + f"; member std of rmsd_aligned "
-            f"{statistics.pstdev([m['rmsd_aligned'] for m in lat['per_ensemble']]):.4f}; "
-            f"{lat['wallclock_sec']:.2f} s a protein; prior: rmsd_aligned "
-            f"{pri['rmsd_aligned']:.4f} (JAX {ref['prior']['rmsd_aligned']:.4f}), ged "
-            f"{pri['ged']:.4f}, clash {pri['clash']:.4f}, div {pri['div']:.4f}; "
-            f"{pri['wallclock_sec']:.2f} s a protein")
-    failures = check_latent_cli(cli, lat_steps, lat_members)
-    launches = {k: v for k, v in cli["launches"].items() if v}
-    for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
-                 "edge_aggregate"):
-        records[name]["latent_cli_launches"] = cli["launches"][name]
-    log(f"  launches over the latent run {launches} (asserted: per draw "
-        f"{chain_launches(lat_steps)} and a decode's {decoder_launches()})")
-    pipe = trained_pipeline(device, torch.bfloat16)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    for p, shard in cli["shards"].items():
-        b = {k: torch.as_tensor(v, device=device) for k, v in shard.items()}
-        nb, nl = b["res_type"].shape
-        draws = [run_slice(pipe, b, gen) for _ in range(3)]
-        for d in draws:
-            check_launches(d["launches"], {**chain_launches(lat_steps), **decoder_launches()},
-                           f"the trained draw at L {nl}")
-        sec = [d["seconds"] for d in draws]
-        log(f"  trained bf16 draw + decode, {p} ({nb} x {nl}, K {min(64, nl)}): "
-            f"{[round(x, 4) for x in sec]} s, warm median {statistics.median(sec[1:]):.4f} s "
-            f"({lat_steps / statistics.median(sec[1:]):.2f} steps/s)")
-        calls = check_trained_calls(pipe, b, gen)
-        log(f"  kernel calls of a trained draw on {p} (first and last step, decode) against "
-            f"their plain versions on the same inputs: "
-            + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
-                        f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
-        want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6,
-                "edge_gather": decoder_launches()["edge_gather"],
-                "edge_aggregate": decoder_launches()["edge_aggregate"]}
-        if {k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values()):
-            failures.append(f"the trained draw's kernel calls on {p} disagree with their "
-                            f"plain versions or were not all seen (expected {want}): {calls}")
-        names = trace_sampling(pipe, b, args.seed)
-        if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
-                "chain_kernel" in n for n in names):
-            failures.append(f"the traced trained draw at L {nl} did not run K2 on its "
-                            f"tensor-core kernel: {sorted(names)}")
-    del pipe, cli
-    if failures:
-        raise RuntimeError("the latent CLI: " + "; ".join(failures))
-    log(f"phase latent_entry: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("latent_entry"):
+        lat_steps, lat_members = 100, 10
+        # the val proteins' shards, which the distill phase reads too
+        shard_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+        atexit.register(shutil.rmtree, shard_dir, True)
+        cli = run_latent_cli(device, steps=lat_steps, ensemble=lat_members, shard_dir=shard_dir)
+        log(f"phase latent_entry: cli.test --experiment latent, then prior (trained weights, "
+            f"bf16, {lat_steps} ancestral steps, {lat_members} members, the first 96 frames of "
+            f"prot_0030 and prot_0031; shards written in {cli['shard_seconds']:.2f} s); {card}:")
+        for p, ref in JAX_EVAL.items():
+            lat, pri = cli["latent"][p], cli["prior"][p]
+            log(f"  {p} latent: " + ", ".join(f"{k} {lat[k]:.4f} (JAX {ref['latent'][k]:.4f})"
+                                              for k in EVAL_TOL)
+                + f"; member std of rmsd_aligned "
+                f"{statistics.pstdev([m['rmsd_aligned'] for m in lat['per_ensemble']]):.4f}; "
+                f"{lat['wallclock_sec']:.2f} s a protein; prior: rmsd_aligned "
+                f"{pri['rmsd_aligned']:.4f} (JAX {ref['prior']['rmsd_aligned']:.4f}), ged "
+                f"{pri['ged']:.4f}, clash {pri['clash']:.4f}, div {pri['div']:.4f}; "
+                f"{pri['wallclock_sec']:.2f} s a protein")
+        failures = check_latent_cli(cli, lat_steps, lat_members)
+        launches = {k: v for k, v in cli["launches"].items() if v}
+        for name in ("fused_message_sum", "fused_message_edge_lnmod", "edge_gather",
+                     "edge_aggregate"):
+            records[name]["latent_cli_launches"] = cli["launches"][name]
+        log(f"  launches over the latent run {launches} (asserted: per draw "
+            f"{chain_launches(lat_steps)} and a decode's {decoder_launches()})")
+        pipe = trained_pipeline(device, torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        for p, shard in cli["shards"].items():
+            b = {k: torch.as_tensor(v, device=device) for k, v in shard.items()}
+            nb, nl = b["res_type"].shape
+            draws = [run_slice(pipe, b, gen) for _ in range(3)]
+            for d in draws:
+                check_launches(d["launches"], {**chain_launches(lat_steps), **decoder_launches()},
+                               f"the trained draw at L {nl}")
+            sec = [d["seconds"] for d in draws]
+            log(f"  trained bf16 draw + decode, {p} ({nb} x {nl}, K {min(64, nl)}): "
+                f"{[round(x, 4) for x in sec]} s, warm median {statistics.median(sec[1:]):.4f} s "
+                f"({lat_steps / statistics.median(sec[1:]):.2f} steps/s)")
+            calls = check_trained_calls(pipe, b, gen)
+            log(f"  kernel calls of a trained draw on {p} (first and last step, decode) against "
+                f"their plain versions on the same inputs: "
+                + "; ".join(f"{k} {n} calls at {shape}, max|d| {err:.3g} (max|ref| {ref:.4g}), "
+                            f"{bad} failed" for k, (n, err, bad, shape, ref) in calls.items()))
+            want = {"fused_message_sum": 12, "fused_message_edge_lnmod": 6,
+                    "edge_gather": decoder_launches()["edge_gather"],
+                    "edge_aggregate": decoder_launches()["edge_aggregate"]}
+            if {k: v[0] for k, v in calls.items()} != want or any(v[2] for v in calls.values()):
+                failures.append(f"the trained draw's kernel calls on {p} disagree with their "
+                                f"plain versions or were not all seen (expected {want}): {calls}")
+            names = trace_sampling(pipe, b, args.seed)
+            if not any("message_edge_lnmod_mma_kernel" in n for n in names) or any(
+                    "chain_kernel" in n for n in names):
+                failures.append(f"the traced trained draw at L {nl} did not run K2 on its "
+                                f"tensor-core kernel: {sorted(names)}")
+        del pipe, cli
+        if failures:
+            raise RuntimeError("the latent CLI: " + "; ".join(failures))
+    log(f"phase latent_entry: {timer.totals['latent_entry']:.2f} s")
 
-    phase_guided_sampling(args.seed, device, records, card)
+    phase_guided_sampling(args.seed, device, records, card, timer)
 
-    t0 = time.perf_counter()
-    s1_batch = stage1_batch(args.seed, device)
-    per_step = stage1_train_launches()
-    for dtype, n_steps, traced in ((torch.bfloat16, STAGE1_TRAIN_STEPS, 1),
-                                   (torch.float32, 4, 1)):
-        dname = str(dtype).split(".")[-1]
-        _, state, step = build_stage1_trainer(device, args.seed, compute_dtype=dtype)
-        torch.cuda.reset_peak_memory_stats()
-        ran = set()
-        times, metrics, syncs = run_stage1_train(state, step, s1_batch, n_steps, per_step,
-                                                 traced=traced, names=ran)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if dtype == torch.bfloat16:
-            for key, name in (("fused_tp_bwd", "fused_tp_bwd"), ("fused_tp_bf16", "fused_tp"),
-                              ("edge_gather_bf16", "edge_gather"),
-                              ("edge_aggregate_bf16", "edge_aggregate")):
-                records[key]["launches"] = per_step[name] * n_steps
-        else:
-            # the default (f32) trainer's K10 and K11 on the staged-table kernels
-            check_f32_tp_ran(ran, "the traced f32 Stage-1 step", bwd=True)
-            records["fused_tp_bwd_f32"]["launches"] = per_step["fused_tp_bwd"] * n_steps
-        nb, nl = s1_batch["res_type"].shape
-        log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
-            f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "
-            f"{len(times)} untraced {statistics.median(times[1:] or times):.2f} ms/step (first "
-            f"{times[0]:.1f} ms), host read of the loss {statistics.median(syncs):.2f} ms a "
-            f"step (median), peak memory {peak:.2f} GiB; launches a step {per_step} "
-            f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
-            f"{float(metrics['recon']):.5g}, vq {float(metrics['vq']):.4g}, perplexity "
-            f"{float(metrics['vq_perplexity']):.4g}; skipped 0 at every step")
-        del state, step
-    log(f"phase train_stage1: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("train_stage1"):
+        s1_batch = stage1_batch(args.seed, device)
+        per_step = stage1_train_launches()
+        for dtype, n_steps, traced in ((torch.bfloat16, STAGE1_TRAIN_STEPS, 1),
+                                       (torch.float32, 4, 1)):
+            dname = str(dtype).split(".")[-1]
+            _, state, step = build_stage1_trainer(device, args.seed, compute_dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            ran = set()
+            times, metrics, syncs = run_stage1_train(state, step, s1_batch, n_steps, per_step,
+                                                     traced=traced, names=ran)
+            peak = peak_gib()
+            if dtype == torch.bfloat16:
+                for key, name in (("fused_tp_bwd", "fused_tp_bwd"), ("fused_tp_bf16", "fused_tp"),
+                                  ("edge_gather_bf16", "edge_gather"),
+                                  ("edge_aggregate_bf16", "edge_aggregate")):
+                    records[key]["launches"] = per_step[name] * n_steps
+            else:
+                # the default (f32) trainer's K10 and K11 on the staged-table kernels
+                check_f32_tp_ran(ran, "the traced f32 Stage-1 step", bwd=True)
+                records["fused_tp_bwd_f32"]["launches"] = per_step["fused_tp_bwd"] * n_steps
+            nb, nl = s1_batch["res_type"].shape
+            log(f"  train_stage1 {dname}: {n_steps} steps of make_vqvae_step at {nb}x{nl} (3 + 4 "
+                f"layers, 512 codes, LossWeights(zeta=5, omega=3).dynamic(2)): median of the "
+                f"{len(times)} untraced {statistics.median(times[1:] or times):.2f} ms/step (first "
+                f"{times[0]:.1f} ms), host read of the loss {statistics.median(syncs):.2f} ms a "
+                f"step (median), peak memory {peak:.2f} GiB; launches a step {per_step} "
+                f"(asserted); last loss {float(metrics['loss']):.5g}, recon "
+                f"{float(metrics['recon']):.5g}, vq {float(metrics['vq']):.4g}, perplexity "
+                f"{float(metrics['vq_perplexity']):.4g}; skipped 0 at every step")
+            del state, step
+    log(f"phase train_stage1: {timer.totals['train_stage1']:.2f} s")
     del s1_batch
 
-    t0 = time.perf_counter()
-    stage1_train_reference(args.seed, device)
-    log(f"phase train_stage1_reference: {time.perf_counter() - t0:.2f} s")
+    with timer.phase("train_stage1_reference"):
+        stage1_train_reference(args.seed, device)
+    log(f"phase train_stage1_reference: {timer.totals['train_stage1_reference']:.2f} s")
 
-    t0 = time.perf_counter()
-    chain = run_stage1_cli(args.seed, device)
-    tv = chain["train_vqvae"]
-    log(f"phase train_stage1_entry: {time.perf_counter() - t0:.2f} s; train_vqvae -bf16 "
+    with timer.phase("train_stage1_entry"):
+        chain = run_stage1_cli(args.seed, device)
+        tv = chain["train_vqvae"]
+    log(f"phase train_stage1_entry: {timer.totals['train_stage1_entry']:.2f} s; train_vqvae -bf16 "
         f"epochs {tv['epochs']} (the third after -resume) train loss "
         f"{[round(v, 4) for v in tv['train_loss']]}, {tv['steps']} steps, "
         f"{tv['seconds'][0]:.2f} s + {tv['seconds'][1]:.2f} s; extract_features "
@@ -5616,19 +5652,12 @@ def main(argv=None):
         f"--vae_ckpt rmsd_aligned {chain['test_recon']['rmsd_aligned']:.4f}, ged "
         f"{chain['test_recon']['ged']:.4f}")
 
-    phase_stage1_variants(args.seed, device, records, card)
-    phase_flows(args.seed, device, records, card, diffusion_rate)
-    phase_distill(args.seed, device, records, card, shard_dir)
-    phase_parallel(args.seed, device, records, card)
-    phase_import_and_mpnn(args.seed, device, card)
-    log(f"total: {time.perf_counter() - t_start:.2f} s")
-
-    print(json.dumps({"kernels": list(records.values())}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    phase_stage1_variants(args.seed, device, records, card, timer)
+    phase_flows(args.seed, device, records, card, timer, diffusion_rate)
+    phase_distill(args.seed, device, records, card, timer, shard_dir)
+    phase_parallel(args.seed, device, records, card, timer)
+    phase_import_and_mpnn(args.seed, device, card, timer)
+    return card, records
 
 
 if __name__ == "__main__":

@@ -20,13 +20,13 @@ turns, one process each). Prints one JSON line:
   (`message_sum_bwd`), K4 (`message_edge_lnmod_bwd`), K5's backward with
   seeds and with a keep tensor, and K6's backward (`message_edge_bwd`), and
   K5's forward with seeds and with a keep tensor, each by graph replay, and one
-  call of each under torch.profiler split into the device ms of every CUDA
+  call of each traced (`profiling.trace`) split into the device ms of every CUDA
   kernel it launched (main pass, weight-grad pass, `sum_partials`);
 * the f32 Stage-2 training step (`chip_smoke.build_trainer`) at B96 L128,
   dropout 0.6 and dropout 0, and the adaLN residual denoiser's (gates open,
   dropout 0.6): the median ms of `--steps` steps after one untimed step,
-  then one more step at dropout 0.6 (trunk and residual) under
-  torch.profiler (the device ms of each CUDA kernel in it);
+  then one more step at dropout 0.6 (trunk and residual) traced (the
+  device ms of each CUDA kernel in it);
 * the f32 K10 (section tp, `fused_tp`) and K11 (`fused_tp_bwd`) at the
   Stage-1 bench batch (4 frames of 132 residues, L 192: 65536 directed
   atom edges a frame) at the encoder's three layer signatures, on the atom
@@ -37,10 +37,10 @@ turns, one process each). Prints one JSON line:
   dw against its float64 autograd), and a sha256 of the outputs' bytes (to
   compare two checkouts' bits); then the f32 Stage-1 training step
   (`chip_smoke.build_stage1_trainer`, the default trainer): the median ms
-  of `--steps` steps after one untimed step and one more step under
-  torch.profiler; and the f32 recon batch (`chip_smoke.build_recon`, the
+  of `--steps` steps after one untimed step and one more step traced; and
+  the f32 recon batch (`chip_smoke.build_recon`, the
   same batch): the median ms of `--steps` batches after one untimed one
-  and one more under torch.profiler;
+  and one more traced;
 * the card's name and power limit.
 
 `--sections` picks the parts to run (fwd: the K1 / K2 / K6 / K7 lines).
@@ -158,21 +158,20 @@ def main(argv=None):
 
 
 def _traced(fn, reps=1):
-    """{CUDA kernel name: device ms a call} of `reps` calls of fn under
-    torch.profiler (after one untraced call)."""
+    """{CUDA kernel name: device ms a call} of `reps` calls of fn in a
+    `profiling.trace` window (after one untraced call), largest first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import read_trace
+    from codlad_tpu_torch.train import profiling
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(None) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {name: ms / reps for name, (ms, _) in read_trace(prof, wall_ms)["kernels"].items()}
 
 
 def _backwards(cs, MK, dims, n, seed, dev):

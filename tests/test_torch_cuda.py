@@ -25,7 +25,10 @@ against K2's kernel then K1's, bit for bit, both dtypes; a guided self-condition
 remat training step against the plain one; CGPrior's kernel calls (K8-K11
 over the CG graph) against the CPU, and the FSQ and Gumbel quantizers on
 CUDA tensors against the CPU; an f32 flow draw by each solver against the
-CPU, with its K1/K2 launches per denoiser evaluation.
+CPU, with its K1/K2 launches per denoiser evaluation; and
+train/profiling.py on the card: a phase with `block_on` waits for the
+device, `device_memory_stats` reads the card, and a `trace` around one f32
+K1 call names its kernel in `device_summary`.
 
 Marked `cuda`: they skip where there is no CUDA device. This file imports
 no JAX, so on the machine with the card it runs without the suite's
@@ -766,9 +769,9 @@ def test_fused_tp_matches_plain(dev, dtype, layer):
 @pytest.mark.parametrize("sig", [(0, 1), (1, 2), (2, 3), (3, 3)],
                          ids=["layer0", "layer1", "layer2", "layer3-3"])
 def test_fused_tp_f32_staged_tables(dev, sig):
-    """The f32 K10 (tables staged in shared memory; two rows a lane at
-    layer 0, one elsewhere, and one w buffer at the 3 -> 3 signature of a
-    fourth encoder layer) on edge rows (4100, 77 and 1: none a multiple of
+    """The f32 K10 (tables staged in shared memory, one w buffer; two rows a
+    lane at layers 0, 1 and 2, one at the 3 -> 3 signature of a fourth
+    encoder layer) on edge rows (4100, 77 and 1: none a multiple of
     a tile) and on the cross graph's [B, L, 14, *] rows: within atol 2e-4 +
     rtol 2e-4 of the plain version run in float64, two launches bit for bit
     equal, and the same bits on operands that start off the 16-byte grid."""
@@ -1228,3 +1231,64 @@ def test_flow_draw_launches_and_matches_the_cpu(dev, method, steps, evals):
     got, want = out[str(dev)], out["cpu"]
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_phase_timer_block_on_waits_for_the_device(dev):
+    """A PhaseTimer phase with `block_on=t` around a sleep kernel followed
+    by a write of t measures at least 0.9 of the sleep's event-timed ms;
+    the same phase without `block_on` ends when the work is queued and
+    measures less."""
+    from codlad_tpu_torch.train.profiling import PhaseTimer
+    t = torch.zeros(1024, device=dev)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    timer = PhaseTimer()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with timer.phase("blocked", block_on={"out": [t]}):
+        ev[0].record()
+        torch.cuda._sleep(100_000_000)
+        t.add_(1)
+        ev[1].record()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    with timer.phase("queued"):
+        torch.cuda._sleep(100_000_000)
+        t.add_(1)
+    torch.cuda.synchronize()
+    assert sleep_ms > 10, sleep_ms
+    assert timer.totals["blocked"] * 1e3 >= 0.9 * sleep_ms, (timer.totals, sleep_ms)
+    assert timer.totals["queued"] * 1e3 < sleep_ms, (timer.totals, sleep_ms)
+    assert float(t[0]) == 2.0
+
+
+def test_device_memory_stats_reads_the_card(dev):
+    """`device_memory_stats` has "cuda:0" with its peak at least the bytes
+    in use (which hold a live 64 MiB tensor) and the card's total memory as
+    its limit."""
+    from codlad_tpu_torch.train.profiling import device_memory_stats
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    stats = device_memory_stats()
+    assert set(stats) == {f"cuda:{i}" for i in range(torch.cuda.device_count())}
+    s = stats["cuda:0"]
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"] >= x.numel()
+    assert s["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+
+
+def test_trace_names_the_f32_k1_kernel(dev):
+    """A `trace` around one f32 K1 call at the bench shape: the profiler
+    starts, and `device_summary` names message_sum_f32_mma_kernel with one
+    launch and a busy share of the window's wall in (0, 1.05]."""
+    import time
+    from codlad_tpu_torch.train import profiling
+    x = _inputs(dev, torch.float32, 96, 128, 128, 64, seed=3)
+    MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)        # built and warm
+    torch.cuda.synchronize()
+    with profiling.trace(None) as prof:
+        t0 = time.perf_counter()
+        MK.fused_message_sum(*(x[k] for k in _SUM), 30.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert prof
+    got = profiling.device_summary(prof, wall_ms)
+    k1 = [n for n in got["kernels"] if "message_sum_f32_mma_kernel" in n]
+    assert len(k1) == 1 and got["kernels"][k1[0]][1] == 1, got["kernels"]
+    assert 0 < got["busy"] <= 1.05, got
